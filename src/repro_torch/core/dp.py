@@ -1,0 +1,139 @@
+"""Partitioning optimizers (paper §4.3, Appendix A), host float64 numpy.
+
+* ``equal_depth_boundaries`` — Lemma A.1: optimal for 1-D COUNT; also the
+  "EQ" baseline of §5.3.
+* ``dp_monotone`` — "Sampling + Discretization" (the ** algorithm of the
+  paper's experiments): monotone DP with a vectorized lock-step binary
+  search over the split point and the O(1) discretized variance oracles.
+* ``adp_partition`` — end to end: uniform sample of m rows -> sort ->
+  ``dp_monotone`` -> value-space thresholds for the full dataset.
+
+Boundary convention: a partitioning of m sorted samples is given by cut
+ranks 0 = c_0 <= c_1 <= ... <= c_k = m; partition j covers sample ranks
+[c_j, c_{j+1}).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from . import prefix as px
+
+
+def equal_depth_boundaries(n: int, k: int) -> np.ndarray:
+    """Equal-size (equal-depth) cut ranks; optimal for COUNT (Lemma A.1)."""
+    return np.round(np.linspace(0, n, k + 1)).astype(np.int64)
+
+
+def _make_oracle(values_sorted: np.ndarray, kind: str, delta_frac: float,
+                 scale: float = 1.0):
+    """Return (oracle(g, w) vectorized, win)."""
+    v = np.asarray(values_sorted, dtype=np.float64)
+    m = v.shape[0]
+    s1, s2 = px.prefix_moments(v)
+    if kind in ("sum", "count"):
+        if kind == "count":
+            s1, s2 = px.prefix_moments(np.ones_like(v))
+
+        def oracle(g, w):
+            return px.oracle_sum_split(s1, s2, g, w, scale)
+        return oracle, 1
+    if kind == "avg":
+        win = max(2, int(round(delta_frac * m)))
+        table = px.SparseTableArgmax(px.window_sqsum(s2, win))
+
+        def oracle(g, w):
+            return px.oracle_avg_window(s1, s2, table, win, g, w)
+        return oracle, win
+    raise ValueError(f"unknown query kind: {kind}")
+
+
+def dp_monotone(values_sorted: np.ndarray, k: int, kind: str = "sum",
+                delta_frac: float = 0.01, scale: float = 1.0,
+                ) -> tuple[np.ndarray, float]:
+    """Monotone DP (paper §4.3 + §4.3.1 discretized oracles). Returns
+    (cut ranks (k+1,), max variance).
+
+    The binary search over the split point h runs in lock-step for every
+    prefix length i; it is valid because A[h, j-1] is non-decreasing and
+    M([h, i)) non-increasing in h.
+    """
+    v = np.asarray(values_sorted, dtype=np.float64)
+    m = v.shape[0]
+    oracle, _win = _make_oracle(v, kind, delta_frac, scale)
+    if k <= 1:
+        return (np.array([0, m], dtype=np.int64),
+                float(oracle(np.array([0]), np.array([m]))[0]))
+    i_vec = np.arange(m + 1, dtype=np.int64)
+    A_prev = np.asarray(oracle(np.zeros(m + 1, dtype=np.int64), i_vec),
+                        dtype=np.float64)                       # j = 1
+    parents = np.zeros((k + 1, m + 1), dtype=np.int64)
+    steps = int(np.ceil(np.log2(m + 2)))
+    for j in range(2, k + 1):
+        lo = np.zeros(m + 1, dtype=np.int64)
+        hi = i_vec.copy()
+        for _ in range(steps):
+            mid = (lo + hi) // 2
+            pred = A_prev[mid] >= oracle(mid, i_vec)
+            hi = np.where(pred & (lo < hi), mid, hi)
+            lo = np.where(pred | (lo >= hi), lo, np.minimum(mid + 1, hi))
+        h1 = lo
+        h0 = np.maximum(h1 - 1, 0)
+        val1 = np.maximum(A_prev[h1], oracle(h1, i_vec))
+        val0 = np.maximum(A_prev[h0], oracle(h0, i_vec))
+        take0 = val0 < val1
+        parents[j] = np.where(take0, h0, h1)
+        A_prev = np.where(take0, val0, val1)
+    cuts = np.zeros(k + 1, dtype=np.int64)
+    cuts[k] = m
+    i = m
+    for j in range(k, 1, -1):
+        i = int(parents[j][i])
+        cuts[j - 1] = i
+    return cuts, float(A_prev[m])
+
+
+def cuts_to_thresholds(sample_c_sorted: np.ndarray, cuts: np.ndarray
+                       ) -> np.ndarray:
+    """Sample-rank cuts -> k-1 value thresholds usable on the full data:
+    the midpoint between the last sample of partition i and the first of
+    partition i+1. Duplicate cuts yield duplicated thresholds (empty
+    leaves), which the padded synopsis handles."""
+    c = np.asarray(sample_c_sorted, dtype=np.float64)
+    m = c.shape[0]
+    inner = np.asarray(cuts[1:-1], dtype=np.int64)
+    lo_idx = np.clip(inner - 1, 0, m - 1)
+    hi_idx = np.clip(inner, 0, m - 1)
+    return 0.5 * (c[lo_idx] + c[hi_idx])
+
+
+def adp_partition(c: np.ndarray, a: np.ndarray, k: int, m: int,
+                  kind: str = "sum", delta_frac: float = 0.01,
+                  seed: int = 0) -> tuple[np.ndarray, np.ndarray, float]:
+    """The paper's ** algorithm (Sampling + Discretization), 1-D.
+
+    Returns (thresholds (k-1,), leaf assignment of every row (N,), achieved
+    sample-space max variance).
+    """
+    c = np.asarray(c).reshape(-1)
+    a = np.asarray(a, dtype=np.float64).reshape(-1)
+    n = c.shape[0]
+    rng = np.random.default_rng(seed)
+    m_eff = min(m, n)
+    idx = rng.choice(n, size=m_eff, replace=False)
+    cs, as_ = c[idx], a[idx]
+    order = np.argsort(cs, kind="stable")
+    cs, as_ = cs[order], as_[order]
+    if kind == "count":
+        cuts = equal_depth_boundaries(m_eff, k)  # Lemma A.1 (optimal)
+        vmax = 0.0
+    else:
+        scale = (n / max(m_eff, 1)) ** 2
+        cuts, vmax = dp_monotone(as_, k, kind=kind, delta_frac=delta_frac,
+                                 scale=scale)
+    thresholds = cuts_to_thresholds(cs, cuts)
+    assign = np.searchsorted(thresholds, c, side="right").astype(np.int32)
+    return thresholds, assign, vmax
+
+
+__all__ = ["equal_depth_boundaries", "dp_monotone", "cuts_to_thresholds",
+           "adp_partition"]

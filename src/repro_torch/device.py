@@ -1,0 +1,32 @@
+"""Device resolution shared by the port's entry points.
+
+``None`` means the CUDA card. When no card is present the entry points
+raise instead of carrying on on the CPU: a caller who wants the CPU (the
+tests, a laptop) says so with ``device="cpu"``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` -> ``cuda`` (raising when no CUDA device is available);
+    anything else is passed to :class:`torch.device` unchanged."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "repro_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """Host numpy view of a tensor (copied off the device) or array-like."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+__all__ = ["resolve_device", "to_numpy"]

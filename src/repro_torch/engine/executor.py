@@ -1,0 +1,129 @@
+"""Query executor: computes the shared per-batch artifacts exactly once.
+
+One ``Artifacts`` bundle answers every aggregate kind: the leaf relation
+masks and the exact covered-aggregate accumulation come from one
+``query_eval`` call, the stratified sample moments from one
+``stratified_moments`` call, and the relevant-sample extremes (only for
+MIN/MAX) from one pass. The assembler derives each requested kind from
+these without touching the samples again.
+
+``OP_COUNTS`` counts executions of each artifact stage, so tests can
+assert that a 3-kind ``answer()`` performs one classification and one
+moment pass.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from ..core.types import Synopsis, QueryBatch, NUM_AGGS, REL_PARTIAL, \
+    REL_COVER
+from ..kernels import ops
+
+# Execution counters for the artifact stages (see module docstring).
+OP_COUNTS = {"classify": 0, "moments": 0, "extremes": 0}
+
+
+def reset_op_counts():
+    for key in OP_COUNTS:
+        OP_COUNTS[key] = 0
+
+
+@dataclasses.dataclass
+class Artifacts:
+    """Shared per-(query batch) artifacts; every field is (Q, ...)-shaped.
+
+    ``exact`` (Q, NUM_AGGS): its SUM/SUMSQ/COUNT columns are the exact part
+    of the answer (the MIN/MAX columns are not meaningful). Moment fields
+    are None when no sampled kind was requested; extreme fields are None
+    unless MIN/MAX was requested.
+    """
+    rel: torch.Tensor                 # (Q, k) int32
+    cover: torch.Tensor               # (Q, k) bool
+    partial: torch.Tensor             # (Q, k) bool
+    exact: torch.Tensor               # (Q, NUM_AGGS) f32
+    k_pred: torch.Tensor | None       # (Q, k) f32
+    s_sum: torch.Tensor | None        # (Q, k) f32
+    s_sumsq: torch.Tensor | None      # (Q, k) f32
+    samp_min: torch.Tensor | None     # (Q, k) f32
+    samp_max: torch.Tensor | None     # (Q, k) f32
+    touched: torch.Tensor             # (Q,) f32 fraction of rows not skipped
+
+
+def _needs_moments(kinds) -> bool:
+    return any(k in ("sum", "count", "avg") for k in kinds)
+
+
+def _needs_extremes(kinds) -> bool:
+    return any(k in ("min", "max") for k in kinds)
+
+
+def compute_artifacts(syn: Synopsis, queries: QueryBatch, kinds,
+                      use_aggregates: bool = True,
+                      plan_masks=None) -> Artifacts:
+    """One classification + one moment pass for ``kinds``."""
+    if plan_masks is not None:
+        raise NotImplementedError(
+            "planner masks are not ported yet (ROADMAP Queue 1 item 5, "
+            "engine/planner.py)")
+    rel, exact = ops.query_eval(syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
+                                queries.lo, queries.hi)
+    exact = exact[:, :NUM_AGGS]
+    cover = rel == REL_COVER
+    partial_m = rel == REL_PARTIAL
+
+    if not use_aggregates:
+        # Classic stratified sampling (§2.2): every relevant stratum is
+        # estimated from its samples and the exact shortcut is disabled.
+        partial_m = cover | partial_m
+        cover = torch.zeros_like(cover)
+        exact = torch.zeros_like(exact)
+
+    n_rows = syn.n_rows.to(torch.float32)[None]               # (1, k)
+    total = torch.clamp(syn.total_rows.to(torch.float32), min=1.0)
+    touched = (partial_m.to(torch.float32) * n_rows).sum(1) / total
+
+    k_pred = s_sum = s_sumsq = None
+    if _needs_moments(kinds):
+        k_pred, s_sum, s_sumsq = ops.stratified_moments(
+            syn.sample_c, syn.sample_a, syn.sample_valid,
+            queries.lo, queries.hi)
+    samp_min = samp_max = None
+    if _needs_extremes(kinds):
+        samp_min, samp_max = ops.sample_extremes(
+            syn.sample_c, syn.sample_a, syn.sample_valid,
+            queries.lo, queries.hi)
+    return Artifacts(rel=rel, cover=cover, partial=partial_m, exact=exact,
+                     k_pred=k_pred, s_sum=s_sum, s_sumsq=s_sumsq,
+                     samp_min=samp_min, samp_max=samp_max, touched=touched)
+
+
+def count_artifact_pass(kinds) -> None:
+    """Record one execution of the artifact stage for ``kinds``."""
+    OP_COUNTS["classify"] += 1
+    if _needs_moments(kinds):
+        OP_COUNTS["moments"] += 1
+    if _needs_extremes(kinds):
+        OP_COUNTS["extremes"] += 1
+
+
+def slice_sample_slots(syn: Synopsis, slots: int | None) -> Synopsis:
+    """Restrict a synopsis to the first ``slots`` sample slots per stratum
+    (the refinement-ladder view). Validity is a per-stratum prefix, so the
+    view is a uniform without-replacement subsample of each stratum.
+    ``slots=None`` or >= the capacity returns the same object."""
+    if slots is None:
+        return syn
+    if slots >= syn.sample_a.shape[1]:
+        return syn
+    return dataclasses.replace(
+        syn,
+        sample_c=syn.sample_c[:, :slots].contiguous(),
+        sample_a=syn.sample_a[:, :slots].contiguous(),
+        sample_valid=syn.sample_valid[:, :slots].contiguous(),
+        k_per_leaf=torch.clamp(syn.k_per_leaf, max=slots))
+
+
+__all__ = ["Artifacts", "compute_artifacts", "slice_sample_slots",
+           "count_artifact_pass", "OP_COUNTS", "reset_op_counts"]

@@ -1,0 +1,81 @@
+"""The port stands alone: importing every module of ``repro_torch`` pulls
+in neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
+the entry points default to the CUDA card rather than the CPU."""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+names = ["repro_torch"]
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+    names.append(mod.name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def _top_imports(path: Path) -> set[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0:
+            out.add(node.module.split(".")[0])
+    return out
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert report["bad"] == [], report["bad"]
+    for mod in ("repro_torch.api.engine", "repro_torch.kernels.ops",
+                "repro_torch.core.synopsis", "repro_torch.data.synthetic",
+                "repro_torch.uncertainty.intervals"):
+        assert mod in report["imported"]
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference_package():
+    imports = _top_imports(REPO / "chip_smoke.py")
+    assert "repro_torch" in imports
+    assert not imports & {"jax", "jaxlib", "repro"}, imports
+    for path in (REPO / "src" / "repro_torch").rglob("*.py"):
+        assert not _top_imports(path) & {"jax", "jaxlib", "repro"}, path
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch.api import PassEngine
+    from repro_torch.core.query import random_queries
+    from repro_torch.core.synopsis import build_synopsis
+    from repro_torch.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    c = np.linspace(0, 1, 200)
+    a = np.ones(200)
+    for call in (lambda: resolve_device(None),
+                 lambda: build_synopsis(c, a, k=4),
+                 lambda: random_queries(c, 3),
+                 lambda: PassEngine(None)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    syn, _ = build_synopsis(c, a, k=4, device="cpu")
+    assert syn.device.type == "cpu"
+    assert resolve_device("cpu") == torch.device("cpu")
