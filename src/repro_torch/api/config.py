@@ -8,7 +8,9 @@ returns a hashable token.
 Differences from the reference: ``ServingConfig.backend`` must be None
 (the port picks each kernel by the device of its tensors), and
 ``CIConfig(method="bootstrap")`` validates but the engine does not serve
-it yet (ROADMAP Queue 1 item 8).
+it yet (ROADMAP Queue 1 item 8). The bootstrap's replicate count and
+normalisation and the progressive-refinement stop width come with the
+slices that serve them.
 """
 from __future__ import annotations
 
@@ -19,7 +21,6 @@ import numpy as np
 KINDS = ("sum", "count", "avg", "min", "max")
 CI_METHODS = ("clt", "bootstrap")
 DELTA_BUDGETS = ("stratum", "union")
-BOOT_NORMALIZE = ("hajek", "ht")
 
 
 def _normalize_kinds(kinds) -> tuple[str, ...]:
@@ -98,20 +99,14 @@ class CIConfig:
     ``delta_budget``      'stratum' (every fallback stratum spends the full
                           delta = 1 - level) or 'union' (delta /
                           n_fallback_strata per query).
-    ``n_boot``, ``key``, ``boot_normalize``, ``boot_fused``
-                          bootstrap settings, kept for the bootstrap slice.
-    ``max_ci_width``      progressive-refinement stop criterion (not served
-                          yet); None disables progressive serving.
+    ``key``               bootstrap PRNG key (None | int seed | key array);
+                          part of the plan-cache key.
     """
     level: float = 0.95
     method: str = "clt"
     small_n_threshold: int = 12
     delta_budget: str = "stratum"
-    n_boot: int = 200
     key: object = dataclasses.field(default=None, compare=False)
-    boot_normalize: str = "hajek"
-    boot_fused: bool = True
-    max_ci_width: float | None = None
 
     def validate(self) -> "CIConfig":
         if not 0.0 < self.level < 1.0:
@@ -121,18 +116,11 @@ class CIConfig:
             raise ValueError(f"unknown ci_method: {self.method!r}")
         if self.delta_budget not in DELTA_BUDGETS:
             raise ValueError(f"unknown delta_budget: {self.delta_budget!r}")
-        if self.boot_normalize not in BOOT_NORMALIZE:
-            raise ValueError(f"unknown normalize: {self.boot_normalize!r}")
-        if self.max_ci_width is not None and self.max_ci_width <= 0.0:
-            raise ValueError(
-                f"max_ci_width must be > 0 or None, got {self.max_ci_width}")
         return self
 
     def cache_key(self) -> tuple:
-        # max_ci_width is a ladder stop criterion, not part of the key.
         return (float(self.level), self.method, int(self.small_n_threshold),
-                self.delta_budget, int(self.n_boot), _key_token(self.key),
-                self.boot_normalize, self.boot_fused)
+                self.delta_budget, _key_token(self.key))
 
 
 def as_ci_config(ci) -> CIConfig | None:
@@ -149,4 +137,4 @@ def merge_overrides(cfg, **overrides):
 
 
 __all__ = ["ServingConfig", "CIConfig", "as_ci_config", "merge_overrides",
-           "KINDS", "CI_METHODS", "DELTA_BUDGETS", "BOOT_NORMALIZE"]
+           "KINDS", "CI_METHODS", "DELTA_BUDGETS"]

@@ -248,9 +248,6 @@ class PassEngine:
             raise _not_ported("answer(deadline_ms=...)",
                               "item 9, serve/refine.py")
         sv, cfg = self._effective(kinds, ci, serving)
-        if cfg is not None and cfg.max_ci_width is not None:
-            raise _not_ported("CIConfig(max_ci_width=...)",
-                              "item 9, serve/refine.py")
         return self._lookup(tuple(queries.lo.shape), sv, cfg)(queries)
 
     def answer_progressive(self, *args, **kwargs):

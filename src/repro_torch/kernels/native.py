@@ -108,15 +108,22 @@ def check_launch(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def check_tensors(name: str, **tensors) -> None:
-    """Every tensor on one CUDA device and contiguous."""
-    devices = {t.device for t in tensors.values()}
+def device_type(name: str, *tensors) -> str:
+    """The device type ('cuda' or 'cpu') that all tensors share; raises if
+    they lie on several devices or on another type."""
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"{name}: tensors on several devices {devices}")
-    dev = devices.pop()
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, "
-                         f"got {dev}")
+    kind = devices.pop().type
+    if kind not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: no version for device type {kind!r}")
+    return kind
+
+
+def check_tensors(name: str, **tensors) -> None:
+    """Every tensor on one CUDA device and contiguous."""
+    if device_type(name, *tensors.values()) != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors")
     for key, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
@@ -129,4 +136,5 @@ def check_dtype(name: str, dtype, **tensors) -> None:
 
 
 __all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build_all", "library",
-           "library_path", "check_launch", "check_tensors", "check_dtype"]
+           "library_path", "check_launch", "device_type", "check_tensors",
+           "check_dtype"]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
 from .stratified_estimate import (samples_inside, stratified_moments_cuda,
                                   stratified_moments_plain)
@@ -17,23 +18,12 @@ from .stratified_estimate import (samples_inside, stratified_moments_cuda,
 _BIG = 3.4e38
 
 
-def _on_cuda(op: str, *tensors: torch.Tensor) -> bool:
-    """True for CUDA tensors, False for CPU tensors; raises otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"{op}: tensors on several devices {devices}")
-    kind = devices.pop().type
-    if kind not in ("cuda", "cpu"):
-        raise ValueError(f"{op}: no version for device type {kind!r}")
-    return kind == "cuda"
-
-
 def query_eval(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
     """Classify leaves vs queries and accumulate exact covered aggregates.
     leaf_lo/leaf_hi (k, d), leaf_agg (k, A), q_lo/q_hi (Q, d).
     Returns (rel (Q, k) int32, exact (Q, A) f32)."""
     args = [t.contiguous() for t in (leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)]
-    if _on_cuda("query_eval", *args):
+    if device_type("query_eval", *args) == "cuda":
         return query_eval_cuda(*args)
     return query_eval_plain(*args)
 
@@ -43,7 +33,7 @@ def stratified_moments(sample_c, sample_a, sample_valid, q_lo, q_hi):
     (k, s, .) sample arrays. Returns (k_pred, s_sum, s_sumsq), each (Q, k)."""
     args = [t.contiguous()
             for t in (sample_c, sample_a, sample_valid, q_lo, q_hi)]
-    if _on_cuda("stratified_moments", *args):
+    if device_type("stratified_moments", *args) == "cuda":
         out = stratified_moments_cuda(*args)
     else:
         out = stratified_moments_plain(*args)
@@ -55,7 +45,8 @@ def sample_extremes(sample_c, sample_a, sample_valid, q_lo, q_hi):
     strata read +BIG / -BIG. Returns (samp_min, samp_max), each (Q, k).
     The reference has no Pallas kernel for it, so one torch formulation
     serves both devices."""
-    _on_cuda("sample_extremes", sample_c, sample_a, sample_valid, q_lo, q_hi)
+    device_type("sample_extremes", sample_c, sample_a, sample_valid, q_lo,
+                q_hi)
     inside = samples_inside(sample_c, sample_valid, q_lo, q_hi)
     a = sample_a.to(torch.float32)[None]
     return (torch.where(inside, a, _BIG).amin(-1),

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import backends as _jax_backends  # noqa: F401 (registers)
@@ -67,7 +68,7 @@ def test_query_eval_plain_matches_jax(Q, k, s, d, backend):
     rng = np.random.default_rng(Q * 1000 + k)
     lo, hi, agg = _leaves(rng, k, d)
     q_lo, q_hi = _queries(rng, Q, d)
-    rel_j, exact_j = get_backend(backend).query_eval(
+    rel_j, exact_j = jax.jit(get_backend(backend).query_eval)(
         *map(jnp.asarray, (lo, hi, agg, q_lo, q_hi)))
     rel_t, exact_t = query_eval_plain(*_t(lo, hi, agg, q_lo, q_hi))
     assert rel_t.dtype == torch.int32 and rel_t.shape == (Q, k)
@@ -85,7 +86,7 @@ def test_stratified_moments_plain_matches_jax(Q, k, s, d, backend):
     rng = np.random.default_rng(Q * 1000 + k + 1)
     c, a, valid = _samples(rng, k, s, d)
     q_lo, q_hi = _queries(rng, Q, d)
-    want = get_backend(backend).stratified_moments(
+    want = jax.jit(get_backend(backend).stratified_moments)(
         *map(jnp.asarray, (c, a, valid, q_lo, q_hi)))
     out = stratified_moments_plain(*_t(c, a, valid, q_lo, q_hi))
     assert out.dtype == torch.float32 and out.shape == (Q, k, 3)
@@ -112,7 +113,7 @@ def test_cpu_ops_dispatch_to_plain(Q, k, s, d):
     for i in range(3):
         assert torch.equal(moms[i], plain[..., i])
     mn, mx = ops.sample_extremes(*_t(c, a, valid, q_lo, q_hi))
-    jmn, jmx = get_backend("jnp").sample_extremes(
+    jmn, jmx = jax.jit(get_backend("jnp").sample_extremes)(
         *map(jnp.asarray, (c, a, valid, q_lo, q_hi)))
     np.testing.assert_array_equal(mn.numpy(), np.asarray(jmn))
     np.testing.assert_array_equal(mx.numpy(), np.asarray(jmx))
