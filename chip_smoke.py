@@ -21,6 +21,23 @@ Phases, each of which fails the run:
    kernel and its plain version at the main-path shapes, and a
    torch.profiler window over answer() for the device-busy share (its
    table goes to chiprun_out/).
+7. The streaming kernels against plain at edge shapes: segment_reduce
+   (N up to 65537, k up to 1024, -1 ids, one segment, empty segments)
+   within tolerance and bit-equal across two launches; route_multid
+   (B up to 4096, k up to 1024, d in {2, 3, 16}, ties, +-inf empty
+   boxes, rows on shared faces) bit-equal.
+8. 1-D streaming: StreamingIngestor(phase 4's synopsis, seed=11) ingests
+   nyc_taxi(scale=0.1, seed=7) in arrival order, 4096-row batches
+   (770,000 trips, 188 batches). segment_reduce launches once a batch and
+   route_multid never. PassEngine(ingestor).answer() of phase 4's
+   queries holds the truth over base plus stream; the port on the CPU
+   ingests the first 8 batches to the same state; then reoptimize +
+   replace_source and the truth checks again.
+9. 3-D streaming: the same stream at dims=3 into phase 5's synopsis;
+   route_multid launches once a batch too.
+10. Streaming times: each new kernel and its plain version at B = 4096
+   and 65536 (and kernel = plain there), ingest per batch, the merge,
+   answer right after an ingest, and a profiler window over 10 batches.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -55,6 +72,10 @@ SOURCES = {
     "stratified_moments": (
         "src/repro_torch/kernels/csrc/stratified_moments.cu",
         "src/repro/kernels/stratified_estimate.py:102"),
+    "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce.py:84"),
+    "route_multid": ("src/repro_torch/kernels/csrc/route_multid.cu",
+                     "src/repro/kernels/route.py:152"),
 }
 
 
@@ -97,6 +118,32 @@ def host_ms(torch, fn, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def device_busy_us(prof) -> tuple[float, int]:
+    """(summed device time in us, count) of the CUDA-side events (kernels
+    and memory operations) a torch.profiler window recorded."""
+    events = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return (sum(e.device_time if hasattr(e, "device_time") else e.cuda_time
+                for e in events), len(events))
+
+
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn()`` in ms: the summed duration of what
+    it ran on the card, from torch.profiler over ``reps`` calls. An event
+    bracket around one call of a microsecond kernel measures the host's
+    issue time instead, because the card waits for the launch."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_us(prof)[0] / 1e3 / reps
 
 
 def close(name, got, want, rtol, atol) -> float:
@@ -180,6 +227,95 @@ def edge_cases(torch, dev) -> None:
         t = [torch.from_numpy(x).to(dev)
              for x in (lo, hi, agg, c, a, valid, q_lo, q_hi)]
         kernel_vs_plain(torch, f"edge Q={Q} k={k} s={s} d={d}", *t)
+
+
+def seg_vs_plain(torch, tag, v, ids, k) -> float:
+    """segment_reduce kernel against plain on the same CUDA inputs: counts,
+    min and max equal, sums within rtol=3e-5, atol=1e-3; a second launch
+    bit-equal to the first. Returns the max absolute error of the sums."""
+    from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
+                                                    segment_reduce_plain)
+    got = segment_reduce_cuda(v, ids, k)
+    again = segment_reduce_cuda(v, ids, k)
+    want = segment_reduce_plain(v, ids, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{tag}: segment_reduce differs between two "
+                             "launches")
+    if not torch.equal(got[:, 2:], want[:, 2:]):
+        n = int((got[:, 2:] != want[:, 2:]).sum())
+        raise AssertionError(f"{tag}: segment_reduce count/min/max differ "
+                             f"in {n} entries")
+    return max(close(f"{tag} segment_reduce[{i}]", got[:, i].cpu(),
+                     want[:, i].cpu(), K_RTOL, K_ATOL) for i in (0, 1))
+
+
+def route_vs_plain(torch, tag, lo, hi, c) -> None:
+    """route_multid kernel against plain: leaf and dist torch.equal, and a
+    second launch bit-equal to the first."""
+    from repro_torch.kernels.route import (route_multid_cuda,
+                                           route_multid_plain)
+    leaf, dist = route_multid_cuda(lo, hi, c)
+    leaf2, dist2 = route_multid_cuda(lo, hi, c)
+    leaf_p, dist_p = route_multid_plain(lo, hi, c)
+    torch.cuda.synchronize()
+    if not (torch.equal(leaf, leaf2) and torch.equal(
+            dist.view(torch.int32), dist2.view(torch.int32))):
+        raise AssertionError(f"{tag}: route_multid differs between two "
+                             "launches")
+    if not (torch.equal(leaf, leaf_p) and torch.equal(dist, dist_p)):
+        n = int((leaf != leaf_p).sum())
+        raise AssertionError(f"{tag}: route_multid differs from plain in "
+                             f"{n} leaves")
+
+
+def edge_cases_streaming(torch, dev) -> float:
+    """The streaming kernels against plain at edge shapes: segment_reduce
+    over N in {1, 17, 4096, 65537} x k in {1, 53, 1024} with -1 ids, empty
+    segments and all rows in one segment; route_multid over B in {1, 255,
+    4096} x k in {1, 129, 1024} x d in {2, 3, 16} with duplicate boxes,
+    +-inf empty boxes and rows inside several touching boxes."""
+    seg_err = 0.0
+    cases = 0
+    for n in (1, 17, 4096, 65537):
+        for k in (1, 53, 1024):
+            rng = np.random.default_rng(n * 31 + k)
+            # positive values like the stream's trip distances: a
+            # mean-zero column cancels, and its fp32 sum then differs
+            # between summation orders by more than any relative bar
+            v = rng.lognormal(0.9, 0.8, n).astype(np.float32)
+            # ids in [-1, k + 2): -1 and out-of-range rows are dropped;
+            # with k = 1024 most segments stay empty at small n
+            ids = rng.integers(-1, k + 2, n).astype(np.int32)
+            one = np.full(n, min(k - 1, 7), np.int32)
+            for label, idv in (("mixed", ids), ("one segment", one)):
+                seg_err = max(seg_err, seg_vs_plain(
+                    torch, f"edge N={n} k={k} {label}",
+                    torch.from_numpy(v).to(dev),
+                    torch.from_numpy(idv).to(dev), k))
+                cases += 1
+    route_cases = 0
+    for B in (1, 255, 4096):
+        for k in (1, 129, 1024):
+            for d in (2, 3, 16):
+                rng = np.random.default_rng(B * 7 + k * 3 + d)
+                # boxes on a coarse grid so that boxes touch and rows land
+                # on shared faces; a copy of box 0 makes exact ties
+                lo = rng.integers(0, 8, (k, d)).astype(np.float32)
+                hi = lo + rng.integers(0, 3, (k, d)).astype(np.float32)
+                if k > 2:
+                    lo[k - 1], hi[k - 1] = lo[0], hi[0]
+                    lo[k // 2], hi[k // 2] = np.inf, -np.inf
+                c = np.where(rng.random((B, d)) < 0.5,
+                             rng.integers(-2, 12, (B, d)),
+                             rng.uniform(-2, 12, (B, d))).astype(np.float32)
+                route_vs_plain(torch, f"edge B={B} k={k} d={d}",
+                               *(torch.from_numpy(x).to(dev)
+                                 for x in (lo, hi, c)))
+                route_cases += 1
+    emit(check="edge_streaming_kernels", segment_reduce_cases=cases,
+         route_multid_cases=route_cases, segment_reduce_max_abs_err=seg_err)
+    return seg_err
 
 
 # ---------------------------------------------------------------------------
@@ -321,18 +457,11 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err) -> dict:
          samples=report.total_samples, build_s=report.seconds_total,
          build_and_first_answer_s=seconds, launches=launches,
          artifact_passes=dict(executor.OP_COUNTS))
-    for name, count in launches.items():
-        if count < 1:
+    for name in ("query_eval", "stratified_moments"):
+        if launches[name] < 1:
             raise AssertionError(f"{tag}: kernel {name} was not launched by "
                                  "PassEngine.answer")
-    for kind in KINDS:
-        for field in ("estimate", "lower", "upper", "ci_lo", "ci_hi"):
-            x = getattr(res[kind], field)
-            if x.shape != (2048,) or x.device.type != "cuda":
-                raise AssertionError(f"{tag} {kind}.{field}: {x.shape} on "
-                                     f"{x.device}")
-        if not torch.isfinite(res[kind].estimate).all():
-            raise AssertionError(f"{tag} {kind}: non-finite estimate")
+    check_result_shapes(torch, tag, res, 2048)
 
     errs = kernel_vs_plain(torch, f"{tag} main Q=2048 k=1024",
                            syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
@@ -415,6 +544,13 @@ def timings(torch, tag, run, card) -> dict:
         "stratified_moments_plain": cuda_ms(
             torch, lambda: stratified_moments_plain(*sm_args)),
     }
+    for name, kernel, plain, args in (
+            ("query_eval", query_eval_cuda, query_eval_plain, qe_args),
+            ("stratified_moments", stratified_moments_cuda,
+             stratified_moments_plain, sm_args)):
+        times[f"{name}_device"] = device_ms(torch, lambda: kernel(*args))
+        times[f"{name}_plain_device"] = device_ms(torch,
+                                                  lambda: plain(*args))
     emit(times_ms=times, path=tag, Q=int(q.lo.shape[0]),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]),
          d=int(syn.d), answer_peak_mb_above_resident=answer_peak_mb,
@@ -435,18 +571,295 @@ def profile_answer(torch, tag, run) -> None:
         for _ in range(5):
             eng.answer(q)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    busy_us = sum(e.device_time if hasattr(e, "device_time") else e.cuda_time
-                  for e in kernels)
+    busy_us, n = device_busy_us(prof)
+    write_table(prof, f"profile_{tag}.txt")
+    emit(profile=tag, device_busy_ms_per_answer=busy_us / 1e3 / 5,
+         device_kernels_per_answer=n / 5)
+
+
+def write_table(prof, name: str) -> None:
+    """The profiler's table by device time, to chiprun_out/."""
     OUT.mkdir(exist_ok=True)
     sort_key = ("self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total")
         else "self_cuda_time_total")
-    table = prof.key_averages().table(sort_by=sort_key, row_limit=25)
-    (OUT / f"profile_{tag}.txt").write_text(table)
-    emit(profile=tag, device_busy_ms_per_answer=busy_us / 1e3 / 5,
-         device_kernels_per_answer=len(kernels) / 5)
+    (OUT / name).write_text(
+        prof.key_averages().table(sort_by=sort_key, row_limit=40))
+
+
+# ---------------------------------------------------------------------------
+# Streaming ingest, delta-merge serving and drift re-optimization
+# ---------------------------------------------------------------------------
+
+# Rows per ingest batch: the JAX package's streaming benchmark's batch
+# (benchmarks/bench_streaming_ingest.py).
+STREAM_BATCH = 4096
+
+
+def batches_of(c, a):
+    """The stream in arrival order, cut into STREAM_BATCH-row batches of
+    float32 (B, d) coordinates and (B,) values; the last one ragged."""
+    c = np.asarray(c, np.float32).reshape(a.shape[0], -1)
+    a = np.asarray(a, np.float32)
+    return [(c[i:i + STREAM_BATCH], a[i:i + STREAM_BATCH])
+            for i in range(0, a.shape[0], STREAM_BATCH)]
+
+
+def stream_cpu_parity(torch, tag, syn, batches, n: int = 8) -> None:
+    """The port on the CPU ingests the first n batches with the same seed:
+    routing of every batch, reservoir arrays, k_per_leaf, seen, boxes, oob
+    and quarantined are equal; in delta_agg counts, min and max are equal
+    and the sums meet rtol=3e-5, atol=1e-3 (fp32 sums in another order)."""
+    from repro_torch.streaming import StreamingIngestor
+    from repro_torch.streaming.ingest import STATE_FIELDS, route_rows
+    gpu = StreamingIngestor(syn, seed=11)
+    cpu = StreamingIngestor(syn.to("cpu"), seed=11, device="cpu")
+    for i, (cb, ab) in enumerate(batches[:n]):
+        ct = torch.from_numpy(cb)
+        leaf_g, dist_g = route_rows(gpu.state.leaf_lo, gpu.state.leaf_hi,
+                                    ct.cuda())
+        leaf_c, dist_c = route_rows(cpu.state.leaf_lo, cpu.state.leaf_hi, ct)
+        if not (torch.equal(leaf_g.cpu(), leaf_c)
+                and torch.equal(dist_g.cpu(), dist_c)):
+            raise AssertionError(f"{tag}: batch {i} routes differently on "
+                                 "the card and on the CPU")
+        gpu.ingest(cb, ab)
+        cpu.ingest(cb, ab)
+    for f in STATE_FIELDS:
+        g, c = getattr(gpu.state, f).cpu(), getattr(cpu.state, f)
+        if f == "delta_agg":
+            if not torch.equal(g[:, 2:], c[:, 2:]):
+                raise AssertionError(f"{tag}: delta_agg counts/min/max "
+                                     "differ from the CPU")
+            err = max(close(f"{tag} cpu parity delta_agg[{j}]", g[:, j],
+                            c[:, j], K_RTOL, K_ATOL) for j in (0, 1))
+        elif not torch.equal(g, c):
+            raise AssertionError(f"{tag}: {f} differs from the CPU after "
+                                 f"{n} batches")
+    emit(check="stream_cpu_parity", path=tag, batches=n,
+         delta_sum_max_abs_err=err, n_oob=int(gpu.state.oob))
+
+
+def stream_path(torch, tag, run, c_base, a_base, c_s, a_s, max_median_err,
+                reopt: bool) -> dict:
+    """Ingest the whole stream through StreamingIngestor (the launches of
+    that window are read right after it), serve the ingestor with
+    PassEngine(all five kinds, ci=0.95) (its own window), check the truth
+    over base plus stream, and, in 1-D, reoptimize + replace_source and
+    check again."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.kernels import native
+    from repro_torch.streaming import StreamingIngestor, reoptimize
+    syn, q = run["syn"], run["q"]
+    d = syn.d
+    batches = batches_of(c_s, a_s)
+    nb = len(batches)
+
+    ing = StreamingIngestor(syn, seed=11)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    for cb, ab in batches:
+        ing.ingest(cb, ab)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    want = {"segment_reduce": nb, "route_multid": nb if d > 1 else 0,
+            "query_eval": 0, "stratified_moments": 0}
+    if launches != want:
+        raise AssertionError(f"{tag} stream: launches {launches} != {want}")
+    emit(path=f"{tag} stream", rows=int(a_s.shape[0]), batches=nb,
+         last_batch=int(batches[-1][1].shape[0]), ingest_s=ingest_s,
+         rows_per_s=a_s.shape[0] / ingest_s, launches=launches,
+         n_oob=ing.n_oob, n_quarantined=ing.n_quarantined,
+         staleness=ing.staleness(), oob_frac=ing.oob_frac())
+
+    native.reset_launches()
+    t0 = time.perf_counter()
+    eng = PassEngine(ing, ServingConfig(kinds=KINDS), ci=0.95)
+    res = eng.answer(q)
+    torch.cuda.synchronize()
+    answer_s = time.perf_counter() - t0
+    serve_launches = dict(native.LAUNCHES)
+    if serve_launches["query_eval"] < 1 or \
+            serve_launches["stratified_moments"] < 1:
+        raise AssertionError(f"{tag} stream: answer launched "
+                             f"{serve_launches}")
+    check_result_shapes(torch, f"{tag} stream", res, q.lo.shape[0])
+    n = 64
+    q_lo, q_hi = q.lo[:n].cpu().numpy(), q.hi[:n].cpu().numpy()
+    c_all = np.concatenate([np.asarray(c_base).reshape(a_base.shape[0], -1),
+                            np.asarray(c_s).reshape(a_s.shape[0], -1)])
+    a_all = np.concatenate([a_base, a_s])
+    truth = truth_scan(torch, c_all, a_all, q_lo, q_hi)
+    emit(check="truth", path=f"{tag} stream", answer_s=answer_s,
+         launches=serve_launches, total_rows=ing.total_rows,
+         **check_truth(f"{tag} stream", res, truth, n, max_median_err))
+
+    stream_cpu_parity(torch, tag, syn, batches)
+    out = {"ing": ing, "eng": eng, "batches": batches, "launches": launches}
+    if reopt:
+        t0 = time.perf_counter()
+        new_ing, report = reoptimize(ing, c_all[:, 0], a_all)
+        torch.cuda.synchronize()
+        reopt_s = time.perf_counter() - t0
+        eng.replace_source(new_ing)
+        res = eng.answer(q)
+        torch.cuda.synchronize()
+        check_result_shapes(torch, f"{tag} reoptimized", res, q.lo.shape[0])
+        emit(check="truth", path=f"{tag} reoptimized", reoptimize_s=reopt_s,
+             k=report["k"], samples=int(new_ing.base.k_per_leaf.sum()),
+             staleness_at_reopt=report["staleness_at_reopt"],
+             oob_frac_at_reopt=report["oob_frac_at_reopt"],
+             **check_truth(f"{tag} reoptimized", res, truth, n,
+                           max_median_err))
+    return out
+
+
+def check_result_shapes(torch, tag, res, Q) -> None:
+    for kind in KINDS:
+        for field in ("estimate", "lower", "upper", "ci_lo", "ci_hi"):
+            x = getattr(res[kind], field)
+            if x.shape != (Q,) or x.device.type != "cuda":
+                raise AssertionError(f"{tag} {kind}.{field}: {x.shape} on "
+                                     f"{x.device}")
+        if not torch.isfinite(res[kind].estimate).all():
+            raise AssertionError(f"{tag} {kind}: non-finite estimate")
+
+
+def stream_bounds(N, k, B, d) -> dict:
+    """Least time for the streaming kernels' work, as bounds() counts it:
+    segment_reduce reads 8 bytes a row and writes 20 a segment, ~6 fp32
+    operations a row; route_multid reads both boxes and the rows and
+    writes 8 bytes a row, 5 fp32 operations a (row, leaf, dimension)."""
+    out = {}
+    for name, nbytes, ops in (
+            ("segment_reduce", 8 * N + 20 * k, 6 * N),
+            ("route_multid", 4 * (2 * k * d + B * d) + 8 * B,
+             5 * B * k * d)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_S * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "operations": ops}
+    return out
+
+
+def stream_kernel_times(torch, s1, s3, card) -> dict:
+    """The two streaming kernels and their plain versions at B = 4096 (one
+    ingest batch) and B = 65536, on the main paths' inputs: segment_reduce
+    over the 1-D stream's values by their routed leaves (k = 1024, the
+    stream's skew), route_multid of the 3-D stream's rows against the 3-D
+    boxes (k = 1024, d = 3). Kernel = plain is checked at each shape."""
+    from repro_torch.kernels.route import (route_multid_cuda,
+                                           route_multid_plain)
+    from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
+                                                    segment_reduce_plain)
+    from repro_torch.streaming.ingest import route_rows
+    out, errs = {}, []
+    st1, st3 = s1["ing"].state, s3["ing"].state
+    k = st1.sample_a.shape[0]
+    for B in (4096, 65536):
+        nb = B // STREAM_BATCH
+        c1 = np.concatenate([cb for cb, _ in s1["batches"][:nb]])
+        a1 = np.concatenate([ab for _, ab in s1["batches"][:nb]])
+        c3 = np.concatenate([cb for cb, _ in s3["batches"][:nb]])
+        v = torch.from_numpy(a1).cuda()
+        ids, _ = route_rows(st1.leaf_lo, st1.leaf_hi,
+                            torch.from_numpy(c1).cuda())
+        rows = torch.from_numpy(c3).cuda()
+        lo, hi = st3.leaf_lo, st3.leaf_hi
+        errs.append(seg_vs_plain(torch, f"main B={B} k={k}", v, ids, k))
+        route_vs_plain(torch, f"main B={B} k={k} d=3", lo, hi, rows)
+        bnd = stream_bounds(B, k, B, 3)
+        out[B] = {
+            "segment_reduce_device": device_ms(
+                torch, lambda: segment_reduce_cuda(v, ids, k)),
+            "segment_reduce_plain_device": device_ms(
+                torch, lambda: segment_reduce_plain(v, ids, k)),
+            "route_multid_device": device_ms(
+                torch, lambda: route_multid_cuda(lo, hi, rows)),
+            "route_multid_plain_device": device_ms(
+                torch, lambda: route_multid_plain(lo, hi, rows)),
+            "segment_reduce": cuda_ms(torch, lambda: segment_reduce_cuda(
+                v, ids, k)),
+            "segment_reduce_plain": cuda_ms(
+                torch, lambda: segment_reduce_plain(v, ids, k)),
+            "route_multid": cuda_ms(torch, lambda: route_multid_cuda(
+                lo, hi, rows)),
+            "route_multid_plain": cuda_ms(
+                torch, lambda: route_multid_plain(lo, hi, rows)),
+            "bounds": bnd,
+            "segments_hit": int(torch.unique(ids).numel())}
+        emit(stream_kernel_times_ms=out[B], B=B, k=k, card=card)
+    return {"times": out, "seg_err": max(errs)}
+
+
+def stream_timings(torch, tag, run, s, card) -> None:
+    """Ingest per batch (CUDA events and host clock, medians after warm-up;
+    rows/s from the host clock), the as_synopsis merge, and answer from
+    the ingestor right after an ingest (merge and re-pin included), on a
+    fresh ingestor over the same synopsis and stream."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.streaming import StreamingIngestor, merge_synopsis
+    from repro_torch.streaming import subtree_leaf_matrix
+    syn, q, batches = run["syn"], run["q"], s["batches"]
+    ing = StreamingIngestor(syn, seed=11)
+    it = iter(batches * 4)
+
+    def one():
+        ing.ingest(*next(it))
+
+    ev = cuda_ms(torch, one, reps=40, warmup=10)
+    host = host_ms(torch, one, reps=40)
+    subtree = subtree_leaf_matrix(ing.base.tree, ing.base.num_leaves)
+
+    def merge():
+        return merge_synopsis(ing.base, ing.state, subtree,
+                              total_rows=ing.total_rows)
+
+    eng = PassEngine(ing, ServingConfig(kinds=KINDS), ci=0.95)
+    eng.answer(q)
+    after = []
+    for _ in range(10):
+        one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.answer(q)
+        torch.cuda.synchronize()
+        after.append((time.perf_counter() - t0) * 1e3)
+    times = {"ingest_batch": ev, "ingest_batch_host": host,
+             "rows_per_s_host": STREAM_BATCH / host * 1e3,
+             "merge": cuda_ms(torch, merge),
+             "merge_host": host_ms(torch, merge),
+             "answer_after_ingest_host": statistics.median(after)}
+    emit(stream_times_ms=times, path=tag, card=card)
+
+
+def profile_ingest(torch, tag, s) -> None:
+    """torch.profiler over 10 ingest batches: device kernels per batch and
+    the device-busy share of the window's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.streaming import StreamingIngestor
+    ing = StreamingIngestor(s["ing"].base, seed=11)
+    batches = s["batches"]
+    for cb, ab in batches[:3]:
+        ing.ingest(cb, ab)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for cb, ab in batches[3:13]:
+            ing.ingest(cb, ab)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, n = device_busy_us(prof)
+    write_table(prof, f"profile_ingest_{tag}.txt")
+    emit(profile=f"ingest {tag}", batches=10,
+         device_kernels_per_batch=n / 10,
+         device_busy_ms_per_batch=busy_us / 1e3 / 10,
+         wall_ms_per_batch=wall_ms / 10,
+         device_busy_share=busy_us / 1e3 / wall_ms)
 
 
 def main() -> int:
@@ -500,9 +913,34 @@ def main() -> int:
     profile_answer(torch, "1d", run1)
     profile_answer(torch, "3d", run3)
 
-    # 7. The kernels line (1-D main-path shapes and launches).
+    # 7. Streaming kernels against plain at edge shapes.
+    edge_seg_err = edge_cases_streaming(torch, dev)
+
+    # 8. Streaming, 1-D: ingest, serve the ingestor, reoptimize.
+    t0 = time.perf_counter()
+    cs1, as1 = nyc_taxi(scale=0.1, seed=7)
+    cs3, as3 = nyc_taxi(scale=0.1, seed=7, dims=3)
+    emit(phase="stream data", seconds=time.perf_counter() - t0,
+         rows=int(as1.shape[0]))
+    s1 = stream_path(torch, "1d", run1, c1, a1, cs1, as1, 0.05, reopt=True)
+    # 9. Streaming, 3-D (reoptimize is 1-D only, as in the JAX package).
+    s3 = stream_path(torch, "3d", run3, c3, a3, cs3, as3, 0.15,
+                     reopt=False)
+
+    # 10. Streaming times.
+    kt = stream_kernel_times(torch, s1, s3, card)
+    stream_timings(torch, "1d", run1, s1, card)
+    stream_timings(torch, "3d", run3, s3, card)
+    profile_ingest(torch, "1d", s1)
+    profile_ingest(torch, "3d", s3)
+
+    # 11. The kernels line: serving kernels at the 1-D answer's shapes and
+    # launches per answer; streaming kernels at one ingest batch (B =
+    # 4096) with the launches of the whole stream (1-D for segment_reduce,
+    # 3-D for route_multid).
     rows = []
-    for name, (source, replaces) in SOURCES.items():
+    for name in ("query_eval", "stratified_moments"):
+        source, replaces = SOURCES[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": run1["launches"][name],
@@ -512,9 +950,31 @@ def main() -> int:
             "bound_ms": t1["bounds"][name]["bound_ms"],
             "bound_by": t1["bounds"][name]["bound_by"],
             "library_ms": None,
+            "device_ms": t1["times"][f"{name}_device"],
+            "plain_device_ms": t1["times"][f"{name}_plain_device"],
             "ms_3d": t3["times"][name],
             "plain_ms_3d": t3["times"][f"{name}_plain"],
             "bound_ms_3d": t3["bounds"][name]["bound_ms"]})
+    b4, b64 = kt["times"][4096], kt["times"][65536]
+    for name, path_launches, err in (
+            ("segment_reduce", s1["launches"],
+             max(edge_seg_err, kt["seg_err"])),
+            ("route_multid", s3["launches"], 0.0)):
+        source, replaces = SOURCES[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path_launches[name],
+            "launches_1d": s1["launches"][name],
+            "launches_3d": s3["launches"][name],
+            "max_abs_err": err, "ms": b4[name],
+            "plain_ms": b4[f"{name}_plain"],
+            "bound_ms": b4["bounds"][name]["bound_ms"],
+            "bound_by": b4["bounds"][name]["bound_by"], "library_ms": None,
+            "device_ms": b4[f"{name}_device"],
+            "plain_device_ms": b4[f"{name}_plain_device"],
+            "device_ms_b65536": b64[f"{name}_device"],
+            "ms_b65536": b64[name], "plain_ms_b65536": b64[f"{name}_plain"],
+            "bound_ms_b65536": b64["bounds"][name]["bound_ms"]})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

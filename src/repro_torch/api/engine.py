@@ -125,7 +125,9 @@ class PreparedQuery:
 class PassEngine:
     """Stateful PASS serving facade: configure once, serve many.
 
-    ``source`` is a :class:`~repro_torch.core.types.Synopsis`.
+    ``source`` is a :class:`~repro_torch.core.types.Synopsis` or a
+    :class:`~repro_torch.streaming.StreamingIngestor`, whose epoch bump on
+    every ingest re-pins the prepared entries (one invalidation each).
     ``ci=None`` serves plain estimates, ``ci=0.95`` is shorthand for
     ``CIConfig(level=0.95)``. ``device=None`` serves on the CUDA card and
     raises when there is none.
@@ -172,12 +174,14 @@ class PassEngine:
 
     @property
     def epoch(self) -> int:
-        """Change counter of the source (0 for an immutable synopsis)."""
+        """Change counter of the source (0 for an immutable synopsis; a
+        streaming ingestor bumps it on every ingest)."""
         return getattr(self._source, "epoch", 0)
 
     def resolve(self):
-        """Current serving synopsis, on the engine's device."""
-        return self._source.to(self.device)
+        """Current serving synopsis (delta-merged for a streaming source),
+        on the engine's device."""
+        return _executor.resolve_synopsis(self._source).to(self.device)
 
     def replace_source(self, source) -> "PassEngine":
         """Swap the serving source and invalidate every cached plan (the

@@ -7,6 +7,9 @@
   search over the split point and the O(1) discretized variance oracles.
 * ``adp_partition`` — end to end: uniform sample of m rows -> sort ->
   ``dp_monotone`` -> value-space thresholds for the full dataset.
+* ``dp_monotone_device`` / ``cuts_to_thresholds_device`` — the same DP
+  (SUM oracle) and threshold map as float32 tensor ops on the values'
+  device, for the streaming re-optimization (``streaming/policy.py``).
 
 Boundary convention: a partitioning of m sorted samples is given by cut
 ranks 0 = c_0 <= c_1 <= ... <= c_k = m; partition j covers sample ranks
@@ -15,6 +18,7 @@ ranks 0 = c_0 <= c_1 <= ... <= c_k = m; partition j covers sample ranks
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import prefix as px
 
@@ -106,6 +110,106 @@ def cuts_to_thresholds(sample_c_sorted: np.ndarray, cuts: np.ndarray
     return 0.5 * (c[lo_idx] + c[hi_idx])
 
 
+def dp_monotone_device(values_sorted: torch.Tensor, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The monotone DP with the Lemma A.3 (SUM) oracle in float32 tensor
+    ops on the values' device: the JAX package's ``dp_monotone_jnp``, its
+    ``scan`` over layers and ``fori_loop`` binary search written as Python
+    loops. Returns (cuts (k+1,) int32, max variance as a 0-d f32 tensor).
+    Degenerate inputs (no values, k < 1, k > m) raise."""
+    v = values_sorted.to(torch.float32)
+    if v.dim() != 1:
+        raise ValueError(f"values_sorted must be 1-D, got shape "
+                         f"{tuple(v.shape)}")
+    m = v.shape[0]
+    if m == 0:
+        raise ValueError("dp_monotone_device: empty value vector (empty "
+                         "stratum/reservoir) — nothing to partition")
+    if k < 1:
+        raise ValueError(f"dp_monotone_device: need k >= 1 partitions, "
+                         f"got {k}")
+    if k > m:
+        raise ValueError(
+            f"dp_monotone_device: k={k} partitions over m={m} values — the "
+            f"DP needs k <= m (duplicate cut ranks would produce empty "
+            f"leaves and NaN thresholds); reduce k or pool more samples")
+    dev = v.device
+    s1, s2 = px.prefix_moments_device(v)
+
+    def oracle(g, w):
+        n_i = (w - g).to(torch.float32)
+        x = g + torch.div(w - g, 2, rounding_mode="floor")
+        sq1 = s1[x] - s1[g]
+        sqq1 = s2[x] - s2[g]
+        sq2 = s1[w] - s1[x]
+        sqq2 = s2[w] - s2[x]
+        ni = torch.clamp(n_i, min=1.0)
+        v1 = (ni * sqq1 - sq1 * sq1) / ni
+        v2 = (ni * sqq2 - sq2 * sq2) / ni
+        return torch.where(n_i > 1, torch.maximum(v1, v2), 0.0)
+
+    i_vec = torch.arange(m + 1, dtype=torch.int64, device=dev)
+    A = oracle(torch.zeros_like(i_vec), i_vec)
+    if k == 1:
+        return torch.tensor([0, m], dtype=torch.int32, device=dev), A[m]
+    steps = int(np.ceil(np.log2(m + 2)))
+    parents = torch.empty((k - 1, m + 1), dtype=torch.int64, device=dev)
+    for layer in range(k - 1):
+        lo = torch.zeros_like(i_vec)
+        hi = i_vec.clone()
+        for _ in range(steps):
+            mid = torch.div(lo + hi, 2, rounding_mode="floor")
+            pred = A[mid] >= oracle(mid, i_vec)
+            hi, lo = (torch.where(pred & (lo < hi), mid, hi),
+                      torch.where(pred | (lo >= hi), lo,
+                                  torch.minimum(mid + 1, hi)))
+        h1 = lo
+        h0 = torch.clamp(h1 - 1, min=0)
+        val1 = torch.maximum(A[h1], oracle(h1, i_vec))
+        val0 = torch.maximum(A[h0], oracle(h0, i_vec))
+        take0 = val0 < val1
+        A = torch.where(take0, val0, val1)
+        parents[layer] = torch.where(take0, h0, h1)
+    # back-track from i = m through the layers, last first, on the device
+    cuts = torch.zeros(k + 1, dtype=torch.int64, device=dev)
+    cuts[k] = m
+    i = cuts[k]
+    for j in range(k - 1, 0, -1):
+        i = parents[j - 1][i]
+        cuts[j] = i
+    return cuts.to(torch.int32), A[m]
+
+
+def cuts_to_thresholds_device(sample_c_sorted: torch.Tensor,
+                              cuts: torch.Tensor) -> torch.Tensor:
+    """Midpoint thresholds from sorted sample coordinates and (k+1,) cut
+    ranks, in float32 on the device: the JAX package's
+    ``cuts_to_thresholds_jnp``. Degenerate inputs raise, as there."""
+    c = sample_c_sorted
+    if c.dim() != 1:
+        raise ValueError(f"sample_c_sorted must be 1-D, got shape "
+                         f"{tuple(c.shape)}")
+    m = c.shape[0]
+    if m == 0:
+        raise ValueError("cuts_to_thresholds_device: empty coordinate "
+                         "vector (empty stratum/reservoir) — no thresholds "
+                         "exist")
+    if cuts.shape[0] < 2:
+        raise ValueError(
+            f"cuts_to_thresholds_device: cut vector must hold at least "
+            f"[0, m], got shape {tuple(cuts.shape)}")
+    if cuts.shape[0] - 1 > m:
+        raise ValueError(
+            f"cuts_to_thresholds_device: {cuts.shape[0] - 1} partitions "
+            f"over m={m} samples — duplicate cut ranks would yield "
+            f"duplicated thresholds (empty leaves); reduce k or pool more "
+            f"samples")
+    inner = cuts[1:-1].long()
+    lo_idx = torch.clamp(inner - 1, 0, m - 1)
+    hi_idx = torch.clamp(inner, 0, m - 1)
+    return 0.5 * (c[lo_idx] + c[hi_idx])
+
+
 def adp_partition(c: np.ndarray, a: np.ndarray, k: int, m: int,
                   kind: str = "sum", delta_frac: float = 0.01,
                   seed: int = 0) -> tuple[np.ndarray, np.ndarray, float]:
@@ -136,4 +240,5 @@ def adp_partition(c: np.ndarray, a: np.ndarray, k: int, m: int,
 
 
 __all__ = ["equal_depth_boundaries", "dp_monotone", "cuts_to_thresholds",
-           "adp_partition"]
+           "adp_partition", "dp_monotone_device",
+           "cuts_to_thresholds_device"]

@@ -1,7 +1,8 @@
 """Prefix-sum interval statistics and variance oracles (paper §4.2.1, §A).
 
 The O(1) building blocks of the partitioning optimizer, on host float64
-numpy (the optimizer runs offline on a uniform sample of m << N rows):
+numpy (the optimizer runs offline on a uniform sample of m << N rows),
+and the float32 prefix moments of the device DP (``dp.dp_monotone_device``):
 
 * interval moments from prefix sums,
 * the paper's single-partition variance formulas for SUM/COUNT/AVG,
@@ -12,6 +13,7 @@ numpy (the optimizer runs offline on a uniform sample of m << N rows):
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def prefix_moments(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -23,6 +25,16 @@ def prefix_moments(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     np.cumsum(v, out=s1[1:])
     np.cumsum(v * v, out=s2[1:])
     return s1, s2
+
+
+def prefix_moments_device(values: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 (S1, S2) of length n+1 on the values' device; the JAX
+    package's ``prefix_moments_jnp``."""
+    v = values.to(torch.float32)
+    z = torch.zeros(1, dtype=torch.float32, device=v.device)
+    return torch.cat([z, torch.cumsum(v, 0)]), \
+        torch.cat([z, torch.cumsum(v * v, 0)])
 
 
 def interval_moments(s1, s2, g, w):
@@ -145,7 +157,8 @@ def oracle_exact(s1: np.ndarray, s2: np.ndarray, g: int, w: int,
 
 
 __all__ = [
-    "prefix_moments", "interval_moments", "core_v", "v_sum", "v_avg",
+    "prefix_moments", "prefix_moments_device", "interval_moments", "core_v",
+    "v_sum", "v_avg",
     "oracle_sum_split", "window_sqsum", "SparseTableArgmax",
     "oracle_avg_window", "oracle_exact",
 ]

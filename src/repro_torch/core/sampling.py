@@ -105,4 +105,62 @@ def proportional_allocation(n_rows: np.ndarray, total_budget: int,
     return alloc
 
 
-__all__ = ["uniform_sample", "stratified_sample", "proportional_allocation"]
+def neyman_allocation(n_rows: np.ndarray, stds: np.ndarray,
+                      total_budget: int, min_per_leaf: int = 1
+                      ) -> np.ndarray:
+    """Sample-budget split proportional to ``n_h * sigma_h`` (Neyman
+    allocation, the variance-minimizing split for a stratified SUM/MEAN).
+
+    ``stds`` are per-stratum standard deviations of the measure; strata
+    with zero (or unknown) spread get weight from their size alone via a
+    tiny tie-breaker, and if every weight vanishes the split degrades to
+    :func:`proportional_allocation`. Same contract as that function:
+    ``alloc <= n_rows`` per stratum, ``alloc.sum() <= total_budget``,
+    ``min_per_leaf`` honored while the budget allows.
+    """
+    n_rows = np.asarray(n_rows, dtype=np.float64)
+    stds = np.asarray(stds, dtype=np.float64)
+    w = np.maximum(n_rows, 0) * np.maximum(stds, 0)
+    if w.sum() <= 0:
+        return proportional_allocation(n_rows, total_budget,
+                                       min_per_leaf=min_per_leaf)
+    cap = np.maximum(n_rows, 0).astype(np.int64)
+    budget = int(total_budget)
+    alloc = np.zeros(cap.shape[0], dtype=np.int64)
+    floors = np.minimum(min_per_leaf, cap)
+    if floors.sum() <= budget:
+        alloc = floors.copy()
+    else:
+        for i in np.argsort(-w, kind="stable"):
+            if budget - alloc.sum() <= 0:
+                break
+            alloc[i] = min(cap[i], 1)
+    rem = budget - int(alloc.sum())
+    while rem > 0:
+        headroom = cap - alloc
+        ww = np.where(headroom > 0, w, 0.0)
+        if ww.sum() <= 0:
+            # Neyman weights exhausted (all spread-y strata are full):
+            # spill the rest proportionally into the remaining headroom.
+            ww = np.where(headroom > 0, np.maximum(n_rows, 0), 0.0)
+            if ww.sum() <= 0:
+                break
+        share = rem * ww / ww.sum()
+        extra = np.minimum(np.floor(share).astype(np.int64), headroom)
+        if extra.sum() == 0:
+            for i in np.argsort(-share, kind="stable"):
+                if rem <= 0:
+                    break
+                if alloc[i] < cap[i]:
+                    alloc[i] += 1
+                    rem -= 1
+            break
+        alloc += extra
+        rem -= int(extra.sum())
+    if alloc.sum() > total_budget:
+        raise AssertionError((int(alloc.sum()), total_budget))
+    return alloc
+
+
+__all__ = ["uniform_sample", "stratified_sample", "proportional_allocation",
+           "neyman_allocation"]

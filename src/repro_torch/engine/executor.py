@@ -108,6 +108,12 @@ def count_artifact_pass(kinds) -> None:
         OP_COUNTS["extremes"] += 1
 
 
+def resolve_synopsis(syn) -> Synopsis:
+    """A plain :class:`Synopsis` as it is, or the delta-merged synopsis of
+    a source that exposes ``as_synopsis()`` (a ``StreamingIngestor``)."""
+    return syn.as_synopsis() if hasattr(syn, "as_synopsis") else syn
+
+
 def slice_sample_slots(syn: Synopsis, slots: int | None) -> Synopsis:
     """Restrict a synopsis to the first ``slots`` sample slots per stratum
     (the refinement-ladder view). Validity is a per-stratum prefix, so the
@@ -125,5 +131,6 @@ def slice_sample_slots(syn: Synopsis, slots: int | None) -> Synopsis:
         k_per_leaf=torch.clamp(syn.k_per_leaf, max=slots))
 
 
-__all__ = ["Artifacts", "compute_artifacts", "slice_sample_slots",
-           "count_artifact_pass", "OP_COUNTS", "reset_op_counts"]
+__all__ = ["Artifacts", "compute_artifacts", "resolve_synopsis",
+           "slice_sample_slots", "count_artifact_pass", "OP_COUNTS",
+           "reset_op_counts"]

@@ -19,7 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("query_eval", "stratified_moments")
+SOURCES = ("query_eval", "stratified_moments", "segment_reduce",
+           "route_multid")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

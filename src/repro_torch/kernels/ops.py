@@ -11,6 +11,8 @@ import torch
 
 from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
+from .route import route_multid_cuda, route_multid_plain
+from .segment_reduce import segment_reduce_cuda, segment_reduce_plain
 from .stratified_estimate import (samples_inside, stratified_moments_cuda,
                                   stratified_moments_plain)
 
@@ -53,4 +55,23 @@ def sample_extremes(sample_c, sample_a, sample_valid, q_lo, q_hi):
             torch.where(inside, a, -_BIG).amax(-1))
 
 
-__all__ = ["query_eval", "stratified_moments", "sample_extremes"]
+def segment_reduce(values, seg_ids, k: int):
+    """Per-segment [sum, sumsq, count, min, max] of values (N,) f32 by
+    seg_ids (N,) int32; ids outside [0, k) are dropped. Returns (k, 5)."""
+    args = [t.contiguous() for t in (values, seg_ids)]
+    if device_type("segment_reduce", *args) == "cuda":
+        return segment_reduce_cuda(*args, k)
+    return segment_reduce_plain(*args, k)
+
+
+def route_multid(leaf_lo, leaf_hi, c):
+    """L1-nearest leaf box of each row, lowest id on ties. leaf_lo/leaf_hi
+    (k, d), c (B, d). Returns (leaf (B,) int32, dist (B,) f32)."""
+    args = [t.contiguous() for t in (leaf_lo, leaf_hi, c)]
+    if device_type("route_multid", *args) == "cuda":
+        return route_multid_cuda(*args)
+    return route_multid_plain(*args)
+
+
+__all__ = ["query_eval", "stratified_moments", "sample_extremes",
+           "segment_reduce", "route_multid"]

@@ -1,0 +1,87 @@
+"""Per-segment aggregate reduction: [sum v, sum v^2, count, min, max].
+
+``segment_reduce_cuda`` launches the hand-written kernel of
+``csrc/segment_reduce.cu`` (which replaces the Pallas kernel
+``repro/kernels/segment_reduce.py::segment_reduce``);
+``segment_reduce_plain`` is the scatter formulation of the JAX package's
+``JnpBackend.segment_reduce`` (``backends.py``), the version CPU tensors
+take and the reference the kernel is held against on the card.
+
+Both take values (N,) float32 and seg_ids (N,) int32 and return (k, 5)
+float32. Ids outside [0, k) (-1 marks a dropped row) are skipped; an
+empty segment reads [0, 0, 0, POS_BIG, NEG_BIG]. Any N and k are taken
+as they are, with no padding to a block size.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import native
+
+# kernels/ref.py POS_BIG / NEG_BIG: the MIN/MAX identity of a segment.
+POS_BIG = 3.0e38
+NEG_BIG = -3.0e38
+
+
+def segment_reduce_plain(values, seg_ids, k: int) -> torch.Tensor:
+    """Scatter formulation: out-of-range ids drop into a spill slot k that
+    is sliced away."""
+    v = values.to(torch.float32)
+    ids = torch.where((seg_ids >= 0) & (seg_ids < k), seg_ids.long(), k)
+    dev = v.device
+    sums = torch.zeros((k + 1, 3), dtype=torch.float32, device=dev)
+    sums.index_add_(0, ids, torch.stack([v, v * v, torch.ones_like(v)], 1))
+    vmin = torch.full((k + 1,), POS_BIG, dtype=torch.float32, device=dev)
+    vmax = torch.full((k + 1,), NEG_BIG, dtype=torch.float32, device=dev)
+    vmin.scatter_reduce_(0, ids, v, "amin")
+    vmax.scatter_reduce_(0, ids, v, "amax")
+    return torch.cat([sums, vmin[:, None], vmax[:, None]], 1)[:k]
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        lib = native.library("segment_reduce")
+        lib.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 4 + \
+            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.repro_segment_reduce.restype = ctypes.c_int
+        lib.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
+        lib.repro_segment_reduce_chunk.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def segment_reduce_cuda(values, seg_ids, k: int) -> torch.Tensor:
+    """Launch the CUDA kernel on the tensors' device and current stream."""
+    name = "segment_reduce"
+    native.check_tensors(name, values=values, seg_ids=seg_ids)
+    native.check_dtype(name, torch.float32, values=values)
+    native.check_dtype(name, torch.int32, seg_ids=seg_ids)
+    n = values.shape[0]
+    if values.dim() != 1 or seg_ids.shape != (n,):
+        raise ValueError(f"{name}: shapes {values.shape} {seg_ids.shape}")
+    if not (1 <= k < 2 ** 31 and n < 2 ** 31):
+        raise ValueError(f"{name}: needs 1 <= k and N < 2**31, got "
+                         f"k={k} N={n}")
+    lib = _kernel()
+    ch = lib.repro_segment_reduce_chunk(n)
+    chunks = -(-n // ch)
+    dev = values.device
+    part = torch.empty((max(chunks, 1) * 5 * k,), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((k, 5), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.repro_segment_reduce(
+            values.data_ptr(), seg_ids.data_ptr(), part.data_ptr(),
+            out.data_ptr(), n, k, torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(name, err)
+    return out
+
+
+__all__ = ["segment_reduce_plain", "segment_reduce_cuda", "POS_BIG",
+           "NEG_BIG"]

@@ -1,0 +1,87 @@
+"""Counter-based threefry2x32 keys and uniforms, bit-equal to ``jax.random``.
+
+The streaming ingest draws its reservoir-replacement uniforms from a key
+threaded through the batches (``streaming/ingest.py``), as the JAX package
+does with ``jax.random``. These functions reproduce jax 0.9.0's raw
+``uint32[2]`` keys under its defaults (``jax_threefry_partitionable=True``,
+64-bit mode off), so a seeded ingest draws the very same uniforms in both
+packages:
+
+* :func:`PRNGKey` — ``jax.random.PRNGKey`` (``prng.threefry_seed``);
+* :func:`split`   — ``jax.random.split`` (``prng._threefry_split_foldlike``);
+* :func:`uniform` — ``jax.random.uniform`` in float32 over [0, 1)
+  (``random._uniform`` on ``prng._threefry_random_bits_partitionable``).
+
+A key is a (2,) int64 tensor holding two uint32 words. Every word lives in
+an int64 tensor and is masked with ``& 0xFFFFFFFF`` after each add and
+shift, since torch has no uint32 arithmetic on every device. Work runs on
+the key's device.
+"""
+from __future__ import annotations
+
+import torch
+
+from .device import resolve_device
+
+MASK32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry_2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash of the counter pairs (x1, x2) under the key
+    words (k1, k2): 20 rounds, key injection every 4 (``prng.py``
+    ``_threefry2x32_lowering``). Every argument holds uint32 values in
+    int64; returns two int64 tensors of x1's shape."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x = [(x1 + ks[0]) & MASK32, (x2 + ks[1]) & MASK32]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK32
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK32
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & MASK32
+    return x[0], x[1]
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit mode off: the seed is taken
+    as a 32-bit integer, so the key is ``[0, seed mod 2**32]``. ``device``
+    None means the CUDA card."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
+                        device=resolve_device(device))
+
+
+def _bits(key: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two threefry output words over the 64-bit iota 0..n-1 (high
+    words 0, low words the index: ``prng.iota_2x32_shape``)."""
+    if n >= 2 ** 32:
+        raise ValueError(f"at most 2**32 - 1 draws per key, got {n}")
+    lo = torch.arange(n, dtype=torch.int64, device=key.device)
+    return threefry_2x32(key[0], key[1], torch.zeros_like(lo), lo)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: a (num, 2) tensor of new keys."""
+    b1, b2 = _bits(key, num)
+    return torch.stack([b1, b2], dim=1)
+
+
+def uniform(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)``: 23 random mantissa bits
+    under the exponent of 1.0, minus 1, so values lie in [0, 1)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    b1, b2 = _bits(key, n)
+    word = ((b1 ^ b2) >> 9) | 0x3F800000       # < 2**31: fits int32
+    return (word.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+
+
+__all__ = ["PRNGKey", "split", "uniform", "threefry_2x32"]

@@ -1,6 +1,7 @@
-"""The port stands alone: importing every module of ``repro_torch`` pulls
-in neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
-the entry points default to the CUDA card rather than the CPU."""
+"""The port stands alone: importing every module of ``repro_torch`` (the
+streaming modules and the threefry port included) pulls in neither JAX
+nor the JAX package, ``chip_smoke.py`` imports neither, and the entry
+points default to the CUDA card rather than the CPU."""
 import ast
 import json
 import os
@@ -50,7 +51,11 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert report["bad"] == [], report["bad"]
     for mod in ("repro_torch.api.engine", "repro_torch.kernels.ops",
                 "repro_torch.core.synopsis", "repro_torch.data.synthetic",
-                "repro_torch.uncertainty.intervals"):
+                "repro_torch.uncertainty.intervals", "repro_torch.random",
+                "repro_torch.kernels.segment_reduce",
+                "repro_torch.kernels.route", "repro_torch.streaming",
+                "repro_torch.streaming.ingest", "repro_torch.streaming.delta",
+                "repro_torch.streaming.policy"):
         assert mod in report["imported"]
 
 
@@ -67,15 +72,21 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.core.query import random_queries
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.device import resolve_device
+    from repro_torch.random import PRNGKey
+    from repro_torch.streaming import StreamingIngestor
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c = np.linspace(0, 1, 200)
     a = np.ones(200)
+    syn, _ = build_synopsis(c, a, k=4, device="cpu")
     for call in (lambda: resolve_device(None),
                  lambda: build_synopsis(c, a, k=4),
                  lambda: random_queries(c, 3),
-                 lambda: PassEngine(None)):
+                 lambda: PassEngine(None),
+                 lambda: StreamingIngestor(syn),
+                 lambda: PRNGKey(0)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    syn, _ = build_synopsis(c, a, k=4, device="cpu")
     assert syn.device.type == "cpu"
+    ing = StreamingIngestor(syn, device="cpu").ingest(c[:5], a[:5])
+    assert ing.state.seen.device.type == "cpu" and ing.epoch == 1
     assert resolve_device("cpu") == torch.device("cpu")

@@ -144,4 +144,5 @@ def test_missing_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         native.library("query_eval")
     assert native.library_path("query_eval").parent == tmp_path
-    assert set(native.LAUNCHES) == {"query_eval", "stratified_moments"}
+    assert set(native.LAUNCHES) == {"query_eval", "stratified_moments",
+                                    "segment_reduce", "route_multid"}
