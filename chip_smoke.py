@@ -38,6 +38,30 @@ Phases, each of which fails the run:
 10. Streaming times: each new kernel and its plain version at B = 4096
    and 65536 (and kernel = plain there), ingest per batch, the merge,
    answer right after an ingest, and a profiler window over 10 batches.
+11. The bootstrap's kernels against plain at edge shapes:
+   stratified_weighted_moments and bootstrap_moments (Q up to 129, k up to
+   53, s up to 300, d up to 16, R in {1, 7, 8, 9, 33}; zero, Poisson and
+   non-integer weights, weights on invalid slots, strata without samples)
+   within tolerance, bit-equal across two launches, and every
+   bootstrap_moments slice r torch.equal to stratified_weighted_moments
+   with W[r]; weighted_segment_reduce (N up to 65537, k up to 1024).
+12. 1-D bootstrap serving on phase 4's synopsis and queries:
+   PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
+   n_boot=200, key=5)).answer(). Fused launches bootstrap_moments once,
+   scan (boot_fused=False) stratified_weighted_moments 200 times, and the
+   two answers are torch.equal in both normalize modes; the truth of 64
+   queries inside [lower, upper]; the AVG interval overlaps the CLT one on
+   at least 0.9 of the queries; the port on the CPU gives the same answer
+   for the first 32 queries.
+13. 3-D bootstrap on phase 5's synopsis, fused only, the same checks but
+   the CPU one.
+14. Planner: plan_queries over phase 4's queries, answer(plan=) with
+   ci=0.95 and with the bootstrap: query_eval never launches, and both
+   answers equal the port's CPU answer(plan=).
+15. Bootstrap times: the answer fused and scan, its split (draw, kernel,
+   epilogue), its peak memory and a profiler window; each new kernel and
+   its plain version at the main path's shapes, with their bounds and the
+   nearest library call (torch.bmm of a prebuilt predicate, index_add_).
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -76,6 +100,14 @@ SOURCES = {
                        "src/repro/kernels/segment_reduce.py:84"),
     "route_multid": ("src/repro_torch/kernels/csrc/route_multid.cu",
                      "src/repro/kernels/route.py:152"),
+    "stratified_weighted_moments": (
+        "src/repro_torch/kernels/csrc/weighted_moments.cu",
+        "src/repro/kernels/stratified_estimate.py:135"),
+    "bootstrap_moments": ("src/repro_torch/kernels/csrc/weighted_moments.cu",
+                          "src/repro/kernels/bootstrap.py:115"),
+    "weighted_segment_reduce": (
+        "src/repro_torch/kernels/csrc/segment_reduce.cu",
+        "src/repro/kernels/segment_reduce.py:138"),
 }
 
 
@@ -367,14 +399,14 @@ def truth_scan(torch, c, a, q_lo, q_hi, chunk: int = 1 << 20) -> dict:
             "min": mn, "max": mx}
 
 
-def check_truth(tag, res, truth, n, max_median_err) -> dict:
+def check_truth(tag, res, truth, n, max_median_err, kinds=KINDS) -> dict:
     """Every defined truth inside [lower, upper]: SUM/COUNT always, AVG/
     MIN/MAX on non-empty queries (undefined on an empty set). Slack for
     the float32 storage of aggregates: 1e-4 relative for the fp32 sums over
     up to 1024 strata (SUM/COUNT/AVG), 1e-6 for MIN/MAX (one rounding)."""
     nonempty = truth["count"] > 0
     out = {"queries": n, "nonempty": int(nonempty.sum())}
-    for kind in KINDS:
+    for kind in kinds:
         t = truth[kind]
         lo = res[kind].lower[:n].cpu().numpy().astype(np.float64)
         hi = res[kind].upper[:n].cpu().numpy().astype(np.float64)
@@ -402,18 +434,25 @@ def check_truth(tag, res, truth, n, max_median_err) -> dict:
     return out
 
 
-def check_cpu_parity(torch, tag, syn, q, res, n: int = 512) -> None:
+def check_cpu_parity(torch, tag, syn, q, res, n: int = 512, kinds=KINDS,
+                     ci=0.95, plan: bool = False) -> None:
     """The same answer computed by the port on the CPU, for the first n
-    queries. estimate/lower/upper/frac_rows_touched at rtol=3e-5 with atol
-    3e-5 * max|estimate| (fp32 sums in another order); ci_half/ci_lo/ci_hi
-    at rtol=1e-4 with atol 1e-4 * max|estimate| (differences of two fp32
-    sums lose relative precision)."""
+    queries (from a plan of those queries when ``plan``). estimate/lower/
+    upper/frac_rows_touched at rtol=3e-5 with atol 3e-5 * max|estimate|
+    (fp32 sums in another order); ci_half/ci_lo/ci_hi at rtol=1e-4 with
+    atol 1e-4 * max|estimate| (differences of two fp32 sums lose relative
+    precision). A bootstrap ``ci`` draws the same weights on both devices,
+    so its replicates too differ only in summation order."""
     from repro_torch.api import PassEngine, ServingConfig
     from repro_torch.core.types import QueryBatch
+    from repro_torch.engine.planner import plan_queries
     qc = QueryBatch(q.lo[:n].cpu(), q.hi[:n].cpu())
-    cpu = PassEngine(syn.to("cpu"), ServingConfig(kinds=KINDS), ci=0.95,
-                     device="cpu").answer(qc)
-    for kind in KINDS:
+    syn_c = syn.to("cpu")
+    eng = PassEngine(syn_c, ServingConfig(kinds=kinds), ci=ci, device="cpu")
+    cpu = eng.answer(qc, plan=plan_queries(syn_c.tree, qc.lo, qc.hi,
+                                           syn_c.num_leaves)
+                     if plan else None)
+    for kind in kinds:
         # Scale of the batch: empty queries' MIN/MAX estimates sit at the
         # +-3.4e38 sentinel and must not set it.
         want_est = np.abs(cpu[kind].estimate.numpy().astype(np.float64))
@@ -428,7 +467,8 @@ def check_cpu_parity(torch, tag, syn, q, res, n: int = 512) -> None:
             close(f"{tag} cpu parity {kind}.{field}",
                   getattr(res[kind], field)[:n].cpu(),
                   getattr(cpu[kind], field), rtol, atol)
-    emit(check="cpu_parity", path=tag, queries=n, ok=True)
+    emit(check="cpu_parity", path=tag, queries=n, kinds=list(kinds),
+         ok=True)
 
 
 # ---------------------------------------------------------------------------
@@ -475,7 +515,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err) -> dict:
     emit(check="truth", path=tag,
          **check_truth(tag, res, truth, n, max_median_err))
     return {"syn": syn, "q": q, "eng": eng, "launches": launches,
-            "errs": errs}
+            "errs": errs, "truth": truth}
 
 
 # ---------------------------------------------------------------------------
@@ -664,8 +704,8 @@ def stream_path(torch, tag, run, c_base, a_base, c_s, a_s, max_median_err,
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
-    want = {"segment_reduce": nb, "route_multid": nb if d > 1 else 0,
-            "query_eval": 0, "stratified_moments": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(segment_reduce=nb, route_multid=nb if d > 1 else 0)
     if launches != want:
         raise AssertionError(f"{tag} stream: launches {launches} != {want}")
     emit(path=f"{tag} stream", rows=int(a_s.shape[0]), batches=nb,
@@ -716,8 +756,8 @@ def stream_path(torch, tag, run, c_base, a_base, c_s, a_s, max_median_err,
     return out
 
 
-def check_result_shapes(torch, tag, res, Q) -> None:
-    for kind in KINDS:
+def check_result_shapes(torch, tag, res, Q, kinds=KINDS) -> None:
+    for kind in kinds:
         for field in ("estimate", "lower", "upper", "ci_lo", "ci_hi"):
             x = getattr(res[kind], field)
             if x.shape != (Q,) or x.device.type != "cuda":
@@ -862,6 +902,481 @@ def profile_ingest(torch, tag, s) -> None:
          device_busy_share=busy_us / 1e3 / wall_ms)
 
 
+# ---------------------------------------------------------------------------
+# The Poisson bootstrap (fused and scan) and the planner
+# ---------------------------------------------------------------------------
+
+BOOT_KINDS = ("sum", "count", "avg")
+# Replicates and key of the bootstrap serving phases: the CIConfig default
+# n_boot and a fixed seed.
+N_BOOT = 200
+BOOT_KEY = 5
+# Queries of the plain bootstrap's timing slice: its (8, Q, k, 128) fp32
+# temporaries take ~1 GB each at Q = 256, and tens of GB at Q = 2048.
+PLAIN_BOOT_Q = 256
+
+
+def boot_ci(**kw):
+    from repro_torch.api import CIConfig
+    return CIConfig(method="bootstrap", n_boot=N_BOOT, key=BOOT_KEY, **kw)
+
+
+def weighted_inputs(rng, Q, k, s, d, R):
+    """Samples with ragged validity, strata 0 and k // 2 without a valid
+    sample, weights that are zero, Poisson integers and non-integers (on
+    invalid slots too), and an inverted (empty) query box."""
+    c = rng.uniform(-1, 1, (k, s, d)).astype(np.float32)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.7
+    valid[0] = False
+    valid[k // 2] = False
+    W = rng.poisson(1.0, (R, k, s)).astype(np.float32)
+    W[:, :, ::3] = rng.uniform(0, 2.5, W[:, :, ::3].shape)
+    q_lo = rng.uniform(-1, 0, (Q, d)).astype(np.float32)
+    q_hi = q_lo + rng.uniform(0, 1.5, (Q, d)).astype(np.float32)
+    if Q > 2:
+        q_hi[1] = q_lo[1] - 0.5
+    return c, a, valid, W, q_lo, q_hi
+
+
+def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi) -> dict:
+    """Both weighted kernels against their plain versions on the same CUDA
+    inputs: sums within rtol=3e-5, atol=1e-3; each kernel bit-equal across
+    two launches; every bootstrap_moments slice r torch.equal to
+    stratified_weighted_moments with W[r] (DESIGN.md §10). Returns the max
+    absolute errors."""
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_weighted_moments_cuda, weighted_moments_plain)
+    sm, q = (c, a, valid), (q_lo, q_hi)
+    boot = bootstrap_moments_cuda(*sm, W, *q)
+    boot2 = bootstrap_moments_cuda(*sm, W, *q)
+    one = stratified_weighted_moments_cuda(*sm, W[0], *q)
+    one2 = stratified_weighted_moments_cuda(*sm, W[0], *q)
+    slices = [stratified_weighted_moments_cuda(*sm, W[r], *q)
+              for r in range(W.shape[0])]
+    torch.cuda.synchronize()
+    for name, x, y in (("bootstrap_moments", boot, boot2),
+                       ("stratified_weighted_moments", one, one2)):
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"{tag}: {name} differs between two "
+                                 "launches")
+    for r, one_r in enumerate(slices):
+        if not torch.equal(boot[r], one_r):
+            raise AssertionError(f"{tag}: bootstrap_moments[{r}] is not "
+                                 f"stratified_weighted_moments(W[{r}])")
+    return {
+        "bootstrap_moments": close(
+            f"{tag} bootstrap_moments", boot.cpu(),
+            bootstrap_moments_plain(*sm, W, *q).cpu(), K_RTOL, K_ATOL),
+        "stratified_weighted_moments": close(
+            f"{tag} stratified_weighted_moments", one.cpu(),
+            weighted_moments_plain(*sm, W[0], *q).cpu(), K_RTOL, K_ATOL)}
+
+
+def wseg_vs_plain(torch, tag, v, w, ids, k) -> float:
+    """weighted_segment_reduce kernel against plain: sums within
+    rtol=3e-5, atol=1e-3, and a second launch bit-equal to the first."""
+    from repro_torch.kernels.segment_reduce import (
+        weighted_segment_reduce_cuda, weighted_segment_reduce_plain)
+    got = weighted_segment_reduce_cuda(v, w, ids, k)
+    again = weighted_segment_reduce_cuda(v, w, ids, k)
+    want = weighted_segment_reduce_plain(v, w, ids, k)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{tag}: weighted_segment_reduce differs "
+                             "between two launches")
+    return close(f"{tag} weighted_segment_reduce", got.cpu(), want.cpu(),
+                 K_RTOL, K_ATOL)
+
+
+def edge_cases_weighted(torch, dev) -> dict:
+    """The three new kernels against plain at edge shapes: the weighted
+    moments over Q in {1, 129} x k in {1, 53} x s in {1, 75, 300} (one and
+    two slot chunks) x d in {1, 3, 16}, with R cycling through {1, 7, 8,
+    9, 33} (ragged replicate tiles of 8); weighted_segment_reduce over N
+    in {1, 17, 4096, 65537} x k in {1, 53, 1024} with -1 and out-of-range
+    ids, zero weights, and all rows in one segment."""
+    errs = dict.fromkeys(("stratified_weighted_moments", "bootstrap_moments",
+                          "weighted_segment_reduce"), 0.0)
+    reps = (1, 7, 8, 9, 33)
+    cases = 0
+    for Q in (1, 129):
+        for k in (1, 53):
+            for s in (1, 75, 300):
+                for d in (1, 3, 16):
+                    R = reps[cases % len(reps)]
+                    rng = np.random.default_rng(Q * 7919 + k * 31 + s + d)
+                    t = [torch.from_numpy(x).to(dev)
+                         for x in weighted_inputs(rng, Q, k, s, d, R)]
+                    e = weighted_vs_plain(
+                        torch, f"edge Q={Q} k={k} s={s} d={d} R={R}", *t)
+                    for name, err in e.items():
+                        errs[name] = max(errs[name], err)
+                    cases += 1
+    seg_cases = 0
+    for n in (1, 17, 4096, 65537):
+        for k in (1, 53, 1024):
+            rng = np.random.default_rng(n * 37 + k)
+            v = rng.lognormal(0.9, 0.8, n).astype(np.float32)
+            w = rng.poisson(1.0, n).astype(np.float32)
+            w[::5] = rng.uniform(0, 2.5, w[::5].shape)
+            ids = rng.integers(-1, k + 2, n).astype(np.int32)
+            one = np.full(n, min(k - 1, 7), np.int32)
+            for label, idv in (("mixed", ids), ("one segment", one)):
+                errs["weighted_segment_reduce"] = max(
+                    errs["weighted_segment_reduce"], wseg_vs_plain(
+                        torch, f"edge N={n} k={k} {label}",
+                        *(torch.from_numpy(x).to(dev) for x in (v, w, idv)),
+                        k))
+                seg_cases += 1
+    emit(check="edge_weighted_kernels", moment_cases=cases,
+         segment_cases=seg_cases, max_abs_err=errs)
+    return errs
+
+
+def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
+    """PassEngine(syn, kinds=sum/count/avg, CIConfig(method="bootstrap",
+    n_boot=200, key=5)).answer() on the main path's synopsis and queries,
+    each answer its own launch window: fused launches bootstrap_moments
+    once and no weighted kernel; scan (when ``scan``) launches
+    stratified_weighted_moments 200 times and no bootstrap_moments, and
+    equals fused bit for bit in both normalize modes. Then the truth of 64
+    queries inside [lower, upper] and the AVG interval overlapping the CLT
+    one on at least 0.9 of the queries whose count estimate is positive."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.kernels import native
+    syn, q = run["syn"], run["q"]
+    Q = int(q.lo.shape[0])
+    modes = [("hajek", True)]
+    if scan:
+        modes += [("hajek", False), ("ht", True), ("ht", False)]
+    res, engs, launches = {}, {}, {}
+    for norm, fused in modes:
+        eng = PassEngine(syn, ServingConfig(kinds=BOOT_KINDS),
+                         boot_ci(boot_normalize=norm, boot_fused=fused))
+        torch.cuda.synchronize()
+        native.reset_launches()
+        t0 = time.perf_counter()
+        out = eng.answer(q)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(native.LAUNCHES)
+        want = dict.fromkeys(got, 0)
+        want.update(query_eval=1, stratified_moments=1)
+        if fused:
+            want["bootstrap_moments"] = 1
+        else:
+            want["stratified_weighted_moments"] = N_BOOT
+        if got != want:
+            raise AssertionError(f"{tag} bootstrap {norm} fused={fused}: "
+                                 f"launches {got} != {want}")
+        if eng.stats()["fused_serves"] != int(fused):
+            raise AssertionError(f"{tag}: fused_serves {eng.stats()}")
+        check_result_shapes(torch, f"{tag} bootstrap", out, Q, BOOT_KINDS)
+        emit(path=f"{tag} bootstrap", normalize=norm, fused=fused,
+             first_answer_s=seconds, launches=got,
+             fused_serves=eng.stats()["fused_serves"])
+        res[norm, fused], engs[norm, fused], launches[norm, fused] = \
+            out, eng, got
+    if scan:
+        for norm in ("hajek", "ht"):
+            for kind in BOOT_KINDS:
+                for field in ("estimate", "ci_lo", "ci_hi"):
+                    a = getattr(res[norm, True][kind], field)
+                    b = getattr(res[norm, False][kind], field)
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{tag} {norm} {kind}.{field}: fused != scan in "
+                            f"{int((a != b).sum())} queries")
+        emit(check="fused_equals_scan", path=tag, normalize=["hajek", "ht"],
+             ok=True)
+    out = res["hajek", True]
+    emit(check="truth", path=f"{tag} bootstrap",
+         **check_truth(f"{tag} bootstrap", out, run["truth"], 64,
+                       max_median_err, BOOT_KINDS))
+    clt = run["eng"].answer(q)
+    nonempty = clt["count"].estimate > 0
+    b, c = out["avg"], clt["avg"]
+    overlap = float(((b.ci_lo <= c.ci_hi) & (c.ci_lo <= b.ci_hi))[nonempty]
+                    .float().mean())
+    emit(check="bootstrap_clt_overlap", path=tag, kind="avg",
+         queries=int(nonempty.sum()), overlap=overlap,
+         boot_width_median=float((b.ci_hi - b.ci_lo)[nonempty].median()),
+         clt_width_median=float((c.ci_hi - c.ci_lo)[nonempty].median()))
+    if overlap < 0.9:
+        raise AssertionError(f"{tag}: AVG bootstrap overlaps CLT on "
+                             f"{overlap} of the queries < 0.9")
+    return {"eng": engs["hajek", True], "res": out,
+            "launches": launches["hajek", True],
+            "scan_launches": launches.get(("hajek", False))}
+
+
+def planner_path(torch, tag, run) -> dict:
+    """plan_queries (host numpy) over the main path's queries, then
+    answer(plan=) with ci=0.95 and with the bootstrap in one launch window,
+    in which query_eval must not launch; both answers equal the port's CPU
+    answer(plan=). Reports the (query, leaf) pairs where the plan's masks
+    differ from query_eval's relation codes."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.engine.executor import plan_to_masks
+    from repro_torch.engine.planner import plan_queries
+    from repro_torch.kernels import native, ops
+    syn, q = run["syn"], run["q"]
+    t0 = time.perf_counter()
+    plan = plan_queries(syn.tree, q.lo, q.hi, syn.num_leaves)
+    plan_s = time.perf_counter() - t0
+    rel, _ = ops.query_eval(syn.leaf_lo, syn.leaf_hi, syn.leaf_agg, q.lo,
+                            q.hi)
+    cover, partial, _ = plan_to_masks(plan, q.lo.device)
+    rel_plan = torch.where(cover, 2, torch.where(partial, 1, 0))
+    differ = int((rel_plan != rel).sum())
+    torch.cuda.synchronize()
+    native.reset_launches()
+    res_c = PassEngine(syn, ServingConfig(kinds=KINDS), ci=0.95).answer(
+        q, plan=plan)
+    res_b = PassEngine(syn, ServingConfig(kinds=BOOT_KINDS),
+                       boot_ci()).answer(q, plan=plan)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update(stratified_moments=2, bootstrap_moments=1)
+    if launches != want:
+        raise AssertionError(f"{tag} planner: launches {launches} != {want}")
+    Q = int(q.lo.shape[0])
+    check_result_shapes(torch, f"{tag} plan ci=0.95", res_c, Q)
+    check_result_shapes(torch, f"{tag} plan bootstrap", res_b, Q,
+                        BOOT_KINDS)
+    emit(path=f"{tag} planner", plan_s=plan_s, launches=launches,
+         visited_mean=float(plan.visited.mean()),
+         frontier_mean=float(plan.frontier_size.mean()),
+         pairs_differing_from_query_eval=differ,
+         pairs=int(rel.numel()))
+    check_cpu_parity(torch, f"{tag} plan ci=0.95", syn, q, res_c, plan=True)
+    check_cpu_parity(torch, f"{tag} plan bootstrap", syn, q, res_b, n=16,
+                     kinds=BOOT_KINDS, ci=boot_ci(), plan=True)
+    return {"launches": launches, "differ": differ}
+
+
+def boot_bounds(syn, q, relevant, R, N) -> dict:
+    """Least time for the three new kernels' work, as bounds() counts it:
+    the weighted moments read the samples, the weights and the queries
+    once and write 12 bytes per (replicate, query, stratum); 2d compares
+    per (query, valid slot) and 5 operations per relevant (query, slot,
+    replicate). weighted_segment_reduce reads 12 bytes a row, writes 12 a
+    segment, 5 operations a row."""
+    Q, d = q.lo.shape
+    k, s = syn.sample_a.shape
+    valid = int(syn.sample_valid.sum())
+    samples = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
+    out = {}
+    for name, nbytes, ops in (
+            ("stratified_weighted_moments", samples + 4 * k * s + 12 * Q * k,
+             2 * d * Q * valid + 5 * relevant),
+            ("bootstrap_moments", samples + 4 * R * k * s + 12 * R * Q * k,
+             2 * d * Q * valid + 5 * R * relevant),
+            ("weighted_segment_reduce", 12 * N + 12 * k, 5 * N)):
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_S * 1e3
+        out[name] = {"bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "operations": ops}
+    return out
+
+
+def boot_timings(torch, tag, run, boot, card) -> dict:
+    """The bootstrap answer, fused (30 runs) and scan (5), by CUDA events
+    and host clock; its split into the draw, the kernel and the epilogue;
+    the peak memory of a fused answer above the resident synopsis; a
+    profiler window over 3 fused answers."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.engine.executor import compute_artifacts
+    from repro_torch.kernels import ops
+    from repro_torch.uncertainty import bootstrap as tboot
+    syn, q, eng_f = run["syn"], run["q"], boot["eng"]
+    eng_s = PassEngine(syn, ServingConfig(kinds=BOOT_KINDS),
+                       boot_ci(boot_fused=False))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    eng_f.answer(q)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mb
+
+    key = tboot.key_tensor(BOOT_KEY, q.lo.device)
+    r = torch.arange(N_BOOT, device=q.lo.device)
+    k, s = syn.sample_valid.shape
+
+    def draw():
+        return torch.where(syn.sample_valid[None],
+                           tboot._draw_weights(key, r, (k, s)), 0.0)
+
+    W = draw()
+    art = compute_artifacts(syn, q, BOOT_KINDS)
+    mom = ops.bootstrap_moments(syn.sample_c, syn.sample_a,
+                                syn.sample_valid, W, q.lo, q.hi)
+    k_star = W.sum(-1)
+
+    def epilogue():
+        reps = tboot._estimates(syn, art, mom, k_star, BOOT_KINDS, "hajek")
+        return tboot._quantiles(reps, (0.025, 0.975))
+
+    times = {
+        "answer_fused": cuda_ms(torch, lambda: eng_f.answer(q), reps=30,
+                                warmup=3),
+        "answer_fused_host": host_ms(torch, lambda: eng_f.answer(q),
+                                     reps=30),
+        "answer_scan": cuda_ms(torch, lambda: eng_s.answer(q), reps=5,
+                               warmup=1),
+        "answer_scan_host": host_ms(torch, lambda: eng_s.answer(q), reps=5),
+        "artifacts": cuda_ms(torch, lambda: compute_artifacts(
+            syn, q, BOOT_KINDS), reps=10),
+        "draw": cuda_ms(torch, draw, reps=10),
+        "bootstrap_moments": cuda_ms(torch, lambda: ops.bootstrap_moments(
+            syn.sample_c, syn.sample_a, syn.sample_valid, W, q.lo, q.hi),
+            reps=10),
+        "epilogue": cuda_ms(torch, epilogue, reps=10),
+    }
+    del mom
+    for _ in range(2):
+        eng_f.answer(q)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng_f.answer(q)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, n = device_busy_us(prof)
+    write_table(prof, f"profile_bootstrap_{tag}.txt")
+    # The kernel's own device time, from the same window: on an H100 a
+    # profiler window around bare bootstrap_moments launches recorded no
+    # device events for them, while this one does.
+    kernel_us = sum(e.device_time if hasattr(e, "device_time")
+                    else e.cuda_time for e in prof.events()
+                    if "bootstrap_moments_kernel" in e.name
+                    and str(getattr(e, "device_type", "")).endswith("CUDA"))
+    times["bootstrap_moments_device"] = kernel_us / 1e3 / 3
+    prof_out = {"device_kernels_per_answer": n / 3,
+                "device_busy_ms_per_answer": busy_us / 1e3 / 3,
+                "wall_ms_per_answer": wall_ms / 3,
+                "device_busy_share": busy_us / 1e3 / wall_ms}
+    emit(bootstrap_times_ms=times, path=tag, n_boot=N_BOOT,
+         answer_peak_mb_above_resident=peak_mb, profile=prof_out, card=card)
+    return {"times": times, "W": W}
+
+
+def boot_kernel_times(torch, run, W, card) -> dict:
+    """The three new kernels and their plain versions at the main path's
+    shapes (Q = 2048, k = 1024, s = 75, R = 200; the plain bootstrap on the
+    first PLAIN_BOOT_Q queries; weighted_segment_reduce over the flattened
+    samples by stratum with the first weight row, as the JAX package's
+    fused-bootstrap benchmark calls it), kernel = plain checked at each,
+    and the nearest single library calls, with TF32 off: torch.bmm of the
+    predicate (k, Q, s) built beforehand with [w, w*a, w*a^2] (k, s, 3R)
+    ("contraction only", rows 2-4) and index_add_ of a prebuilt (N, 3)
+    source ("scatter only", row 6)."""
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
+    from repro_torch.kernels.segment_reduce import (
+        weighted_segment_reduce_cuda, weighted_segment_reduce_plain)
+    from repro_torch.kernels.stratified_estimate import (
+        samples_inside, stratified_moments_cuda,
+        stratified_weighted_moments_cuda, weighted_moments_plain)
+    syn, q = run["syn"], run["q"]
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    k, s = syn.sample_a.shape
+    w0 = W[0].contiguous()
+    ql, qh = q.lo[:PLAIN_BOOT_Q], q.hi[:PLAIN_BOOT_Q]
+    err_w = close("main stratified_weighted_moments",
+                  stratified_weighted_moments_cuda(*sm, w0, q.lo,
+                                                   q.hi).cpu(),
+                  weighted_moments_plain(*sm, w0, q.lo, q.hi).cpu(),
+                  K_RTOL, K_ATOL)
+    err_b = close(f"main bootstrap_moments Q={PLAIN_BOOT_Q}",
+                  bootstrap_moments_cuda(*sm, W, ql, qh).cpu(),
+                  bootstrap_moments_plain(*sm, W, ql, qh).cpu(),
+                  K_RTOL, K_ATOL)
+    seg_v = syn.sample_a.reshape(-1)
+    seg_w = w0.reshape(-1)
+    seg_ids = torch.where(syn.sample_valid, torch.arange(
+        k, dtype=torch.int32, device=seg_v.device)[:, None], -1
+    ).reshape(-1).contiguous()
+    err_s = wseg_vs_plain(torch, "main N=k*s", seg_v, seg_w, seg_ids, k)
+    relevant = float(stratified_moments_cuda(*sm, q.lo, q.hi)[..., 0].sum())
+    bnd = boot_bounds(syn, q, relevant, W.shape[0], seg_v.shape[0])
+
+    pred = samples_inside(syn.sample_c, syn.sample_valid, q.lo, q.hi
+                          ).permute(1, 0, 2).to(torch.float32).contiguous()
+    a = syn.sample_a
+
+    def rhs(w):                      # (R', k, s) -> (k, s, 3R')
+        t = torch.stack([w, w * a, w * a * a], dim=-1)
+        return t.permute(1, 2, 0, 3).reshape(k, s, -1).contiguous()
+
+    rhs2 = rhs(torch.ones_like(a)[None])
+    rhs3 = rhs(w0[None])
+    rhs4 = rhs(W)
+    src = torch.stack([seg_w * seg_v, seg_w * seg_v * seg_v, seg_w], 1)
+    spill = torch.where(seg_ids >= 0, seg_ids.long(), k)
+    acc = torch.zeros((k + 1, 3), dtype=torch.float32, device=seg_v.device)
+    times = {
+        "stratified_weighted_moments": cuda_ms(
+            torch, lambda: stratified_weighted_moments_cuda(
+                *sm, w0, q.lo, q.hi)),
+        "stratified_weighted_moments_device": device_ms(
+            torch, lambda: stratified_weighted_moments_cuda(
+                *sm, w0, q.lo, q.hi)),
+        "stratified_weighted_moments_plain": cuda_ms(
+            torch, lambda: weighted_moments_plain(*sm, w0, q.lo, q.hi),
+            reps=10),
+        "stratified_weighted_moments_plain_device": device_ms(
+            torch, lambda: weighted_moments_plain(*sm, w0, q.lo, q.hi),
+            reps=5),
+        "bootstrap_moments_plain_q256": cuda_ms(
+            torch, lambda: bootstrap_moments_plain(*sm, W, ql, qh), reps=3,
+            warmup=1),
+        "bootstrap_moments_plain_q256_device": device_ms(
+            torch, lambda: bootstrap_moments_plain(*sm, W, ql, qh), reps=2,
+            warmup=1),
+        "bootstrap_moments_q256": cuda_ms(
+            torch, lambda: bootstrap_moments_cuda(*sm, W, ql, qh)),
+        "weighted_segment_reduce": cuda_ms(
+            torch, lambda: weighted_segment_reduce_cuda(seg_v, seg_w,
+                                                        seg_ids, k)),
+        "weighted_segment_reduce_device": device_ms(
+            torch, lambda: weighted_segment_reduce_cuda(seg_v, seg_w,
+                                                        seg_ids, k)),
+        "weighted_segment_reduce_plain": cuda_ms(
+            torch, lambda: weighted_segment_reduce_plain(seg_v, seg_w,
+                                                         seg_ids, k)),
+        "weighted_segment_reduce_plain_device": device_ms(
+            torch, lambda: weighted_segment_reduce_plain(seg_v, seg_w,
+                                                         seg_ids, k)),
+        "bmm_stratified_moments": cuda_ms(torch, lambda: torch.bmm(pred,
+                                                                   rhs2)),
+        "bmm_stratified_weighted_moments": cuda_ms(
+            torch, lambda: torch.bmm(pred, rhs3)),
+        "bmm_bootstrap_moments": cuda_ms(torch, lambda: torch.bmm(pred,
+                                                                  rhs4),
+                                         reps=10),
+        "index_add_weighted_segment_reduce": cuda_ms(
+            torch, lambda: acc.index_add_(0, spill, src)),
+    }
+    emit(new_kernel_times_ms=times, bounds=bnd, plain_boot_q=PLAIN_BOOT_Q,
+         relevant_pairs=relevant, card=card,
+         max_abs_err={"stratified_weighted_moments": err_w,
+                      "bootstrap_moments": err_b,
+                      "weighted_segment_reduce": err_s})
+    return {"times": times, "bounds": bnd,
+            "errs": {"stratified_weighted_moments": err_w,
+                     "bootstrap_moments": err_b,
+                     "weighted_segment_reduce": err_s}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -934,10 +1449,31 @@ def main() -> int:
     profile_ingest(torch, "1d", s1)
     profile_ingest(torch, "3d", s3)
 
-    # 11. The kernels line: serving kernels at the 1-D answer's shapes and
+    # 11. The bootstrap's kernels against plain at edge shapes.
+    edge_w = edge_cases_weighted(torch, dev)
+
+    # 12. 1-D bootstrap serving, fused and scan; 13. 3-D, fused.
+    b1 = boot_serve(torch, "1d", run1, 0.05, scan=True)
+    check_cpu_parity(torch, "1d bootstrap", run1["syn"], run1["q"],
+                     b1["res"], n=32, kinds=BOOT_KINDS, ci=boot_ci())
+    b3 = boot_serve(torch, "3d", run3, 0.15, scan=False)
+
+    # 14. Planner.
+    planner_path(torch, "1d", run1)
+
+    # 15. Bootstrap times.
+    bt = boot_timings(torch, "1d", run1, b1, card)
+    bk = boot_kernel_times(torch, run1, bt["W"], card)
+
+    # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
     # 4096) with the launches of the whole stream (1-D for segment_reduce,
-    # 3-D for route_multid).
+    # 3-D for route_multid); the bootstrap's kernels at the 1-D bootstrap
+    # answer's shapes (R = 200) with the launches of one fused answer
+    # (bootstrap_moments) or one scan answer (stratified_weighted_moments);
+    # weighted_segment_reduce is on no serving path and launches 0 there.
+    bb, btimes = bk["bounds"], bk["times"]
+    library = {"stratified_moments": btimes["bmm_stratified_moments"]}
     rows = []
     for name in ("query_eval", "stratified_moments"):
         source, replaces = SOURCES[name]
@@ -949,7 +1485,7 @@ def main() -> int:
             "ms": t1["times"][name], "plain_ms": t1["times"][f"{name}_plain"],
             "bound_ms": t1["bounds"][name]["bound_ms"],
             "bound_by": t1["bounds"][name]["bound_by"],
-            "library_ms": None,
+            "library_ms": library.get(name),
             "device_ms": t1["times"][f"{name}_device"],
             "plain_device_ms": t1["times"][f"{name}_plain_device"],
             "ms_3d": t3["times"][name],
@@ -975,6 +1511,49 @@ def main() -> int:
             "device_ms_b65536": b64[f"{name}_device"],
             "ms_b65536": b64[name], "plain_ms_b65536": b64[f"{name}_plain"],
             "bound_ms_b65536": b64["bounds"][name]["bound_ms"]})
+    boot_rows = {
+        "stratified_weighted_moments": {
+            "launches": b1["scan_launches"]["stratified_weighted_moments"],
+            "launches_path": "1d scan bootstrap answer (boot_fused=False)",
+            "ms": btimes["stratified_weighted_moments"],
+            "device_ms": btimes["stratified_weighted_moments_device"],
+            "plain_ms": btimes["stratified_weighted_moments_plain"],
+            "plain_device_ms":
+                btimes["stratified_weighted_moments_plain_device"],
+            "library_ms": btimes["bmm_stratified_weighted_moments"],
+            "library": "torch.bmm, contraction only"},
+        "bootstrap_moments": {
+            "launches": b1["launches"]["bootstrap_moments"],
+            "launches_3d": b3["launches"]["bootstrap_moments"],
+            "launches_path": "1d fused bootstrap answer (the default)",
+            "ms": bt["times"]["bootstrap_moments"],
+            "device_ms": bt["times"]["bootstrap_moments_device"],
+            "plain_ms": btimes["bootstrap_moments_plain_q256"],
+            "plain_device_ms": btimes["bootstrap_moments_plain_q256_device"],
+            "plain_queries": PLAIN_BOOT_Q,
+            "ms_q256": btimes["bootstrap_moments_q256"],
+            "library_ms": btimes["bmm_bootstrap_moments"],
+            "library": "torch.bmm, contraction only"},
+        "weighted_segment_reduce": {
+            "launches": 0,
+            "launches_path": "none: held against plain only",
+            "ms": btimes["weighted_segment_reduce"],
+            "device_ms": btimes["weighted_segment_reduce_device"],
+            "plain_ms": btimes["weighted_segment_reduce_plain"],
+            "plain_device_ms":
+                btimes["weighted_segment_reduce_plain_device"],
+            "library_ms": btimes["index_add_weighted_segment_reduce"],
+            "library": "index_add_, scatter only"},
+    }
+    for name, row in boot_rows.items():
+        source, replaces = SOURCES[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "max_abs_err": max(edge_w[name], bk["errs"][name]),
+            "bound_ms": bb[name]["bound_ms"],
+            "bound_by": bb[name]["bound_by"], **row})
+    rows[1]["library"] = "torch.bmm, contraction only"
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

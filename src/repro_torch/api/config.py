@@ -7,10 +7,8 @@ returns a hashable token.
 
 Differences from the reference: ``ServingConfig.backend`` must be None
 (the port picks each kernel by the device of its tensors), and
-``CIConfig(method="bootstrap")`` validates but the engine does not serve
-it yet (ROADMAP Queue 1 item 8). The bootstrap's replicate count and
-normalisation and the progressive-refinement stop width come with the
-slices that serve them.
+``CIConfig`` has no ``max_ci_width`` yet: the progressive-refinement stop
+width comes with the slice that serves it (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ import numpy as np
 KINDS = ("sum", "count", "avg", "min", "max")
 CI_METHODS = ("clt", "bootstrap")
 DELTA_BUDGETS = ("stratum", "union")
+BOOT_NORMALIZE = ("hajek", "ht")
 
 
 def _normalize_kinds(kinds) -> tuple[str, ...]:
@@ -93,20 +92,34 @@ class CIConfig:
 
     ``level``             nominal two-sided confidence level in (0, 1).
     ``method``            'clt' (stratified composition with Bernstein /
-                          range fallbacks) or 'bootstrap' (not served yet).
+                          range fallbacks) or 'bootstrap' (Poisson
+                          bootstrap on the card).
     ``small_n_threshold`` effective-n below which a sampled stratum leaves
-                          the CLT regime.
+                          the CLT regime (CLT method only).
     ``delta_budget``      'stratum' (every fallback stratum spends the full
                           delta = 1 - level) or 'union' (delta /
                           n_fallback_strata per query).
-    ``key``               bootstrap PRNG key (None | int seed | key array);
-                          part of the plan-cache key.
+    ``n_boot``            bootstrap replicate count.
+    ``key``               bootstrap PRNG key (None = seed 0 | int seed |
+                          array of two uint32 words, a JAX key's data
+                          included); excluded from equality and digested
+                          for the plan-cache key.
+    ``boot_normalize``    'hajek' (rescale by the resampled stratum size,
+                          recommended for AVG) or 'ht' (fixed design
+                          scale).
+    ``boot_fused``        True serves through the one-pass
+                          ``bootstrap_moments`` kernel; False runs the
+                          per-replicate reference loop. The two are
+                          bit-identical for the same key.
     """
     level: float = 0.95
     method: str = "clt"
     small_n_threshold: int = 12
     delta_budget: str = "stratum"
+    n_boot: int = 200
     key: object = dataclasses.field(default=None, compare=False)
+    boot_normalize: str = "hajek"
+    boot_fused: bool = True
 
     def validate(self) -> "CIConfig":
         if not 0.0 < self.level < 1.0:
@@ -116,11 +129,14 @@ class CIConfig:
             raise ValueError(f"unknown ci_method: {self.method!r}")
         if self.delta_budget not in DELTA_BUDGETS:
             raise ValueError(f"unknown delta_budget: {self.delta_budget!r}")
+        if self.boot_normalize not in BOOT_NORMALIZE:
+            raise ValueError(f"unknown normalize: {self.boot_normalize!r}")
         return self
 
     def cache_key(self) -> tuple:
         return (float(self.level), self.method, int(self.small_n_threshold),
-                self.delta_budget, _key_token(self.key))
+                self.delta_budget, int(self.n_boot), _key_token(self.key),
+                self.boot_normalize, self.boot_fused)
 
 
 def as_ci_config(ci) -> CIConfig | None:
@@ -137,4 +153,4 @@ def merge_overrides(cfg, **overrides):
 
 
 __all__ = ["ServingConfig", "CIConfig", "as_ci_config", "merge_overrides",
-           "KINDS", "CI_METHODS", "DELTA_BUDGETS"]
+           "KINDS", "CI_METHODS", "DELTA_BUDGETS", "BOOT_NORMALIZE"]

@@ -15,9 +15,14 @@ moved there once per pinned plan and each batch on every call.
 the resolved synopsis and the serving function for that batch shape x
 config. An LRU plan cache keyed on batch shape x config lives in the
 engine, so plain ``eng.answer(...)`` reuses prepared entries;
-``eng.stats()`` counts hits, misses, evictions and invalidations with the
-reference's meaning. There is no ahead-of-time compile step yet, so
-``aot_compiles`` stays 0.
+``eng.stats()`` counts hits, misses, evictions, invalidations and fused
+bootstrap serves with the reference's meaning. There is no ahead-of-time
+compile step yet, so ``aot_compiles`` stays 0.
+
+``answer(queries, plan=plan)`` serves from a planner ``QueryPlan``
+(``engine.planner.plan_queries``): its leaf masks and exact aggregates
+replace the ``query_eval`` classification, for plain, CLT and bootstrap
+serving alike.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from ..core.types import QueryBatch, QueryResult
 from ..device import resolve_device
 from ..engine import executor as _executor
 from ..engine.assemble import answer_batch
+from ..uncertainty.bootstrap import BOOT_KINDS, bootstrap_answer, key_tensor
 from ..uncertainty.intervals import ci_answer
 from .config import ServingConfig, CIConfig, as_ci_config
 
@@ -49,31 +55,50 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})")
 
 
+def _resolve_key(key, device):
+    """CIConfig.key (None | int seed | key array) as a (2,) key tensor on
+    ``device``; None means ``PRNGKey(0)``."""
+    return key_tensor(0 if key is None else key, device)
+
+
 def _validate_request(serving: ServingConfig, ci: CIConfig | None) -> None:
     serving.validate()
     if ci is None:
         return
     ci.validate()
     if ci.method == "bootstrap":
-        raise _not_ported("CIConfig(method='bootstrap')",
-                          "item 8, uncertainty/bootstrap.py")
+        for kind in serving.kinds:
+            if kind not in BOOT_KINDS:
+                raise ValueError(
+                    f"bootstrap supports {BOOT_KINDS}, got {kind!r}")
     if "avg" in serving.kinds and serving.avg_mode != "ratio":
-        raise ValueError("calibrated intervals support avg_mode='ratio' only")
+        # Both ci methods center AVG intervals on the ratio estimator.
+        raise ValueError(
+            f"{ci.method} intervals support avg_mode='ratio' only"
+            if ci.method == "bootstrap" else
+            "calibrated intervals support avg_mode='ratio' only")
 
 
-def _dispatch_entry(serving: ServingConfig, ci: CIConfig | None):
-    """The serving function for one config: (syn, queries) -> results."""
+def _dispatch_entry(serving: ServingConfig, ci: CIConfig | None, device):
+    """The serving function for one config: (syn, queries, plan_masks) ->
+    results. The bootstrap's key is resolved here, once, on ``device``."""
     if ci is None:
         return functools.partial(
             answer_batch, kinds=serving.kinds, lam=serving.lam,
             use_fpc=serving.use_fpc, zero_var_rule=serving.zero_var_rule,
             use_aggregates=serving.use_aggregates, avg_mode=serving.avg_mode)
+    if ci.method == "clt":
+        return functools.partial(
+            ci_answer, kinds=serving.kinds, level=float(ci.level),
+            small_n_threshold=int(ci.small_n_threshold),
+            use_fpc=serving.use_fpc, zero_var_rule=serving.zero_var_rule,
+            use_aggregates=serving.use_aggregates, avg_mode=serving.avg_mode,
+            delta_budget=ci.delta_budget)
     return functools.partial(
-        ci_answer, kinds=serving.kinds, level=float(ci.level),
-        small_n_threshold=int(ci.small_n_threshold),
-        use_fpc=serving.use_fpc, zero_var_rule=serving.zero_var_rule,
-        use_aggregates=serving.use_aggregates, avg_mode=serving.avg_mode,
-        delta_budget=ci.delta_budget)
+        bootstrap_answer, key=_resolve_key(ci.key, device),
+        kinds=serving.kinds, n_boot=int(ci.n_boot), level=float(ci.level),
+        normalize=ci.boot_normalize, use_aggregates=serving.use_aggregates,
+        fused=bool(ci.boot_fused))
 
 
 class PreparedQuery:
@@ -84,19 +109,21 @@ class PreparedQuery:
     and the synopsis is pinned on the engine's device (re-resolved only
     when the source's epoch or the engine's generation changes).
     Differently-shaped batches go to ``engine.answer`` (a plan-cache miss
-    there), so a handle never answers wrongly.
+    there), so a handle never answers wrongly. A handle pinned with
+    ``has_plan=True`` takes the planner's masks with every call.
     """
 
     def __init__(self, engine: "PassEngine", serving: ServingConfig,
-                 ci: CIConfig | None, shape: tuple):
+                 ci: CIConfig | None, shape: tuple, has_plan: bool = False):
         self._engine = engine
         self.serving = serving
         self.ci = ci
         self.shape = tuple(shape)
+        self.has_plan = bool(has_plan)
         self._epoch = engine.epoch
         self._generation = engine._generation
         self._syn = self._resolve_source()
-        self._run = _dispatch_entry(serving, ci)
+        self._run = _dispatch_entry(serving, ci, engine.device)
 
     def _resolve_source(self):
         return _executor.slice_sample_slots(self._engine.resolve(),
@@ -113,13 +140,28 @@ class PreparedQuery:
         self._syn = self._resolve_source()
         eng._stats["invalidations"] += 1
 
-    def __call__(self, queries: QueryBatch) -> dict[str, QueryResult]:
+    def __call__(self, queries: QueryBatch,
+                 plan_masks=None) -> dict[str, QueryResult]:
+        if (plan_masks is not None) != self.has_plan:
+            raise ValueError(
+                "prepared entry was pinned with has_plan="
+                f"{self.has_plan}; pass plan_masks accordingly")
         if tuple(queries.lo.shape) != self.shape:
+            if self.has_plan:
+                # Planner masks are (Q, k): re-key on the batch's own shape
+                # so the fallback stays a counted plan-cache miss.
+                return self._engine._lookup(
+                    tuple(queries.lo.shape), self.serving, self.ci,
+                    has_plan=True)(queries, plan_masks)
             return self._engine.answer(queries, kinds=self.serving.kinds,
                                        ci=self.ci, serving=self.serving)
         self._refresh()
         _executor.count_artifact_pass(self.serving.kinds)
-        return self._run(self._syn, queries.to(self._engine.device))
+        if (self.ci is not None and self.ci.method == "bootstrap"
+                and self.ci.boot_fused):
+            self._engine._stats["fused_serves"] += 1
+        return self._run(self._syn, queries.to(self._engine.device),
+                         plan_masks)
 
 
 class PassEngine:
@@ -147,7 +189,8 @@ class PassEngine:
         self._cache: OrderedDict[tuple, PreparedQuery] = OrderedDict()
         self._generation = 0
         self._stats = {"hits": 0, "misses": 0, "evictions": 0,
-                       "invalidations": 0, "aot_compiles": 0}
+                       "invalidations": 0, "aot_compiles": 0,
+                       "fused_serves": 0}
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -202,16 +245,17 @@ class PassEngine:
         return sv, cfg
 
     # -- plan cache --------------------------------------------------------
-    def _lookup(self, shape, serving, ci) -> PreparedQuery:
+    def _lookup(self, shape, serving, ci,
+                has_plan: bool = False) -> PreparedQuery:
         key = (tuple(shape), serving.cache_key(),
-               ci.cache_key() if ci is not None else None)
+               ci.cache_key() if ci is not None else None, has_plan)
         hit = self._cache.get(key)
         if hit is not None:
             self._cache.move_to_end(key)
             self._stats["hits"] += 1
             return hit
         self._stats["misses"] += 1
-        prepared = PreparedQuery(self, serving, ci, shape)
+        prepared = PreparedQuery(self, serving, ci, shape, has_plan=has_plan)
         self._cache[key] = prepared
         if len(self._cache) > self._plan_cache_size:
             self._cache.popitem(last=False)
@@ -222,7 +266,9 @@ class PassEngine:
         self._cache.clear()
 
     def stats(self) -> dict:
-        """Plan-cache counters plus current entry count and source epoch."""
+        """Plan-cache counters, ``fused_serves`` (answers served through
+        the fused bootstrap kernel), the current entry count and the source
+        epoch."""
         return dict(self._stats, entries=len(self._cache), epoch=self.epoch)
 
     # -- serving -----------------------------------------------------------
@@ -244,15 +290,19 @@ class PassEngine:
                deadline_ms: float | None = None) -> dict[str, QueryResult]:
         """Answer a batch for every configured kind from one shared
         artifact pass; returns ``{kind: QueryResult}``. ``kinds=`` /
-        ``ci=`` / ``serving=`` override the engine configs for this call."""
-        if plan is not None:
-            raise _not_ported("answer(plan=...)",
-                              "item 5, engine/planner.py")
+        ``ci=`` / ``serving=`` override the engine configs for this call.
+        ``plan=`` injects a planner ``QueryPlan`` whose masks replace the
+        leaf classification; plan-carrying calls have their own plan-cache
+        slot per shape x config."""
         if deadline_ms is not None:
             raise _not_ported("answer(deadline_ms=...)",
                               "item 9, serve/refine.py")
         sv, cfg = self._effective(kinds, ci, serving)
-        return self._lookup(tuple(queries.lo.shape), sv, cfg)(queries)
+        shape = tuple(queries.lo.shape)
+        if plan is not None:
+            return self._lookup(shape, sv, cfg, has_plan=True)(
+                queries, _executor.plan_to_masks(plan, self.device))
+        return self._lookup(shape, sv, cfg)(queries)
 
     def answer_progressive(self, *args, **kwargs):
         raise _not_ported("PassEngine.answer_progressive",

@@ -1,2 +1,15 @@
-"""Query engine: the shared per-batch artifacts (executor) and the per-kind
-answers derived from them (assemble)."""
+"""Query engine: plan -> execute -> assemble.
+
+* :mod:`planner`  — the Minimal Coverage Frontier over internal tree
+  nodes (host numpy), batched level-synchronously over the query batch.
+* :mod:`executor` — the shared per-batch artifacts (relation masks, exact
+  aggregates, stratified moments), computed once per batch.
+* :mod:`assemble` — every requested aggregate kind derived from them.
+"""
+from .planner import QueryPlan, plan_queries, relation_masks
+from .executor import (Artifacts, compute_artifacts, plan_to_masks,
+                       OP_COUNTS, reset_op_counts)
+
+__all__ = ["QueryPlan", "plan_queries", "relation_masks", "Artifacts",
+           "compute_artifacts", "plan_to_masks", "OP_COUNTS",
+           "reset_op_counts"]

@@ -205,12 +205,14 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
     raise ValueError(f"unknown kind: {kind}")
 
 
-def answer_batch(syn: Synopsis, queries: QueryBatch, *, kinds, lam,
-                 use_fpc: bool, zero_var_rule: bool, use_aggregates: bool,
-                 avg_mode: str) -> dict[str, QueryResult]:
+def answer_batch(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
+                 kinds, lam, use_fpc: bool, zero_var_rule: bool,
+                 use_aggregates: bool, avg_mode: str
+                 ) -> dict[str, QueryResult]:
     """One artifact stage feeding every requested kind's epilogue."""
     art = compute_artifacts(syn, queries, kinds,
-                            use_aggregates=use_aggregates)
+                            use_aggregates=use_aggregates,
+                            plan_masks=plan_masks)
     return {k: assemble(syn, art, k, lam, use_fpc, zero_var_rule,
                         use_aggregates, avg_mode)
             for k in kinds}

@@ -2,7 +2,8 @@
 
 One ``Artifacts`` bundle answers every aggregate kind: the leaf relation
 masks and the exact covered-aggregate accumulation come from one
-``query_eval`` call, the stratified sample moments from one
+``query_eval`` call (or from a planner ``QueryPlan``'s masks, passed as
+``plan_masks``), the stratified sample moments from one
 ``stratified_moments`` call, and the relevant-sample extremes (only for
 MIN/MAX) from one pass. The assembler derives each requested kind from
 these without touching the samples again.
@@ -20,6 +21,7 @@ import torch
 from ..core.types import Synopsis, QueryBatch, NUM_AGGS, REL_PARTIAL, \
     REL_COVER
 from ..kernels import ops
+from .planner import QueryPlan
 
 # Execution counters for the artifact stages (see module docstring).
 OP_COUNTS = {"classify": 0, "moments": 0, "extremes": 0}
@@ -62,16 +64,30 @@ def _needs_extremes(kinds) -> bool:
 def compute_artifacts(syn: Synopsis, queries: QueryBatch, kinds,
                       use_aggregates: bool = True,
                       plan_masks=None) -> Artifacts:
-    """One classification + one moment pass for ``kinds``."""
+    """One classification + one moment pass for ``kinds``.
+
+    ``plan_masks``: optional (cover_leaf_mask, partial_leaf_mask,
+    exact_agg) triple of tensors on the synopsis's device
+    (:func:`plan_to_masks`); when given, the planner's frontier replaces
+    the ``query_eval`` classification and its internal-node aggregates the
+    kernel's exact accumulation.
+    """
     if plan_masks is not None:
-        raise NotImplementedError(
-            "planner masks are not ported yet (ROADMAP Queue 1 item 5, "
-            "engine/planner.py)")
-    rel, exact = ops.query_eval(syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
-                                queries.lo, queries.hi)
-    exact = exact[:, :NUM_AGGS]
-    cover = rel == REL_COVER
-    partial_m = rel == REL_PARTIAL
+        cover, partial_m, exact = plan_masks
+        Q, k = queries.lo.shape[0], syn.num_leaves
+        shapes = [tuple(getattr(m, "shape", ())) for m in plan_masks]
+        if shapes != [(Q, k), (Q, k), (Q, NUM_AGGS)]:
+            raise ValueError(f"plan masks of shapes {shapes} do not fit a "
+                             f"batch of {Q} queries over {k} leaves")
+        rel = torch.where(cover, REL_COVER,
+                          torch.where(partial_m, REL_PARTIAL, 0)
+                          ).to(torch.int32)
+    else:
+        rel, exact = ops.query_eval(syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
+                                    queries.lo, queries.hi)
+        exact = exact[:, :NUM_AGGS]
+        cover = rel == REL_COVER
+        partial_m = rel == REL_PARTIAL
 
     if not use_aggregates:
         # Classic stratified sampling (§2.2): every relevant stratum is
@@ -131,6 +147,21 @@ def slice_sample_slots(syn: Synopsis, slots: int | None) -> Synopsis:
         k_per_leaf=torch.clamp(syn.k_per_leaf, max=slots))
 
 
+def plan_to_masks(plan, device):
+    """A planner :class:`~repro_torch.engine.planner.QueryPlan` as the
+    (cover, partial, exact float32) tensor triple on ``device`` that
+    :func:`compute_artifacts` takes; None passes through."""
+    if plan is None:
+        return None
+    if not isinstance(plan, QueryPlan):
+        raise TypeError(f"plan must be a QueryPlan from plan_queries, got "
+                        f"{type(plan).__name__}")
+    return (torch.as_tensor(plan.cover_leaf_mask, device=device),
+            torch.as_tensor(plan.partial_leaf_mask, device=device),
+            torch.as_tensor(plan.exact_agg, device=device
+                            ).to(torch.float32))
+
+
 __all__ = ["Artifacts", "compute_artifacts", "resolve_synopsis",
-           "slice_sample_slots", "count_artifact_pass", "OP_COUNTS",
-           "reset_op_counts"]
+           "slice_sample_slots", "count_artifact_pass", "plan_to_masks",
+           "OP_COUNTS", "reset_op_counts"]

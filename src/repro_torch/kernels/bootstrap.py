@@ -1,0 +1,72 @@
+"""All bootstrap replicate moments in one pass.
+
+``bootstrap_moments_cuda`` launches the hand-written kernel of
+``csrc/weighted_moments.cu`` (which replaces the Pallas megakernel
+``repro/kernels/bootstrap.py::bootstrap_moments``);
+``bootstrap_moments_plain`` is the replicate-tiled broadcast-reduce of the
+JAX package's ``JnpBackend.bootstrap_moments``, the version CPU tensors
+take and the reference the kernel is held against on the card.
+
+Both take the synopsis's leaf-major sample arrays (as
+``stratified_estimate``), resample weights W (R, k, s) float32 and
+q_lo/q_hi (Q, d), and return (R, Q, k, 3) float32 = [sum w, sum w*a,
+sum w*a^2] over each replicate's relevant samples; an invalid slot counts
+as w = 0 whatever W holds. Replicate r equals the weighted moments with
+the weight row W[r] bit for bit: on the card the two kernels share their
+per-slot update, on the CPU the two plain versions share their arithmetic
+(DESIGN.md §10).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import native
+from .stratified_estimate import (check_weighted_args, samples_inside,
+                                  weighted_library, weighted_terms)
+
+# Replicates per block of the plain version's (REP_TILE, Q, k, s)
+# temporaries: the JAX package's ``REP_TILE``.
+REP_TILE = 8
+
+
+def bootstrap_moments_plain(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
+    """The predicate is computed once and reused by every replicate; the
+    replicates run in blocks of REP_TILE, so (REP_TILE, Q, k, s) is the
+    largest temporary."""
+    inside = samples_inside(sample_c, sample_valid, q_lo, q_hi)[None]
+    a = sample_a.to(torch.float32)[None, None]
+    W = W.to(torch.float32)
+    R, k = W.shape[0], W.shape[1]
+    Q = q_lo.shape[0]
+    out = torch.empty((R, Q, k, 3), dtype=torch.float32, device=W.device)
+    for r0 in range(0, R, REP_TILE):
+        out[r0:r0 + REP_TILE] = weighted_terms(
+            inside, W[r0:r0 + REP_TILE, None], a)
+    return out
+
+
+def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
+    """Launch the CUDA kernel on the tensors' device and current stream."""
+    name = "bootstrap_moments"
+    if W.dim() != 3:
+        raise ValueError(f"{name}: W must be (R, k, s), got "
+                         f"{tuple(W.shape)}")
+    Q, k, s, d = check_weighted_args(name, sample_c, sample_a, sample_valid,
+                                     W, q_lo, q_hi)
+    R = W.shape[0]
+    # Replicate tiles of 8 run along gridDim.z, which holds at most 65535.
+    if not 1 <= R <= 65535 * 8:
+        raise ValueError(f"{name}: needs 1 <= R <= {65535 * 8}, got R={R}")
+    dev = sample_c.device
+    out = torch.empty((R, Q, k, 3), dtype=torch.float32, device=dev)
+    fn = weighted_library().repro_bootstrap_moments
+    with torch.cuda.device(dev):
+        err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
+                 sample_valid.data_ptr(), W.data_ptr(), q_lo.data_ptr(),
+                 q_hi.data_ptr(), out.data_ptr(), R, Q, k, s, d,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(name, err)
+    return out
+
+
+__all__ = ["bootstrap_moments_plain", "bootstrap_moments_cuda", "REP_TILE"]

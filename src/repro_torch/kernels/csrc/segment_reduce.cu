@@ -2,6 +2,14 @@
 // values whose segment id lies in [0, k); other ids (-1 marks a dropped
 // row) are skipped. An empty segment reads [0, 0, 0, +BIG, -BIG].
 //
+// weighted_segment_reduce, its weighted twin in the same two passes:
+// per-segment [sum w*v, sum w*v^2, sum w] with one weight per row; an
+// empty segment reads [0, 0, 0]. It replaces the Pallas kernel
+// src/repro/kernels/segment_reduce.py::weighted_segment_reduce (body
+// `_kernel_weighted`), the same one-hot MXU contraction with the moment
+// matrix scaled by the row weight. Its bound is bytes as well (12 bytes a
+// row in, 12 a segment out).
+//
 // Replaces the Pallas kernel
 // src/repro/kernels/segment_reduce.py::segment_reduce (body `_kernel`),
 // which walks row tiles on a sequential grid, builds a one-hot (BN, BK)
@@ -44,21 +52,13 @@ constexpr int TILE = 1024;     // rows staged in shared memory at a time
 constexpr float POS_BIG = 3.0e38f;   // kernels/ref.py POS_BIG / NEG_BIG
 constexpr float NEG_BIG = -3.0e38f;
 
-__global__ void __launch_bounds__(BS)
-segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
-                 float* __restrict__ part, int N, int k, int CH) {
-  __shared__ float s_v[TILE];
-  __shared__ int32_t s_id[TILE];
-  __shared__ int s_min[BS / 32], s_max[BS / 32];
-
+// Does rows [r0, r1)'s id range (ids outside [0, k) excluded) meet the
+// segment tile [seg0, seg0 + BS)? Uniform across the block; s_min / s_max
+// are BS / 32 ints of scratch.
+__device__ __forceinline__ bool chunk_hits_tile(const int32_t* ids, int r0,
+                                                int r1, int k, int seg0,
+                                                int* s_min, int* s_max) {
   const int tid = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int seg0 = blockIdx.y * BS;
-  const int seg = seg0 + tid;
-  const int r0 = chunk * CH;
-  const int r1 = min(N, r0 + CH);
-
-  // The chunk's smallest and largest id (ids outside [0, k) excluded).
   int lo = 0x7fffffff, hi = -1;
   for (int r = r0 + tid; r < r1; r += BS) {
     const int id = ids[r];
@@ -74,7 +74,24 @@ segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
   for (int w = 1; w < BS / 32; ++w) {
     lo = min(lo, s_min[w]); hi = max(hi, s_max[w]);
   }
-  const bool any = hi >= seg0 && lo < seg0 + BS;
+  return hi >= seg0 && lo < seg0 + BS;
+}
+
+__global__ void __launch_bounds__(BS)
+segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
+                 float* __restrict__ part, int N, int k, int CH) {
+  __shared__ float s_v[TILE];
+  __shared__ int32_t s_id[TILE];
+  __shared__ int s_min[BS / 32], s_max[BS / 32];
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x;
+  const int seg0 = blockIdx.y * BS;
+  const int seg = seg0 + tid;
+  const int r0 = chunk * CH;
+  const int r1 = min(N, r0 + CH);
+
+  const bool any = chunk_hits_tile(ids, r0, r1, k, seg0, s_min, s_max);
 
   float sum = 0.f, sumsq = 0.f, cnt = 0.f, mn = POS_BIG, mx = NEG_BIG;
   if (any) {  // uniform across the block
@@ -130,6 +147,71 @@ segment_combine(const float* __restrict__ part, float* __restrict__ out,
   o[4] = mx;
 }
 
+__global__ void __launch_bounds__(BS)
+weighted_partials(const float* __restrict__ v, const float* __restrict__ wt,
+                  const int32_t* __restrict__ ids, float* __restrict__ part,
+                  int N, int k, int CH) {
+  __shared__ float s_v[TILE];
+  __shared__ float s_w[TILE];
+  __shared__ int32_t s_id[TILE];
+  __shared__ int s_min[BS / 32], s_max[BS / 32];
+
+  const int tid = threadIdx.x;
+  const int chunk = blockIdx.x;
+  const int seg0 = blockIdx.y * BS;
+  const int seg = seg0 + tid;
+  const int r0 = chunk * CH;
+  const int r1 = min(N, r0 + CH);
+  const bool any = chunk_hits_tile(ids, r0, r1, k, seg0, s_min, s_max);
+
+  float sum = 0.f, sumsq = 0.f, wsum = 0.f;
+  if (any) {  // uniform across the block
+    for (int t0 = r0; t0 < r1; t0 += TILE) {
+      const int n = min(TILE, r1 - t0);
+      __syncthreads();  // the previous tile is consumed
+      for (int i = tid; i < n; i += BS) {
+        s_v[i] = v[t0 + i];
+        s_w[i] = wt[t0 + i];
+        s_id[i] = ids[t0 + i];
+      }
+      __syncthreads();
+      for (int i = 0; i < n; ++i) {
+        if (s_id[i] == seg) {
+          const float w = s_w[i];
+          const float wv = w * s_v[i];
+          sum += wv;
+          sumsq += wv * s_v[i];
+          wsum += w;
+        }
+      }
+    }
+  }
+  if (seg < k) {
+    float* p = part + (size_t)chunk * 3 * k + seg;
+    p[0] = sum;
+    p[(size_t)k] = sumsq;
+    p[(size_t)2 * k] = wsum;
+  }
+}
+
+__global__ void __launch_bounds__(BS)
+weighted_combine(const float* __restrict__ part, float* __restrict__ out,
+                 int k, int C) {
+  const int seg = blockIdx.x * BS + threadIdx.x;
+  if (seg >= k) return;
+  float sum = 0.f, sumsq = 0.f, wsum = 0.f;
+  for (int c = 0; c < C; ++c) {
+    const float* p = part + (size_t)c * 3 * k + seg;
+    sum += p[0];
+    sumsq += p[(size_t)k];
+    wsum += p[(size_t)2 * k];
+  }
+  float* o = out + (size_t)seg * 3;
+  o[0] = sum;
+  o[1] = sumsq;
+  o[2] = wsum;
+}
+
 }  // namespace
 
 // Rows per chunk for N rows: at least MIN_CH, and enough that there are
@@ -154,6 +236,25 @@ extern "C" int repro_segment_reduce(const float* v, const int32_t* ids,
     if (err != cudaSuccess) return (int)err;
   }
   segment_combine<<<(k + BS - 1) / BS, BS, 0, st>>>(part, out, k, C);
+  return (int)cudaGetLastError();
+}
+
+// part: scratch of at least C * 3 * k floats, C = ceil(N / CH).
+extern "C" int repro_weighted_segment_reduce(const float* v, const float* w,
+                                             const int32_t* ids, float* part,
+                                             float* out, int N, int k,
+                                             void* stream) {
+  if (N < 0 || k < 1) return (int)cudaErrorInvalidValue;
+  const int CH = repro_segment_reduce_chunk(N);
+  const int C = (N + CH - 1) / CH;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C > 0) {
+    dim3 grid(C, (k + BS - 1) / BS);
+    weighted_partials<<<grid, BS, 0, st>>>(v, w, ids, part, N, k, CH);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  weighted_combine<<<(k + BS - 1) / BS, BS, 0, st>>>(part, out, k, C);
   return (int)cudaGetLastError();
 }
 

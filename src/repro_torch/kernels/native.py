@@ -1,6 +1,7 @@
 """Build, load and count launches of the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own
+Each ``csrc/<name>.cu`` (one of ``SOURCES``; ``KERNELS`` says which
+source holds each kernel) compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``. The
 build happens at first use into ``build/repro_torch/`` at the repository
 root; the file name carries a digest of the source and flags, so an edited
@@ -19,8 +20,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
-SOURCES = ("query_eval", "stratified_moments", "segment_reduce",
-           "route_multid")
+# Each kernel and the source that holds it: a source may hold twins that
+# must share a digest (DESIGN.md §10's bit-identity contract).
+KERNELS = {"query_eval": "query_eval",
+           "stratified_moments": "stratified_moments",
+           "stratified_weighted_moments": "weighted_moments",
+           "bootstrap_moments": "weighted_moments",
+           "segment_reduce": "segment_reduce",
+           "weighted_segment_reduce": "segment_reduce",
+           "route_multid": "route_multid"}
+SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -28,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Launches of each kernel since the last reset_launches(); each wrapper adds
 # one right after its kernel was launched without error.
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -100,10 +109,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check_launch(name: str, err: int) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a kernel's C entry;
-    count the launch otherwise."""
+    """Raise on a nonzero ``cudaError_t`` returned by kernel ``name``'s C
+    entry; count the launch otherwise."""
     if err != 0:
-        msg = library(name).repro_error_string(err).decode()
+        msg = library(KERNELS[name]).repro_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: cuda error {err} "
                            f"({msg})")
     LAUNCHES[name] += 1
@@ -136,6 +145,6 @@ def check_dtype(name: str, dtype, **tensors) -> None:
             raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
 
 
-__all__ = ["SOURCES", "LAUNCHES", "reset_launches", "build_all", "library",
-           "library_path", "check_launch", "device_type", "check_tensors",
-           "check_dtype"]
+__all__ = ["SOURCES", "KERNELS", "LAUNCHES", "reset_launches", "build_all",
+           "library", "library_path", "check_launch", "device_type",
+           "check_tensors", "check_dtype"]

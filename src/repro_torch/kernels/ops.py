@@ -9,12 +9,17 @@ from __future__ import annotations
 
 import torch
 
+from .bootstrap import bootstrap_moments_cuda, bootstrap_moments_plain
 from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
 from .route import route_multid_cuda, route_multid_plain
-from .segment_reduce import segment_reduce_cuda, segment_reduce_plain
+from .segment_reduce import (segment_reduce_cuda, segment_reduce_plain,
+                             weighted_segment_reduce_cuda,
+                             weighted_segment_reduce_plain)
 from .stratified_estimate import (samples_inside, stratified_moments_cuda,
-                                  stratified_moments_plain)
+                                  stratified_moments_plain,
+                                  stratified_weighted_moments_cuda,
+                                  tree_sum_last, weighted_moments_plain)
 
 # Sentinel of the relevant-sample extremes (``backends.py`` ``_BIG``).
 _BIG = 3.4e38
@@ -42,6 +47,30 @@ def stratified_moments(sample_c, sample_a, sample_valid, q_lo, q_hi):
     return out.unbind(-1)
 
 
+def weighted_moments(sample_c, sample_a, sample_valid, weights, q_lo,
+                     q_hi):
+    """Per-(query, stratum) weighted relevant-sample moments for one
+    resample-weight row ``weights`` (k, s); invalid slots count as weight
+    0. Returns (Q, k, 3) = [sum w, sum w*a, sum w*a^2]."""
+    args = [t.contiguous() for t in
+            (sample_c, sample_a, sample_valid, weights, q_lo, q_hi)]
+    if device_type("weighted_moments", *args) == "cuda":
+        return stratified_weighted_moments_cuda(*args)
+    return weighted_moments_plain(*args)
+
+
+def bootstrap_moments(sample_c, sample_a, sample_valid, weights, q_lo,
+                      q_hi):
+    """:func:`weighted_moments` for R weight rows ``weights`` (R, k, s) in
+    one pass. Returns (R, Q, k, 3); replicate r is bit-equal to
+    ``weighted_moments`` with ``weights[r]`` on the same device."""
+    args = [t.contiguous() for t in
+            (sample_c, sample_a, sample_valid, weights, q_lo, q_hi)]
+    if device_type("bootstrap_moments", *args) == "cuda":
+        return bootstrap_moments_cuda(*args)
+    return bootstrap_moments_plain(*args)
+
+
 def sample_extremes(sample_c, sample_a, sample_valid, q_lo, q_hi):
     """Per-(query, stratum) MIN/MAX over relevant samples; irrelevant
     strata read +BIG / -BIG. Returns (samp_min, samp_max), each (Q, k).
@@ -64,6 +93,16 @@ def segment_reduce(values, seg_ids, k: int):
     return segment_reduce_plain(*args, k)
 
 
+def weighted_segment_reduce(values, weights, seg_ids, k: int):
+    """Per-segment [sum w*v, sum w*v^2, sum w] of values (N,) f32 with
+    weights (N,) f32 by seg_ids (N,) int32; ids outside [0, k) are dropped.
+    Returns (k, 3)."""
+    args = [t.contiguous() for t in (values, weights, seg_ids)]
+    if device_type("weighted_segment_reduce", *args) == "cuda":
+        return weighted_segment_reduce_cuda(*args, k)
+    return weighted_segment_reduce_plain(*args, k)
+
+
 def route_multid(leaf_lo, leaf_hi, c):
     """L1-nearest leaf box of each row, lowest id on ties. leaf_lo/leaf_hi
     (k, d), c (B, d). Returns (leaf (B,) int32, dist (B,) f32)."""
@@ -73,5 +112,6 @@ def route_multid(leaf_lo, leaf_hi, c):
     return route_multid_plain(*args)
 
 
-__all__ = ["query_eval", "stratified_moments", "sample_extremes",
-           "segment_reduce", "route_multid"]
+__all__ = ["query_eval", "stratified_moments", "weighted_moments",
+           "bootstrap_moments", "sample_extremes", "segment_reduce",
+           "weighted_segment_reduce", "route_multid", "tree_sum_last"]

@@ -11,6 +11,11 @@ Both take values (N,) float32 and seg_ids (N,) int32 and return (k, 5)
 float32. Ids outside [0, k) (-1 marks a dropped row) are skipped; an
 empty segment reads [0, 0, 0, POS_BIG, NEG_BIG]. Any N and k are taken
 as they are, with no padding to a block size.
+
+The weighted twin ``weighted_segment_reduce_{cuda,plain}`` (the Pallas
+kernel ``weighted_segment_reduce``; ``JnpBackend.weighted_segment_reduce``)
+takes a weight (N,) float32 per row as well and returns (k, 3) =
+[sum w*v, sum w*v^2, sum w]; an empty segment reads [0, 0, 0].
 """
 from __future__ import annotations
 
@@ -40,6 +45,19 @@ def segment_reduce_plain(values, seg_ids, k: int) -> torch.Tensor:
     return torch.cat([sums, vmin[:, None], vmax[:, None]], 1)[:k]
 
 
+def weighted_segment_reduce_plain(values, weights, seg_ids, k: int
+                                  ) -> torch.Tensor:
+    """Scatter formulation with the same spill slot as
+    :func:`segment_reduce_plain`."""
+    v = values.to(torch.float32)
+    w = weights.to(torch.float32)
+    ids = torch.where((seg_ids >= 0) & (seg_ids < k), seg_ids.long(), k)
+    wv = w * v
+    sums = torch.zeros((k + 1, 3), dtype=torch.float32, device=v.device)
+    sums.index_add_(0, ids, torch.stack([wv, wv * v, w], 1))
+    return sums[:k]
+
+
 _lib = None
 
 
@@ -50,6 +68,9 @@ def _kernel():
         lib.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 4 + \
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.repro_segment_reduce.restype = ctypes.c_int
+        lib.repro_weighted_segment_reduce.argtypes = \
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.repro_weighted_segment_reduce.restype = ctypes.c_int
         lib.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
         lib.repro_segment_reduce_chunk.restype = ctypes.c_int
         _lib = lib
@@ -83,5 +104,37 @@ def segment_reduce_cuda(values, seg_ids, k: int) -> torch.Tensor:
     return out
 
 
-__all__ = ["segment_reduce_plain", "segment_reduce_cuda", "POS_BIG",
-           "NEG_BIG"]
+def weighted_segment_reduce_cuda(values, weights, seg_ids, k: int
+                                 ) -> torch.Tensor:
+    """Launch the weighted CUDA kernel on the tensors' device and current
+    stream."""
+    name = "weighted_segment_reduce"
+    native.check_tensors(name, values=values, weights=weights,
+                         seg_ids=seg_ids)
+    native.check_dtype(name, torch.float32, values=values, weights=weights)
+    native.check_dtype(name, torch.int32, seg_ids=seg_ids)
+    n = values.shape[0]
+    if values.dim() != 1 or weights.shape != (n,) or seg_ids.shape != (n,):
+        raise ValueError(f"{name}: shapes {values.shape} {weights.shape} "
+                         f"{seg_ids.shape}")
+    if not (1 <= k < 2 ** 31 and n < 2 ** 31):
+        raise ValueError(f"{name}: needs 1 <= k and N < 2**31, got "
+                         f"k={k} N={n}")
+    lib = _kernel()
+    chunks = -(-n // lib.repro_segment_reduce_chunk(n))
+    dev = values.device
+    part = torch.empty((max(chunks, 1) * 3 * k,), dtype=torch.float32,
+                       device=dev)
+    out = torch.empty((k, 3), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.repro_weighted_segment_reduce(
+            values.data_ptr(), weights.data_ptr(), seg_ids.data_ptr(),
+            part.data_ptr(), out.data_ptr(), n, k,
+            torch.cuda.current_stream(dev).cuda_stream)
+    native.check_launch(name, err)
+    return out
+
+
+__all__ = ["segment_reduce_plain", "segment_reduce_cuda",
+           "weighted_segment_reduce_plain", "weighted_segment_reduce_cuda",
+           "POS_BIG", "NEG_BIG"]

@@ -9,10 +9,17 @@ packages:
 
 * :func:`PRNGKey` — ``jax.random.PRNGKey`` (``prng.threefry_seed``);
 * :func:`split`   — ``jax.random.split`` (``prng._threefry_split_foldlike``);
+* :func:`fold_in` — ``jax.random.fold_in`` (``prng._threefry_fold_in``);
 * :func:`uniform` — ``jax.random.uniform`` in float32 over [0, 1)
   (``random._uniform`` on ``prng._threefry_random_bits_partitionable``).
 
-A key is a (2,) int64 tensor holding two uint32 words. Every word lives in
+The bootstrap draws its resample weights from ``fold_in(key, r)`` once
+per replicate r; :func:`fold_in` takes a vector of r and :func:`uniform`
+a batch of keys, so all R replicates are drawn in one pass that equals
+``jax.vmap(lambda r: uniform(fold_in(key, r), shape))(arange(R))``.
+
+A key is a (2,) int64 tensor holding two uint32 words; a batch of keys is
+a (..., 2) tensor. Every word lives in
 an int64 tensor and is masked with ``& 0xFFFFFFFF`` after each add and
 shift, since torch has no uint32 arithmetic on every device. Work runs on
 the key's device.
@@ -59,11 +66,13 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
 
 def _bits(key: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
     """The two threefry output words over the 64-bit iota 0..n-1 (high
-    words 0, low words the index: ``prng.iota_2x32_shape``)."""
+    words 0, low words the index: ``prng.iota_2x32_shape``), for each key
+    of a (..., 2) batch: two (..., n) tensors."""
     if n >= 2 ** 32:
         raise ValueError(f"at most 2**32 - 1 draws per key, got {n}")
     lo = torch.arange(n, dtype=torch.int64, device=key.device)
-    return threefry_2x32(key[0], key[1], torch.zeros_like(lo), lo)
+    return threefry_2x32(key[..., 0, None], key[..., 1, None],
+                         torch.zeros_like(lo), lo)
 
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
@@ -72,16 +81,29 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``: the threefry hash of the counter
+    pair (0, data mod 2**32) under ``key`` (``threefry_seed(data)`` as the
+    count). ``data`` is an int or an int tensor; a (R,) tensor gives the
+    (R, 2) batch of ``fold_in(key, data[r])``."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK32
+    b1, b2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
+                           data)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``: 23 random mantissa bits
-    under the exponent of 1.0, minus 1, so values lie in [0, 1)."""
+    under the exponent of 1.0, minus 1, so values lie in [0, 1). A (..., 2)
+    batch of keys gives a (..., *shape) tensor, one draw per key."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     n = 1
     for s in shape:
         n *= int(s)
     b1, b2 = _bits(key, n)
     word = ((b1 ^ b2) >> 9) | 0x3F800000       # < 2**31: fits int32
-    return (word.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    return (word.to(torch.int32).view(torch.float32) - 1.0).reshape(
+        *key.shape[:-1], *shape)
 
 
-__all__ = ["PRNGKey", "split", "uniform", "threefry_2x32"]
+__all__ = ["PRNGKey", "split", "fold_in", "uniform", "threefry_2x32"]

@@ -170,15 +170,16 @@ def _with_interval(res: QueryResult, half, clip_bounds: bool) -> QueryResult:
     return dataclasses.replace(res, ci_half=half, ci_lo=lo, ci_hi=hi)
 
 
-def ci_answer(syn: Synopsis, queries: QueryBatch, *, kinds, level: float,
-              small_n_threshold: int, use_fpc: bool, zero_var_rule: bool,
-              use_aggregates: bool, avg_mode: str, delta_budget: str
-              ) -> dict[str, QueryResult]:
+def ci_answer(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
+              kinds, level: float, small_n_threshold: int, use_fpc: bool,
+              zero_var_rule: bool, use_aggregates: bool, avg_mode: str,
+              delta_budget: str) -> dict[str, QueryResult]:
     """One artifact stage feeding every requested kind's estimate epilogue
     AND its interval composition."""
     z = _z_of(level, syn.device)
     art = compute_artifacts(syn, queries, kinds,
-                            use_aggregates=use_aggregates)
+                            use_aggregates=use_aggregates,
+                            plan_masks=plan_masks)
     out = {}
     for kind in kinds:
         res = assemble(syn, art, kind, z, use_fpc, zero_var_rule,

@@ -266,25 +266,34 @@ def test_normal_quantile_within_four_ulp_of_jax():
             normal_quantile(bad)
 
 
-@pytest.mark.parametrize("call", [
-    lambda e, q: e.answer(q, plan=object()),
-    lambda e, q: e.answer(q, deadline_ms=5.0),
-    lambda e, q: e.answer(q, ci=CIConfig(method="bootstrap")),
-    lambda e, q: e.answer_progressive(q),
-    lambda e, q: e.answer_join(q),
-    lambda e, q: e.checkpoint("x.npz"),
-    lambda e, q: PassEngine.restore("x.npz"),
-    lambda e, q: PassEngine.from_sharded(None, None),
-    lambda e, q: PassEngine.from_catalog([]),
-    lambda e, q: executor.compute_artifacts(e.resolve(), q, ("sum",),
-                                            plan_masks=(1, 2, 3)),
+NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
+
+
+@pytest.mark.parametrize("call,error", [
+    (lambda e, q: e.answer(q, plan=object()), (TypeError, "QueryPlan")),
+    (lambda e, q: e.answer(q, deadline_ms=5.0), NOT_PORTED),
+    (lambda e, q: e.answer(q, ci=CIConfig(method="bootstrap",
+                                          boot_normalize="x")),
+     (ValueError, "unknown normalize")),
+    (lambda e, q: e.answer_progressive(q), NOT_PORTED),
+    (lambda e, q: e.answer_join(q), NOT_PORTED),
+    (lambda e, q: e.checkpoint("x.npz"), NOT_PORTED),
+    (lambda e, q: PassEngine.restore("x.npz"), NOT_PORTED),
+    (lambda e, q: PassEngine.from_sharded(None, None), NOT_PORTED),
+    (lambda e, q: PassEngine.from_catalog([]), NOT_PORTED),
+    (lambda e, q: executor.compute_artifacts(e.resolve(), q, ("sum",),
+                                             plan_masks=(1, 2, 3)),
+     (ValueError, "plan masks")),
 ], ids=["plan", "deadline", "bootstrap", "progressive",
         "join", "checkpoint", "restore", "sharded", "catalog",
         "plan_masks"])
-def test_unported_entry_points_raise(served, call):
+def test_unported_entry_points_raise(served, call, error):
+    """Entry points not ported yet raise NotImplementedError naming their
+    ROADMAP item. Those the bootstrap slice ported (``plan=``, the
+    bootstrap, the executor's ``plan_masks``) reject malformed input."""
     _, tsyn, _, tq = served[1]
     eng = PassEngine(tsyn, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    with pytest.raises(error[0], match=error[1]):
         call(eng, tq)
 
 
@@ -298,7 +307,8 @@ def test_config_validation():
         PassEngine(None, ServingConfig(kinds=("avg",), avg_mode="stratum"),
                    ci=0.95, device="cpu")
     key = CIConfig(key=torch.tensor([3, 4], dtype=torch.int32)).cache_key()
-    assert key[-1] == jconfig._key_token(jnp.asarray([3, 4], jnp.int32))
+    assert key == JCI(key=jnp.asarray([3, 4], jnp.int32)).cache_key()
+    assert key[5] == jconfig._key_token(jnp.asarray([3, 4], jnp.int32))
     assert key[:4] == JCI().cache_key()[:4]
     assert hash(ServingConfig(kinds="sum").cache_key()) == \
         hash(JServing(kinds="sum").cache_key())

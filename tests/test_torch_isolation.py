@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-streaming modules and the threefry port included) pulls in neither JAX
-nor the JAX package, ``chip_smoke.py`` imports neither, and the entry
+streaming modules, the threefry port, the bootstrap, the planner and the
+weighted kernels' wrappers included) pulls in neither JAX nor the JAX
+package, ``chip_smoke.py`` imports neither, and the entry
 points default to the CUDA card rather than the CPU."""
 import ast
 import json
@@ -55,7 +56,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.kernels.segment_reduce",
                 "repro_torch.kernels.route", "repro_torch.streaming",
                 "repro_torch.streaming.ingest", "repro_torch.streaming.delta",
-                "repro_torch.streaming.policy"):
+                "repro_torch.streaming.policy",
+                "repro_torch.uncertainty.bootstrap",
+                "repro_torch.engine.planner", "repro_torch.kernels.bootstrap",
+                "repro_torch.kernels.stratified_estimate"):
         assert mod in report["imported"]
 
 

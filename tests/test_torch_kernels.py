@@ -144,5 +144,7 @@ def test_missing_toolkit_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         native.library("query_eval")
     assert native.library_path("query_eval").parent == tmp_path
-    assert set(native.LAUNCHES) == {"query_eval", "stratified_moments",
-                                    "segment_reduce", "route_multid"}
+    assert set(native.LAUNCHES) == {
+        "query_eval", "stratified_moments", "stratified_weighted_moments",
+        "bootstrap_moments", "segment_reduce", "weighted_segment_reduce",
+        "route_multid"}

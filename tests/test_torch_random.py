@@ -2,8 +2,9 @@
 
 ``repro_torch.random`` reproduces jax's raw threefry2x32 keys under the
 installed defaults (``jax_threefry_partitionable=True``, 64-bit mode off),
-so the streaming ingest's keyed reservoir draws are the JAX package's.
-Every comparison is bit for bit.
+so the streaming ingest's keyed reservoir draws and the bootstrap's
+per-replicate ``fold_in`` draws are the JAX package's. Every comparison
+is bit for bit.
 """
 import numpy as np
 import pytest
@@ -69,3 +70,34 @@ def test_threefry_hash_known_answer():
         torch.tensor([0x243F6A88], dtype=torch.int64),
         torch.tensor([0x85A308D3], dtype=torch.int64))
     assert (int(x1), int(x2)) == (0xC4923A9C, 0x483DF7A0)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
+def test_fold_in_bit_equal(seed):
+    """Scalar and vector data, r past 2**16 and 2**31 included."""
+    jk, tk = _key(seed)
+    rs = [0, 1, 199, 2 ** 16, 2 ** 16 + 3, 2 ** 31 + 5, 2 ** 32 - 1]
+    for r in rs:
+        np.testing.assert_array_equal(trandom.fold_in(tk, r).numpy(),
+                                      np.asarray(jax.random.fold_in(jk, r)),
+                                      err_msg=f"fold_in {r}")
+    batch = trandom.fold_in(tk, torch.tensor(rs))
+    assert batch.shape == (len(rs), 2)
+    want = np.stack([np.asarray(jax.random.fold_in(jk, r)) for r in rs])
+    np.testing.assert_array_equal(batch.numpy(), want)
+
+
+def test_batched_uniform_equals_vmapped_fold_in():
+    """One draw over an (R, 2) key batch is jax's
+    ``vmap(lambda r: uniform(fold_in(key, r), shape))``."""
+    jk, tk = _key(5)
+    shape = (3, 7)
+    rs = np.array([0, 1, 2, 70000, 2 ** 20 + 1], np.uint32)
+    want = np.asarray(jax.vmap(
+        lambda r: jax.random.uniform(jax.random.fold_in(jk, r), shape,
+                                     jnp.float32))(jnp.asarray(rs)))
+    got = trandom.uniform(trandom.fold_in(tk, torch.tensor(rs.astype(
+        np.int64))), shape)
+    assert got.shape == (5, *shape) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
