@@ -2,6 +2,13 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py     # the whole check, one card
+    python3 chip_smoke.py --baseline DIR   # also time DIR's weighted kernels
+
+DIR is a checkout of an earlier commit (the one before the weighted
+kernels' cover/empty redesign): its csrc/weighted_moments.cu is built
+beside the current one, must give the same bits at the bootstrap's shapes,
+and is timed there; rows 3 and 4 of the kernels line then carry its times
+as baseline_ms (null without --baseline).
 
 Phases, each of which fails the run:
 
@@ -44,7 +51,11 @@ Phases, each of which fails the run:
    non-integer weights, weights on invalid slots, strata without samples)
    within tolerance, bit-equal across two launches, and every
    bootstrap_moments slice r torch.equal to stratified_weighted_moments
-   with W[r]; weighted_segment_reduce (N up to 65537, k up to 1024).
+   with W[r]; inputs where covered, empty and mixed (query, stratum)
+   pairs all appear (a box over every sample, boxes that miss everything,
+   box edges on sample coordinates; k = 64 and 53, s up to 2500), each
+   printing its counts; weighted_segment_reduce (N up to 65537, k up to
+   1024).
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
    n_boot=200, key=5)).answer(). Fused launches bootstrap_moments once,
@@ -61,7 +72,9 @@ Phases, each of which fails the run:
 15. Bootstrap times: the answer fused and scan, its split (draw, kernel,
    epilogue), its peak memory and a profiler window; each new kernel and
    its plain version at the main path's shapes, with their bounds and the
-   nearest library call (torch.bmm of a prebuilt predicate, index_add_).
+   nearest library call (torch.bmm of a prebuilt predicate, index_add_);
+   the pair classes there; the weighted kernels' launch overhead;
+   bootstrap_moments at the 3-D shapes; the baseline's kernels, if given.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -149,6 +162,19 @@ def host_ms(torch, fn, reps: int = 20) -> float:
         fn()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def enqueue_ms(torch, fn, reps: int = 20) -> float:
+    """Median host time to enqueue ``fn()`` (no synchronize inside), in ms;
+    the card is drained after each call."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -939,6 +965,52 @@ def weighted_inputs(rng, Q, k, s, d, R):
     return c, a, valid, W, q_lo, q_hi
 
 
+def weighted_class_inputs(rng, Q, k, s, d, R):
+    """Inputs where all three pair classes appear: each stratum's samples
+    lie in its own cell of a grid over [0, 1)^d (ragged validity, strata 0
+    and k // 2 without a valid sample, weights on invalid slots too).
+    Query 0 covers every sample, queries 1 and 2 miss everything (2 is
+    inverted), query 3's edges are the exact extremes of one stratum's
+    valid samples, query 4's lower edge is one valid sample's coordinates;
+    the rest are random boxes over a few cells."""
+    c, a, valid, W, _, _ = weighted_inputs(rng, Q, k, s, d, R)
+    g = max(1, int(np.ceil(k ** (1.0 / d) - 1e-9)))
+    cell = np.stack([(np.arange(k) // g ** j) % g for j in range(d)], 1)
+    c = ((cell[:, None, :] + rng.uniform(0.05, 0.95, (k, s, d)))
+         / g).astype(np.float32)
+    q_lo = rng.uniform(-0.1, 1.0, (Q, d)).astype(np.float32)
+    q_hi = (q_lo + rng.uniform(0.0, 6.0 / g, (Q, d))).astype(np.float32)
+    fixed = [(np.full(d, -1.0), np.full(d, 2.0)),
+             (np.full(d, 3.0), np.full(d, 4.0)),
+             (np.full(d, 0.9), np.full(d, 0.1))]
+    leaf = next((i for i in range(k) if valid[i].any()), None)
+    if leaf is not None:
+        pts = c[leaf][valid[leaf]]
+        fixed += [(pts.min(0), pts.max(0)), (pts[0], pts.max(0) + 1.0 / g)]
+    for i, (lo, hi) in enumerate(fixed[:Q]):
+        q_lo[i], q_hi[i] = lo, hi
+    return c, a, valid, W, q_lo, q_hi
+
+
+def pair_classes(torch, c, valid, q_lo, q_hi, chunk: int = 256) -> dict:
+    """Counts of (query, stratum) pairs whose box holds none of the
+    stratum's valid samples (empty; strata without one among them), all of
+    them (covered) or some (mixed): the classes the weighted kernels tell
+    apart."""
+    from repro_torch.kernels.stratified_estimate import samples_inside
+    nvalid = valid.sum(-1)
+    out = dict.fromkeys(("covered", "empty", "mixed"), 0)
+    for i in range(0, q_lo.shape[0], chunk):
+        n = samples_inside(c, valid, q_lo[i:i + chunk],
+                           q_hi[i:i + chunk]).sum(-1)
+        empty = n == 0
+        covered = ~empty & (n == nvalid)
+        out["empty"] += int(empty.sum())
+        out["covered"] += int(covered.sum())
+        out["mixed"] += int((~empty & ~covered).sum())
+    return out
+
+
 def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi) -> dict:
     """Both weighted kernels against their plain versions on the same CUDA
     inputs: sums within rtol=3e-5, atol=1e-3; each kernel bit-equal across
@@ -993,9 +1065,11 @@ def wseg_vs_plain(torch, tag, v, w, ids, k) -> float:
 
 def edge_cases_weighted(torch, dev) -> dict:
     """The three new kernels against plain at edge shapes: the weighted
-    moments over Q in {1, 129} x k in {1, 53} x s in {1, 75, 300} (one and
-    two slot chunks) x d in {1, 3, 16}, with R cycling through {1, 7, 8,
-    9, 33} (ragged replicate tiles of 8); weighted_segment_reduce over N
+    moments over Q in {1, 129} x k in {1, 53} x s in {1, 75, 300} (one to
+    ten mask words) x d in {1, 3, 16}, with R cycling through {1, 7, 8, 9,
+    33}, and five cases of weighted_class_inputs, where covered, empty and
+    mixed pairs all appear (each prints its counts); weighted_segment_reduce
+    over N
     in {1, 17, 4096, 65537} x k in {1, 53, 1024} with -1 and out-of-range
     ids, zero weights, and all rows in one segment."""
     errs = dict.fromkeys(("stratified_weighted_moments", "bootstrap_moments",
@@ -1015,6 +1089,27 @@ def edge_cases_weighted(torch, dev) -> dict:
                     for name, err in e.items():
                         errs[name] = max(errs[name], err)
                     cases += 1
+    # The three pair classes: k = 64 writes 16-byte rows, k = 53 4-byte
+    # ones; s = 300 takes several coordinate chunks, s = 2500 a tile of
+    # fewer than 32 leaves.
+    class_cases = []
+    for Q, k, s, d, R in ((129, 64, 75, 1, 9), (129, 53, 75, 3, 33),
+                          (33, 64, 300, 2, 7), (33, 53, 2500, 3, 8),
+                          (40, 64, 75, 16, 1)):
+        rng = np.random.default_rng(Q * 131 + k * 17 + s + d)
+        t = [torch.from_numpy(x).to(dev)
+             for x in weighted_class_inputs(rng, Q, k, s, d, R)]
+        tag = f"edge classes Q={Q} k={k} s={s} d={d} R={R}"
+        classes = pair_classes(torch, t[0], t[2], t[4], t[5])
+        if min(classes.values()) == 0:
+            raise AssertionError(f"{tag}: a pair class is missing: {classes}")
+        e = weighted_vs_plain(torch, tag, *t)
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        emit(check="edge_weighted_classes", case=tag, **classes,
+             max_abs_err=e)
+        class_cases.append(classes)
+        cases += 1
     seg_cases = 0
     for n in (1, 17, 4096, 65537):
         for k in (1, 53, 1024):
@@ -1032,7 +1127,8 @@ def edge_cases_weighted(torch, dev) -> dict:
                         k))
                 seg_cases += 1
     emit(check="edge_weighted_kernels", moment_cases=cases,
-         segment_cases=seg_cases, max_abs_err=errs)
+         class_cases=len(class_cases), segment_cases=seg_cases,
+         max_abs_err=errs)
     return errs
 
 
@@ -1159,6 +1255,104 @@ def planner_path(torch, tag, run) -> dict:
     return {"launches": launches, "differ": differ}
 
 
+def build_baseline(base: Path):
+    """The weighted kernels of an earlier checkout ``base``, built with the
+    same nvcc flags into build/baseline/ and loaded with ctypes, to be
+    timed beside the current ones on the same card. Sources from before
+    the cover/empty redesign (no ``repro_weighted_plan``) take no scratch
+    pointer; later ones take weighted_scratch's."""
+    import ctypes
+    from repro_torch.kernels import native
+    src = base / "src" / "repro_torch" / "kernels" / "csrc" / \
+        "weighted_moments.cu"
+    out = native.BUILD_DIR.parent / "baseline" / "weighted_moments.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    res = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-o", str(out),
+                          str(src)], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"baseline nvcc failed:\n{res.stdout}{res.stderr}")
+    emit(phase="baseline build", source=str(src),
+         seconds=time.perf_counter() - t0)
+    lib = ctypes.CDLL(str(out))
+    lib.scratch = hasattr(lib, "repro_weighted_plan")
+    n_ptr = 8 if lib.scratch else 7
+    lib.repro_stratified_weighted_moments.argtypes = \
+        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.repro_bootstrap_moments.argtypes = [ctypes.c_void_p] * n_ptr + \
+        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.repro_stratified_weighted_moments.restype = ctypes.c_int
+    lib.repro_bootstrap_moments.restype = ctypes.c_int
+    return lib
+
+
+def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
+    """The baseline kernel's (Q, k, 3) for a weight row w (k, s), or its
+    (R, Q, k, 3) for W (R, k, s)."""
+    from repro_torch.kernels.stratified_estimate import weighted_scratch
+    c, a, valid = sm
+    k, s = a.shape
+    Q, d = q_lo.shape
+    R = w.shape[0] if w.dim() == 3 else 1
+    out = torch.empty((R, Q, k, 3) if w.dim() == 3 else (Q, k, 3),
+                      dtype=torch.float32, device=a.device)
+    ptrs = [x.data_ptr() for x in (c, a, valid, w, q_lo, q_hi, out)]
+    if lib.scratch:
+        scratch = weighted_scratch(R, Q, k, s, d, a.device)
+        ptrs.append(scratch.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if w.dim() == 2:
+        err = lib.repro_stratified_weighted_moments(*ptrs, Q, k, s, d,
+                                                    stream)
+    else:
+        err = lib.repro_bootstrap_moments(*ptrs, R, Q, k, s, d, stream)
+    if err != 0:
+        raise RuntimeError(f"baseline weighted kernel: cuda error {err}")
+    return out
+
+
+def boot_weights(torch, syn, device):
+    """The fused bootstrap's weights (R, k, s) for ``syn``: the threefry
+    draw of BOOT_KEY, zero on invalid slots."""
+    from repro_torch.uncertainty import bootstrap as tboot
+    key = tboot.key_tensor(BOOT_KEY, device)
+    r = torch.arange(N_BOOT, device=device)
+    k, s = syn.sample_valid.shape
+    return torch.where(syn.sample_valid[None],
+                       tboot._draw_weights(key, r, (k, s)), 0.0)
+
+
+def boot_kernel_3d(torch, run, card, base_lib) -> dict:
+    """bootstrap_moments at the 3-D bootstrap answer's shapes (R = 200):
+    its time, the pair classes there and, with a baseline, the baseline's
+    time and its output torch.equal to the current one."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
+    from repro_torch.kernels.stratified_estimate import weighted_plan
+    syn, q = run["syn"], run["q"]
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    W = boot_weights(torch, syn, q.lo.device)
+    k, s = syn.sample_a.shape
+    out = {"classes": pair_classes(torch, syn.sample_c, syn.sample_valid,
+                                   q.lo, q.hi),
+           "plan_leaves_per_tile_and_smem_bytes": weighted_plan(
+               int(q.lo.shape[0]), k, s, int(q.lo.shape[1])),
+           "ms": cuda_ms(torch, lambda: bootstrap_moments_cuda(
+               *sm, W, q.lo, q.hi), reps=10)}
+    if base_lib is not None:
+        got = bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
+        if not torch.equal(got, baseline_moments(torch, base_lib, sm, W,
+                                                 q.lo, q.hi)):
+            raise AssertionError("3d bootstrap_moments differs from the "
+                                 "baseline kernel")
+        del got
+        out["ms_baseline"] = cuda_ms(torch, lambda: baseline_moments(
+            torch, base_lib, sm, W, q.lo, q.hi), reps=5, warmup=1)
+    emit(bootstrap_moments_3d=out, Q=int(q.lo.shape[0]), k=k, s=s,
+         R=N_BOOT, card=card)
+    return out
+
+
 def boot_bounds(syn, q, relevant, R, N) -> dict:
     """Least time for the three new kernels' work, as bounds() counts it:
     the weighted moments read the samples, the weights and the queries
@@ -1205,13 +1399,8 @@ def boot_timings(torch, tag, run, boot, card) -> dict:
     torch.cuda.synchronize()
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mb
 
-    key = tboot.key_tensor(BOOT_KEY, q.lo.device)
-    r = torch.arange(N_BOOT, device=q.lo.device)
-    k, s = syn.sample_valid.shape
-
     def draw():
-        return torch.where(syn.sample_valid[None],
-                           tboot._draw_weights(key, r, (k, s)), 0.0)
+        return boot_weights(torch, syn, q.lo.device)
 
     W = draw()
     art = compute_artifacts(syn, q, BOOT_KINDS)
@@ -1252,12 +1441,13 @@ def boot_timings(torch, tag, run, boot, card) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, n = device_busy_us(prof)
     write_table(prof, f"profile_bootstrap_{tag}.txt")
-    # The kernel's own device time, from the same window: on an H100 a
-    # profiler window around bare bootstrap_moments launches recorded no
-    # device events for them, while this one does.
+    # The kernels' own device time (its four kernels), from the same
+    # window: on an H100 a profiler window around bare bootstrap_moments
+    # launches recorded no device events for them, while this one does.
     kernel_us = sum(e.device_time if hasattr(e, "device_time")
                     else e.cuda_time for e in prof.events()
-                    if "bootstrap_moments_kernel" in e.name
+                    if any(f"weighted_{part}_kernel" in e.name
+                           for part in ("totals", "box", "tile", "mixed"))
                     and str(getattr(e, "device_type", "")).endswith("CUDA"))
     times["bootstrap_moments_device"] = kernel_us / 1e3 / 3
     prof_out = {"device_kernels_per_answer": n / 3,
@@ -1269,7 +1459,7 @@ def boot_timings(torch, tag, run, boot, card) -> dict:
     return {"times": times, "W": W}
 
 
-def boot_kernel_times(torch, run, W, card) -> dict:
+def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
     """The three new kernels and their plain versions at the main path's
     shapes (Q = 2048, k = 1024, s = 75, R = 200; the plain bootstrap on the
     first PLAIN_BOOT_Q queries; weighted_segment_reduce over the flattened
@@ -1278,7 +1468,11 @@ def boot_kernel_times(torch, run, W, card) -> dict:
     and the nearest single library calls, with TF32 off: torch.bmm of the
     predicate (k, Q, s) built beforehand with [w, w*a, w*a^2] (k, s, 3R)
     ("contraction only", rows 2-4) and index_add_ of a prebuilt (N, 3)
-    source ("scatter only", row 6)."""
+    source ("scatter only", row 6). Also the pair classes at these shapes;
+    the weighted kernels' launch overhead (one call bracketed by events,
+    20 calls back to back, the host's enqueue time), beside
+    stratified_moments'; with a baseline, its kernels' times and outputs
+    torch.equal to the current ones."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.segment_reduce import (
@@ -1308,6 +1502,49 @@ def boot_kernel_times(torch, run, W, card) -> dict:
     err_s = wseg_vs_plain(torch, "main N=k*s", seg_v, seg_w, seg_ids, k)
     relevant = float(stratified_moments_cuda(*sm, q.lo, q.hi)[..., 0].sum())
     bnd = boot_bounds(syn, q, relevant, W.shape[0], seg_v.shape[0])
+    classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
+
+    def swm():
+        return stratified_weighted_moments_cuda(*sm, w0, q.lo, q.hi)
+
+    def smo():
+        return stratified_moments_cuda(*sm, q.lo, q.hi)
+
+    def x20(fn):
+        return lambda: [fn() for _ in range(20)]
+
+    overhead = {
+        "stratified_weighted_moments_x20": cuda_ms(torch, x20(swm),
+                                                   reps=10) / 20,
+        "stratified_weighted_moments_enqueue_host": enqueue_ms(torch, swm),
+        "stratified_moments_single": cuda_ms(torch, smo),
+        "stratified_moments_x20": cuda_ms(torch, x20(smo), reps=10) / 20,
+        "stratified_moments_enqueue_host": enqueue_ms(torch, smo)}
+    base = {}
+    if base_lib is not None:
+        for name, w, fn in (
+                ("stratified_weighted_moments", w0, swm),
+                ("bootstrap_moments", W,
+                 lambda: bootstrap_moments_cuda(*sm, W, q.lo, q.hi))):
+            if not torch.equal(fn(), baseline_moments(torch, base_lib, sm, w,
+                                                      q.lo, q.hi)):
+                raise AssertionError(f"1d {name} differs from the baseline "
+                                     "kernel")
+            torch.cuda.empty_cache()
+        base = {
+            "stratified_weighted_moments": cuda_ms(
+                torch, lambda: baseline_moments(torch, base_lib, sm, w0,
+                                                q.lo, q.hi)),
+            "stratified_weighted_moments_device": device_ms(
+                torch, lambda: baseline_moments(torch, base_lib, sm, w0,
+                                                q.lo, q.hi)),
+            "stratified_weighted_moments_x20": cuda_ms(
+                torch, x20(lambda: baseline_moments(torch, base_lib, sm, w0,
+                                                    q.lo, q.hi)),
+                reps=10) / 20,
+            "bootstrap_moments": cuda_ms(
+                torch, lambda: baseline_moments(torch, base_lib, sm, W, q.lo,
+                                                q.hi), reps=5, warmup=1)}
 
     pred = samples_inside(syn.sample_c, syn.sample_valid, q.lo, q.hi
                           ).permute(1, 0, 2).to(torch.float32).contiguous()
@@ -1367,17 +1604,26 @@ def boot_kernel_times(torch, run, W, card) -> dict:
             torch, lambda: acc.index_add_(0, spill, src)),
     }
     emit(new_kernel_times_ms=times, bounds=bnd, plain_boot_q=PLAIN_BOOT_Q,
-         relevant_pairs=relevant, card=card,
+         relevant_pairs=relevant, classes_1d=classes, card=card,
+         launch_overhead_ms=overhead, baseline_ms=base,
          max_abs_err={"stratified_weighted_moments": err_w,
                       "bootstrap_moments": err_b,
                       "weighted_segment_reduce": err_s})
-    return {"times": times, "bounds": bnd,
+    return {"times": times, "bounds": bnd, "classes": classes,
+            "overhead": overhead, "baseline": base,
             "errs": {"stratified_weighted_moments": err_w,
                      "bootstrap_moments": err_b,
                      "weighted_segment_reduce": err_s}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="checkout of an earlier commit whose weighted "
+                         "kernels are timed beside the current ones and "
+                         "must give the same bits")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -1462,8 +1708,11 @@ def main() -> int:
     planner_path(torch, "1d", run1)
 
     # 15. Bootstrap times.
+    base_lib = build_baseline(args.baseline) if args.baseline else None
     bt = boot_timings(torch, "1d", run1, b1, card)
-    bk = boot_kernel_times(torch, run1, bt["W"], card)
+    bk = boot_kernel_times(torch, run1, bt["W"], card, base_lib)
+    del bt["W"]
+    b3k = boot_kernel_3d(torch, run3, card, base_lib)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
@@ -1521,7 +1770,14 @@ def main() -> int:
             "plain_device_ms":
                 btimes["stratified_weighted_moments_plain_device"],
             "library_ms": btimes["bmm_stratified_weighted_moments"],
-            "library": "torch.bmm, contraction only"},
+            "library": "torch.bmm, contraction only",
+            "ms_x20": bk["overhead"]["stratified_weighted_moments_x20"],
+            "enqueue_host_ms":
+                bk["overhead"]["stratified_weighted_moments_enqueue_host"],
+            "baseline_ms": bk["baseline"].get("stratified_weighted_moments"),
+            "baseline_device_ms": bk["baseline"].get(
+                "stratified_weighted_moments_device"),
+            "classes_1d": bk["classes"]},
         "bootstrap_moments": {
             "launches": b1["launches"]["bootstrap_moments"],
             "launches_3d": b3["launches"]["bootstrap_moments"],
@@ -1533,7 +1789,10 @@ def main() -> int:
             "plain_queries": PLAIN_BOOT_Q,
             "ms_q256": btimes["bootstrap_moments_q256"],
             "library_ms": btimes["bmm_bootstrap_moments"],
-            "library": "torch.bmm, contraction only"},
+            "library": "torch.bmm, contraction only",
+            "baseline_ms": bk["baseline"].get("bootstrap_moments"),
+            "ms_3d": b3k["ms"], "baseline_ms_3d": b3k.get("ms_baseline"),
+            "classes_1d": bk["classes"], "classes_3d": b3k["classes"]},
         "weighted_segment_reduce": {
             "launches": 0,
             "launches_path": "none: held against plain only",

@@ -12,9 +12,9 @@ Both take the synopsis's leaf-major sample arrays (as
 q_lo/q_hi (Q, d), and return (R, Q, k, 3) float32 = [sum w, sum w*a,
 sum w*a^2] over each replicate's relevant samples; an invalid slot counts
 as w = 0 whatever W holds. Replicate r equals the weighted moments with
-the weight row W[r] bit for bit: on the card the two kernels share their
-per-slot update, on the CPU the two plain versions share their arithmetic
-(DESIGN.md §10).
+the weight row W[r] bit for bit: on the card the weighted moments are the
+same launch with R = 1, on the CPU the two plain versions share their
+arithmetic (DESIGN.md §10).
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 
 from . import native
 from .stratified_estimate import (check_weighted_args, samples_inside,
-                                  weighted_library, weighted_terms)
+                                  weighted_library, weighted_scratch,
+                                  weighted_terms)
 
 # Replicates per block of the plain version's (REP_TILE, Q, k, s)
 # temporaries: the JAX package's ``REP_TILE``.
@@ -46,25 +47,34 @@ def bootstrap_moments_plain(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
 
 
 def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
-    """Launch the CUDA kernel on the tensors' device and current stream."""
+    """Launch the CUDA kernels on the tensors' device and current stream.
+
+    First each leaf's moments over its valid slots for every replicate,
+    and each leaf's box and valid bits, into ``weighted_scratch``. Then one
+    block per tile of 32 queries x up to 32 leaves classifies each (query,
+    leaf) pair once and writes every replicate's tile as contiguous rows:
+    the leaf's totals where the query box holds all of its valid samples,
+    +0.0 where it holds none. Last, one thread per (other pair, replicate)
+    walks that pair's slots in slot order (``csrc/weighted_moments.cu``)."""
     name = "bootstrap_moments"
     if W.dim() != 3:
         raise ValueError(f"{name}: W must be (R, k, s), got "
                          f"{tuple(W.shape)}")
     Q, k, s, d = check_weighted_args(name, sample_c, sample_a, sample_valid,
                                      W, q_lo, q_hi)
+    # The replicates loop inside each tile block; the mixed pairs' replicate
+    # tiles of 16 run along gridDim.y (check_weighted_args holds R to
+    # 65535 * 16).
     R = W.shape[0]
-    # Replicate tiles of 8 run along gridDim.z, which holds at most 65535.
-    if not 1 <= R <= 65535 * 8:
-        raise ValueError(f"{name}: needs 1 <= R <= {65535 * 8}, got R={R}")
     dev = sample_c.device
     out = torch.empty((R, Q, k, 3), dtype=torch.float32, device=dev)
+    scratch = weighted_scratch(R, Q, k, s, d, dev)
     fn = weighted_library().repro_bootstrap_moments
     with torch.cuda.device(dev):
         err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
                  sample_valid.data_ptr(), W.data_ptr(), q_lo.data_ptr(),
-                 q_hi.data_ptr(), out.data_ptr(), R, Q, k, s, d,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, Q, k,
+                 s, d, torch.cuda.current_stream(dev).cuda_stream)
     native.check_launch(name, err)
     return out
 

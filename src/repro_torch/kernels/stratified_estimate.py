@@ -16,9 +16,9 @@ inclusive.
 The weighted twin, one bootstrap replicate, takes a weight per slot
 w (k, s) float32 and returns [sum w, sum w*a, sum w*a^2] over the
 relevant samples; an invalid slot counts as w = 0 whatever w holds.
-``stratified_weighted_moments_cuda`` launches the kernel of
-``csrc/weighted_moments.cu`` (which replaces the Pallas kernel
-``stratified_weighted_moments``); ``weighted_moments_plain`` is
+``stratified_weighted_moments_cuda`` launches the kernels of
+``csrc/weighted_moments.cu`` with one weight row (they replace the Pallas
+kernel ``stratified_weighted_moments``); ``weighted_moments_plain`` is
 ``backends.weighted_sample_moments``, its slots reduced by the
 fixed-order :func:`tree_sum_last`.
 """
@@ -130,19 +130,71 @@ def weighted_library():
     if _wlib is None:
         lib = native.library("weighted_moments")
         lib.repro_stratified_weighted_moments.argtypes = \
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_stratified_weighted_moments.restype = ctypes.c_int
-        lib.repro_bootstrap_moments.argtypes = [ctypes.c_void_p] * 7 + \
+        lib.repro_bootstrap_moments.argtypes = [ctypes.c_void_p] * 8 + \
             [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.repro_bootstrap_moments.restype = ctypes.c_int
+        lib.repro_weighted_plan.argtypes = [ctypes.c_int] * 4 + \
+            [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.repro_weighted_plan.restype = ctypes.c_int
         _wlib = lib
     return _wlib
 
 
+# Limits of the weighted kernels' launch (csrc/weighted_moments.cu): the
+# replicates loop inside each tile block, but the mixed-pair kernel puts
+# replicate tiles of 16 along gridDim.y, which holds 65535, as does the
+# totals kernel its leaf tiles of 128; the tiles of 32 queries x LT leaves
+# (LT >= 1) run along gridDim.x, which holds 2**31 - 1; the (query, slot)
+# bitmask of one leaf and 32 queries has to fit in shared memory.
+WEIGHTED_MAX_S = 32768
+WEIGHTED_MAX_K = 65535 * 128
+WEIGHTED_MAX_R = 65535 * 16
+
+
+def check_weighted_limits(name, Q, k, s, d, R=1):
+    """Raise ValueError unless the weighted kernels take these sizes."""
+    if not (1 <= Q and 1 <= k <= WEIGHTED_MAX_K
+            and -(-Q // 32) * k <= 2 ** 31 - 1
+            and 0 <= s <= WEIGHTED_MAX_S and 1 <= d <= 16
+            and 1 <= R <= WEIGHTED_MAX_R):
+        raise ValueError(
+            f"{name}: needs Q >= 1, 1 <= k <= {WEIGHTED_MAX_K}, "
+            f"ceil(Q / 32) * k < 2**31, s <= {WEIGHTED_MAX_S}, "
+            f"1 <= d <= 16 and 1 <= R <= {WEIGHTED_MAX_R}, got Q={Q} k={k} "
+            f"s={s} d={d} R={R}")
+
+
+def weighted_scratch(R, Q, k, s, d, device) -> torch.Tensor:
+    """The weighted kernels' scratch, one float32 buffer: per-(replicate,
+    leaf) totals (R, k, 3), each leaf's box around its valid samples
+    (k, 2, d), its valid bits (k, ceil(s / 32)), and per tile of 32
+    queries a count and a list of mixed pairs with their slot masks, sized
+    for the narrowest tile."""
+    nw = -(-s // 32)
+    n_qt = -(-Q // 32)
+    return torch.empty(R * k * 3 + k * 2 * d + k * nw + n_qt * k
+                       + n_qt * 32 * (k + 31) * (1 + nw),
+                       dtype=torch.float32, device=device)
+
+
+def weighted_plan(Q, k, s, d):
+    """(leaves per tile, dynamic shared-memory bytes) of a weighted launch,
+    as the CUDA source chooses them."""
+    lt, nbytes = ctypes.c_int(), ctypes.c_int()
+    err = weighted_library().repro_weighted_plan(
+        Q, k, s, d, ctypes.byref(lt), ctypes.byref(nbytes))
+    if err != 0:
+        raise ValueError(f"weighted kernels: no launch plan for Q={Q} k={k} "
+                         f"s={s} d={d}")
+    return lt.value, nbytes.value
+
+
 def check_weighted_args(name, sample_c, sample_a, sample_valid, w, q_lo,
                         q_hi):
-    """Device, dtype, contiguity and shape checks of the weighted kernels;
-    ``w`` is (k, s) or (R, k, s). Returns (Q, k, s, d)."""
+    """Device, dtype, contiguity, shape and size checks of the weighted
+    kernels; ``w`` is (k, s) or (R, k, s). Returns (Q, k, s, d)."""
     native.check_tensors(name, sample_c=sample_c, sample_a=sample_a,
                          sample_valid=sample_valid, w=w, q_lo=q_lo,
                          q_hi=q_hi)
@@ -157,9 +209,7 @@ def check_weighted_args(name, sample_c, sample_a, sample_valid, w, q_lo,
         raise ValueError(f"{name}: shapes {sample_c.shape} {sample_a.shape} "
                          f"{sample_valid.shape} {w.shape} {q_lo.shape} "
                          f"{q_hi.shape}")
-    if not (1 <= Q <= 65535 * 128 and 1 <= k < 2 ** 31 and 1 <= d <= 16):
-        raise ValueError(f"{name}: needs 1 <= Q <= {65535 * 128}, k >= 1 "
-                         f"and 1 <= d <= 16, got Q={Q} k={k} d={d}")
+    check_weighted_limits(name, Q, k, s, d, w.shape[0] if w.dim() == 3 else 1)
     return Q, k, s, d
 
 
@@ -174,12 +224,13 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
                                      w, q_lo, q_hi)
     dev = sample_c.device
     out = torch.empty((Q, k, 3), dtype=torch.float32, device=dev)
+    scratch = weighted_scratch(1, Q, k, s, d, dev)
     fn = weighted_library().repro_stratified_weighted_moments
     with torch.cuda.device(dev):
         err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
                  sample_valid.data_ptr(), w.data_ptr(), q_lo.data_ptr(),
-                 q_hi.data_ptr(), out.data_ptr(), Q, k, s, d,
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(), Q, k, s,
+                 d, torch.cuda.current_stream(dev).cuda_stream)
     native.check_launch(name, err)
     return out
 
@@ -187,4 +238,6 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
 __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "stratified_moments_plain", "stratified_moments_cuda",
            "weighted_moments_plain", "stratified_weighted_moments_cuda",
-           "check_weighted_args", "weighted_library"]
+           "check_weighted_args", "check_weighted_limits", "weighted_plan",
+           "weighted_scratch", "weighted_library", "WEIGHTED_MAX_S",
+           "WEIGHTED_MAX_K", "WEIGHTED_MAX_R"]

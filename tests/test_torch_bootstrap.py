@@ -15,7 +15,10 @@ backend that ``conftest.py`` sets). Tolerances:
   estimate);
 * inside the port, fused and scan replicates are bit-equal, and so is a
   replicate of the plain ``bootstrap_moments`` and the plain
-  ``weighted_moments`` with its weight row (DESIGN.md §10).
+  ``weighted_moments`` with its weight row (DESIGN.md §10);
+* the identities the CUDA kernels rest on hold bit for bit in the plain
+  versions: a covered (query, stratum) pair has the stratum's totals, an
+  empty one +0.0 (with one documented exception in the sign of a zero).
 """
 import numpy as np
 import pytest
@@ -39,7 +42,9 @@ from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
 from repro_torch.kernels.segment_reduce import (
     weighted_segment_reduce_cuda, weighted_segment_reduce_plain)
 from repro_torch.kernels.stratified_estimate import (
-    stratified_weighted_moments_cuda, weighted_moments_plain)
+    WEIGHTED_MAX_K, WEIGHTED_MAX_R, WEIGHTED_MAX_S, check_weighted_limits,
+    stratified_weighted_moments_cuda, weighted_moments_plain,
+    weighted_scratch)
 from repro_torch import random as trandom
 from repro_torch.uncertainty import bootstrap as tboot
 from test_torch_engine import (_data, assert_results_close, batch_scale,
@@ -51,6 +56,10 @@ BOOT = ("sum", "count", "avg")
 # (Q, k, s, d, R): ragged everything, one of each, several replicate
 # blocks of the plain version (br = 8) with a ragged last one.
 SHAPES = [(8, 13, 32, 3, 11), (1, 1, 1, 1, 1), (5, 16, 7, 2, 24)]
+# The inputs of _class_inputs, where the CUDA kernels' three pair classes
+# (covered, empty, mixed) all appear; the last case of each SHAPES test.
+CLASSES = (12, 20, 24, 2, 9)
+CASES = SHAPES + [pytest.param(*CLASSES, id="covered-empty-boundary")]
 
 
 def _t(*xs):
@@ -70,6 +79,49 @@ def _inputs(Q, k, s, d, R, seed):
     q_lo = rng.uniform(-1, 0, (Q, d)).astype(np.float32)
     q_hi = q_lo + rng.uniform(0, 1.5, (Q, d)).astype(np.float32)
     return c, a, valid, W, q_lo, q_hi
+
+
+def _class_inputs(Q, k, s, d, R, seed):
+    """Each stratum's samples in its own cell of a grid over [0, 1)^d, with
+    ragged validity (stratum 0 empty). Query 0 covers every sample, 1 misses
+    everything, 2 is inverted, 3's edges are the exact extremes of the
+    first non-empty stratum's valid samples (boundary equality counts), 4's
+    lower edge is one of its samples; the rest span a few cells."""
+    c, a, valid, W, _, _ = _inputs(Q, k, s, d, R, seed)
+    rng = np.random.default_rng(seed + 1)
+    g = max(1, int(np.ceil(k ** (1.0 / d) - 1e-9)))
+    cell = np.stack([(np.arange(k) // g ** j) % g for j in range(d)], 1)
+    c = ((cell[:, None, :] + rng.uniform(0.05, 0.95, (k, s, d)))
+         / g).astype(np.float32)
+    q_lo = rng.uniform(-0.1, 1.0, (Q, d)).astype(np.float32)
+    q_hi = (q_lo + rng.uniform(0.0, 3.0 / g, (Q, d))).astype(np.float32)
+    leaf = _first_nonempty(valid)
+    pts = c[leaf][valid[leaf]]
+    fixed = [(-1.0, 2.0), (3.0, 4.0), (0.9, 0.1),
+             (pts.min(0), pts.max(0)), (pts[0], pts.max(0) + 1.0 / g)]
+    for i, (lo, hi) in enumerate(fixed[:Q]):
+        q_lo[i], q_hi[i] = lo, hi
+    return c, a, valid, W, q_lo, q_hi
+
+
+def _first_nonempty(valid):
+    return int(np.flatnonzero(valid.any(1))[0])
+
+
+def _case_inputs(Q, k, s, d, R, seed):
+    if (Q, k, s, d, R) == CLASSES:
+        return _class_inputs(Q, k, s, d, R, seed)
+    return _inputs(Q, k, s, d, R, seed)
+
+
+def _classes(c, valid, q_lo, q_hi):
+    """(Q, k) masks of the covered, empty and mixed pairs."""
+    inside = ((q_lo[:, None, None] <= c[None]).all(-1)
+              & (c[None] <= q_hi[:, None, None]).all(-1) & valid[None])
+    n = inside.sum(-1)
+    empty = n == 0
+    covered = ~empty & (n == valid.sum(-1)[None])
+    return covered, empty, ~empty & ~covered
 
 
 # ---------------------------------------------------------------------------
@@ -107,9 +159,9 @@ def test_draw_weights_bit_equal(seed):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
-@pytest.mark.parametrize("Q,k,s,d,R", SHAPES)
+@pytest.mark.parametrize("Q,k,s,d,R", CASES)
 def test_weighted_moments_plain_matches_jax(Q, k, s, d, R, backend):
-    c, a, valid, W, q_lo, q_hi = _inputs(Q, k, s, d, R, Q + 7 * k)
+    c, a, valid, W, q_lo, q_hi = _case_inputs(Q, k, s, d, R, Q + 7 * k)
     want = jax.jit(get_backend(backend).weighted_moments)(
         *map(jnp.asarray, (c, a, valid, W[0], q_lo, q_hi)))
     got = weighted_moments_plain(*_t(c, a, valid, W[0], q_lo, q_hi))
@@ -120,9 +172,9 @@ def test_weighted_moments_plain_matches_jax(Q, k, s, d, R, backend):
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
-@pytest.mark.parametrize("Q,k,s,d,R", SHAPES)
+@pytest.mark.parametrize("Q,k,s,d,R", CASES)
 def test_bootstrap_moments_plain_matches_jax(Q, k, s, d, R, backend):
-    c, a, valid, W, q_lo, q_hi = _inputs(Q, k, s, d, R, Q + 5 * k)
+    c, a, valid, W, q_lo, q_hi = _case_inputs(Q, k, s, d, R, Q + 5 * k)
     want = np.asarray(jax.jit(get_backend(backend).bootstrap_moments)(
         *map(jnp.asarray, (c, a, valid, W, q_lo, q_hi))))
     got = bootstrap_moments_plain(*_t(c, a, valid, W, q_lo, q_hi))
@@ -130,12 +182,13 @@ def test_bootstrap_moments_plain_matches_jax(Q, k, s, d, R, backend):
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("Q,k,s,d,R", SHAPES)
+@pytest.mark.parametrize("Q,k,s,d,R", CASES)
 def test_plain_bootstrap_replicate_bit_equals_weighted(Q, k, s, d, R):
     """DESIGN.md §10 on the CPU: replicate r of the plain (and dispatched)
     bootstrap_moments is the plain weighted_moments with W[r], bit for
     bit, whatever replicate block r falls in."""
-    c, a, valid, W, q_lo, q_hi = _t(*_inputs(Q, k, s, d, R, Q + 3 * k))
+    c, a, valid, W, q_lo, q_hi = _t(*_case_inputs(Q, k, s, d, R,
+                                                  Q + 3 * k))
     block = ops.bootstrap_moments(c, a, valid, W, q_lo, q_hi)
     assert torch.equal(block, bootstrap_moments_plain(c, a, valid, W, q_lo,
                                                       q_hi))
@@ -148,6 +201,97 @@ def test_plain_bootstrap_replicate_bit_equals_weighted(Q, k, s, d, R):
     zeroed = torch.where(valid, W[0], 0.0)
     assert torch.equal(ops.weighted_moments(c, a, valid, zeroed, q_lo, q_hi),
                        block[0])
+
+
+def test_class_inputs_hold_every_class():
+    c, a, valid, W, q_lo, q_hi = _class_inputs(*CLASSES, seed=3)
+    covered, empty, mixed = _classes(c, valid, q_lo, q_hi)
+    assert covered.any() and empty.any() and mixed.any()
+    assert covered[0, valid.any(1)].all() and empty[1:3].all()
+    leaf = _first_nonempty(valid)
+    assert covered[3, leaf] and mixed[4, leaf]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_covered_pair_equals_full_box(seed):
+    """The identity the CUDA kernels copy for a covered (query, stratum)
+    pair: its moments are torch.equal to those of a box around every
+    sample (the stratum's totals), in every replicate, for the plain
+    bootstrap_moments and weighted_moments alike."""
+    c, a, valid, W, q_lo, q_hi = _class_inputs(*CLASSES, seed=seed)
+    covered, _, _ = _classes(c, valid, q_lo, q_hi)
+    assert covered[1:].any()
+    c, a, valid, W, q_lo, q_hi = _t(c, a, valid, W, q_lo, q_hi)
+    full_lo = torch.full_like(q_lo[:1], -1.0)
+    full_hi = torch.full_like(q_hi[:1], 2.0)
+    block = bootstrap_moments_plain(c, a, valid, W, q_lo, q_hi)
+    totals = bootstrap_moments_plain(c, a, valid, W, full_lo, full_hi)
+    for q, leaf in np.argwhere(covered):
+        assert torch.equal(block[:, q, leaf], totals[:, 0, leaf]), (q, leaf)
+    one = weighted_moments_plain(c, a, valid, W[2], q_lo, q_hi)
+    one_totals = weighted_moments_plain(c, a, valid, W[2], full_lo, full_hi)
+    for q, leaf in np.argwhere(covered):
+        assert torch.equal(one[q, leaf], one_totals[0, leaf]), (q, leaf)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_empty_pair_is_positive_zero(seed):
+    """The identity the CUDA kernels write for an empty pair (no valid
+    sample inside: boxes that miss everything, inverted boxes, strata
+    without a valid sample): every moment is +0.0, sign bit clear, for the
+    plain bootstrap_moments and weighted_moments alike."""
+    c, a, valid, W, q_lo, q_hi = _class_inputs(*CLASSES, seed=seed)
+    _, empty, _ = _classes(c, valid, q_lo, q_hi)
+    assert empty[1:3].all() and empty[:, 0].all()
+    c, a, valid, W, q_lo, q_hi = _t(c, a, valid, W, q_lo, q_hi)
+    block = bootstrap_moments_plain(c, a, valid, W, q_lo, q_hi)
+    one = weighted_moments_plain(c, a, valid, W[0], q_lo, q_hi)
+    mask = torch.from_numpy(empty)
+    assert (block.permute(1, 2, 0, 3)[mask].view(torch.int32) == 0).all()
+    assert (one[mask].view(torch.int32) == 0).all()
+
+
+def test_plain_empty_pair_negative_zero_when_every_value_is_negative():
+    """The one exception to +0.0: where every slot of a stratum holds
+    a < 0 and s is a power of two (so tree_sum_last adds no +0.0 padding),
+    the plain sum of w*a over an empty pair is -0.0 (+0.0 * a). The CUDA
+    kernels write +0.0 there; the two compare equal, which is all the
+    kernel-against-plain checks ask."""
+    k, s = 3, 8
+    c = torch.zeros((k, s, 1))
+    a = -torch.ones((k, s))
+    valid = torch.ones((k, s), dtype=torch.bool)
+    W = torch.ones((2, k, s))
+    q_lo, q_hi = torch.full((1, 1), 5.0), torch.full((1, 1), 6.0)
+    got = bootstrap_moments_plain(c, a, valid, W, q_lo, q_hi)
+    assert (got == 0).all()
+    assert torch.signbit(got[..., 1]).all()
+    assert not torch.signbit(got[..., 0]).any()
+    assert not torch.signbit(got[..., 2]).any()
+
+
+def test_weighted_kernel_limits():
+    """The sizes the CUDA wrappers take: tiles of 32 queries along
+    gridDim.x, the totals kernel's leaf tiles of 128 and the mixed-pair
+    kernel's replicate tiles of 16 along gridDim.y, and s bounded by the
+    slot mask in shared memory."""
+    check_weighted_limits("w", 2048, 1024, 75, 3, R=WEIGHTED_MAX_R)
+    check_weighted_limits("w", 1, WEIGHTED_MAX_K, WEIGHTED_MAX_S, 16)
+    check_weighted_limits("w", 1, 1, 0, 1)
+    for bad in (dict(Q=0), dict(k=0), dict(k=WEIGHTED_MAX_K + 1),
+                dict(s=WEIGHTED_MAX_S + 1), dict(s=-1), dict(d=0),
+                dict(d=17), dict(R=0), dict(R=WEIGHTED_MAX_R + 1),
+                dict(Q=2 ** 31 - 1, k=64)):
+        args = dict(Q=8, k=16, s=4, d=2, R=3)
+        args.update(bad)
+        with pytest.raises(ValueError, match="needs"):
+            check_weighted_limits("w", args["Q"], args["k"], args["s"],
+                                  args["d"], args["R"])
+    # totals (R, k, 3), boxes (k, 2, d), valid bits (k, ceil(s / 32)), a
+    # count per (query tile, leaf) and a list entry of 1 + ceil(s / 32)
+    # words per (query, leaf), leaves rounded up to a tile of 32.
+    assert weighted_scratch(3, 40, 5, 33, 2, "cpu").numel() == \
+        45 + 20 + 10 + 2 * 5 + 2 * 32 * 36 * 3
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
