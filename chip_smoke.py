@@ -2,20 +2,29 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py     # the whole check, one card
-    python3 chip_smoke.py --baseline DIR   # also time DIR's weighted kernels
+    python3 chip_smoke.py --baseline DIR   # also hold DIR's kernels
 
-DIR is a checkout of an earlier commit (the one before the weighted
-kernels' cover/empty redesign): its csrc/weighted_moments.cu is built
-beside the current one, must give the same bits at the bootstrap's shapes,
-and is timed there; rows 3 and 4 of the kernels line then carry its times
-as baseline_ms (null without --baseline).
+DIR is a checkout of an earlier commit. Its weighted_moments.cu,
+stratified_moments.cu and segment_reduce.cu are built beside the current
+sources, held against the current kernels and timed beside them: rows 2
+(stratified_moments) and 5 (segment_reduce) must give the baseline's bits
+at every shape they are checked at, rows 3 and 4 (the weighted moments) at
+the bootstrap's shapes, and row 6 (weighted_segment_reduce) must meet it
+within rtol=3e-5, atol=1e-3. Rows 2-6 of the kernels line then carry the
+baseline's times (baseline_ms, and for rows 2, 5 and 6 baseline_device_ms;
+null without --baseline).
 
 Phases, each of which fails the run:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc.
+2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc
+   (and, with --baseline, DIR's three sources).
 3. Kernel against plain on the card at edge shapes (ragged Q and k, d up
-   to 16, inverted empty leaves, ragged validity, s = 1, several tiles).
+   to 16, inverted empty leaves, ragged validity, s = 1, several tiles);
+   stratified_moments also where covered, empty and mixed pairs all
+   appear (k = 53 and 64, s up to 2500, d up to 16, strata without a valid
+   slot), each case printing its counts, and with NaN coordinates on valid
+   slots; bit-equal across two launches and to the baseline.
 4. 1-D main path: nyc_taxi(scale=1.0) (7.7 M trips) -> build_synopsis(k=1024,
    sample_rate=0.01) -> random_queries(2048) -> PassEngine(all five kinds,
    ci=0.95).answer(), through the entry points a user calls. Both kernels'
@@ -43,8 +52,9 @@ Phases, each of which fails the run:
 9. 3-D streaming: the same stream at dims=3 into phase 5's synopsis;
    route_multid launches once a batch too.
 10. Streaming times: each new kernel and its plain version at B = 4096
-   and 65536 (and kernel = plain there), ingest per batch, the merge,
-   answer right after an ingest, and a profiler window over 10 batches.
+   and 65536 (and kernel = plain there; segment_reduce bit-equal to the
+   baseline's and timed beside it), ingest per batch, the merge, answer
+   right after an ingest, and a profiler window over 10 batches.
 11. The bootstrap's kernels against plain at edge shapes:
    stratified_weighted_moments and bootstrap_moments (Q up to 129, k up to
    53, s up to 300, d up to 16, R in {1, 7, 8, 9, 33}; zero, Poisson and
@@ -55,7 +65,7 @@ Phases, each of which fails the run:
    pairs all appear (a box over every sample, boxes that miss everything,
    box edges on sample coordinates; k = 64 and 53, s up to 2500), each
    printing its counts; weighted_segment_reduce (N up to 65537, k up to
-   1024).
+   3000).
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
    n_boot=200, key=5)).answer(). Fused launches bootstrap_moments once,
@@ -72,8 +82,11 @@ Phases, each of which fails the run:
 15. Bootstrap times: the answer fused and scan, its split (draw, kernel,
    epilogue), its peak memory and a profiler window; each new kernel and
    its plain version at the main path's shapes, with their bounds and the
-   nearest library call (torch.bmm of a prebuilt predicate, index_add_);
-   the pair classes there; the weighted kernels' launch overhead;
+   nearest library call (torch.bmm of a prebuilt predicate, index_add_)
+   by events and on the device; the pair classes there; the launch
+   overhead of the weighted kernels and stratified_moments;
+   weighted_segment_reduce at leaf-major and at uniformly random ids, one
+   device operation a call, with its host enqueue time;
    bootstrap_moments at the 3-D shapes; the baseline's kernels, if given.
 
 The line before the last is the kernels JSON line; the last line is
@@ -187,11 +200,16 @@ def device_busy_us(prof) -> tuple[float, int]:
                 for e in events), len(events))
 
 
-def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Device time per call of ``fn()`` in ms: the summed duration of what
-    it ran on the card, from torch.profiler over ``reps`` calls. An event
-    bracket around one call of a microsecond kernel measures the host's
-    issue time instead, because the card waits for the launch."""
+def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
+                   one_op: bool = False) -> dict:
+    """What ``fn()`` ran on the card over ``reps`` calls, from
+    torch.profiler: the names of the device operations, their count per
+    call, and the device ms per call, their summed time over ``reps``. On
+    an H100 the profiler sometimes records fewer operations than were
+    launched (ctypes launches included), so for ``fn`` that is one device
+    operation (``one_op``, held: the recorded ones share one name and are
+    no more than the calls) the ms per call is their mean; and a window
+    around a long library call has recorded none (ms None)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -201,7 +219,25 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return device_busy_us(prof)[0] / 1e3 / reps
+    events = [e for e in prof.events()
+              if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy_us, n = device_busy_us(prof)
+    names = sorted({e.name for e in events})
+    if one_op and (len(names) > 1 or n > reps):
+        raise AssertionError(f"not one device operation a call: {n} "
+                             f"operations over {reps} calls, {names}")
+    # A window that recorded nothing measured nothing (null in the lines).
+    ms = (None if n == 0
+          else (busy_us / n if one_op else busy_us / reps) / 1e3)
+    return {"ms": ms, "ops_per_call": n / reps, "names": names}
+
+
+def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
+              one_op: bool = False) -> float:
+    """Device time per call of ``fn()`` in ms (``device_profile``). An
+    event bracket around one call of a microsecond kernel measures the
+    host's issue time instead, because the card waits for the launch."""
+    return device_profile(torch, fn, reps, warmup, one_op)["ms"]
 
 
 def close(name, got, want, rtol, atol) -> float:
@@ -227,45 +263,75 @@ def close(name, got, want, rtol, atol) -> float:
 # Kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, sample_c,
-                    sample_a, sample_valid, q_lo, q_hi) -> dict:
-    """Both kernels against their plain versions on the same CUDA inputs.
-    Relation codes and counts must be equal; exact[:, :3] and the sums meet
-    rtol=3e-5, atol=1e-3. Returns the max absolute errors."""
-    from repro_torch.kernels.query_eval import (query_eval_cuda,
-                                                query_eval_plain)
+def bits_equal(torch, x, y) -> bool:
+    """torch.equal of the float32 tensors' bits (int32 views): +0.0 and
+    -0.0 differ, a NaN equals the same NaN."""
+    return x.shape == y.shape and torch.equal(x.view(torch.int32),
+                                              y.view(torch.int32))
+
+
+def moments_vs_plain(torch, tag, c, a, valid, q_lo, q_hi, base) -> float:
+    """stratified_moments kernel against plain on the same CUDA inputs:
+    counts equal, sums within rtol=3e-5, atol=1e-3; a second launch
+    bit-equal to the first; with a baseline, bit-equal to the baseline's
+    kernel (the contract: the first version's bits). Returns the max
+    absolute error of the sums."""
     from repro_torch.kernels.stratified_estimate import (
         stratified_moments_cuda, stratified_moments_plain)
+    got = stratified_moments_cuda(c, a, valid, q_lo, q_hi)
+    again = stratified_moments_cuda(c, a, valid, q_lo, q_hi)
+    want = stratified_moments_plain(c, a, valid, q_lo, q_hi)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, got, again):
+        raise AssertionError(f"{tag}: stratified_moments differs between "
+                             "two launches")
+    if not torch.equal(got[..., 0], want[..., 0]):
+        raise AssertionError(f"{tag}: stratified_moments counts differ")
+    if base is not None:
+        ref = baseline_stratified(torch, base, c, a, valid, q_lo, q_hi)
+        torch.cuda.synchronize()
+        if not bits_equal(torch, got, ref):
+            n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+            raise AssertionError(f"{tag}: stratified_moments differs from "
+                                 f"the baseline kernel in {n} values")
+    return max(close(f"{tag} stratified_moments[{i}]", got[..., i].cpu(),
+                     want[..., i].cpu(), K_RTOL, K_ATOL) for i in (1, 2))
+
+
+def kernel_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, sample_c,
+                    sample_a, sample_valid, q_lo, q_hi, base=None) -> dict:
+    """Both kernels against their plain versions on the same CUDA inputs.
+    Relation codes and counts must be equal; exact[:, :3] and the sums meet
+    rtol=3e-5, atol=1e-3; stratified_moments as moments_vs_plain holds it.
+    Returns the max absolute errors."""
+    from repro_torch.kernels.query_eval import (query_eval_cuda,
+                                                query_eval_plain)
     rel_k, ex_k = query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
     rel_p, ex_p = query_eval_plain(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
-    mom_k = stratified_moments_cuda(sample_c, sample_a, sample_valid, q_lo,
-                                    q_hi)
-    mom_p = stratified_moments_plain(sample_c, sample_a, sample_valid, q_lo,
-                                     q_hi)
     torch.cuda.synchronize()
     if not torch.equal(rel_k, rel_p):
         n = int((rel_k != rel_p).sum())
         raise AssertionError(f"{tag}: query_eval rel differs in {n} pairs")
-    if not torch.equal(mom_k[..., 0], mom_p[..., 0]):
-        raise AssertionError(f"{tag}: stratified_moments counts differ")
     errs = {
         "query_eval": close(f"{tag} query_eval exact",
                             ex_k[:, :3].cpu(), ex_p[:, :3].cpu(),
                             K_RTOL, K_ATOL),
-        "stratified_moments": max(
-            close(f"{tag} stratified_moments[{i}]", mom_k[..., i].cpu(),
-                  mom_p[..., i].cpu(), K_RTOL, K_ATOL) for i in (1, 2)),
+        "stratified_moments": moments_vs_plain(
+            torch, tag, sample_c, sample_a, sample_valid, q_lo, q_hi, base),
     }
     emit(check="kernel_vs_plain", shape=tag,
-         covered_pairs=int((rel_k == 2).sum()), max_abs_err=errs)
+         covered_pairs=int((rel_k == 2).sum()), max_abs_err=errs,
+         baseline_bit_equal=None if base is None else True)
     return errs
 
 
-def edge_cases(torch, dev) -> None:
+def edge_cases(torch, dev, base) -> float:
     """Kernel = plain at shapes no block size divides, with inverted empty
-    leaves, ragged validity, s = 1, several leaf tiles and slot chunks."""
+    leaves, ragged validity, s = 1, several leaf tiles and slot chunks.
+    Returns stratified_moments' max absolute error."""
     shapes = [(1, 1, 1, 1), (17, 5, 1, 3), (130, 53, 7, 3),
               (129, 257, 75, 1), (300, 600, 300, 2), (5, 9, 3, 16)]
+    err = 0.0
     for Q, k, s, d in shapes:
         rng = np.random.default_rng(Q * 7919 + k)
         lo = rng.uniform(-1, 0.5, (k, d)).astype(np.float32)
@@ -284,7 +350,66 @@ def edge_cases(torch, dev) -> None:
         q_hi = q_lo + rng.uniform(0, 1.5, (Q, d)).astype(np.float32)
         t = [torch.from_numpy(x).to(dev)
              for x in (lo, hi, agg, c, a, valid, q_lo, q_hi)]
-        kernel_vs_plain(torch, f"edge Q={Q} k={k} s={s} d={d}", *t)
+        err = max(err, kernel_vs_plain(
+            torch, f"edge Q={Q} k={k} s={s} d={d}", *t,
+            base=base)["stratified_moments"])
+    return err
+
+
+# (Q, k, s, d) of stratified_moments' class cases: k = 64 writes 16-byte
+# rows, k = 53 4-byte ones; s = 300 and 2500 stage the slots in several
+# chunks; d = 16; Q ragged.
+MOMENT_CLASS_CASES = ((129, 64, 75, 1), (129, 53, 75, 3), (33, 64, 300, 2),
+                      (33, 53, 2500, 3), (40, 64, 75, 16))
+
+
+def edge_cases_moments(torch, dev, base) -> float:
+    """stratified_moments where covered, empty and mixed pairs all appear
+    (weighted_class_inputs, the weights ignored; strata 0 and k // 2 without
+    a valid slot), each case printing its counts; then the first two cases
+    again with NaN coordinates on valid slots: one slot of a stratum all
+    of whose other samples query 0 holds, and column 0 of every slot of
+    another stratum. The slot test rejects NaN, so neither stratum is
+    covered by any query: the kernel must walk the first and skip the
+    second. Returns the max absolute error of the sums."""
+    err = 0.0
+    cases = [(shape, False) for shape in MOMENT_CLASS_CASES] + \
+        [(shape, True) for shape in MOMENT_CLASS_CASES[:2]]
+    for (Q, k, s, d), nan in cases:
+        rng = np.random.default_rng(Q * 131 + k * 17 + s + d)
+        c, a, valid, _, q_lo, q_hi = weighted_class_inputs(rng, Q, k, s, d,
+                                                           1)
+        nan_strata = []
+        if nan:
+            full = [i for i in range(k) if valid[i].sum() >= 2]
+            l1, l2 = full[0], full[1]
+            c[l1, np.flatnonzero(valid[l1])[0], 0] = np.nan
+            c[l2, :, 0] = np.nan
+            nan_strata = [l1, l2]
+        t = [torch.from_numpy(x).to(dev) for x in (c, a, valid, q_lo, q_hi)]
+        tag = f"edge moment classes Q={Q} k={k} s={s} d={d} nan={nan}"
+        classes = pair_classes(torch, t[0], t[2], t[3], t[4])
+        if min(classes.values()) == 0:
+            raise AssertionError(f"{tag}: a pair class is missing: {classes}")
+        if nan:
+            n0 = samples_in(torch, t, 0)
+            if not (0 < n0[l1] < int(valid[l1].sum()) and n0[l2] == 0):
+                raise AssertionError(f"{tag}: the NaN strata are not mixed "
+                                     "and empty under query 0")
+        e = moments_vs_plain(torch, tag, *t, base)
+        err = max(err, e)
+        emit(check="edge_moment_classes", case=tag, **classes,
+             nan_strata=nan_strata, max_abs_err=e,
+             baseline_bit_equal=None if base is None else True)
+    return err
+
+
+def samples_in(torch, t, q) -> list:
+    """Per stratum, the valid samples that query q's box holds."""
+    from repro_torch.kernels.stratified_estimate import samples_inside
+    c, _, valid, q_lo, q_hi = t
+    return samples_inside(c, valid, q_lo[q:q + 1], q_hi[q:q + 1])[0].sum(
+        -1).tolist()
 
 
 def seg_vs_plain(torch, tag, v, ids, k) -> float:
@@ -501,7 +626,8 @@ def check_cpu_parity(torch, tag, syn, q, res, n: int = 512, kinds=KINDS,
 # The main path
 # ---------------------------------------------------------------------------
 
-def main_path(torch, tag, c, a, method, truth_fn, max_median_err) -> dict:
+def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
+              base=None) -> dict:
     from repro_torch.api import PassEngine, ServingConfig
     from repro_torch.core.query import random_queries
     from repro_torch.core.synopsis import build_synopsis
@@ -532,7 +658,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err) -> dict:
     errs = kernel_vs_plain(torch, f"{tag} main Q=2048 k=1024",
                            syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
                            syn.sample_c, syn.sample_a, syn.sample_valid,
-                           q.lo, q.hi)
+                           q.lo, q.hi, base=base)
     check_cpu_parity(torch, tag, syn, q, res)
     n = 64
     q_lo = q.lo[:n].cpu().numpy()
@@ -575,8 +701,9 @@ def bounds(syn, q, rel, k_pred) -> dict:
     return out
 
 
-def timings(torch, tag, run, card) -> dict:
-    """CUDA-event medians at the main-path shapes."""
+def timings(torch, tag, run, card, base=None) -> dict:
+    """CUDA-event medians at the main-path shapes; with a baseline, its
+    stratified_moments kernel's too."""
     from repro_torch.engine.executor import compute_artifacts
     from repro_torch.kernels import ops
     from repro_torch.kernels.query_eval import (query_eval_cuda,
@@ -614,9 +741,16 @@ def timings(torch, tag, run, card) -> dict:
             ("query_eval", query_eval_cuda, query_eval_plain, qe_args),
             ("stratified_moments", stratified_moments_cuda,
              stratified_moments_plain, sm_args)):
-        times[f"{name}_device"] = device_ms(torch, lambda: kernel(*args))
+        times[f"{name}_device"] = device_ms(torch, lambda: kernel(*args),
+                                           one_op=True)
         times[f"{name}_plain_device"] = device_ms(torch,
                                                   lambda: plain(*args))
+    if base is not None:
+        def old():
+            return baseline_stratified(torch, base, *sm_args)
+        times["stratified_moments_baseline"] = cuda_ms(torch, old)
+        times["stratified_moments_baseline_device"] = device_ms(
+            torch, old, one_op=True)
     emit(times_ms=times, path=tag, Q=int(q.lo.shape[0]),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]),
          d=int(syn.d), answer_peak_mb_above_resident=answer_peak_mb,
@@ -811,12 +945,14 @@ def stream_bounds(N, k, B, d) -> dict:
     return out
 
 
-def stream_kernel_times(torch, s1, s3, card) -> dict:
+def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
     """The two streaming kernels and their plain versions at B = 4096 (one
     ingest batch) and B = 65536, on the main paths' inputs: segment_reduce
     over the 1-D stream's values by their routed leaves (k = 1024, the
     stream's skew), route_multid of the 3-D stream's rows against the 3-D
-    boxes (k = 1024, d = 3). Kernel = plain is checked at each shape."""
+    boxes (k = 1024, d = 3). Kernel = plain is checked at each shape, and
+    with a baseline, segment_reduce bit-equal to the baseline's kernel
+    (whose code it keeps), which is timed too."""
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
@@ -857,6 +993,16 @@ def stream_kernel_times(torch, s1, s3, card) -> dict:
                 torch, lambda: route_multid_plain(lo, hi, rows)),
             "bounds": bnd,
             "segments_hit": int(torch.unique(ids).numel())}
+        if base is not None:
+            if not bits_equal(torch, segment_reduce_cuda(v, ids, k),
+                              baseline_segment(torch, base, v, ids, k)):
+                raise AssertionError(f"main B={B}: segment_reduce differs "
+                                     "from the baseline kernel")
+            out[B]["segment_reduce_baseline"] = cuda_ms(
+                torch, lambda: baseline_segment(torch, base, v, ids, k))
+            out[B]["segment_reduce_baseline_device"] = device_ms(
+                torch, lambda: baseline_segment(torch, base, v, ids, k))
+            out[B]["segment_reduce_baseline_bit_equal"] = True
         emit(stream_kernel_times_ms=out[B], B=B, k=k, card=card)
     return {"times": out, "seg_err": max(errs)}
 
@@ -1069,9 +1215,8 @@ def edge_cases_weighted(torch, dev) -> dict:
     ten mask words) x d in {1, 3, 16}, with R cycling through {1, 7, 8, 9,
     33}, and five cases of weighted_class_inputs, where covered, empty and
     mixed pairs all appear (each prints its counts); weighted_segment_reduce
-    over N
-    in {1, 17, 4096, 65537} x k in {1, 53, 1024} with -1 and out-of-range
-    ids, zero weights, and all rows in one segment."""
+    over N in {1, 17, 4096, 65537} x k in {1, 53, 1024, 3000} with -1 and
+    out-of-range ids, zero weights, and all rows in one segment."""
     errs = dict.fromkeys(("stratified_weighted_moments", "bootstrap_moments",
                           "weighted_segment_reduce"), 0.0)
     reps = (1, 7, 8, 9, 33)
@@ -1111,8 +1256,9 @@ def edge_cases_weighted(torch, dev) -> dict:
         class_cases.append(classes)
         cases += 1
     seg_cases = 0
+    # k = 3000 takes the kernel's passes of 1024 segments.
     for n in (1, 17, 4096, 65537):
-        for k in (1, 53, 1024):
+        for k in (1, 53, 1024, 3000):
             rng = np.random.default_rng(n * 37 + k)
             v = rng.lognormal(0.9, 0.8, n).astype(np.float32)
             w = rng.poisson(1.0, n).astype(np.float32)
@@ -1255,27 +1401,40 @@ def planner_path(torch, tag, run) -> dict:
     return {"launches": launches, "differ": differ}
 
 
-def build_baseline(base: Path):
-    """The weighted kernels of an earlier checkout ``base``, built with the
-    same nvcc flags into build/baseline/ and loaded with ctypes, to be
-    timed beside the current ones on the same card. Sources from before
-    the cover/empty redesign (no ``repro_weighted_plan``) take no scratch
-    pointer; later ones take weighted_scratch's."""
+BASELINE_SOURCES = ("weighted_moments", "stratified_moments",
+                    "segment_reduce")
+
+
+def build_baseline(base: Path) -> dict:
+    """The kernels of rows 2-6 from an earlier checkout ``base``: its
+    weighted_moments.cu, stratified_moments.cu and segment_reduce.cu, built
+    with the same nvcc flags (one process each, all at once) into
+    build/baseline/ and loaded with ctypes, to be held against the current
+    ones and timed beside them on the same card. Weighted sources from
+    before the cover/empty redesign (no ``repro_weighted_plan``) take no
+    scratch pointer; segment_reduce.cu sources from before the one-launch
+    weighted kernel (no ``repro_weighted_segment_max_chunks``) take a
+    scratch of chunk partials and launch twice."""
     import ctypes
     from repro_torch.kernels import native
-    src = base / "src" / "repro_torch" / "kernels" / "csrc" / \
-        "weighted_moments.cu"
-    out = native.BUILD_DIR.parent / "baseline" / "weighted_moments.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
+    csrc = base / "src" / "repro_torch" / "kernels" / "csrc"
+    out_dir = native.BUILD_DIR.parent / "baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    res = subprocess.run([native._nvcc(), *native.NVCC_FLAGS, "-o", str(out),
-                          str(src)], capture_output=True, text=True,
-                         timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"baseline nvcc failed:\n{res.stdout}{res.stderr}")
-    emit(phase="baseline build", source=str(src),
+    procs = {name: subprocess.Popen(
+        [native._nvcc(), *native.NVCC_FLAGS, "-o", str(out_dir / f"{name}.so"),
+         str(csrc / f"{name}.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name in BASELINE_SOURCES}
+    for name, proc in procs.items():
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"baseline nvcc failed for {name}:\n{log}")
+    emit(phase="baseline build", sources=[str(csrc / f"{n}.cu")
+                                          for n in BASELINE_SOURCES],
          seconds=time.perf_counter() - t0)
-    lib = ctypes.CDLL(str(out))
+    libs = {name: ctypes.CDLL(str(out_dir / f"{name}.so"))
+            for name in BASELINE_SOURCES}
+    lib = libs["weighted_moments"]
     lib.scratch = hasattr(lib, "repro_weighted_plan")
     n_ptr = 8 if lib.scratch else 7
     lib.repro_stratified_weighted_moments.argtypes = \
@@ -1284,12 +1443,36 @@ def build_baseline(base: Path):
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.repro_stratified_weighted_moments.restype = ctypes.c_int
     lib.repro_bootstrap_moments.restype = ctypes.c_int
-    return lib
+    sm = libs["stratified_moments"]
+    sm.repro_stratified_moments.argtypes = [ctypes.c_void_p] * 6 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    sm.repro_stratified_moments.restype = ctypes.c_int
+    seg = libs["segment_reduce"]
+    seg.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 4 + \
+        [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    seg.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
+    for fn in (seg.repro_segment_reduce, seg.repro_segment_reduce_chunk):
+        fn.restype = ctypes.c_int
+    seg.one_launch = hasattr(seg, "repro_weighted_segment_max_chunks")
+    seg.repro_weighted_segment_reduce.argtypes = \
+        [ctypes.c_void_p] * (4 if seg.one_launch else 5) + \
+        [ctypes.c_int] * (4 if seg.one_launch else 2) + [ctypes.c_void_p]
+    seg.repro_weighted_segment_reduce.restype = ctypes.c_int
+    return libs
+
+
+def baseline_call(name, lib_fn, *args) -> None:
+    """Call a baseline kernel's C entry on the current stream; raise on a
+    nonzero cudaError_t."""
+    import torch
+    err = lib_fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"baseline {name}: cuda error {err}")
 
 
 def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
-    """The baseline kernel's (Q, k, 3) for a weight row w (k, s), or its
-    (R, Q, k, 3) for W (R, k, s)."""
+    """The baseline weighted kernel's (Q, k, 3) for a weight row w (k, s),
+    or its (R, Q, k, 3) for W (R, k, s)."""
     from repro_torch.kernels.stratified_estimate import weighted_scratch
     c, a, valid = sm
     k, s = a.shape
@@ -1301,14 +1484,63 @@ def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
     if lib.scratch:
         scratch = weighted_scratch(R, Q, k, s, d, a.device)
         ptrs.append(scratch.data_ptr())
-    stream = torch.cuda.current_stream().cuda_stream
     if w.dim() == 2:
-        err = lib.repro_stratified_weighted_moments(*ptrs, Q, k, s, d,
-                                                    stream)
+        baseline_call("stratified_weighted_moments",
+                      lib.repro_stratified_weighted_moments, *ptrs, Q, k, s,
+                      d)
     else:
-        err = lib.repro_bootstrap_moments(*ptrs, R, Q, k, s, d, stream)
-    if err != 0:
-        raise RuntimeError(f"baseline weighted kernel: cuda error {err}")
+        baseline_call("bootstrap_moments", lib.repro_bootstrap_moments,
+                      *ptrs, R, Q, k, s, d)
+    return out
+
+
+def baseline_stratified(torch, libs, c, a, valid, q_lo, q_hi):
+    """The baseline stratified_moments kernel's (Q, k, 3)."""
+    k, s, d = c.shape
+    Q = q_lo.shape[0]
+    out = torch.empty((Q, k, 3), dtype=torch.float32, device=a.device)
+    baseline_call("stratified_moments",
+                  libs["stratified_moments"].repro_stratified_moments,
+                  *(x.data_ptr() for x in (c, a, valid, q_lo, q_hi, out)), Q,
+                  k, s, d)
+    return out
+
+
+def baseline_segment(torch, libs, v, ids, k):
+    """The baseline segment_reduce kernel's (k, 5)."""
+    lib = libs["segment_reduce"]
+    n = v.shape[0]
+    chunks = -(-n // lib.repro_segment_reduce_chunk(n))
+    part = torch.empty(max(chunks, 1) * 5 * k, dtype=torch.float32,
+                       device=v.device)
+    out = torch.empty((k, 5), dtype=torch.float32, device=v.device)
+    baseline_call("segment_reduce", lib.repro_segment_reduce, v.data_ptr(),
+                  ids.data_ptr(), part.data_ptr(), out.data_ptr(), n, k)
+    return out
+
+
+def baseline_wseg(torch, libs, v, w, ids, k):
+    """The baseline weighted_segment_reduce kernel's (k, 3): the two-launch
+    version with its chunk partials, or the one-launch version with the
+    current wrapper's plan."""
+    from repro_torch.kernels.segment_reduce import weighted_segment_plan
+    lib = libs["segment_reduce"]
+    n = v.shape[0]
+    ptrs = [x.data_ptr() for x in (v, w, ids)]
+    if lib.one_launch:
+        chunks, ch, rows = weighted_segment_plan(n, k)
+        buf = torch.empty((rows, 3), dtype=torch.float32, device=v.device)
+        baseline_call("weighted_segment_reduce",
+                      lib.repro_weighted_segment_reduce, *ptrs,
+                      buf.data_ptr(), n, k, chunks, ch)
+        return buf[:k]
+    chunks = -(-n // lib.repro_segment_reduce_chunk(n))
+    part = torch.empty(max(chunks, 1) * 3 * k, dtype=torch.float32,
+                       device=v.device)
+    out = torch.empty((k, 3), dtype=torch.float32, device=v.device)
+    baseline_call("weighted_segment_reduce",
+                  lib.repro_weighted_segment_reduce, *ptrs, part.data_ptr(),
+                  out.data_ptr(), n, k)
     return out
 
 
@@ -1323,7 +1555,7 @@ def boot_weights(torch, syn, device):
                        tboot._draw_weights(key, r, (k, s)), 0.0)
 
 
-def boot_kernel_3d(torch, run, card, base_lib) -> dict:
+def boot_kernel_3d(torch, run, card, base) -> dict:
     """bootstrap_moments at the 3-D bootstrap answer's shapes (R = 200):
     its time, the pair classes there and, with a baseline, the baseline's
     time and its output torch.equal to the current one."""
@@ -1339,7 +1571,8 @@ def boot_kernel_3d(torch, run, card, base_lib) -> dict:
                int(q.lo.shape[0]), k, s, int(q.lo.shape[1])),
            "ms": cuda_ms(torch, lambda: bootstrap_moments_cuda(
                *sm, W, q.lo, q.hi), reps=10)}
-    if base_lib is not None:
+    if base is not None:
+        base_lib = base["weighted_moments"]
         got = bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
         if not torch.equal(got, baseline_moments(torch, base_lib, sm, W,
                                                  q.lo, q.hi)):
@@ -1459,20 +1692,24 @@ def boot_timings(torch, tag, run, boot, card) -> dict:
     return {"times": times, "W": W}
 
 
-def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
+def boot_kernel_times(torch, run, W, card, base=None) -> dict:
     """The three new kernels and their plain versions at the main path's
     shapes (Q = 2048, k = 1024, s = 75, R = 200; the plain bootstrap on the
     first PLAIN_BOOT_Q queries; weighted_segment_reduce over the flattened
     samples by stratum with the first weight row, as the JAX package's
-    fused-bootstrap benchmark calls it), kernel = plain checked at each,
-    and the nearest single library calls, with TF32 off: torch.bmm of the
-    predicate (k, Q, s) built beforehand with [w, w*a, w*a^2] (k, s, 3R)
+    fused-bootstrap benchmark calls it, and over uniformly random ids),
+    kernel = plain checked at each, and the nearest single library calls,
+    with TF32 off, by events and on the device: torch.bmm of the predicate
+    (k, Q, s) built beforehand with [w, w*a, w*a^2] (k, s, 3R)
     ("contraction only", rows 2-4) and index_add_ of a prebuilt (N, 3)
     source ("scatter only", row 6). Also the pair classes at these shapes;
-    the weighted kernels' launch overhead (one call bracketed by events,
-    20 calls back to back, the host's enqueue time), beside
-    stratified_moments'; with a baseline, its kernels' times and outputs
-    torch.equal to the current ones."""
+    the launch overhead of the weighted kernels and stratified_moments
+    (one call bracketed by events, 20 calls back to back, the host's
+    enqueue time), and weighted_segment_reduce's; its device operations
+    per call, which must be 1; with a baseline, its weighted kernels'
+    times and outputs torch.equal to the current ones, and its
+    weighted_segment_reduce's times and output within rtol=3e-5,
+    atol=1e-3 of the current one."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.segment_reduce import (
@@ -1500,6 +1737,11 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
         k, dtype=torch.int32, device=seg_v.device)[:, None], -1
     ).reshape(-1).contiguous()
     err_s = wseg_vs_plain(torch, "main N=k*s", seg_v, seg_w, seg_ids, k)
+    # Uniformly random ids over the same rows, made from a seed.
+    uni_ids = torch.from_numpy(np.random.default_rng(15).integers(
+        0, k, seg_v.shape[0]).astype(np.int32)).to(seg_v.device)
+    err_s = max(err_s, wseg_vs_plain(torch, "main N=k*s uniform ids", seg_v,
+                                     seg_w, uni_ids, k))
     relevant = float(stratified_moments_cuda(*sm, q.lo, q.hi)[..., 0].sum())
     bnd = boot_bounds(syn, q, relevant, W.shape[0], seg_v.shape[0])
     classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
@@ -1520,8 +1762,9 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
         "stratified_moments_single": cuda_ms(torch, smo),
         "stratified_moments_x20": cuda_ms(torch, x20(smo), reps=10) / 20,
         "stratified_moments_enqueue_host": enqueue_ms(torch, smo)}
-    base = {}
-    if base_lib is not None:
+    base_ms = {}
+    if base is not None:
+        base_lib = base["weighted_moments"]
         for name, w, fn in (
                 ("stratified_weighted_moments", w0, swm),
                 ("bootstrap_moments", W,
@@ -1531,7 +1774,7 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
                 raise AssertionError(f"1d {name} differs from the baseline "
                                      "kernel")
             torch.cuda.empty_cache()
-        base = {
+        base_ms = {
             "stratified_weighted_moments": cuda_ms(
                 torch, lambda: baseline_moments(torch, base_lib, sm, w0,
                                                 q.lo, q.hi)),
@@ -1558,8 +1801,40 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
     rhs3 = rhs(w0[None])
     rhs4 = rhs(W)
     src = torch.stack([seg_w * seg_v, seg_w * seg_v * seg_v, seg_w], 1)
-    spill = torch.where(seg_ids >= 0, seg_ids.long(), k)
     acc = torch.zeros((k + 1, 3), dtype=torch.float32, device=seg_v.device)
+    wseg = {}
+    for layout, ids in (("leaf_major", seg_ids), ("uniform", uni_ids)):
+        spill = torch.where(ids >= 0, ids.long(), k)
+
+        def kernel():
+            return weighted_segment_reduce_cuda(seg_v, seg_w, ids, k)
+
+        def library():
+            return acc.index_add_(0, spill, src)
+
+        # One launch a call: every operation the profiler recorded is the
+        # kernel, and there were no more of them than calls.
+        prof = device_profile(torch, kernel, one_op=True)
+        if any("weighted_segment_kernel" not in n for n in prof["names"]):
+            raise AssertionError(f"weighted_segment_reduce ({layout} ids) "
+                                 f"ran {prof['names']}")
+        row = {"ms": cuda_ms(torch, kernel), "device_ms": prof["ms"],
+               "profiler_ops_per_call": prof["ops_per_call"],
+               "ms_x20": cuda_ms(torch, lambda: [kernel() for _ in
+                                                  range(20)], reps=10) / 20,
+               "enqueue_host_ms": enqueue_ms(torch, kernel),
+               "library_ms": cuda_ms(torch, library),
+               "library_device_ms": device_ms(torch, library, one_op=True),
+               "library_enqueue_host_ms": enqueue_ms(torch, library)}
+        if base is not None:
+            def old():
+                return baseline_wseg(torch, base, seg_v, seg_w, ids, k)
+            row["baseline_max_abs_err"] = close(
+                f"main {layout} weighted_segment_reduce vs baseline",
+                kernel().cpu(), old().cpu(), K_RTOL, K_ATOL)
+            row["baseline_ms"] = cuda_ms(torch, old)
+            row["baseline_device_ms"] = device_ms(torch, old)
+        wseg[layout] = row
     times = {
         "stratified_weighted_moments": cuda_ms(
             torch, lambda: stratified_weighted_moments_cuda(
@@ -1581,12 +1856,6 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
             warmup=1),
         "bootstrap_moments_q256": cuda_ms(
             torch, lambda: bootstrap_moments_cuda(*sm, W, ql, qh)),
-        "weighted_segment_reduce": cuda_ms(
-            torch, lambda: weighted_segment_reduce_cuda(seg_v, seg_w,
-                                                        seg_ids, k)),
-        "weighted_segment_reduce_device": device_ms(
-            torch, lambda: weighted_segment_reduce_cuda(seg_v, seg_w,
-                                                        seg_ids, k)),
         "weighted_segment_reduce_plain": cuda_ms(
             torch, lambda: weighted_segment_reduce_plain(seg_v, seg_w,
                                                          seg_ids, k)),
@@ -1595,25 +1864,53 @@ def boot_kernel_times(torch, run, W, card, base_lib=None) -> dict:
                                                          seg_ids, k)),
         "bmm_stratified_moments": cuda_ms(torch, lambda: torch.bmm(pred,
                                                                    rhs2)),
+        "bmm_stratified_moments_device": device_ms(
+            torch, lambda: torch.bmm(pred, rhs2)),
         "bmm_stratified_weighted_moments": cuda_ms(
+            torch, lambda: torch.bmm(pred, rhs3)),
+        "bmm_stratified_weighted_moments_device": device_ms(
             torch, lambda: torch.bmm(pred, rhs3)),
         "bmm_bootstrap_moments": cuda_ms(torch, lambda: torch.bmm(pred,
                                                                   rhs4),
                                          reps=10),
-        "index_add_weighted_segment_reduce": cuda_ms(
-            torch, lambda: acc.index_add_(0, spill, src)),
+        "bmm_bootstrap_moments_device": device_ms(
+            torch, lambda: torch.bmm(pred, rhs4), reps=5, warmup=1),
     }
     emit(new_kernel_times_ms=times, bounds=bnd, plain_boot_q=PLAIN_BOOT_Q,
          relevant_pairs=relevant, classes_1d=classes, card=card,
-         launch_overhead_ms=overhead, baseline_ms=base,
+         launch_overhead_ms=overhead, baseline_ms=base_ms,
+         weighted_segment_reduce_ms=wseg,
          max_abs_err={"stratified_weighted_moments": err_w,
                       "bootstrap_moments": err_b,
                       "weighted_segment_reduce": err_s})
     return {"times": times, "bounds": bnd, "classes": classes,
-            "overhead": overhead, "baseline": base,
+            "overhead": overhead, "baseline": base_ms, "wseg": wseg,
             "errs": {"stratified_weighted_moments": err_w,
                      "bootstrap_moments": err_b,
                      "weighted_segment_reduce": err_s}}
+
+
+def wseg_fields(wseg) -> dict:
+    """Row 6's times for the kernels line: the leaf-major layout's under
+    the row's own keys, the uniform ids' with a ``uniform_`` prefix."""
+    keys = ("ms", "device_ms", "profiler_ops_per_call", "ms_x20",
+            "enqueue_host_ms", "library_ms", "library_device_ms",
+            "library_enqueue_host_ms", "baseline_ms", "baseline_device_ms",
+            "baseline_max_abs_err")
+    return {**{key: wseg["leaf_major"].get(key) for key in keys},
+            **{f"uniform_{key}": wseg["uniform"].get(key) for key in keys}}
+
+
+def check_plan_constants() -> None:
+    """The weighted_segment_reduce wrapper's chunk cap is the CUDA
+    source's."""
+    from repro_torch.kernels import native
+    from repro_torch.kernels.segment_reduce import WSEG_MAX_CHUNKS
+    got = native.library("segment_reduce").repro_weighted_segment_max_chunks()
+    if got != WSEG_MAX_CHUNKS:
+        raise AssertionError(f"weighted_segment_reduce: the source's chunk "
+                             f"cap {got} is not the wrapper's "
+                             f"{WSEG_MAX_CHUNKS}")
 
 
 def main(argv=None) -> int:
@@ -1651,8 +1948,12 @@ def main(argv=None) -> int:
             if "registers" in line or "smem" in line or "error" in line:
                 print(f"nvcc {name}: {line.strip()}", flush=True)
 
+    check_plan_constants()
+    base = build_baseline(args.baseline) if args.baseline else None
+
     # 3. Kernels against plain at edge shapes.
-    edge_cases(torch, dev)
+    edge_sm_err = max(edge_cases(torch, dev, base),
+                      edge_cases_moments(torch, dev, base))
 
     # 4. 1-D main path; 5. 3-D path.
     t0 = time.perf_counter()
@@ -1660,17 +1961,17 @@ def main(argv=None) -> int:
     c3, a3 = nyc_taxi(scale=1.0, dims=3)
     emit(phase="data", seconds=time.perf_counter() - t0,
          rows=int(a1.shape[0]))
-    run1 = main_path(torch, "1d", c1, a1, "adp", truth_1d, 0.05)
+    run1 = main_path(torch, "1d", c1, a1, "adp", truth_1d, 0.05, base)
     # Random 3-D boxes over the taxi columns select ~0.5 % of the rows and
     # many are empty, so the 3-D median error bar is looser (a CPU run at
     # scale 0.1 with the same 75 samples per stratum gave 0.057).
     run3 = main_path(torch, "3d", c3, a3, "kd",
                      lambda c, a, lo, hi: truth_scan(torch, c, a, lo, hi),
-                     0.15)
+                     0.15, base)
 
     # 6. Times.
-    t1 = timings(torch, "1d", run1, card)
-    t3 = timings(torch, "3d", run3, card)
+    t1 = timings(torch, "1d", run1, card, base)
+    t3 = timings(torch, "3d", run3, card, base)
     profile_answer(torch, "1d", run1)
     profile_answer(torch, "3d", run3)
 
@@ -1689,7 +1990,7 @@ def main(argv=None) -> int:
                      reopt=False)
 
     # 10. Streaming times.
-    kt = stream_kernel_times(torch, s1, s3, card)
+    kt = stream_kernel_times(torch, s1, s3, card, base)
     stream_timings(torch, "1d", run1, s1, card)
     stream_timings(torch, "3d", run3, s3, card)
     profile_ingest(torch, "1d", s1)
@@ -1708,11 +2009,10 @@ def main(argv=None) -> int:
     planner_path(torch, "1d", run1)
 
     # 15. Bootstrap times.
-    base_lib = build_baseline(args.baseline) if args.baseline else None
     bt = boot_timings(torch, "1d", run1, b1, card)
-    bk = boot_kernel_times(torch, run1, bt["W"], card, base_lib)
+    bk = boot_kernel_times(torch, run1, bt["W"], card, base)
     del bt["W"]
-    b3k = boot_kernel_3d(torch, run3, card, base_lib)
+    b3k = boot_kernel_3d(torch, run3, card, base)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
@@ -1721,8 +2021,26 @@ def main(argv=None) -> int:
     # answer's shapes (R = 200) with the launches of one fused answer
     # (bootstrap_moments) or one scan answer (stratified_weighted_moments);
     # weighted_segment_reduce is on no serving path and launches 0 there.
-    bb, btimes = bk["bounds"], bk["times"]
-    library = {"stratified_moments": btimes["bmm_stratified_moments"]}
+    # Rows 2, 5 and 6 carry the baseline's times (null without
+    # --baseline); rows 2-4 and 6 the library call's, by events and on the
+    # device.
+    bb, btimes, ov = bk["bounds"], bk["times"], bk["overhead"]
+    extra = {
+        "query_eval": {"library_ms": None, "library_device_ms": None},
+        "stratified_moments": {
+            "library_ms": btimes["bmm_stratified_moments"],
+            "library_device_ms": btimes["bmm_stratified_moments_device"],
+            "library": "torch.bmm, contraction only",
+            "ms_x20": ov["stratified_moments_x20"],
+            "enqueue_host_ms": ov["stratified_moments_enqueue_host"],
+            "edge_max_abs_err": edge_sm_err,
+            "baseline_bit_equal": None if base is None else True,
+            "baseline_ms": t1["times"].get("stratified_moments_baseline"),
+            "baseline_device_ms": t1["times"].get(
+                "stratified_moments_baseline_device"),
+            "baseline_ms_3d": t3["times"].get("stratified_moments_baseline"),
+            "device_ms_3d": t3["times"]["stratified_moments_device"]},
+    }
     rows = []
     for name in ("query_eval", "stratified_moments"):
         source, replaces = SOURCES[name]
@@ -1734,12 +2052,12 @@ def main(argv=None) -> int:
             "ms": t1["times"][name], "plain_ms": t1["times"][f"{name}_plain"],
             "bound_ms": t1["bounds"][name]["bound_ms"],
             "bound_by": t1["bounds"][name]["bound_by"],
-            "library_ms": library.get(name),
             "device_ms": t1["times"][f"{name}_device"],
             "plain_device_ms": t1["times"][f"{name}_plain_device"],
             "ms_3d": t3["times"][name],
             "plain_ms_3d": t3["times"][f"{name}_plain"],
-            "bound_ms_3d": t3["bounds"][name]["bound_ms"]})
+            "bound_ms_3d": t3["bounds"][name]["bound_ms"], **extra[name]})
+    rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], edge_sm_err)
     b4, b64 = kt["times"][4096], kt["times"][65536]
     for name, path_launches, err in (
             ("segment_reduce", s1["launches"],
@@ -1755,11 +2073,20 @@ def main(argv=None) -> int:
             "plain_ms": b4[f"{name}_plain"],
             "bound_ms": b4["bounds"][name]["bound_ms"],
             "bound_by": b4["bounds"][name]["bound_by"], "library_ms": None,
+            "library_device_ms": None,
             "device_ms": b4[f"{name}_device"],
             "plain_device_ms": b4[f"{name}_plain_device"],
             "device_ms_b65536": b64[f"{name}_device"],
             "ms_b65536": b64[name], "plain_ms_b65536": b64[f"{name}_plain"],
             "bound_ms_b65536": b64["bounds"][name]["bound_ms"]})
+        if name == "segment_reduce":
+            rows[-1].update(
+                baseline_bit_equal=None if base is None else True,
+                baseline_ms=b4.get("segment_reduce_baseline"),
+                baseline_device_ms=b4.get("segment_reduce_baseline_device"),
+                baseline_ms_b65536=b64.get("segment_reduce_baseline"),
+                baseline_device_ms_b65536=b64.get(
+                    "segment_reduce_baseline_device"))
     boot_rows = {
         "stratified_weighted_moments": {
             "launches": b1["scan_launches"]["stratified_weighted_moments"],
@@ -1770,6 +2097,8 @@ def main(argv=None) -> int:
             "plain_device_ms":
                 btimes["stratified_weighted_moments_plain_device"],
             "library_ms": btimes["bmm_stratified_weighted_moments"],
+            "library_device_ms":
+                btimes["bmm_stratified_weighted_moments_device"],
             "library": "torch.bmm, contraction only",
             "ms_x20": bk["overhead"]["stratified_weighted_moments_x20"],
             "enqueue_host_ms":
@@ -1789,6 +2118,7 @@ def main(argv=None) -> int:
             "plain_queries": PLAIN_BOOT_Q,
             "ms_q256": btimes["bootstrap_moments_q256"],
             "library_ms": btimes["bmm_bootstrap_moments"],
+            "library_device_ms": btimes["bmm_bootstrap_moments_device"],
             "library": "torch.bmm, contraction only",
             "baseline_ms": bk["baseline"].get("bootstrap_moments"),
             "ms_3d": b3k["ms"], "baseline_ms_3d": b3k.get("ms_baseline"),
@@ -1796,12 +2126,10 @@ def main(argv=None) -> int:
         "weighted_segment_reduce": {
             "launches": 0,
             "launches_path": "none: held against plain only",
-            "ms": btimes["weighted_segment_reduce"],
-            "device_ms": btimes["weighted_segment_reduce_device"],
+            **wseg_fields(bk["wseg"]),
             "plain_ms": btimes["weighted_segment_reduce_plain"],
             "plain_device_ms":
                 btimes["weighted_segment_reduce_plain_device"],
-            "library_ms": btimes["index_add_weighted_segment_reduce"],
             "library": "index_add_, scatter only"},
     }
     for name, row in boot_rows.items():
@@ -1812,7 +2140,6 @@ def main(argv=None) -> int:
             "max_abs_err": max(edge_w[name], bk["errs"][name]),
             "bound_ms": bb[name]["bound_ms"],
             "bound_by": bb[name]["bound_by"], **row})
-    rows[1]["library"] = "torch.bmm, contraction only"
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,28 +2,29 @@
 // values whose segment id lies in [0, k); other ids (-1 marks a dropped
 // row) are skipped. An empty segment reads [0, 0, 0, +BIG, -BIG].
 //
-// weighted_segment_reduce, its weighted twin in the same two passes:
-// per-segment [sum w*v, sum w*v^2, sum w] with one weight per row; an
-// empty segment reads [0, 0, 0]. It replaces the Pallas kernel
-// src/repro/kernels/segment_reduce.py::weighted_segment_reduce (body
-// `_kernel_weighted`), the same one-hot MXU contraction with the moment
-// matrix scaled by the row weight. Its bound is bytes as well (12 bytes a
-// row in, 12 a segment out).
-//
 // Replaces the Pallas kernel
 // src/repro/kernels/segment_reduce.py::segment_reduce (body `_kernel`),
 // which walks row tiles on a sequential grid, builds a one-hot (BN, BK)
 // tile and contracts it with [v, v^2, 1] on the MXU, carrying the (BK, 8)
 // output block across the row dimension.
 //
-// What bounds it on an H100: at the streaming ingest's shapes (N = 4096
-// rows, k = 1024 segments) nothing the card is built for: 8 bytes a row
-// in, 20 bytes a segment out, ~6 operations a row, so the bound is a few
-// microseconds of bytes and the kernel is bound by its launch and its
-// two passes' latency.
+// weighted_segment_reduce, its weighted twin: per-segment [sum w*v,
+// sum w*v^2, sum w] with one weight per row; an empty segment reads
+// [0, 0, 0]. It replaces the Pallas kernel
+// src/repro/kernels/segment_reduce.py::weighted_segment_reduce (body
+// `_kernel_weighted`), the same one-hot MXU contraction with the moment
+// matrix scaled by the row weight.
 //
-// Design, deterministic with no float atomics (the sharded ingest's
-// byte-equality to the single-device one rests on this reduction):
+// What bounds both on an H100: at the streaming ingest's shapes (N = 4096
+// rows, k = 1024 segments) and the fused bootstrap benchmark's (N =
+// 76,800, k = 1024) nothing the card is built for: 8 or 12 bytes a row
+// in, 20 or 12 bytes a segment out, ~6 operations a row, so the bound is
+// well under a microsecond of bytes and the kernels are bound by their
+// launches and their passes' latency.
+//
+// segment_reduce, two launches, deterministic with no float atomics (the
+// sharded ingest's byte-equality to the single-device one rests on this
+// reduction, so its code and bits stay as they are):
 //  * Pass 1: the rows are cut into C chunks of CH consecutive rows. Block
 //    (chunk, segment tile) stages its chunk's ids and values in shared
 //    memory; thread t owns segment tile*BS + t and walks the chunk's rows
@@ -40,8 +41,43 @@
 // Work is O(N * k) compares, which at the ingest's shapes is ~4 M and
 // far below the launch cost; CH grows with N so that C stays <= MAX_C.
 // Any N and k are taken by masking; there is no padding to a block size.
+//
+// weighted_segment_reduce, one cooperative launch, deterministic with no
+// float atomics. The wrapper's plan (weighted_segment_plan) cuts the rows
+// into C <= W_MAX_C chunks of CH rows from N alone, one block of 8 warps
+// each; kt = min(WKT, k) segments a pass:
+//  1. Warp w takes the chunk's 32-row windows w, w + 8, ..., PF at a time:
+//     their loads in flight together, then the run sums of each (each run
+//     of equal ids summed by a shuffle tree into its first lane; the PF
+//     windows' trees are independent), then each window's run sums added
+//     to the warp's accumulator in shared memory in window order. Runs of
+//     one id in a window add in lane order: a tag per segment finds such
+//     twins, and only windows that have them rank their leaders by
+//     __match_any_sync. O(CH) work whatever the ids: leaf-major ones give
+//     a few long runs, uniform ones runs of one.
+//  2. The block's partial, its warps' accumulators added in warp order,
+//     goes to part[chunk] for the ids the chunk met ([lo, hi], recorded
+//     beside it): the id-range skip. For k > WKT the range is read first
+//     and the passes of kt segments cover it.
+//  3. A grid-wide sync (cooperative groups; the grid is at most W_MAX_C
+//     blocks, so it is resident on any card with that many
+//     multiprocessors).
+//  4. One warp per segment across the whole grid: lane c holds chunk c
+//     (and c + 32), +0.0 where the segment lies outside the chunk's
+//     range, and a fixed xor-shuffle tree adds the lanes.
+// The sum order is fixed by (N, k) and the rows' positions alone: the same
+// bits on every launch. It is another order than the earlier two-launch
+// version's (which walked rows in order per chunk of at most 264, then
+// combined the chunks in order in a second launch), so the bits may
+// differ from that version's; no contract rests on them. `out`, the
+// partials and the ranges are carved from one buffer that the wrapper
+// allocates per call.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -147,69 +183,265 @@ segment_combine(const float* __restrict__ part, float* __restrict__ out,
   o[4] = mx;
 }
 
-__global__ void __launch_bounds__(BS)
-weighted_partials(const float* __restrict__ v, const float* __restrict__ wt,
-                  const int32_t* __restrict__ ids, float* __restrict__ part,
-                  int N, int k, int CH) {
-  __shared__ float s_v[TILE];
-  __shared__ float s_w[TILE];
-  __shared__ int32_t s_id[TILE];
-  __shared__ int s_min[BS / 32], s_max[BS / 32];
+constexpr int WNT = 256;       // threads per weighted block
+constexpr int WW = WNT / 32;   // its warps
+constexpr int WKT = 1024;      // segments a pass accumulates, at most
+constexpr int W_MAX_C = 64;    // chunks (blocks), at most
+constexpr int PF = 8;          // windows a warp loads at once
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;
 
-  const int tid = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int seg0 = blockIdx.y * BS;
-  const int seg = seg0 + tid;
-  const int r0 = chunk * CH;
-  const int r1 = min(N, r0 + CH);
-  const bool any = chunk_hits_tile(ids, r0, r1, k, seg0, s_min, s_max);
-
-  float sum = 0.f, sumsq = 0.f, wsum = 0.f;
-  if (any) {  // uniform across the block
-    for (int t0 = r0; t0 < r1; t0 += TILE) {
-      const int n = min(TILE, r1 - t0);
-      __syncthreads();  // the previous tile is consumed
-      for (int i = tid; i < n; i += BS) {
-        s_v[i] = v[t0 + i];
-        s_w[i] = wt[t0 + i];
-        s_id[i] = ids[t0 + i];
-      }
-      __syncthreads();
-      for (int i = 0; i < n; ++i) {
-        if (s_id[i] == seg) {
-          const float w = s_w[i];
-          const float wv = w * s_v[i];
-          sum += wv;
-          sumsq += wv * s_v[i];
-          wsum += w;
-        }
-      }
+// The run sums of one 32-row window of a warp, a row per lane: `id` is the
+// row's segment relative to the pass (-1: not in it) and x its [w*v, w*v^2,
+// w]. Each run of equal ids is summed by a shuffle tree into its first
+// lane; returns whether this lane leads a run of an id in the pass.
+__device__ __forceinline__ bool run_sums(int id, float& x0, float& x1,
+                                         float& x2, int lane) {
+  const int prev = __shfl_up_sync(FULL, id, 1);
+  const bool head = lane == 0 || prev != id;
+  const unsigned heads = __ballot_sync(FULL, head);
+  const unsigned above = heads & (0xfffffffeu << lane);
+  const int end = above ? __ffs(above) - 1 : 32;  // first lane of next run
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y0 = __shfl_down_sync(FULL, x0, off);
+    const float y1 = __shfl_down_sync(FULL, x1, off);
+    const float y2 = __shfl_down_sync(FULL, x2, off);
+    if (lane + off < end) {
+      x0 = __fadd_rn(x0, y0);
+      x1 = __fadd_rn(x1, y1);
+      x2 = __fadd_rn(x2, y2);
     }
   }
-  if (seg < k) {
-    float* p = part + (size_t)chunk * 3 * k + seg;
-    p[0] = sum;
-    p[(size_t)k] = sumsq;
-    p[(size_t)2 * k] = wsum;
+  return head && id >= 0;
+}
+
+// The leaders' run sums of one window into acc (the warp's accumulator,
+// [segment][3]); runs of one id add in lane order. The warp's tags (an int
+// a segment) tell whether two leaders share an id: each leader writes its
+// lane to its id's tag and a leader that reads another lane back has a
+// twin. Only then are the leaders ranked (__match_any_sync, slow when the
+// ids are many), and they add in rounds of rank.
+__device__ __forceinline__ void add_runs(float* acc, int* tag, bool lead,
+                                         int id, float x0, float x1,
+                                         float x2, int lane) {
+  if (lead) tag[id] = lane;
+  __syncwarp();
+  bool twin = false;
+  if (lead) twin = tag[id] != lane;
+  int rank = 0, rounds = 0;
+  if (__any_sync(FULL, twin)) {
+    const unsigned same = __match_any_sync(FULL, lead ? id : -1);
+    rank = __popc(same & ((1u << lane) - 1u));
+    rounds = __reduce_max_sync(FULL, lead ? rank : 0);
+  }
+  for (int r = 0; r <= rounds; ++r) {
+    if (lead && rank == r) {
+      float* p = acc + id * 3;
+      p[0] = __fadd_rn(p[0], x0);
+      p[1] = __fadd_rn(p[1], x1);
+      p[2] = __fadd_rn(p[2], x2);
+    }
+    __syncwarp();
   }
 }
 
-__global__ void __launch_bounds__(BS)
-weighted_combine(const float* __restrict__ part, float* __restrict__ out,
-                 int k, int C) {
-  const int seg = blockIdx.x * BS + threadIdx.x;
-  if (seg >= k) return;
-  float sum = 0.f, sumsq = 0.f, wsum = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float* p = part + (size_t)c * 3 * k + seg;
-    sum += p[0];
-    sumsq += p[(size_t)k];
-    wsum += p[(size_t)2 * k];
+// Min and max over the block (uniform result); s_lo / s_hi are WW ints.
+__device__ __forceinline__ void block_min_max(int& lo, int& hi, int* s_lo,
+                                              int* s_hi) {
+  lo = __reduce_min_sync(FULL, lo);
+  hi = __reduce_max_sync(FULL, hi);
+  if ((threadIdx.x & 31) == 0) {
+    s_lo[threadIdx.x >> 5] = lo;
+    s_hi[threadIdx.x >> 5] = hi;
   }
-  float* o = out + (size_t)seg * 3;
-  o[0] = sum;
-  o[1] = sumsq;
-  o[2] = wsum;
+  __syncthreads();
+  for (int w = 0; w < WW; ++w) {
+    lo = min(lo, s_lo[w]);
+    hi = max(hi, s_hi[w]);
+  }
+}
+
+// Launched cooperatively with one block per chunk; dynamic shared memory
+// holds WW accumulators of kt = min(WKT, k) segments and WW tag arrays.
+__global__ void __launch_bounds__(WNT)
+weighted_segment_kernel(const float* __restrict__ v,
+                        const float* __restrict__ wt,
+                        const int32_t* __restrict__ ids, float* out,
+                        float* part, int* range, int N, int k, int CH,
+                        int kt) {
+  extern __shared__ float acc[];  // [warp][segment][3], then tags
+  __shared__ int s_lo[WW], s_hi[WW];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int C = gridDim.x, chunk = blockIdx.x;
+  const int r0 = chunk * CH, r1 = min(N, r0 + CH);
+  const int n_win = (r1 - r0 + 31) / 32;
+  float* wacc = acc + (size_t)warp * kt * 3;
+  int* wtag = (int*)(acc + (size_t)WW * kt * 3) + (size_t)warp * kt;
+
+  // Warp w adds windows w, w + WW, ... of segments [base, base + ns), PF
+  // at a time: their loads in flight together, then their run sums (the
+  // shuffle trees of the PF windows are independent), then their adds in
+  // window order; (tlo, thi) widens to the ids met.
+  int tlo = INT_MAX, thi = -1;
+  auto add_windows = [&](int base, int ns) {
+    for (int g0 = warp; g0 < n_win; g0 += WW * PF) {
+      int gid[PF];
+      float gw[PF], gv[PF];
+#pragma unroll
+      for (int u = 0; u < PF; ++u) {
+        const long long r = r0 + (long long)(g0 + WW * u) * 32 + lane;
+        gid[u] = -1;
+        if (r < r1) {
+          gid[u] = ids[r];
+          gw[u] = wt[r];
+          gv[u] = v[r];
+        }
+      }
+      bool lead[PF];
+      float x[PF][3];
+      const int n_u = min(PF, (n_win - g0 + WW - 1) / WW);  // windows here
+#pragma unroll
+      for (int u = 0; u < PF; ++u) {
+        lead[u] = false;
+        if (u >= n_u) continue;  // uniform across the warp
+        const bool in = gid[u] >= base && gid[u] < base + ns;
+        if (in) {
+          tlo = min(tlo, gid[u]);
+          thi = max(thi, gid[u]);
+        }
+        gid[u] = in ? gid[u] - base : -1;
+        x[u][0] = in ? __fmul_rn(gw[u], gv[u]) : 0.f;
+        x[u][1] = in ? __fmul_rn(x[u][0], gv[u]) : 0.f;
+        x[u][2] = in ? gw[u] : 0.f;
+        lead[u] = run_sums(gid[u], x[u][0], x[u][1], x[u][2], lane);
+      }
+#pragma unroll
+      for (int u = 0; u < PF; ++u)
+        if (u < n_u)
+          add_runs(wacc, wtag, lead[u], gid[u], x[u][0], x[u][1], x[u][2],
+                   lane);
+    }
+  };
+  // The block's partial over segments [s0, s1]: the warps' accumulators
+  // (relative to base) added in warp order.
+  auto write_partial = [&](int base, int s0, int s1) {
+    float* pc = part + (size_t)chunk * k * 3;
+    for (int e = (s0 - base) * 3 + tid; e < (s1 + 1 - base) * 3; e += WNT) {
+      float s = acc[e];
+      for (int w = 1; w < WW; ++w)
+        s = __fadd_rn(s, acc[(size_t)w * kt * 3 + e]);
+      pc[(size_t)base * 3 + e] = s;
+    }
+  };
+  // Every warp's accumulator to +0.0 (16-byte stores: WW * kt * 3 is a
+  // multiple of 4).
+  auto zero = [&]() {
+    float4* a4 = reinterpret_cast<float4*>(acc);
+    for (int i = tid; i < WW * kt * 3 / 4; i += WNT)
+      a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+
+  int lo, hi;  // the segments this chunk's partial holds
+  if (k <= WKT) {
+    // One pass over every segment; the range is the ids met.
+    zero();
+    __syncthreads();
+    add_windows(0, k);
+    lo = tlo;
+    hi = thi;
+    block_min_max(lo, hi, s_lo, s_hi);  // its barrier orders the adds
+    if (lo <= hi) write_partial(0, lo, hi);
+  } else {
+    // Passes of kt segments over the chunk's id range, read first.
+    lo = INT_MAX;
+    hi = -1;
+    for (int r = r0 + tid; r < r1; r += WNT) {
+      const int id = ids[r];
+      if (id >= 0 && id < k) {
+        lo = min(lo, id);
+        hi = max(hi, id);
+      }
+    }
+    block_min_max(lo, hi, s_lo, s_hi);
+    for (long long p0 = lo; p0 <= hi; p0 += kt) {
+      const int base = (int)p0, ns = (int)min((long long)kt, hi - p0 + 1);
+      __syncthreads();  // the previous pass's partial is written
+      zero();
+      __syncthreads();
+      add_windows(base, ns);
+      __syncthreads();
+      write_partial(base, base, base + ns - 1);
+    }
+  }
+  if (tid == 0) {
+    range[2 * chunk] = lo;
+    range[2 * chunk + 1] = hi;
+  }
+
+  // Every chunk's partial is written.
+  cg::this_grid().sync();
+
+  // One warp per segment: lane c holds chunk c (and c + 32), +0.0 where
+  // the segment lies outside the chunk's range; a fixed xor-shuffle tree
+  // adds the lanes, leaving the same bits in each. A warp's segments are
+  // loaded together, SEGS at a time, with the ranges (a partial outside
+  // its chunk's range is loaded but never used).
+  constexpr int SEGS = 4;
+  constexpr int NJ = W_MAX_C / 32;
+  const int stride = C * WW;
+  for (int seg0 = chunk * WW + warp; seg0 < k; seg0 += SEGS * stride) {
+    int clo[NJ], chi[NJ];
+    float t[SEGS][NJ][3];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      clo[j] = c < C ? range[2 * c] : INT_MAX;
+      chi[j] = c < C ? range[2 * c + 1] : -1;
+#pragma unroll
+      for (int u = 0; u < SEGS; ++u) {
+        const int seg = seg0 + u * stride;
+        const bool any = c < C && seg < k;
+        const float* pp = part + ((size_t)c * k + seg) * 3;
+        t[u][j][0] = any ? pp[0] : 0.f;
+        t[u][j][1] = any ? pp[1] : 0.f;
+        t[u][j][2] = any ? pp[2] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SEGS; ++u) {
+      const int seg = seg0 + u * stride;
+      if (seg >= k) break;  // uniform across the warp
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const bool in = clo[j] <= seg && seg <= chi[j];
+        const float t0 = in ? t[u][j][0] : 0.f, t1 = in ? t[u][j][1] : 0.f,
+                    t2 = in ? t[u][j][2] : 0.f;
+        if (j == 0) {
+          s0 = t0;
+          s1 = t1;
+          s2 = t2;
+        } else if (32 * j < C) {
+          s0 = __fadd_rn(s0, t0);
+          s1 = __fadd_rn(s1, t1);
+          s2 = __fadd_rn(s2, t2);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s0 = __fadd_rn(s0, __shfl_xor_sync(FULL, s0, off));
+        s1 = __fadd_rn(s1, __shfl_xor_sync(FULL, s1, off));
+        s2 = __fadd_rn(s2, __shfl_xor_sync(FULL, s2, off));
+      }
+      if (lane == 0) {
+        float* o = out + (size_t)seg * 3;
+        o[0] = s0;
+        o[1] = s1;
+        o[2] = s2;
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -239,24 +471,51 @@ extern "C" int repro_segment_reduce(const float* v, const int32_t* ids,
   return (int)cudaGetLastError();
 }
 
-// part: scratch of at least C * 3 * k floats, C = ceil(N / CH).
+// buf: the wrapper's one buffer of at least 3k + C * (3k + 2) floats: out
+// (k, 3), then the partials (C, k, 3), then the chunks' ranges (C, 2)
+// int32. C and CH are weighted_segment_plan's (segment_reduce.py): C chunks
+// of CH rows (a multiple of 32), C = max(1, ceil(N / CH)) <= W_MAX_C.
 extern "C" int repro_weighted_segment_reduce(const float* v, const float* w,
-                                             const int32_t* ids, float* part,
-                                             float* out, int N, int k,
+                                             const int32_t* ids, float* buf,
+                                             int N, int k, int C, int CH,
                                              void* stream) {
-  if (N < 0 || k < 1) return (int)cudaErrorInvalidValue;
-  const int CH = repro_segment_reduce_chunk(N);
-  const int C = (N + CH - 1) / CH;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (C > 0) {
-    dim3 grid(C, (k + BS - 1) / BS);
-    weighted_partials<<<grid, BS, 0, st>>>(v, w, ids, part, N, k, CH);
-    const cudaError_t err = cudaGetLastError();
+  if (N < 0 || k < 1 || C < 1 || C > W_MAX_C || CH < 32 || CH % 32 != 0 ||
+      (long long)C * CH < N || (C > 1 && (long long)(C - 1) * CH >= N))
+    return (int)cudaErrorInvalidValue;
+  float* out = buf;
+  float* part = buf + (size_t)3 * k;
+  int* range = (int*)(part + (size_t)C * 3 * k);
+  int kt = k < WKT ? k : WKT;
+  const size_t smem = (size_t)WW * kt * 4 * sizeof(float);
+  // Once per device: opt in to the largest accumulators (above 48 KB of
+  // dynamic shared memory) and prefer the largest shared-memory carveout.
+  static bool granted[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!granted[dev]) {
+    err = cudaFuncSetAttribute(weighted_segment_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(WW * WKT * 4 * sizeof(float)));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          weighted_segment_kernel,
+          cudaFuncAttributePreferredSharedMemoryCarveout,
+          cudaSharedmemCarveoutMaxShared);
     if (err != cudaSuccess) return (int)err;
+    granted[dev] = true;
   }
-  weighted_combine<<<(k + BS - 1) / BS, BS, 0, st>>>(part, out, k, C);
-  return (int)cudaGetLastError();
+  void* args[] = {(void*)&v,    (void*)&w,     (void*)&ids, (void*)&out,
+                  (void*)&part, (void*)&range, (void*)&N,   (void*)&k,
+                  (void*)&CH,   (void*)&kt};
+  return (int)cudaLaunchCooperativeKernel((void*)weighted_segment_kernel,
+                                          dim3(C), dim3(WNT), args, smem,
+                                          (cudaStream_t)stream);
 }
+
+// W_MAX_C, for the wrapper's plan to be checked against.
+extern "C" int repro_weighted_segment_max_chunks() { return W_MAX_C; }
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

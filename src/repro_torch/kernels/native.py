@@ -20,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 # Each kernel and the source that holds it: a source may hold twins that
 # must share a digest (DESIGN.md §10's bit-identity contract).
 KERNELS = {"query_eval": "query_eval",
@@ -118,6 +120,27 @@ def check_launch(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
+def current_stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, by the accessor
+    that PyTorch's own generated kernel launchers call, without building
+    the ``torch.cuda.Stream`` object that ``torch.cuda.current_stream``
+    returns: a wrapper's host issue is part of every call's time."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def launch(name: str, device: torch.device, fn, *args) -> None:
+    """Call kernel ``name``'s C entry ``fn(*args, stream)`` on the current
+    stream of ``device``, switching the current device only when it is
+    another one (read by the accessor ``torch.cuda.current_device`` wraps),
+    and count the launch (``check_launch``)."""
+    if device.index == torch._C._cuda_getDevice():
+        err = fn(*args, current_stream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, current_stream(device))
+    check_launch(name, err)
+
+
 def device_type(name: str, *tensors) -> str:
     """The device type ('cuda' or 'cpu') that all tensors share; raises if
     they lie on several devices or on another type."""
@@ -146,5 +169,5 @@ def check_dtype(name: str, dtype, **tensors) -> None:
 
 
 __all__ = ["SOURCES", "KERNELS", "LAUNCHES", "reset_launches", "build_all",
-           "library", "library_path", "check_launch", "device_type",
-           "check_tensors", "check_dtype"]
+           "library", "library_path", "check_launch", "current_stream",
+           "launch", "device_type", "check_tensors", "check_dtype"]

@@ -20,6 +20,7 @@ takes a weight (N,) float32 per row as well and returns (k, 3) =
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -69,7 +70,7 @@ def _kernel():
             [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.repro_segment_reduce.restype = ctypes.c_int
         lib.repro_weighted_segment_reduce.argtypes = \
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_weighted_segment_reduce.restype = ctypes.c_int
         lib.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
         lib.repro_segment_reduce_chunk.restype = ctypes.c_int
@@ -104,37 +105,62 @@ def segment_reduce_cuda(values, seg_ids, k: int) -> torch.Tensor:
     return out
 
 
+# The weighted kernel's launch plan (csrc/segment_reduce.cu): one block
+# per chunk, at most WSEG_MAX_CHUNKS of them, of rows_per_chunk rows (a
+# multiple of 32, at least WSEG_MIN_ROWS). It depends on N alone, and so
+# does the kernel's summation order beside k.
+WSEG_MAX_CHUNKS = 64
+WSEG_MIN_ROWS = 256
+
+
+@functools.lru_cache(maxsize=64)
+def weighted_segment_plan(n: int, k: int) -> tuple[int, int, int]:
+    """(chunks, rows per chunk, rows of the one (rows, 3) float32 buffer) of
+    a weighted launch over n rows and k segments. The buffer holds out
+    (k, 3), then the chunks' partials (chunks, k, 3), then their id ranges
+    (chunks, 2) int32."""
+    ch = max(WSEG_MIN_ROWS, -(-n // WSEG_MAX_CHUNKS))
+    ch = -(-ch // 32) * 32
+    chunks = max(1, -(-n // ch))
+    return chunks, ch, k + chunks * k + -(-2 * chunks // 3)
+
+
 def weighted_segment_reduce_cuda(values, weights, seg_ids, k: int
                                  ) -> torch.Tensor:
-    """Launch the weighted CUDA kernel on the tensors' device and current
-    stream."""
+    """Launch the weighted CUDA kernel (one launch) on the tensors' device
+    and current stream. The result is the first k rows of the launch's one
+    buffer."""
     name = "weighted_segment_reduce"
-    native.check_tensors(name, values=values, weights=weights,
-                         seg_ids=seg_ids)
-    native.check_dtype(name, torch.float32, values=values, weights=weights)
-    native.check_dtype(name, torch.int32, seg_ids=seg_ids)
+    dev = values.device
+    if weights.device != dev or seg_ids.device != dev:
+        raise ValueError(f"{name}: tensors on several devices {dev}, "
+                         f"{weights.device}, {seg_ids.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors")
+    if values.dtype != torch.float32 or weights.dtype != torch.float32 \
+            or seg_ids.dtype != torch.int32:
+        raise TypeError(f"{name}: needs float32 values and weights and "
+                        f"int32 seg_ids, got {values.dtype} {weights.dtype} "
+                        f"{seg_ids.dtype}")
     n = values.shape[0]
     if values.dim() != 1 or weights.shape != (n,) or seg_ids.shape != (n,):
         raise ValueError(f"{name}: shapes {values.shape} {weights.shape} "
                          f"{seg_ids.shape}")
+    if not (values.is_contiguous() and weights.is_contiguous()
+            and seg_ids.is_contiguous()):
+        raise ValueError(f"{name}: inputs must be contiguous")
     if not (1 <= k < 2 ** 31 and n < 2 ** 31):
         raise ValueError(f"{name}: needs 1 <= k and N < 2**31, got "
                          f"k={k} N={n}")
-    lib = _kernel()
-    chunks = -(-n // lib.repro_segment_reduce_chunk(n))
-    dev = values.device
-    part = torch.empty((max(chunks, 1) * 3 * k,), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((k, 3), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.repro_weighted_segment_reduce(
-            values.data_ptr(), weights.data_ptr(), seg_ids.data_ptr(),
-            part.data_ptr(), out.data_ptr(), n, k,
-            torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
-    return out
+    chunks, ch, rows = weighted_segment_plan(n, k)
+    buf = values.new_empty((rows, 3))
+    native.launch(name, dev, _kernel().repro_weighted_segment_reduce,
+                  values.data_ptr(), weights.data_ptr(), seg_ids.data_ptr(),
+                  buf.data_ptr(), n, k, chunks, ch)
+    return buf[:k]
 
 
 __all__ = ["segment_reduce_plain", "segment_reduce_cuda",
            "weighted_segment_reduce_plain", "weighted_segment_reduce_cuda",
+           "weighted_segment_plan", "WSEG_MAX_CHUNKS", "WSEG_MIN_ROWS",
            "POS_BIG", "NEG_BIG"]

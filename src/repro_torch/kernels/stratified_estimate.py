@@ -91,6 +91,26 @@ def _kernel():
     return _lib.repro_stratified_moments
 
 
+# Limits of stratified_moments' launch (csrc/stratified_moments.cu): its
+# blocks, (tile of 16 leaves, group of 128-query tiles) pairs along
+# gridDim.x, which holds 2**31 - 1, are at most as many as the (query
+# tile, leaf tile) pairs; sizes are C ints; any s (the slots are staged in
+# chunks); d up to 16.
+MOMENTS_QT, MOMENTS_LT = 128, 16
+
+
+def check_moments_limits(name, Q, k, s, d):
+    """Raise ValueError unless stratified_moments' kernel takes these
+    sizes."""
+    if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 0 <= s < 2 ** 31
+            and 1 <= d <= 16
+            and -(-Q // MOMENTS_QT) * -(-k // MOMENTS_LT) < 2 ** 31):
+        raise ValueError(
+            f"{name}: needs 1 <= Q, k < 2**31, 0 <= s < 2**31, 1 <= d <= 16 "
+            f"and ceil(Q / {MOMENTS_QT}) * ceil(k / {MOMENTS_LT}) < 2**31, "
+            f"got Q={Q} k={k} s={s} d={d}")
+
+
 def stratified_moments_cuda(sample_c, sample_a, sample_valid, q_lo, q_hi):
     """Launch the CUDA kernel on the tensors' device and current stream."""
     name = "stratified_moments"
@@ -105,20 +125,13 @@ def stratified_moments_cuda(sample_c, sample_a, sample_valid, q_lo, q_hi):
             or q_lo.shape != (Q, d) or q_hi.shape != (Q, d)):
         raise ValueError(f"{name}: shapes {sample_c.shape} {sample_a.shape} "
                          f"{sample_valid.shape} {q_lo.shape} {q_hi.shape}")
-    # Grid: one block per (leaf, tile of 128 queries); the query tiles run
-    # along gridDim.y, which holds at most 65535.
-    if not (1 <= Q <= 65535 * 128 and 1 <= k < 2 ** 31 and 1 <= d <= 16):
-        raise ValueError(f"{name}: needs 1 <= Q <= {65535 * 128}, k >= 1 "
-                         f"and 1 <= d <= 16, got Q={Q} k={k} d={d}")
+    check_moments_limits(name, Q, k, s, d)
     dev = sample_c.device
     out = torch.empty((Q, k, 3), dtype=torch.float32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
-                 sample_valid.data_ptr(), q_lo.data_ptr(), q_hi.data_ptr(),
-                 out.data_ptr(), Q, k, s, d,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
+    native.launch(name, dev, _kernel(), sample_c.data_ptr(),
+                  sample_a.data_ptr(), sample_valid.data_ptr(),
+                  q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(), Q, k, s,
+                  d)
     return out
 
 
@@ -238,6 +251,7 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
 __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "stratified_moments_plain", "stratified_moments_cuda",
            "weighted_moments_plain", "stratified_weighted_moments_cuda",
+           "check_moments_limits", "MOMENTS_QT", "MOMENTS_LT",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",
            "weighted_scratch", "weighted_library", "WEIGHTED_MAX_S",
            "WEIGHTED_MAX_K", "WEIGHTED_MAX_R"]

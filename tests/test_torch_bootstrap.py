@@ -40,6 +40,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                            bootstrap_moments_plain)
 from repro_torch.kernels.segment_reduce import (
+    WSEG_MAX_CHUNKS, WSEG_MIN_ROWS, weighted_segment_plan,
     weighted_segment_reduce_cuda, weighted_segment_reduce_plain)
 from repro_torch.kernels.stratified_estimate import (
     WEIGHTED_MAX_K, WEIGHTED_MAX_R, WEIGHTED_MAX_S, check_weighted_limits,
@@ -308,6 +309,47 @@ def test_weighted_segment_reduce_plain_matches_jax(n, k, backend):
     assert got.dtype == torch.float32 and got.shape == (k, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
     assert torch.equal(ops.weighted_segment_reduce(*_t(v, w, ids), k), got)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "jnp"])
+@pytest.mark.parametrize("k,s", [(24, 75), (300, 7)])
+def test_weighted_segment_reduce_plain_matches_jax_leaf_major(k, s,
+                                                              backend):
+    """The layout the JAX package's fused-bootstrap benchmark hands the
+    kernel: the (k, s) samples flattened leaf-major, a Poisson weight per
+    slot and -1 on invalid slots; k = 300 is no multiple of 256 (the
+    Pallas segment tile), and neither are the rows."""
+    rng = np.random.default_rng(k * s)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.7
+    valid[0] = False
+    w = rng.poisson(1.0, (k, s)).astype(np.float32)
+    ids = np.where(valid, np.arange(k, dtype=np.int32)[:, None], -1)
+    v, w, ids = a.reshape(-1), w.reshape(-1), ids.reshape(-1)
+    want = np.asarray(jax.jit(get_backend(backend).weighted_segment_reduce,
+                              static_argnums=3)(
+        *map(jnp.asarray, (v, w, ids)), k))
+    got = weighted_segment_reduce_plain(*_t(v, w, ids), k)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert (got[0] == 0).all()
+
+
+def test_weighted_segment_plan():
+    """The one-launch plan: at most WSEG_MAX_CHUNKS chunks of a multiple of
+    32 rows (at least WSEG_MIN_ROWS) that cover the rows with no chunk
+    left empty, fixed by N alone; one (rows, 3) buffer of out (k, 3), the
+    chunks' partials (chunks, k, 3) and their id ranges (chunks, 2)."""
+    assert weighted_segment_plan(76800, 1024) == (
+        64, 1216, 1024 + 64 * 1024 + 43)
+    assert weighted_segment_plan(0, 5) == (1, WSEG_MIN_ROWS, 5 + 5 + 1)
+    for n in (1, 17, 255, 256, 257, 4096, 65537, 76800, 10 ** 7):
+        for k in (1, 53, 1024, 1025):
+            chunks, rows, buf_rows = weighted_segment_plan(n, k)
+            assert 1 <= chunks <= WSEG_MAX_CHUNKS
+            assert rows % 32 == 0 and rows >= WSEG_MIN_ROWS
+            assert (chunks - 1) * rows < n <= chunks * rows
+            assert 0 <= 3 * buf_rows - (3 * k + chunks * (3 * k + 2)) < 3
+            assert weighted_segment_plan(n, 7)[:2] == (chunks, rows)
 
 
 def test_weighted_cuda_wrappers_refuse_cpu_tensors():
