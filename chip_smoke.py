@@ -5,20 +5,24 @@
     python3 chip_smoke.py --baseline DIR   # also hold DIR's kernels
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
-stratified_moments.cu and segment_reduce.cu are built beside the current
-sources, held against the current kernels and timed beside them: rows 2
-(stratified_moments) and 5 (segment_reduce) must give the baseline's bits
-at every shape they are checked at, rows 3 and 4 (the weighted moments) at
-the bootstrap's shapes, and row 6 (weighted_segment_reduce) must meet it
-within rtol=3e-5, atol=1e-3. Rows 2-6 of the kernels line then carry the
-baseline's times (baseline_ms, and for rows 2, 5 and 6 baseline_device_ms;
-null without --baseline).
+stratified_moments.cu, segment_reduce.cu and route_multid.cu (four
+sources) are built beside the current sources, held against the current
+kernels and timed beside them: rows 2 (stratified_moments), 5
+(segment_reduce) and 7 (route_multid) must give the baseline's bits at
+every shape they are checked at (row 7 on non-finite rows too, where it
+differs from its plain version), rows 3 and 4 (the weighted moments) at
+the bootstrap's shapes and every edge case without a NaN coordinate on a
+valid slot, and row 6 (weighted_segment_reduce) must meet it within
+rtol=3e-5, atol=1e-3. Rows 2-7 of the kernels line then carry the
+baseline's times (baseline_ms, and for rows 2 and 5-7
+baseline_device_ms; null without --baseline).
 
 Phases, each of which fails the run:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc
-   (and, with --baseline, DIR's three sources).
+   (and, with --baseline, DIR's four sources); the wrappers' launch plans
+   against the sources' constants.
 3. Kernel against plain on the card at edge shapes (ragged Q and k, d up
    to 16, inverted empty leaves, ragged validity, s = 1, several tiles);
    stratified_moments also where covered, empty and mixed pairs all
@@ -39,9 +43,13 @@ Phases, each of which fails the run:
    table goes to chiprun_out/).
 7. The streaming kernels against plain at edge shapes: segment_reduce
    (N up to 65537, k up to 1024, -1 ids, one segment, empty segments)
-   within tolerance and bit-equal across two launches; route_multid
-   (B up to 4096, k up to 1024, d in {2, 3, 16}, ties, +-inf empty
-   boxes, rows on shared faces) bit-equal.
+   within tolerance, bit-equal across two launches and to the baseline;
+   route_multid (B up to 65536, k up to 2049, d in {2, 3, 16}, ties,
+   +-inf empty boxes, rows on shared faces, +-0.0 faces and rows, equal
+   boxes across leaf groups, k around multiples of the group count and
+   of the group size, B off the row tile) bit-equal to plain, across two
+   launches and to the baseline; rows with NaN and +-inf coordinates
+   bit-equal to the baseline (their differences from plain counted).
 8. 1-D streaming: StreamingIngestor(phase 4's synopsis, seed=11) ingests
    nyc_taxi(scale=0.1, seed=7) in arrival order, 4096-row batches
    (770,000 trips, 188 batches). segment_reduce launches once a batch and
@@ -51,21 +59,25 @@ Phases, each of which fails the run:
    replace_source and the truth checks again.
 9. 3-D streaming: the same stream at dims=3 into phase 5's synopsis;
    route_multid launches once a batch too.
-10. Streaming times: each new kernel and its plain version at B = 4096
-   and 65536 (and kernel = plain there; segment_reduce bit-equal to the
-   baseline's and timed beside it), ingest per batch, the merge, answer
-   right after an ingest, and a profiler window over 10 batches.
+10. Streaming times: each streaming kernel and its plain version at
+   B = 4096 and 65536 (and kernel = plain there; both kernels bit-equal to
+   the baseline's and timed beside it, in turns), by events, on the
+   device (one device operation a call) and by host issue; ingest per
+   batch, the merge, answer right after an ingest, and a profiler window
+   over 10 batches with each kernel's share of it.
 11. The bootstrap's kernels against plain at edge shapes:
    stratified_weighted_moments and bootstrap_moments (Q up to 129, k up to
    53, s up to 300, d up to 16, R in {1, 7, 8, 9, 33}; zero, Poisson and
    non-integer weights, weights on invalid slots, strata without samples)
-   within tolerance, bit-equal across two launches, and every
-   bootstrap_moments slice r torch.equal to stratified_weighted_moments
-   with W[r]; inputs where covered, empty and mixed (query, stratum)
-   pairs all appear (a box over every sample, boxes that miss everything,
-   box edges on sample coordinates; k = 64 and 53, s up to 2500), each
-   printing its counts; weighted_segment_reduce (N up to 65537, k up to
-   3000).
+   within tolerance, bit-equal across two launches and to the baseline,
+   and every bootstrap_moments slice r torch.equal to
+   stratified_weighted_moments with W[r]; inputs where covered, empty and
+   mixed (query, stratum) pairs all appear (a box over every sample, boxes
+   that miss everything, box edges on sample coordinates; k = 64 and 53,
+   s up to 2500), each printing its counts, and three of them again with
+   NaN coordinates on valid slots (one slot of a stratum, every slot of
+   another): those strata mixed or empty under every query, never their
+   totals; weighted_segment_reduce (N up to 65537, k up to 3000).
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
    n_boot=200, key=5)).answer(). Fused launches bootstrap_moments once,
@@ -95,6 +107,7 @@ after it and the exit code is not 0.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -412,10 +425,11 @@ def samples_in(torch, t, q) -> list:
         -1).tolist()
 
 
-def seg_vs_plain(torch, tag, v, ids, k) -> float:
+def seg_vs_plain(torch, tag, v, ids, k, base=None) -> float:
     """segment_reduce kernel against plain on the same CUDA inputs: counts,
     min and max equal, sums within rtol=3e-5, atol=1e-3; a second launch
-    bit-equal to the first. Returns the max absolute error of the sums."""
+    bit-equal to the first and, with a baseline, to the baseline's kernel.
+    Returns the max absolute error of the sums."""
     from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
                                                     segment_reduce_plain)
     got = segment_reduce_cuda(v, ids, k)
@@ -429,35 +443,86 @@ def seg_vs_plain(torch, tag, v, ids, k) -> float:
         n = int((got[:, 2:] != want[:, 2:]).sum())
         raise AssertionError(f"{tag}: segment_reduce count/min/max differ "
                              f"in {n} entries")
+    if base is not None and not bits_equal(
+            torch, got, baseline_segment(torch, base, v, ids, k)):
+        raise AssertionError(f"{tag}: segment_reduce differs from the "
+                             "baseline kernel")
     return max(close(f"{tag} segment_reduce[{i}]", got[:, i].cpu(),
                      want[:, i].cpu(), K_RTOL, K_ATOL) for i in (0, 1))
 
 
-def route_vs_plain(torch, tag, lo, hi, c) -> None:
-    """route_multid kernel against plain: leaf and dist torch.equal, and a
-    second launch bit-equal to the first."""
+def route_vs_plain(torch, tag, lo, hi, c, base=None) -> None:
+    """route_multid kernel against plain: leaf equal and dist bit-equal, a
+    second launch bit-equal to the first and, with a baseline, both
+    bit-equal to the baseline's kernel."""
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     leaf, dist = route_multid_cuda(lo, hi, c)
     leaf2, dist2 = route_multid_cuda(lo, hi, c)
     leaf_p, dist_p = route_multid_plain(lo, hi, c)
     torch.cuda.synchronize()
-    if not (torch.equal(leaf, leaf2) and torch.equal(
-            dist.view(torch.int32), dist2.view(torch.int32))):
+    if not (torch.equal(leaf, leaf2) and bits_equal(torch, dist, dist2)):
         raise AssertionError(f"{tag}: route_multid differs between two "
                              "launches")
-    if not (torch.equal(leaf, leaf_p) and torch.equal(dist, dist_p)):
+    if not (torch.equal(leaf, leaf_p) and bits_equal(torch, dist, dist_p)):
         n = int((leaf != leaf_p).sum())
+        m = int((dist.view(torch.int32) != dist_p.view(torch.int32)).sum())
         raise AssertionError(f"{tag}: route_multid differs from plain in "
-                             f"{n} leaves")
+                             f"{n} leaves and {m} distances")
+    if base is not None:
+        leaf_b, dist_b = baseline_route(torch, base, lo, hi, c)
+        if not (torch.equal(leaf, leaf_b) and bits_equal(torch, dist,
+                                                         dist_b)):
+            raise AssertionError(f"{tag}: route_multid differs from the "
+                                 "baseline kernel")
 
 
-def edge_cases_streaming(torch, dev) -> float:
+def route_case(rng, B, k, d, case="grid"):
+    """Route inputs: boxes on a coarse grid (touching, rows on shared
+    faces), a copy of box 0 at the last leaf (ties), an inverted +-inf box;
+    ``signed-zero`` adds +-0.0 faces and rows (box 0 = [-0.0, 1]^d and a
+    quarter of the rows at +0.0); ``group-ties`` copies box 0 onto the
+    first leaf of every leaf group of route_plan(B, k)."""
+    from repro_torch.kernels.route import route_groups, route_plan
+    lo = rng.integers(0, 8, (k, d)).astype(np.float32)
+    hi = lo + rng.integers(0, 3, (k, d)).astype(np.float32)
+    if k > 2:
+        lo[k - 1], hi[k - 1] = lo[0], hi[0]
+        lo[k // 2], hi[k // 2] = np.inf, -np.inf
+    c = np.where(rng.random((B, d)) < 0.5,
+                 rng.integers(-2, 12, (B, d)),
+                 rng.uniform(-2, 12, (B, d))).astype(np.float32)
+    if case == "signed-zero":
+        lo[rng.random((k, d)) < 0.3] = -0.0
+        hi[rng.random((k, d)) < 0.1] = 0.0
+        hi = np.maximum(hi, lo)
+        lo[0], hi[0] = -0.0, 1.0
+        c[rng.random((B, d)) < 0.3] = -0.0
+        c[rng.random((B, d)) < 0.3] = 0.0
+        c[:B // 4] = 0.0
+        if k > 2:
+            lo[k // 2], hi[k // 2] = np.inf, -np.inf
+    elif case == "group-ties":
+        _, g, lg = route_plan(B, k)
+        for rg in route_groups(k, g, lg)[1:]:
+            if len(rg):
+                lo[rg.start], hi[rg.start] = lo[0], hi[0]
+    return lo, hi, c
+
+
+def edge_cases_streaming(torch, dev, base=None) -> dict:
     """The streaming kernels against plain at edge shapes: segment_reduce
     over N in {1, 17, 4096, 65537} x k in {1, 53, 1024} with -1 ids, empty
     segments and all rows in one segment; route_multid over B in {1, 255,
     4096} x k in {1, 129, 1024} x d in {2, 3, 16} with duplicate boxes,
-    +-inf empty boxes and rows inside several touching boxes."""
+    +-inf empty boxes and rows inside several touching boxes, then +-0.0
+    faces and rows, equal boxes across leaf groups, k below, at and above
+    multiples of the group count (8 at B = 4096) and of the group size,
+    and B off the row tile; then rows with NaN and +-inf coordinates,
+    where kernel and plain differ (counted) and the kernel must give the
+    baseline's bits."""
+    from repro_torch.kernels.route import (route_multid_cuda,
+                                           route_multid_plain)
     seg_err = 0.0
     cases = 0
     for n in (1, 17, 4096, 65537):
@@ -475,30 +540,65 @@ def edge_cases_streaming(torch, dev) -> float:
                 seg_err = max(seg_err, seg_vs_plain(
                     torch, f"edge N={n} k={k} {label}",
                     torch.from_numpy(v).to(dev),
-                    torch.from_numpy(idv).to(dev), k))
+                    torch.from_numpy(idv).to(dev), k, base))
                 cases += 1
-    route_cases = 0
-    for B in (1, 255, 4096):
-        for k in (1, 129, 1024):
-            for d in (2, 3, 16):
-                rng = np.random.default_rng(B * 7 + k * 3 + d)
-                # boxes on a coarse grid so that boxes touch and rows land
-                # on shared faces; a copy of box 0 makes exact ties
-                lo = rng.integers(0, 8, (k, d)).astype(np.float32)
-                hi = lo + rng.integers(0, 3, (k, d)).astype(np.float32)
-                if k > 2:
-                    lo[k - 1], hi[k - 1] = lo[0], hi[0]
-                    lo[k // 2], hi[k // 2] = np.inf, -np.inf
-                c = np.where(rng.random((B, d)) < 0.5,
-                             rng.integers(-2, 12, (B, d)),
-                             rng.uniform(-2, 12, (B, d))).astype(np.float32)
-                route_vs_plain(torch, f"edge B={B} k={k} d={d}",
-                               *(torch.from_numpy(x).to(dev)
-                                 for x in (lo, hi, c)))
-                route_cases += 1
+    route = [(B, k, d, "grid") for B in (1, 255, 4096) for k in (1, 129, 1024)
+             for d in (2, 3, 16)]
+    route += [(4096, 1024, 3, "signed-zero"), (257, 53, 16, "signed-zero"),
+              (4096, 1024, 2, "signed-zero"), (4096, 1024, 3, "group-ties"),
+              (65536, 1025, 3, "group-ties"), (300, 41, 16, "group-ties")]
+    # group count 8 at B = 4096: k < 8, = 8, = 9; group sizes of 128 and
+    # 256 leaves (the staging tile) and one off
+    route += [(4096, k, 3, "group-ties")
+              for k in (1, 7, 8, 9, 1023, 1025, 2047, 2048, 2049)]
+    # B off the row tile (64 rows a thread-row, 2 or 4 rows a thread)
+    route += [(B, 1024, 3, "grid") for B in (127, 129, 4097, 65535)]
+    for B, k, d, case in route:
+        rng = np.random.default_rng(B * 7 + k * 3 + d)
+        route_vs_plain(torch, f"edge B={B} k={k} d={d} {case}",
+                       *(torch.from_numpy(x).to(dev)
+                         for x in route_case(rng, B, k, d, case)), base)
+    nonfinite = {}
+    for d in (2, 3, 16):
+        rng = np.random.default_rng(97 + d)
+        B, k = 4096, 1024
+        lo, hi, c = route_case(rng, B, k, d)
+        u = rng.random((B, d))
+        c[u < 0.05] = np.nan
+        c[(u >= 0.05) & (u < 0.1)] = np.inf
+        c[(u >= 0.1) & (u < 0.15)] = -np.inf
+        t = [torch.from_numpy(x).to(dev) for x in (lo, hi, c)]
+        leaf, dist = route_multid_cuda(*t)
+        leaf2, dist2 = route_multid_cuda(*t)
+        leaf_p, dist_p = route_multid_plain(*t)
+        torch.cuda.synchronize()
+        if not (torch.equal(leaf, leaf2) and bits_equal(torch, dist,
+                                                        dist2)):
+            raise AssertionError(f"non-finite rows d={d}: route_multid "
+                                 "differs between two launches")
+        finite = torch.isfinite(t[2]).all(1)
+        if not (torch.equal(leaf[finite], leaf_p[finite]) and bits_equal(
+                torch, dist[finite], dist_p[finite])):
+            raise AssertionError(f"non-finite rows d={d}: route_multid "
+                                 "differs from plain on the finite rows")
+        if base is not None:
+            leaf_b, dist_b = baseline_route(torch, base, *t)
+            if not (torch.equal(leaf, leaf_b) and bits_equal(torch, dist,
+                                                             dist_b)):
+                raise AssertionError(f"non-finite rows d={d}: route_multid "
+                                     "differs from the baseline kernel")
+        nonfinite[d] = {
+            "rows": int((~finite).sum()),
+            "leaf_differs_from_plain": int((leaf != leaf_p).sum()),
+            "dist_differs_from_plain": int(
+                (dist.view(torch.int32) != dist_p.view(torch.int32)).sum()),
+            "baseline_bit_equal": None if base is None else True}
     emit(check="edge_streaming_kernels", segment_reduce_cases=cases,
-         route_multid_cases=route_cases, segment_reduce_max_abs_err=seg_err)
-    return seg_err
+         route_multid_cases=len(route), segment_reduce_max_abs_err=seg_err,
+         route_multid_nonfinite=nonfinite,
+         baseline_bit_equal=None if base is None else True)
+    return {"seg_err": seg_err, "route_cases": len(route),
+            "nonfinite": nonfinite}
 
 
 # ---------------------------------------------------------------------------
@@ -951,8 +1051,12 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
     over the 1-D stream's values by their routed leaves (k = 1024, the
     stream's skew), route_multid of the 3-D stream's rows against the 3-D
     boxes (k = 1024, d = 3). Kernel = plain is checked at each shape, and
-    with a baseline, segment_reduce bit-equal to the baseline's kernel
-    (whose code it keeps), which is timed too."""
+    with a baseline both kernels bit-equal to the baseline's. Each kernel:
+    one call bracketed by CUDA events, its device time from the profiler
+    (one device operation a call, held), its host issue; the plain
+    version's events and device time; with a baseline the baseline's, in
+    turns with the kernel's (kernel, baseline, baseline, kernel; the two
+    readings of each averaged)."""
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
@@ -971,39 +1075,53 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
                             torch.from_numpy(c1).cuda())
         rows = torch.from_numpy(c3).cuda()
         lo, hi = st3.leaf_lo, st3.leaf_hi
-        errs.append(seg_vs_plain(torch, f"main B={B} k={k}", v, ids, k))
-        route_vs_plain(torch, f"main B={B} k={k} d=3", lo, hi, rows)
-        bnd = stream_bounds(B, k, B, 3)
-        out[B] = {
-            "segment_reduce_device": device_ms(
-                torch, lambda: segment_reduce_cuda(v, ids, k)),
-            "segment_reduce_plain_device": device_ms(
-                torch, lambda: segment_reduce_plain(v, ids, k)),
-            "route_multid_device": device_ms(
-                torch, lambda: route_multid_cuda(lo, hi, rows)),
-            "route_multid_plain_device": device_ms(
-                torch, lambda: route_multid_plain(lo, hi, rows)),
-            "segment_reduce": cuda_ms(torch, lambda: segment_reduce_cuda(
-                v, ids, k)),
-            "segment_reduce_plain": cuda_ms(
-                torch, lambda: segment_reduce_plain(v, ids, k)),
-            "route_multid": cuda_ms(torch, lambda: route_multid_cuda(
-                lo, hi, rows)),
-            "route_multid_plain": cuda_ms(
-                torch, lambda: route_multid_plain(lo, hi, rows)),
-            "bounds": bnd,
-            "segments_hit": int(torch.unique(ids).numel())}
-        if base is not None:
-            if not bits_equal(torch, segment_reduce_cuda(v, ids, k),
-                              baseline_segment(torch, base, v, ids, k)):
-                raise AssertionError(f"main B={B}: segment_reduce differs "
-                                     "from the baseline kernel")
-            out[B]["segment_reduce_baseline"] = cuda_ms(
-                torch, lambda: baseline_segment(torch, base, v, ids, k))
-            out[B]["segment_reduce_baseline_device"] = device_ms(
-                torch, lambda: baseline_segment(torch, base, v, ids, k))
-            out[B]["segment_reduce_baseline_bit_equal"] = True
-        emit(stream_kernel_times_ms=out[B], B=B, k=k, card=card)
+        errs.append(seg_vs_plain(torch, f"main B={B} k={k}", v, ids, k,
+                                 base))
+        route_vs_plain(torch, f"main B={B} k={k} d=3", lo, hi, rows, base)
+        fns = {"segment_reduce": lambda: segment_reduce_cuda(v, ids, k),
+               "route_multid": lambda: route_multid_cuda(lo, hi, rows)}
+        plains = {"segment_reduce": lambda: segment_reduce_plain(v, ids, k),
+                  "route_multid": lambda: route_multid_plain(lo, hi, rows)}
+        bases = {} if base is None else {
+            "segment_reduce": lambda: baseline_segment(torch, base, v, ids,
+                                                       k),
+            "route_multid": lambda: baseline_route(torch, base, lo, hi,
+                                                   rows)}
+        row = {"bounds": stream_bounds(B, k, B, 3),
+               "segments_hit": int(torch.unique(ids).numel())}
+        for name, fn in fns.items():
+            # kernel, baseline, baseline, kernel; a profiler window that
+            # recorded nothing is left out of the mean
+            profs = [device_profile(torch, fn, one_op=True)]
+            ev = [cuda_ms(torch, fn)]
+            if name in bases:
+                bdev = [device_ms(torch, bases[name]) for _ in range(2)]
+                bev = [cuda_ms(torch, bases[name]) for _ in range(2)]
+            profs.append(device_profile(torch, fn, one_op=True))
+            ev.append(cuda_ms(torch, fn))
+            dev_ms = [x["ms"] for x in profs if x["ms"] is not None]
+            row[name] = statistics.mean(ev)
+            row[f"{name}_readings"] = ev
+            row[f"{name}_device"] = statistics.mean(dev_ms) if dev_ms \
+                else None
+            row[f"{name}_device_readings"] = [x["ms"] for x in profs]
+            row[f"{name}_ops_per_call"] = max(x["ops_per_call"]
+                                              for x in profs)
+            row[f"{name}_enqueue_host"] = enqueue_ms(torch, fn)
+            row[f"{name}_plain"] = cuda_ms(torch, plains[name])
+            row[f"{name}_plain_device"] = device_ms(torch, plains[name])
+            if name not in bases:
+                continue
+            bdev = [x for x in bdev if x is not None]
+            row[f"{name}_baseline"] = statistics.mean(bev)
+            row[f"{name}_baseline_readings"] = bev
+            row[f"{name}_baseline_device"] = statistics.mean(bdev) if bdev \
+                else None
+            row[f"{name}_baseline_enqueue_host"] = enqueue_ms(torch,
+                                                              bases[name])
+            row[f"{name}_baseline_bit_equal"] = True
+        out[B] = row
+        emit(stream_kernel_times_ms=row, B=B, k=k, card=card)
     return {"times": out, "seg_err": max(errs)}
 
 
@@ -1049,8 +1167,10 @@ def stream_timings(torch, tag, run, s, card) -> None:
 
 
 def profile_ingest(torch, tag, s) -> None:
-    """torch.profiler over 10 ingest batches: device kernels per batch and
-    the device-busy share of the window's wall time."""
+    """torch.profiler over 10 ingest batches: device kernels per batch, the
+    device-busy share of the window's wall time, and the device time of
+    route_multid and segment_reduce with their shares of the busy and of
+    the wall time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.streaming import StreamingIngestor
     ing = StreamingIngestor(s["ing"].base, seed=11)
@@ -1067,11 +1187,22 @@ def profile_ingest(torch, tag, s) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, n = device_busy_us(prof)
     write_table(prof, f"profile_ingest_{tag}.txt")
+    kernels = {}
+    for name in ("route_multid", "segment_reduce"):
+        events = [e for e in prof.events()
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and name in e.name and "weighted" not in e.name]
+        us = sum(e.device_time if hasattr(e, "device_time") else e.cuda_time
+                 for e in events)
+        kernels[name] = {"recorded": len(events),
+                         "device_ms_per_batch": us / 1e3 / 10,
+                         "share_of_busy": us / busy_us if busy_us else None,
+                         "share_of_wall": us / 1e3 / wall_ms}
     emit(profile=f"ingest {tag}", batches=10,
          device_kernels_per_batch=n / 10,
          device_busy_ms_per_batch=busy_us / 1e3 / 10,
          wall_ms_per_batch=wall_ms / 10,
-         device_busy_share=busy_us / 1e3 / wall_ms)
+         device_busy_share=busy_us / 1e3 / wall_ms, kernels=kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -1157,12 +1288,14 @@ def pair_classes(torch, c, valid, q_lo, q_hi, chunk: int = 256) -> dict:
     return out
 
 
-def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi) -> dict:
+def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi,
+                      base=None) -> dict:
     """Both weighted kernels against their plain versions on the same CUDA
     inputs: sums within rtol=3e-5, atol=1e-3; each kernel bit-equal across
     two launches; every bootstrap_moments slice r torch.equal to
-    stratified_weighted_moments with W[r] (DESIGN.md §10). Returns the max
-    absolute errors."""
+    stratified_weighted_moments with W[r] (DESIGN.md §10); with a baseline,
+    both bit-equal to the baseline's kernels. Returns the max absolute
+    errors."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.stratified_estimate import (
@@ -1184,6 +1317,14 @@ def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi) -> dict:
         if not torch.equal(boot[r], one_r):
             raise AssertionError(f"{tag}: bootstrap_moments[{r}] is not "
                                  f"stratified_weighted_moments(W[{r}])")
+    if base is not None:
+        lib = base["weighted_moments"]
+        for name, x, w in (("bootstrap_moments", boot, W),
+                           ("stratified_weighted_moments", one, W[0])):
+            if not bits_equal(torch, x, baseline_moments(torch, lib, sm, w,
+                                                         *q)):
+                raise AssertionError(f"{tag}: {name} differs from the "
+                                     "baseline kernel")
     return {
         "bootstrap_moments": close(
             f"{tag} bootstrap_moments", boot.cpu(),
@@ -1209,12 +1350,14 @@ def wseg_vs_plain(torch, tag, v, w, ids, k) -> float:
                  K_RTOL, K_ATOL)
 
 
-def edge_cases_weighted(torch, dev) -> dict:
+def edge_cases_weighted(torch, dev, base=None) -> dict:
     """The three new kernels against plain at edge shapes: the weighted
     moments over Q in {1, 129} x k in {1, 53} x s in {1, 75, 300} (one to
     ten mask words) x d in {1, 3, 16}, with R cycling through {1, 7, 8, 9,
     33}, and five cases of weighted_class_inputs, where covered, empty and
-    mixed pairs all appear (each prints its counts); weighted_segment_reduce
+    mixed pairs all appear (each prints its counts), all bit-equal to the
+    baseline's kernels; three of the class cases again with NaN
+    coordinates on valid slots (edge_weighted_nan); weighted_segment_reduce
     over N in {1, 17, 4096, 65537} x k in {1, 53, 1024, 3000} with -1 and
     out-of-range ids, zero weights, and all rows in one segment."""
     errs = dict.fromkeys(("stratified_weighted_moments", "bootstrap_moments",
@@ -1230,7 +1373,8 @@ def edge_cases_weighted(torch, dev) -> dict:
                     t = [torch.from_numpy(x).to(dev)
                          for x in weighted_inputs(rng, Q, k, s, d, R)]
                     e = weighted_vs_plain(
-                        torch, f"edge Q={Q} k={k} s={s} d={d} R={R}", *t)
+                        torch, f"edge Q={Q} k={k} s={s} d={d} R={R}", *t,
+                        base=base)
                     for name, err in e.items():
                         errs[name] = max(errs[name], err)
                     cases += 1
@@ -1248,13 +1392,15 @@ def edge_cases_weighted(torch, dev) -> dict:
         classes = pair_classes(torch, t[0], t[2], t[4], t[5])
         if min(classes.values()) == 0:
             raise AssertionError(f"{tag}: a pair class is missing: {classes}")
-        e = weighted_vs_plain(torch, tag, *t)
+        e = weighted_vs_plain(torch, tag, *t, base=base)
         for name, err in e.items():
             errs[name] = max(errs[name], err)
         emit(check="edge_weighted_classes", case=tag, **classes,
-             max_abs_err=e)
+             max_abs_err=e, baseline_bit_equal=None if base is None
+             else True)
         class_cases.append(classes)
         cases += 1
+    nan_cases = edge_cases_weighted_nan(torch, dev, base, errs)
     seg_cases = 0
     # k = 3000 takes the kernel's passes of 1024 segments.
     for n in (1, 17, 4096, 65537):
@@ -1273,9 +1419,70 @@ def edge_cases_weighted(torch, dev) -> dict:
                         k))
                 seg_cases += 1
     emit(check="edge_weighted_kernels", moment_cases=cases,
-         class_cases=len(class_cases), segment_cases=seg_cases,
-         max_abs_err=errs)
+         class_cases=len(class_cases), nan_cases=nan_cases,
+         segment_cases=seg_cases, max_abs_err=errs)
     return errs
+
+
+def edge_cases_weighted_nan(torch, dev, base, errs) -> int:
+    """Rows 3 and 4 on class inputs with NaN coordinates on valid slots, at
+    R = 9, 33 and 8: one slot of a stratum (the first with two valid
+    slots), column 0 of every slot of another (the second), both with
+    positive weights. The slot test rejects NaN, so under every query the
+    first stratum is mixed or empty (mixed under query 0, whose box holds
+    every other sample) and the second empty; the kernels must equal plain
+    (weighted_vs_plain) and never give either stratum its totals, the
+    moments of all its valid slots, which a covered pair would copy. With
+    a baseline, whether the baseline's kernel differs is recorded (its box
+    skipped NaN and covered such strata). Updates ``errs``; returns the
+    number of cases."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
+    from repro_torch.kernels.stratified_estimate import samples_inside
+    shapes = ((129, 64, 75, 1, 9), (129, 53, 75, 3, 33),
+              (33, 53, 2500, 3, 8))
+    for Q, k, s, d, R in shapes:
+        rng = np.random.default_rng(Q * 131 + k * 17 + s + d + 1)
+        c, a, valid, W, q_lo, q_hi = weighted_class_inputs(rng, Q, k, s, d,
+                                                           R)
+        full = [i for i in range(k) if valid[i].sum() >= 2]
+        l1, l2 = full[0], full[1]
+        W[:, [l1, l2]] = np.maximum(W[:, [l1, l2]], 0.5)
+        c[l1, np.flatnonzero(valid[l1])[0], d - 1] = np.nan
+        c[l2, :, 0] = np.nan
+        t = [torch.from_numpy(x).to(dev)
+             for x in (c, a, valid, W, q_lo, q_hi)]
+        tag = f"edge nan classes Q={Q} k={k} s={s} d={d} R={R}"
+        n_in = samples_inside(t[0], t[2], t[4], t[5]).sum(-1).cpu().numpy()
+        nvalid = valid.sum(-1)
+        for leaf in (l1, l2):
+            if ((n_in[:, leaf] == nvalid[leaf]) & (n_in[:, leaf] > 0)).any():
+                raise AssertionError(f"{tag}: stratum {leaf} is covered")
+        if not (n_in[0, l1] > 0 and (n_in[:, l2] == 0).all()):
+            raise AssertionError(f"{tag}: the NaN strata are not mixed "
+                                 "under query 0 and empty")
+        classes = pair_classes(torch, t[0], t[2], t[4], t[5])
+        e = weighted_vs_plain(torch, tag, *t)
+        for name, err in e.items():
+            errs[name] = max(errs[name], err)
+        boot = bootstrap_moments_cuda(*t)
+        wv = torch.where(t[2], t[3], 0.0).double()
+        av = t[1].double()
+        totals = torch.stack([wv.sum(-1), (wv * av).sum(-1),
+                              (wv * av * av).sum(-1)], -1)   # (R, k, 3)
+        for leaf in (l1, l2):
+            hit = torch.isclose(boot[:, :, leaf].double(),
+                                totals[:, None, leaf], rtol=K_RTOL,
+                                atol=K_ATOL).all(-1)
+            if hit.any():
+                raise AssertionError(f"{tag}: stratum {leaf} takes its "
+                                     f"totals in {int(hit.sum())} pairs")
+        differs = None
+        if base is not None:
+            differs = not bits_equal(torch, boot, baseline_moments(
+                torch, base["weighted_moments"], t[:3], t[3], t[4], t[5]))
+        emit(check="edge_weighted_nan", case=tag, **classes,
+             nan_strata=[l1, l2], max_abs_err=e, baseline_differs=differs)
+    return len(shapes)
 
 
 def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
@@ -1402,20 +1609,23 @@ def planner_path(torch, tag, run) -> dict:
 
 
 BASELINE_SOURCES = ("weighted_moments", "stratified_moments",
-                    "segment_reduce")
+                    "segment_reduce", "route_multid")
 
 
 def build_baseline(base: Path) -> dict:
-    """The kernels of rows 2-6 from an earlier checkout ``base``: its
-    weighted_moments.cu, stratified_moments.cu and segment_reduce.cu, built
-    with the same nvcc flags (one process each, all at once) into
-    build/baseline/ and loaded with ctypes, to be held against the current
-    ones and timed beside them on the same card. Weighted sources from
-    before the cover/empty redesign (no ``repro_weighted_plan``) take no
-    scratch pointer; segment_reduce.cu sources from before the one-launch
-    weighted kernel (no ``repro_weighted_segment_max_chunks``) take a
-    scratch of chunk partials and launch twice."""
-    import ctypes
+    """The kernels of rows 2-7 from an earlier checkout ``base``: its
+    weighted_moments.cu, stratified_moments.cu, segment_reduce.cu and
+    route_multid.cu, built with the same nvcc flags (one process each, all
+    at once) into build/baseline/ and loaded with ctypes, to be held
+    against the current ones and timed beside them on the same card.
+    Weighted sources from before the cover/empty redesign (no
+    ``repro_weighted_plan``) take no scratch pointer; segment_reduce.cu
+    sources from before the one-launch weighted kernel (no
+    ``repro_weighted_segment_max_chunks``) take a scratch of chunk partials
+    and launch twice, and from before the cooperative segment_reduce (no
+    ``repro_segment_reduce_max_chunks``) its segment_reduce takes a
+    partials scratch and out apart; route_multid.cu sources from before the
+    cluster kernel (no ``repro_route_max_groups``) take no plan."""
     from repro_torch.kernels import native
     csrc = base / "src" / "repro_torch" / "kernels" / "csrc"
     out_dir = native.BUILD_DIR.parent / "baseline"
@@ -1448,8 +1658,10 @@ def build_baseline(base: Path) -> dict:
         [ctypes.c_int] * 4 + [ctypes.c_void_p]
     sm.repro_stratified_moments.restype = ctypes.c_int
     seg = libs["segment_reduce"]
-    seg.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 4 + \
-        [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    seg.cooperative = hasattr(seg, "repro_segment_reduce_max_chunks")
+    seg.repro_segment_reduce.argtypes = \
+        [ctypes.c_void_p] * (3 if seg.cooperative else 4) + \
+        [ctypes.c_int] * (3 if seg.cooperative else 2) + [ctypes.c_void_p]
     seg.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
     for fn in (seg.repro_segment_reduce, seg.repro_segment_reduce_chunk):
         fn.restype = ctypes.c_int
@@ -1458,6 +1670,11 @@ def build_baseline(base: Path) -> dict:
         [ctypes.c_void_p] * (4 if seg.one_launch else 5) + \
         [ctypes.c_int] * (4 if seg.one_launch else 2) + [ctypes.c_void_p]
     seg.repro_weighted_segment_reduce.restype = ctypes.c_int
+    rt = libs["route_multid"]
+    rt.clustered = hasattr(rt, "repro_route_max_groups")
+    rt.repro_route_multid.argtypes = [ctypes.c_void_p] * 5 + \
+        [ctypes.c_int] * (6 if rt.clustered else 3) + [ctypes.c_void_p]
+    rt.repro_route_multid.restype = ctypes.c_int
     return libs
 
 
@@ -1510,13 +1727,36 @@ def baseline_segment(torch, libs, v, ids, k):
     """The baseline segment_reduce kernel's (k, 5)."""
     lib = libs["segment_reduce"]
     n = v.shape[0]
-    chunks = -(-n // lib.repro_segment_reduce_chunk(n))
+    ch = lib.repro_segment_reduce_chunk(n)
+    chunks = -(-n // ch)
+    if lib.cooperative:
+        buf = torch.empty(((chunks + 1) * k, 5), dtype=torch.float32,
+                          device=v.device)
+        baseline_call("segment_reduce", lib.repro_segment_reduce,
+                      v.data_ptr(), ids.data_ptr(), buf.data_ptr(), n, k, ch)
+        return buf[:k]
     part = torch.empty(max(chunks, 1) * 5 * k, dtype=torch.float32,
                        device=v.device)
     out = torch.empty((k, 5), dtype=torch.float32, device=v.device)
     baseline_call("segment_reduce", lib.repro_segment_reduce, v.data_ptr(),
                   ids.data_ptr(), part.data_ptr(), out.data_ptr(), n, k)
     return out
+
+
+def baseline_route(torch, libs, lo, hi, c):
+    """The baseline route_multid kernel's (leaf, dist); a clustered one
+    with the current wrapper's plan."""
+    from repro_torch.kernels.route import route_plan
+    lib = libs["route_multid"]
+    k, d = lo.shape
+    B = c.shape[0]
+    leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
+    dist = torch.empty((B,), dtype=torch.float32, device=c.device)
+    plan = route_plan(B, k) if lib.clustered else ()
+    baseline_call("route_multid", lib.repro_route_multid, lo.data_ptr(),
+                  hi.data_ptr(), c.data_ptr(), leaf.data_ptr(),
+                  dist.data_ptr(), B, k, d, *plan)
+    return leaf, dist
 
 
 def baseline_wseg(torch, libs, v, w, ids, k):
@@ -1902,24 +2142,43 @@ def wseg_fields(wseg) -> dict:
 
 
 def check_plan_constants() -> None:
-    """The weighted_segment_reduce wrapper's chunk cap is the CUDA
-    source's."""
+    """The wrappers' launch plans against the CUDA sources' constants:
+    weighted_segment_reduce's chunk cap, segment_reduce's chunk rule (on
+    which its bits rest) and route_multid's block and cluster sizes."""
     from repro_torch.kernels import native
-    from repro_torch.kernels.segment_reduce import WSEG_MAX_CHUNKS
-    got = native.library("segment_reduce").repro_weighted_segment_max_chunks()
-    if got != WSEG_MAX_CHUNKS:
-        raise AssertionError(f"weighted_segment_reduce: the source's chunk "
-                             f"cap {got} is not the wrapper's "
-                             f"{WSEG_MAX_CHUNKS}")
+    from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
+    from repro_torch.kernels.segment_reduce import (
+        SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
+    seg = native.library("segment_reduce")
+    rt = native.library("route_multid")
+    got = {"weighted_segment_reduce chunks":
+           seg.repro_weighted_segment_max_chunks(),
+           "segment_reduce rows": seg.repro_segment_reduce_min_rows(),
+           "segment_reduce chunks": seg.repro_segment_reduce_max_chunks(),
+           "route_multid threads": rt.repro_route_threads(),
+           "route_multid groups": rt.repro_route_max_groups()}
+    want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
+            "segment_reduce rows": SEG_MIN_ROWS,
+            "segment_reduce chunks": SEG_MAX_CHUNKS,
+            "route_multid threads": ROUTE_THREADS,
+            "route_multid groups": ROUTE_MAX_GROUPS}
+    if got != want:
+        raise AssertionError(f"launch plans: the sources' constants {got} "
+                             f"are not the wrappers' {want}")
+    seg.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
+    for n in (0, 1, 255, 4096, 65536, 69696, 10 ** 6):
+        if segment_plan(n)[0] != seg.repro_segment_reduce_chunk(n):
+            raise AssertionError(f"segment_reduce: the wrapper's chunk for "
+                                 f"N={n} is not the source's")
 
 
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, default=None,
-                    help="checkout of an earlier commit whose weighted "
-                         "kernels are timed beside the current ones and "
-                         "must give the same bits")
+                    help="checkout of an earlier commit whose redesigned "
+                         "kernels are held against the current ones and "
+                         "timed beside them")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1976,7 +2235,8 @@ def main(argv=None) -> int:
     profile_answer(torch, "3d", run3)
 
     # 7. Streaming kernels against plain at edge shapes.
-    edge_seg_err = edge_cases_streaming(torch, dev)
+    edge_s = edge_cases_streaming(torch, dev, base)
+    edge_seg_err = edge_s["seg_err"]
 
     # 8. Streaming, 1-D: ingest, serve the ingestor, reoptimize.
     t0 = time.perf_counter()
@@ -1997,7 +2257,7 @@ def main(argv=None) -> int:
     profile_ingest(torch, "3d", s3)
 
     # 11. The bootstrap's kernels against plain at edge shapes.
-    edge_w = edge_cases_weighted(torch, dev)
+    edge_w = edge_cases_weighted(torch, dev, base)
 
     # 12. 1-D bootstrap serving, fused and scan; 13. 3-D, fused.
     b1 = boot_serve(torch, "1d", run1, 0.05, scan=True)
@@ -2021,7 +2281,7 @@ def main(argv=None) -> int:
     # answer's shapes (R = 200) with the launches of one fused answer
     # (bootstrap_moments) or one scan answer (stratified_weighted_moments);
     # weighted_segment_reduce is on no serving path and launches 0 there.
-    # Rows 2, 5 and 6 carry the baseline's times (null without
+    # Rows 2 and 5-7 carry the baseline's times (null without
     # --baseline); rows 2-4 and 6 the library call's, by events and on the
     # device.
     bb, btimes, ov = bk["bounds"], bk["times"], bk["overhead"]
@@ -2076,17 +2336,23 @@ def main(argv=None) -> int:
             "library_device_ms": None,
             "device_ms": b4[f"{name}_device"],
             "plain_device_ms": b4[f"{name}_plain_device"],
+            "profiler_ops_per_call": b4[f"{name}_ops_per_call"],
+            "enqueue_host_ms": b4[f"{name}_enqueue_host"],
             "device_ms_b65536": b64[f"{name}_device"],
+            "plain_device_ms_b65536": b64[f"{name}_plain_device"],
             "ms_b65536": b64[name], "plain_ms_b65536": b64[f"{name}_plain"],
-            "bound_ms_b65536": b64["bounds"][name]["bound_ms"]})
-        if name == "segment_reduce":
-            rows[-1].update(
-                baseline_bit_equal=None if base is None else True,
-                baseline_ms=b4.get("segment_reduce_baseline"),
-                baseline_device_ms=b4.get("segment_reduce_baseline_device"),
-                baseline_ms_b65536=b64.get("segment_reduce_baseline"),
-                baseline_device_ms_b65536=b64.get(
-                    "segment_reduce_baseline_device"))
+            "bound_ms_b65536": b64["bounds"][name]["bound_ms"],
+            "baseline_bit_equal": None if base is None else True,
+            "baseline_ms": b4.get(f"{name}_baseline"),
+            "baseline_device_ms": b4.get(f"{name}_baseline_device"),
+            "baseline_enqueue_host_ms": b4.get(
+                f"{name}_baseline_enqueue_host"),
+            "baseline_ms_b65536": b64.get(f"{name}_baseline"),
+            "baseline_device_ms_b65536": b64.get(
+                f"{name}_baseline_device")})
+        if name == "route_multid":
+            rows[-1].update(edge_cases=edge_s["route_cases"],
+                            nonfinite_rows=edge_s["nonfinite"])
     boot_rows = {
         "stratified_weighted_moments": {
             "launches": b1["scan_launches"]["stratified_weighted_moments"],

@@ -7,97 +7,225 @@
 // leaf dimension is sequential, carrying the running (min, argmin) pair in
 // its output block, and merges tiles with a strict `<`.
 //
-// Bit-equal to the dense oracle route_multid_dense: the distance of a
-// (row, leaf) pair is max(max(lo_j - c_j, c_j - hi_j), 0) summed over
-// the dimensions j in order, in fp32, starting from dimension 0's term.
-// There is no multiply, so nothing can contract to an FMA. Leaves are
-// walked in ascending id and the best is replaced only on a strict `<`,
-// so the lowest id wins ties; the start is (+inf, leaf 0), which is what
-// argmin gives over a row of +inf. An empty leaf is an inverted box
-// (lo = +inf, hi = -inf) whose distance is +inf by itself, so it needs
-// no mask and no padding.
+// Bit-equal to the dense oracle route_multid_dense on finite rows: the
+// distance of a (row, leaf) pair is max(max(lo_j - c_j, c_j - hi_j), 0)
+// summed over the dimensions j in order, in fp32, starting from dimension
+// 0's term. There is no multiply, so nothing can contract to an FMA. The
+// winner's distance goes out plus +0.0, which turns a -0.0 (a sum of
+// terms max(-0.0, +0.0), where fmaxf may keep the sign the oracle's
+// maximum drops) into +0.0 and leaves every other value as it is. An
+// empty leaf is an inverted box (lo = +inf, hi = -inf) whose distance is
+// +inf by itself, so it needs no mask and no padding. On a row with a NaN
+// or infinite coordinate fmaxf drops the NaN that the oracle's maximum
+// propagates; there the kernel keeps the bits of its first version (one
+// thread per row over all leaves), whose per-term expression and scan it
+// repeats.
 //
-// What bounds it on an H100: operations. B * k * d pairs at 5 fp32
+// What bounds it on an H100: operations. B * k * d terms at 5 fp32
 // operations each, against (2 k + B) * d * 4 bytes in and 8 B bytes out.
 //
-// Design: one thread per row, its coordinates in registers; one block of
-// BB rows stages the leaf boxes through shared memory in tiles of TK
-// leaves, stored dimension-major so that every thread reads the same
-// word at once (a broadcast). At B = 4096 that is only 16 blocks for 132
-// SMs: the card is mostly idle at the ingest's batch size. Splitting the
-// leaves across blocks would need a second, ordered merge pass; that is
-// tuning, left for later.
+// Design: the leaves are split across the G blocks of a thread-block
+// cluster, which share one tile of NT * RT rows. The wrapper's plan
+// (route_plan in route.py) picks RT (rows a thread), G and the leaves a
+// group from (B, k) so that one ingest batch (B = 4096) makes at least a
+// block per multiprocessor.
+//  1. Thread t holds rows t, t + NT, ... of the tile in registers; block g
+//     stages the boxes of its leaf range [g * lg, (g + 1) * lg) (clipped
+//     to k; empty when k < G) in shared memory, TK leaves at a time, as
+//     (lo, hi) float2 pairs dimension-major, so that every thread reads
+//     the same pair at once (a broadcast) and one load serves RT rows.
+//  2. It scans its range in ascending id and replaces a row's best only on
+//     a strict `<`, starting from (+inf, the range's first id).
+//  3. After cluster.sync(), block g merges rows g, g + G, ... of the tile:
+//     the G partials in rank order through distributed shared memory
+//     (map_shared_rank), from (+inf, 0), again on a strict `<`. The ranges
+//     ascend with the rank, so this is the full scan's result exactly: the
+//     lowest id among equal distances, and (+inf, 0) when every box is
+//     empty. A second cluster.sync() keeps every block's partials alive
+//     until the merge has read them.
+// One launch, no scratch, no memset, no atomics: the same bits on every
+// launch.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BB = 256;     // rows per block == threads per block
+constexpr int NT = 64;      // threads per block
 constexpr int TK = 256;     // leaves staged per tile
 constexpr int MAX_D = 16;   // coordinate columns
+constexpr int MAX_G = 8;    // blocks per cluster: the portable limit
 
-__global__ void __launch_bounds__(BB)
+// D > 0 fixes d at compile time; D = 0 takes any d <= MAX_D.
+template <int D, int RT>
+__global__ void __launch_bounds__(NT)
 route_multid_kernel(const float* __restrict__ leaf_lo,
                     const float* __restrict__ leaf_hi,
                     const float* __restrict__ c,
                     int32_t* __restrict__ leaf_out,
-                    float* __restrict__ dist_out, int B, int k, int d) {
-  __shared__ float s_lo[MAX_D][TK];
-  __shared__ float s_hi[MAX_D][TK];
+                    float* __restrict__ dist_out, int B, int k, int d,
+                    int lg) {
+  constexpr int DD = D > 0 ? D : MAX_D;
+  __shared__ float2 s_box[DD * TK];   // [dimension][leaf] = (lo, hi)
+  __shared__ float s_best[RT * NT];   // the block's partials, row-indexed
+  __shared__ int s_leaf[RT * NT];
+  if (D > 0) d = D;
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = (int)cluster.num_blocks();
+  const int g = (int)cluster.block_rank();
   const int tid = threadIdx.x;
-  const int row = blockIdx.x * BB + tid;
-  const bool active = row < B;
+  const int row0 = (blockIdx.x / G) * (RT * NT);
 
-  float x[MAX_D];
+  float x[RT][DD];
 #pragma unroll
-  for (int j = 0; j < MAX_D; ++j)
-    x[j] = (active && j < d) ? c[(size_t)row * d + j] : 0.f;
+  for (int r = 0; r < RT; ++r) {
+    const int row = row0 + r * NT + tid;
+#pragma unroll
+    for (int j = 0; j < DD; ++j)
+      x[r][j] = (row < B && j < d) ? c[(size_t)row * d + j] : 0.f;
+  }
 
-  float best = CUDART_INF_F;
-  int best_i = 0;
-  for (int k0 = 0; k0 < k; k0 += TK) {
-    const int n = min(TK, k - k0);
+  const int l0 = (int)min((long long)k, (long long)g * lg);
+  const int l1 = (int)min((long long)k, (long long)l0 + lg);
+  float best[RT];
+  int best_i[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    best[r] = CUDART_INF_F;
+    best_i[r] = l0;
+  }
+  for (int k0 = l0; k0 < l1; k0 += TK) {
+    const int n = min(TK, l1 - k0);
     __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < n * d; i += BB) {
-      const int l = i / d, j = i % d;
-      s_lo[j][l] = leaf_lo[(size_t)k0 * d + i];
-      s_hi[j][l] = leaf_hi[(size_t)k0 * d + i];
+    for (int i = tid; i < n * d; i += NT) {
+      const int l = i / d, j = i - l * d;
+      s_box[j * TK + l] = make_float2(leaf_lo[(size_t)k0 * d + i],
+                                      leaf_hi[(size_t)k0 * d + i]);
     }
     __syncthreads();
     for (int l = 0; l < n; ++l) {
-      float dist = fmaxf(fmaxf(s_lo[0][l] - x[0], x[0] - s_hi[0][l]), 0.f);
+      float dist[RT];
+      const float2 b0 = s_box[l];
 #pragma unroll
-      for (int j = 1; j < MAX_D; ++j) {
-        if (j < d)
-          dist = dist + fmaxf(fmaxf(s_lo[j][l] - x[j], x[j] - s_hi[j][l]),
-                              0.f);
+      for (int r = 0; r < RT; ++r)
+        dist[r] = fmaxf(fmaxf(b0.x - x[r][0], x[r][0] - b0.y), 0.f);
+#pragma unroll
+      for (int j = 1; j < DD; ++j) {
+        if (j < d) {
+          const float2 b = s_box[j * TK + l];
+#pragma unroll
+          for (int r = 0; r < RT; ++r)
+            dist[r] = dist[r] +
+                      fmaxf(fmaxf(b.x - x[r][j], x[r][j] - b.y), 0.f);
+        }
       }
-      if (dist < best) {
-        best = dist;
-        best_i = k0 + l;
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        if (dist[r] < best[r]) {
+          best[r] = dist[r];
+          best_i[r] = k0 + l;
+        }
       }
     }
   }
-  if (active) {
-    leaf_out[row] = best_i;
-    dist_out[row] = best;
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    s_best[r * NT + tid] = best[r];
+    s_leaf[r * NT + tid] = best_i[r];
   }
+  cluster.sync();
+  for (int i = g + G * tid; i < RT * NT; i += G * NT) {
+    float bd = CUDART_INF_F;
+    int bl = 0;
+    for (int h = 0; h < G; ++h) {
+      const float v = cluster.map_shared_rank(s_best, h)[i];
+      if (v < bd) {
+        bd = v;
+        bl = cluster.map_shared_rank(s_leaf, h)[i];
+      }
+    }
+    const int row = row0 + i;
+    if (row < B) {
+      leaf_out[row] = bl;
+      dist_out[row] = __fadd_rn(bd, 0.f);
+    }
+  }
+  cluster.sync();  // the other blocks have read this block's partials
+}
+
+template <int D, int RT>
+cudaError_t launch(const float* leaf_lo, const float* leaf_hi,
+                   const float* c, int32_t* leaf, float* dist, int B, int k,
+                   int d, int G, int lg, int blocks, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = G;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, route_multid_kernel<D, RT>, leaf_lo,
+                            leaf_hi, c, leaf, dist, B, k, d, lg);
+}
+
+template <int RT>
+cudaError_t launch_d(const float* leaf_lo, const float* leaf_hi,
+                     const float* c, int32_t* leaf, float* dist, int B,
+                     int k, int d, int G, int lg, int blocks,
+                     cudaStream_t stream) {
+  if (d == 2)
+    return launch<2, RT>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                         blocks, stream);
+  if (d == 3)
+    return launch<3, RT>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                         blocks, stream);
+  return launch<0, RT>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                       blocks, stream);
 }
 
 }  // namespace
 
+// rt, G and lg are route_plan's (route.py): rows a thread (1, 2 or 4),
+// blocks a cluster (1, 2, 4 or 8) and leaves a group (G * lg >= k).
 extern "C" int repro_route_multid(const float* leaf_lo, const float* leaf_hi,
                                   const float* c, int32_t* leaf, float* dist,
-                                  int B, int k, int d, void* stream) {
-  if (B < 1 || k < 1 || d < 1 || d > MAX_D)
+                                  int B, int k, int d, int rt, int G, int lg,
+                                  void* stream) {
+  if (B < 1 || k < 1 || d < 1 || d > MAX_D || lg < 1 ||
+      (rt != 1 && rt != 2 && rt != 4) ||
+      (G != 1 && G != 2 && G != 4 && G != MAX_G) || (long long)G * lg < k)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (B + BB - 1) / BB;
-  route_multid_kernel<<<blocks, BB, 0, (cudaStream_t)stream>>>(
-      leaf_lo, leaf_hi, c, leaf, dist, B, k, d);
+  const long long tiles = (B + (long long)rt * NT - 1) / ((long long)rt * NT);
+  if (tiles * G > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  const int blocks = (int)(tiles * G);
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  if (rt == 4)
+    err = launch_d<4>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                      blocks, st);
+  else if (rt == 2)
+    err = launch_d<2>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                      blocks, st);
+  else
+    err = launch_d<1>(leaf_lo, leaf_hi, c, leaf, dist, B, k, d, G, lg,
+                      blocks, st);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// NT and MAX_G, for the wrapper's plan to be checked against.
+extern "C" int repro_route_threads() { return NT; }
+extern "C" int repro_route_max_groups() { return MAX_G; }
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

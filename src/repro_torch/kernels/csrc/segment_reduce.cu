@@ -22,25 +22,39 @@
 // well under a microsecond of bytes and the kernels are bound by their
 // launches and their passes' latency.
 //
-// segment_reduce, two launches, deterministic with no float atomics (the
-// sharded ingest's byte-equality to the single-device one rests on this
-// reduction, so its code and bits stay as they are):
-//  * Pass 1: the rows are cut into C chunks of CH consecutive rows. Block
-//    (chunk, segment tile) stages its chunk's ids and values in shared
-//    memory; thread t owns segment tile*BS + t and walks the chunk's rows
-//    in order, accumulating its five moments in registers. Every thread
-//    reads the same row at once (a shared memory broadcast). The partials
-//    go to part (C, 5, k). A block whose segment tile holds none of the
-//    chunk's ids (the chunk's min and max id are reduced first) writes the
+// segment_reduce, one cooperative launch, deterministic with no float
+// atomics (the sharded ingest's byte-equality to the single-device one
+// rests on this reduction, so its arithmetic and bits stay those of the
+// first, two-launch version):
+//  * Phase 1: the rows are cut into C chunks of CH consecutive rows (CH
+//    from N alone: repro_segment_reduce_chunk, mirrored by the wrapper's
+//    segment_plan). A work item is a (chunk, segment tile) pair; the
+//    blocks take the items in a grid-stride loop. For an item the block
+//    stages its chunk's ids and values in shared memory; thread t owns
+//    segment tile*BS + t and walks the chunk's rows in order,
+//    accumulating its five moments in registers. Every thread reads the
+//    same row at once (a shared memory broadcast). The partials go to
+//    part (C, 5, k). An item whose segment tile holds none of the chunk's
+//    ids (the chunk's min and max id are reduced first) writes the
 //    identity and skips the walk.
-//  * Pass 2: thread s combines part[0..C-1][.][s] in chunk order.
+//  * A grid-wide sync. The grid is capped at the blocks the card holds at
+//    once (the occupancy calculator's count times the multiprocessors), as
+//    a cooperative launch must be.
+//  * Phase 2: thread s (grid-stride over the segments) combines
+//    part[0..C-1][.][s] in chunk order, the loads of CU chunks in flight
+//    at once. (Spreading the segments' runs of 32 over the warps of every
+//    block, with 16 chunks in flight, was slower in a tuning run.)
 // The sum order is thus fixed by (N, k) alone: row order inside a chunk,
-// chunk order across chunks. Skewed ids (a stream in pickup-time order
-// puts a whole batch into one to three leaves) do not serialise the
-// batch: the chunks of one segment are walked by C blocks in parallel.
-// Work is O(N * k) compares, which at the ingest's shapes is ~4 M and
-// far below the launch cost; CH grows with N so that C stays <= MAX_C.
-// Any N and k are taken by masking; there is no padding to a block size.
+// chunk order across chunks, whichever block takes an item; the per-row
+// update is pinned to the first version's instructions (its SASS adds v
+// and the count by FADD and v * v by FFMA), so nvcc cannot round it
+// otherwise. Skewed ids (a stream in pickup-time order puts a whole batch
+// into one to three leaves) do not serialise the batch: the chunks of one
+// segment are walked by C items in parallel. Work is O(N * k) compares,
+// which at the ingest's shapes is ~4 M and far below the launch cost; CH
+// grows with N so that C stays <= MAX_C. Any N and k are taken by masking;
+// there is no padding to a block size. `out` and the partials are carved
+// from one buffer that the wrapper allocates per call.
 //
 // weighted_segment_reduce, one cooperative launch, deterministic with no
 // float atomics. The wrapper's plan (weighted_segment_plan) cuts the rows
@@ -85,6 +99,7 @@ constexpr int BS = 256;        // segments per block == threads per block
 constexpr int MIN_CH = 256;    // rows per chunk, at least
 constexpr int MAX_C = 264;     // chunks, at most (two per SM)
 constexpr int TILE = 1024;     // rows staged in shared memory at a time
+constexpr int CU = 8;          // chunks whose partials a combine loads at once
 constexpr float POS_BIG = 3.0e38f;   // kernels/ref.py POS_BIG / NEG_BIG
 constexpr float NEG_BIG = -3.0e38f;
 
@@ -113,16 +128,16 @@ __device__ __forceinline__ bool chunk_hits_tile(const int32_t* ids, int r0,
   return hi >= seg0 && lo < seg0 + BS;
 }
 
-__global__ void __launch_bounds__(BS)
-segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
-                 float* __restrict__ part, int N, int k, int CH) {
-  __shared__ float s_v[TILE];
-  __shared__ int32_t s_id[TILE];
-  __shared__ int s_min[BS / 32], s_max[BS / 32];
-
+// Item (chunk, segment tile seg0 / BS)'s partials into part (C, 5, k).
+// Called by every thread of the block; the caller syncs the block first.
+__device__ __forceinline__ void segment_item(const float* __restrict__ v,
+                                             const int32_t* __restrict__ ids,
+                                             float* __restrict__ part, int N,
+                                             int k, int CH, int chunk,
+                                             int seg0, float* s_v,
+                                             int32_t* s_id, int* s_min,
+                                             int* s_max) {
   const int tid = threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int seg0 = blockIdx.y * BS;
   const int seg = seg0 + tid;
   const int r0 = chunk * CH;
   const int r1 = min(N, r0 + CH);
@@ -139,12 +154,13 @@ segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
         s_id[i] = ids[t0 + i];
       }
       __syncthreads();
+#pragma unroll 8
       for (int i = 0; i < n; ++i) {
         if (s_id[i] == seg) {
           const float x = s_v[i];
-          sum += x;
-          sumsq += x * x;
-          cnt += 1.f;
+          sum = __fadd_rn(sum, x);
+          sumsq = __fmaf_rn(x, x, sumsq);
+          cnt = __fadd_rn(cnt, 1.f);
           mn = x < mn ? x : mn;
           mx = x > mx ? x : mx;
         }
@@ -161,26 +177,59 @@ segment_partials(const float* __restrict__ v, const int32_t* __restrict__ ids,
   }
 }
 
+// Launched cooperatively with at most the resident blocks: the items of
+// phase 1 in a grid-stride loop, a grid sync, then the chunk-order combine
+// of each segment.
 __global__ void __launch_bounds__(BS)
-segment_combine(const float* __restrict__ part, float* __restrict__ out,
-                int k, int C) {
-  const int seg = blockIdx.x * BS + threadIdx.x;
-  if (seg >= k) return;
-  float sum = 0.f, sumsq = 0.f, cnt = 0.f, mn = POS_BIG, mx = NEG_BIG;
-  for (int c = 0; c < C; ++c) {
-    const float* p = part + (size_t)c * 5 * k + seg;
-    sum += p[0];
-    sumsq += p[(size_t)k];
-    cnt += p[(size_t)2 * k];
-    mn = fminf(mn, p[(size_t)3 * k]);
-    mx = fmaxf(mx, p[(size_t)4 * k]);
+segment_reduce_kernel(const float* __restrict__ v,
+                      const int32_t* __restrict__ ids, float* out,
+                      float* part, int N, int k, int CH, int C) {
+  __shared__ float s_v[TILE];
+  __shared__ int32_t s_id[TILE];
+  __shared__ int s_min[BS / 32], s_max[BS / 32];
+
+  const int n_tiles = (k + BS - 1) / BS;
+  const long long items = (long long)C * n_tiles;
+  for (long long it = blockIdx.x; it < items; it += gridDim.x) {
+    __syncthreads();  // the previous item's shared memory is consumed
+    segment_item(v, ids, part, N, k, CH, (int)(it % C),
+                 (int)(it / C) * BS, s_v, s_id, s_min, s_max);
   }
-  float* o = out + (size_t)seg * 5;
-  o[0] = sum;
-  o[1] = sumsq;
-  o[2] = cnt;
-  o[3] = mn;
-  o[4] = mx;
+
+  // Every chunk's partials are written.
+  cg::this_grid().sync();
+
+  for (long long seg = (long long)blockIdx.x * BS + threadIdx.x; seg < k;
+       seg += (long long)gridDim.x * BS) {
+    float sum = 0.f, sumsq = 0.f, cnt = 0.f, mn = POS_BIG, mx = NEG_BIG;
+    // CU chunks' loads in flight together, then their adds in chunk order.
+    for (int c0 = 0; c0 < C; c0 += CU) {
+      float t[CU][5];
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        const float* p = part + (size_t)(c0 + u) * 5 * k + seg;
+        const bool in = c0 + u < C;
+#pragma unroll
+        for (int m = 0; m < 5; ++m) t[u][m] = in ? p[(size_t)m * k] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < CU; ++u) {
+        if (c0 + u < C) {
+          sum = __fadd_rn(sum, t[u][0]);
+          sumsq = __fadd_rn(sumsq, t[u][1]);
+          cnt = __fadd_rn(cnt, t[u][2]);
+          mn = fminf(mn, t[u][3]);
+          mx = fmaxf(mx, t[u][4]);
+        }
+      }
+    }
+    float* o = out + (size_t)seg * 5;
+    o[0] = sum;
+    o[1] = sumsq;
+    o[2] = cnt;
+    o[3] = mn;
+    o[4] = mx;
+  }
 }
 
 constexpr int WNT = 256;       // threads per weighted block
@@ -447,28 +496,51 @@ weighted_segment_kernel(const float* __restrict__ v,
 }  // namespace
 
 // Rows per chunk for N rows: at least MIN_CH, and enough that there are
-// at most MAX_C chunks. The wrapper sizes `part` from it.
+// at most MAX_C chunks. The wrapper's segment_plan mirrors it.
 extern "C" int repro_segment_reduce_chunk(int N) {
   const int ch = (N + MAX_C - 1) / MAX_C;
   return ch > MIN_CH ? ch : MIN_CH;
 }
 
-// part: scratch of at least C * 5 * k floats, C = ceil(N / CH).
+// MIN_CH and MAX_C, for the wrapper's plan to be checked against.
+extern "C" int repro_segment_reduce_min_rows() { return MIN_CH; }
+extern "C" int repro_segment_reduce_max_chunks() { return MAX_C; }
+
+// buf: the wrapper's one buffer of at least (C + 1) * 5 * k floats, C =
+// ceil(N / CH): out (k, 5), then the partials (C, 5, k). CH must be
+// repro_segment_reduce_chunk(N), on which the bits rest.
 extern "C" int repro_segment_reduce(const float* v, const int32_t* ids,
-                                    float* part, float* out, int N, int k,
+                                    float* buf, int N, int k, int CH,
                                     void* stream) {
-  if (N < 0 || k < 1) return (int)cudaErrorInvalidValue;
-  const int CH = repro_segment_reduce_chunk(N);
-  const int C = (N + CH - 1) / CH;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (C > 0) {
-    dim3 grid(C, (k + BS - 1) / BS);
-    segment_partials<<<grid, BS, 0, st>>>(v, ids, part, N, k, CH);
-    const cudaError_t err = cudaGetLastError();
+  if (N < 0 || k < 1 || CH != repro_segment_reduce_chunk(N))
+    return (int)cudaErrorInvalidValue;
+  int C = (N + CH - 1) / CH;
+  float* out = buf;
+  float* part = buf + (size_t)5 * k;
+  // Once per device: the resident blocks, which cap the cooperative grid.
+  static int resident[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, segment_reduce_kernel, BS, 0);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per_sm * sms;
   }
-  segment_combine<<<(k + BS - 1) / BS, BS, 0, st>>>(part, out, k, C);
-  return (int)cudaGetLastError();
+  const long long items = (long long)C * ((k + BS - 1) / BS);
+  const long long want = items > 1 ? items : 1;
+  const int grid = (int)(want < resident[dev] ? want : resident[dev]);
+  void* args[] = {(void*)&v, (void*)&ids, (void*)&out, (void*)&part,
+                  (void*)&N, (void*)&k,   (void*)&CH,  (void*)&C};
+  return (int)cudaLaunchCooperativeKernel((void*)segment_reduce_kernel,
+                                          dim3(grid), dim3(BS), args, 0,
+                                          (cudaStream_t)stream);
 }
 
 // buf: the wrapper's one buffer of at least 3k + C * (3k + 2) floats: out

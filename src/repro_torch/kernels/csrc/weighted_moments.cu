@@ -43,14 +43,18 @@
 //     slot order. One warp per (replicate, 32 leaves) stages 32 slots of
 //     each leaf at a time with coalesced loads; lane l walks leaf l.
 //  2. weighted_box_kernel: one warp per leaf writes the box around its
-//     valid samples (+inf / -inf without one) and its valid bits.
+//     valid samples (+inf / -inf without one), its valid bits and a flag
+//     for a NaN coordinate on a valid slot: fminf / fmaxf skip a NaN that
+//     the slot test rejects, so a flagged leaf is never covered.
 //  3. weighted_tile_kernel: one block of NT = 256 threads per tile of
 //     QT = 32 queries x LT leaves (LT = 32 unless s is large), tiles along
 //     blockIdx.x. The block
 //     a. classifies every pair from the leaf's box (lane = query, warp =
-//        leaf): covered iff the query box holds the leaf's box, empty iff
-//        they are apart in some column. Exact: the box is the min / max
-//        of the valid samples, and the test is the slot test's compares;
+//        leaf): covered iff the query box holds the leaf's box and the
+//        leaf is not flagged, empty iff they are apart in some column.
+//        Exact: the box is the min / max of the valid non-NaN samples, a
+//        NaN sample is inside no query, and the test is the slot test's
+//        compares;
 //     b. tests the slots of the remaining pairs once per (query, slot)
 //        into a bitmask in shared memory, ANDed with the valid bits; a pair
 //        with no bit set is empty, else mixed (never covered: the sample
@@ -145,7 +149,7 @@ struct Plan {
   int nw;       // mask words per (query, leaf): ceil(s / 32)
   int sl;       // leaves per staged coordinate chunk
   int n_qt, n_tiles;
-  size_t box, vbits, counts, pairs;  // scratch offsets past the totals
+  size_t box, vbits, nan, counts, pairs;  // scratch offsets past the totals
   int off_t, off_box, off_c, off_mask, off_cls, off_meta, bytes;
 };
 
@@ -176,7 +180,8 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.n_tiles = (int)(n_qt * n_lt);
     p.box = (size_t)R * k * 3;
     p.vbits = p.box + (size_t)k * 2 * d;
-    p.counts = p.vbits + (size_t)k * nw;
+    p.nan = p.vbits + (size_t)k * nw;
+    p.counts = p.nan + k;
     p.pairs = p.counts + p.n_tiles;
     *plan = p;
     return true;
@@ -230,12 +235,13 @@ weighted_totals_kernel(const float* __restrict__ a,
 }
 
 // Per leaf (one warp): its box around its valid samples (lo = +inf, hi =
-// -inf without one) and its valid bits, 32 slots a word.
+// -inf without one), its valid bits, 32 slots a word, and its NaN flag (1
+// iff a valid slot holds a NaN coordinate, x != x).
 __global__ void __launch_bounds__(LEAF_T)
 weighted_box_kernel(const float* __restrict__ c,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ box, uint32_t* __restrict__ vbits,
-                    int k, int s, int d) {
+                    int* __restrict__ nan_flag, int k, int s, int d) {
   const int leaf = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (leaf >= k) return;
@@ -247,6 +253,7 @@ weighted_box_kernel(const float* __restrict__ c,
     lo[j] = __int_as_float(0x7f800000);
     hi[j] = -lo[j];
   }
+  bool nan = false;
   for (int w = 0; w < nw; ++w) {
     const int i = w * 32 + lane;
     const bool v = i < s && valid[base + i] != 0;
@@ -257,12 +264,15 @@ weighted_box_kernel(const float* __restrict__ c,
       for (int j = 0; j < MAX_D; ++j) {
         if (j < d) {
           const float x = c[(base + i) * d + j];
+          nan |= x != x;
           lo[j] = fminf(lo[j], x);
           hi[j] = fmaxf(hi[j], x);
         }
       }
     }
   }
+  nan = __any_sync(0xffffffffu, nan);
+  if (lane == 0) nan_flag[leaf] = nan;
 #pragma unroll
   for (int j = 0; j < MAX_D; ++j) {
     if (j < d) {
@@ -303,6 +313,7 @@ weighted_tile_kernel(const float* __restrict__ c,
   const float* T = scratch;
   const float* box = scratch + p.box;
   const uint32_t* vbits = (const uint32_t*)(scratch + p.vbits);
+  const int* nan_flag = (const int*)(scratch + p.nan);
 
   const int LT = p.lt, NW = p.nw;
   const int tile = blockIdx.x;
@@ -339,13 +350,13 @@ weighted_tile_kernel(const float* __restrict__ c,
   __syncthreads();
 
   // 1. Classes from the leaf boxes (lane = query, warp = leaf): covered
-  // iff the box holds every valid sample, empty iff it is apart from them
-  // in some column, else MAYBE until the slots are tested.
+  // iff the box holds every valid sample and none is NaN, empty iff it is
+  // apart from them in some column, else MAYBE until the slots are tested.
   for (int l = warp; l < LT; l += NT / 32) {
     uint8_t cls = EMPTY;
     if (l < nl && q_active) {
       const float* bl = s_box + l * 2 * d;
-      bool inside = true, apart = false;
+      bool inside = nan_flag[leaf0 + l] == 0, apart = false;
 #pragma unroll
       for (int j = 0; j < MAX_D; ++j) {
         if (j < d) {
@@ -590,7 +601,8 @@ int launch(const float* c, const float* a, const uint8_t* valid,
       a, valid, W, scratch, k, s);
   weighted_box_kernel<<<(k + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T, 0,
                         stream>>>(c, valid, scratch + p.box,
-                                  (uint32_t*)(scratch + p.vbits), k, s, d);
+                                  (uint32_t*)(scratch + p.vbits),
+                                  (int*)(scratch + p.nan), k, s, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool vec = k % 4 == 0 && p.lt % 4 == 0;

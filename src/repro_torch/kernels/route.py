@@ -6,16 +6,24 @@ contains it (distance 0) or is L1-nearest, the lowest leaf id on ties
 hand-written kernel of ``csrc/route_multid.cu`` (which replaces the
 Pallas kernel ``repro/kernels/route.py::route_multid_pallas``);
 ``route_multid_plain`` is the JAX package's dense oracle
-``route_multid_dense``: the (B, k) distance matrix and its argmin. The
-kernel is bit-equal to it: the same leaf and the same distance.
+``route_multid_dense``: the (B, k) distance matrix and its argmin. On
+finite rows the kernel is bit-equal to it: the same leaf and the same
+distance. On a row with a NaN or infinite coordinate the two differ (the
+kernel's fmaxf drops a NaN that ``torch.maximum`` propagates); the
+kernel keeps its first version's bits there.
 
 Both take leaf_lo/leaf_hi (k, d) and rows c (B, d), all float32, and
 return (leaf (B,) int32, dist (B,) float32). Empty leaves are inverted
 boxes (lo = +inf, hi = -inf) whose distance is +inf by itself.
+
+The kernel splits the leaves across the blocks of a thread-block cluster
+and merges their partial winners in group order; ``route_plan`` picks
+its shape and ``route_groups`` lists the leaf ranges of the groups.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,11 +44,46 @@ def dist_matrix(lo, hi, c) -> torch.Tensor:
 
 def route_multid_plain(leaf_lo, leaf_hi, c):
     """Dense oracle: argmin over the (B, k) distance matrix, which takes
-    the first (lowest) leaf id among equal distances."""
+    the first (lowest) leaf id among equal distances. The winner's distance
+    plus +0.0 is the oracle's: its maximum with 0 never leaves -0.0, which
+    ``torch.clamp`` keeps."""
     dist = dist_matrix(leaf_lo, leaf_hi, c)
     leaf = torch.argmin(dist, dim=1)
     return (leaf.to(torch.int32),
-            torch.gather(dist, 1, leaf[:, None])[:, 0])
+            torch.gather(dist, 1, leaf[:, None])[:, 0] + 0.0)
+
+
+# The kernel's launch shape (csrc/route_multid.cu): blocks of
+# ROUTE_THREADS threads, at most ROUTE_MAX_GROUPS of them a cluster (the
+# portable cluster size), planned for the multiprocessors of an H100 SXM.
+ROUTE_THREADS = 64
+ROUTE_MAX_GROUPS = 8
+ROUTE_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def route_plan(B: int, k: int) -> tuple[int, int, int]:
+    """(rows a thread, leaf groups G, leaves a group) of a launch over B
+    rows and k leaves. A tile of ROUTE_THREADS * rows is one cluster of G
+    blocks: the most rows a thread (4, 2, 1) that still give at least a
+    block per multiprocessor at G = ROUTE_MAX_GROUPS, then the fewest
+    groups that give two blocks per multiprocessor (or the most groups)."""
+    rt = 4
+    while rt > 1 and -(-B // (ROUTE_THREADS * rt)) * ROUTE_MAX_GROUPS \
+            < ROUTE_SMS:
+        rt //= 2
+    tiles = -(-B // (ROUTE_THREADS * rt))
+    g = 1
+    while g < ROUTE_MAX_GROUPS and tiles * g < 2 * ROUTE_SMS:
+        g *= 2
+    return rt, g, -(-k // g)
+
+
+def route_groups(k: int, groups: int, per_group: int) -> list[range]:
+    """The leaf range of each group, as the kernel clips it to k: group g
+    scans [g * per_group, (g + 1) * per_group), empty past k."""
+    return [range(min(k, g * per_group), min(k, (g + 1) * per_group))
+            for g in range(groups)]
 
 
 _lib = None
@@ -51,14 +94,15 @@ def _kernel():
     if _lib is None:
         lib = native.library("route_multid")
         lib.repro_route_multid.argtypes = [ctypes.c_void_p] * 5 + \
-            [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            [ctypes.c_int] * 6 + [ctypes.c_void_p]
         lib.repro_route_multid.restype = ctypes.c_int
         _lib = lib
-    return _lib.repro_route_multid
+    return _lib
 
 
 def route_multid_cuda(leaf_lo, leaf_hi, c):
-    """Launch the CUDA kernel on the tensors' device and current stream."""
+    """Launch the CUDA kernel (one cluster launch) on the tensors' device
+    and current stream."""
     name = "route_multid"
     native.check_tensors(name, leaf_lo=leaf_lo, leaf_hi=leaf_hi, c=c)
     native.check_dtype(name, torch.float32, leaf_lo=leaf_lo,
@@ -71,16 +115,15 @@ def route_multid_cuda(leaf_lo, leaf_hi, c):
     if not (1 <= B < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d <= 16):
         raise ValueError(f"{name}: needs B, k >= 1 and 1 <= d <= 16, got "
                          f"B={B} k={k} d={d}")
-    dev = c.device
-    leaf = torch.empty((B,), dtype=torch.int32, device=dev)
-    dist = torch.empty((B,), dtype=torch.float32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        err = fn(leaf_lo.data_ptr(), leaf_hi.data_ptr(), c.data_ptr(),
-                 leaf.data_ptr(), dist.data_ptr(), B, k, d,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
+    rt, g, lg = route_plan(B, k)
+    leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
+    dist = c.new_empty((B,))
+    native.launch(name, c.device, _kernel().repro_route_multid,
+                  leaf_lo.data_ptr(), leaf_hi.data_ptr(), c.data_ptr(),
+                  leaf.data_ptr(), dist.data_ptr(), B, k, d, rt, g, lg)
     return leaf, dist
 
 
-__all__ = ["dist_matrix", "route_multid_plain", "route_multid_cuda"]
+__all__ = ["dist_matrix", "route_multid_plain", "route_multid_cuda",
+           "route_plan", "route_groups", "ROUTE_THREADS",
+           "ROUTE_MAX_GROUPS", "ROUTE_SMS"]

@@ -66,20 +66,37 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = native.library("segment_reduce")
-        lib.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        lib.repro_segment_reduce.argtypes = [ctypes.c_void_p] * 3 + \
+            [ctypes.c_int] * 3 + [ctypes.c_void_p]
         lib.repro_segment_reduce.restype = ctypes.c_int
         lib.repro_weighted_segment_reduce.argtypes = \
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_weighted_segment_reduce.restype = ctypes.c_int
-        lib.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
-        lib.repro_segment_reduce_chunk.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
+# The kernel's chunk rule (csrc/segment_reduce.cu
+# repro_segment_reduce_chunk): chunks of at least SEG_MIN_ROWS rows, at most
+# SEG_MAX_CHUNKS of them. It depends on N alone, and so does the kernel's
+# summation order beside k.
+SEG_MIN_ROWS = 256
+SEG_MAX_CHUNKS = 264
+
+
+@functools.lru_cache(maxsize=256)
+def segment_plan(n: int) -> tuple[int, int]:
+    """(rows per chunk, chunks) of a launch over n rows: the chunk is
+    max(SEG_MIN_ROWS, ceil(n / SEG_MAX_CHUNKS)) rows, as the CUDA source
+    rules."""
+    ch = max(SEG_MIN_ROWS, -(-n // SEG_MAX_CHUNKS))
+    return ch, -(-n // ch)
+
+
 def segment_reduce_cuda(values, seg_ids, k: int) -> torch.Tensor:
-    """Launch the CUDA kernel on the tensors' device and current stream."""
+    """Launch the CUDA kernel (one cooperative launch) on the tensors'
+    device and current stream. The result is the first k rows of the
+    launch's one buffer, whose other rows hold the chunks' partials."""
     name = "segment_reduce"
     native.check_tensors(name, values=values, seg_ids=seg_ids)
     native.check_dtype(name, torch.float32, values=values)
@@ -90,19 +107,12 @@ def segment_reduce_cuda(values, seg_ids, k: int) -> torch.Tensor:
     if not (1 <= k < 2 ** 31 and n < 2 ** 31):
         raise ValueError(f"{name}: needs 1 <= k and N < 2**31, got "
                          f"k={k} N={n}")
-    lib = _kernel()
-    ch = lib.repro_segment_reduce_chunk(n)
-    chunks = -(-n // ch)
-    dev = values.device
-    part = torch.empty((max(chunks, 1) * 5 * k,), dtype=torch.float32,
-                       device=dev)
-    out = torch.empty((k, 5), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.repro_segment_reduce(
-            values.data_ptr(), seg_ids.data_ptr(), part.data_ptr(),
-            out.data_ptr(), n, k, torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
-    return out
+    ch, chunks = segment_plan(n)
+    buf = values.new_empty(((chunks + 1) * k, 5))
+    native.launch(name, values.device, _kernel().repro_segment_reduce,
+                  values.data_ptr(), seg_ids.data_ptr(), buf.data_ptr(), n,
+                  k, ch)
+    return buf[:k]
 
 
 # The weighted kernel's launch plan (csrc/segment_reduce.cu): one block
@@ -160,7 +170,7 @@ def weighted_segment_reduce_cuda(values, weights, seg_ids, k: int
     return buf[:k]
 
 
-__all__ = ["segment_reduce_plain", "segment_reduce_cuda",
+__all__ = ["segment_reduce_plain", "segment_reduce_cuda", "segment_plan",
            "weighted_segment_reduce_plain", "weighted_segment_reduce_cuda",
-           "weighted_segment_plan", "WSEG_MAX_CHUNKS", "WSEG_MIN_ROWS",
-           "POS_BIG", "NEG_BIG"]
+           "weighted_segment_plan", "SEG_MAX_CHUNKS", "SEG_MIN_ROWS",
+           "WSEG_MAX_CHUNKS", "WSEG_MIN_ROWS", "POS_BIG", "NEG_BIG"]

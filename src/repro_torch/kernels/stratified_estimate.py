@@ -182,12 +182,12 @@ def check_weighted_limits(name, Q, k, s, d, R=1):
 def weighted_scratch(R, Q, k, s, d, device) -> torch.Tensor:
     """The weighted kernels' scratch, one float32 buffer: per-(replicate,
     leaf) totals (R, k, 3), each leaf's box around its valid samples
-    (k, 2, d), its valid bits (k, ceil(s / 32)), and per tile of 32
-    queries a count and a list of mixed pairs with their slot masks, sized
-    for the narrowest tile."""
+    (k, 2, d), its valid bits (k, ceil(s / 32)), its NaN flag (k,), and
+    per tile of 32 queries a count and a list of mixed pairs with their
+    slot masks, sized for the narrowest tile."""
     nw = -(-s // 32)
     n_qt = -(-Q // 32)
-    return torch.empty(R * k * 3 + k * 2 * d + k * nw + n_qt * k
+    return torch.empty(R * k * 3 + k * 2 * d + k * nw + k + n_qt * k
                        + n_qt * 32 * (k + 31) * (1 + nw),
                        dtype=torch.float32, device=device)
 

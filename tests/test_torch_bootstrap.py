@@ -213,6 +213,67 @@ def test_class_inputs_hold_every_class():
     assert covered[3, leaf] and mixed[4, leaf]
 
 
+def _nan_class_inputs(seed, nan):
+    """_class_inputs with two strata marked: with ``nan``, the first has a
+    NaN coordinate on one valid slot and the second NaN in column 0 of
+    every slot, so that neither can be covered (the slot test rejects NaN;
+    a box built with fminf / fmaxf skips it). Their weights are positive,
+    so a pair that copied the stratum's totals would show."""
+    c, a, valid, W, q_lo, q_hi = _class_inputs(*CLASSES, seed=seed)
+    full = [i for i in range(c.shape[0]) if valid[i].sum() >= 2]
+    l1, l2 = full[0], full[1]
+    W[:, [l1, l2]] = np.maximum(W[:, [l1, l2]], 0.5)
+    if nan:
+        c[l1, np.flatnonzero(valid[l1])[0], -1] = np.nan
+        c[l2, :, 0] = np.nan
+    return (c, a, valid, W, q_lo, q_hi), (l1, l2)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "jnp"])
+@pytest.mark.parametrize("fn", ["weighted_moments", "bootstrap_moments"])
+@pytest.mark.parametrize("nan", [False, True], ids=["finite", "nan"])
+def test_weighted_plain_matches_jax_on_nan_classes(nan, fn, backend):
+    """On class inputs, finite and with NaN coordinates on valid slots (one
+    slot of a stratum, every slot of another), the plain
+    stratified_weighted_moments and bootstrap_moments meet the JAX
+    package's Pallas and jnp versions. Query 0's box holds every finite
+    sample: the two strata's pairs under it are their full-box totals when
+    finite, and with NaN mixed and empty, never those totals."""
+    (c, a, valid, W, q_lo, q_hi), strata = _nan_class_inputs(11, nan)
+    covered, empty, mixed = _classes(c, valid, q_lo, q_hi)
+    assert covered.any() and empty.any() and mixed.any()
+    l1, l2 = strata
+    if nan:
+        assert not covered[:, [l1, l2]].any()
+        assert mixed[0, l1] and empty[:, l2].all()
+    else:
+        assert covered[0, [l1, l2]].all()
+    if fn == "weighted_moments":
+        W = W[:1]
+        want = np.stack([np.asarray(x) for x in jax.jit(
+            get_backend(backend).weighted_moments)(
+                *map(jnp.asarray, (c, a, valid, W[0], q_lo, q_hi)))], -1)
+        got = weighted_moments_plain(*_t(c, a, valid, W[0], q_lo,
+                                         q_hi))[None].numpy()
+        want = want[None]
+    else:
+        want = np.asarray(jax.jit(get_backend(backend).bootstrap_moments)(
+            *map(jnp.asarray, (c, a, valid, W, q_lo, q_hi))))
+        got = bootstrap_moments_plain(*_t(c, a, valid, W, q_lo,
+                                          q_hi)).numpy()
+    assert got.shape == want.shape == (W.shape[0],) + q_lo.shape[:1] + \
+        (c.shape[0], 3)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    # the totals a covered pair copies: every valid slot, coordinates aside
+    wv = np.where(valid[None], W, 0.0).astype(np.float64)
+    totals = np.stack([wv.sum(-1), (wv * a).sum(-1),
+                       (wv * a * a).sum(-1)], -1)       # (R, k, 3)
+    for leaf in strata:
+        is_total = np.isclose(got[:, 0, leaf], totals[:, leaf], rtol=RTOL,
+                              atol=ATOL).all(-1)
+        assert (not is_total.any()) if nan else is_total.all(), leaf
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_plain_covered_pair_equals_full_box(seed):
     """The identity the CUDA kernels copy for a covered (query, stratum)
@@ -289,10 +350,11 @@ def test_weighted_kernel_limits():
             check_weighted_limits("w", args["Q"], args["k"], args["s"],
                                   args["d"], args["R"])
     # totals (R, k, 3), boxes (k, 2, d), valid bits (k, ceil(s / 32)), a
-    # count per (query tile, leaf) and a list entry of 1 + ceil(s / 32)
-    # words per (query, leaf), leaves rounded up to a tile of 32.
+    # NaN flag per leaf, a count per (query tile, leaf) and a list entry of
+    # 1 + ceil(s / 32) words per (query, leaf), leaves rounded up to a tile
+    # of 32.
     assert weighted_scratch(3, 40, 5, 33, 2, "cpu").numel() == \
-        45 + 20 + 10 + 2 * 5 + 2 * 32 * 36 * 3
+        45 + 20 + 10 + 5 + 2 * 5 + 2 * 32 * 36 * 3
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])

@@ -37,8 +37,13 @@ from repro_torch import random as trandom
 from repro_torch.api import PassEngine, ServingConfig
 from repro_torch.core import dp as tdp
 from repro_torch.kernels import ops
-from repro_torch.kernels.route import route_multid_plain
-from repro_torch.kernels.segment_reduce import segment_reduce_plain
+from repro_torch.kernels.route import (ROUTE_MAX_GROUPS, ROUTE_SMS,
+                                       ROUTE_THREADS, dist_matrix,
+                                       route_groups, route_multid_plain,
+                                       route_plan)
+from repro_torch.kernels.segment_reduce import (SEG_MAX_CHUNKS, SEG_MIN_ROWS,
+                                                segment_plan,
+                                                segment_reduce_plain)
 from repro_torch.streaming import (DriftPolicy, StreamingIngestor,
                                    ingest_batch_reference, reoptimize,
                                    reoptimize_cuts, reservoir_moments,
@@ -123,7 +128,14 @@ def test_segment_reduce_plain_matches_jax(n, k, backend):
                                                           -3e38]))
 
 
-def _route_case(rng, B, k, d):
+def _route_case(rng, B, k, d, case="grid"):
+    """Boxes on a coarse grid (touching, rows on shared faces), a duplicate
+    of box 0 (ties) and an inverted +-inf box. ``signed-zero``: box faces
+    and row coordinates of +-0.0 as well, box 0 = [-0.0, 1]^d, so that
+    every term of a row at +0.0 is max(-0.0, -1) (a clamp keeps -0.0, the
+    oracle's maximum with 0 gives +0.0). ``group-ties``: copies of box 0
+    on the first leaf of every leaf group of route_plan(B, k), so that
+    equal distances span group boundaries."""
     lo = rng.integers(0, 8, (k, d)).astype(np.float32)
     hi = lo + rng.integers(0, 3, (k, d)).astype(np.float32)
     if k > 2:
@@ -131,19 +143,41 @@ def _route_case(rng, B, k, d):
         lo[k // 2], hi[k // 2] = np.inf, -np.inf     # empty leaf
     c = np.where(rng.random((B, d)) < 0.5, rng.integers(-2, 12, (B, d)),
                  rng.uniform(-2, 12, (B, d))).astype(np.float32)
+    if case == "signed-zero":
+        lo[rng.random((k, d)) < 0.3] = -0.0
+        hi[rng.random((k, d)) < 0.1] = 0.0
+        hi = np.maximum(hi, lo)
+        lo[0], hi[0] = -0.0, 1.0
+        c[rng.random((B, d)) < 0.3] = -0.0
+        c[rng.random((B, d)) < 0.3] = 0.0
+        c[: B // 4] = 0.0
+        if k > 2:
+            lo[k // 2], hi[k // 2] = np.inf, -np.inf
+    elif case == "group-ties":
+        _, g, lg = route_plan(B, k)
+        for rg in route_groups(k, g, lg)[1:]:
+            if len(rg):
+                lo[rg.start], hi[rg.start] = lo[0], hi[0]
     return lo, hi, c
 
 
-@pytest.mark.parametrize("B,k,d,pallas", [(1, 1, 2, False),
-                                          (300, 40, 3, True),
-                                          (64, 129, 16, False)])
-def test_route_multid_plain_bit_equal_to_dense_and_pallas(B, k, d, pallas):
+@pytest.mark.parametrize("B,k,d,pallas,case", [
+    pytest.param(1, 1, 2, False, "grid", id="1-1-2-False"),
+    pytest.param(300, 40, 3, True, "grid", id="300-40-3-True"),
+    pytest.param(64, 129, 16, False, "grid", id="64-129-16-False"),
+    pytest.param(300, 40, 3, True, "signed-zero", id="signed-zero-d3"),
+    pytest.param(257, 53, 16, False, "signed-zero", id="signed-zero-d16"),
+    pytest.param(300, 41, 3, True, "group-ties", id="group-ties-d3"),
+    pytest.param(129, 1025, 2, False, "group-ties", id="group-ties-d2")])
+def test_route_multid_plain_bit_equal_to_dense_and_pallas(B, k, d, pallas,
+                                                          case):
     """Touching grid boxes, rows on shared faces (inside several boxes),
-    a duplicate box and an inverted +-inf box: leaf and distance bits
-    equal to the dense oracle and (one shape, for time) to the Pallas
-    kernel."""
+    a duplicate box and an inverted +-inf box; +-0.0 faces and rows; equal
+    boxes on both sides of every leaf-group boundary: leaf and distance
+    bits equal to the dense oracle and (some shapes, for time) to the
+    Pallas kernel."""
     rng = np.random.default_rng(B + k + d)
-    lo, hi, c = _route_case(rng, B, k, d)
+    lo, hi, c = _route_case(rng, B, k, d, case)
     leaf, dist = route_multid_plain(*_t(lo, hi, c))
     assert leaf.dtype == torch.int32 and dist.dtype == torch.float32
     refs = [route_multid_dense(*map(jnp.asarray, (lo, hi, c)))]
@@ -156,6 +190,98 @@ def test_route_multid_plain_bit_equal_to_dense_and_pallas(B, k, d, pallas):
                                       np.asarray(jdist).view(np.int32))
     dl, dd = ops.route_multid(*_t(lo, hi, c))
     assert torch.equal(dl, leaf) and torch.equal(dd, dist)
+    if case == "signed-zero":
+        # the -0.0 sums were there to be canonicalised
+        assert torch.signbit(dist_matrix(*_t(lo, hi, c))).any()
+        assert not torch.signbit(dist).any()
+
+
+# (B, k) of the route plan's cases: k below the group count, a multiple
+# of it and one past, at the batch sizes of G = 8 (B = 300 and one ingest
+# batch, 4096) and of G = 2 (B = 65536).
+ROUTE_PLAN_CASES = [(300, 5), (300, 64), (300, 65), (4096, 7), (4096, 1024),
+                    (4096, 1025), (65536, 1), (65536, 64), (65536, 65)]
+
+
+@pytest.mark.parametrize("B,k", ROUTE_PLAN_CASES)
+def test_route_plan_groups_cover_leaves(B, k):
+    """The kernel's plan: rows a thread in {1, 2, 4}, a power-of-two group
+    count up to the portable cluster size, and groups that cover [0, k)
+    in ascending order with no overlap (the ones past k empty); an ingest
+    batch (B = 4096) gets a block per multiprocessor at least."""
+    rt, g, lg = route_plan(B, k)
+    assert rt in (1, 2, 4) and g in (1, 2, 4, 8) and g <= ROUTE_MAX_GROUPS
+    assert g * lg >= k and lg >= 1
+    groups = route_groups(k, g, lg)
+    assert len(groups) == g
+    assert [i for rg in groups for i in rg] == list(range(k))
+    assert all(rg.start <= rg.stop for rg in groups)
+    tiles = -(-B // (ROUTE_THREADS * rt))
+    if B == 4096:
+        assert g == ROUTE_MAX_GROUPS and g * tiles >= ROUTE_SMS
+    if B == 65536:
+        assert g <= 2 and g * tiles >= ROUTE_SMS
+    if k < g:
+        assert sum(len(rg) == 0 for rg in groups) == g - k
+
+
+def _grouped_route(lo, hi, c):
+    """The kernel's algorithm in plain torch: each group of route_plan
+    scans its leaves in ascending id from (+inf, its first id), replacing
+    on a strict <; the partials merge in group order from (+inf, 0), again
+    on a strict <; the winner's distance goes out plus +0.0."""
+    B, k = c.shape[0], lo.shape[0]
+    _, g, lg = route_plan(B, k)
+    dist = dist_matrix(lo, hi, c)
+    inf = torch.full((B,), float("inf"))
+    best, best_i = inf, torch.zeros(B, dtype=torch.int64)
+    for rg in route_groups(k, g, lg):
+        gd, gi = inf, torch.full((B,), rg.start, dtype=torch.int64)
+        for leaf in rg:
+            take = dist[:, leaf] < gd
+            gd = torch.where(take, dist[:, leaf], gd)
+            gi = torch.where(take, leaf, gi)
+        take = gd < best
+        best, best_i = torch.where(take, gd, best), torch.where(take, gi,
+                                                                best_i)
+    return best_i.to(torch.int32), best + 0.0
+
+
+@pytest.mark.parametrize("B,k", ROUTE_PLAN_CASES)
+def test_route_grouped_merge_bit_equal_to_plain(B, k):
+    """The grouped, ordered merge equals the dense oracle's argmin bit for
+    bit (the lowest id on ties, (+inf, 0) for a row whose boxes are all
+    empty), with equal boxes across group boundaries and +-0.0 faces."""
+    d = 3
+    rng = np.random.default_rng(B * 3 + k)
+    lo, hi, c = _route_case(rng, B, k, d, "group-ties")
+    lo[rng.random((k, d)) < 0.2] = -0.0
+    hi = np.maximum(hi, lo)
+    c[rng.random((B, d)) < 0.2] = 0.0
+    if k > 4:
+        lo[1:4], hi[1:4] = np.inf, -np.inf
+    lo_t, hi_t, c_t = _t(lo, hi, c)
+    leaf, dist = _grouped_route(lo_t, hi_t, c_t)
+    want_leaf, want_dist = route_multid_plain(lo_t, hi_t, c_t)
+    assert torch.equal(leaf, want_leaf)
+    assert torch.equal(dist.view(torch.int32), want_dist.view(torch.int32))
+    # every box empty: (+inf, 0), whatever group holds the first leaf
+    empty = np.full((k, d), np.inf, np.float32)
+    leaf, dist = _grouped_route(*_t(empty, -empty, c[:8]))
+    want_leaf, want_dist = route_multid_plain(*_t(empty, -empty, c[:8]))
+    assert torch.equal(leaf, want_leaf) and (leaf == 0).all()
+    assert torch.equal(dist, want_dist) and torch.isinf(dist).all()
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 4096, 65536, 69696, 10 ** 6])
+def test_segment_plan_matches_c_chunk_rule(n):
+    """segment_reduce's chunk plan, which fixes its summation order, is the
+    CUDA source's rule max(256, ceil(N / 264)), at most 264 chunks."""
+    ch, chunks = segment_plan(n)
+    assert (SEG_MIN_ROWS, SEG_MAX_CHUNKS) == (256, 264)
+    assert ch == max(256, -(-n // 264))
+    assert chunks == -(-n // ch) and chunks <= 264
+    assert (chunks - 1) * ch < n <= chunks * ch or n == chunks == 0
 
 
 @pytest.mark.parametrize("method,seed,values", [
