@@ -5,47 +5,63 @@
     python3 chip_smoke.py --baseline DIR   # also hold DIR's kernels
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
-stratified_moments.cu, segment_reduce.cu and route_multid.cu (four
-sources) are built beside the current sources, held against the current
-kernels and timed beside them: rows 2 (stratified_moments), 5
-(segment_reduce) and 7 (route_multid) must give the baseline's bits at
+stratified_moments.cu, segment_reduce.cu, route_multid.cu and
+query_eval.cu (five sources) are built beside the current sources, held
+against the current kernels and timed beside them: rows 1 (query_eval), 2
+(stratified_moments) and 7 (route_multid) must give the baseline's bits at
 every shape they are checked at (row 7 on non-finite rows too, where it
-differs from its plain version), rows 3 and 4 (the weighted moments) at
-the bootstrap's shapes and every edge case without a NaN coordinate on a
-valid slot, and row 6 (weighted_segment_reduce) must meet it within
-rtol=3e-5, atol=1e-3. Rows 2-7 of the kernels line then carry the
-baseline's times (baseline_ms, and for rows 2 and 5-7
+differs from its plain version), row 5 (segment_reduce) too but for ties
+of +0.0 and -0.0 in its MIN/MAX columns, which a baseline from before the
+signed-zero rule breaks the other way (counted), rows 3 and 4 (the
+weighted moments) at the bootstrap's shapes and every edge case without a
+NaN coordinate on a valid slot, and row 6 (weighted_segment_reduce) must
+meet it within rtol=3e-5, atol=1e-3. Rows 1-7 of the kernels line then
+carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-7
 baseline_device_ms; null without --baseline).
 
 Phases, each of which fails the run:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc
-   (and, with --baseline, DIR's four sources); the wrappers' launch plans
+   (and, with --baseline, DIR's five sources); the wrappers' launch plans
    against the sources' constants.
 3. Kernel against plain on the card at edge shapes (ragged Q and k, d up
    to 16, inverted empty leaves, ragged validity, s = 1, several tiles);
    stratified_moments also where covered, empty and mixed pairs all
    appear (k = 53 and 64, s up to 2500, d up to 16, strata without a valid
    slot), each case printing its counts, and with NaN coordinates on valid
-   slots; bit-equal across two launches and to the baseline.
+   slots; bit-equal across two launches and to the baseline. query_eval at
+   Q = 1 and k = 1, k off every multiple of 32 and of its 1024-leaf tile,
+   A from 1 to 8, every leaf covered and none, inverted leaves, NaN in
+   leaf boxes and query bounds: rel equal to plain, exact within
+   tolerance of plain and bit-equal to the baseline. sample_extremes
+   bit-equal to plain (NaN as NaN) and across two launches at every edge
+   shape above and at sets where covered, empty and mixed pairs all appear
+   (counts printed), with NaN coordinates on valid slots, NaN, +-inf and
+   values beyond +-3.4e38 on valid and invalid slots, and strata of +0.0
+   and -0.0 in either order.
 4. 1-D main path: nyc_taxi(scale=1.0) (7.7 M trips) -> build_synopsis(k=1024,
    sample_rate=0.01) -> random_queries(2048) -> PassEngine(all five kinds,
-   ci=0.95).answer(), through the entry points a user calls. Both kernels'
-   launch counts must rise in that window. Then: kernel = plain at these
-   shapes, the answer = the port's CPU answer (first 512 queries), the truth
+   ci=0.95).answer(), through the entry points a user calls. The three
+   serving kernels' launch counts (query_eval, stratified_moments,
+   sample_extremes) must rise in that window. Then: kernel = plain at these
+   shapes (sample_extremes bit for bit, also on a slice_sample_slots view),
+   the answer = the port's CPU answer (first 512 queries), the truth
    inside [lower, upper] for 64 queries and every kind, median relative
    error of SUM.
 5. 3-D path: nyc_taxi(scale=1.0, dims=3) with method="kd", the same checks.
-6. Times (CUDA events, medians after warm-up) of answer() and of each
-   kernel and its plain version at the main-path shapes, and a
+6. Times (CUDA events, medians after warm-up) of answer() (also by host
+   clock, and its peak memory) and of each serving kernel and its plain
+   version at the main-path shapes, with the kernels' device times and
+   host issue and, with a baseline, its query_eval's in turns; and a
    torch.profiler window over answer() for the device-busy share (its
    table goes to chiprun_out/).
 7. The streaming kernels against plain at edge shapes: segment_reduce
    (N up to 65537, k up to 1024, -1 ids, one segment, empty segments)
-   within tolerance, bit-equal across two launches and to the baseline;
-   route_multid (B up to 65536, k up to 2049, d in {2, 3, 16}, ties,
-   +-inf empty boxes, rows on shared faces, +-0.0 faces and rows, equal
+   within tolerance, bit-equal across two launches and to the baseline,
+   and on +0.0 / -0.0 values its MIN/MAX bit-equal to plain (ties against
+   the baseline counted); route_multid (B up to 65536, k up to 2049, d in
+   {2, 3, 16}, ties, +-inf empty boxes, rows on shared faces, +-0.0 faces and rows, equal
    boxes across leaf groups, k around multiples of the group count and
    of the group size, B off the row tile) bit-equal to plain, across two
    launches and to the baseline; rows with NaN and +-inf coordinates
@@ -90,7 +106,9 @@ Phases, each of which fails the run:
    the CPU one.
 14. Planner: plan_queries over phase 4's queries, answer(plan=) with
    ci=0.95 and with the bootstrap: query_eval never launches, and both
-   answers equal the port's CPU answer(plan=).
+   answers equal the port's CPU answer(plan=). The bootstrap (phases 12
+   and 13, no MIN/MAX) launches no sample_extremes; the planner's ci=0.95
+   answer, all five kinds, launches it once.
 15. Bootstrap times: the answer fused and scan, its split (draw, kernel,
    epilogue), its peak memory and a profiler window; each new kernel and
    its plain version at the main path's shapes, with their bounds and the
@@ -147,6 +165,9 @@ SOURCES = {
     "weighted_segment_reduce": (
         "src/repro_torch/kernels/csrc/segment_reduce.cu",
         "src/repro/kernels/segment_reduce.py:138"),
+    # No Pallas kernel: the jnp broadcast every JAX backend shares.
+    "sample_extremes": ("src/repro_torch/kernels/csrc/sample_extremes.cu",
+                        "src/repro/kernels/backends.py:257"),
 }
 
 
@@ -253,6 +274,13 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
     return device_profile(torch, fn, reps, warmup, one_op)["ms"]
 
 
+def mean_of(readings):
+    """Mean of the readings a profiler window gave (None: it recorded
+    nothing), or None."""
+    got = [x for x in readings if x is not None]
+    return statistics.mean(got) if got else None
+
+
 def close(name, got, want, rtol, atol) -> float:
     """Raise unless |got - want| <= atol + rtol |want| everywhere; return
     the max absolute error."""
@@ -281,6 +309,69 @@ def bits_equal(torch, x, y) -> bool:
     -0.0 differ, a NaN equals the same NaN."""
     return x.shape == y.shape and torch.equal(x.view(torch.int32),
                                               y.view(torch.int32))
+
+
+def same_bits(torch, x, y) -> bool:
+    """bits_equal with every NaN as one code (NaN compared as NaN)."""
+    def canon(t):
+        return torch.where(torch.isnan(t), 0x7FC00000, t.view(torch.int32))
+    return x.shape == y.shape and torch.equal(canon(x), canon(y))
+
+
+def extremes_vs_plain(torch, tag, c, a, valid, q_lo, q_hi) -> None:
+    """sample_extremes kernel against plain on the same CUDA inputs: both
+    outputs bit-equal (NaN as NaN) to plain and across two launches."""
+    from repro_torch.kernels.sample_extremes import (sample_extremes_cuda,
+                                                     sample_extremes_plain)
+    got = sample_extremes_cuda(c, a, valid, q_lo, q_hi)
+    again = sample_extremes_cuda(c, a, valid, q_lo, q_hi)
+    want = sample_extremes_plain(c, a, valid, q_lo, q_hi)
+    torch.cuda.synchronize()
+    for name, g, g2, w in zip(("min", "max"), got, again, want):
+        if not same_bits(torch, g, g2):
+            raise AssertionError(f"{tag}: sample_extremes {name} differs "
+                                 "between two launches")
+        if not same_bits(torch, g, w):
+            n = int((g.view(torch.int32) != w.view(torch.int32)).sum())
+            raise AssertionError(f"{tag}: sample_extremes {name} differs "
+                                 f"from plain in {n} values")
+
+
+def qe_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi,
+                base=None) -> float:
+    """query_eval kernel against plain on the same CUDA inputs: rel equal,
+    exact within rtol=3e-5, atol=1e-3 in the columns where the plain
+    product is finite for every query (an empty leaf's +-inf times 0 is
+    NaN there, and the first three columns always), a second launch
+    bit-equal to the first and, with a baseline, to the baseline's kernel
+    (NaN as NaN). Returns (the max absolute error of exact, the covered
+    pairs)."""
+    from repro_torch.kernels.query_eval import (query_eval_cuda,
+                                                query_eval_plain)
+    rel, exact = query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
+    rel2, exact2 = query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
+    rel_p, exact_p = query_eval_plain(leaf_lo, leaf_hi, leaf_agg, q_lo,
+                                      q_hi)
+    torch.cuda.synchronize()
+    if not (torch.equal(rel, rel2) and same_bits(torch, exact, exact2)):
+        raise AssertionError(f"{tag}: query_eval differs between two "
+                             "launches")
+    if not torch.equal(rel, rel_p):
+        n = int((rel != rel_p).sum())
+        raise AssertionError(f"{tag}: query_eval rel differs in {n} pairs")
+    if base is not None:
+        rel_b, exact_b = baseline_query_eval(torch, base, leaf_lo, leaf_hi,
+                                             leaf_agg, q_lo, q_hi)
+        torch.cuda.synchronize()
+        if not (torch.equal(rel, rel_b) and same_bits(torch, exact,
+                                                      exact_b)):
+            raise AssertionError(f"{tag}: query_eval differs from the "
+                                 "baseline kernel")
+    cols = [j for j in range(exact.shape[1])
+            if j < 3 or bool(torch.isfinite(leaf_agg[:, j]).all())]
+    return (close(f"{tag} query_eval exact", exact[:, cols].cpu(),
+                  exact_p[:, cols].cpu(), K_RTOL, K_ATOL),
+            int((rel == 2).sum()))
 
 
 def moments_vs_plain(torch, tag, c, a, valid, q_lo, q_hi, base) -> float:
@@ -313,27 +404,23 @@ def moments_vs_plain(torch, tag, c, a, valid, q_lo, q_hi, base) -> float:
 
 def kernel_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, sample_c,
                     sample_a, sample_valid, q_lo, q_hi, base=None) -> dict:
-    """Both kernels against their plain versions on the same CUDA inputs.
-    Relation codes and counts must be equal; exact[:, :3] and the sums meet
-    rtol=3e-5, atol=1e-3; stratified_moments as moments_vs_plain holds it.
-    Returns the max absolute errors."""
-    from repro_torch.kernels.query_eval import (query_eval_cuda,
-                                                query_eval_plain)
-    rel_k, ex_k = query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
-    rel_p, ex_p = query_eval_plain(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi)
-    torch.cuda.synchronize()
-    if not torch.equal(rel_k, rel_p):
-        n = int((rel_k != rel_p).sum())
-        raise AssertionError(f"{tag}: query_eval rel differs in {n} pairs")
+    """The three serving kernels against their plain versions on the same
+    CUDA inputs: query_eval as qe_vs_plain holds it, stratified_moments as
+    moments_vs_plain, sample_extremes as extremes_vs_plain (bit-equal, so
+    its error is 0). Returns the max absolute errors."""
+    qe_err, covered = qe_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg,
+                                  q_lo, q_hi, base)
     errs = {
-        "query_eval": close(f"{tag} query_eval exact",
-                            ex_k[:, :3].cpu(), ex_p[:, :3].cpu(),
-                            K_RTOL, K_ATOL),
+        "query_eval": qe_err,
         "stratified_moments": moments_vs_plain(
             torch, tag, sample_c, sample_a, sample_valid, q_lo, q_hi, base),
+        "sample_extremes": 0.0,
     }
-    emit(check="kernel_vs_plain", shape=tag,
-         covered_pairs=int((rel_k == 2).sum()), max_abs_err=errs,
+    extremes_vs_plain(torch, tag, sample_c, sample_a, sample_valid, q_lo,
+                      q_hi)
+    emit(check="kernel_vs_plain", shape=tag, covered_pairs=covered,
+         max_abs_err=errs,
+         sample_extremes_bit_equal=True,
          baseline_bit_equal=None if base is None else True)
     return errs
 
@@ -417,6 +504,153 @@ def edge_cases_moments(torch, dev, base) -> float:
     return err
 
 
+F32_MAX = np.float32(3.4028235e38)
+
+
+def extremes_case(rng, Q, k, s, d, nan=False, special=False):
+    """sample_extremes inputs where covered, empty and mixed pairs all
+    appear: each stratum's samples in its own cell of a grid over [0, 1)^d,
+    ragged validity, strata 0 and k // 2 without a valid slot; query 0
+    covers every sample, 1 misses everything, 2 is inverted, 3's edges are
+    stratum 1's extremes, the rest span a few cells. ``special`` puts NaN,
+    +-inf, values beyond +-BIG and +-0.0 on valid and invalid slots, and
+    two full strata of +0.0 and -0.0 in either order; ``nan`` a NaN
+    coordinate on a valid slot of stratum 1 and column 0 of every slot of
+    stratum 2 NaN (as tests/test_torch_extremes.py builds them)."""
+    cells = max(2, int(np.ceil(k ** (1 / d))))
+    cell = np.stack(np.unravel_index(np.arange(k) % cells ** d,
+                                     (cells,) * d), -1).astype(np.float32)
+    c = ((cell[:, None, :] + rng.uniform(0.1, 0.9, (k, s, d))) / cells
+         ).astype(np.float32)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.8
+    valid[0] = False
+    valid[k // 2] = False
+    if special:
+        u = rng.random((k, s))
+        for lo, hi, x in ((0.0, 0.04, np.nan), (0.04, 0.07, np.inf),
+                          (0.07, 0.10, -np.inf), (0.10, 0.13, F32_MAX),
+                          (0.13, 0.16, -F32_MAX), (0.16, 0.22, -0.0),
+                          (0.22, 0.28, 0.0)):
+            a[(u >= lo) & (u < hi)] = x
+        for leaf, vals in ((k - 1, (0.0, -0.0)), (k - 2, (-0.0, 0.0))):
+            if leaf > k // 2:
+                valid[leaf] = True
+                a[leaf] = np.resize(np.float32(vals), s)
+    if nan:
+        valid[1, :2] = True
+    starts = rng.integers(0, cells, (Q, d))
+    spans = rng.integers(1, 3, (Q, d))
+    q_lo = (starts / cells + rng.uniform(-0.05, 0.05, (Q, d))
+            ).astype(np.float32)
+    q_hi = ((starts + spans) / cells + rng.uniform(-0.05, 0.05, (Q, d))
+            ).astype(np.float32)
+    q_lo[0], q_hi[0] = -1.0, 2.0
+    if Q > 1:
+        q_lo[1], q_hi[1] = 5.0, 6.0
+    if Q > 2:
+        q_lo[2], q_hi[2] = 0.6, 0.4
+    if Q > 3 and valid[1].any():
+        q_lo[3] = c[1][valid[1]].min(0)
+        q_hi[3] = c[1][valid[1]].max(0)
+    if nan:
+        c[1, 0, 0] = np.nan
+        c[2, :, 0] = np.nan
+    return c, a, valid, q_lo, q_hi
+
+
+# (Q, k, s, d, nan, special) of sample_extremes' edge cases: ragged Q and
+# k, s = 1, s up to 2500 (several staged chunks), d up to 16, k = 64 (16-byte
+# rows) and 53 (4-byte ones).
+EXTREMES_CASES = ((1, 1, 1, 1, False, False), (17, 5, 1, 3, False, True),
+                  (130, 53, 7, 3, False, True),
+                  (129, 257, 75, 1, False, True),
+                  (300, 600, 300, 2, True, True),
+                  (5, 9, 3, 16, True, False), (129, 64, 75, 1, True, True),
+                  (33, 53, 2500, 3, False, True),
+                  (40, 64, 75, 16, True, True), (2049, 1024, 75, 3, False,
+                                                 True))
+
+
+def edge_cases_extremes(torch, dev) -> int:
+    """sample_extremes kernel = plain bit for bit (NaN as NaN), and across
+    two launches, at EXTREMES_CASES, each printing its pair classes (all
+    three must appear where there are queries, strata and slots to make
+    them). Returns the number of cases."""
+    for Q, k, s, d, nan, special in EXTREMES_CASES:
+        rng = np.random.default_rng(Q * 13 + k * 7 + s + d)
+        t = [torch.from_numpy(x).to(dev)
+             for x in extremes_case(rng, Q, k, s, d, nan, special)]
+        tag = (f"edge extremes Q={Q} k={k} s={s} d={d} nan={nan} "
+               f"special={special}")
+        classes = pair_classes(torch, t[0], t[2], t[3], t[4])
+        if Q > 3 and k > 3 and s > 1 and min(classes.values()) == 0:
+            raise AssertionError(f"{tag}: a pair class is missing: {classes}")
+        extremes_vs_plain(torch, tag, *t)
+        emit(check="edge_extremes", case=tag, **classes, bit_equal=True)
+    return len(EXTREMES_CASES)
+
+
+def qe_case(rng, Q, k, d, A, mode):
+    """query_eval inputs: leaf boxes on [-1, 1.5), an inverted +-inf empty
+    leaf with +-inf MIN/MAX aggregates and a finite inverted box; ``mode``
+    "mixed" (random query boxes), "all" (every leaf covered but the
+    inverted ones), "none" (boxes that cover no leaf) or "nan" (NaN in a
+    leaf box and in some query bounds)."""
+    lo = rng.uniform(-1, 0.5, (k, d)).astype(np.float32)
+    hi = lo + rng.uniform(0.01, 1, (k, d)).astype(np.float32)
+    agg = rng.normal(0, 1, (k, A)).astype(np.float32)
+    if k > 2:
+        lo[k // 2], hi[k // 2] = np.inf, -np.inf
+        agg[k // 2, 3:] = np.inf
+        hi[1] = lo[1] - 0.5
+    q_lo = rng.uniform(-1.2, 0, (Q, d)).astype(np.float32)
+    q_hi = q_lo + rng.uniform(0, 2.5, (Q, d)).astype(np.float32)
+    if mode == "all":
+        q_lo[:], q_hi[:] = -9.0, 9.0
+    elif mode == "none":
+        q_hi = q_lo + np.float32(1e-3)
+    elif mode == "nan":
+        q_lo[::2], q_hi[::2] = -9.0, 9.0
+        lo[0, 0] = np.nan
+        hi[min(2, k - 1), d - 1] = np.nan
+        q_lo[::3, 0] = np.nan
+        q_hi[1::3, d - 1] = np.nan
+    return lo, hi, agg, q_lo, q_hi
+
+
+# (Q, k, d, A, mode) of query_eval's edge cases: one query and one leaf; k
+# off every multiple of 32 and of the 1024-leaf tile; A from 1 to 8; every
+# leaf covered and none; NaN boxes and bounds; Q past one query a block.
+QE_CASES = ((1, 1, 1, 1, "mixed"), (7, 31, 1, 2, "mixed"),
+            (130, 33, 3, 3, "mixed"), (65, 1023, 2, 4, "mixed"),
+            (65, 1025, 1, 5, "all"), (300, 2049, 3, 6, "mixed"),
+            (9, 100, 16, 7, "nan"), (2048, 1024, 1, 8, "none"),
+            (4097, 1000, 3, 5, "all"), (129, 1024, 16, 8, "nan"),
+            (2048, 1024, 3, 5, "mixed"))
+
+
+def edge_cases_query_eval(torch, dev, base) -> float:
+    """query_eval at QE_CASES as qe_vs_plain holds it: rel equal to plain,
+    exact within tolerance of plain and bit-equal to the baseline's. Each
+    case prints its covered pairs. Returns the max absolute error."""
+    err = 0.0
+    for Q, k, d, A, mode in QE_CASES:
+        rng = np.random.default_rng(Q * 17 + k * 3 + d + A)
+        t = [torch.from_numpy(x).to(dev)
+             for x in qe_case(rng, Q, k, d, A, mode)]
+        tag = f"edge query_eval Q={Q} k={k} d={d} A={A} {mode}"
+        e, covered = qe_vs_plain(torch, tag, *t, base)
+        err = max(err, e)
+        if (mode == "none" and covered) or (mode == "all" and not covered):
+            raise AssertionError(f"{tag}: {covered} covered pairs")
+        emit(check="edge_query_eval", case=tag, covered_pairs=covered,
+             pairs=Q * k,
+             max_abs_err=e, baseline_bit_equal=None if base is None
+             else True)
+    return err
+
+
 def samples_in(torch, t, q) -> list:
     """Per stratum, the valid samples that query q's box holds."""
     from repro_torch.kernels.stratified_estimate import samples_inside
@@ -425,11 +659,15 @@ def samples_in(torch, t, q) -> list:
         -1).tolist()
 
 
-def seg_vs_plain(torch, tag, v, ids, k, base=None) -> float:
+def seg_vs_plain(torch, tag, v, ids, k, base=None) -> tuple:
     """segment_reduce kernel against plain on the same CUDA inputs: counts,
-    min and max equal, sums within rtol=3e-5, atol=1e-3; a second launch
-    bit-equal to the first and, with a baseline, to the baseline's kernel.
-    Returns the max absolute error of the sums."""
+    min and max bit-equal (the MIN/MAX under the reference's signed-zero
+    rule), sums within rtol=3e-5, atol=1e-3; a second launch bit-equal to
+    the first and, with a baseline, to the baseline's kernel but for ties
+    of +0.0 and -0.0 in the MIN/MAX columns, which a baseline from before
+    the rule may break the other way. Returns (the max absolute error of
+    the sums, the MIN/MAX entries that differ from the baseline's by the
+    sign of a zero alone)."""
     from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
                                                     segment_reduce_plain)
     got = segment_reduce_cuda(v, ids, k)
@@ -439,16 +677,24 @@ def seg_vs_plain(torch, tag, v, ids, k, base=None) -> float:
     if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
         raise AssertionError(f"{tag}: segment_reduce differs between two "
                              "launches")
-    if not torch.equal(got[:, 2:], want[:, 2:]):
-        n = int((got[:, 2:] != want[:, 2:]).sum())
+    if not bits_equal(torch, got[:, 2:], want[:, 2:]):
+        n = int((got[:, 2:].view(torch.int32)
+                 != want[:, 2:].view(torch.int32)).sum())
         raise AssertionError(f"{tag}: segment_reduce count/min/max differ "
                              f"in {n} entries")
-    if base is not None and not bits_equal(
-            torch, got, baseline_segment(torch, base, v, ids, k)):
-        raise AssertionError(f"{tag}: segment_reduce differs from the "
-                             "baseline kernel")
-    return max(close(f"{tag} segment_reduce[{i}]", got[:, i].cpu(),
-                     want[:, i].cpu(), K_RTOL, K_ATOL) for i in (0, 1))
+    ties = 0
+    if base is not None:
+        ref = baseline_segment(torch, base, v, ids, k)
+        differ = got.view(torch.int32) != ref.view(torch.int32)
+        zero_tie = (got == 0) & (ref == 0)
+        zero_tie[:, :3] = False
+        if bool((differ & ~zero_tie).any()):
+            raise AssertionError(f"{tag}: segment_reduce differs from the "
+                                 "baseline kernel beyond +-0.0 ties")
+        ties = int(differ.sum())
+    err = max(close(f"{tag} segment_reduce[{i}]", got[:, i].cpu(),
+                    want[:, i].cpu(), K_RTOL, K_ATOL) for i in (0, 1))
+    return err, ties
 
 
 def route_vs_plain(torch, tag, lo, hi, c, base=None) -> None:
@@ -524,7 +770,7 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     seg_err = 0.0
-    cases = 0
+    cases = zero_ties = 0
     for n in (1, 17, 4096, 65537):
         for k in (1, 53, 1024):
             rng = np.random.default_rng(n * 31 + k)
@@ -537,11 +783,28 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
             ids = rng.integers(-1, k + 2, n).astype(np.int32)
             one = np.full(n, min(k - 1, 7), np.int32)
             for label, idv in (("mixed", ids), ("one segment", one)):
-                seg_err = max(seg_err, seg_vs_plain(
-                    torch, f"edge N={n} k={k} {label}",
-                    torch.from_numpy(v).to(dev),
-                    torch.from_numpy(idv).to(dev), k, base))
+                e, t = seg_vs_plain(torch, f"edge N={n} k={k} {label}",
+                                    torch.from_numpy(v).to(dev),
+                                    torch.from_numpy(idv).to(dev), k, base)
+                seg_err, zero_ties = max(seg_err, e), zero_ties + t
                 cases += 1
+    # Signed zeros: values +0.0 and -0.0 (and a few others) in segments
+    # that meet both, in either order; MIN/MAX bit-equal to the repaired
+    # plain version, their ties counted against the baseline.
+    zero_cases = 0
+    for n, k in ((4, 2), (4096, 53), (4096, 1024), (65537, 1024)):
+        rng = np.random.default_rng(n + 3 * k)
+        v = rng.choice(np.float32([0.0, -0.0, 1.5, -2.0]), n,
+                       p=[0.45, 0.45, 0.05, 0.05])
+        if n == 4:
+            v = np.float32([0.0, -0.0, -0.0, 0.0])
+        ids = (np.int32([0, 0, 1, 1]) if n == 4
+               else rng.integers(-1, k, n).astype(np.int32))
+        e, t = seg_vs_plain(torch, f"edge signed zeros N={n} k={k}",
+                            torch.from_numpy(v).to(dev),
+                            torch.from_numpy(ids).to(dev), k, base)
+        seg_err, zero_ties = max(seg_err, e), zero_ties + t
+        zero_cases += 1
     route = [(B, k, d, "grid") for B in (1, 255, 4096) for k in (1, 129, 1024)
              for d in (2, 3, 16)]
     route += [(4096, 1024, 3, "signed-zero"), (257, 53, 16, "signed-zero"),
@@ -594,11 +857,15 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
                 (dist.view(torch.int32) != dist_p.view(torch.int32)).sum()),
             "baseline_bit_equal": None if base is None else True}
     emit(check="edge_streaming_kernels", segment_reduce_cases=cases,
+         segment_reduce_signed_zero_cases=zero_cases,
+         segment_reduce_baseline_zero_ties=None if base is None
+         else zero_ties,
          route_multid_cases=len(route), segment_reduce_max_abs_err=seg_err,
          route_multid_nonfinite=nonfinite,
          baseline_bit_equal=None if base is None else True)
     return {"seg_err": seg_err, "route_cases": len(route),
-            "nonfinite": nonfinite}
+            "nonfinite": nonfinite, "seg_zero_cases": zero_cases,
+            "seg_zero_ties": None if base is None else zero_ties}
 
 
 # ---------------------------------------------------------------------------
@@ -732,6 +999,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
     from repro_torch.core.query import random_queries
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.engine import executor
+    from repro_torch.engine.executor import slice_sample_slots
     from repro_torch.kernels import native
 
     native.reset_launches()
@@ -749,7 +1017,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
          samples=report.total_samples, build_s=report.seconds_total,
          build_and_first_answer_s=seconds, launches=launches,
          artifact_passes=dict(executor.OP_COUNTS))
-    for name in ("query_eval", "stratified_moments"):
+    for name in ("query_eval", "stratified_moments", "sample_extremes"):
         if launches[name] < 1:
             raise AssertionError(f"{tag}: kernel {name} was not launched by "
                                  "PassEngine.answer")
@@ -759,6 +1027,12 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
                            syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
                            syn.sample_c, syn.sample_a, syn.sample_valid,
                            q.lo, q.hi, base=base)
+    # The refinement ladder's view of the first 20 slots a stratum.
+    view = slice_sample_slots(syn, 20)
+    extremes_vs_plain(torch, f"{tag} main slice_sample_slots(20)",
+                      view.sample_c, view.sample_a, view.sample_valid, q.lo,
+                      q.hi)
+    torch.cuda.empty_cache()
     check_cpu_parity(torch, tag, syn, q, res)
     n = 64
     q_lo = q.lo[:n].cpu().numpy()
@@ -789,9 +1063,14 @@ def bounds(syn, q, rel, k_pred) -> dict:
     qe_ops = Q * k * (4 * d + 1) + covered * A
     sm_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 12 * Q * k
     sm_ops = 2 * d * Q * valid + 4 * relevant
+    # sample_extremes: the same inputs, two (Q, k) outputs; the box test of
+    # every valid slot and a min and a max per relevant one.
+    se_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 8 * Q * k
+    se_ops = 2 * d * Q * valid + 2 * relevant
     out = {}
     for name, nbytes, ops in (("query_eval", qe_bytes, qe_ops),
-                              ("stratified_moments", sm_bytes, sm_ops)):
+                              ("stratified_moments", sm_bytes, sm_ops),
+                              ("sample_extremes", se_bytes, se_ops)):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_F32_OPS_S * 1e3
         out[name] = {"bound_ms": max(t_bytes, t_ops),
@@ -802,12 +1081,16 @@ def bounds(syn, q, rel, k_pred) -> dict:
 
 
 def timings(torch, tag, run, card, base=None) -> dict:
-    """CUDA-event medians at the main-path shapes; with a baseline, its
-    stratified_moments kernel's too."""
+    """CUDA-event medians at the main-path shapes, the serving kernels'
+    device times (one device operation a call) and host issue, and the
+    plain versions' (sample_extremes_plain, the broadcast the port ran
+    before its kernel, is the yardstick); with a baseline, its
+    stratified_moments and query_eval kernels' too."""
     from repro_torch.engine.executor import compute_artifacts
-    from repro_torch.kernels import ops
     from repro_torch.kernels.query_eval import (query_eval_cuda,
                                                 query_eval_plain)
+    from repro_torch.kernels.sample_extremes import (sample_extremes_cuda,
+                                                     sample_extremes_plain)
     from repro_torch.kernels.stratified_estimate import (
         stratified_moments_cuda, stratified_moments_plain)
     syn, q, eng = run["syn"], run["q"], run["eng"]
@@ -827,8 +1110,6 @@ def timings(torch, tag, run, card, base=None) -> dict:
         "answer_host": host_ms(torch, lambda: eng.answer(q)),
         "artifacts": cuda_ms(torch, lambda: compute_artifacts(
             syn, q, KINDS)),
-        "sample_extremes": cuda_ms(torch, lambda: ops.sample_extremes(
-            *sm_args)),
         "query_eval": cuda_ms(torch, lambda: query_eval_cuda(*qe_args)),
         "query_eval_plain": cuda_ms(torch, lambda: query_eval_plain(
             *qe_args)),
@@ -837,25 +1118,54 @@ def timings(torch, tag, run, card, base=None) -> dict:
         "stratified_moments_plain": cuda_ms(
             torch, lambda: stratified_moments_plain(*sm_args)),
     }
+    times["sample_extremes"] = cuda_ms(
+        torch, lambda: sample_extremes_cuda(*sm_args))
+    times["sample_extremes_plain"] = cuda_ms(
+        torch, lambda: sample_extremes_plain(*sm_args), reps=10)
     for name, kernel, plain, args in (
             ("query_eval", query_eval_cuda, query_eval_plain, qe_args),
             ("stratified_moments", stratified_moments_cuda,
-             stratified_moments_plain, sm_args)):
+             stratified_moments_plain, sm_args),
+            ("sample_extremes", sample_extremes_cuda, sample_extremes_plain,
+             sm_args)):
         times[f"{name}_device"] = device_ms(torch, lambda: kernel(*args),
                                            one_op=True)
         times[f"{name}_plain_device"] = device_ms(torch,
-                                                  lambda: plain(*args))
+                                                  lambda: plain(*args),
+                                                  reps=5)
+        times[f"{name}_enqueue_host"] = enqueue_ms(torch,
+                                                   lambda: kernel(*args))
+    torch.cuda.empty_cache()
     if base is not None:
         def old():
             return baseline_stratified(torch, base, *sm_args)
+
+        def old_qe():
+            return baseline_query_eval(torch, base, *qe_args)
         times["stratified_moments_baseline"] = cuda_ms(torch, old)
         times["stratified_moments_baseline_device"] = device_ms(
             torch, old, one_op=True)
+        # kernel, baseline, baseline, kernel
+        qe_ev = [cuda_ms(torch, lambda: query_eval_cuda(*qe_args))]
+        qe_dev = [device_ms(torch, lambda: query_eval_cuda(*qe_args),
+                            one_op=True)]
+        b_ev = [cuda_ms(torch, old_qe) for _ in range(2)]
+        b_dev = [device_ms(torch, old_qe, one_op=True) for _ in range(2)]
+        qe_ev.append(cuda_ms(torch, lambda: query_eval_cuda(*qe_args)))
+        qe_dev.append(device_ms(torch, lambda: query_eval_cuda(*qe_args),
+                                one_op=True))
+        times["query_eval_in_turns"] = statistics.mean(qe_ev)
+        times["query_eval_device_in_turns"] = mean_of(qe_dev)
+        times["query_eval_baseline"] = statistics.mean(b_ev)
+        times["query_eval_baseline_device"] = mean_of(b_dev)
+        times["query_eval_baseline_enqueue_host"] = enqueue_ms(torch, old_qe)
+    classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
     emit(times_ms=times, path=tag, Q=int(q.lo.shape[0]),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]),
          d=int(syn.d), answer_peak_mb_above_resident=answer_peak_mb,
-         bounds=bnd, card=card)
-    return {"times": times, "bounds": bnd}
+         bounds=bnd, pair_classes=classes, card=card)
+    return {"times": times, "bounds": bnd, "peak_mb": answer_peak_mb,
+            "classes": classes}
 
 
 def profile_answer(torch, tag, run) -> None:
@@ -1075,8 +1385,8 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
                             torch.from_numpy(c1).cuda())
         rows = torch.from_numpy(c3).cuda()
         lo, hi = st3.leaf_lo, st3.leaf_hi
-        errs.append(seg_vs_plain(torch, f"main B={B} k={k}", v, ids, k,
-                                 base))
+        e, ties = seg_vs_plain(torch, f"main B={B} k={k}", v, ids, k, base)
+        errs.append(e)
         route_vs_plain(torch, f"main B={B} k={k} d=3", lo, hi, rows, base)
         fns = {"segment_reduce": lambda: segment_reduce_cuda(v, ids, k),
                "route_multid": lambda: route_multid_cuda(lo, hi, rows)}
@@ -1088,7 +1398,8 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
             "route_multid": lambda: baseline_route(torch, base, lo, hi,
                                                    rows)}
         row = {"bounds": stream_bounds(B, k, B, 3),
-               "segments_hit": int(torch.unique(ids).numel())}
+               "segments_hit": int(torch.unique(ids).numel()),
+               "segment_reduce_baseline_zero_ties": ties}
         for name, fn in fns.items():
             # kernel, baseline, baseline, kernel; a profiler window that
             # recorded nothing is left out of the mean
@@ -1119,7 +1430,8 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
                 else None
             row[f"{name}_baseline_enqueue_host"] = enqueue_ms(torch,
                                                               bases[name])
-            row[f"{name}_baseline_bit_equal"] = True
+            row[f"{name}_baseline_bit_equal"] = (name != "segment_reduce"
+                                                 or ties == 0)
         out[B] = row
         emit(stream_kernel_times_ms=row, B=B, k=k, card=card)
     return {"times": out, "seg_err": max(errs)}
@@ -1590,7 +1902,9 @@ def planner_path(torch, tag, run) -> dict:
     torch.cuda.synchronize()
     launches = dict(native.LAUNCHES)
     want = dict.fromkeys(launches, 0)
-    want.update(stratified_moments=2, bootstrap_moments=1)
+    # The ci=0.95 answer asks all five kinds, so MIN/MAX's extremes too.
+    want.update(stratified_moments=2, bootstrap_moments=1,
+                sample_extremes=1)
     if launches != want:
         raise AssertionError(f"{tag} planner: launches {launches} != {want}")
     Q = int(q.lo.shape[0])
@@ -1609,15 +1923,16 @@ def planner_path(torch, tag, run) -> dict:
 
 
 BASELINE_SOURCES = ("weighted_moments", "stratified_moments",
-                    "segment_reduce", "route_multid")
+                    "segment_reduce", "route_multid", "query_eval")
 
 
 def build_baseline(base: Path) -> dict:
-    """The kernels of rows 2-7 from an earlier checkout ``base``: its
-    weighted_moments.cu, stratified_moments.cu, segment_reduce.cu and
-    route_multid.cu, built with the same nvcc flags (one process each, all
-    at once) into build/baseline/ and loaded with ctypes, to be held
-    against the current ones and timed beside them on the same card.
+    """The kernels of rows 1-7 from an earlier checkout ``base``: its
+    weighted_moments.cu, stratified_moments.cu, segment_reduce.cu,
+    route_multid.cu and query_eval.cu, built with the same nvcc flags (one
+    process each, all at once) into build/baseline/ and loaded with ctypes,
+    to be held against the current ones and timed beside them on the same
+    card.
     Weighted sources from before the cover/empty redesign (no
     ``repro_weighted_plan``) take no scratch pointer; segment_reduce.cu
     sources from before the one-launch weighted kernel (no
@@ -1675,6 +1990,10 @@ def build_baseline(base: Path) -> dict:
     rt.repro_route_multid.argtypes = [ctypes.c_void_p] * 5 + \
         [ctypes.c_int] * (6 if rt.clustered else 3) + [ctypes.c_void_p]
     rt.repro_route_multid.restype = ctypes.c_int
+    qe = libs["query_eval"]
+    qe.repro_query_eval.argtypes = [ctypes.c_void_p] * 7 + \
+        [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    qe.repro_query_eval.restype = ctypes.c_int
     return libs
 
 
@@ -1721,6 +2040,20 @@ def baseline_stratified(torch, libs, c, a, valid, q_lo, q_hi):
                   *(x.data_ptr() for x in (c, a, valid, q_lo, q_hi, out)), Q,
                   k, s, d)
     return out
+
+
+def baseline_query_eval(torch, libs, leaf_lo, leaf_hi, leaf_agg, q_lo,
+                        q_hi):
+    """The baseline query_eval kernel's (rel, exact)."""
+    lib = libs["query_eval"]
+    k, d = leaf_lo.shape
+    Q, A = q_lo.shape[0], leaf_agg.shape[1]
+    rel = torch.empty((Q, k), dtype=torch.int32, device=q_lo.device)
+    exact = torch.empty((Q, A), dtype=torch.float32, device=q_lo.device)
+    baseline_call("query_eval", lib.repro_query_eval,
+                  *(x.data_ptr() for x in (leaf_lo, leaf_hi, leaf_agg, q_lo,
+                                           q_hi, rel, exact)), Q, k, d, A)
+    return rel, exact
 
 
 def baseline_segment(torch, libs, v, ids, k):
@@ -2144,24 +2477,41 @@ def wseg_fields(wseg) -> dict:
 def check_plan_constants() -> None:
     """The wrappers' launch plans against the CUDA sources' constants:
     weighted_segment_reduce's chunk cap, segment_reduce's chunk rule (on
-    which its bits rest) and route_multid's block and cluster sizes."""
+    which its bits rest), route_multid's block and cluster sizes,
+    query_eval's block, leaf tile and queries a block, and sample_extremes'
+    tiles."""
     from repro_torch.kernels import native
+    from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
+                                                QE_THREADS)
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
+    from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
     seg = native.library("segment_reduce")
     rt = native.library("route_multid")
+    qe = native.library("query_eval")
+    se = native.library("sample_extremes")
     got = {"weighted_segment_reduce chunks":
            seg.repro_weighted_segment_max_chunks(),
            "segment_reduce rows": seg.repro_segment_reduce_min_rows(),
            "segment_reduce chunks": seg.repro_segment_reduce_max_chunks(),
            "route_multid threads": rt.repro_route_threads(),
-           "route_multid groups": rt.repro_route_max_groups()}
+           "route_multid groups": rt.repro_route_max_groups(),
+           "query_eval threads": qe.repro_query_eval_threads(),
+           "query_eval leaf tile": qe.repro_query_eval_leaf_tile(),
+           "query_eval queries a block":
+           qe.repro_query_eval_max_queries(),
+           "sample_extremes tiles": (se.repro_sample_extremes_query_tile(),
+                                     se.repro_sample_extremes_leaf_tile())}
     want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
             "segment_reduce rows": SEG_MIN_ROWS,
             "segment_reduce chunks": SEG_MAX_CHUNKS,
             "route_multid threads": ROUTE_THREADS,
-            "route_multid groups": ROUTE_MAX_GROUPS}
+            "route_multid groups": ROUTE_MAX_GROUPS,
+            "query_eval threads": QE_THREADS,
+            "query_eval leaf tile": QE_LEAF_TILE,
+            "query_eval queries a block": QE_MAX_QUERIES,
+            "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT)}
     if got != want:
         raise AssertionError(f"launch plans: the sources' constants {got} "
                              f"are not the wrappers' {want}")
@@ -2213,6 +2563,8 @@ def main(argv=None) -> int:
     # 3. Kernels against plain at edge shapes.
     edge_sm_err = max(edge_cases(torch, dev, base),
                       edge_cases_moments(torch, dev, base))
+    edge_qe_err = edge_cases_query_eval(torch, dev, base)
+    edge_se_cases = edge_cases_extremes(torch, dev)
 
     # 4. 1-D main path; 5. 3-D path.
     t0 = time.perf_counter()
@@ -2286,7 +2638,34 @@ def main(argv=None) -> int:
     # device.
     bb, btimes, ov = bk["bounds"], bk["times"], bk["overhead"]
     extra = {
-        "query_eval": {"library_ms": None, "library_device_ms": None},
+        "query_eval": {
+            "library_ms": None, "library_device_ms": None,
+            "enqueue_host_ms": t1["times"]["query_eval_enqueue_host"],
+            "edge_cases": len(QE_CASES), "edge_max_abs_err": edge_qe_err,
+            "baseline_bit_equal": None if base is None else True,
+            "ms_in_turns": t1["times"].get("query_eval_in_turns"),
+            "device_ms_in_turns": t1["times"].get(
+                "query_eval_device_in_turns"),
+            "baseline_ms": t1["times"].get("query_eval_baseline"),
+            "baseline_device_ms": t1["times"].get(
+                "query_eval_baseline_device"),
+            "baseline_enqueue_host_ms": t1["times"].get(
+                "query_eval_baseline_enqueue_host"),
+            "baseline_ms_3d": t3["times"].get("query_eval_baseline"),
+            "baseline_device_ms_3d": t3["times"].get(
+                "query_eval_baseline_device"),
+            "device_ms_3d": t3["times"]["query_eval_device"]},
+        "sample_extremes": {
+            "library_ms": None, "library_device_ms": None,
+            "pallas_call": None,
+            "replaces_note": "no pallas_call: the jnp broadcast every JAX "
+                             "backend shares",
+            "enqueue_host_ms": t1["times"]["sample_extremes_enqueue_host"],
+            "edge_cases": edge_se_cases, "bit_equal_to_plain": True,
+            "classes_1d": t1["classes"], "classes_3d": t3["classes"],
+            "device_ms_3d": t3["times"]["sample_extremes_device"],
+            "plain_device_ms_3d": t3["times"][
+                "sample_extremes_plain_device"]},
         "stratified_moments": {
             "library_ms": btimes["bmm_stratified_moments"],
             "library_device_ms": btimes["bmm_stratified_moments_device"],
@@ -2302,7 +2681,7 @@ def main(argv=None) -> int:
             "device_ms_3d": t3["times"]["stratified_moments_device"]},
     }
     rows = []
-    for name in ("query_eval", "stratified_moments"):
+    for name in ("query_eval", "stratified_moments", "sample_extremes"):
         source, replaces = SOURCES[name]
         rows.append({
             "name": name, "route": "cuda", "source": source,
@@ -2317,6 +2696,7 @@ def main(argv=None) -> int:
             "ms_3d": t3["times"][name],
             "plain_ms_3d": t3["times"][f"{name}_plain"],
             "bound_ms_3d": t3["bounds"][name]["bound_ms"], **extra[name]})
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], edge_qe_err)
     rows[1]["max_abs_err"] = max(rows[1]["max_abs_err"], edge_sm_err)
     b4, b64 = kt["times"][4096], kt["times"][65536]
     for name, path_launches, err in (
@@ -2353,6 +2733,12 @@ def main(argv=None) -> int:
         if name == "route_multid":
             rows[-1].update(edge_cases=edge_s["route_cases"],
                             nonfinite_rows=edge_s["nonfinite"])
+        else:
+            ties = edge_s["seg_zero_ties"]
+            rows[-1].update(
+                signed_zero_cases=edge_s["seg_zero_cases"],
+                baseline_zero_ties=ties,
+                baseline_bit_equal=None if base is None else ties == 0)
     boot_rows = {
         "stratified_weighted_moments": {
             "launches": b1["scan_launches"]["stratified_weighted_moments"],

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import minmax
 from ..core.types import (Synopsis, QueryBatch, QueryResult, AGG_SUM,
                           AGG_COUNT, AGG_MIN, AGG_MAX)
 from .executor import Artifacts, compute_artifacts
@@ -187,12 +188,15 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
         key_leaf = leaf_min if kind == "min" else leaf_max
         # Relevant-sample extreme per stratum (from the shared extreme pass).
         samp_ext = art.samp_min if kind == "min" else -art.samp_max
-        cover_ext = torch.where(cover, sign * key_leaf, _BIG)
-        part_samp_ext = torch.where(partial_m, samp_ext, _BIG)
-        est_s = torch.minimum(cover_ext.amin(1), part_samp_ext.amin(1))
+        # The reference's min of the covered leaves' extremes and the min of
+        # the partial strata's sample extremes, as one min over both (cover
+        # and partial are exclusive); signed zeros follow its rule.
+        relevant = cover | partial_m
+        est_s = minmax.masked_min(torch.where(cover, sign * key_leaf,
+                                              samp_ext), relevant, _BIG, 1)
         # Bounds: the true extreme lies between the optimistic leaf extreme
         # over all relevant strata and the observed estimate.
-        opt = torch.where(cover | partial_m, sign * key_leaf, _BIG).amin(1)
+        opt = minmax.masked_min(sign * key_leaf, relevant, _BIG, 1)
         est = sign * est_s
         lower = sign * opt if sign > 0 else sign * est_s
         upper = sign * est_s if sign > 0 else sign * opt

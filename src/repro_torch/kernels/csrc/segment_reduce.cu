@@ -48,9 +48,13 @@
 // chunk order across chunks, whichever block takes an item; the per-row
 // update is pinned to the first version's instructions (its SASS adds v
 // and the count by FADD and v * v by FFMA), so nvcc cannot round it
-// otherwise. Skewed ids (a stream in pickup-time order puts a whole batch
-// into one to three leaves) do not serialise the batch: the chunks of one
-// segment are walked by C items in parallel. Work is O(N * k) compares,
+// otherwise. MIN and MAX break a tie of +0.0 and -0.0 by the reference's
+// rule (-0.0 below +0.0), which the first version left to the order of the
+// rows: a chunk's running MIN or MAX at zero looks for the zero it prefers,
+// and the combine uses min_sz / max_sz. Skewed ids (a stream in
+// pickup-time order puts a whole batch into one to three leaves) do not
+// serialise the batch: the chunks of one segment are walked by C items in
+// parallel. Work is O(N * k) compares,
 // which at the ingest's shapes is ~4 M and far below the launch cost; CH
 // grows with N so that C stays <= MAX_C. Any N and k are taken by masking;
 // there is no padding to a block size. `out` and the partials are carved
@@ -102,6 +106,21 @@ constexpr int TILE = 1024;     // rows staged in shared memory at a time
 constexpr int CU = 8;          // chunks whose partials a combine loads at once
 constexpr float POS_BIG = 3.0e38f;   // kernels/ref.py POS_BIG / NEG_BIG
 constexpr float NEG_BIG = -3.0e38f;
+
+// MIN/MAX of the chunks' partials under the reference's rule: of two equal
+// values the OR of the bits (min) or the AND (max), so -0.0 orders below
+// +0.0 whichever comes first; otherwise the smaller (larger) value, a NaN
+// skipped, as the first version's fminf / fmaxf did. Order-free, so the
+// result does not depend on the chunk order.
+__device__ __forceinline__ float min_sz(float acc, float x) {
+  const float tie = __int_as_float(__float_as_int(acc) | __float_as_int(x));
+  return x < acc ? x : (x == acc ? tie : acc);
+}
+
+__device__ __forceinline__ float max_sz(float acc, float x) {
+  const float tie = __int_as_float(__float_as_int(acc) & __float_as_int(x));
+  return x > acc ? x : (x == acc ? tie : acc);
+}
 
 // Does rows [r0, r1)'s id range (ids outside [0, k) excluded) meet the
 // segment tile [seg0, seg0 + BS)? Uniform across the block; s_min / s_max
@@ -165,6 +184,21 @@ __device__ __forceinline__ void segment_item(const float* __restrict__ v,
           mx = x > mx ? x : mx;
         }
       }
+      // Those compares keep the first of two zeros; the reference's rule
+      // wants -0.0 for the MIN and +0.0 for the MAX of zeros of both signs.
+      // A running MIN or MAX at zero looks again at the tile's rows for the
+      // zero it prefers: rare, and kept out of the loop above, whose speed
+      // rests on its two compares (any other update there was much slower
+      // on skewed ids in a tuning run).
+      if (mn == 0.f || mx == 0.f) {
+        for (int i = 0; i < n; ++i) {
+          if (s_id[i] == seg) {
+            const int b = __float_as_int(s_v[i]);
+            if (b == (int)0x80000000 && mn == 0.f) mn = -0.f;
+            if (b == 0 && mx == 0.f) mx = 0.f;
+          }
+        }
+      }
     }
   }
   if (seg < k) {
@@ -218,8 +252,8 @@ segment_reduce_kernel(const float* __restrict__ v,
           sum = __fadd_rn(sum, t[u][0]);
           sumsq = __fadd_rn(sumsq, t[u][1]);
           cnt = __fadd_rn(cnt, t[u][2]);
-          mn = fminf(mn, t[u][3]);
-          mx = fmaxf(mx, t[u][4]);
+          mn = min_sz(mn, t[u][3]);
+          mx = max_sz(mx, t[u][4]);
         }
       }
     }

@@ -30,7 +30,8 @@ KERNELS = {"query_eval": "query_eval",
            "bootstrap_moments": "weighted_moments",
            "segment_reduce": "segment_reduce",
            "weighted_segment_reduce": "segment_reduce",
-           "route_multid": "route_multid"}
+           "route_multid": "route_multid",
+           "sample_extremes": "sample_extremes"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

@@ -7,22 +7,18 @@ variable or config routes CUDA tensors to the plain version.
 """
 from __future__ import annotations
 
-import torch
-
 from .bootstrap import bootstrap_moments_cuda, bootstrap_moments_plain
 from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
 from .route import route_multid_cuda, route_multid_plain
+from .sample_extremes import sample_extremes_cuda, sample_extremes_plain
 from .segment_reduce import (segment_reduce_cuda, segment_reduce_plain,
                              weighted_segment_reduce_cuda,
                              weighted_segment_reduce_plain)
-from .stratified_estimate import (samples_inside, stratified_moments_cuda,
+from .stratified_estimate import (stratified_moments_cuda,
                                   stratified_moments_plain,
                                   stratified_weighted_moments_cuda,
                                   tree_sum_last, weighted_moments_plain)
-
-# Sentinel of the relevant-sample extremes (``backends.py`` ``_BIG``).
-_BIG = 3.4e38
 
 
 def query_eval(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
@@ -74,14 +70,14 @@ def bootstrap_moments(sample_c, sample_a, sample_valid, weights, q_lo,
 def sample_extremes(sample_c, sample_a, sample_valid, q_lo, q_hi):
     """Per-(query, stratum) MIN/MAX over relevant samples; irrelevant
     strata read +BIG / -BIG. Returns (samp_min, samp_max), each (Q, k).
-    The reference has no Pallas kernel for it, so one torch formulation
-    serves both devices."""
-    device_type("sample_extremes", sample_c, sample_a, sample_valid, q_lo,
-                q_hi)
-    inside = samples_inside(sample_c, sample_valid, q_lo, q_hi)
-    a = sample_a.to(torch.float32)[None]
-    return (torch.where(inside, a, _BIG).amin(-1),
-            torch.where(inside, a, -_BIG).amax(-1))
+    The reference has no Pallas kernel for it (one jnp broadcast); CUDA
+    tensors launch the hand-written kernel of ``csrc/sample_extremes.cu``,
+    CPU tensors run that broadcast (``sample_extremes_plain``)."""
+    args = [t.contiguous()
+            for t in (sample_c, sample_a, sample_valid, q_lo, q_hi)]
+    if device_type("sample_extremes", *args) == "cuda":
+        return sample_extremes_cuda(*args)
+    return sample_extremes_plain(*args)
 
 
 def segment_reduce(values, seg_ids, k: int):

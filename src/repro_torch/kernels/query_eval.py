@@ -58,8 +58,19 @@ def _kernel():
     return _lib.repro_query_eval
 
 
+# The kernel's launch (csrc/query_eval.cu): blocks of QE_THREADS threads,
+# each owning up to QE_MAX_QUERIES whole query rows (one warp lists each
+# row's covered leaves) and walking the leaves in tiles of QE_LEAF_TILE;
+# d up to 16 and A up to 8.
+QE_THREADS = 256
+QE_LEAF_TILE = 1024
+QE_MAX_QUERIES = 8
+
+
 def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
-    """Launch the CUDA kernel on the tensors' device and current stream."""
+    """Launch the CUDA kernel on the tensors' device and current stream.
+    rel and exact are allocated apart: two allocations cost the host less
+    than the slice and dtype views of one buffer."""
     name = "query_eval"
     native.check_tensors(name, leaf_lo=leaf_lo, leaf_hi=leaf_hi,
                          leaf_agg=leaf_agg, q_lo=q_lo, q_hi=q_hi)
@@ -71,21 +82,19 @@ def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
             or q_lo.shape != (Q, d) or q_hi.shape != (Q, d)):
         raise ValueError(f"{name}: shapes {leaf_lo.shape} {leaf_hi.shape} "
                          f"{leaf_agg.shape} {q_lo.shape} {q_hi.shape}")
-    if not (Q >= 1 and k >= 1 and 1 <= d <= 16 and 1 <= A <= 8):
-        raise ValueError(f"{name}: needs Q, k >= 1, 1 <= d <= 16 and "
-                         f"1 <= A <= 8, got Q={Q} k={k} d={d} A={A}")
-    dev = leaf_lo.device
-    rel = torch.empty((Q, k), dtype=torch.int32, device=dev)
-    exact = torch.empty((Q, A), dtype=torch.float32, device=dev)
-    fn = _kernel()
-    with torch.cuda.device(dev):
-        err = fn(leaf_lo.data_ptr(), leaf_hi.data_ptr(), leaf_agg.data_ptr(),
-                 q_lo.data_ptr(), q_hi.data_ptr(), rel.data_ptr(),
-                 exact.data_ptr(), Q, k, d, A,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
+    if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d <= 16
+            and 1 <= A <= 8):
+        raise ValueError(f"{name}: needs 1 <= Q, k < 2**31, 1 <= d <= 16 "
+                         f"and 1 <= A <= 8, got Q={Q} k={k} d={d} A={A}")
+    rel = torch.empty((Q, k), dtype=torch.int32, device=q_lo.device)
+    exact = torch.empty((Q, A), dtype=torch.float32, device=q_lo.device)
+    native.launch(name, q_lo.device, _kernel(), leaf_lo.data_ptr(),
+                  leaf_hi.data_ptr(), leaf_agg.data_ptr(), q_lo.data_ptr(),
+                  q_hi.data_ptr(), rel.data_ptr(), exact.data_ptr(), Q, k, d,
+                  A)
     return rel, exact
 
 
 __all__ = ["classify_leaves", "query_eval_plain", "query_eval_cuda",
-           "REL_NONE", "REL_PARTIAL", "REL_COVER"]
+           "REL_NONE", "REL_PARTIAL", "REL_COVER", "QE_THREADS",
+           "QE_LEAF_TILE", "QE_MAX_QUERIES"]

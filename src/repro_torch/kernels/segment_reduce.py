@@ -24,6 +24,7 @@ import functools
 
 import torch
 
+from .. import minmax
 from . import native
 
 # kernels/ref.py POS_BIG / NEG_BIG: the MIN/MAX identity of a segment.
@@ -33,7 +34,8 @@ NEG_BIG = -3.0e38
 
 def segment_reduce_plain(values, seg_ids, k: int) -> torch.Tensor:
     """Scatter formulation: out-of-range ids drop into a spill slot k that
-    is sliced away."""
+    is sliced away. MIN/MAX follow the reference's signed-zero rule
+    (:mod:`repro_torch.minmax`)."""
     v = values.to(torch.float32)
     ids = torch.where((seg_ids >= 0) & (seg_ids < k), seg_ids.long(), k)
     dev = v.device
@@ -41,8 +43,8 @@ def segment_reduce_plain(values, seg_ids, k: int) -> torch.Tensor:
     sums.index_add_(0, ids, torch.stack([v, v * v, torch.ones_like(v)], 1))
     vmin = torch.full((k + 1,), POS_BIG, dtype=torch.float32, device=dev)
     vmax = torch.full((k + 1,), NEG_BIG, dtype=torch.float32, device=dev)
-    vmin.scatter_reduce_(0, ids, v, "amin")
-    vmax.scatter_reduce_(0, ids, v, "amax")
+    minmax.scatter_min_(vmin, ids, v)
+    minmax.scatter_max_(vmax, ids, v)
     return torch.cat([sums, vmin[:, None], vmax[:, None]], 1)[:k]
 
 

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import minmax
 from ..core.types import PartitionTree, Synopsis, AGG_COUNT
 from ..device import to_numpy
 from ..kernels.segment_reduce import NEG_BIG, POS_BIG
@@ -52,27 +53,29 @@ def merge_synopsis(base: Synopsis, state, subtree: torch.Tensor, *,
     estimation (``answer(..., ci=level)``) sees the delta strata's current
     moments and sample counts. The leaf delta reaches the tree nodes
     through ``subtree @ delta`` (a plain fp32 matrix product, as the JAX
-    package leaves it to XLA) and masked min/max reduces.
+    package leaves it to XLA) and masked min/max reduces; every MIN/MAX,
+    of aggregates and of boxes, follows the reference's signed-zero rule
+    (:mod:`repro_torch.minmax`).
     """
     delta = state.delta_agg                                      # (k, 5)
     base_leaf = base.leaf_agg.to(torch.float32)
     leaf_agg = torch.cat(
         [base_leaf[:, 0:3] + delta[:, 0:3],
-         torch.minimum(base_leaf[:, 3:4], delta[:, 3:4]),
-         torch.maximum(base_leaf[:, 4:5], delta[:, 4:5])], 1)
+         minmax.minimum(base_leaf[:, 3:4], delta[:, 3:4]),
+         minmax.maximum(base_leaf[:, 4:5], delta[:, 4:5])], 1)
 
     sub = subtree[:, :, None]                                    # (V, k, 1)
     d_sums = subtree.to(torch.float32) @ delta[:, 0:3]           # (V, 3)
-    d_min = torch.where(subtree, delta[:, 3][None], POS_BIG).amin(1)
-    d_max = torch.where(subtree, delta[:, 4][None], NEG_BIG).amax(1)
+    d_min = minmax.masked_min(delta[:, 3][None], subtree, POS_BIG, 1)
+    d_max = minmax.masked_max(delta[:, 4][None], subtree, NEG_BIG, 1)
     base_tree = base.tree.agg.to(torch.float32)
     tree_agg = torch.cat(
         [base_tree[:, 0:3] + d_sums,
-         torch.minimum(base_tree[:, 3:4], d_min[:, None]),
-         torch.maximum(base_tree[:, 4:5], d_max[:, None])], 1)
+         minmax.minimum(base_tree[:, 3:4], d_min[:, None]),
+         minmax.maximum(base_tree[:, 4:5], d_max[:, None])], 1)
     # node boxes: the union of the current leaf boxes over each subtree
-    t_lo = torch.where(sub, state.leaf_lo[None], float("inf")).amin(1)
-    t_hi = torch.where(sub, state.leaf_hi[None], float("-inf")).amax(1)
+    t_lo = minmax.masked_min(state.leaf_lo[None], sub, float("inf"), 1)
+    t_hi = minmax.masked_max(state.leaf_hi[None], sub, float("-inf"), 1)
     return dataclasses.replace(
         base, leaf_lo=state.leaf_lo, leaf_hi=state.leaf_hi,
         leaf_agg=leaf_agg, n_rows=leaf_agg[:, AGG_COUNT],
@@ -80,8 +83,8 @@ def merge_synopsis(base: Synopsis, state, subtree: torch.Tensor, *,
         sample_valid=state.sample_valid, k_per_leaf=state.k_per_leaf,
         tree=dataclasses.replace(
             base.tree, agg=tree_agg,
-            lo=torch.minimum(base.tree.lo, t_lo),
-            hi=torch.maximum(base.tree.hi, t_hi)),
+            lo=minmax.minimum(base.tree.lo, t_lo),
+            hi=minmax.maximum(base.tree.hi, t_hi)),
         total_rows=torch.tensor(float(total_rows), dtype=torch.float32,
                                 device=delta.device))
 

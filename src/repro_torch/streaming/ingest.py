@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import minmax
 from ..core.types import Synopsis, AGG_COUNT
 from ..device import resolve_device, to_numpy
 from ..kernels import ops
@@ -212,24 +213,23 @@ def _apply_routed(state: StreamState, c, a, u, leaf, dsel, mask=None,
 
     # 2. per-leaf delta (dropped rows carry id -1); the boxes grow by two
     #    scatter extremes into the new state's copies, in place (dropped
-    #    rows scatter +-inf, a no-op)
+    #    rows scatter +-inf, a no-op); MIN/MAX, of the aggregates and of
+    #    the boxes, follow the reference's signed-zero rule
     a32 = a.to(torch.float32)
     agg_b = ops.segment_reduce(a32, torch.where(mask, leaf, -1), k)
     flat = (leaf64[:, None] * d
             + torch.arange(d, device=dev)[None]).reshape(-1)
     new_lo = state.leaf_lo.clone()
     new_hi = state.leaf_hi.clone()
-    new_lo.view(-1).scatter_reduce_(
-        0, flat, torch.where(mask[:, None], c, float("inf")).reshape(-1),
-        "amin")
-    new_hi.view(-1).scatter_reduce_(
-        0, flat, torch.where(mask[:, None], c, float("-inf")).reshape(-1),
-        "amax")
+    minmax.scatter_min_(new_lo.view(-1), flat, torch.where(
+        mask[:, None], c, float("inf")).reshape(-1))
+    minmax.scatter_max_(new_hi.view(-1), flat, torch.where(
+        mask[:, None], c, float("-inf")).reshape(-1))
     delta = state.delta_agg
     new_delta = torch.cat(
         [delta[:, 0:3] + agg_b[:, 0:3],
-         torch.minimum(delta[:, 3:4], agg_b[:, 3:4]),
-         torch.maximum(delta[:, 4:5], agg_b[:, 4:5])], 1)
+         minmax.minimum(delta[:, 3:4], agg_b[:, 3:4]),
+         minmax.maximum(delta[:, 4:5], agg_b[:, 4:5])], 1)
 
     # 3. batched Vitter reservoir (dropped rows group under id k, so real
     #    rows' ranks are unaffected, and their slot is forced to -1)

@@ -20,6 +20,7 @@ from repro.kernels.registry import get_backend
 from repro_torch.kernels import native, ops
 from repro_torch.kernels.query_eval import (query_eval_cuda,
                                             query_eval_plain)
+from repro_torch.kernels.sample_extremes import sample_extremes_cuda
 from repro_torch.kernels.stratified_estimate import (
     MOMENTS_LT, MOMENTS_QT, check_moments_limits, stratified_moments_cuda,
     stratified_moments_plain)
@@ -242,6 +243,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         query_eval_cuda(*_t(lo, hi, agg, q_lo, q_hi))
     with pytest.raises(ValueError, match="CUDA tensors"):
         stratified_moments_cuda(*_t(c, a, valid, q_lo, q_hi))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sample_extremes_cuda(*_t(c, a, valid, q_lo, q_hi))
     with pytest.raises(ValueError, match="several devices"):
         ops.query_eval(*_t(lo, hi, agg, q_lo), torch.empty(3, 2,
                                                            device="meta"))
@@ -259,4 +262,4 @@ def test_missing_toolkit_raises(monkeypatch, tmp_path):
     assert set(native.LAUNCHES) == {
         "query_eval", "stratified_moments", "stratified_weighted_moments",
         "bootstrap_moments", "segment_reduce", "weighted_segment_reduce",
-        "route_multid"}
+        "route_multid", "sample_extremes"}
