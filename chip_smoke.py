@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py     # the whole check, one card
     python3 chip_smoke.py --baseline DIR   # also hold DIR's kernels
+    python3 chip_smoke.py --stream-ab DIR  # only ingest and merge, DIR's
+                                           # package against this one's
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
 stratified_moments.cu, segment_reduce.cu, route_multid.cu and
@@ -78,9 +80,12 @@ Phases, each of which fails the run:
 10. Streaming times: each streaming kernel and its plain version at
    B = 4096 and 65536 (and kernel = plain there; both kernels bit-equal to
    the baseline's and timed beside it, in turns), by events, on the
-   device (one device operation a call) and by host issue; ingest per
-   batch, the merge, answer right after an ingest, and a profiler window
-   over 10 batches with each kernel's share of it.
+   device (one device operation a call) and by host issue; segment_reduce
+   at B = 4096 with half and with all of its values +0.0 / -0.0 (the
+   signed-zero rule's worst case: every chunk looks again for the zero it
+   prefers), kernel = plain, its device time beside the baseline's; ingest
+   per batch, the merge, answer right after an ingest, and a profiler
+   window over 10 batches with each kernel's share of it.
 11. The bootstrap's kernels against plain at edge shapes:
    stratified_weighted_moments and bootstrap_moments (Q up to 129, k up to
    53, s up to 300, d up to 16, R in {1, 7, 8, 9, 33}; zero, Poisson and
@@ -1048,25 +1053,32 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
 # Times and bounds
 # ---------------------------------------------------------------------------
 
-def bounds(syn, q, rel, k_pred) -> dict:
+def bounds(syn, q, rel, classes) -> dict:
     """Least time the card could take for each kernel's work on these
     inputs: max(bytes / HBM rate, operations / fp32 rate), each input read
     once and each output written once; data-dependent work counted as this
-    run's data needs it (covered pairs, relevant samples)."""
+    run's data needs it (covered pairs, the pair classes)."""
     Q, d = q.lo.shape
     k, s = syn.sample_a.shape
     A = syn.leaf_agg.shape[1]
     covered = int((rel == 2).sum())
-    relevant = float(k_pred.sum())
     valid = int(syn.sample_valid.sum())
     qe_bytes = 4 * (2 * k * d + k * A + 2 * Q * d) + 4 * Q * k + 4 * Q * A
     qe_ops = Q * k * (4 * d + 1) + covered * A
-    sm_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 12 * Q * k
-    sm_ops = 2 * d * Q * valid + 4 * relevant
-    # sample_extremes: the same inputs, two (Q, k) outputs; the box test of
-    # every valid slot and a min and a max per relevant one.
-    se_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 8 * Q * k
-    se_ops = 2 * d * Q * valid + 2 * relevant
+    # stratified_moments and sample_extremes need, from the same inputs,
+    # each leaf's box (a min and a max a column of every valid slot), each
+    # pair's class from the boxes (two compares a column for covered, two
+    # for apart), each leaf's reduction over its slots (4 operations a slot
+    # for the moments, a min and a max for the extremes), and the mixed
+    # pairs' walks (the slot test, 2d compares, and the update); a covered
+    # or empty pair costs a copy. Outputs: (Q, k, 3) and two (Q, k).
+    in_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
+    shared_ops = 2 * d * valid + 4 * d * Q * k
+    mixed = classes["mixed"]
+    sm_bytes = in_bytes + 12 * Q * k
+    sm_ops = shared_ops + 4 * k * s + mixed * s * (2 * d + 4)
+    se_bytes = in_bytes + 8 * Q * k
+    se_ops = shared_ops + 2 * k * s + mixed * s * (2 * d + 2)
     out = {}
     for name, nbytes, ops in (("query_eval", qe_bytes, qe_ops),
                               ("stratified_moments", sm_bytes, sm_ops),
@@ -1097,8 +1109,8 @@ def timings(torch, tag, run, card, base=None) -> dict:
     qe_args = (syn.leaf_lo, syn.leaf_hi, syn.leaf_agg, q.lo, q.hi)
     sm_args = (syn.sample_c, syn.sample_a, syn.sample_valid, q.lo, q.hi)
     rel, _ = query_eval_cuda(*qe_args)
-    k_pred = stratified_moments_cuda(*sm_args)[..., 0]
-    bnd = bounds(syn, q, rel, k_pred)
+    classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
+    bnd = bounds(syn, q, rel, classes)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base_mb = torch.cuda.memory_allocated() / 2 ** 20
@@ -1159,7 +1171,6 @@ def timings(torch, tag, run, card, base=None) -> dict:
         times["query_eval_baseline"] = statistics.mean(b_ev)
         times["query_eval_baseline_device"] = mean_of(b_dev)
         times["query_eval_baseline_enqueue_host"] = enqueue_ms(torch, old_qe)
-    classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
     emit(times_ms=times, path=tag, Q=int(q.lo.shape[0]),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]),
          d=int(syn.d), answer_peak_mb_above_resident=answer_peak_mb,
@@ -1432,9 +1443,46 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
                                                               bases[name])
             row[f"{name}_baseline_bit_equal"] = (name != "segment_reduce"
                                                  or ties == 0)
+        if B == STREAM_BATCH:
+            row["segment_reduce_zeros"] = seg_zero_times(torch, v, ids, k,
+                                                         base)
         out[B] = row
         emit(stream_kernel_times_ms=row, B=B, k=k, card=card)
     return {"times": out, "seg_err": max(errs)}
+
+
+def seg_zero_times(torch, v, ids, k, base=None) -> dict:
+    """segment_reduce on one batch's values and ids with zeros put in: half
+    the values (+0.0 or -0.0 by a seeded coin, the rest the stream's) and
+    all of them, the signed-zero rule's worst case (every chunk's running
+    MIN and MAX sit at zero, so each looks again over its tile's rows).
+    Kernel = plain (seg_vs_plain) on both; the kernel's device time and,
+    with a baseline, the baseline's, in turns (kernel, baseline, baseline,
+    kernel)."""
+    from repro_torch.kernels.segment_reduce import segment_reduce_cuda
+    rng = np.random.default_rng(17)
+    n = v.shape[0]
+    zeros = torch.from_numpy(np.where(rng.random(n) < 0.5, -0.0, 0.0)
+                             .astype(np.float32)).to(v.device)
+    half = torch.from_numpy(rng.random(n) < 0.5).to(v.device)
+    out = {}
+    for name, vals in (("half_zeros", torch.where(half, zeros, v)),
+                       ("all_zeros", zeros)):
+        _, ties = seg_vs_plain(torch, f"main B={n} k={k} {name}", vals, ids,
+                               k, base)
+
+        def fn():
+            return segment_reduce_cuda(vals, ids, k)
+
+        dev = [device_ms(torch, fn, one_op=True)]
+        if base is not None:
+            bdev = [device_ms(torch, lambda: baseline_segment(
+                torch, base, vals, ids, k)) for _ in range(2)]
+            out[f"{name}_baseline_device"] = mean_of(bdev)
+            out[f"{name}_baseline_zero_ties"] = ties
+        dev.append(device_ms(torch, fn, one_op=True))
+        out[f"{name}_device"] = mean_of(dev)
+    return out
 
 
 def stream_timings(torch, tag, run, s, card) -> None:
@@ -1515,6 +1563,155 @@ def profile_ingest(torch, tag, s) -> None:
          device_busy_ms_per_batch=busy_us / 1e3 / 10,
          wall_ms_per_batch=wall_ms / 10,
          device_busy_share=busy_us / 1e3 / wall_ms, kernels=kernels)
+
+
+# ---------------------------------------------------------------------------
+# Streaming A/B: ingest and merge of this checkout against another
+# ---------------------------------------------------------------------------
+
+STREAM_AB_ROUNDS = 3
+
+
+def plain_minmax(torch) -> dict:
+    """repro_torch.minmax's functions as the port computed them before the
+    signed-zero rule: PyTorch's own MIN/MAX, which keep whichever of two
+    zeros comes first. For the A/B of the rule's cost only."""
+    return {
+        "minimum": torch.minimum, "maximum": torch.maximum,
+        "masked_min": lambda x, m, f, d: torch.where(m, x, f).amin(d),
+        "masked_max": lambda x, m, f, d: torch.where(m, x, f).amax(d),
+        "scatter_min_": lambda o, i, v: o.scatter_reduce_(0, i, v, "amin"),
+        "scatter_max_": lambda o, i, v: o.scatter_reduce_(0, i, v, "amax")}
+
+
+def host_split(prof, n: int, top: int = 12) -> dict:
+    """A profiler window's host time per batch (n batches) by operator:
+    the top operators by self CPU time, their calls and self ms a batch."""
+    rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    return {
+        "self_cpu_ms_per_batch": sum(e.self_cpu_time_total for e in rows)
+        / 1e3 / n,
+        "top": [{"op": e.key, "calls": e.count / n,
+                 "self_cpu_ms": e.self_cpu_time_total / 1e3 / n}
+                for e in rows[:top]]}
+
+
+def stream_probe(torch, card) -> None:
+    """Ingest (events and host clock, per 4096-row batch) and the merge
+    (events and host clock) of the repro_torch package first on sys.path,
+    on the main paths' 1-D and 3-D synopses and streams, as stream_timings
+    measures them, STREAM_AB_ROUNDS rounds, each on a fresh ingestor; and a
+    profiler window of 10 batches a path: device busy and kernels per
+    batch, host time by operator. Where the package has repro_torch.minmax,
+    each round also runs with its functions swapped for plain_minmax's (in
+    turns: as is, plain, then plain, as is), so that the signed-zero rule's
+    share is read in one process. One JSON line."""
+    import repro_torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.synopsis import build_synopsis
+    from repro_torch.data.synthetic import nyc_taxi
+    from repro_torch.kernels import native
+    from repro_torch.streaming import (StreamingIngestor, merge_synopsis,
+                                       subtree_leaf_matrix)
+    native.build_all()
+    try:
+        from repro_torch import minmax
+    except ImportError:
+        minmax = None
+    variants = {"as_is": {}}
+    if minmax is not None:
+        plain = plain_minmax(torch)
+        variants["as_is"] = {n: getattr(minmax, n) for n in plain}
+        variants["minmax_plain"] = plain
+
+    def use(name):
+        for fn_name, fn in variants[name].items():
+            setattr(minmax, fn_name, fn)
+
+    out = {"package": str(Path(repro_torch.__file__).resolve().parent)}
+    for tag, dims, method in (("1d", 1, "adp"), ("3d", 3, "kd")):
+        c, a = nyc_taxi(scale=1.0, dims=dims)
+        syn, _ = build_synopsis(c, a, k=1024, sample_rate=0.01,
+                                method=method)
+        batches = batches_of(*nyc_taxi(scale=0.1, seed=7, dims=dims))
+        readings = {v: {"ingest": [], "ingest_host": [], "merge": [],
+                         "merge_host": []} for v in variants}
+        for rnd in range(STREAM_AB_ROUNDS):
+            order = list(variants)
+            for name in order if rnd % 2 == 0 else order[::-1]:
+                use(name)
+                ing = StreamingIngestor(syn, seed=11)
+                it = iter(batches * 4)
+
+                def one():
+                    ing.ingest(*next(it))
+
+                r = readings[name]
+                r["ingest"].append(cuda_ms(torch, one, reps=40, warmup=10))
+                r["ingest_host"].append(host_ms(torch, one, reps=40))
+                subtree = subtree_leaf_matrix(ing.base.tree,
+                                              ing.base.num_leaves)
+
+                def merge():
+                    return merge_synopsis(ing.base, ing.state, subtree,
+                                          total_rows=ing.total_rows)
+
+                r["merge"].append(cuda_ms(torch, merge))
+                r["merge_host"].append(host_ms(torch, merge))
+        for name in variants:
+            use(name)
+            ing = StreamingIngestor(syn, seed=11)
+            for cb, ab in batches[:3]:
+                ing.ingest(cb, ab)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for cb, ab in batches[3:13]:
+                    ing.ingest(cb, ab)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            busy_us, n = device_busy_us(prof)
+            readings[name]["profile"] = {
+                "wall_ms_per_batch": wall_ms / 10,
+                "device_busy_ms_per_batch": busy_us / 1e3 / 10,
+                "device_kernels_per_batch": n / 10,
+                "host": host_split(prof, 10)}
+        use("as_is")
+        out[tag] = readings
+    emit(stream_probe=out, card=card)
+
+
+def stream_ab(torch, other: Path, card) -> None:
+    """stream_probe of `other`'s package and of this checkout's, each in
+    its own process, in the order other, this, this, other; then the mean
+    of each side's readings. `other` builds its kernels into its own
+    build/ directory."""
+    sides = [("other", other.resolve() / "src"), ("this", ROOT / "src")]
+    runs = {"other": [], "this": []}
+    for side, src in sides + sides[::-1]:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--stream-probe",
+             str(src)], capture_output=True, text=True, timeout=1200)
+        if proc.returncode != 0:
+            raise RuntimeError(f"stream probe of {src} failed:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        line = [x for x in proc.stdout.splitlines()
+                if x.startswith('{"stream_probe"')][-1]
+        print(line, flush=True)
+        runs[side].append(json.loads(line)["stream_probe"])
+    summary = {}
+    for side, probes in runs.items():
+        for tag in ("1d", "3d"):
+            for variant in probes[0][tag]:
+                for metric in ("ingest", "ingest_host", "merge",
+                               "merge_host"):
+                    vals = [x for p in probes
+                            for x in p[tag][variant][metric]]
+                    summary[f"{side} {variant} {tag} {metric}"] = \
+                        statistics.mean(vals)
+    emit(stream_ab_mean_ms=summary, rounds=STREAM_AB_ROUNDS,
+         other=str(other), card=card)
 
 
 # ---------------------------------------------------------------------------
@@ -2159,23 +2356,30 @@ def boot_kernel_3d(torch, run, card, base) -> dict:
     return out
 
 
-def boot_bounds(syn, q, relevant, R, N) -> dict:
+def boot_bounds(syn, q, classes, R, N) -> dict:
     """Least time for the three new kernels' work, as bounds() counts it:
     the weighted moments read the samples, the weights and the queries
-    once and write 12 bytes per (replicate, query, stratum); 2d compares
-    per (query, valid slot) and 5 operations per relevant (query, slot,
-    replicate). weighted_segment_reduce reads 12 bytes a row, writes 12 a
-    segment, 5 operations a row."""
+    once and write 12 bytes per (replicate, query, stratum); they need each
+    leaf's box and each pair's class as bounds() counts them, each leaf's
+    weighted totals (5 operations a slot and replicate) and the mixed
+    pairs' walks (2d compares a slot, 5 operations a slot and replicate).
+    weighted_segment_reduce reads 12 bytes a row, writes 12 a segment, 5
+    operations a row."""
     Q, d = q.lo.shape
     k, s = syn.sample_a.shape
     valid = int(syn.sample_valid.sum())
     samples = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
+    shared_ops = 2 * d * valid + 4 * d * Q * k
+
+    def moments_ops(r):
+        return (shared_ops + 5 * r * k * s
+                + classes["mixed"] * s * (2 * d + 5 * r))
     out = {}
     for name, nbytes, ops in (
             ("stratified_weighted_moments", samples + 4 * k * s + 12 * Q * k,
-             2 * d * Q * valid + 5 * relevant),
+             moments_ops(1)),
             ("bootstrap_moments", samples + 4 * R * k * s + 12 * R * Q * k,
-             2 * d * Q * valid + 5 * R * relevant),
+             moments_ops(R)),
             ("weighted_segment_reduce", 12 * N + 12 * k, 5 * N)):
         t_bytes = nbytes / PEAK_BYTES_S * 1e3
         t_ops = ops / PEAK_F32_OPS_S * 1e3
@@ -2315,9 +2519,8 @@ def boot_kernel_times(torch, run, W, card, base=None) -> dict:
         0, k, seg_v.shape[0]).astype(np.int32)).to(seg_v.device)
     err_s = max(err_s, wseg_vs_plain(torch, "main N=k*s uniform ids", seg_v,
                                      seg_w, uni_ids, k))
-    relevant = float(stratified_moments_cuda(*sm, q.lo, q.hi)[..., 0].sum())
-    bnd = boot_bounds(syn, q, relevant, W.shape[0], seg_v.shape[0])
     classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi)
+    bnd = boot_bounds(syn, q, classes, W.shape[0], seg_v.shape[0])
 
     def swm():
         return stratified_weighted_moments_cuda(*sm, w0, q.lo, q.hi)
@@ -2450,7 +2653,7 @@ def boot_kernel_times(torch, run, W, card, base=None) -> dict:
             torch, lambda: torch.bmm(pred, rhs4), reps=5, warmup=1),
     }
     emit(new_kernel_times_ms=times, bounds=bnd, plain_boot_q=PLAIN_BOOT_Q,
-         relevant_pairs=relevant, classes_1d=classes, card=card,
+         classes_1d=classes, card=card,
          launch_overhead_ms=overhead, baseline_ms=base_ms,
          weighted_segment_reduce_ms=wseg,
          max_abs_err={"stratified_weighted_moments": err_w,
@@ -2529,7 +2732,15 @@ def main(argv=None) -> int:
                     help="checkout of an earlier commit whose redesigned "
                          "kernels are held against the current ones and "
                          "timed beside them")
+    ap.add_argument("--stream-ab", type=Path, default=None, metavar="DIR",
+                    help="only time ingest and merge of DIR's package "
+                         "against this checkout's, in turns, and exit")
+    ap.add_argument("--stream-probe", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.stream_probe is not None:
+        # Before any import of repro_torch: the package under test first.
+        sys.path.insert(0, str(args.stream_probe.resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2542,6 +2753,13 @@ def main(argv=None) -> int:
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.stream_probe is not None:
+        stream_probe(torch, card)
+        return 0
+    if args.stream_ab is not None:
+        stream_ab(torch, args.stream_ab, card)
+        print(card, flush=True)
+        return 0
     dev = torch.device("cuda")
     emit(phase="device", card=card, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), torch=torch.__version__,
@@ -2736,6 +2954,7 @@ def main(argv=None) -> int:
         else:
             ties = edge_s["seg_zero_ties"]
             rows[-1].update(
+                zeros_device_ms=b4["segment_reduce_zeros"],
                 signed_zero_cases=edge_s["seg_zero_cases"],
                 baseline_zero_ties=ties,
                 baseline_bit_equal=None if base is None else ties == 0)

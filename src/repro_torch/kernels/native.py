@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` (one of ``SOURCES``; ``KERNELS`` says which
 source holds each kernel) compiles with ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded through ``ctypes``. The
 build happens at first use into ``build/repro_torch/`` at the repository
-root; the file name carries a digest of the source and flags, so an edited
-source is rebuilt and a stale library is never loaded. All missing
+root; the file name carries a digest of the source, the headers beside it
+(``csrc/*.cuh``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded. All missing
 libraries build at once, one ``nvcc`` process per source.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
@@ -62,7 +63,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers
+                          + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
