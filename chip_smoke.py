@@ -123,6 +123,33 @@ Phases, each of which fails the run:
    weighted_segment_reduce at leaf-major and at uniformly random ids, one
    device operation a call, with its host enqueue time;
    bootstrap_moments at the 3-D shapes; the baseline's kernels, if given.
+16. The degradation ladder on phase 4's and 5's synopses and queries (all
+   five kinds, ci=0.95): answer(deadline_ms=0) serves tier 0 with no
+   launch and holds the truth, and on covered queries has the exact
+   path's bits (COUNT/MIN/MAX against answer(), SUM against
+   answer(plan=); AVG within rtol=3e-5); answer_progressive().final() runs
+   the tiers [9, 18, 37, None], each one launch of each serving kernel,
+   the intervals tighten at every tier, and the last tier's own answer
+   has answer()'s bits; CIConfig(max_ci_width=) stops the ladder early.
+   Tier 0 timed by host clock, each tier by events and host clock.
+17. Rows against their padded class (1-D and 3-D): Q = 1, 3, 8, 240 and
+   2048 bit-equal to the same rows padded with empty rows to 128, 512 and
+   4096. The coalescer on the 1-D synopsis: 16 tenants of 16-240 rows
+   from a seed, CoalescerConfig(shape_classes=(128, 512, 2048)), all five
+   kinds, ci=0.95: fewer dispatches than requests, each serving kernel
+   once a dispatch, every tenant's demuxed result the bits of its own
+   answer(); 4 tenants under the fused bootstrap (R = 200),
+   bootstrap_moments once a dispatch, bit-equal; the 16 tenants under
+   TickDriver with queries written on a side stream, every future
+   resolved and bit-equal, no failure. The coalesced round against the
+   per-tenant sequential round, host clock.
+18. Checkpoints and faults on the 1-D stream: 32 of phase 8's batches, a
+   checkpoint, a restore into a fresh engine, 32 more batches into both:
+   states torch.equal, answers bit-equal, segment_reduce launched by the
+   restored ingestor; the 3-D synopsis round-trips bit-equal; a FaultPlan
+   poisoning every 5th of 32 batches: the quarantine counter equals the
+   poisoned rows and the state equals a clean run with those batches
+   quarantined. File sizes, save and restore seconds.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -922,17 +949,22 @@ def truth_scan(torch, c, a, q_lo, q_hi, chunk: int = 1 << 20) -> dict:
             "min": mn, "max": mx}
 
 
-def check_truth(tag, res, truth, n, max_median_err, kinds=KINDS) -> dict:
+def host(x) -> np.ndarray:
+    """A tensor (on any device) or a host array as numpy."""
+    return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+
+def truth_inside(tag, res, truth, n, kinds=KINDS) -> None:
     """Every defined truth inside [lower, upper]: SUM/COUNT always, AVG/
     MIN/MAX on non-empty queries (undefined on an empty set). Slack for
     the float32 storage of aggregates: 1e-4 relative for the fp32 sums over
-    up to 1024 strata (SUM/COUNT/AVG), 1e-6 for MIN/MAX (one rounding)."""
+    up to 1024 strata (SUM/COUNT/AVG), 1e-6 for MIN/MAX (one rounding).
+    ``res`` holds tensors or host arrays."""
     nonempty = truth["count"] > 0
-    out = {"queries": n, "nonempty": int(nonempty.sum())}
     for kind in kinds:
         t = truth[kind]
-        lo = res[kind].lower[:n].cpu().numpy().astype(np.float64)
-        hi = res[kind].upper[:n].cpu().numpy().astype(np.float64)
+        lo = host(res[kind].lower[:n]).astype(np.float64)
+        hi = host(res[kind].upper[:n]).astype(np.float64)
         slack = (1e-4 if kind in ("sum", "count", "avg") else 1e-6) \
             * np.abs(t) + 1e-6
         defined = np.ones(n, bool) if kind in ("sum", "count") else nonempty
@@ -941,6 +973,14 @@ def check_truth(tag, res, truth, n, max_median_err, kinds=KINDS) -> dict:
             i = int(np.argwhere(defined & ~inside)[0, 0])
             raise AssertionError(f"{tag} {kind}: truth {t[i]} outside "
                                  f"[{lo[i]}, {hi[i]}] at query {i}")
+
+
+def check_truth(tag, res, truth, n, max_median_err, kinds=KINDS) -> dict:
+    """The truth inside [lower, upper] (``truth_inside``), the median SUM
+    relative error at most ``max_median_err``, and the CI coverage."""
+    nonempty = truth["count"] > 0
+    out = {"queries": n, "nonempty": int(nonempty.sum())}
+    truth_inside(tag, res, truth, n, kinds)
     est = res["sum"].estimate[:n].cpu().numpy().astype(np.float64)
     t = truth["sum"]
     err = np.abs(est - t)[nonempty] / np.abs(t[nonempty])
@@ -2649,8 +2689,11 @@ def boot_kernel_times(torch, run, W, card, base=None) -> dict:
         "bmm_bootstrap_moments": cuda_ms(torch, lambda: torch.bmm(pred,
                                                                   rhs4),
                                          reps=10),
+        # One cuBLAS kernel a call; a window drops some of them, so the
+        # mean of those it recorded (a window of 5 once recorded none).
         "bmm_bootstrap_moments_device": device_ms(
-            torch, lambda: torch.bmm(pred, rhs4), reps=5, warmup=1),
+            torch, lambda: torch.bmm(pred, rhs4), reps=10, warmup=1,
+            one_op=True),
     }
     emit(new_kernel_times_ms=times, bounds=bnd, plain_boot_q=PLAIN_BOOT_Q,
          classes_1d=classes, card=card,
@@ -2675,6 +2718,488 @@ def wseg_fields(wseg) -> dict:
             "baseline_max_abs_err")
     return {**{key: wseg["leaf_major"].get(key) for key in keys},
             **{f"uniform_{key}": wseg["uniform"].get(key) for key in keys}}
+
+
+# ---------------------------------------------------------------------------
+# The serve layer: the degradation ladder, the coalescer, checkpoints and
+# faults
+# ---------------------------------------------------------------------------
+
+FIELDS = ("estimate", "ci_half", "lower", "upper", "frac_rows_touched",
+          "ci_lo", "ci_hi")
+
+
+def bits_of(x) -> np.ndarray:
+    """int32 view of float32 values (a tensor or host array), every NaN as
+    one code."""
+    x = np.array(host(x), np.float32)
+    b = x.view(np.int32).copy()
+    b[np.isnan(x)] = 0x7FC00000
+    return b
+
+
+def differing(got, want, kinds, rows=None) -> dict:
+    """{kind.field: values whose bits differ} of two result dicts (tensors
+    or host arrays), over the first ``rows`` rows of ``want`` when given;
+    empty when they are the same bits."""
+    out = {}
+    for kind in kinds:
+        for f in FIELDS:
+            g, w = getattr(got[kind], f), getattr(want[kind], f)
+            if g is None or w is None:
+                if (g is None) != (w is None):
+                    out[f"{kind}.{f}"] = "None"
+                continue
+            w = w if rows is None else w[:rows]
+            nd = int((bits_of(g) != bits_of(w)).sum())
+            if nd:
+                out[f"{kind}.{f}"] = nd
+    return out
+
+
+def require_same(tag, got, want, kinds, rows=None) -> None:
+    diff = differing(got, want, kinds, rows)
+    if diff:
+        raise AssertionError(f"{tag}: bits differ {diff}")
+
+
+def launches_now(native) -> dict:
+    return {k: v for k, v in native.LAUNCHES.items() if v}
+
+
+def covered_queries(torch, syn, n: int = 256):
+    """Queries every relevant stratum of which is covered: in 1-D spans of
+    whole leaves (leaf i's lo to leaf j's hi), in d > 1 leaf i's own box;
+    kept where the planner finds no partial stratum. Host arrays."""
+    from repro_torch.engine.planner import plan_queries
+    lo = syn.leaf_lo.cpu().numpy()
+    hi = syn.leaf_hi.cpu().numpy()
+    k = lo.shape[0]
+    rng = np.random.default_rng(16)
+    a = rng.integers(0, k, n)
+    b = np.minimum(k - 1, a + rng.integers(0, 40, n)) if syn.d == 1 else a
+    q_lo, q_hi = lo[a], hi[b]
+    keep = lo[a].max(1) <= hi[b].min(1) if syn.d == 1 else \
+        (lo[a] <= hi[a]).all(1)
+    plan = plan_queries(syn.tree, q_lo[keep], q_hi[keep], k)
+    full = ~plan.partial_leaf_mask.any(1) & plan.cover_leaf_mask.any(1)
+    return q_lo[keep][full], q_hi[keep][full]
+
+
+def ladder_path(torch, tag, run, card) -> dict:
+    """16. The degradation ladder on the main path's synopsis and queries
+    (all five kinds, ci=0.95): answer(deadline_ms=0) serves tier 0 with no
+    launch and holds the truth; on covered queries it has the exact path's
+    bits (COUNT, MIN, MAX against answer(); SUM against answer(plan=), which
+    takes the same planner aggregates; AVG within rtol=3e-5);
+    answer_progressive().final() runs ladder_tiers(75) = [9, 18, 37, None],
+    each tier one launch of each serving kernel, the intervals tighten at
+    every tier and the last tier's own answer is answer()'s bits;
+    max_ci_width stops the ladder early. Times: tier 0 by host clock, each
+    tier by events and host clock (warm)."""
+    from repro_torch.api import CIConfig, PassEngine, ServingConfig
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.engine.planner import plan_queries
+    from repro_torch.kernels import native
+    from repro_torch.serve import ladder_tiers, tier0_answer
+    from repro_torch.serve.coalescer import host_results
+    t_phase = time.perf_counter()
+    syn, q = run["syn"], run["q"]
+    eng = PassEngine(syn, ServingConfig(kinds=KINDS), ci=0.95)
+    plain = host_results(eng.answer(q))
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    r0 = eng.answer(q, deadline_ms=0.0)
+    tier0_first_ms = (time.perf_counter() - t0) * 1e3
+    if launches_now(native):
+        raise AssertionError(f"{tag} tier 0 launched {launches_now(native)}")
+    st = eng.stats()
+    if (st["tier0_serves"], st["refine_steps"], st["degraded_serves"]) \
+            != (1, 0, 1):
+        raise AssertionError(f"{tag} tier 0 stats {st}")
+    truth_inside(f"{tag} tier 0", r0, run["truth"], 64)
+    tier0_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tier0_answer(eng, q, KINDS)
+        tier0_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    plan_queries(syn.tree, q.lo, q.hi, syn.num_leaves)
+    plan_ms = (time.perf_counter() - t0) * 1e3
+
+    # Covered queries.
+    c_lo, c_hi = covered_queries(torch, syn)
+    cq = QueryBatch(torch.from_numpy(c_lo).cuda(),
+                    torch.from_numpy(c_hi).cuda())
+    t_cov = tier0_answer(eng, cq, KINDS)
+    exact = host_results(eng.answer(cq))
+    by_plan = host_results(eng.answer(
+        cq, plan=plan_queries(syn.tree, cq.lo, cq.hi, syn.num_leaves)))
+    require_same(f"{tag} tier 0 on covered queries", t_cov, exact,
+                 ("count", "min", "max"))
+    require_same(f"{tag} tier 0 on covered queries, plan", t_cov, by_plan,
+                 ("sum",))
+    avg_err = close(f"{tag} tier 0 covered avg", torch.from_numpy(
+        t_cov["avg"].estimate), torch.from_numpy(exact["avg"].estimate),
+        K_RTOL, 0.0)
+    avg_same = int((bits_of(t_cov["avg"].estimate)
+                    == bits_of(exact["avg"].estimate)).sum())
+
+    # The ladder: first pass cold, with its launches; second pass warm.
+    cap = int(syn.sample_a.shape[1])
+    tiers = ladder_tiers(cap)
+    if cap == 75 and tiers != [9, 18, 37, None]:
+        raise AssertionError(f"{tag} ladder tiers {tiers}")
+    per_tier = []
+    for rnd in range(2):
+        h = eng.answer_progressive(q)
+        prev = {k: (host(r.ci_lo), host(r.ci_hi))
+                for k, r in h.results.items()}
+        widths = [h.width()]
+        while not h.done:
+            slots = h._tiers[0]
+            torch.cuda.synchronize()
+            native.reset_launches()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            h.refine()
+            end.record()
+            end.synchronize()
+            host_ms_ = (time.perf_counter() - t0) * 1e3
+            got = launches_now(native)
+            want = {"query_eval": 1, "stratified_moments": 1,
+                    "sample_extremes": 1}
+            if got != want:
+                raise AssertionError(f"{tag} tier {slots}: launches {got}")
+            for kind, r in h.results.items():
+                # Monotone wherever the running interval is one: a query
+                # that touches no stratum has tier 0's inverted AVG
+                # envelope (+-3.4e38), which the merge collapses.
+                lo, hi = host(r.ci_lo), host(r.ci_hi)
+                proper = prev[kind][0] <= prev[kind][1]
+                if not ((lo >= prev[kind][0])[proper].all()
+                        and (hi <= prev[kind][1])[proper].all()
+                        and (lo <= hi)[proper].all()):
+                    raise AssertionError(f"{tag} tier {slots} {kind}: the "
+                                         "interval widened")
+                prev[kind] = (lo, hi)
+            widths.append(h.width())
+            if rnd == 1:
+                per_tier.append({"slots": slots, "ms": start.elapsed_time(
+                    end), "host_ms": host_ms_, "launches": got})
+        require_same(f"{tag} last tier against answer()", h.last_step, plain,
+                     KINDS)
+    inside = {k: float(np.mean(
+        (host(plain[k].estimate) >= host(h.results[k].ci_lo))
+        & (host(plain[k].estimate) <= host(h.results[k].ci_hi))))
+        for k in KINDS}
+    est_same = {k: float(np.mean(bits_of(h.results[k].estimate)
+                                 == bits_of(plain[k].estimate)))
+                for k in KINDS}
+
+    # max_ci_width on sum/count/avg: a width a middle tier reaches stops
+    # the ladder there; one tier 0 meets takes no tier.
+    sv3 = ServingConfig(kinds=BOOT_KINDS)
+    e3 = PassEngine(syn, sv3, ci=0.95)
+    h = e3.answer_progressive(q)
+    w3 = [h.width()]
+    while not h.done:
+        h.refine()
+        w3.append(h.width())
+    target = w3[-2] if w3[-2] < w3[0] else w3[0]
+    stop = min(t for t, w in enumerate(w3) if w <= target)
+    steps = {}
+    for name, width in (("middle", target), ("met_by_tier0", 1e40)):
+        e = PassEngine(syn, sv3, ci=0.95)
+        e.answer(q, ci=CIConfig(level=0.95, max_ci_width=width))
+        steps[name] = e.stats()["refine_steps"]
+    if steps != {"middle": stop, "met_by_tier0": 0} or stop >= len(tiers):
+        raise AssertionError(f"{tag} max_ci_width: steps {steps}, widths "
+                             f"{w3}")
+    out = {"tier0_first_ms": tier0_first_ms,
+           "tier0_host_ms": statistics.median(tier0_ms),
+           "plan_queries_ms": plan_ms, "tiers": per_tier,
+           "covered_queries": int(c_lo.shape[0]),
+           "covered_avg_bit_equal": avg_same,
+           "covered_avg_max_abs_err": avg_err,
+           "plain_estimate_inside_final_interval": inside,
+           "final_estimate_bit_equal_share": est_same,
+           "widths_sum_count_avg": w3, "max_ci_width_steps": steps,
+           "seconds": time.perf_counter() - t_phase}
+    emit(phase=f"16 ladder {tag}", card=card, **out)
+    return out
+
+
+def padded_class_check(torch, tag, run) -> dict:
+    """Rows of a short batch against the same rows padded with empty rows
+    to the next coalescer class: Q = 1, 3, 8 (class 128), 240 (512) and
+    2048 (4096, two classes of 2048), all five kinds, ci=0.95, bit for
+    bit."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.serve import PAD_HI, PAD_LO
+    syn, q = run["syn"], run["q"]
+    eng = PassEngine(syn, ServingConfig(kinds=KINDS), ci=0.95)
+    d = q.lo.shape[1]
+    checked = {}
+    for n, cls in ((1, 128), (3, 128), (8, 128), (240, 512), (2048, 4096)):
+        pad = QueryBatch(
+            torch.cat([q.lo[:n], torch.full((cls - n, d), PAD_LO,
+                                            device=q.lo.device)]),
+            torch.cat([q.hi[:n], torch.full((cls - n, d), PAD_HI,
+                                            device=q.lo.device)]))
+        sub = QueryBatch(q.lo[:n].contiguous(), q.hi[:n].contiguous())
+        require_same(f"{tag} Q={n} against class {cls}", eng.answer(sub),
+                     eng.answer(pad), KINDS, rows=n)
+        checked[n] = cls
+    emit(check="rows_against_padded_class", path=tag, checked=checked,
+         ok=True)
+    return checked
+
+
+def tenant_batches(torch, c, sizes, seed: int, stream=None) -> list:
+    """One random query batch a tenant on the card; made on ``stream``
+    when given (another stream than the tick's)."""
+    from repro_torch.core.query import random_queries
+    from repro_torch.core.types import QueryBatch
+    out = []
+    for i, n in enumerate(sizes):
+        qb = random_queries(c, int(n), seed=seed + i)
+        if stream is not None:
+            with torch.cuda.stream(stream):
+                qb = QueryBatch(qb.lo * 1.0, qb.hi * 1.0)
+        out.append(qb)
+    return out
+
+
+def coalescer_path(torch, run, c, card) -> dict:
+    """17. The coalescer on the 1-D synopsis: 16 tenants of 16-240 rows
+    (from a seed, ~2048 rows), CoalescerConfig(shape_classes=(128, 512,
+    2048)), all five kinds, ci=0.95: one tick, fewer dispatches than
+    requests, each serving kernel once a dispatch, every tenant's demuxed
+    result the bits of its own PassEngine.answer; then 4 tenants under the
+    fused bootstrap (sum/count/avg, R = 200), bootstrap_moments once a
+    dispatch, bit-equal; then the 16 tenants under TickDriver, their
+    queries made on a side stream: every future resolves, bit-equal, no
+    failure. Times: the coalesced round (submit, tick, results on the
+    host) and the per-tenant sequential round (answer, results on the
+    host), host clock, warm."""
+    from repro_torch.api import CoalescerConfig, PassEngine, ServingConfig
+    from repro_torch.kernels import native
+    from repro_torch.serve import RequestCoalescer, TickDriver
+    from repro_torch.serve.coalescer import host_results
+    t_phase = time.perf_counter()
+    syn = run["syn"]
+    sizes = np.random.default_rng(17).integers(16, 241, 16)
+    cfg = CoalescerConfig(shape_classes=(128, 512, 2048))
+    sv = ServingConfig(kinds=KINDS)
+    qs = tenant_batches(torch, c, sizes, seed=300)
+    ref = PassEngine(syn, sv, ci=0.95)
+    want = [host_results(ref.answer(qb)) for qb in qs]
+
+    eng = PassEngine(syn, sv, ci=0.95)
+    co = RequestCoalescer(eng, cfg)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    futs = [co.submit(f"t{i}", qb) for i, qb in enumerate(qs)]
+    n_disp = co.tick()
+    launches = launches_now(native)
+    if not 0 < n_disp < len(qs):
+        raise AssertionError(f"coalescer: {n_disp} dispatches for "
+                             f"{len(qs)} requests")
+    each = {"query_eval": n_disp, "stratified_moments": n_disp,
+            "sample_extremes": n_disp}
+    if launches != each:
+        raise AssertionError(f"coalescer: launches {launches} != {each}")
+    for i, f in enumerate(futs):
+        if f.exception(timeout=60) is not None:
+            raise AssertionError(f"coalescer t{i}: {f.exception()!r}")
+        require_same(f"coalescer t{i} ({sizes[i]} rows)", f.result(), want[i],
+                     KINDS)
+    stats = co.stats()
+
+    def coalesced_round():
+        fs = [co.submit(f"t{i}", qb) for i, qb in enumerate(qs)]
+        co.tick()
+        return [f.result(timeout=60) for f in fs]
+
+    def sequential_round():
+        return [host_results(ref.answer(qb)) for qb in qs]
+
+    rounds = {"coalesced": [], "sequential": []}
+    for _ in range(5):
+        for name, fn in (("coalesced", coalesced_round),
+                         ("sequential", sequential_round)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            rounds[name].append((time.perf_counter() - t0) * 1e3)
+
+    # Fused bootstrap tenants.
+    bsv = ServingConfig(kinds=BOOT_KINDS)
+    beng = PassEngine(syn, bsv, boot_ci())
+    bref = PassEngine(syn, bsv, boot_ci())
+    bco = RequestCoalescer(beng, cfg)
+    bwant = [host_results(bref.answer(qb)) for qb in qs[:4]]
+    native.reset_launches()
+    bfuts = [bco.submit(f"b{i}", qb) for i, qb in enumerate(qs[:4])]
+    b_disp = bco.tick()
+    blaunch = launches_now(native)
+    if blaunch != {"query_eval": b_disp, "stratified_moments": b_disp,
+                   "bootstrap_moments": b_disp} or not 0 < b_disp < 4:
+        raise AssertionError(f"coalescer bootstrap: {b_disp} dispatches, "
+                             f"launches {blaunch}")
+    for i, f in enumerate(bfuts):
+        require_same(f"coalescer bootstrap b{i}", f.result(timeout=60),
+                     bwant[i], BOOT_KINDS)
+    del beng, bref, bco
+    torch.cuda.empty_cache()
+
+    # TickDriver, queries written on a side stream.
+    side = torch.cuda.Stream()
+    sq = tenant_batches(torch, c, sizes, seed=300, stream=side)
+    dco = RequestCoalescer(PassEngine(syn, sv, ci=0.95),
+                           CoalescerConfig(shape_classes=(128, 512, 2048),
+                                           tick_ms=1.0, max_outstanding=4,
+                                           max_queue_depth=64))
+    native.reset_launches()
+    with TickDriver(dco):
+        with torch.cuda.stream(side):
+            dfuts = [dco.submit(f"t{i}", qb) for i, qb in enumerate(sq)]
+        for i, f in enumerate(dfuts):
+            require_same(f"driver t{i}", f.result(timeout=120), want[i],
+                         KINDS)
+    dstats = dco.stats()
+    if dstats["failed"] or dstats["served"] != len(sq) or \
+            dstats["driver_errors"]:
+        raise AssertionError(f"driver: {dstats}")
+    out = {"tenants": len(qs), "rows": int(sizes.sum()),
+           "sizes": sizes.tolist(), "dispatches": n_disp,
+           "padded_rows": stats["padded_rows"], "launches": launches,
+           "coalesced_round_ms": statistics.median(rounds["coalesced"]),
+           "sequential_round_ms": statistics.median(rounds["sequential"]),
+           "rounds_ms": rounds, "bootstrap_dispatches": b_disp,
+           "bootstrap_launches": blaunch,
+           "driver_dispatches": dstats["dispatches"],
+           "driver_launches": launches_now(native),
+           "seconds": time.perf_counter() - t_phase}
+    emit(phase="17 coalescer 1d", card=card, **out)
+    return out
+
+
+def checkpoint_path(torch, run1, run3, s1, card, tmp: Path) -> dict:
+    """18. Checkpoints and faults on the 1-D stream: StreamingIngestor(phase
+    4's synopsis, seed=11) ingests 32 of phase 8's batches, the engine is
+    checkpointed and restored into a fresh engine, both ingest 32 more: the
+    states torch.equal, the answers (all five kinds, ci=0.95) bit-equal,
+    segment_reduce launched by the restored ingestor. The 3-D synopsis
+    round-trips with bit-equal answers. A FaultPlan poisons every 5th of 32
+    batches (out-of-box coordinates): the quarantine counter equals the
+    poisoned rows, and the state equals, torch.equal, a clean run whose
+    same batches carry non-finite coordinates. The file sizes and the save
+    and restore seconds are recorded."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.kernels import native
+    from repro_torch.streaming import StreamingIngestor
+    from repro_torch.streaming.ingest import STATE_FIELDS
+    from repro_torch.testing import FaultPlan, inject
+    t_phase = time.perf_counter()
+    tmp.mkdir(parents=True, exist_ok=True)
+    syn, q = run1["syn"], run1["q"]
+    batches = s1["batches"][:64]
+    sv = ServingConfig(kinds=KINDS)
+
+    def equal_states(tag, a, b):
+        for f in STATE_FIELDS:
+            if not torch.equal(getattr(a, f), getattr(b, f)):
+                raise AssertionError(f"{tag}: state.{f} differs")
+
+    ing = StreamingIngestor(syn, seed=11)
+    for cb, ab in batches[:32]:
+        ing.ingest(cb, ab)
+    eng = PassEngine(ing, sv, ci=0.95)
+    want = host_of(eng.answer(q))
+    path = tmp / "stream.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.checkpoint(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng2 = PassEngine.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require_same("restored stream, at the checkpoint", eng2.answer(q), want,
+                 KINDS)
+    src2 = eng2.source
+    equal_states("restored stream, at the checkpoint", src2.state, ing.state)
+    native.reset_launches()
+    for cb, ab in batches[32:]:
+        src2.ingest(cb, ab)
+    restored_launches = launches_now(native)
+    if restored_launches != {"segment_reduce": 32}:
+        raise AssertionError(f"restored ingest launched {restored_launches}")
+    for cb, ab in batches[32:]:
+        ing.ingest(cb, ab)
+    equal_states("restored stream, 32 batches on", src2.state, ing.state)
+    require_same("restored stream, 32 batches on", eng2.answer(q),
+                 eng.answer(q), KINDS)
+    stream_mb = path.stat().st_size / 2 ** 20
+
+    # The 3-D synopsis.
+    eng3 = PassEngine(run3["syn"], sv, ci=0.95)
+    path3 = tmp / "syn3d.npz"
+    t0 = time.perf_counter()
+    eng3.checkpoint(path3)
+    save3_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r3 = PassEngine.restore(path3)
+    restore3_s = time.perf_counter() - t0
+    require_same("restored 3-D synopsis", r3.answer(run3["q"]),
+                 eng3.answer(run3["q"]), KINDS)
+
+    # Faults: 32 batches, every 5th poisoned with out-of-box coordinates.
+    c_all = np.concatenate([cb for cb, _ in batches[:32]])
+    box = ([float(c_all.min())], [float(c_all.max())])
+    with inject(FaultPlan(seed=18, poison_every=5, poison_mode="oob")) as inj:
+        chaotic = StreamingIngestor(syn, seed=11, quarantine_box=box)
+        for cb, ab in batches[:32]:
+            chaotic.ingest(cb, ab)
+        faults = PassEngine(chaotic, sv).stats()["faults"]
+    clean = StreamingIngestor(syn, seed=11, quarantine_box=box)
+    poisoned_rows = 0
+    for i, (cb, ab) in enumerate(batches[:32], start=1):
+        if i % 5 == 0:
+            poisoned_rows += ab.shape[0]
+            cb = np.full_like(cb, np.inf)
+        clean.ingest(cb, ab)
+    if (chaotic.n_quarantined != poisoned_rows
+            or inj.snapshot() != {"poisoned_batches": 6}
+            or faults["quarantined_rows"] != poisoned_rows):
+        raise AssertionError(f"fault drill: quarantined "
+                             f"{chaotic.n_quarantined}, poisoned "
+                             f"{poisoned_rows}, {inj.snapshot()}, {faults}")
+    equal_states("fault drill against its clean run", chaotic.state,
+                 clean.state)
+    out = {"stream_file_mb": stream_mb, "save_s": save_s,
+           "restore_s": restore_s,
+           "syn3d_file_mb": path3.stat().st_size / 2 ** 20,
+           "save3d_s": save3_s, "restore3d_s": restore3_s,
+           "restored_launches": restored_launches,
+           "poisoned_rows": poisoned_rows, "faults": faults,
+           "seconds": time.perf_counter() - t_phase}
+    emit(phase="18 checkpoint and faults", card=card, **out)
+    path.unlink()
+    path3.unlink()
+    return out
+
+
+def host_of(res) -> dict:
+    """A result dict on the host, one copy (the coalescer's demux pull)."""
+    from repro_torch.serve.coalescer import host_results
+    return host_results(res)
 
 
 def check_plan_constants() -> None:
@@ -2844,6 +3369,19 @@ def main(argv=None) -> int:
     del bt["W"]
     b3k = boot_kernel_3d(torch, run3, card, base)
 
+    # 16. The degradation ladder, 1-D and 3-D.
+    lad1 = ladder_path(torch, "1d", run1, card)
+    lad3 = ladder_path(torch, "3d", run3, card)
+
+    # 17. The coalescer, 1-D; rows against their padded class, 1-D and 3-D.
+    padded_class_check(torch, "1d", run1)
+    padded_class_check(torch, "3d", run3)
+    coal = coalescer_path(torch, run1, c1, card)
+
+    # 18. Checkpoints and faults on the 1-D stream.
+    ckpt = checkpoint_path(torch, run1, run3, s1, card,
+                           ROOT / "build" / "chip_smoke_checkpoints")
+
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
     # 4096) with the launches of the whole stream (1-D for segment_reduce,
@@ -3011,6 +3549,35 @@ def main(argv=None) -> int:
             "max_abs_err": max(edge_w[name], bk["errs"][name]),
             "bound_ms": bb[name]["bound_ms"],
             "bound_by": bb[name]["bound_by"], **row})
+    # Launches on the serve layer's paths (phases 16-18), each read right
+    # after its own window: one ladder tier, one coalesced tick of 16
+    # tenants, one coalesced tick of 4 bootstrap tenants, the restored
+    # ingestor's 32 batches.
+    serve_launches = {
+        "query_eval": {"launches_ladder_tier": 1,
+                       "launches_coalesced_tick": coal["launches"][
+                           "query_eval"]},
+        "stratified_moments": {"launches_ladder_tier": 1,
+                               "launches_coalesced_tick": coal["launches"][
+                                   "stratified_moments"]},
+        "sample_extremes": {"launches_ladder_tier": 1,
+                            "launches_coalesced_tick": coal["launches"][
+                                "sample_extremes"]},
+        "bootstrap_moments": {"launches_coalesced_bootstrap_tick": coal[
+            "bootstrap_launches"]["bootstrap_moments"]},
+        "segment_reduce": {"launches_restored_stream": ckpt[
+            "restored_launches"]["segment_reduce"]},
+    }
+    for row in rows:
+        row.update(serve_launches.get(row["name"], {}))
+    emit(phase="serve summary", ladder_1d=lad1["tiers"],
+         ladder_3d=lad3["tiers"], tier0_host_ms={
+             "1d": lad1["tier0_host_ms"], "3d": lad3["tier0_host_ms"]},
+         coalesced_round_ms=coal["coalesced_round_ms"],
+         sequential_round_ms=coal["sequential_round_ms"],
+         checkpoint={k: ckpt[k] for k in ("stream_file_mb", "save_s",
+                                           "restore_s", "syn3d_file_mb",
+                                           "save3d_s", "restore3d_s")})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

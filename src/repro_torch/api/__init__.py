@@ -1,7 +1,7 @@
 """The serving front door: ``PassEngine`` and its frozen configs."""
-from .config import (ServingConfig, CIConfig, as_ci_config,
+from .config import (ServingConfig, CIConfig, CoalescerConfig, as_ci_config,
                      merge_overrides)
 from .engine import PassEngine, PreparedQuery
 
 __all__ = ["PassEngine", "PreparedQuery", "ServingConfig", "CIConfig",
-           "as_ci_config", "merge_overrides"]
+           "CoalescerConfig", "as_ci_config", "merge_overrides"]

@@ -5,10 +5,8 @@ default, field for field the JAX package's. Both are immutable, so a
 config can key the engine's prepared-plan cache: :meth:`cache_key`
 returns a hashable token.
 
-Differences from the reference: ``ServingConfig.backend`` must be None
-(the port picks each kernel by the device of its tensors), and
-``CIConfig`` has no ``max_ci_width`` yet: the progressive-refinement stop
-width comes with the slice that serves it (ROADMAP Queue 1 item 9).
+The one difference from the reference: ``ServingConfig.backend`` must
+be None (the port picks each kernel by the device of its tensors).
 """
 from __future__ import annotations
 
@@ -111,6 +109,14 @@ class CIConfig:
                           ``bootstrap_moments`` kernel; False runs the
                           per-replicate reference loop. The two are
                           bit-identical for the same key.
+    ``max_ci_width``      progressive-refinement stop criterion: when set,
+                          ``PassEngine.answer`` serves through the
+                          degradation ladder (``serve/refine.py``) and
+                          stops refining once every query's interval width
+                          (ci_hi - ci_lo) is at most this value, or the
+                          samples run out. None disables it. Not part of
+                          the plan-cache key: every ladder tier shares the
+                          prepared entries of plain serving.
     """
     level: float = 0.95
     method: str = "clt"
@@ -120,6 +126,7 @@ class CIConfig:
     key: object = dataclasses.field(default=None, compare=False)
     boot_normalize: str = "hajek"
     boot_fused: bool = True
+    max_ci_width: float | None = None
 
     def validate(self) -> "CIConfig":
         if not 0.0 < self.level < 1.0:
@@ -131,12 +138,79 @@ class CIConfig:
             raise ValueError(f"unknown delta_budget: {self.delta_budget!r}")
         if self.boot_normalize not in BOOT_NORMALIZE:
             raise ValueError(f"unknown normalize: {self.boot_normalize!r}")
+        if self.max_ci_width is not None and self.max_ci_width <= 0.0:
+            raise ValueError(
+                f"max_ci_width must be > 0 or None, got {self.max_ci_width}")
         return self
 
     def cache_key(self) -> tuple:
+        # max_ci_width is a stop criterion of the ladder, not a property of
+        # the serving function, so it stays out of the key.
         return (float(self.level), self.method, int(self.small_n_threshold),
                 self.delta_budget, int(self.n_boot), _key_token(self.key),
                 self.boot_normalize, self.boot_fused)
+
+
+@dataclasses.dataclass(frozen=True)
+class CoalescerConfig:
+    """Multi-tenant request-coalescer configuration (``serve/coalescer.py``).
+
+    ``tick_ms``           coalescing window: how long the ``TickDriver``
+                          sleeps between ticks. Every request queued when a
+                          tick fires rides that tick's dispatches (the
+                          synchronous mode ignores it and ticks on demand).
+    ``shape_classes``     ascending padded-batch ladder. A dispatch is padded
+                          up to the smallest class holding its rows, so each
+                          bucket reuses one prepared entry per (class x
+                          config); oversized requests round up to a multiple
+                          of the largest class.
+    ``max_outstanding``   per-tenant admission budget: submitted but not yet
+                          served requests beyond it are shed with
+                          ``Overloaded``.
+    ``max_queue_depth``   global queued-request bound; submissions past it
+                          are shed whatever the tenant.
+    ``wait_window``       per-tenant queue-wait samples kept for the p50/p95
+                          in ``stats()``.
+    """
+    tick_ms: float = 2.0
+    shape_classes: tuple[int, ...] = (8, 32, 128)
+    max_outstanding: int = 8
+    max_queue_depth: int = 256
+    wait_window: int = 1024
+
+    def __post_init__(self):
+        object.__setattr__(self, "shape_classes",
+                           tuple(int(s) for s in self.shape_classes))
+
+    def validate(self) -> "CoalescerConfig":
+        if self.tick_ms <= 0.0:
+            raise ValueError(f"tick_ms must be > 0, got {self.tick_ms}")
+        if not self.shape_classes:
+            raise ValueError("shape_classes must be non-empty")
+        if any(s <= 0 for s in self.shape_classes):
+            raise ValueError(
+                f"shape_classes must be positive, got {self.shape_classes}")
+        if tuple(sorted(self.shape_classes)) != self.shape_classes:
+            raise ValueError(
+                f"shape_classes must be ascending, got {self.shape_classes}")
+        if self.max_outstanding < 1:
+            raise ValueError("max_outstanding must be >= 1")
+        if self.max_queue_depth < 1:
+            raise ValueError("max_queue_depth must be >= 1")
+        if self.wait_window < 1:
+            raise ValueError("wait_window must be >= 1")
+        return self
+
+    def padded_size(self, q: int) -> int:
+        """Rows -> padded batch size: the smallest class that holds them,
+        or a multiple of the largest class past the top."""
+        if q < 1:
+            raise ValueError(f"padded_size needs >= 1 rows, got {q}")
+        for s in self.shape_classes:
+            if q <= s:
+                return s
+        top = self.shape_classes[-1]
+        return -(-q // top) * top
 
 
 def as_ci_config(ci) -> CIConfig | None:
@@ -152,5 +226,6 @@ def merge_overrides(cfg, **overrides):
     return dataclasses.replace(cfg, **real) if real else cfg
 
 
-__all__ = ["ServingConfig", "CIConfig", "as_ci_config", "merge_overrides",
+__all__ = ["ServingConfig", "CIConfig", "CoalescerConfig", "as_ci_config",
+           "merge_overrides",
            "KINDS", "CI_METHODS", "DELTA_BUDGETS", "BOOT_NORMALIZE"]

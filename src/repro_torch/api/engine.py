@@ -23,6 +23,14 @@ compile step yet, so ``aot_compiles`` stays 0.
 (``engine.planner.plan_queries``): its leaf masks and exact aggregates
 replace the ``query_eval`` classification, for plain, CLT and bootstrap
 serving alike.
+
+``answer(queries, deadline_ms=...)`` and ``CIConfig(max_ci_width=...)``
+serve through the degradation ladder (``serve/refine.py``): a tier-0
+answer from the aggregate tree on the host, then sample tiers on the
+device; ``answer_progressive`` returns the ladder's handle. A
+:class:`~repro_torch.serve.RequestCoalescer` built on an engine attaches
+to it, and ``checkpoint`` / ``restore`` round-trip a synopsis or streaming
+source through one ``.npz`` (``serve/checkpoint.py``).
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ from ..core.types import QueryBatch, QueryResult
 from ..device import resolve_device
 from ..engine import executor as _executor
 from ..engine.assemble import answer_batch
+from ..testing import faults as _faults
 from ..uncertainty.bootstrap import BOOT_KINDS, bootstrap_answer, key_tensor
 from ..uncertainty.intervals import ci_answer
 from .config import ServingConfig, CIConfig, as_ci_config
@@ -160,8 +169,16 @@ class PreparedQuery:
         if (self.ci is not None and self.ci.method == "bootstrap"
                 and self.ci.boot_fused):
             self._engine._stats["fused_serves"] += 1
-        return self._run(self._syn, queries.to(self._engine.device),
-                         plan_masks)
+        queries = queries.to(self._engine.device)
+        n = queries.lo.shape[0]
+        if n >= _executor.MIN_ROWS:
+            return self._run(self._syn, queries, plan_masks)
+        # A short batch is served at MIN_ROWS rows, so its rows have the
+        # bits they would have in any larger batch.
+        queries, plan_masks = _executor.pad_rows(queries, plan_masks,
+                                                 _executor.MIN_ROWS)
+        return _executor.take_rows(self._run(self._syn, queries, plan_masks),
+                                   n)
 
 
 class PassEngine:
@@ -188,9 +205,12 @@ class PassEngine:
         self._plan_cache_size = int(plan_cache_size)
         self._cache: OrderedDict[tuple, PreparedQuery] = OrderedDict()
         self._generation = 0
+        self._coalescer = None
         self._stats = {"hits": 0, "misses": 0, "evictions": 0,
                        "invalidations": 0, "aot_compiles": 0,
-                       "fused_serves": 0}
+                       "fused_serves": 0, "tier0_serves": 0,
+                       "refine_steps": 0, "degraded_serves": 0}
+        self._refine_ewma_ms = 0.0
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -201,14 +221,27 @@ class PassEngine:
     def from_catalog(cls, *args, **kwargs):
         raise _not_ported("PassEngine.from_catalog", "item 11, partitions/")
 
-    @classmethod
-    def restore(cls, *args, **kwargs):
-        raise _not_ported("PassEngine.restore",
-                          "item 9, serve/checkpoint.py")
+    # -- checkpoint / restore (DESIGN.md §15) ------------------------------
+    def checkpoint(self, path) -> dict:
+        """Snapshot the serving state (synopsis or streaming reservoir and
+        delta) at an epoch boundary into one ``.npz``; see
+        :func:`repro_torch.serve.checkpoint.save_engine`. Returns the
+        metadata dict that was written."""
+        from ..serve.checkpoint import save_engine
+        return save_engine(self, path)
 
-    def checkpoint(self, *args, **kwargs):
-        raise _not_ported("PassEngine.checkpoint",
-                          "item 9, serve/checkpoint.py")
+    @classmethod
+    def restore(cls, path, *, serving: ServingConfig | None = None,
+                ci: CIConfig | float | None = None, mesh=None,
+                plan_cache_size: int = 32, device=None) -> "PassEngine":
+        """Rebuild an engine from a :meth:`checkpoint` file (one the JAX
+        package wrote too), bit-identical on the serving path; see
+        :func:`repro_torch.serve.checkpoint.load_engine`. ``serving=`` /
+        ``ci=`` default to the checkpointed configs; ``device=None`` serves
+        on the CUDA card."""
+        from ..serve.checkpoint import load_engine
+        return load_engine(cls, path, serving=serving, ci=ci, mesh=mesh,
+                           plan_cache_size=plan_cache_size, device=device)
 
     # -- source ------------------------------------------------------------
     @property
@@ -267,9 +300,29 @@ class PassEngine:
 
     def stats(self) -> dict:
         """Plan-cache counters, ``fused_serves`` (answers served through
-        the fused bootstrap kernel), the current entry count and the source
-        epoch."""
-        return dict(self._stats, entries=len(self._cache), epoch=self.epoch)
+        the fused bootstrap kernel), the ladder's ``tier0_serves``,
+        ``refine_steps`` and ``degraded_serves``, the current entry count
+        and the source epoch; ``"faults"`` (:meth:`_fault_snapshot`), and
+        ``"coalescer"`` when a request coalescer is attached."""
+        out = dict(self._stats, entries=len(self._cache), epoch=self.epoch)
+        if self._coalescer is not None:
+            out["coalescer"] = self._coalescer.stats()
+        out["faults"] = self._fault_snapshot()
+        return out
+
+    def _fault_snapshot(self) -> dict:
+        """Containment observability (DESIGN.md §15): a streaming source's
+        quarantined row count, and the injected event counts when a fault
+        harness is installed. (The sharded and catalog sources' containment
+        counters come with them, ROADMAP Queue 1 items 12 and 11.)"""
+        faults: dict = {}
+        src = self._source
+        if hasattr(src, "n_quarantined"):
+            faults["quarantined_rows"] = src.n_quarantined
+        inj = _faults.active()
+        if inj is not None:
+            faults["injected"] = inj.snapshot()
+        return faults
 
     # -- serving -----------------------------------------------------------
     def prepare(self, queries_or_shape, *, kinds=None, ci=_UNSET,
@@ -293,20 +346,47 @@ class PassEngine:
         ``ci=`` / ``serving=`` override the engine configs for this call.
         ``plan=`` injects a planner ``QueryPlan`` whose masks replace the
         leaf classification; plan-carrying calls have their own plan-cache
-        slot per shape x config."""
-        if deadline_ms is not None:
-            raise _not_ported("answer(deadline_ms=...)",
-                              "item 9, serve/refine.py")
+        slot per shape x config.
+
+        ``deadline_ms=`` (or ``CIConfig(max_ci_width=...)``) switches to
+        the degradation ladder (DESIGN.md §15): a tier-0 aggregates-only
+        answer from the planner descent and the §2.3 hard bounds (host
+        numpy, no sample work), then refined through growing sample slices
+        until the width target or the deadline is met. A tier starts only
+        when its EWMA-predicted latency still fits the deadline. The
+        ladder's results are host numpy."""
         sv, cfg = self._effective(kinds, ci, serving)
+        if (deadline_ms is not None
+                or (cfg is not None and cfg.max_ci_width is not None
+                    and plan is None)):
+            if plan is not None:
+                raise ValueError(
+                    "deadline_ms cannot be combined with plan=; the "
+                    "ladder plans tier 0 itself")
+            return self.answer_progressive(
+                queries, kinds=kinds, ci=ci, serving=serving,
+                deadline_ms=deadline_ms).run()
         shape = tuple(queries.lo.shape)
         if plan is not None:
             return self._lookup(shape, sv, cfg, has_plan=True)(
                 queries, _executor.plan_to_masks(plan, self.device))
         return self._lookup(shape, sv, cfg)(queries)
 
-    def answer_progressive(self, *args, **kwargs):
-        raise _not_ported("PassEngine.answer_progressive",
-                          "item 9, serve/refine.py")
+    def answer_progressive(self, queries: QueryBatch, *, kinds=None,
+                           ci=_UNSET, serving: ServingConfig | None = None,
+                           deadline_ms: float | None = None):
+        """Start the degradation ladder and return its
+        :class:`~repro_torch.serve.RefinementHandle`: ``handle.results``
+        holds the tier-0 answer at once; ``refine()`` / ``final()`` /
+        ``run()`` tighten it from growing sample slices."""
+        from ..serve.refine import RefinementHandle
+        sv, cfg = self._effective(kinds, ci, serving)
+        if sv.sample_slots is not None:
+            raise ValueError(
+                "sample_slots is managed by the ladder itself; pass a "
+                "serving config without it")
+        return RefinementHandle(self, queries, sv, cfg,
+                                deadline_ms=deadline_ms)
 
     def answer_join(self, *args, **kwargs):
         raise _not_ported("PassEngine.answer_join", "item 10, joins/")

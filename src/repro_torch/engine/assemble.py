@@ -29,7 +29,9 @@ KINDS = ("sum", "count", "avg", "min", "max")
 
 
 def _fpc(n_rows, k_leaf):
-    """Finite population correction (N-K)/(N-1), clamped to [0, 1]."""
+    """Finite population correction (N-K)/(N-1), clamped to [0, 1] (the
+    reference's ``jnp.clip``). The quotient is never -0.0 (N >= 1), and on
+    every other input ``clamp`` gives XLA's bits."""
     n = torch.clamp(n_rows, min=1.0)
     return torch.clamp((n - k_leaf) / torch.clamp(n - 1.0, min=1.0), 0.0, 1.0)
 
@@ -58,9 +60,9 @@ def avg_ratio_terms(syn: Synopsis, art: Artifacts, use_fpc: bool = True):
     C = torch.clamp(c_hat_i.sum(1), min=1.0)
     est = S / C
     p = k_pred / Ki
-    var_s = (Ni * Ni * torch.clamp(s_sumsq / Ki - (s_sum / Ki) ** 2, min=0.0)
+    var_s = (Ni * Ni * minmax.max0(s_sumsq / Ki - (s_sum / Ki) ** 2)
              / Ki * fpc)
-    var_c = Ni * Ni * torch.clamp(p - p * p, min=0.0) / Ki * fpc
+    var_c = Ni * Ni * minmax.max0(p - p * p) / Ki * fpc
     cov_sc = Ni * Ni * (s_sum / Ki) * (1.0 - p) / Ki * fpc
     return est, C, sampled, var_s, var_c, cov_sc
 
@@ -101,17 +103,15 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
             mean_phi = k_pred / Ki
             mean_phi2 = k_pred / Ki
         est = exact + (partf * est_part).sum(1)
-        var_phi = Ni * Ni * torch.clamp(mean_phi2 - mean_phi ** 2, min=0.0)
+        var_phi = Ni * Ni * minmax.max0(mean_phi2 - mean_phi ** 2)
         v_i = var_phi / Ki * fpc
         ci = lam * torch.sqrt((partf * v_i).sum(1))
         # Hard bounds (§2.3, sign-generalized).
         if kind == "sum":
-            p_ub = torch.minimum(Ni * torch.clamp(leaf_max, min=0.0),
-                                 leaf_sum - Ni * torch.clamp(leaf_min,
-                                                             max=0.0))
-            p_lb = torch.maximum(Ni * torch.clamp(leaf_min, max=0.0),
-                                 leaf_sum - Ni * torch.clamp(leaf_max,
-                                                             min=0.0))
+            p_ub = minmax.minimum(Ni * minmax.max0(leaf_max),
+                                  leaf_sum - Ni * minmax.min0(leaf_min))
+            p_lb = minmax.maximum(Ni * minmax.min0(leaf_min),
+                                  leaf_sum - Ni * minmax.max0(leaf_max))
         else:
             p_ub = leaf_cnt
             p_lb = torch.zeros_like(leaf_cnt)
@@ -145,7 +145,7 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
             w = relf * Ni / Nq                           # (Q, k)
             est = (w * mean_i * relf).sum(1)
             e_phi2 = (Ki / kp) ** 2 * (s_sumsq / Ki)
-            var_phi = torch.clamp(e_phi2 - mean_samp ** 2, min=0.0)
+            var_phi = minmax.max0(e_phi2 - mean_samp ** 2)
             v_i = var_phi / Ki * fpc
             ci = lam * torch.sqrt((sampf * (w ** 2) * v_i).sum(1))
         else:
@@ -157,8 +157,8 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
             VS = (sampf_r * var_s).sum(1)
             VC = (sampf_r * var_c).sum(1)
             CSC = (sampf_r * cov_sc).sum(1)
-            var_ratio = (torch.clamp(VS - 2 * est * CSC + est * est * VC,
-                                     min=0.0) / (C * C))
+            var_ratio = (minmax.max0(VS - 2 * est * CSC + est * est * VC)
+                         / (C * C))
             ci = lam * torch.sqrt(var_ratio)
 
         # Hard bounds (§2.3): any relevant stratum counts.
@@ -170,13 +170,15 @@ def assemble(syn: Synopsis, art: Artifacts, kind: str = "sum",
             avg_cover = c_sum / torch.clamp(c_cnt, min=1.0)
             part_only = partial_m & ~cover_like
             p_any = part_only.any(1)
-            pmax = torch.where(part_only, leaf_max, -_BIG).amax(1)
-            pmin = torch.where(part_only, leaf_min, _BIG).amin(1)
+            # The bounds are outputs: their MIN/MAX follow the reference's
+            # signed-zero rule (a stratum's extreme may be -0.0 or +0.0).
+            pmax = minmax.masked_max(leaf_max, part_only, -_BIG, 1)
+            pmin = minmax.masked_min(leaf_min, part_only, _BIG, 1)
             upper = torch.where(has_cover & p_any,
-                                torch.maximum(avg_cover, pmax),
+                                minmax.maximum(avg_cover, pmax),
                                 torch.where(has_cover, avg_cover, pmax))
             lower = torch.where(has_cover & p_any,
-                                torch.minimum(avg_cover, pmin),
+                                minmax.minimum(avg_cover, pmin),
                                 torch.where(has_cover, avg_cover, pmin))
         else:
             lower = torch.full_like(est, -_BIG)

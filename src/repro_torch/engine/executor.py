@@ -18,13 +18,27 @@ import dataclasses
 
 import torch
 
-from ..core.types import Synopsis, QueryBatch, NUM_AGGS, REL_PARTIAL, \
-    REL_COVER
+from ..core.types import Synopsis, QueryBatch, QueryResult, NUM_AGGS, \
+    REL_PARTIAL, REL_COVER
 from ..kernels import ops
 from .planner import QueryPlan
 
 # Execution counters for the artifact stages (see module docstring).
 OP_COUNTS = {"classify": 0, "moments": 0, "extremes": 0}
+
+# Pad rows: empty predicates (lo > hi) match no leaf and no sample. Finite,
+# so no distance or comparison in any kernel meets an inf.
+PAD_LO, PAD_HI = 3.0e38, -3.0e38
+
+# Batches of fewer rows are served padded to this many, so that a row's
+# bits do not depend on the batch it came in. The epilogue's float sums
+# over the k strata are PyTorch reductions, and CUDA's picks its block
+# shape from the number of rows: below 16 rows it gives each row more
+# threads and sums in another order (on an H100, 3-D rows at Q = 8 and 15
+# differed from the same rows at Q >= 16 in their last bits); from 16 rows
+# up every row had the same bits at every Q measured, up to 2048. The
+# coalescer promises a tenant's padded rows bit-equal to its own answer.
+MIN_ROWS = 16
 
 
 def reset_op_counts():
@@ -147,6 +161,27 @@ def slice_sample_slots(syn: Synopsis, slots: int | None) -> Synopsis:
         k_per_leaf=torch.clamp(syn.k_per_leaf, max=slots))
 
 
+def pad_rows(queries: QueryBatch, plan_masks, rows: int):
+    """The batch and its optional plan masks with pad rows appended up to
+    ``rows``: empty predicates, no covered or partial leaf, zero exact
+    aggregates. Returns (queries, plan_masks)."""
+    n, d = queries.lo.shape
+    pad = rows - n
+    lo = torch.cat([queries.lo, queries.lo.new_full((pad, d), PAD_LO)])
+    hi = torch.cat([queries.hi, queries.hi.new_full((pad, d), PAD_HI)])
+    if plan_masks is not None:
+        plan_masks = tuple(torch.cat([m, m.new_zeros((pad, m.shape[1]))])
+                           for m in plan_masks)
+    return QueryBatch(lo, hi), plan_masks
+
+
+def take_rows(results: dict, n: int) -> dict:
+    """The first n rows of every field of ``{kind: QueryResult}``."""
+    return {kind: QueryResult(**{
+        f.name: None if getattr(r, f.name) is None else getattr(r, f.name)[:n]
+        for f in dataclasses.fields(r)}) for kind, r in results.items()}
+
+
 def plan_to_masks(plan, device):
     """A planner :class:`~repro_torch.engine.planner.QueryPlan` as the
     (cover, partial, exact float32) tensor triple on ``device`` that
@@ -164,4 +199,5 @@ def plan_to_masks(plan, device):
 
 __all__ = ["Artifacts", "compute_artifacts", "resolve_synopsis",
            "slice_sample_slots", "count_artifact_pass", "plan_to_masks",
+           "pad_rows", "take_rows", "PAD_LO", "PAD_HI", "MIN_ROWS",
            "OP_COUNTS", "reset_op_counts"]

@@ -1,12 +1,15 @@
 """MIN and MAX under the JAX package's signed-zero rule.
 
-XLA's min and max, through which the JAX package's aggregates, extremes
-and boxes go, order -0.0 below +0.0 and propagate a NaN. PyTorch's
-``amin``, ``amax``, ``minimum``, ``maximum`` and ``scatter_reduce``
-propagate a NaN too, but of two zeros of either sign they keep whichever
-comes first. Every MIN/MAX of the port whose result is an aggregate, an
-extreme or a box goes through this module, so that its bits are the
-reference's.
+XLA's min and max, through which the JAX package's aggregates, extremes,
+boxes and epilogue bounds and clips go, order -0.0 below +0.0 and
+propagate a NaN. PyTorch's ``amin``, ``amax``, ``minimum``, ``maximum``,
+``clamp`` and ``scatter_reduce`` propagate a NaN too, but a tie of two
+zeros of either sign goes to whichever operand the code path keeps: on
+the CPU the reductions keep the first one met, and the elementwise ops
+the second operand in vectorized lanes and the first in the scalar tail,
+so the sign depends on a value's position. Every MIN/MAX of the port whose
+result is an aggregate, an extreme, a box or a bound of an answer goes
+through this module, so that its bits are the reference's on every device.
 
 Each function takes PyTorch's result and sets its sign only, from the
 integer min (max) of the operands' int32 bit patterns: that is negative
@@ -22,6 +25,7 @@ All tensors are float32.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -36,6 +40,30 @@ def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Elementwise max; +0.0 wins a tie of zeros."""
     return torch.maximum(a, b).copysign(torch.maximum(_bits(a), _bits(b)))
+
+
+def max0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum(x, 0.0)``: +0.0 for either zero and every x < 0, NaN
+    kept. ``threshold`` is ``x <= 0 ? 0 : x`` on both devices, one launch
+    (``clamp(x, min=0.0)`` keeps -0.0 on the CPU)."""
+    return F.threshold(x, 0.0, 0.0)
+
+
+def min0(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum(x, 0.0)``: +0.0 for every x > 0, x otherwise (-0.0
+    and NaN included). ``clamp(x, max=0.0)`` keeps x on a tie with +0.0,
+    which is XLA's answer for both zeros, on both devices."""
+    return torch.clamp(x, max=0.0)
+
+
+def clip(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor
+         ) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)`` = min(max(x, lo), hi) elementwise, the
+    operands broadcast; ties of zeros as XLA breaks them. The sign comes
+    from the same clip of the bit patterns (sign of max(x, lo) from their
+    integer max, of the min with hi from the integer min)."""
+    return torch.clamp(x, lo, hi).copysign(
+        torch.clamp(_bits(x), _bits(lo), _bits(hi)))
 
 
 def masked_min(x: torch.Tensor, mask: torch.Tensor, fill: float,
@@ -70,5 +98,5 @@ def scatter_max_(out: torch.Tensor, index: torch.Tensor,
     return out.scatter_reduce_(0, index, src, "amax").copysign_(sign)
 
 
-__all__ = ["minimum", "maximum", "masked_min", "masked_max", "scatter_min_",
-           "scatter_max_"]
+__all__ = ["minimum", "maximum", "max0", "min0", "clip", "masked_min", "masked_max",
+           "scatter_min_", "scatter_max_"]

@@ -1,0 +1,244 @@
+"""Epoch-consistent checkpoint/restore for ``PassEngine`` (DESIGN.md §15);
+the port of ``repro/serve/checkpoint.py``.
+
+One ``.npz`` file holds the complete serving state at an epoch boundary:
+every tensor of the source (the synopsis, or a streaming ingestor's base,
+reservoir, delta aggregates, quarantine box and counter) plus a
+``__meta__`` JSON record (format version, source type, epoch counters,
+serving/ci configs). ``load_engine`` rebuilds the source and returns a
+fresh engine whose serving path is bit-identical to the checkpointed one:
+the arrays are restored verbatim, so the same kernels compute over the
+same values, and a restored ingestor goes on ingesting as the original
+would (its threefry key round-trips).
+
+The layout, the array names and ``CHECKPOINT_VERSION`` are the JAX
+package's, so a file that package wrote restores into the port. PRNG keys
+are raw ``uint32[2]`` words: written under ``<name>``, and read from
+``<name>`` or from ``<name>@key`` (the reference's typed-key layout,
+``jax.random.key_data``). A file records ``backend``; the port picks each
+kernel by the device of its tensors, so it writes None and ignores the
+recorded one, in the ingestor and in the serving config.
+
+Checkpoints are taken at epoch boundaries only: ``save_engine`` flushes an
+attached request coalescer first so no admitted query straddles the
+snapshot, and every ``ingest()`` swaps its state once per batch. Join,
+catalog and sharded sources come with ROADMAP Queue 1 items 10, 11 and 12.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import numpy as np
+import torch
+
+from ..core.types import PartitionTree, Synopsis
+from ..device import resolve_device, to_numpy
+
+CHECKPOINT_VERSION = 1
+
+_NOT_PORTED = {"join_streaming": ("join sources", "item 10, joins/"),
+               "catalog": ("catalog sources", "item 11, partitions/"),
+               "sharded": ("sharded sources", "item 12, sharded/")}
+
+
+def _not_ported(kind: str):
+    from ..api.engine import _not_ported as _np
+    what, item = _NOT_PORTED[kind]
+    return _np(f"checkpoints of {what}", item)
+
+
+# -- PRNG key round-trip ---------------------------------------------------
+def _put_key(arrays: dict, name: str, key) -> None:
+    arrays[name] = to_numpy(key).astype(np.uint32).reshape(2)
+
+
+def _get_key(arrays, name: str) -> np.ndarray:
+    raw = arrays[name + "@key"] if name + "@key" in arrays else arrays[name]
+    return np.asarray(raw).astype(np.uint32).reshape(2)
+
+
+# -- generic dataclass walker ----------------------------------------------
+# Synopsis, PartitionTree and StreamState are flat records of tensors plus
+# int meta fields and at most dataclass-valued children; a field-name walk
+# saves and loads them without a per-type schema.
+def _put_dc(arrays: dict, prefix: str, obj) -> dict:
+    """Store ``obj``'s tensor fields under ``prefix/<field>``; return the
+    JSON-safe meta dict (scalars, None markers, nested field metas)."""
+    meta = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        key = f"{prefix}/{f.name}"
+        if dataclasses.is_dataclass(v) and not isinstance(v, type):
+            meta[f.name] = _put_dc(arrays, key, v)
+        elif v is None:
+            meta[f.name] = None
+        elif isinstance(v, (bool, int, float, str)):
+            meta[f.name] = v
+        else:
+            arrays[key] = to_numpy(v)
+    return meta
+
+
+def _get_dc(cls, arrays, prefix: str, meta: dict, device,
+            nested: dict | None = None):
+    """Inverse of :func:`_put_dc`, tensors on ``device`` with the file's
+    dtypes; ``nested`` maps field name -> class of dataclass children."""
+    nested = nested or {}
+    kw = {}
+    for f in dataclasses.fields(cls):
+        key = f"{prefix}/{f.name}"
+        if f.name in nested and isinstance(meta.get(f.name), dict):
+            kw[f.name] = _get_dc(nested[f.name], arrays, key, meta[f.name],
+                                 device, nested)
+        elif key in arrays:
+            kw[f.name] = torch.tensor(np.asarray(arrays[key]), device=device)
+        elif f.name in meta:
+            kw[f.name] = meta[f.name]
+        elif f.default is not dataclasses.MISSING:
+            kw[f.name] = f.default
+        else:
+            raise KeyError(
+                f"checkpoint missing field {key!r} for {cls.__name__}")
+    return cls(**kw)
+
+
+def _load_synopsis(arrays, prefix: str, meta: dict, device) -> Synopsis:
+    return _get_dc(Synopsis, arrays, prefix, meta, device,
+                   nested={"tree": PartitionTree})
+
+
+# -- config round-trip -----------------------------------------------------
+def _config_meta(cfg) -> dict | None:
+    if cfg is None:
+        return None
+    d = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if f.name == "key" and not (v is None or isinstance(v, int)):
+            # A materialized key array is not JSON; the restored engine
+            # re-derives intervals from the seedless default.
+            v = None
+        if isinstance(v, tuple):
+            v = list(v)
+        d[f.name] = v
+    return d
+
+
+def _config_from_meta(cls, d: dict | None):
+    if d is None:
+        return None
+    kw = {k: (tuple(v) if isinstance(v, list) else v) for k, v in d.items()}
+    if "backend" in kw:
+        kw["backend"] = None     # the port picks kernels by tensor device
+    return cls(**kw)
+
+
+def _put_qbox(arrays: dict, meta: dict, qlo, qhi) -> None:
+    if qlo is not None:
+        arrays["qbox/lo"] = to_numpy(qlo)
+        arrays["qbox/hi"] = to_numpy(qhi)
+        meta["has_qbox"] = True
+
+
+def _get_qbox(arrays, meta: dict):
+    if meta.get("has_qbox"):
+        return (np.asarray(arrays["qbox/lo"]), np.asarray(arrays["qbox/hi"]))
+    return None
+
+
+# -- save ------------------------------------------------------------------
+def save_engine(engine, path) -> dict:
+    """Snapshot ``engine``'s serving state into one ``.npz`` at ``path``.
+
+    Flushes the attached coalescer (if any) so the snapshot lands on an
+    epoch boundary with no queued request, then dispatches on the source
+    type. Returns the metadata dict embedded in the file.
+    """
+    from ..streaming.ingest import StreamingIngestor
+
+    if engine._coalescer is not None:
+        engine._coalescer.flush()
+
+    src = engine._source
+    arrays: dict[str, np.ndarray] = {}
+    meta: dict = {
+        "version": CHECKPOINT_VERSION,
+        "epoch": int(getattr(src, "epoch", 0)),
+        "serving": _config_meta(engine.serving),
+        "ci": _config_meta(engine.ci),
+    }
+    if isinstance(src, StreamingIngestor):
+        meta["source"] = "streaming"
+        meta["backend"] = None
+        meta["base"] = _put_dc(arrays, "base", src.base)
+        meta["state"] = _put_dc(arrays, "state", src.state)
+        _put_key(arrays, "ing/key", src._key)
+        meta["n_stream"] = int(src.n_stream)
+        _put_qbox(arrays, meta, src._qlo, src._qhi)
+    elif isinstance(src, Synopsis):
+        meta["source"] = "synopsis"
+        meta["syn"] = _put_dc(arrays, "syn", src)
+    else:
+        raise TypeError(
+            f"cannot checkpoint source of type {type(src).__name__}")
+
+    arrays["__meta__"] = np.asarray(json.dumps(meta))
+    np.savez(path, **arrays)
+    return meta
+
+
+# -- load ------------------------------------------------------------------
+def _restore_source(arrays, meta: dict, device):
+    from ..streaming.ingest import StreamState, StreamingIngestor
+
+    kind = meta["source"]
+    if kind in _NOT_PORTED:
+        raise _not_ported(kind)
+    if kind == "synopsis":
+        return _load_synopsis(arrays, "syn", meta["syn"], device)
+    if kind == "streaming":
+        base = _load_synopsis(arrays, "base", meta["base"], device)
+        ing = StreamingIngestor(base, key=_get_key(arrays, "ing/key"),
+                                quarantine_box=_get_qbox(arrays, meta),
+                                device=device)
+        state = _get_dc(StreamState, arrays, "state", meta["state"], device)
+        if state.quarantined is None:           # files from before the box
+            state.quarantined = torch.zeros((), dtype=torch.int32,
+                                            device=device)
+        ing.state = state
+        ing.n_stream = int(meta["n_stream"])
+        ing._epoch = int(meta["epoch"])
+        return ing
+    raise ValueError(f"unknown checkpoint source type {kind!r}")
+
+
+def load_engine(cls, path, *, serving=None, ci=None, mesh=None,
+                plan_cache_size: int = 32, device=None):
+    """Rebuild a ``cls`` (PassEngine) from a :func:`save_engine` file, the
+    port's or the JAX package's, serving on ``device`` (None = the CUDA
+    card). ``serving=`` / ``ci=`` override the checkpointed configs;
+    ``mesh`` is for sharded checkpoints, which are not ported yet."""
+    from ..api.config import CIConfig, ServingConfig
+
+    if mesh is not None:
+        raise _not_ported("sharded")
+    dev = resolve_device(device)
+    with np.load(path, allow_pickle=False) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    meta = json.loads(str(arrays.pop("__meta__")[()]))
+    if int(meta.get("version", -1)) != CHECKPOINT_VERSION:
+        raise ValueError(
+            f"checkpoint version {meta.get('version')!r} is not supported "
+            f"(expected {CHECKPOINT_VERSION})")
+
+    source = _restore_source(arrays, meta, dev)
+    if serving is None:
+        serving = _config_from_meta(ServingConfig, meta["serving"])
+    if ci is None:
+        ci = _config_from_meta(CIConfig, meta["ci"])
+    return cls(source, serving=serving, ci=ci,
+               plan_cache_size=plan_cache_size, device=dev)
+
+
+__all__ = ["CHECKPOINT_VERSION", "save_engine", "load_engine"]

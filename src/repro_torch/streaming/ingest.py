@@ -40,6 +40,7 @@ from ..core.types import Synopsis, AGG_COUNT
 from ..device import resolve_device, to_numpy
 from ..kernels import ops
 from ..kernels.segment_reduce import NEG_BIG, POS_BIG
+from ..testing import faults as _faults
 from .. import random as trandom
 
 STATE_FIELDS = ("leaf_lo", "leaf_hi", "delta_agg", "sample_c", "sample_a",
@@ -333,7 +334,17 @@ class StreamingIngestor:
     def ingest(self, c_rows, a_vals, u=None) -> "StreamingIngestor":
         """Ingest a (B, d) coordinate batch and a (B,) value batch. The
         reservoir uniforms are drawn from the threaded key unless ``u``
-        (B,) is given. Nothing is read back to the host."""
+        (B,) is given. Nothing is read back to the host.
+
+        With a fault injector installed (``repro_torch.testing``), the batch
+        may be poisoned on the host first; the quarantine then makes it a
+        counted no-op that still consumes its split of the key, so the
+        batches after it draw what a clean run draws."""
+        inj = _faults.active()
+        if inj is not None:
+            c_rows, a_vals, _ = inj.poison_batch(
+                to_numpy(c_rows).astype(np.float32),
+                to_numpy(a_vals).astype(np.float32))
         c = _f32(c_rows, self.device)
         if c.dim() == 1:
             c = c.reshape(-1, 1)

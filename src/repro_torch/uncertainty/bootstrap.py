@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import minmax
 from .. import random as trandom
 from ..core.types import QueryBatch, QueryResult, AGG_SUM, AGG_COUNT
 from ..engine import executor as _executor
@@ -180,10 +181,11 @@ def bootstrap_answer(syn, queries: QueryBatch, plan_masks=None, *, key,
     out = {}
     for i, kind in enumerate(kinds):
         res = assemble(syn, art, kind, use_aggregates=use_aggregates)
-        lo, hi = qs[0, i], qs[1, i]
+        lo_hi = qs[:, i]
         if use_aggregates:
-            lo = torch.minimum(torch.maximum(lo, res.lower), res.upper)
-            hi = torch.minimum(torch.maximum(hi, res.lower), res.upper)
+            # zero ties as the reference's jnp.clip
+            lo_hi = minmax.clip(lo_hi, res.lower, res.upper)
+        lo, hi = lo_hi.unbind()
         out[kind] = dataclasses.replace(res, ci_half=0.5 * (hi - lo),
                                         ci_lo=lo, ci_hi=hi)
     return out

@@ -20,8 +20,9 @@ import dataclasses
 
 import torch
 
+from .. import minmax
 from ..core.types import Synopsis, QueryBatch, QueryResult, AGG_MIN, AGG_MAX
-from ..engine.assemble import assemble, avg_ratio_terms
+from ..engine.assemble import _fpc, assemble, avg_ratio_terms
 from ..engine.executor import compute_artifacts
 
 
@@ -37,11 +38,6 @@ def normal_quantile(level: float) -> float:
     if not 0.0 < level < 1.0:
         raise ValueError(f"confidence level must be in (0, 1), got {level}")
     return float(_z_of(level))
-
-
-def _fpc(n_rows, k_leaf):
-    n = torch.clamp(n_rows, min=1.0)
-    return torch.clamp((n - k_leaf) / torch.clamp(n - 1.0, min=1.0), 0.0, 1.0)
 
 
 def _stratum_terms(syn: Synopsis, art, kind: str, use_fpc: bool):
@@ -61,9 +57,11 @@ def _stratum_terms(syn: Synopsis, art, kind: str, use_fpc: bool):
     if kind == "sum":
         mean_phi = art.s_sum / Ki                        # E[pred * a]
         mean_phi2 = art.s_sumsq / Ki
-        range_lo = torch.clamp(leaf_min, max=0.0)        # phi support
-        range_hi = torch.clamp(leaf_max, min=0.0)
-        no_sample_half = Ni * torch.maximum(range_hi, -range_lo)
+        range_lo = minmax.min0(leaf_min)                 # phi support
+        range_hi = minmax.max0(leaf_max)
+        # range_hi is never -0.0, so where the max is a zero XLA's is
+        # +0.0; max0 makes every zero +0.0 and keeps the rest.
+        no_sample_half = Ni * minmax.max0(torch.maximum(range_hi, -range_lo))
     elif kind == "count":
         mean_phi = art.k_pred / Ki                       # E[pred]
         mean_phi2 = mean_phi
@@ -73,7 +71,7 @@ def _stratum_terms(syn: Synopsis, art, kind: str, use_fpc: bool):
     else:
         raise ValueError(f"no stratum terms for kind: {kind}")
 
-    var_hat = torch.clamp(mean_phi2 - mean_phi ** 2, min=0.0)
+    var_hat = minmax.max0(mean_phi2 - mean_phi ** 2)
     v_clt = Ni * Ni * var_hat / Ki * fpc
     return v_clt, var_hat * fpc, range_hi, range_lo, no_sample_half
 
@@ -86,7 +84,7 @@ def _fallback_half(syn: Synopsis, var_hat, range_hi, range_lo,
     Ni = syn.n_rows.to(torch.float32)[None]
     k_leaf = syn.k_per_leaf.to(torch.float32)[None]
     Ki = torch.clamp(k_leaf, min=1.0)
-    rng = torch.clamp(range_hi - range_lo, min=0.0)
+    rng = minmax.max0(range_hi - range_lo)
     bern = Ni * (torch.sqrt(2.0 * var_hat * log_term / Ki)
                  + 3.0 * rng * log_term / Ki)
     return torch.where(k_leaf > 0, bern, no_sample_half)
@@ -140,8 +138,8 @@ def compose_interval(syn: Synopsis, art, kind: str, level: float,
         VS = (clt_r * var_s).sum(1)
         VC = (clt_r * var_c).sum(1)
         CSC = (clt_r * cov_sc).sum(1)
-        var_ratio = (torch.clamp(VS - 2 * est * CSC + est * est * VC,
-                                 min=0.0) / (C * C))
+        var_ratio = (minmax.max0(VS - 2 * est * CSC + est * est * VC)
+                     / (C * C))
         half_clt = z * torch.sqrt(var_ratio)
         # Fallback strata perturb both numerator and denominator:
         # |S/C - S*/C*| <= (hS + |est| hC) / max(C - hC, 1).
@@ -164,9 +162,10 @@ def _with_interval(res: QueryResult, half, clip_bounds: bool) -> QueryResult:
     hi = res.estimate + half
     if clip_bounds:
         # Truth always lies inside the deterministic hard bounds, so the
-        # clip preserves coverage while tightening the interval.
-        lo = torch.minimum(torch.maximum(lo, res.lower), res.upper)
-        hi = torch.minimum(torch.maximum(hi, res.lower), res.upper)
+        # clip preserves coverage while tightening the interval; both ends
+        # in one clip, zero ties as the reference's jnp.clip.
+        lo, hi = minmax.clip(torch.stack([lo, hi]), res.lower,
+                             res.upper).unbind()
     return dataclasses.replace(res, ci_half=half, ci_lo=lo, ci_hi=hi)
 
 

@@ -1,0 +1,198 @@
+"""The port's checkpoint/restore (``repro_torch.serve.checkpoint``), on the
+CPU: synopsis and streaming round trips serve bit for bit, a restored
+ingestor goes on ingesting as the original does, the quarantine counter
+survives, the version guard and the config override hold, and a file the
+JAX package's ``save_engine`` wrote restores into the port (and one the
+port wrote into the JAX package).
+
+A restored reference file serves within ``tests/test_torch_engine.py``'s
+tolerances of the JAX engine; on integer values the restored ingestor's
+state after further batches is exact against the JAX ingestor's.
+"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.api import (PassEngine as JEngine, ServingConfig as JServing,
+                       CIConfig as JCI)
+from repro.core import query as jquery
+from repro.core.synopsis import build_synopsis as jbuild
+from repro.streaming import StreamingIngestor as JIngestor
+from repro_torch.api import PassEngine, ServingConfig, CIConfig
+from repro_torch.serve import CHECKPOINT_VERSION
+from repro_torch.streaming import StreamingIngestor
+from repro_torch.streaming.ingest import STATE_FIELDS
+from test_torch_engine import assert_results_close, carry, carry_queries
+
+KINDS = ("sum", "count", "avg", "min", "max")
+FIELDS = ("estimate", "ci_half", "lower", "upper", "frac_rows_touched",
+          "ci_lo", "ci_hi")
+
+
+def _make(seed=0, n=8000, k=16):
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.uniform(0, 100, n))
+    a = np.floor(rng.uniform(0, 500, n))
+    jsyn, _ = jbuild(c, a, k=k, sample_rate=0.02, method="eq", seed=seed)
+    jq = jquery.random_queries(c, 12, seed=seed + 1, min_frac=0.02,
+                               max_frac=0.5)
+    return jsyn, jq
+
+
+def _batch(rng, n=300):
+    return rng.uniform(0, 100, n), np.floor(rng.uniform(0, 500, n))
+
+
+def assert_equal_answers(got, want):
+    assert set(got) == set(want)
+    for kind in want:
+        for f in FIELDS:
+            g, w = getattr(got[kind], f), getattr(want[kind], f)
+            if g is None or w is None:
+                assert g is None and w is None, (kind, f)
+                continue
+            assert torch.equal(g, w), (kind, f)
+
+
+def assert_states_equal(a, b):
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_synopsis_roundtrip_bit_identical(tmp_path):
+    jsyn, jq = _make()
+    q = carry_queries(jq)
+    eng = PassEngine(carry(jsyn), ServingConfig(kinds=KINDS),
+                     ci=CIConfig(level=0.9), device="cpu")
+    want = eng.answer(q)
+    meta = eng.checkpoint(tmp_path / "ck.npz")
+    assert meta["source"] == "synopsis"
+    assert meta["version"] == CHECKPOINT_VERSION == 1
+    eng2 = PassEngine.restore(tmp_path / "ck.npz", device="cpu")
+    assert eng2.serving == eng.serving and eng2.ci == eng.ci
+    assert_equal_answers(eng2.answer(q), want)
+
+
+def test_streaming_roundtrip_and_continued_ingest(tmp_path):
+    """Restore mid-stream; both ingest the same further batches: states
+    torch.equal, answers bit for bit (the threefry key round-trips)."""
+    jsyn, jq = _make(seed=2)
+    q = carry_queries(jq)
+    rng = np.random.default_rng(3)
+    ing = StreamingIngestor(carry(jsyn), seed=11,
+                            quarantine_box=([0.0], [100.0]), device="cpu")
+    for _ in range(3):
+        ing.ingest(*_batch(rng))
+    eng = PassEngine(ing, ServingConfig(kinds=("sum", "avg", "max")),
+                     device="cpu")
+    want = eng.answer(q)
+    eng.checkpoint(tmp_path / "ck.npz")
+    eng2 = PassEngine.restore(tmp_path / "ck.npz", device="cpu")
+    src2 = eng2.source
+    assert isinstance(src2, StreamingIngestor)
+    assert (src2.epoch, src2.n_stream) == (ing.epoch, ing.n_stream)
+    assert_states_equal(src2.state, ing.state)
+    assert_equal_answers(eng2.answer(q), want)
+    for _ in range(3):
+        batch = _batch(rng)
+        ing.ingest(*batch)
+        src2.ingest(*batch)
+    assert_states_equal(src2.state, ing.state)
+    assert torch.equal(src2._key, ing._key)
+    assert_equal_answers(eng2.answer(q), eng.answer(q))
+
+
+def test_quarantine_counter_survives(tmp_path):
+    jsyn, _ = _make(seed=5)
+    ing = StreamingIngestor(carry(jsyn), quarantine_box=([0.0], [100.0]),
+                            device="cpu")
+    ing.ingest(np.asarray([5.0, np.nan, 400.0, 7.0]), np.ones(4))
+    assert ing.n_quarantined == 2
+    PassEngine(ing, device="cpu").checkpoint(tmp_path / "ck.npz")
+    eng2 = PassEngine.restore(tmp_path / "ck.npz", device="cpu")
+    assert eng2.source.n_quarantined == 2
+    assert eng2.source.total_rows == ing.total_rows
+    assert eng2.stats()["faults"]["quarantined_rows"] == 2
+    assert torch.equal(eng2.source._qlo, ing._qlo)
+
+
+def test_version_guard_and_unported_sources(tmp_path):
+    jsyn, _ = _make()
+    path = tmp_path / "ck.npz"
+    PassEngine(carry(jsyn), device="cpu").checkpoint(path)
+    with np.load(path) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    meta = json.loads(str(arrays["__meta__"][()]))
+    for version, kind, error, match in (
+            (2, "synopsis", ValueError, "version 2 is not supported"),
+            (1, "catalog", NotImplementedError, "item 11"),
+            (1, "join_streaming", NotImplementedError, "item 10"),
+            (1, "sharded", NotImplementedError, "item 12"),
+            (1, "zebra", ValueError, "unknown checkpoint source")):
+        arrays["__meta__"] = np.asarray(json.dumps(
+            dict(meta, version=version, source=kind)))
+        np.savez(tmp_path / "bad.npz", **arrays)
+        with pytest.raises(error, match=match):
+            PassEngine.restore(tmp_path / "bad.npz", device="cpu")
+
+
+def test_config_override(tmp_path):
+    jsyn, jq = _make(seed=4)
+    q = carry_queries(jq)
+    PassEngine(carry(jsyn), ServingConfig(kinds=("sum",)), ci=0.95,
+               device="cpu").checkpoint(tmp_path / "ck.npz")
+    sv = ServingConfig(kinds=("count", "min"))
+    eng = PassEngine.restore(tmp_path / "ck.npz", serving=sv,
+                             ci=CIConfig(level=0.8), device="cpu")
+    assert eng.serving == sv and eng.ci == CIConfig(level=0.8)
+    assert_equal_answers(eng.answer(q),
+                         PassEngine(carry(jsyn), sv, ci=0.8,
+                                    device="cpu").answer(q))
+
+
+def test_reference_written_synopsis_restores_into_port(tmp_path):
+    """JAX save_engine -> port restore: the answers are the JAX engine's
+    within the engine tolerances, configs included; and the other way
+    round, a port file restores into the JAX package."""
+    jsyn, jq = _make(seed=6)
+    jeng = JEngine(jsyn, JServing(kinds=KINDS), ci=JCI(level=0.95))
+    jeng.checkpoint(tmp_path / "ref.npz")
+    eng = PassEngine.restore(tmp_path / "ref.npz", device="cpu")
+    assert eng.serving == ServingConfig(kinds=KINDS)
+    assert eng.ci == CIConfig(level=0.95)
+    assert_results_close(jeng.answer(jq), eng.answer(carry_queries(jq)),
+                         KINDS)
+    eng.checkpoint(tmp_path / "port.npz")
+    jeng2 = JEngine.restore(tmp_path / "port.npz")
+    assert_results_close(jeng2.answer(jq), eng.answer(carry_queries(jq)),
+                         KINDS)
+
+
+def test_reference_written_stream_restores_and_ingests(tmp_path):
+    """A JAX streaming checkpoint (raw uint32 key, quarantine box) restores
+    into the port; both ingest the same batches afterwards and the states
+    are exact on integer values."""
+    jsyn, jq = _make(seed=7)
+    rng = np.random.default_rng(8)
+    jing = JIngestor(jsyn, seed=13, quarantine_box=([0.0], [100.0]))
+    jing.ingest(*_batch(rng))
+    jing.ingest(np.asarray([1.0, np.nan, 300.0]), np.ones(3))
+    JEngine(jing, JServing(kinds=("sum", "count"))).checkpoint(
+        tmp_path / "ref.npz")
+    eng = PassEngine.restore(tmp_path / "ref.npz", device="cpu")
+    ing = eng.source
+    assert (ing.epoch, ing.n_stream, ing.n_quarantined) == (2, 303, 2)
+    for _ in range(2):
+        batch = _batch(rng)
+        jing.ingest(*batch)
+        ing.ingest(*batch)
+    for f in STATE_FIELDS:
+        np.testing.assert_array_equal(getattr(ing.state, f).numpy(),
+                                      np.asarray(getattr(jing.state, f)),
+                                      err_msg=f)
+    assert_results_close(
+        JEngine(jing, JServing(kinds=("sum", "count"))).answer(jq),
+        eng.answer(carry_queries(jq)), ("sum", "count"))

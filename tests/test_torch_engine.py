@@ -271,14 +271,18 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
 
 @pytest.mark.parametrize("call,error", [
     (lambda e, q: e.answer(q, plan=object()), (TypeError, "QueryPlan")),
-    (lambda e, q: e.answer(q, deadline_ms=5.0), NOT_PORTED),
+    (lambda e, q: e.answer(q, deadline_ms=5.0, plan=object()),
+     (ValueError, "cannot be combined with plan")),
     (lambda e, q: e.answer(q, ci=CIConfig(method="bootstrap",
                                           boot_normalize="x")),
      (ValueError, "unknown normalize")),
-    (lambda e, q: e.answer_progressive(q), NOT_PORTED),
+    (lambda e, q: e.answer_progressive(
+        q, serving=ServingConfig(sample_slots=4)),
+     (ValueError, "sample_slots is managed by the ladder")),
     (lambda e, q: e.answer_join(q), NOT_PORTED),
-    (lambda e, q: e.checkpoint("x.npz"), NOT_PORTED),
-    (lambda e, q: PassEngine.restore("x.npz"), NOT_PORTED),
+    (lambda e, q: PassEngine(q, device="cpu").checkpoint("x.npz"),
+     (TypeError, "cannot checkpoint source")),
+    (lambda e, q: PassEngine.restore("x.npz", mesh=object()), NOT_PORTED),
     (lambda e, q: PassEngine.from_sharded(None, None), NOT_PORTED),
     (lambda e, q: PassEngine.from_catalog([]), NOT_PORTED),
     (lambda e, q: executor.compute_artifacts(e.resolve(), q, ("sum",),
@@ -288,9 +292,11 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
         "join", "checkpoint", "restore", "sharded", "catalog",
         "plan_masks"])
 def test_unported_entry_points_raise(served, call, error):
-    """Entry points not ported yet raise NotImplementedError naming their
-    ROADMAP item. Those the bootstrap slice ported (``plan=``, the
-    bootstrap, the executor's ``plan_masks``) reject malformed input."""
+    """Entry points not ported yet (joins, sharded sources and their
+    checkpoints, catalogs) raise NotImplementedError naming their ROADMAP
+    item. Those ported since (``plan=``, the bootstrap, the executor's
+    ``plan_masks``, the ladder's ``deadline_ms`` and
+    ``answer_progressive``, ``checkpoint``) reject malformed input."""
     _, tsyn, _, tq = served[1]
     eng = PassEngine(tsyn, device="cpu")
     with pytest.raises(error[0], match=error[1]):

@@ -1,5 +1,6 @@
-"""Signed zeros in the port's MIN/MAX, and the CPU replays of the
-sample_extremes and query_eval kernels, against the JAX package.
+"""Signed zeros in the port's MIN/MAX (aggregates, extremes, boxes and
+the serving epilogue's bounds, clips and zero clamps), and the CPU replays
+of the sample_extremes and query_eval kernels, against the JAX package.
 
 XLA's min and max, under the JAX package's aggregates, extremes and boxes,
 order -0.0 below +0.0; the port follows that rule through
@@ -16,12 +17,16 @@ torch = pytest.importorskip("torch")
 import jax
 import jax.numpy as jnp
 
+from repro.api import (PassEngine as JEngine, ServingConfig as JServing,
+                       CIConfig as JCI)
+from repro.core import query as jquery
 from repro.core.synopsis import build_synopsis as jbuild
 from repro.kernels import backends as _jax_backends  # noqa: F401 (registers)
 from repro.kernels.ref import segment_reduce_ref
 from repro.kernels.registry import get_backend
 from repro.streaming import StreamingIngestor as JIngestor
 from repro_torch import minmax
+from repro_torch.api import PassEngine, ServingConfig, CIConfig
 from repro_torch.engine.executor import slice_sample_slots
 from repro_torch.kernels import ops
 from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
@@ -33,7 +38,7 @@ from repro_torch.kernels.sample_extremes import (
 from repro_torch.kernels.segment_reduce import segment_reduce_plain
 from repro_torch.kernels.stratified_estimate import samples_inside
 from repro_torch.streaming import StreamingIngestor
-from test_torch_engine import carry
+from test_torch_engine import carry, carry_queries
 
 F32_MAX = np.float32(3.4028235e38)
 SPECIAL = np.float32([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, np.nan, BIG,
@@ -209,6 +214,78 @@ def test_merge_synopsis_signed_zero_matches_jax(d):
     for f in ("lo", "hi"):
         assert_bits_equal(getattr(tm.tree, f), getattr(jm.tree, f),
                           f"tree.{f}")
+
+
+@pytest.mark.parametrize("op", ["max0", "min0"])
+def test_zero_clamps_match_jnp(op):
+    """max0 / min0 against jnp.maximum(x, 0.0) / jnp.minimum(x, 0.0) on
+    every special value, in vectorized lanes and the scalar tail."""
+    x = np.tile(SPECIAL, 5)
+    got = getattr(minmax, op)(torch.from_numpy(x))
+    ref = jnp.maximum if op == "max0" else jnp.minimum
+    assert_bits_equal(got, ref(x, np.float32(0.0)), op)
+
+
+def test_clip_matches_jnp():
+    """minmax.clip against jnp.clip on every triple of special values
+    (bounds broadcast over a leading axis, as the interval clips have
+    them)."""
+    x = np.repeat(SPECIAL, SPECIAL.size ** 2)
+    lo = np.tile(np.repeat(SPECIAL, SPECIAL.size), SPECIAL.size)
+    hi = np.tile(SPECIAL, SPECIAL.size ** 2)
+    got = minmax.clip(torch.from_numpy(np.stack([x, -x])),
+                      *_t(lo, hi))
+    assert_bits_equal(got, jnp.clip(np.stack([x, -x]), lo, hi), "clip")
+
+
+def _zero_valued(d, seed, n=3000, k=16):
+    """Every value +0.0 or -0.0, so that every sum is exact: strata whose
+    extremes are -0.0, +0.0 or both."""
+    rng = np.random.default_rng(seed)
+    c = (np.sort(rng.uniform(0, 100, n)) if d == 1
+         else rng.uniform(0, 100, (n, d)))
+    a = rng.choice([0.0, -0.0], n)
+    if d == 1:
+        a[: n // 4] = -0.0          # whole strata of -0.0 only
+    jsyn, _ = jbuild(c, a, k=k, sample_rate=0.05,
+                     method="eq" if d == 1 else "kd", seed=0)
+    jq = jquery.random_queries(c, 40, seed=seed + 1, min_frac=0.01,
+                               max_frac=0.5)
+    return jsyn, jq
+
+
+ZERO_KINDS = ("sum", "avg", "min", "max")
+
+
+@pytest.mark.parametrize("ci", ["none", "clt", "bootstrap"])
+@pytest.mark.parametrize("d", [1, 3])
+def test_engine_on_zero_valued_strata_matches_jax_bits(d, ci):
+    """The JAX engine and the port's serve zero-valued strata; every field
+    of SUM, AVG, MIN and MAX (all exact here) has the reference's bits,
+    sign included: the AVG hard bounds' masked extremes and their MIN/MAX
+    with the covered mean, and the interval clips of the CLT and the
+    bootstrap. (COUNT is left out: its values are row counts, not zeros,
+    and its float ratios are held to tolerance in test_torch_engine.py.)"""
+    jsyn, jq = _zero_valued(d, seed=10 + d)
+    kinds = ZERO_KINDS if ci != "bootstrap" else ("sum", "avg")
+    jci = {"none": None, "clt": JCI(level=0.95),
+           "bootstrap": JCI(method="bootstrap", n_boot=16, key=3)}[ci]
+    tci = {"none": None, "clt": CIConfig(level=0.95),
+           "bootstrap": CIConfig(method="bootstrap", n_boot=16, key=3)}[ci]
+    jres = JEngine(jsyn, JServing(kinds=kinds), ci=jci).answer(jq)
+    tres = PassEngine(carry(jsyn), ServingConfig(kinds=kinds), ci=tci,
+                      device="cpu").answer(carry_queries(jq))
+    signs = 0
+    for kind in kinds:
+        for f in ("estimate", "ci_half", "lower", "upper",
+                  "frac_rows_touched", "ci_lo", "ci_hi"):
+            g, w = getattr(tres[kind], f), getattr(jres[kind], f)
+            if w is None:
+                assert g is None, (kind, f)
+                continue
+            assert_bits_equal(g, w, f"{kind}.{f}")
+            signs += int(np.signbit(np.asarray(w)).sum())
+    assert signs > 0                   # some -0.0 among the answers
 
 
 # ---------------------------------------------------------------------------
