@@ -150,6 +150,35 @@ Phases, each of which fails the run:
    poisoning every 5th of 32 batches: the quarantine counter equals the
    poisoned rows and the state equals a clean run with those batches
    quarantined. File sizes, save and restore seconds.
+19. Joins, row 9 and 1-D: join_cell_moments (csrc/join_moments.cu; the
+   JAX package's join stage is plain jnp) against its plain version at
+   edge shapes (Q = 1, k = 1, Q, k and k * P off the kernel's tiles, P = 1
+   and 16, su = 1, leaves with no valid slot, groups of one slot, every
+   key missing from the dimension side, NaN coordinates on valid slots,
+   +-0.0 values, D = 16): within tolerance (bit for bit on +-0.0),
+   bit-equal across two launches, rows at Q = 1, 3, 16, 240 bit-equal to
+   the same rows of the batch. Then benchmarks/bench_joins.py's
+   distributions at the main table's size: 7.7 M fact rows over 30,800
+   dimension keys, build_dim_table(P=16) -> build_join_synopsis(k=1024,
+   p_u=0.05, "adp") -> PassEngine(sum/count/avg, ci=0.95).answer_join of
+   2048 join rectangles: query_eval twice and join_cell_moments once in
+   that window; row 9 against plain at that shape (and rows against the
+   batch); the port on the CPU on the first 256 queries; ground_truth_join
+   of 64 queries inside [lower, upper], the median SUM error at most
+   bench_joins' 0.15, CI95 coverage printed; times (answer_join by events
+   and host clock, device busy and kernels per answer, row 9 by events and
+   device time against its bound and its plain version's, peak memory
+   above resident, which must stay under 16 GB); 16 tenants' join
+   requests and one copy through the coalescer, bit-equal to their own
+   answer_join; 770,000 newer fact rows (1 % of their keys outside the
+   dimension table) streamed in 188 batches of 4096 (segment_reduce twice
+   a batch; the buffers start full, so overflow and regrow run), the
+   stream served against the truth; a checkpoint after 32 batches whose
+   restore takes 32 more beside the original, states torch.equal and
+   answers bit-equal.
+20. Joins, 3-D: the same at d_fact = 3 (method="kd", one sorted pair a
+   fact column); route_multid launches once a stream batch and once a
+   regrow.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -304,6 +333,30 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
     event bracket around one call of a microsecond kernel measures the
     host's issue time instead, because the card waits for the launch."""
     return device_profile(torch, fn, reps, warmup, one_op)["ms"]
+
+
+def device_by_name(torch, fn, reps: int = 10, warmup: int = 2) -> dict:
+    """Device ms per call of ``fn()`` by device-operation name, from a
+    torch.profiler window (a window that dropped records under-counts;
+    the count of records each name got is beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        t = e.device_time if hasattr(e, "device_time") else e.cuda_time
+        ms, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (ms + t / 1e3, n + 1)
+    return {name: {"ms_per_record": ms / n, "records": n}
+            for name, (ms, n) in out.items()}
 
 
 def mean_of(readings):
@@ -3196,6 +3249,537 @@ def checkpoint_path(torch, run1, run3, s1, card, tmp: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Joins: row 9 at edge shapes, 1-D and 3-D join serving and streaming
+# ---------------------------------------------------------------------------
+
+# The join slice's size: the main cells' fact table (7.7 M rows) over
+# nd = 30,800 dimension keys, which keeps benchmarks/bench_joins.py's 250
+# fact rows a key, with its P = 16 partitions and p_u = 0.05; k = 1024.
+JOIN_N, JOIN_ND, JOIN_K, JOIN_P, JOIN_PU = 7_700_000, 30_800, 1024, 16, 0.05
+JOIN_Q, JOIN_KINDS = 2048, ("sum", "count", "avg")
+# The stream: the main stream's 770,000 rows, 1 % of their keys outside
+# the dimension table.
+JOIN_STREAM, JOIN_MISSING = 770_000, 0.01
+# bench_joins' matched-error budget: median |SUM error| / max(|truth|, 1).
+JOIN_ERR = 0.15
+JOIN_CPU_Q = 256
+
+
+def join_workload(n, nd, q, seed, d_fact=1):
+    """benchmarks/bench_joins.py ``_workload``'s distributions: fact
+    coordinates N(0, 1) in d_fact columns, values Gamma(2, 1), keys uniform
+    over the nd dimension keys, one N(0, 1) dimension attribute, and q join
+    rectangles, each column a sorted pair of N(0, 1.2) draws (the
+    benchmark's one fact pair, one pair a column for d_fact > 1), then the
+    dimension's pair. Returns (c, a, keys, dkeys, dattr, q_lo, q_hi)."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(n, d_fact)) if d_fact > 1
+         else rng.normal(size=n)).astype(np.float32)
+    a = rng.gamma(2.0, 1.0, size=n).astype(np.float32)
+    keys = rng.integers(0, nd, size=n).astype(np.int32)
+    dkeys = np.arange(nd, dtype=np.int32)
+    dattr = rng.normal(size=nd).astype(np.float32)
+    f = np.sort(rng.normal(0, 1.2, size=(q, d_fact, 2)), -1)
+    d = np.sort(rng.normal(0, 1.2, size=(q, 2)), axis=1)
+    q_lo = np.concatenate([f[..., 0], d[:, :1]], 1).astype(np.float32)
+    q_hi = np.concatenate([f[..., 1], d[:, 1:]], 1).astype(np.float32)
+    return c, a, keys, dkeys, dattr, q_lo, q_hi
+
+
+def join_stream_rows(n, nd, seed, d_fact):
+    """Newer fact rows from the build's distributions, JOIN_MISSING of
+    their keys outside the dimension table."""
+    rng = np.random.default_rng(seed)
+    c = (rng.normal(size=(n, d_fact)) if d_fact > 1
+         else rng.normal(size=(n, 1))).astype(np.float32)
+    a = rng.gamma(2.0, 1.0, size=n).astype(np.float32)
+    keys = rng.integers(0, nd, size=n).astype(np.int32)
+    miss = rng.random(n) < JOIN_MISSING
+    keys[miss] = rng.integers(nd, 2 * nd, size=int(miss.sum()))
+    return [(c[i:i + STREAM_BATCH], a[i:i + STREAM_BATCH],
+             keys[i:i + STREAM_BATCH]) for i in range(0, n, STREAM_BATCH)]
+
+
+def join_inputs(torch, slots, jsyn, q_lo, q_hi):
+    """Row 9's arguments for a batch: (slots, q_lo, q_hi, cover, sampled,
+    cell_agg (k*P, 5), total_rows)."""
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.engine.planner import classify_join_cells
+    cover, sampled, _, _ = classify_join_cells(jsyn, QueryBatch(q_lo, q_hi))
+    kp = jsyn.num_leaves * jsyn.num_partitions
+    return (slots, q_lo.contiguous(), q_hi.contiguous(), cover, sampled,
+            jsyn.cell_agg.reshape(kp, -1).contiguous(), jsyn.base.total_rows)
+
+
+def join_rows(args, n):
+    """The first n queries of row 9's arguments."""
+    slots, lo, hi, cover, sampled, agg, tot = args
+    return (slots, lo[:n].contiguous(), hi[:n].contiguous(),
+            cover[:n].contiguous(), sampled[:n].contiguous(), agg, tot)
+
+
+def join_vs_plain(torch, tag, args, p_u, zeros=False) -> float:
+    """Row 9 against its plain version on the same inputs: every output
+    within K_RTOL / K_ATOL (bit for bit where ``zeros``: every value +-0.0),
+    the kernel bit-equal across two launches, and each of its rows
+    bit-equal at Q = 1, 3, 16 and 240 to the same row of the whole batch.
+    Returns the max abs error."""
+    from repro_torch.kernels.join_moments import (PLANES,
+                                                  join_cell_moments_cuda,
+                                                  join_cell_moments_plain)
+    fields = PLANES + ("exact3", "touched")
+    m1 = join_cell_moments_cuda(*args, p_u)
+    m2 = join_cell_moments_cuda(*args, p_u)
+    plain = join_cell_moments_plain(*args, p_u)
+    torch.cuda.synchronize()
+    err = 0.0
+    for f in fields:
+        got = getattr(m1, f)
+        if not bits_equal(torch, got, getattr(m2, f)):
+            raise AssertionError(f"{tag}: {f} differs between two launches")
+        want = getattr(plain, f)
+        err = max(err, close(f"{tag} {f}", got.cpu(), want.cpu(), K_RTOL,
+                             K_ATOL))
+        if zeros and not bits_equal(torch, got, want):
+            raise AssertionError(f"{tag}: {f} not the plain version's bits")
+    Q = args[1].shape[0]
+    for n in (1, 3, 16, 240):
+        if n >= Q:
+            continue
+        part = join_cell_moments_cuda(*join_rows(args, n), p_u)
+        for f in fields:
+            if not bits_equal(torch, getattr(part, f), getattr(m1, f)[:n]):
+                raise AssertionError(f"{tag}: {f} of rows at Q={n} differ "
+                                     f"from the same rows at Q={Q}")
+    del m1, m2, plain
+    torch.cuda.empty_cache()
+    return err
+
+
+def join_case(torch, rng, Q, k, su, P, d_f, d_d, mode, p_u=0.3):
+    """Synthetic row 9 inputs: k leaves of su slots (coordinates N(0, 1),
+    values Gamma(2, 1), keys over 3 * su values, partition = key mod P,
+    70 % valid), Q random boxes, random cover / sampled masks and cell
+    aggregates. ``mode``: mixed; empty_leaves (every other leaf has no
+    valid slot); singles (every key once: groups of one slot); nopart
+    (every key missing from the dimension side); nan (NaN coordinates on
+    valid slots); zeros (values +0.0 and -0.0)."""
+    from repro_torch.kernels.join_moments import join_slots
+    dev = torch.device("cuda")
+    u_c = rng.normal(size=(k, su, d_f)).astype(np.float32)
+    u_d = rng.normal(size=(k, su, d_d)).astype(np.float32)
+    u_a = rng.gamma(2.0, 1.0, size=(k, su)).astype(np.float32)
+    u_key = rng.integers(0, 3 * su, size=(k, su)).astype(np.int32)
+    u_valid = rng.random((k, su)) < 0.7
+    if mode == "empty_leaves":
+        u_valid[::2] = False
+    elif mode == "singles":
+        u_key = np.arange(k * su, dtype=np.int32).reshape(k, su)
+    elif mode == "nan":
+        u_c[u_valid & (rng.random((k, su)) < 0.2), 0] = np.nan
+        u_d[u_valid & (rng.random((k, su)) < 0.1), -1] = np.nan
+    elif mode == "zeros":
+        u_a = np.where(rng.random((k, su)) < 0.5, 0.0, -0.0).astype(
+            np.float32)
+    u_part = (u_key % P).astype(np.int32)
+    if mode == "nopart":
+        u_part[:] = -1
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    slots = join_slots(T(u_c), T(u_d), T(u_a), T(u_key), T(u_part),
+                       T(u_valid), P)
+    D, kp = d_f + d_d, k * P
+    lo = rng.normal(-0.5, 1.0, size=(Q, D)).astype(np.float32)
+    hi = (lo + rng.uniform(0.0, 2.0, size=(Q, D))).astype(np.float32)
+    agg = rng.normal(size=(kp, 5)).astype(np.float32)
+    agg[:, 2] = rng.integers(0, 9, kp)
+    if mode == "zeros":
+        agg[:, :2] = 0.0
+    return (slots, T(lo), T(hi), T(rng.random((Q, kp)) < 0.2),
+            T(rng.random((Q, kp)) < 0.3), T(agg),
+            torch.tensor(1234.0, device=dev))
+
+
+# (Q, k, su, P, d_fact, d_dim, mode): Q = 1; k = 1; Q, k, k * P off the
+# kernel's 128-query and 8-cell tiles; P = 1 and 16; su = 1; leaves with no
+# valid slot; groups of one slot; every key missing from the dimension
+# side; NaN coordinates on valid slots; +-0.0 values; D = 16; leaves of
+# more live slots than a block stages (2048), walked from global memory.
+JOIN_CASES = ((1, 5, 20, 4, 1, 1, "mixed"), (70, 1, 30, 3, 1, 1, "mixed"),
+              (130, 37, 23, 5, 1, 1, "mixed"), (65, 13, 40, 1, 2, 1, "mixed"),
+              (129, 13, 40, 16, 1, 2, "mixed"), (33, 19, 1, 4, 1, 1, "mixed"),
+              (40, 19, 30, 4, 1, 1, "empty_leaves"),
+              (40, 19, 30, 4, 1, 1, "singles"),
+              (40, 19, 30, 4, 1, 1, "nopart"), (65, 19, 30, 4, 1, 2, "nan"),
+              (300, 19, 30, 4, 1, 1, "zeros"),
+              (64, 8, 50, 4, 3, 13, "mixed"), (33, 3, 3000, 4, 1, 1, "mixed"))
+
+
+def edge_cases_join(torch) -> float:
+    """Row 9 against its plain version at JOIN_CASES."""
+    rng = np.random.default_rng(19)
+    err = 0.0
+    for Q, k, su, P, d_f, d_d, mode in JOIN_CASES:
+        args = join_case(torch, rng, Q, k, su, P, d_f, d_d, mode)
+        e = join_vs_plain(torch, f"join edge Q={Q} k={k} su={su} P={P} "
+                          f"D={d_f + d_d} {mode}", args, 0.3,
+                          zeros=mode == "zeros")
+        err = max(err, e)
+    emit(check="join_cell_moments edge cases", cases=len(JOIN_CASES),
+         max_abs_err=err, ok=True)
+    return err
+
+
+def join_bound(torch, args, jsyn) -> dict:
+    """Least time for row 9's work on these inputs: max(bytes / HBM rate,
+    operations / fp32 rate). Bytes: the live slots' coordinates, values
+    and keys, the run offsets and boxes, the bounds, masks and cell
+    aggregates read once, the eight planes, exact3 and touched written
+    once. Operations, as this run's data needs them: per (query, cell)
+    pair whose box the query meets, 2D compares and 3 flops a slot of the
+    cell and 10 a key group; 2 flops a (query, cell, column) of exact3 and
+    touched."""
+    slots, lo, hi, cover, sampled, agg, _ = args
+    Q, D = lo.shape
+    kp = jsyn.num_leaves * jsyn.num_partitions
+    live = int(slots.cell_start[:, -1].sum())
+    nbytes = (live * (D + 2) * 4 + slots.cell_start.numel() * 4
+              + slots.cell_box.numel() * 4 + 2 * Q * D * 4 + 2 * Q * kp
+              + agg.numel() * 4 + 4 + 8 * Q * kp * 4 + Q * 16)
+    per_cell = torch.diff(slots.cell_start.long(), dim=1).reshape(-1)
+    gid = slots.flat_gid[slots.flat_gid >= 0].unique()
+    groups = torch.bincount(slots.g_cell[gid], minlength=kp + 1)[:kp]
+    work = (per_cell * (2 * D + 3) + groups * 10).to(torch.float64)
+    box = slots.cell_box
+    ops = 0.0
+    for s in range(0, Q, 256):
+        meet = ~((hi[s:s + 256, None, :] < box[None, :, 0])
+                 | (lo[s:s + 256, None, :] > box[None, :, 1])).any(-1)
+        ops += float((meet.to(torch.float64) * work[None]).sum())
+    ops += 2.0 * 4 * Q * kp
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bytes": nbytes, "operations": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def join_truth(ground_truth_join, c, a, keys, dkeys, dattr, qn) -> dict:
+    """SUM and COUNT of the queries by ``ground_truth_join`` (host f64
+    scans of the materialized join), AVG as it derives it from them."""
+    s = ground_truth_join(c, a, keys, dkeys, dattr, qn, kind="sum")
+    cnt = ground_truth_join(c, a, keys, dkeys, dattr, qn, kind="count")
+    return {"sum": s, "count": cnt, "avg": s / np.maximum(cnt, 1)}
+
+
+def join_truth_check(tag, res, truth, n) -> dict:
+    """The truth of the first n queries inside [lower, upper] for every
+    kind (AVG on non-empty queries; slack 1e-4 relative for the fp32 sums
+    over 16,384 cells), the median SUM error at most JOIN_ERR (bench_joins'
+    measure), and the CI95 coverage of SUM and COUNT (reported)."""
+    truth_inside(tag, res, truth, n, JOIN_KINDS)
+    out = {}
+    for kind in ("sum", "count"):
+        t = truth[kind]
+        est = host(res[kind].estimate[:n]).astype(np.float64)
+        half = host(res[kind].ci_half[:n]).astype(np.float64)
+        rel = np.abs(est - t) / np.maximum(np.abs(t), 1.0)
+        out[f"{kind}_median_rel_err"] = float(np.median(rel))
+        out[f"{kind}_ci95_coverage"] = float(np.mean(np.abs(est - t)
+                                                     <= half + 1e-6))
+    if out["sum_median_rel_err"] > JOIN_ERR:
+        raise AssertionError(f"{tag}: median SUM error "
+                             f"{out['sum_median_rel_err']} > {JOIN_ERR}")
+    return out
+
+
+def join_cpu_parity(torch, tag, jsyn, q, res, n=JOIN_CPU_Q) -> None:
+    """The port on the CPU answers the first n queries from the same
+    synopsis: estimate, lower, upper, frac_rows_touched, ci_lo and ci_hi
+    within K_RTOL / K_ATOL; ci_half as the variance it is the root of
+    (rtol 2 K_RTOL, atol 1e-6 max|estimate|^2: near a cancelled AVG
+    variance the root is rounding noise of size sqrt(eps) |est|)."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.core.types import QueryBatch
+    qc = QueryBatch(q.lo[:n].cpu(), q.hi[:n].cpu())
+    cpu = PassEngine(jsyn.to("cpu"), ServingConfig(kinds=JOIN_KINDS),
+                     ci=0.95, device="cpu").answer_join(qc)
+    for kind in JOIN_KINDS:
+        scale = float(np.abs(cpu[kind].estimate.numpy()).max())
+        for f in ("estimate", "lower", "upper", "frac_rows_touched",
+                  "ci_lo", "ci_hi"):
+            close(f"{tag} cpu parity {kind}.{f}",
+                  getattr(res[kind], f)[:n].cpu(), getattr(cpu[kind], f),
+                  K_RTOL, K_ATOL)
+        close(f"{tag} cpu parity {kind}.ci_half (squared)",
+              res[kind].ci_half[:n].cpu().double() ** 2,
+              cpu[kind].ci_half.double() ** 2, 2 * K_RTOL,
+              1e-6 * scale ** 2)
+    emit(check="join cpu_parity", path=tag, queries=n, ok=True)
+
+
+def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
+    """19 (1-D) / 20 (3-D). Join serving and streaming at the slice's size
+    through the entry points a user calls (module doc)."""
+    from repro_torch.api import CoalescerConfig, PassEngine, ServingConfig
+    from repro_torch.core.query import ground_truth_join
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.joins import build_dim_table, build_join_synopsis
+    from repro_torch.joins.executor import join_slots
+    from repro_torch.kernels import native
+    from repro_torch.kernels.join_moments import (join_cell_moments_cuda,
+                                                  join_cell_moments_plain)
+    from repro_torch.serve import RequestCoalescer
+    from repro_torch.serve.coalescer import host_results
+    from repro_torch.streaming.ingest import STATE_FIELDS
+    from repro_torch.streaming.join_ingest import (JoinStreamingIngestor,
+                                                   JSTATE_FIELDS)
+    t_phase = time.perf_counter()
+    phase = "19" if d_fact == 1 else "20"
+    steps = {}
+    t_step = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+    dev = torch.device("cuda")
+    c, a, keys, dkeys, dattr, q_lo, q_hi = join_workload(
+        JOIN_N, JOIN_ND, JOIN_Q, seed, d_fact)
+    t0 = time.perf_counter()
+    dim = build_dim_table(dkeys, dattr, num_partitions=JOIN_P)
+    jsyn, report = build_join_synopsis(c, a, keys, dim, k=JOIN_K,
+                                       p_u=JOIN_PU, seed=seed,
+                                       method=method)
+    build_s = time.perf_counter() - t0
+    q = QueryBatch(torch.from_numpy(q_lo).to(dev),
+                   torch.from_numpy(q_hi).to(dev))
+    fq = QueryBatch(q.lo[:, :d_fact], q.hi[:, :d_fact])
+    dq = QueryBatch(q.lo[:, d_fact:], q.hi[:, d_fact:])
+    sv = ServingConfig(kinds=JOIN_KINDS)
+
+    # The answer, through the entry point, counted.
+    eng = PassEngine(jsyn, sv, ci=0.95)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    res = eng.answer_join(fq, dq)
+    torch.cuda.synchronize()
+    answer_launches = launches_now(native)
+    if answer_launches != {"query_eval": 2, "join_cell_moments": 1}:
+        raise AssertionError(f"{tag}: answer_join launched "
+                             f"{answer_launches}")
+    check_result_shapes(torch, tag, res, JOIN_Q, JOIN_KINDS)
+    emit(path=f"join {tag}", rows=JOIN_N, build_s=build_s, report=report,
+         launches=answer_launches)
+    step("data, build, first answer")
+
+    # Row 9 against plain at the main shape; rows against the batch.
+    slots = join_slots(jsyn)
+    args = join_inputs(torch, slots, jsyn, q.lo, q.hi)
+    kernel_err = join_vs_plain(torch, f"{tag} join main Q={JOIN_Q}", args,
+                               JOIN_PU)
+    bound = join_bound(torch, args, jsyn)
+    step("row 9 against plain")
+
+    # CPU parity, truth.
+    join_cpu_parity(torch, tag, jsyn, q, res)
+    step("cpu parity")
+    n = 64
+    qn = QueryBatch(q_lo[:n], q_hi[:n])
+    truth = join_truth(ground_truth_join, c, a, keys, dkeys, dattr, qn)
+    quality = join_truth_check(f"{tag} join", res, truth, n)
+    emit(check="join truth", path=tag, queries=n, **quality)
+    step("truth")
+
+    # Times.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    eng.answer_join(fq, dq)
+    torch.cuda.synchronize()
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mb
+    if peak_mb >= 16 * 1024:
+        raise AssertionError(f"{tag}: answer_join peaks {peak_mb} MB above "
+                             "resident")
+    prof = device_profile(torch, lambda: eng.answer_join(fq, dq), reps=5,
+                          warmup=1)
+    # Row 9 is two device kernels a call; the profiler may drop records,
+    # so its device time is the sum of each kernel's mean record.
+    kby = device_by_name(torch, lambda: join_cell_moments_cuda(*args,
+                                                               JOIN_PU))
+    times = {
+        "answer_join": cuda_ms(torch, lambda: eng.answer_join(fq, dq),
+                               reps=10, warmup=2),
+        "answer_join_host": host_ms(torch, lambda: eng.answer_join(fq, dq),
+                                    reps=10),
+        "answer_join_device_busy": prof["ms"],
+        "kernels_per_answer": prof["ops_per_call"],
+        "join_cell_moments": cuda_ms(torch, lambda: join_cell_moments_cuda(
+            *args, JOIN_PU), reps=10, warmup=2),
+        "join_cell_moments_device": sum(v["ms_per_record"]
+                                        for v in kby.values()),
+        "join_cell_moments_by_kernel": {
+            name.split("::")[-1].split("(")[0]: v["ms_per_record"]
+            for name, v in kby.items()},
+        "join_cell_moments_enqueue_host": enqueue_ms(
+            torch, lambda: join_cell_moments_cuda(*args, JOIN_PU)),
+        "join_cell_moments_plain": cuda_ms(
+            torch, lambda: join_cell_moments_plain(*args, JOIN_PU), reps=1,
+            warmup=0),
+    }
+    torch.cuda.empty_cache()
+    step("times")
+
+    # The coalescer: 16 tenants of 16-240 rows of the batch and one copy.
+    sizes = np.random.default_rng(17).integers(16, 241, 16)
+    offs = np.concatenate([[0], np.cumsum(sizes)[:-1]]) % (JOIN_Q - 240)
+    tenants = [(QueryBatch(fq.lo[o:o + s], fq.hi[o:o + s]),
+                QueryBatch(dq.lo[o:o + s], dq.hi[o:o + s]))
+               for o, s in zip(offs, sizes)]
+    want = [host_results(eng.answer_join(f, d)) for f, d in tenants]
+    co = RequestCoalescer(PassEngine(jsyn, sv, ci=0.95),
+                          CoalescerConfig(shape_classes=(128, 512, 2048)))
+    torch.cuda.synchronize()
+    native.reset_launches()
+    futs = [co.submit(f"t{i}", r, join=True) for i, r in enumerate(tenants)]
+    dup = co.submit("copy", tenants[3], join=True)
+    n_disp = co.tick()
+    co_launches = launches_now(native)
+    if (not 0 < n_disp < len(tenants)
+            or co_launches != {"query_eval": 2 * n_disp,
+                               "join_cell_moments": n_disp}):
+        raise AssertionError(f"{tag} join coalescer: {n_disp} dispatches, "
+                             f"launches {co_launches}")
+    for i, f in enumerate(futs):
+        require_same(f"{tag} join coalescer t{i} ({sizes[i]} rows)",
+                     f.result(timeout=120), want[i], JOIN_KINDS)
+    require_same(f"{tag} join coalescer copy", dup.result(timeout=120),
+                 want[3], JOIN_KINDS)
+    co_stats = co.stats()
+    if co_stats["dedup_hits"] != 1 or co_stats["failed"]:
+        raise AssertionError(f"{tag} join coalescer: {co_stats}")
+    step("coalescer")
+
+    # The stream, with a checkpoint after 32 batches and a restored
+    # ingestor taking the next 32 beside it.
+    batches = join_stream_rows(JOIN_STREAM, JOIN_ND, seed + 1, d_fact)
+    ing = JoinStreamingIngestor(jsyn, seed=11)
+    seng = PassEngine(ing, sv, ci=0.95)
+    tmp.mkdir(parents=True, exist_ok=True)
+    path = tmp / f"join{tag}.npz"
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    for cb, ab, kb in batches:
+        ing.ingest(cb, ab, keys=kb)
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+    stream_launches = launches_now(native)
+    want_l = {"segment_reduce": 2 * len(batches)}
+    if d_fact > 1:
+        if stream_launches.get("route_multid", 0) < len(batches):
+            raise AssertionError(f"{tag}: route_multid launched "
+                                 f"{stream_launches}")
+        want_l["route_multid"] = stream_launches["route_multid"]
+    if stream_launches != want_l:
+        raise AssertionError(f"{tag}: the join stream launched "
+                             f"{stream_launches}, not {want_l}")
+    sres = seng.answer_join(fq, dq)
+    c_all = np.concatenate([c.reshape(JOIN_N, -1)]
+                           + [b[0] for b in batches])
+    a_all = np.concatenate([a] + [b[1] for b in batches])
+    k_all = np.concatenate([keys] + [b[2] for b in batches])
+    struth = join_truth(ground_truth_join, c_all, a_all, k_all, dkeys,
+                        dattr, qn)
+    squality = join_truth_check(f"{tag} join stream", sres, struth, n)
+    view = ing.as_join_synopsis()
+    stream = {"batches": len(batches), "rows": JOIN_STREAM,
+              "ingest_ms_per_batch": ingest_ms, "launches": stream_launches,
+              "regrown_rows": ing.n_regrown,
+              "u_capacity": int(view.u_capacity),
+              "u_overflow": int(view.u_overflow.sum()),
+              "quarantined": ing.n_quarantined, **squality}
+    emit(check="join stream", path=tag, **stream)
+    step("stream and its truth")
+
+    first = JoinStreamingIngestor(jsyn, seed=11)
+    for cb, ab, kb in batches[:32]:
+        first.ingest(cb, ab, keys=kb)
+    feng = PassEngine(first, sv, ci=0.95)
+    t0 = time.perf_counter()
+    feng.checkpoint(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reng = PassEngine.restore(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for cb, ab, kb in batches[32:64]:
+        first.ingest(cb, ab, keys=kb)
+        reng.source.ingest(cb, ab, keys=kb)
+    for name, fields, x, y in (("state", STATE_FIELDS, first.state,
+                                reng.source.state),
+                               ("jstate", JSTATE_FIELDS, first.jstate,
+                                reng.source.jstate)):
+        for f in fields:
+            if not torch.equal(getattr(x, f), getattr(y, f)):
+                raise AssertionError(f"{tag} restored join stream: "
+                                     f"{name}.{f} differs")
+    require_same(f"{tag} restored join stream", reng.answer_join(fq, dq),
+                 feng.answer_join(fq, dq), JOIN_KINDS)
+    ckpt = {"file_mb": path.stat().st_size / 2 ** 20, "save_s": save_s,
+            "restore_s": restore_s}
+    path.unlink()
+    step("checkpoint")
+    out = {"rows": JOIN_N, "d_fact": d_fact, "method": method,
+           "build_s": build_s, "report": report, "kernel_err": kernel_err,
+           "bound": bound, "times_ms": times,
+           "answer_peak_mb_above_resident": peak_mb,
+           "answer_launches": answer_launches, "quality": quality,
+           "coalescer": {"tenants": len(tenants), "rows": int(sizes.sum()),
+                         "dispatches": n_disp, "launches": co_launches,
+                         "dedup_hits": co_stats["dedup_hits"],
+                         "padded_rows": co_stats["padded_rows"]},
+           "stream": stream, "checkpoint": ckpt, "step_seconds": steps,
+           "seconds": time.perf_counter() - t_phase}
+    emit(phase=f"{phase} join {tag}", card=card, **out)
+    del eng, co, seng, ing, first, feng, reng, args, slots, res, sres
+    torch.cuda.empty_cache()
+    return out
+
+
+def join_kernel_row(j1, j3, edge_err) -> dict:
+    """Row 9 of the kernels line: the 1-D join answer's shapes and
+    launches, the 3-D ones beside them."""
+    t1, t3 = j1["times_ms"], j3["times_ms"]
+    return {
+        "name": "join_cell_moments", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/join_moments.cu",
+        "replaces": "src/repro/joins/executor.py:108",
+        "replaces_note": "no pallas_call: compute_join_artifacts' jnp "
+                         "scatter stage",
+        "pallas_call": None,
+        "launches": j1["answer_launches"]["join_cell_moments"],
+        "launches_3d": j3["answer_launches"]["join_cell_moments"],
+        "launches_coalesced_tick": j1["coalescer"]["launches"][
+            "join_cell_moments"],
+        "max_abs_err": max(edge_err, j1["kernel_err"], j3["kernel_err"]),
+        "edge_cases": len(JOIN_CASES), "edge_max_abs_err": edge_err,
+        "ms": t1["join_cell_moments"],
+        "plain_ms": t1["join_cell_moments_plain"],
+        "bound_ms": j1["bound"]["bound_ms"],
+        "bound_by": j1["bound"]["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "device_ms": t1["join_cell_moments_device"],
+        "device_ms_by_kernel": t1["join_cell_moments_by_kernel"],
+        "enqueue_host_ms": t1["join_cell_moments_enqueue_host"],
+        "ms_3d": t3["join_cell_moments"],
+        "device_ms_3d": t3["join_cell_moments_device"],
+        "plain_ms_3d": t3["join_cell_moments_plain"],
+        "bound_ms_3d": j3["bound"]["bound_ms"],
+        "bit_stable_across_launches": True,
+        "rows_bit_equal_at_q": [1, 3, 16, 240, JOIN_Q]}
+
+
 def host_of(res) -> dict:
     """A result dict on the host, one copy (the coalescer's demux pull)."""
     from repro_torch.serve.coalescer import host_results
@@ -3212,6 +3796,7 @@ def check_plan_constants() -> None:
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
+    from repro_torch.kernels.join_moments import JM_MAX_D, JM_QT
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
@@ -3219,6 +3804,7 @@ def check_plan_constants() -> None:
     rt = native.library("route_multid")
     qe = native.library("query_eval")
     se = native.library("sample_extremes")
+    jmo = native.library("join_moments")
     got = {"weighted_segment_reduce chunks":
            seg.repro_weighted_segment_max_chunks(),
            "segment_reduce rows": seg.repro_segment_reduce_min_rows(),
@@ -3230,7 +3816,9 @@ def check_plan_constants() -> None:
            "query_eval queries a block":
            qe.repro_query_eval_max_queries(),
            "sample_extremes tiles": (se.repro_sample_extremes_query_tile(),
-                                     se.repro_sample_extremes_leaf_tile())}
+                                     se.repro_sample_extremes_leaf_tile()),
+           "join_cell_moments limits": (jmo.repro_join_moments_query_tile(),
+                                        jmo.repro_join_moments_max_d())}
     want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
             "segment_reduce rows": SEG_MIN_ROWS,
             "segment_reduce chunks": SEG_MAX_CHUNKS,
@@ -3239,7 +3827,8 @@ def check_plan_constants() -> None:
             "query_eval threads": QE_THREADS,
             "query_eval leaf tile": QE_LEAF_TILE,
             "query_eval queries a block": QE_MAX_QUERIES,
-            "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT)}
+            "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
+            "join_cell_moments limits": (JM_QT, JM_MAX_D)}
     if got != want:
         raise AssertionError(f"launch plans: the sources' constants {got} "
                              f"are not the wrappers' {want}")
@@ -3381,6 +3970,13 @@ def main(argv=None) -> int:
     # 18. Checkpoints and faults on the 1-D stream.
     ckpt = checkpoint_path(torch, run1, run3, s1, card,
                            ROOT / "build" / "chip_smoke_checkpoints")
+
+    # 19. Row 9 at edge shapes, then 1-D join serving and streaming; 20.
+    # the same in 3-D.
+    jtmp = ROOT / "build" / "chip_smoke_checkpoints"
+    edge_join_err = edge_cases_join(torch)
+    j1 = join_path(torch, "1d", 1, "adp", card, jtmp, seed=0)
+    j3 = join_path(torch, "3d", 3, "kd", card, jtmp, seed=0)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
@@ -3570,6 +4166,31 @@ def main(argv=None) -> int:
     }
     for row in rows:
         row.update(serve_launches.get(row["name"], {}))
+    # Launches on the join paths (phases 19-20): one 1-D join answer, the
+    # 1-D and 3-D join streams (188 batches each).
+    join_launches = {
+        "query_eval": {"launches_join_answer": j1["answer_launches"][
+            "query_eval"]},
+        "segment_reduce": {
+            "launches_join_stream": j1["stream"]["launches"][
+                "segment_reduce"],
+            "launches_join_stream_3d": j3["stream"]["launches"][
+                "segment_reduce"]},
+        "route_multid": {"launches_join_stream_3d": j3["stream"][
+            "launches"]["route_multid"]},
+    }
+    for row in rows:
+        row.update(join_launches.get(row["name"], {}))
+    rows.append(join_kernel_row(j1, j3, edge_join_err))
+    emit(phase="join summary", card=card, **{
+        tag: {"answer_join_ms": j["times_ms"]["answer_join"],
+              "answer_join_host_ms": j["times_ms"]["answer_join_host"],
+              "device_busy_ms": j["times_ms"]["answer_join_device_busy"],
+              "kernels_per_answer": j["times_ms"]["kernels_per_answer"],
+              "peak_mb": j["answer_peak_mb_above_resident"],
+              "ingest_ms_per_batch": j["stream"]["ingest_ms_per_batch"],
+              "sum_median_rel_err": j["quality"]["sum_median_rel_err"]}
+        for tag, j in (("1d", j1), ("3d", j3))})
     emit(phase="serve summary", ladder_1d=lad1["tiers"],
          ladder_3d=lad3["tiers"], tier0_host_ms={
              "1d": lad1["tier0_host_ms"], "3d": lad3["tier0_host_ms"]},

@@ -31,12 +31,19 @@ device; ``answer_progressive`` returns the ladder's handle. A
 :class:`~repro_torch.serve.RequestCoalescer` built on an engine attaches
 to it, and ``checkpoint`` / ``restore`` round-trip a synopsis or streaming
 source through one ``.npz`` (``serve/checkpoint.py``).
+
+Over a join synopsis (``joins.build_join_synopsis``) or a
+``JoinStreamingIngestor``, ``answer_join`` / ``prepare_join`` serve
+approximate fk-join aggregates (DESIGN.md §13) through the same plan
+cache, in :class:`PreparedJoinQuery` entries.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 from collections import OrderedDict
+
+import torch
 
 from ..core.types import QueryBatch, QueryResult
 from ..device import resolve_device
@@ -88,6 +95,41 @@ def _validate_request(serving: ServingConfig, ci: CIConfig | None) -> None:
             "calibrated intervals support avg_mode='ratio' only")
 
 
+def _validate_join_request(serving: ServingConfig, ci: CIConfig | None):
+    from ..joins import JOIN_KINDS
+    serving.validate()
+    if serving.sample_slots is not None:
+        raise ValueError(
+            "sample_slots applies to the single-table refinement ladder "
+            "only; join serving estimates from key-universe samples, not "
+            "the stratified reservoir")
+    for kind in serving.kinds:
+        if kind not in JOIN_KINDS:
+            raise ValueError(
+                f"join serving supports kinds {JOIN_KINDS}, got {kind!r} "
+                "(min/max have no unbiased universe-sample estimator)")
+    if ci is not None:
+        ci.validate()
+        if ci.method != "clt":
+            raise ValueError(
+                "join serving supports ci method 'clt' only "
+                f"(got {ci.method!r}); the bootstrap resamples reservoir "
+                "rows, not key universes")
+
+
+def _join_dispatch_entry(serving: ServingConfig, ci: CIConfig | None):
+    """The join serving function for one config: (pinned, queries,
+    plan_masks) -> results, where ``pinned`` is the (JoinSynopsis,
+    JoinSlots) pair; one function covers the plain (``ci=None``,
+    lam-scaled CLT width) and the calibrated-interval paths."""
+    from ..joins.executor import join_answer
+    return functools.partial(
+        join_answer, kinds=serving.kinds, lam=serving.lam,
+        level=None if ci is None else float(ci.level),
+        small_n_threshold=12 if ci is None else int(ci.small_n_threshold),
+        delta_budget="stratum" if ci is None else ci.delta_budget)
+
+
 def _dispatch_entry(serving: ServingConfig, ci: CIConfig | None, device):
     """The serving function for one config: (syn, queries, plan_masks) ->
     results. The bootstrap's key is resolved here, once, on ``device``."""
@@ -132,11 +174,20 @@ class PreparedQuery:
         self._epoch = engine.epoch
         self._generation = engine._generation
         self._syn = self._resolve_source()
-        self._run = _dispatch_entry(serving, ci, engine.device)
+        self._run = self._make_entry()
+
+    # Subclass hooks: which source view is pinned, which serving function
+    # serves it, and where differently-shaped batches go instead.
+    def _make_entry(self):
+        return _dispatch_entry(self.serving, self.ci, self._engine.device)
 
     def _resolve_source(self):
         return _executor.slice_sample_slots(self._engine.resolve(),
                                             self.serving.sample_slots)
+
+    def _fallback_answer(self, queries) -> dict[str, QueryResult]:
+        return self._engine.answer(queries, kinds=self.serving.kinds,
+                                   ci=self.ci, serving=self.serving)
 
     def _refresh(self) -> None:
         """Re-pin the serving synopsis after a source epoch bump or a
@@ -162,8 +213,7 @@ class PreparedQuery:
                 return self._engine._lookup(
                     tuple(queries.lo.shape), self.serving, self.ci,
                     has_plan=True)(queries, plan_masks)
-            return self._engine.answer(queries, kinds=self.serving.kinds,
-                                       ci=self.ci, serving=self.serving)
+            return self._fallback_answer(queries)
         self._refresh()
         _executor.count_artifact_pass(self.serving.kinds)
         if (self.ci is not None and self.ci.method == "bootstrap"
@@ -179,6 +229,28 @@ class PreparedQuery:
                                                  _executor.MIN_ROWS)
         return _executor.take_rows(self._run(self._syn, queries, plan_masks),
                                    n)
+
+
+class PreparedJoinQuery(PreparedQuery):
+    """A pinned fk-join serving entry (DESIGN.md §13): the lifecycle of
+    :class:`PreparedQuery` (plan-cache slot, epoch-driven re-pin, short
+    batches served at ``executor.MIN_ROWS`` rows), pinning the resolved
+    :class:`~repro_torch.joins.JoinSynopsis` with its universe slots in
+    row 9's layouts (derived once per pin) and the join serving function.
+    The pinned shape is the concatenated ``(Q, d_fact + d_dim)`` join
+    rectangle's."""
+
+    def _make_entry(self):
+        return _join_dispatch_entry(self.serving, self.ci)
+
+    def _resolve_source(self):
+        from ..joins.executor import join_slots
+        jsyn = self._engine.resolve_join()
+        return jsyn, join_slots(jsyn)
+
+    def _fallback_answer(self, queries) -> dict[str, QueryResult]:
+        return self._engine.answer_join(queries, kinds=self.serving.kinds,
+                                        ci=self.ci, serving=self.serving)
 
 
 class PassEngine:
@@ -278,17 +350,18 @@ class PassEngine:
         return sv, cfg
 
     # -- plan cache --------------------------------------------------------
-    def _lookup(self, shape, serving, ci,
-                has_plan: bool = False) -> PreparedQuery:
+    def _lookup(self, shape, serving, ci, has_plan: bool = False,
+                join: bool = False) -> PreparedQuery:
         key = (tuple(shape), serving.cache_key(),
-               ci.cache_key() if ci is not None else None, has_plan)
+               ci.cache_key() if ci is not None else None, has_plan, join)
         hit = self._cache.get(key)
         if hit is not None:
             self._cache.move_to_end(key)
             self._stats["hits"] += 1
             return hit
         self._stats["misses"] += 1
-        prepared = PreparedQuery(self, serving, ci, shape, has_plan=has_plan)
+        cls = PreparedJoinQuery if join else PreparedQuery
+        prepared = cls(self, serving, ci, shape, has_plan=has_plan)
         self._cache[key] = prepared
         if len(self._cache) > self._plan_cache_size:
             self._cache.popitem(last=False)
@@ -388,8 +461,113 @@ class PassEngine:
         return RefinementHandle(self, queries, sv, cfg,
                                 deadline_ms=deadline_ms)
 
-    def answer_join(self, *args, **kwargs):
-        raise _not_ported("PassEngine.answer_join", "item 10, joins/")
+    # -- fk-join serving (DESIGN.md §13) ------------------------------------
+    def resolve_join(self):
+        """Current join synopsis on the engine's device; raises TypeError
+        when the source has no join augmentation (``build_join_synopsis``
+        / ``JoinStreamingIngestor``)."""
+        from ..joins import resolve_join_synopsis
+        return resolve_join_synopsis(self._source).to(self.device)
+
+    def _effective_join(self, kinds, ci, serving):
+        sv = serving if serving is not None else self.serving
+        if kinds is not None:
+            sv = dataclasses.replace(sv, kinds=kinds)
+        else:
+            from ..joins import JOIN_KINDS
+            # Inherited kinds keep the join-answerable ones, so an engine
+            # configured for five kinds still answers joins.
+            sv = dataclasses.replace(
+                sv, kinds=tuple(k for k in sv.kinds if k in JOIN_KINDS)
+                or ("sum",))
+        cfg = self.ci if ci is _UNSET else as_ci_config(ci)
+        _validate_join_request(sv, cfg)
+        return sv, cfg
+
+    def _as_join_batch(self, queries, dim_queries=None) -> QueryBatch:
+        """The concatenated ``[fact ‖ dim attrs]`` rectangle, on the
+        engine's device: from a (fact, dim) pair, a full-width batch, or a
+        fact-width batch (dim side unconstrained, +-3.0e38)."""
+        from ..joins import join_queries
+        from ..kernels.segment_reduce import NEG_BIG, POS_BIG
+        if dim_queries is not None:
+            return join_queries(queries, dim_queries).to(self.device)
+        if isinstance(queries, tuple):
+            return join_queries(*queries).to(self.device)
+        jsyn = self.resolve_join()
+        d_f, d_d = jsyn.d_fact, jsyn.d_dim
+        width = queries.lo.shape[1]
+        if width == d_f + d_d:
+            return QueryBatch(
+                *(torch.as_tensor(x).to(self.device, torch.float32)
+                  for x in (queries.lo, queries.hi)))
+        if width == d_f:
+            q = queries.lo.shape[0]
+            fill = QueryBatch(torch.full((q, d_d), NEG_BIG),
+                              torch.full((q, d_d), POS_BIG))
+            return join_queries(queries, fill).to(self.device)
+        raise ValueError(
+            f"join query width {width} matches neither the fact side "
+            f"({d_f}) nor the concatenated layout ({d_f + d_d})")
+
+    def _check_join_binding(self, dim_table, on) -> None:
+        from ..joins import resolve_join_synopsis
+        jsyn = resolve_join_synopsis(self._source)
+        if on is not None and on != jsyn.key_name:
+            raise ValueError(
+                f"engine's join synopsis is keyed on {jsyn.key_name!r}, "
+                f"got on={on!r}; universe membership is drawn per key at "
+                "build time, so the join key cannot change at query time")
+        if dim_table is not None and dim_table is not jsyn.dim:
+            d = jsyn.dim
+            if (dim_table.num_keys != d.num_keys
+                    or dim_table.num_partitions != d.num_partitions
+                    or dim_table.d_attr != d.d_attr):
+                raise ValueError(
+                    "dim_table differs from the one this join synopsis "
+                    "was built against; rebuild with build_join_synopsis "
+                    "to join a different dimension relation")
+
+    def prepare_join(self, queries_or_shape, *, kinds=None, ci=_UNSET,
+                     serving: ServingConfig | None = None
+                     ) -> PreparedJoinQuery:
+        """Pin a join serving entry (the join analogue of :meth:`prepare`).
+        Takes a :class:`QueryBatch` in any layout :meth:`answer_join`
+        accepts, a (fact, dim) batch pair, or a concatenated ``(Q, d_fact
+        + d_dim)`` shape tuple."""
+        if hasattr(queries_or_shape, "lo") or (
+                isinstance(queries_or_shape, tuple) and queries_or_shape
+                and hasattr(queries_or_shape[0], "lo")):
+            shape = tuple(self._as_join_batch(queries_or_shape).lo.shape)
+        else:
+            shape = tuple(queries_or_shape)
+        if len(shape) != 2:
+            raise ValueError(f"expected a (Q, d) batch shape, got {shape}")
+        sv, cfg = self._effective_join(kinds, ci, serving)
+        return self._lookup(shape, sv, cfg, join=True)
+
+    def answer_join(self, fact_queries, dim_queries=None, *, dim_table=None,
+                    on: str | None = None, kinds=None, ci=_UNSET,
+                    serving: ServingConfig | None = None
+                    ) -> dict[str, QueryResult]:
+        """Answer fk-join aggregate queries from the engine's join synopsis;
+        returns ``{kind: QueryResult}`` like :meth:`answer`.
+
+        ``fact_queries`` is a :class:`QueryBatch` over the fact columns
+        (the dim side then unconstrained), a concatenated ``[fact ‖ dim
+        attrs]`` batch, or a (fact, dim) pair; or pass the dim side as
+        ``dim_queries=``. ``dim_table=`` / ``on=`` assert which dimension
+        relation and key the query means (the synopsis is bound to one at
+        build time). Cells covered on both sides are answered exactly from
+        the pre-joined aggregates, overlapping cells by Horvitz-Thompson
+        over the correlated key-universe samples, with CLT / Bernstein
+        intervals (``uncertainty.intervals.compose_join_interval``).
+        """
+        self._check_join_binding(dim_table, on)
+        queries = self._as_join_batch(fact_queries, dim_queries)
+        sv, cfg = self._effective_join(kinds, ci, serving)
+        return self._lookup(tuple(queries.lo.shape), sv, cfg, join=True)(
+            queries)
 
 
-__all__ = ["PassEngine", "PreparedQuery"]
+__all__ = ["PassEngine", "PreparedQuery", "PreparedJoinQuery"]

@@ -19,7 +19,11 @@ from .types import QueryBatch, QueryResult
 
 def ground_truth(c, a, queries: QueryBatch, kind: str = "sum",
                  chunk: int = 262144) -> np.ndarray:
-    """Exact answers by a chunked host float64 scan over every row."""
+    """Exact answers by a chunked host float64 scan over every row. Each
+    chunk computes only what ``kind`` needs, by the reference's own
+    operations, so the answers are its bits."""
+    if kind not in ("sum", "count", "avg", "min", "max"):
+        raise ValueError(kind)
     c = np.asarray(c, dtype=np.float64)
     c2 = c[:, None] if c.ndim == 1 else c
     a = np.asarray(a, dtype=np.float64).reshape(-1)
@@ -33,23 +37,47 @@ def ground_truth(c, a, queries: QueryBatch, kind: str = "sum",
     for start in range(0, c2.shape[0], chunk):
         cc = c2[start:start + chunk]
         aa = a[start:start + chunk]
-        pred = (np.all(q_lo[:, None, :] <= cc[None], axis=-1)
-                & np.all(cc[None] <= q_hi[:, None, :], axis=-1))
-        s += pred @ aa
-        cnt += pred.sum(axis=1)
-        mn = np.minimum(mn, np.where(pred, aa[None], np.inf).min(axis=1))
-        mx = np.maximum(mx, np.where(pred, aa[None], -np.inf).max(axis=1))
-    if kind == "sum":
-        return s
-    if kind == "count":
-        return cnt
-    if kind == "avg":
-        return s / np.maximum(cnt, 1)
-    if kind == "min":
-        return mn
-    if kind == "max":
-        return mx
-    raise ValueError(kind)
+        # Column by column: the reference's all(lo <= c <= hi) over the
+        # columns, without its (Q, chunk, d) intermediates.
+        pred = np.ones((Q, cc.shape[0]), bool)
+        for j in range(cc.shape[1]):
+            pred &= q_lo[:, j, None] <= cc[None, :, j]
+            pred &= cc[None, :, j] <= q_hi[:, j, None]
+        if kind in ("sum", "avg"):
+            s += pred @ aa
+        if kind in ("count", "avg"):
+            cnt += pred.sum(axis=1)
+        if kind == "min":
+            mn = np.minimum(mn, np.where(pred, aa[None], np.inf).min(axis=1))
+        if kind == "max":
+            mx = np.maximum(mx, np.where(pred, aa[None], -np.inf).max(axis=1))
+    return {"sum": s, "count": cnt, "min": mn, "max": mx,
+            "avg": s / np.maximum(cnt, 1)}[kind]
+
+
+def ground_truth_join(c, a, keys, dim_keys, dim_attrs, queries: QueryBatch,
+                      kind: str = "sum", chunk: int = 262144) -> np.ndarray:
+    """Exact fk-join aggregates by materializing the join on the host.
+
+    Fact rows (c, a, keys) inner-join dimension rows (dim_keys, dim_attrs)
+    on the key; each joined row's coordinates are ``[fact coords ‖ dim
+    attrs]``, the join rectangle's layout (``repro_torch.joins``). The
+    scoring oracle of the join tests and of ``chip_smoke.py``, host f64.
+    """
+    c = np.asarray(c, dtype=np.float64)
+    c2 = c[:, None] if c.ndim == 1 else c
+    a = np.asarray(a, dtype=np.float64).reshape(-1)
+    keys = np.asarray(keys).reshape(-1).astype(np.int64)
+    dim_keys = np.asarray(dim_keys).reshape(-1).astype(np.int64)
+    dim_attrs = np.asarray(dim_attrs, dtype=np.float64)
+    if dim_attrs.ndim == 1:
+        dim_attrs = dim_attrs[:, None]
+    order = np.argsort(dim_keys, kind="stable")
+    dk, da = dim_keys[order], dim_attrs[order]
+    idx = np.clip(np.searchsorted(dk, keys), 0, dk.size - 1)
+    found = dk[idx] == keys
+    joined_c = np.concatenate([c2[found], da[idx[found]]], axis=1)
+    return ground_truth(joined_c, a[found], queries, kind, chunk=chunk)
 
 
 def _batch(lo: np.ndarray, hi: np.ndarray, device) -> QueryBatch:
@@ -118,5 +146,6 @@ def ci_ratio(res: QueryResult, truth: np.ndarray) -> np.ndarray:
                                                                  1e-12)
 
 
-__all__ = ["ground_truth", "random_queries", "challenging_queries",
+__all__ = ["ground_truth", "ground_truth_join", "random_queries",
+           "challenging_queries",
            "relative_error", "ci_ratio"]

@@ -22,7 +22,8 @@ import dataclasses
 import numpy as np
 
 from ..core.types import (Synopsis, PartitionTree, QueryBatch, NUM_AGGS,
-                          AGG_SUM, AGG_SUMSQ, AGG_COUNT, AGG_MIN, AGG_MAX)
+                          AGG_SUM, AGG_SUMSQ, AGG_COUNT, AGG_MIN, AGG_MAX,
+                          REL_PARTIAL, REL_COVER)
 from ..device import to_numpy
 from ..kernels import ops
 
@@ -194,5 +195,45 @@ def clear_relation_cache():
     _REL_CACHE.clear()
 
 
+# --------------------------------------------------------------------------
+# Join-aware planning: (fact stratum x dim partition) cell classification
+# --------------------------------------------------------------------------
+
+def classify_join_cells(jsyn, queries: QueryBatch):
+    """Classify every (fact stratum, dim partition) cell against each join
+    query (DESIGN.md §13), through two ``ops.query_eval`` calls (the
+    kernel on a CUDA synopsis).
+
+    A join query is one rectangle over ``[fact coords ‖ dim attrs]``: its
+    fact columns classify the k leaves, its dim columns the P partitions.
+    A cell is *covered* when both sides cover it and it holds rows (the
+    pre-joined ``cell_agg`` answers it exactly), *sampled* when both sides
+    overlap it, it holds rows and it is not covered (the universe sample
+    estimates it), and empty otherwise.
+
+    Returns ``(cover, sampled, rel_f, rel_d)``: cover / sampled (Q, k*P)
+    bool (cell id = leaf * P + part) and the relation codes (Q, k) and
+    (Q, P). The column slices of the bounds are not contiguous;
+    ``ops.query_eval`` makes them so.
+    """
+    base, dim = jsyn.base, jsyn.dim
+    d_f = jsyn.d_fact
+    q_lo, q_hi = queries.lo, queries.hi
+    rel_f, _ = ops.query_eval(base.leaf_lo, base.leaf_hi, base.leaf_agg,
+                              q_lo[:, :d_f], q_hi[:, :d_f])
+    rel_d, _ = ops.query_eval(dim.part_lo, dim.part_hi, dim.part_agg,
+                              q_lo[:, d_f:], q_hi[:, d_f:])
+    q = q_lo.shape[0]
+    kp = jsyn.num_leaves * jsyn.num_partitions
+    nonempty = (jsyn.cell_agg[:, :, AGG_COUNT] > 0).reshape(1, kp)
+    cover_raw = ((rel_f == REL_COVER)[:, :, None]
+                 & (rel_d == REL_COVER)[:, None, :]).reshape(q, kp)
+    overlap = ((rel_f >= REL_PARTIAL)[:, :, None]
+               & (rel_d >= REL_PARTIAL)[:, None, :]).reshape(q, kp)
+    cover = cover_raw & nonempty
+    sampled = overlap & ~cover_raw & nonempty
+    return cover, sampled, rel_f, rel_d
+
+
 __all__ = ["QueryPlan", "plan_queries", "relation_masks",
-           "clear_relation_cache"]
+           "clear_relation_cache", "classify_join_cells"]

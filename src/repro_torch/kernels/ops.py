@@ -8,6 +8,7 @@ variable or config routes CUDA tensors to the plain version.
 from __future__ import annotations
 
 from .bootstrap import bootstrap_moments_cuda, bootstrap_moments_plain
+from .join_moments import join_cell_moments_cuda, join_cell_moments_plain
 from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
 from .route import route_multid_cuda, route_multid_plain
@@ -108,6 +109,23 @@ def route_multid(leaf_lo, leaf_hi, c):
     return route_multid_plain(*args)
 
 
+def join_cell_moments(slots, q_lo, q_hi, cover, sampled, cell_agg,
+                      total_rows, p_u: float):
+    """The per-(query, cell) statistics of an fk-join answer from the
+    universe sample's :class:`~repro_torch.kernels.join_moments.JoinSlots`
+    (Q, D) query bounds, (Q, k*P) cover / sampled masks, (k*P, 5) cell
+    aggregates and the 0-d row count. Returns a ``JoinMoments``. The
+    reference has no Pallas kernel for it (plain jnp); CUDA tensors launch
+    the hand-written kernels of ``csrc/join_moments.cu``, CPU tensors run
+    that jnp formulation (``join_cell_moments_plain``)."""
+    args = [t.contiguous() for t in (q_lo, q_hi, cover, sampled, cell_agg)]
+    if device_type("join_cell_moments", slots.s_a, total_rows,
+                   *args) == "cuda":
+        return join_cell_moments_cuda(slots, *args, total_rows, p_u)
+    return join_cell_moments_plain(slots, *args, total_rows, p_u)
+
+
 __all__ = ["query_eval", "stratified_moments", "weighted_moments",
            "bootstrap_moments", "sample_extremes", "segment_reduce",
-           "weighted_segment_reduce", "route_multid", "tree_sum_last"]
+           "weighted_segment_reduce", "route_multid", "join_cell_moments",
+           "tree_sum_last"]

@@ -11,7 +11,9 @@ packages:
 * :func:`split`   — ``jax.random.split`` (``prng._threefry_split_foldlike``);
 * :func:`fold_in` — ``jax.random.fold_in`` (``prng._threefry_fold_in``);
 * :func:`uniform` — ``jax.random.uniform`` in float32 over [0, 1)
-  (``random._uniform`` on ``prng._threefry_random_bits_partitionable``).
+  (``random._uniform`` on ``prng._threefry_random_bits_partitionable``);
+* :func:`uniform_scalar` — ``jax.random.uniform(key, ())`` for a batch of
+  keys, one draw each (the join universe's per-key uniforms).
 
 The bootstrap draws its resample weights from ``fold_in(key, r)`` once
 per replicate r; :func:`fold_in` takes a vector of r and :func:`uniform`
@@ -106,4 +108,16 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
         *key.shape[:-1], *shape)
 
 
-__all__ = ["PRNGKey", "split", "fold_in", "uniform", "threefry_2x32"]
+def uniform_scalar(keys: torch.Tensor) -> torch.Tensor:
+    """``jax.random.uniform(key, (), float32)`` for every key of a (..., 2)
+    batch: the hash of the one count pair (0, 0) (``iota_2x32_shape(())``)
+    under each key. Returns a (...,) float32 tensor; equal to
+    ``uniform(keys, ())`` without the count axis."""
+    zero = torch.zeros_like(keys[..., 0])
+    b1, b2 = threefry_2x32(keys[..., 0], keys[..., 1], zero, zero)
+    word = ((b1 ^ b2) >> 9) | 0x3F800000
+    return word.to(torch.int32).view(torch.float32) - 1.0
+
+
+__all__ = ["PRNGKey", "split", "fold_in", "uniform", "uniform_scalar",
+           "threefry_2x32"]

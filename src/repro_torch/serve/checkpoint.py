@@ -19,10 +19,16 @@ are raw ``uint32[2]`` words: written under ``<name>``, and read from
 kernel by the device of its tensors, so it writes None and ignores the
 recorded one, in the ingestor and in the serving config.
 
+A join streaming source (``JoinStreamingIngestor``) writes its join
+synopsis (base, dimension table, universe buffers, cells), both stream
+states, its key, its regrow count and any parked overflow rows; the
+universe's ``key_root`` is written as raw ``uint32[2]`` words as the
+reference writes its raw key.
+
 Checkpoints are taken at epoch boundaries only: ``save_engine`` flushes an
 attached request coalescer first so no admitted query straddles the
-snapshot, and every ``ingest()`` swaps its state once per batch. Join,
-catalog and sharded sources come with ROADMAP Queue 1 items 10, 11 and 12.
+snapshot, and every ``ingest()`` swaps its state once per batch. Catalog
+and sharded sources come with ROADMAP Queue 1 items 11 and 12.
 """
 from __future__ import annotations
 
@@ -37,8 +43,7 @@ from ..device import resolve_device, to_numpy
 
 CHECKPOINT_VERSION = 1
 
-_NOT_PORTED = {"join_streaming": ("join sources", "item 10, joins/"),
-               "catalog": ("catalog sources", "item 11, partitions/"),
+_NOT_PORTED = {"catalog": ("catalog sources", "item 11, partitions/"),
                "sharded": ("sharded sources", "item 12, sharded/")}
 
 
@@ -156,6 +161,7 @@ def save_engine(engine, path) -> dict:
     type. Returns the metadata dict embedded in the file.
     """
     from ..streaming.ingest import StreamingIngestor
+    from ..streaming.join_ingest import JoinStreamingIngestor
 
     if engine._coalescer is not None:
         engine._coalescer.flush()
@@ -168,7 +174,26 @@ def save_engine(engine, path) -> dict:
         "serving": _config_meta(engine.serving),
         "ci": _config_meta(engine.ci),
     }
-    if isinstance(src, StreamingIngestor):
+    if isinstance(src, JoinStreamingIngestor):
+        meta["source"] = "join_streaming"
+        meta["backend"] = None
+        meta["jsyn"] = _put_dc(arrays, "jsyn", src._join_base)
+        _put_key(arrays, "jsyn/key_root", src._join_base.key_root)
+        meta["state"] = _put_dc(arrays, "state", src.state)
+        meta["jstate"] = _put_dc(arrays, "jstate", src.jstate)
+        _put_key(arrays, "ing/key", src._key)
+        meta["n_stream"] = int(src.n_stream)
+        meta["n_regrown"] = int(src.n_regrown)
+        _put_qbox(arrays, meta, src._qlo, src._qhi)
+        if src._pending:
+            arrays["pending/c"] = np.concatenate(
+                [p[0] for p in src._pending], axis=0)
+            arrays["pending/a"] = np.concatenate(
+                [p[1] for p in src._pending])
+            arrays["pending/k"] = np.concatenate(
+                [p[2] for p in src._pending])
+            meta["has_pending"] = True
+    elif isinstance(src, StreamingIngestor):
         meta["source"] = "streaming"
         meta["backend"] = None
         meta["base"] = _put_dc(arrays, "base", src.base)
@@ -189,8 +214,19 @@ def save_engine(engine, path) -> dict:
 
 
 # -- load ------------------------------------------------------------------
+def _load_stream_state(arrays, meta: dict, device):
+    from ..streaming.ingest import StreamState
+    state = _get_dc(StreamState, arrays, "state", meta["state"], device)
+    if state.quarantined is None:           # files from before the box
+        state.quarantined = torch.zeros((), dtype=torch.int32,
+                                        device=device)
+    return state
+
+
 def _restore_source(arrays, meta: dict, device):
-    from ..streaming.ingest import StreamState, StreamingIngestor
+    from ..streaming.ingest import StreamingIngestor
+    from ..streaming.join_ingest import (JoinStreamState,
+                                         JoinStreamingIngestor)
 
     kind = meta["source"]
     if kind in _NOT_PORTED:
@@ -202,13 +238,32 @@ def _restore_source(arrays, meta: dict, device):
         ing = StreamingIngestor(base, key=_get_key(arrays, "ing/key"),
                                 quarantine_box=_get_qbox(arrays, meta),
                                 device=device)
-        state = _get_dc(StreamState, arrays, "state", meta["state"], device)
-        if state.quarantined is None:           # files from before the box
-            state.quarantined = torch.zeros((), dtype=torch.int32,
-                                            device=device)
-        ing.state = state
+        ing.state = _load_stream_state(arrays, meta, device)
         ing.n_stream = int(meta["n_stream"])
         ing._epoch = int(meta["epoch"])
+        return ing
+    if kind == "join_streaming":
+        from ..joins.dim import DimTable
+        from ..joins.synopsis import JoinSynopsis
+        # The raw uint32 words of key_root as the port's int64 key.
+        arrays = dict(arrays, **{"jsyn/key_root": _get_key(
+            arrays, "jsyn/key_root").astype(np.int64)})
+        jsyn = _get_dc(JoinSynopsis, arrays, "jsyn", meta["jsyn"], device,
+                       nested={"base": Synopsis, "tree": PartitionTree,
+                               "dim": DimTable})
+        ing = JoinStreamingIngestor(jsyn, key=_get_key(arrays, "ing/key"),
+                                    quarantine_box=_get_qbox(arrays, meta),
+                                    device=device)
+        ing.state = _load_stream_state(arrays, meta, device)
+        ing.jstate = _get_dc(JoinStreamState, arrays, "jstate",
+                             meta["jstate"], device)
+        ing.n_stream = int(meta["n_stream"])
+        ing.n_regrown = int(meta["n_regrown"])
+        ing._epoch = int(meta["epoch"])
+        if meta.get("has_pending"):
+            ing._pending = [(np.asarray(arrays["pending/c"]),
+                             np.asarray(arrays["pending/a"]),
+                             np.asarray(arrays["pending/k"]))]
         return ing
     raise ValueError(f"unknown checkpoint source type {kind!r}")
 

@@ -59,7 +59,7 @@ import numpy as np
 import torch
 
 from ..api.config import ServingConfig, CIConfig, CoalescerConfig
-from ..api.engine import PassEngine, _UNSET, _not_ported
+from ..api.engine import PassEngine, _UNSET
 from ..core.types import QueryBatch, QueryResult
 from ..device import to_numpy
 from ..engine.executor import PAD_LO, PAD_HI
@@ -98,6 +98,7 @@ class _Pending:
     rows: int
     t_deadline: float | None = None   # absolute perf_counter deadline
     ready: object = None
+    join: bool = False
     dups: list = dataclasses.field(default_factory=list)
 
 
@@ -208,12 +209,21 @@ class RequestCoalescer:
         shedding: a submission admission control would reject, or a tick
         that predicts the dispatch would blow the remaining budget, serves
         the tier-0 answer (hard-bound envelope, no sample work) at once.
-        ``join=True`` (join requests) comes with the joins.
+
+        ``join=True`` serves the request as ``engine.answer_join`` would
+        (``queries`` in any layout it accepts); join requests bucket apart
+        from single-table ones and have no tier 0, so they take no
+        ``deadline_ms``.
         """
         if join:
-            raise _not_ported("RequestCoalescer.submit(join=True)",
-                              "item 10, joins/")
-        sv, cfg = self.engine._effective(kinds, ci, serving)
+            if deadline_ms is not None:
+                raise ValueError(
+                    "deadline_ms applies to single-table requests only "
+                    "(tier-0 degraded serving has no join analogue)")
+            sv, cfg = self.engine._effective_join(kinds, ci, serving)
+            queries = self.engine._as_join_batch(queries)
+        else:
+            sv, cfg = self.engine._effective(kinds, ci, serving)
         if deadline_ms is not None and deadline_ms < 0:
             raise ValueError(f"deadline_ms must be >= 0, got {deadline_ms}")
         if queries.lo.ndim != 2 or queries.lo.shape[0] < 1:
@@ -229,6 +239,7 @@ class RequestCoalescer:
         pend = _Pending(tenant=tenant, queries=queries, serving=sv, ci=cfg,
                         future=Future(), t_submit=now,
                         rows=int(queries.lo.shape[0]), ready=ready,
+                        join=join,
                         t_deadline=(None if deadline_ms is None
                                     else now + deadline_ms / 1e3))
         with self._lock:
@@ -343,8 +354,9 @@ class RequestCoalescer:
         pad = padded_b - rows
         everyone = [q for p in group for q in (p, *p.dups)]
         try:
-            prepared = self.engine.prepare((padded_b, d), serving=serving,
-                                           ci=ci)
+            prepare = (self.engine.prepare_join if group[0].join
+                       else self.engine.prepare)
+            prepared = prepare((padded_b, d), serving=serving, ci=ci)
             results = prepared(self._mux(group, padded_b, d))
             # One synchronizing copy of the whole result dict; the
             # per-request demux below is numpy views.
@@ -443,17 +455,18 @@ class RequestCoalescer:
             self._stats["ticks"] += 1
             return 0
         self._drain_on_epoch_bump()
-        # Bucket by (padded shape class, d, serving config, ci config); a
-        # request past the top class gets a rounded-up class of its own.
+        # Bucket by (padded shape class, d, serving config, ci config, join
+        # flag); a request past the top class gets a rounded-up class of
+        # its own.
         buckets: OrderedDict[tuple, list[_Pending]] = OrderedDict()
         for p in batch:
             padded_b = self.config.padded_size(p.rows)
             key = (padded_b, int(p.queries.lo.shape[1]),
                    p.serving.cache_key(),
-                   p.ci.cache_key() if p.ci is not None else None)
+                   p.ci.cache_key() if p.ci is not None else None, p.join)
             buckets.setdefault(key, []).append(p)
         n_dispatch = 0
-        for (padded_b, _d, _sk, _ck), group in buckets.items():
+        for (padded_b, _d, _sk, _ck, _jn), group in buckets.items():
             cur: list[_Pending] = []
             cur_rows = 0
             for p in self._primaries(group):   # greedy, never split one

@@ -157,6 +157,81 @@ def compose_interval(syn: Synopsis, art, kind: str, level: float,
     raise ValueError(f"no interval composition for kind: {kind}")
 
 
+def _join_fb_half(jsyn, jart, kind: str, log_term, over_cell):
+    """(Q, k*P) fallback half-width of each sampled cell's contribution:
+    empirical Bernstein on the key-group HT sum, degrading to the
+    deterministic cell range when the cell has no contributing group or
+    its stratum's universe buffer overflowed (truncation breaks the HT
+    unbiasedness the Bernstein bound rests on)."""
+    from ..joins.assemble import join_cell_bounds
+    p_lb, p_ub = join_cell_bounds(jsyn, kind)
+    e = jart.s_cell if kind == "sum" else jart.c_cell
+    v = jart.v_s if kind == "sum" else jart.v_c
+    r = jart.r_s if kind == "sum" else jart.r_c
+    # The HT estimate may fall outside the deterministic cell range: the
+    # bound is the distance from the estimate to the farther end.
+    det = minmax.maximum(p_ub[None] - e, e - p_lb[None])
+    bern = torch.sqrt(2.0 * v * log_term) + (2.0 / 3.0) * r * log_term
+    return torch.where((jart.n_grp > 0) & ~over_cell,
+                       minmax.minimum(bern, det), det)
+
+
+def compose_join_interval(jsyn, jart, kind: str, level: float,
+                          small_n_threshold: int = 12,
+                          delta_budget: str = "stratum"):
+    """Half-width of the ``level`` interval for one join kind from shared
+    join artifacts (DESIGN.md §13). Returns (half, n_fallback), both (Q,).
+
+    :func:`compose_interval` at cell granularity: covered cells contribute
+    zero (a query of covered cells only gets a zero-width interval);
+    sampled cells with enough contributing key groups use the CLT
+    variance of the HT estimate; cells below ``small_n_threshold`` groups,
+    or in strata whose universe buffer overflowed, fall back to
+    min(empirical Bernstein, deterministic cell range).
+    """
+    if delta_budget not in ("stratum", "union"):
+        raise ValueError(f"unknown delta_budget: {delta_budget!r}")
+    dev = jart.sampled.device
+    z = _z_of(level, dev)
+    delta = 1.0 - level
+    p_dim = jsyn.num_partitions
+    over_cell = torch.repeat_interleave(jsyn.u_overflow > 0, p_dim)[None]
+    fb = jart.sampled & ((jart.n_grp < float(small_n_threshold))
+                         | over_cell)
+    cltf = (jart.sampled & ~fb).to(torch.float32)
+    n_fallback = fb.to(torch.float32).sum(1)
+    if delta_budget == "union":
+        log_term = torch.log(
+            3.0 * torch.clamp(n_fallback, min=1.0) / delta)[:, None]
+    else:
+        log_term = torch.log(torch.tensor(3.0 / delta, dtype=torch.float32,
+                                          device=dev))
+
+    if kind in ("sum", "count"):
+        v = jart.v_s if kind == "sum" else jart.v_c
+        half_clt = z * torch.sqrt((cltf * v).sum(1))
+        h = _join_fb_half(jsyn, jart, kind, log_term, over_cell)
+        return half_clt + torch.where(fb, h, 0.0).sum(1), n_fallback
+
+    if kind == "avg":
+        from ..joins.assemble import join_sum_count
+        s, c = join_sum_count(jart)
+        est = s / c
+        vs = (cltf * jart.v_s).sum(1)
+        vc = (cltf * jart.v_c).sum(1)
+        csc = (cltf * jart.cov_sc).sum(1)
+        var_ratio = minmax.max0(vs - 2 * est * csc + est * est * vc) / (c * c)
+        h_s = torch.where(fb, _join_fb_half(jsyn, jart, "sum", log_term,
+                                            over_cell), 0.0).sum(1)
+        h_c = torch.where(fb, _join_fb_half(jsyn, jart, "count", log_term,
+                                            over_cell), 0.0).sum(1)
+        half_fb = (h_s + torch.abs(est) * h_c) / torch.clamp(c - h_c,
+                                                             min=1.0)
+        return z * torch.sqrt(var_ratio) + half_fb, n_fallback
+
+    raise ValueError(f"no join interval composition for kind: {kind}")
+
+
 def _with_interval(res: QueryResult, half, clip_bounds: bool) -> QueryResult:
     lo = res.estimate - half
     hi = res.estimate + half
@@ -196,4 +271,5 @@ def ci_answer(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
     return out
 
 
-__all__ = ["normal_quantile", "compose_interval", "ci_answer"]
+__all__ = ["normal_quantile", "compose_interval", "compose_join_interval",
+           "ci_answer"]

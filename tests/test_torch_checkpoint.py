@@ -3,7 +3,8 @@ CPU: synopsis and streaming round trips serve bit for bit, a restored
 ingestor goes on ingesting as the original does, the quarantine counter
 survives, the version guard and the config override hold, and a file the
 JAX package's ``save_engine`` wrote restores into the port (and one the
-port wrote into the JAX package).
+port wrote into the JAX package). A join stream (parked overflow rows and
+all) round-trips the same way, in the port and across the packages.
 
 A restored reference file serves within ``tests/test_torch_engine.py``'s
 tolerances of the JAX engine; on integer values the restored ingestor's
@@ -22,6 +23,7 @@ from repro.core import query as jquery
 from repro.core.synopsis import build_synopsis as jbuild
 from repro.streaming import StreamingIngestor as JIngestor
 from repro_torch.api import PassEngine, ServingConfig, CIConfig
+from repro_torch.core.types import QueryBatch
 from repro_torch.serve import CHECKPOINT_VERSION
 from repro_torch.streaming import StreamingIngestor
 from repro_torch.streaming.ingest import STATE_FIELDS
@@ -129,7 +131,7 @@ def test_version_guard_and_unported_sources(tmp_path):
     for version, kind, error, match in (
             (2, "synopsis", ValueError, "version 2 is not supported"),
             (1, "catalog", NotImplementedError, "item 11"),
-            (1, "join_streaming", NotImplementedError, "item 10"),
+            (1, "join_streaming", KeyError, "jsyn"),
             (1, "sharded", NotImplementedError, "item 12"),
             (1, "zebra", ValueError, "unknown checkpoint source")):
         arrays["__meta__"] = np.asarray(json.dumps(
@@ -196,3 +198,99 @@ def test_reference_written_stream_restores_and_ingests(tmp_path):
     assert_results_close(
         JEngine(jing, JServing(kinds=("sum", "count"))).answer(jq),
         eng.answer(carry_queries(jq)), ("sum", "count"))
+
+
+def _join_stream(seed=0):
+    """A port join ingestor built at a capacity that overflows, and its
+    remaining stream batches (integer values)."""
+    from repro_torch.joins import build_dim_table, build_join_synopsis
+    from repro_torch.streaming.join_ingest import JoinStreamingIngestor
+    rng = np.random.default_rng(seed)
+    n, nd = 2400, 40
+    c = rng.normal(size=n).astype(np.float32)
+    a = np.floor(rng.uniform(0, 50, n)).astype(np.float32)
+    keys = rng.integers(0, nd + 4, n).astype(np.int32)
+    dim = build_dim_table(np.arange(nd), rng.normal(size=nd),
+                          num_partitions=4, device="cpu")
+    jsyn, _ = build_join_synopsis(c[:800], a[:800], keys[:800], dim, k=6,
+                                  p_u=0.4, seed=1, device="cpu")
+    ing = JoinStreamingIngestor(jsyn, seed=7, quarantine_box=([-3.0], [3.0]),
+                                device="cpu")
+    return ing, [(c[s:s + 400], a[s:s + 400], keys[s:s + 400])
+                 for s in range(800, n, 400)]
+
+
+def test_join_streaming_roundtrip_and_continued_ingest(tmp_path):
+    """A join stream restored mid-stream (parked overflow rows, key,
+    regrow count, quarantine box and all): its states torch.equal to the
+    original's, its join answers bit for bit, and the same further batches
+    keep them so."""
+    from repro_torch.streaming.join_ingest import (JoinStreamingIngestor,
+                                                   JSTATE_FIELDS)
+    ing, batches = _join_stream()
+    ing.ingest(*batches[0])
+    assert ing._pending                 # the build's buffers are full
+    eng = PassEngine(ing, ServingConfig(kinds=("sum", "avg")), ci=0.95,
+                     device="cpu")
+    q = QueryBatch(torch.tensor([[-1.0, -0.5], [0.0, -2.0]]),
+                   torch.tensor([[0.5, 2.0], [2.0, 1.0]]))
+    want = eng.answer_join(q)
+    meta = eng.checkpoint(tmp_path / "jk.npz")
+    assert meta["source"] == "join_streaming" and meta["has_pending"]
+    eng2 = PassEngine.restore(tmp_path / "jk.npz", device="cpu")
+    src2 = eng2.source
+    assert isinstance(src2, JoinStreamingIngestor)
+    assert (src2.epoch, src2.n_stream, src2.n_regrown) == (
+        ing.epoch, ing.n_stream, ing.n_regrown)
+    assert torch.equal(src2._join_base.key_root, ing._join_base.key_root)
+    assert_equal_answers(eng2.answer_join(q), want)
+    for b in batches[1:]:
+        ing.ingest(*b)
+        src2.ingest(*b)
+    assert src2.n_regrown == ing.n_regrown > 0
+    assert_states_equal(src2.state, ing.state)
+    for f in JSTATE_FIELDS:
+        assert torch.equal(getattr(src2.jstate, f), getattr(ing.jstate, f)), f
+    assert torch.equal(src2._key, ing._key)
+    assert_equal_answers(eng2.answer_join(q), eng.answer_join(q))
+
+
+def test_join_stream_checkpoints_cross_packages(tmp_path):
+    """A JAX join-stream checkpoint restores into the port with its exact
+    states (raw uint32 key_root included), and a port file into the JAX
+    package."""
+    from repro.joins import build_dim_table as jdim
+    from repro.joins import build_join_synopsis as jjbuild
+    from repro.streaming import JoinStreamingIngestor as JJIngestor
+    from repro_torch.streaming.join_ingest import JSTATE_FIELDS
+    rng = np.random.default_rng(4)
+    n, nd = 1600, 30
+    c = rng.normal(size=n).astype(np.float32)
+    a = np.floor(rng.uniform(0, 50, n)).astype(np.float32)
+    keys = rng.integers(0, nd + 3, n).astype(np.int32)
+    jsyn, _ = jjbuild(c[:800], a[:800], keys[:800],
+                      jdim(np.arange(nd), rng.normal(size=nd),
+                           num_partitions=4), k=6, p_u=0.4, seed=2)
+    jing = JJIngestor(jsyn, seed=3)
+    jing.ingest(c[800:1200], a[800:1200], keys=keys[800:1200])
+    JEngine(jing).checkpoint(tmp_path / "ref.npz")
+    ing = PassEngine.restore(tmp_path / "ref.npz", device="cpu").source
+    for f in JSTATE_FIELDS:
+        np.testing.assert_array_equal(getattr(ing.jstate, f).numpy(),
+                                      np.asarray(getattr(jing.jstate, f)),
+                                      err_msg=f)
+    np.testing.assert_array_equal(
+        ing._join_base.key_root.numpy().astype(np.uint32),
+        np.asarray(jing._join_base.key_root))
+    ing.ingest(c[1200:], a[1200:], keys=keys[1200:])
+    jing.ingest(c[1200:], a[1200:], keys=keys[1200:])
+    for f in JSTATE_FIELDS:
+        np.testing.assert_array_equal(getattr(ing.jstate, f).numpy(),
+                                      np.asarray(getattr(jing.jstate, f)),
+                                      err_msg=f)
+    PassEngine(ing, device="cpu").checkpoint(tmp_path / "port.npz")
+    back = JEngine.restore(tmp_path / "port.npz").source
+    for f in JSTATE_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(back.jstate, f)),
+                                      np.asarray(getattr(jing.jstate, f)),
+                                      err_msg=f)

@@ -279,7 +279,7 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
     (lambda e, q: e.answer_progressive(
         q, serving=ServingConfig(sample_slots=4)),
      (ValueError, "sample_slots is managed by the ladder")),
-    (lambda e, q: e.answer_join(q), NOT_PORTED),
+    (lambda e, q: e.answer_join(q), (TypeError, "JoinSynopsis source")),
     (lambda e, q: PassEngine(q, device="cpu").checkpoint("x.npz"),
      (TypeError, "cannot checkpoint source")),
     (lambda e, q: PassEngine.restore("x.npz", mesh=object()), NOT_PORTED),
@@ -292,11 +292,12 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
         "join", "checkpoint", "restore", "sharded", "catalog",
         "plan_masks"])
 def test_unported_entry_points_raise(served, call, error):
-    """Entry points not ported yet (joins, sharded sources and their
+    """Entry points not ported yet (sharded sources and their
     checkpoints, catalogs) raise NotImplementedError naming their ROADMAP
     item. Those ported since (``plan=``, the bootstrap, the executor's
     ``plan_masks``, the ladder's ``deadline_ms`` and
-    ``answer_progressive``, ``checkpoint``) reject malformed input."""
+    ``answer_progressive``, ``checkpoint``, ``answer_join`` on a source
+    without a join synopsis) reject malformed input."""
     _, tsyn, _, tq = served[1]
     eng = PassEngine(tsyn, device="cpu")
     with pytest.raises(error[0], match=error[1]):

@@ -288,6 +288,57 @@ def test_engine_on_zero_valued_strata_matches_jax_bits(d, ci):
     assert signs > 0                   # some -0.0 among the answers
 
 
+@pytest.mark.parametrize("ci", ["none", "clt"])
+@pytest.mark.parametrize("d_fact", [1, 2])
+def test_join_answer_on_zero_values_matches_jax_bits(d_fact, ci):
+    """Fact values all +0.0 or -0.0 (whole cells of -0.0 among them): every
+    field of the join SUM and AVG answers has the reference's bits, sign
+    included: the cell bounds' max0 / min0 and their MIN / MAX, the AVG
+    bounds' masked extremes and their MIN / MAX with the covered mean, the
+    Bernstein-against-range MIN / MAX and the interval clips. (COUNT's
+    values are row counts; tests/test_torch_joins.py holds it.)"""
+    from repro.joins import build_dim_table as jdim
+    from repro.joins import build_join_synopsis as jjbuild
+    from repro.core.types import QueryBatch as JQB
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.joins import build_dim_table, build_join_synopsis
+    rng = np.random.default_rng(30 + d_fact)
+    n, nd = 2500, 60
+    c = (rng.normal(size=n) if d_fact == 1
+         else rng.normal(size=(n, d_fact))).astype(np.float32)
+    a = rng.choice([0.0, -0.0], n).astype(np.float32)
+    keys = rng.integers(0, nd, n).astype(np.int32)
+    a[keys < nd // 4] = -0.0            # whole dim partitions of -0.0
+    dattr = rng.normal(size=nd).astype(np.float32)
+    kw = dict(k=8, p_u=0.4, seed=1, method="adp" if d_fact == 1 else "kd",
+              opt_samples=512)
+    jsyn, _ = jjbuild(c, a, keys, jdim(np.arange(nd), dattr,
+                                       num_partitions=4), **kw)
+    tsyn, _ = build_join_synopsis(
+        c, a, keys, build_dim_table(np.arange(nd), dattr, num_partitions=4,
+                                    device="cpu"), device="cpu", **kw)
+    pairs = np.sort(rng.normal(0, 1.2, (40, d_fact + 1, 2)), -1)
+    lo, hi = (pairs[..., i].astype(np.float32) for i in (0, 1))
+    kinds = ("sum", "avg")
+    jres = JEngine(jsyn, ci=None if ci == "none" else JCI(level=0.95)
+                   ).answer_join(JQB(jnp.asarray(lo), jnp.asarray(hi)),
+                                 kinds=kinds)
+    tres = PassEngine(tsyn, ci=None if ci == "none" else 0.95,
+                      device="cpu").answer_join(
+        QueryBatch(torch.from_numpy(lo), torch.from_numpy(hi)), kinds=kinds)
+    signs = 0
+    for kind in kinds:
+        for f in ("estimate", "ci_half", "lower", "upper",
+                  "frac_rows_touched", "ci_lo", "ci_hi"):
+            g, w = getattr(tres[kind], f), getattr(jres[kind], f)
+            if w is None:
+                assert g is None, (kind, f)
+                continue
+            assert_bits_equal(g, w, f"{kind}.{f}")
+            signs += int(np.signbit(np.asarray(w)).sum())
+    assert signs > 0                   # some -0.0 among the answers
+
+
 # ---------------------------------------------------------------------------
 # The sample_extremes kernel's decomposition, replayed
 # ---------------------------------------------------------------------------

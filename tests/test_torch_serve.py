@@ -363,6 +363,71 @@ def test_arrival_order_dedup_and_mixed_configs(built):
                      _fresh(tsyn, qs, ServingConfig(kinds=("count", "max"))))
 
 
+@pytest.fixture(scope="module")
+def joined():
+    """A port join synopsis (k = 8, P = 8) and its fact column."""
+    from repro_torch.joins import build_dim_table, build_join_synopsis
+    rng = np.random.default_rng(7)
+    n, nd = 6000, 200
+    c = rng.normal(size=n).astype(np.float32)
+    a = rng.gamma(2.0, 1.0, size=n).astype(np.float32)
+    keys = rng.integers(0, nd, size=n).astype(np.int32)
+    dim = build_dim_table(np.arange(nd), rng.normal(size=nd),
+                          num_partitions=8, device="cpu")
+    jsyn, _ = build_join_synopsis(c, a, keys, dim, k=8, p_u=0.3, seed=19,
+                                  device="cpu")
+    return jsyn
+
+
+def _join_req(rows, seed):
+    """A (fact, dim) pair of ``rows`` rectangles from a seed."""
+    rng = np.random.default_rng(seed)
+    f = np.sort(rng.normal(0, 1.2, (rows, 2)), 1).astype(np.float32)
+    d = np.sort(rng.normal(0, 1.2, (rows, 2)), 1).astype(np.float32)
+    return (QueryBatch(torch.from_numpy(f[:, :1].copy()),
+                       torch.from_numpy(f[:, 1:].copy())),
+            QueryBatch(torch.from_numpy(d[:, :1].copy()),
+                       torch.from_numpy(d[:, 1:].copy())))
+
+
+@pytest.mark.parametrize("ci", [None, 0.95])
+def test_coalescer_join_roundtrip_and_dedup(joined, ci):
+    """Join requests bucket apart from single-table ones and demux to the
+    bits of each tenant's own answer_join (coalesced rows against solo
+    rows); identical join predicates in a tick dispatch once; a plain
+    request of the same tick keeps its own bucket and bits."""
+    kinds = ("sum", "count", "avg")
+    eng = PassEngine(joined, ServingConfig(kinds=kinds), ci=ci,
+                     device="cpu")
+    co = RequestCoalescer(eng, CoalescerConfig(shape_classes=(32, 128)))
+    reqs = {f"t{i}": _join_req(rows, 60 + i)
+            for i, rows in enumerate((2, 17, 5, 40, 9, 1))}
+    futs = {t: co.submit(t, r, join=True) for t, r in reqs.items()}
+    dups = [co.submit(f"copy{i}", reqs["t1"], join=True) for i in range(2)]
+    plain_q = reqs["t0"][0]
+    f_plain = co.submit("p", plain_q, kinds=("sum",))
+    n = co.tick()
+    assert 0 < n < len(reqs)
+    stats = co.stats()
+    assert stats["dedup_hits"] == 2 and stats["failed"] == 0
+    assert stats["served"] == len(reqs) + 3
+    for t, (fq, dq) in reqs.items():
+        want = eng.answer_join(fq, dq)
+        assert_same_bits(futs[t].result(timeout=0), want)
+    for f in dups:
+        assert_same_bits(f.result(timeout=0),
+                         eng.answer_join(*reqs["t1"]))
+    assert_same_bits(f_plain.result(timeout=0),
+                     eng.answer(plain_q, kinds=("sum",)))
+    # the concatenated layout is the same request
+    fq, dq = reqs["t3"]
+    whole = QueryBatch(torch.cat([fq.lo, dq.lo], 1),
+                       torch.cat([fq.hi, dq.hi], 1))
+    fut = co.submit("w", whole, join=True)
+    co.tick()
+    assert_same_bits(fut.result(timeout=0), eng.answer_join(whole))
+
+
 def test_oversize_and_host_requests(built):
     """A request past the top class rounds up to its multiple; numpy
     requests take the host mux and match too."""
@@ -497,8 +562,10 @@ def test_coalescer_config_and_join_refusal(built):
             for n in (3, 8, 17)] == [4, 8, 24]
     _, tsyn, _, tq, _ = built["1d"]
     co = RequestCoalescer(PassEngine(tsyn, device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="JoinSynopsis source"):
         co.submit("t", tq, join=True)
+    with pytest.raises(ValueError, match="single-table requests only"):
+        co.submit("t", tq, join=True, deadline_ms=5.0)
     with pytest.raises(ValueError, match="non-empty"):
         co.submit("t", QueryBatch(torch.zeros((0, 1)), torch.zeros((0, 1))))
     with pytest.raises(ValueError, match="deadline_ms"):
