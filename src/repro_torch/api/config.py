@@ -213,6 +213,69 @@ class CoalescerConfig:
         return -(-q // top) * top
 
 
+@dataclasses.dataclass(frozen=True)
+class CatalogConfig:
+    """Partition-tier configuration (DESIGN.md §14), field for field the
+    JAX package's.
+
+    ``k`` / ``s_per_leaf``  uniform per-partition synopsis shape: every
+                          materialized partition gets k strata x
+                          s_per_leaf samples, so a selection stacks into
+                          one pseudo-synopsis (one artifact pass a batch).
+    ``method``            per-partition partitioning method ('eq' default:
+                          the partition boundary already did the
+                          clustering).
+    ``max_partitions``    expected number of overlapping partitions
+                          materialized a batch (the importance-sampling
+                          budget); None = no budget, which collapses the
+                          tier to exact flat serving.
+    ``pi_floor``          least inclusion probability of an overlapping
+                          candidate (bounds the 1/pi HT variance).
+    ``max_resident``      LRU capacity of materialized partition synopses
+                          (None = 2x budget, at least 8; unbounded when
+                          dense).
+    ``bins``              per-column histogram resolution of the sketch.
+    ``seed``              base seed: partition p builds from seed+p, the
+                          i-th selection draw from seed+i.
+    """
+    k: int = 8
+    s_per_leaf: int = 32
+    method: str = "eq"
+    max_partitions: int | None = None
+    pi_floor: float = 0.05
+    max_resident: int | None = None
+    bins: int = 16
+    seed: int = 0
+
+    def validate(self) -> "CatalogConfig":
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {self.k}")
+        if self.s_per_leaf < 1:
+            raise ValueError(
+                f"s_per_leaf must be >= 1, got {self.s_per_leaf}")
+        if self.method not in ("eq", "adp", "kd"):
+            raise ValueError(f"unknown method: {self.method!r}")
+        if self.max_partitions is not None and self.max_partitions < 1:
+            raise ValueError(
+                f"max_partitions must be >= 1 or None, got "
+                f"{self.max_partitions}")
+        if not 0.0 < self.pi_floor <= 1.0:
+            raise ValueError(
+                f"pi_floor must be in (0, 1], got {self.pi_floor}")
+        if self.max_resident is not None and self.max_resident < 1:
+            raise ValueError(
+                f"max_resident must be >= 1 or None, got "
+                f"{self.max_resident}")
+        if self.bins < 2:
+            raise ValueError(f"bins must be >= 2, got {self.bins}")
+        return self
+
+    def cache_key(self) -> tuple:
+        return (self.k, self.s_per_leaf, self.method, self.max_partitions,
+                float(self.pi_floor), self.max_resident, self.bins,
+                int(self.seed))
+
+
 def as_ci_config(ci) -> CIConfig | None:
     """Coerce ``None | float level | CIConfig`` to an optional CIConfig."""
     if ci is None or isinstance(ci, CIConfig):
@@ -226,6 +289,6 @@ def merge_overrides(cfg, **overrides):
     return dataclasses.replace(cfg, **real) if real else cfg
 
 
-__all__ = ["ServingConfig", "CIConfig", "CoalescerConfig", "as_ci_config",
-           "merge_overrides",
+__all__ = ["ServingConfig", "CIConfig", "CoalescerConfig", "CatalogConfig",
+           "as_ci_config", "merge_overrides",
            "KINDS", "CI_METHODS", "DELTA_BUDGETS", "BOOT_NORMALIZE"]

@@ -36,6 +36,13 @@ Over a join synopsis (``joins.build_join_synopsis``) or a
 ``JoinStreamingIngestor``, ``answer_join`` / ``prepare_join`` serve
 approximate fk-join aggregates (DESIGN.md §13) through the same plan
 cache, in :class:`PreparedJoinQuery` entries.
+
+``PassEngine.from_catalog(parts, catalog=CatalogConfig(...))`` serves
+partitioned data through the partition tier (DESIGN.md §14,
+``partitions/``): with a ``max_partitions`` budget each batch runs the
+picker, builds synopses only for the picked partitions and answers them
+in one artifact pass over their stack (:class:`PreparedCatalogQuery`);
+without one it serves the flat synopsis over all rows.
 """
 from __future__ import annotations
 
@@ -130,6 +137,52 @@ def _join_dispatch_entry(serving: ServingConfig, ci: CIConfig | None):
         delta_budget="stratum" if ci is None else ci.delta_budget)
 
 
+def _validate_catalog_request(serving: ServingConfig, ci: CIConfig | None):
+    from ..partitions import CATALOG_KINDS
+    serving.validate()
+    if serving.sample_slots is not None:
+        raise ValueError(
+            "sample_slots applies to the single-table refinement ladder "
+            "only; the partition tier re-stacks per-partition reservoirs "
+            "per batch")
+    for kind in serving.kinds:
+        if kind not in CATALOG_KINDS:
+            raise ValueError(
+                f"catalog serving supports kinds {CATALOG_KINDS}, got "
+                f"{kind!r} (min/max cannot be composed across an "
+                "importance-sampled partition stage)")
+    if ci is not None:
+        ci.validate()
+        if ci.method != "clt":
+            raise ValueError(
+                "catalog serving supports ci method 'clt' only "
+                f"(got {ci.method!r}); the bootstrap resamples rows, not "
+                "the partition-selection stage")
+
+
+def _catalog_dispatch_entry(serving: ServingConfig, ci: CIConfig | None,
+                            k_part: int):
+    """The catalog serving function for one config: (source, queries) ->
+    results. ``source.stage`` selects, materializes and stacks the
+    partitions of this batch (a batch under ``executor.MIN_ROWS`` rows
+    padded to it) and hands back the operands of ``catalog_answer``."""
+    from ..partitions.executor import catalog_answer
+    answer = functools.partial(
+        catalog_answer, kinds=serving.kinds, k_part=int(k_part),
+        level=None if ci is None else float(ci.level),
+        small_n_threshold=12 if ci is None else int(ci.small_n_threshold),
+        use_fpc=serving.use_fpc,
+        delta_budget="stratum" if ci is None else ci.delta_budget)
+    lam = serving.lam
+
+    def run(src, queries):
+        n = queries.lo.shape[0]
+        out = answer(*src.stage(queries, lam, _executor.MIN_ROWS))
+        return out if n >= _executor.MIN_ROWS else \
+            _executor.take_rows(out, n)
+    return run
+
+
 def _dispatch_entry(serving: ServingConfig, ci: CIConfig | None, device):
     """The serving function for one config: (syn, queries, plan_masks) ->
     results. The bootstrap's key is resolved here, once, on ``device``."""
@@ -219,6 +272,10 @@ class PreparedQuery:
         if (self.ci is not None and self.ci.method == "bootstrap"
                 and self.ci.boot_fused):
             self._engine._stats["fused_serves"] += 1
+        return self._serve(queries, plan_masks)
+
+    def _serve(self, queries: QueryBatch, plan_masks):
+        """Run the pinned serving function on one same-shaped batch."""
         queries = queries.to(self._engine.device)
         n = queries.lo.shape[0]
         if n >= _executor.MIN_ROWS:
@@ -251,6 +308,25 @@ class PreparedJoinQuery(PreparedQuery):
     def _fallback_answer(self, queries) -> dict[str, QueryResult]:
         return self._engine.answer_join(queries, kinds=self.serving.kinds,
                                         ci=self.ci, serving=self.serving)
+
+
+class PreparedCatalogQuery(PreparedQuery):
+    """A pinned partition-tier serving entry (DESIGN.md §14): the
+    lifecycle of :class:`PreparedQuery` (plan-cache slot, epoch-driven
+    re-pin), pinning the :class:`~repro_torch.partitions.CatalogSource`
+    itself. Every call re-draws the partition selection, so the stacked
+    operands' width changes with the number of picked partitions (padded
+    to a power of two)."""
+
+    def _make_entry(self):
+        return _catalog_dispatch_entry(self.serving, self.ci,
+                                       self._engine._source.config.k)
+
+    def _resolve_source(self):
+        return self._engine._source
+
+    def _serve(self, queries: QueryBatch, plan_masks):
+        return self._run(self._syn, queries)
 
 
 class PassEngine:
@@ -290,8 +366,34 @@ class PassEngine:
         raise _not_ported("PassEngine.from_sharded", "item 12, sharded/")
 
     @classmethod
-    def from_catalog(cls, *args, **kwargs):
-        raise _not_ported("PassEngine.from_catalog", "item 11, partitions/")
+    def from_catalog(cls, parts, *, catalog=None,
+                     serving: ServingConfig | None = None,
+                     ci: CIConfig | float | None = None,
+                     plan_cache_size: int = 32, device=None,
+                     **build_kw) -> "PassEngine":
+        """Serve partitioned data through the sketch-guided partition tier
+        (DESIGN.md §14).
+
+        ``parts`` is a :class:`~repro_torch.partitions.PartitionStore` or a
+        sequence of per-partition ``(c, a)`` row blocks; ``catalog`` a
+        :class:`~repro_torch.api.CatalogConfig`. With a ``max_partitions``
+        budget the engine builds PASS synopses only for the partitions
+        the picker selects a batch (disjoint and covered ones are pruned
+        exactly) and composes the answers by Horvitz-Thompson with
+        two-stage intervals. Without a budget it serves the flat synopsis
+        over all rows (``build_kw`` goes to ``build_synopsis``),
+        bit-identical to never partitioning. ``device=None`` serves on the
+        CUDA card.
+        """
+        from ..partitions import CatalogSource, PartitionStore
+        from .config import CatalogConfig
+        store = (parts if isinstance(parts, PartitionStore)
+                 else PartitionStore(parts))
+        cfg = (catalog if catalog is not None else CatalogConfig()).validate()
+        dev = resolve_device(device)
+        return cls(CatalogSource(store, cfg, build_kw, device=dev),
+                   serving=serving, ci=ci, plan_cache_size=plan_cache_size,
+                   device=dev)
 
     # -- checkpoint / restore (DESIGN.md §15) ------------------------------
     def checkpoint(self, path) -> dict:
@@ -320,6 +422,14 @@ class PassEngine:
     def source(self):
         return self._source
 
+    def _catalog_selective(self) -> bool:
+        """True when the source is a budgeted CatalogSource: serving goes
+        through the partition-selection entry (a dense catalog source
+        takes the ordinary flat path)."""
+        src = self._source
+        return (getattr(src, "is_catalog_source", False)
+                and not src.serves_flat)
+
     @property
     def epoch(self) -> int:
         """Change counter of the source (0 for an immutable synopsis; a
@@ -341,6 +451,21 @@ class PassEngine:
         return self
 
     # -- config plumbing ---------------------------------------------------
+    def _effective_catalog(self, kinds, ci, serving):
+        from ..partitions import CATALOG_KINDS
+        sv = serving if serving is not None else self.serving
+        if kinds is not None:
+            sv = dataclasses.replace(sv, kinds=kinds)
+        else:
+            # Inherited kinds keep the catalog-answerable ones (the join
+            # serving's rule).
+            sv = dataclasses.replace(
+                sv, kinds=tuple(k for k in sv.kinds if k in CATALOG_KINDS)
+                or ("sum",))
+        cfg = self.ci if ci is _UNSET else as_ci_config(ci)
+        _validate_catalog_request(sv, cfg)
+        return sv, cfg
+
     def _effective(self, kinds, ci, serving):
         sv = serving if serving is not None else self.serving
         if kinds is not None:
@@ -351,16 +476,18 @@ class PassEngine:
 
     # -- plan cache --------------------------------------------------------
     def _lookup(self, shape, serving, ci, has_plan: bool = False,
-                join: bool = False) -> PreparedQuery:
+                join: bool = False, catalog: bool = False) -> PreparedQuery:
         key = (tuple(shape), serving.cache_key(),
-               ci.cache_key() if ci is not None else None, has_plan, join)
+               ci.cache_key() if ci is not None else None, has_plan, join,
+               catalog)
         hit = self._cache.get(key)
         if hit is not None:
             self._cache.move_to_end(key)
             self._stats["hits"] += 1
             return hit
         self._stats["misses"] += 1
-        cls = PreparedJoinQuery if join else PreparedQuery
+        cls = (PreparedCatalogQuery if catalog
+               else PreparedJoinQuery if join else PreparedQuery)
         prepared = cls(self, serving, ci, shape, has_plan=has_plan)
         self._cache[key] = prepared
         if len(self._cache) > self._plan_cache_size:
@@ -375,23 +502,30 @@ class PassEngine:
         """Plan-cache counters, ``fused_serves`` (answers served through
         the fused bootstrap kernel), the ladder's ``tier0_serves``,
         ``refine_steps`` and ``degraded_serves``, the current entry count
-        and the source epoch; ``"faults"`` (:meth:`_fault_snapshot`), and
-        ``"coalescer"`` when a request coalescer is attached."""
+        and the source epoch; ``"faults"`` (:meth:`_fault_snapshot`),
+        ``"coalescer"`` when a request coalescer is attached and
+        ``"catalog"`` (the partition tier's counters) over a catalog
+        source."""
         out = dict(self._stats, entries=len(self._cache), epoch=self.epoch)
         if self._coalescer is not None:
             out["coalescer"] = self._coalescer.stats()
+        if getattr(self._source, "is_catalog_source", False):
+            out["catalog"] = self._source.stats()
         out["faults"] = self._fault_snapshot()
         return out
 
     def _fault_snapshot(self) -> dict:
         """Containment observability (DESIGN.md §15): a streaming source's
-        quarantined row count, and the injected event counts when a fault
-        harness is installed. (The sharded and catalog sources' containment
-        counters come with them, ROADMAP Queue 1 items 12 and 11.)"""
+        quarantined row count, a catalog source's degraded partitions, and
+        the injected event counts when a fault harness is installed. (The
+        sharded source's dispatch counters come with it, ROADMAP Queue 1
+        item 12.)"""
         faults: dict = {}
         src = self._source
         if hasattr(src, "n_quarantined"):
             faults["quarantined_rows"] = src.n_quarantined
+        if hasattr(src, "degraded_partitions"):
+            faults["degraded_partitions"] = sorted(src.degraded_partitions)
         inj = _faults.active()
         if inj is not None:
             faults["injected"] = inj.snapshot()
@@ -408,6 +542,9 @@ class PassEngine:
                  else tuple(queries_or_shape))
         if len(shape) != 2:
             raise ValueError(f"expected a (Q, d) batch shape, got {shape}")
+        if self._catalog_selective():
+            sv, cfg = self._effective_catalog(kinds, ci, serving)
+            return self._lookup(shape, sv, cfg, catalog=True)
         sv, cfg = self._effective(kinds, ci, serving)
         return self._lookup(shape, sv, cfg)
 
@@ -427,7 +564,26 @@ class PassEngine:
         numpy, no sample work), then refined through growing sample slices
         until the width target or the deadline is met. A tier starts only
         when its EWMA-predicted latency still fits the deadline. The
-        ladder's results are host numpy."""
+        ladder's results are host numpy.
+
+        Over a budgeted catalog source every batch goes through the
+        partition tier (``plan=`` and ``deadline_ms`` are refused: the
+        tier re-stacks strata a batch and degrades a partition at a time
+        instead)."""
+        shape = tuple(queries.lo.shape)
+        if self._catalog_selective():
+            if plan is not None:
+                raise ValueError(
+                    "plan= is not supported with a budgeted catalog "
+                    "source; planner masks are per-stratum of ONE synopsis "
+                    "while the partition tier re-stacks strata per batch")
+            if deadline_ms is not None:
+                raise ValueError(
+                    "deadline_ms needs the aggregate-tree tier-0 path; a "
+                    "budgeted catalog source degrades per partition "
+                    "instead (see stats()['faults'])")
+            sv, cfg = self._effective_catalog(kinds, ci, serving)
+            return self._lookup(shape, sv, cfg, catalog=True)(queries)
         sv, cfg = self._effective(kinds, ci, serving)
         if (deadline_ms is not None
                 or (cfg is not None and cfg.max_ci_width is not None
@@ -439,7 +595,6 @@ class PassEngine:
             return self.answer_progressive(
                 queries, kinds=kinds, ci=ci, serving=serving,
                 deadline_ms=deadline_ms).run()
-        shape = tuple(queries.lo.shape)
         if plan is not None:
             return self._lookup(shape, sv, cfg, has_plan=True)(
                 queries, _executor.plan_to_masks(plan, self.device))
@@ -453,6 +608,10 @@ class PassEngine:
         holds the tier-0 answer at once; ``refine()`` / ``final()`` /
         ``run()`` tighten it from growing sample slices."""
         from ..serve.refine import RefinementHandle
+        if self._catalog_selective():
+            raise ValueError(
+                "progressive refinement needs the aggregate-tree tier-0 "
+                "path; not available on a budgeted catalog source")
         sv, cfg = self._effective(kinds, ci, serving)
         if sv.sample_slots is not None:
             raise ValueError(
@@ -570,4 +729,5 @@ class PassEngine:
             queries)
 
 
-__all__ = ["PassEngine", "PreparedQuery", "PreparedJoinQuery"]
+__all__ = ["PassEngine", "PreparedQuery", "PreparedJoinQuery",
+           "PreparedCatalogQuery"]

@@ -25,10 +25,15 @@ states, its key, its regrow count and any parked overflow rows; the
 universe's ``key_root`` is written as raw ``uint32[2]`` words as the
 reference writes its raw key.
 
+A catalog source (``partitions.CatalogSource``) writes its partitions'
+rows, its config, its selection-draw counter, its degraded partitions and
+its flat ``build_kw``; the restored source draws the same selections next
+and rebuilds the same partition synopses from their seeds.
+
 Checkpoints are taken at epoch boundaries only: ``save_engine`` flushes an
 attached request coalescer first so no admitted query straddles the
-snapshot, and every ``ingest()`` swaps its state once per batch. Catalog
-and sharded sources come with ROADMAP Queue 1 items 11 and 12.
+snapshot, and every ``ingest()`` swaps its state once per batch. Sharded
+sources come with ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -43,8 +48,7 @@ from ..device import resolve_device, to_numpy
 
 CHECKPOINT_VERSION = 1
 
-_NOT_PORTED = {"catalog": ("catalog sources", "item 11, partitions/"),
-               "sharded": ("sharded sources", "item 12, sharded/")}
+_NOT_PORTED = {"sharded": ("sharded sources", "item 12, sharded/")}
 
 
 def _not_ported(kind: str):
@@ -201,6 +205,19 @@ def save_engine(engine, path) -> dict:
         _put_key(arrays, "ing/key", src._key)
         meta["n_stream"] = int(src.n_stream)
         _put_qbox(arrays, meta, src._qlo, src._qhi)
+    elif getattr(src, "is_catalog_source", False):
+        meta["source"] = "catalog"
+        meta["config"] = _config_meta(src.config)
+        meta["num_partitions"] = int(src.store.num_partitions)
+        meta["draws"] = int(src._draws)
+        meta["degraded"] = sorted(src.degraded_partitions)
+        try:
+            meta["build_kw"] = json.loads(json.dumps(src._build_kw))
+        except (TypeError, ValueError):
+            meta["build_kw"] = {}
+        for p, (c, a) in enumerate(src.store.parts()):
+            arrays[f"part/{p}/c"] = np.asarray(c)
+            arrays[f"part/{p}/a"] = np.asarray(a)
     elif isinstance(src, Synopsis):
         meta["source"] = "synopsis"
         meta["syn"] = _put_dc(arrays, "syn", src)
@@ -265,6 +282,20 @@ def _restore_source(arrays, meta: dict, device):
                              np.asarray(arrays["pending/a"]),
                              np.asarray(arrays["pending/k"]))]
         return ing
+    if kind == "catalog":
+        from ..api.config import CatalogConfig
+        from ..partitions import CatalogSource, PartitionStore
+        parts = [(np.asarray(arrays[f"part/{p}/c"]),
+                  np.asarray(arrays[f"part/{p}/a"]))
+                 for p in range(int(meta["num_partitions"]))]
+        src = CatalogSource(PartitionStore(parts),
+                            _config_from_meta(CatalogConfig, meta["config"]),
+                            build_kw=meta.get("build_kw") or None,
+                            device=device)
+        src._draws = int(meta["draws"])
+        src._epoch = int(meta["epoch"])
+        src._degraded = {int(p) for p in meta.get("degraded", ())}
+        return src
     raise ValueError(f"unknown checkpoint source type {kind!r}")
 
 

@@ -15,10 +15,14 @@ faults:
   ``poison_mode``), modelling an upstream producer shipping garbage; the
   streaming quarantine turns the whole batch into a counted no-op. Wired:
   ``streaming/ingest.py`` ``StreamingIngestor.ingest``.
-* **shard dispatch failures** and **partition-materialization failures**
-  — the decision functions are here, so a plan draws the reference's
-  schedule, but their hook sites come with the sharded ingest and the
-  partition tier (ROADMAP Queue 1 items 12 and 11).
+* **partition-materialization failures** — the listed partitions fail
+  their synopsis builds a number of times (or forever); the partition
+  tier retries, then serves the queries overlapping a partition that
+  stays failed from catalog hard bounds. Wired:
+  ``partitions/source.py`` ``CatalogSource._build_one``.
+* **shard dispatch failures** — the decision function is here, so a
+  plan draws the reference's schedule, but its hook site comes with the
+  sharded ingest (ROADMAP Queue 1 item 12).
 
 Decisions are functions of (plan, per-site counter) only, never of wall
 clock or global RNG state, so a fixed plan over a fixed call sequence

@@ -232,6 +232,36 @@ def compose_join_interval(jsyn, jart, kind: str, level: float,
     raise ValueError(f"no join interval composition for kind: {kind}")
 
 
+def compose_two_stage(t_hat, v_within, h_fb, pi, mask, z):
+    """Two-stage (partition-sampling x within-stratum) composition for the
+    catalog tier (DESIGN.md §14).
+
+    Per-partition inputs, all (Q, P) but ``pi`` (P,): ``t_hat`` the
+    within-partition estimate of the partition's contribution,
+    ``v_within`` its summed within-stratum CLT variance, ``h_fb`` its
+    summed small-stratum fallback half-widths, ``pi`` the recorded
+    inclusion probabilities and ``mask`` the (Q, P) float32 mask of the
+    partitions serving query q through the sampled (overlapping,
+    selected) stage.
+
+    Returns ``(ht, half, v)``: the Horvitz-Thompson total ``sum
+    mask·t_hat/pi``, the half-width ``z·sqrt(V) + sum mask·h_fb/pi`` and
+    the two-stage variance estimate
+
+        V = sum mask · [ (1 - pi)·t_hat² + v_within ] / pi²
+
+    (plugging t_hat² for t² biases V upward by v_within(1-pi)/pi², as
+    PS3's accounting does). Exact-covered partitions never enter the mask,
+    so a fully pruned or covered query gets a zero-width interval.
+    """
+    pi_ = torch.clamp(pi, min=1e-6)[None]
+    ht = (mask * t_hat / pi_).sum(1)
+    v = (mask * ((1.0 - pi_) * t_hat * t_hat + v_within)
+         / (pi_ * pi_)).sum(1)
+    half = z * torch.sqrt(minmax.max0(v)) + (mask * h_fb / pi_).sum(1)
+    return ht, half, v
+
+
 def _with_interval(res: QueryResult, half, clip_bounds: bool) -> QueryResult:
     lo = res.estimate - half
     hi = res.estimate + half
@@ -272,4 +302,4 @@ def ci_answer(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
 
 
 __all__ = ["normal_quantile", "compose_interval", "compose_join_interval",
-           "ci_answer"]
+           "compose_two_stage", "ci_answer"]

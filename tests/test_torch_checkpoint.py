@@ -4,7 +4,8 @@ ingestor goes on ingesting as the original does, the quarantine counter
 survives, the version guard and the config override hold, and a file the
 JAX package's ``save_engine`` wrote restores into the port (and one the
 port wrote into the JAX package). A join stream (parked overflow rows and
-all) round-trips the same way, in the port and across the packages.
+all) round-trips the same way, in the port and across the packages, and
+so does a catalog source (its draw counter and degraded partitions).
 
 A restored reference file serves within ``tests/test_torch_engine.py``'s
 tolerances of the JAX engine; on integer values the restored ingestor's
@@ -130,7 +131,7 @@ def test_version_guard_and_unported_sources(tmp_path):
     meta = json.loads(str(arrays["__meta__"][()]))
     for version, kind, error, match in (
             (2, "synopsis", ValueError, "version 2 is not supported"),
-            (1, "catalog", NotImplementedError, "item 11"),
+            (1, "catalog", KeyError, "num_partitions"),
             (1, "join_streaming", KeyError, "jsyn"),
             (1, "sharded", NotImplementedError, "item 12"),
             (1, "zebra", ValueError, "unknown checkpoint source")):
@@ -294,3 +295,76 @@ def test_join_stream_checkpoints_cross_packages(tmp_path):
         np.testing.assert_array_equal(np.asarray(getattr(back.jstate, f)),
                                       np.asarray(getattr(jing.jstate, f)),
                                       err_msg=f)
+
+
+# -- catalog sources ---------------------------------------------------------
+def _catalog_source(data_seed, n, parts, **cfg):
+    from repro_torch.api import CatalogConfig
+    from repro_torch.partitions import CatalogSource, partition_rows
+    rng = np.random.default_rng(data_seed)
+    c = np.sort(rng.uniform(0, 100, n))
+    a = np.floor(rng.uniform(0, 500, n))
+    return c, a, CatalogSource(partition_rows(c, a, parts),
+                               CatalogConfig(**cfg), device="cpu")
+
+
+def test_catalog_roundtrip(tmp_path):
+    """The restored source has the same draw counter, so its next
+    selection and answers are the original's, bit for bit; the same file
+    restores into the JAX package, whose answers agree within the engine
+    tolerances."""
+    c, a, src = _catalog_source(6, 6000, 8, k=4, s_per_leaf=16,
+                                max_partitions=3, seed=9)
+    _, jq = _make(seed=7)
+    q = carry_queries(jq)
+    sv = ServingConfig(kinds=("sum", "count"))
+    eng = PassEngine(src, serving=sv, device="cpu")
+    eng.answer(q)               # advances the selection draw counter
+    eng.answer(q)
+    meta = eng.checkpoint(tmp_path / "ck.npz")
+    assert meta["source"] == "catalog" and meta["draws"] == 2
+    eng2 = PassEngine.restore(tmp_path / "ck.npz", device="cpu")
+    src2 = eng2.source
+    assert src2.store.num_partitions == 8 and src2._draws == src._draws
+    assert src2.config == src.config and eng2.serving == sv
+    want = eng.answer(q)
+    assert_equal_answers(eng2.answer(q), want)
+    assert set(src2.stats()["materialized_ids"]) <= \
+        set(src.stats()["materialized_ids"])
+    jeng = JEngine.restore(tmp_path / "ck.npz")
+    assert_results_close(jeng.answer(jq), want, ("sum", "count"))
+
+
+def test_catalog_degraded_set_survives(tmp_path):
+    _, _, src = _catalog_source(8, 4000, 6, k=4, s_per_leaf=8,
+                                max_partitions=2)
+    src._degraded = {3}
+    PassEngine(src, device="cpu").checkpoint(tmp_path / "ck.npz")
+    eng2 = PassEngine.restore(tmp_path / "ck.npz", device="cpu")
+    assert eng2.source.degraded_partitions == {3}
+    assert eng2.stats()["faults"]["degraded_partitions"] == [3]
+
+
+def test_reference_written_catalog_restores_into_port(tmp_path):
+    """A catalog checkpoint the JAX package wrote mid-draws restores into
+    the port: the same next selection, answers within the engine
+    tolerances."""
+    from repro.api import CatalogConfig as JCatalog
+    from repro.partitions import CatalogSource as JSource
+    from repro.partitions import partition_rows as jrows
+    rng = np.random.default_rng(12)
+    c = np.sort(rng.uniform(0, 100, 5000))
+    a = np.floor(rng.uniform(0, 500, 5000))
+    jsrc = JSource(jrows(c, a, 10), JCatalog(k=4, s_per_leaf=16,
+                                             max_partitions=4, seed=5))
+    _, jq = _make(seed=13)
+    jeng = JEngine(jsrc, serving=JServing(kinds=("sum", "count", "avg")),
+                   ci=JCI(level=0.9))
+    jeng.answer(jq)
+    jeng.checkpoint(tmp_path / "ref.npz")
+    eng = PassEngine.restore(tmp_path / "ref.npz", device="cpu")
+    assert eng.source._draws == 1 and eng.ci == CIConfig(level=0.9)
+    assert_results_close(jeng.answer(jq), eng.answer(carry_queries(jq)),
+                         ("sum", "count", "avg"))
+    assert set(eng.stats()["catalog"]["materialized_ids"]) <= \
+        set(jeng.stats()["catalog"]["materialized_ids"])

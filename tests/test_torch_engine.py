@@ -284,7 +284,8 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
      (TypeError, "cannot checkpoint source")),
     (lambda e, q: PassEngine.restore("x.npz", mesh=object()), NOT_PORTED),
     (lambda e, q: PassEngine.from_sharded(None, None), NOT_PORTED),
-    (lambda e, q: PassEngine.from_catalog([]), NOT_PORTED),
+    (lambda e, q: PassEngine.from_catalog([]),
+     (ValueError, "at least one partition")),
     (lambda e, q: executor.compute_artifacts(e.resolve(), q, ("sum",),
                                              plan_masks=(1, 2, 3)),
      (ValueError, "plan masks")),
@@ -293,11 +294,12 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
         "plan_masks"])
 def test_unported_entry_points_raise(served, call, error):
     """Entry points not ported yet (sharded sources and their
-    checkpoints, catalogs) raise NotImplementedError naming their ROADMAP
-    item. Those ported since (``plan=``, the bootstrap, the executor's
+    checkpoints) raise NotImplementedError naming their ROADMAP item.
+    Those ported since (``plan=``, the bootstrap, the executor's
     ``plan_masks``, the ladder's ``deadline_ms`` and
     ``answer_progressive``, ``checkpoint``, ``answer_join`` on a source
-    without a join synopsis) reject malformed input."""
+    without a join synopsis, ``from_catalog`` without partitions) reject
+    malformed input."""
     _, tsyn, _, tq = served[1]
     eng = PassEngine(tsyn, device="cpu")
     with pytest.raises(error[0], match=error[1]):

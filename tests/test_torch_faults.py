@@ -314,3 +314,102 @@ def test_checkpoint_mid_drill_restores_bit_identical(tmp_path):
         ing.ingest(c, a)
         eng2.source.ingest(c, a)
     _assert_bits(eng2.answer(q), eng.answer(q))
+
+
+# ---------------------------------------------------------------------------
+# Catalog materialization failures degrade, not fail
+# ---------------------------------------------------------------------------
+
+def _catalog_drill(seed, n, parts, cfg):
+    from repro_torch.partitions import CatalogSource, partition_rows
+    rng = np.random.default_rng(seed)
+    c = np.sort(rng.uniform(0, 100, n))
+    a = np.floor(rng.uniform(0, 500, n))
+    return c, a, CatalogSource(partition_rows(c, a, parts), cfg,
+                               device="cpu")
+
+
+def test_materialization_failure_degrades_to_catalog_bounds(monkeypatch):
+    """A partition whose build fails forever is retried, degraded and
+    counted; the queries overlapping it get the catalog hard-bound
+    envelope (which holds the truth), the others their clean answers bit
+    for bit; the JAX package's drill on the same data degrades the same
+    queries."""
+    from repro.api import CatalogConfig as JCatalog
+    from repro.api import PassEngine as JEngine, ServingConfig as JServing
+    from repro.partitions import CatalogSource as JSource
+    from repro.partitions import partition_rows as jrows
+    from repro.partitions import source as jsource
+    from repro_torch.api import CatalogConfig
+    from repro_torch.partitions import source as psource
+    monkeypatch.setattr(psource, "MATERIALIZE_BACKOFF_S", 1e-5)
+    monkeypatch.setattr(jsource, "MATERIALIZE_BACKOFF_S", 1e-5)
+    # A budget below the partition count keeps the tier selective;
+    # pi_floor=1 picks every overlapping partition.
+    kw = dict(k=4, s_per_leaf=16, max_partitions=7, pi_floor=1.0)
+    c, a, src = _catalog_drill(13, 8000, 8, CatalogConfig(**kw))
+    _, _, clean_src = _catalog_drill(13, 8000, 8, CatalogConfig(**kw))
+    q = _queries(seed=14)
+    sv = ServingConfig(kinds=("sum", "count"))
+    eng = PassEngine(src, serving=sv, device="cpu")
+    clean = PassEngine(clean_src, serving=sv, device="cpu").answer(q)
+    with inject(FaultPlan(materialize_fail_parts=(3,),
+                          materialize_fail_times=-1)) as inj:
+        res = eng.answer(q)
+    assert inj.snapshot()["materialize_failures"] == 4   # 1 + 3 retries
+    assert src.degraded_partitions == {3}
+    assert eng.stats()["faults"]["degraded_partitions"] == [3]
+    st = src.stats()
+    assert st["materialize_failures"] == 1 and st["materialize_retries"] == 3
+    assert 3 not in st["materialized_ids"]
+    lo, hi = q.lo.numpy()[:, 0], q.hi.numpy()[:, 0]
+    p3 = src.catalog
+    deg = (hi >= float(p3.col_lo[3, 0])) & (lo <= float(p3.col_hi[3, 0])) \
+        & ~((lo <= float(p3.col_lo[3, 0])) & (hi >= float(p3.col_hi[3, 0])))
+    assert deg.any() and not deg.all()
+    for i in range(lo.shape[0]):
+        inside = (c >= lo[i]) & (c <= hi[i])
+        for kind, truth in (("sum", a[inside].sum()),
+                            ("count", float(inside.sum()))):
+            r = res[kind]
+            assert float(r.lower[i]) - 1e-2 <= truth <= \
+                float(r.upper[i]) + 1e-2, (kind, i)
+            if deg[i]:
+                assert float(r.estimate[i]) == float(
+                    0.5 * (r.lower[i] + r.upper[i]))
+                assert float(r.ci_half[i]) == float(
+                    0.5 * (r.upper[i] - r.lower[i]))
+    _assert_bits({k: _rows(r, ~deg) for k, r in res.items()},
+                 {k: _rows(r, ~deg) for k, r in clean.items()})
+    import jax.numpy as jnp
+    from repro.core.types import QueryBatch as JBatch
+    jsrc = JSource(jrows(c, a, 8), JCatalog(**kw))
+    with jinject(JPlan(materialize_fail_parts=(3,),
+                       materialize_fail_times=-1)):
+        jres = JEngine(jsrc, serving=JServing(kinds=("sum", "count"))
+                       ).answer(JBatch(jnp.asarray(q.lo.numpy()),
+                                       jnp.asarray(q.hi.numpy())))
+    assert jsrc.degraded_partitions == {3}
+    for kind in ("sum", "count"):
+        jm = np.asarray(jres[kind].ci_half) == 0.5 * (
+            np.asarray(jres[kind].upper) - np.asarray(jres[kind].lower))
+        assert np.array_equal(jm[deg], np.ones(deg.sum(), bool)), kind
+
+
+def _rows(r, m):
+    return type(r)(**{f: None if getattr(r, f) is None else getattr(r, f)[
+        torch.from_numpy(m)] for f in r.__dataclass_fields__})
+
+
+def test_materialization_transient_failure_recovers(monkeypatch):
+    from repro_torch.api import CatalogConfig
+    from repro_torch.partitions import source as psource
+    monkeypatch.setattr(psource, "MATERIALIZE_BACKOFF_S", 1e-5)
+    _, _, src = _catalog_drill(15, 4000, 6, CatalogConfig(
+        k=4, s_per_leaf=8, max_partitions=5, pi_floor=1.0))
+    with inject(FaultPlan(materialize_fail_parts=(1,),
+                          materialize_fail_times=2)):
+        assert src._materialize(1) is not None
+    # Two injected failures < the retry budget: the build heals in place.
+    assert src.degraded_partitions == set()
+    assert src.stats()["materialize_retries"] == 2

@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
-streaming modules, the threefry port, the bootstrap, the planner and the
-weighted kernels' wrappers included) pulls in neither JAX nor the JAX
-package, ``chip_smoke.py`` imports neither, and the entry
-points default to the CUDA card rather than the CPU."""
+streaming modules, the threefry port, the bootstrap, the planner, the
+weighted kernels' wrappers and the partition tier included) pulls in
+neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
+the entry points default to the CUDA card rather than the CPU."""
 import ast
 import json
 import os
@@ -59,7 +59,9 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.streaming.policy",
                 "repro_torch.uncertainty.bootstrap",
                 "repro_torch.engine.planner", "repro_torch.kernels.bootstrap",
-                "repro_torch.kernels.stratified_estimate"):
+                "repro_torch.kernels.stratified_estimate",
+                "repro_torch.partitions", "repro_torch.partitions.catalog",
+                "repro_torch.partitions.source"):
         assert mod in report["imported"]
 
 
@@ -76,6 +78,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.core.query import random_queries
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.device import resolve_device
+    from repro_torch.partitions import build_catalog, partition_stats
     from repro_torch.random import PRNGKey
     from repro_torch.streaming import StreamingIngestor
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -87,7 +90,12 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: random_queries(c, 3),
                  lambda: PassEngine(None),
                  lambda: StreamingIngestor(syn),
-                 lambda: PRNGKey(0)):
+                 lambda: PRNGKey(0),
+                 lambda: PassEngine.from_catalog([(c, a)]),
+                 lambda: build_catalog([(c, a)]),
+                 lambda: partition_stats(c, a, np.zeros(200, np.int32), 1,
+                                         bins=4, bin_lo=[0.0],
+                                         bin_hi=[1.0])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert syn.device.type == "cpu"
