@@ -29,13 +29,18 @@ serve through the degradation ladder (``serve/refine.py``): a tier-0
 answer from the aggregate tree on the host, then sample tiers on the
 device; ``answer_progressive`` returns the ladder's handle. A
 :class:`~repro_torch.serve.RequestCoalescer` built on an engine attaches
-to it, and ``checkpoint`` / ``restore`` round-trip a synopsis or streaming
-source through one ``.npz`` (``serve/checkpoint.py``).
+to it, and ``checkpoint`` / ``restore`` round-trip a synopsis or a
+streaming, sharded, join or catalog source through one ``.npz``
+(``serve/checkpoint.py``).
 
 Over a join synopsis (``joins.build_join_synopsis``) or a
 ``JoinStreamingIngestor``, ``answer_join`` / ``prepare_join`` serve
 approximate fk-join aggregates (DESIGN.md §13) through the same plan
 cache, in :class:`PreparedJoinQuery` entries.
+
+``PassEngine.from_sharded(c, a, k=..., mesh=data_mesh(D))`` builds a
+synopsis over D shards and serves its ``ShardedIngestor`` (DESIGN.md §11,
+``sharded/``).
 
 ``PassEngine.from_catalog(parts, catalog=CatalogConfig(...))`` serves
 partitioned data through the partition tier (DESIGN.md §14,
@@ -71,11 +76,6 @@ class _Unset:
 
 
 _UNSET = _Unset()
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})")
 
 
 def _resolve_key(key, device):
@@ -332,8 +332,9 @@ class PreparedCatalogQuery(PreparedQuery):
 class PassEngine:
     """Stateful PASS serving facade: configure once, serve many.
 
-    ``source`` is a :class:`~repro_torch.core.types.Synopsis` or a
-    :class:`~repro_torch.streaming.StreamingIngestor`, whose epoch bump on
+    ``source`` is a :class:`~repro_torch.core.types.Synopsis`, a
+    :class:`~repro_torch.streaming.StreamingIngestor` or a
+    :class:`~repro_torch.sharded.ShardedIngestor`, whose epoch bump on
     every ingest re-pins the prepared entries (one invalidation each).
     ``ci=None`` serves plain estimates, ``ci=0.95`` is shorthand for
     ``CIConfig(level=0.95)``. ``device=None`` serves on the CUDA card and
@@ -362,8 +363,30 @@ class PassEngine:
 
     # -- construction ------------------------------------------------------
     @classmethod
-    def from_sharded(cls, *args, **kwargs):
-        raise _not_ported("PassEngine.from_sharded", "item 12, sharded/")
+    def from_sharded(cls, c, a, *, k: int = 64, mesh=None,
+                     serving: ServingConfig | None = None,
+                     ci: CIConfig | float | None = None,
+                     plan_cache_size: int = 32, device=None,
+                     **build_kw) -> "PassEngine":
+        """Build a synopsis data-parallel over ``mesh``'s shards and serve
+        it.
+
+        Runs :func:`repro_torch.sharded.build_synopsis_sharded` (rows dealt
+        over the ``"shards"`` axis, O(k) merge) and serves the resulting
+        :class:`~repro_torch.sharded.ShardedIngestor`, so the engine goes
+        on streaming data-parallel: ``eng.source.ingest(...)`` bumps the
+        epoch and prepared plans re-pin on their next call, as with the
+        single-device streaming source. ``mesh=None`` is a ``data_mesh``
+        on ``device`` (None = the CUDA card); the engine serves on the
+        mesh's device. ``build_kw`` goes to ``build_synopsis_sharded``
+        (``sample_budget``, ``method``, ``opt_samples``, ``seed``, ...).
+        """
+        from ..sharded import build_synopsis_sharded, data_mesh
+        mesh = mesh if mesh is not None else data_mesh(device=device)
+        ing, _report = build_synopsis_sharded(c, a, k=k, mesh=mesh,
+                                              **build_kw)
+        return cls(ing, serving=serving, ci=ci,
+                   plan_cache_size=plan_cache_size, device=mesh.device)
 
     @classmethod
     def from_catalog(cls, parts, *, catalog=None,
@@ -411,8 +434,9 @@ class PassEngine:
         """Rebuild an engine from a :meth:`checkpoint` file (one the JAX
         package wrote too), bit-identical on the serving path; see
         :func:`repro_torch.serve.checkpoint.load_engine`. ``serving=`` /
-        ``ci=`` default to the checkpointed configs; ``device=None`` serves
-        on the CUDA card."""
+        ``ci=`` default to the checkpointed configs; ``mesh=`` places a
+        sharded source (default: the checkpoint's shard count on the
+        engine's device); ``device=None`` serves on the CUDA card."""
         from ..serve.checkpoint import load_engine
         return load_engine(cls, path, serving=serving, ci=ci, mesh=mesh,
                            plan_cache_size=plan_cache_size, device=device)
@@ -516,14 +540,16 @@ class PassEngine:
 
     def _fault_snapshot(self) -> dict:
         """Containment observability (DESIGN.md §15): a streaming source's
-        quarantined row count, a catalog source's degraded partitions, and
-        the injected event counts when a fault harness is installed. (The
-        sharded source's dispatch counters come with it, ROADMAP Queue 1
-        item 12.)"""
+        quarantined row count, a sharded source's dispatch counters
+        (retries, dropped and poisoned batches), a catalog source's
+        degraded partitions, and the injected event counts when a fault
+        harness is installed."""
         faults: dict = {}
         src = self._source
         if hasattr(src, "n_quarantined"):
             faults["quarantined_rows"] = src.n_quarantined
+        if hasattr(src, "fault_stats"):
+            faults.update(src.fault_stats())
         if hasattr(src, "degraded_partitions"):
             faults["degraded_partitions"] = sorted(src.degraded_partitions)
         inj = _faults.active()

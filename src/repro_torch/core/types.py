@@ -156,7 +156,9 @@ def synopsis_from_numpy(fields: dict[str, np.ndarray], *, num_leaves: int,
     ``fields`` maps each Synopsis field name to an array, with the tree's
     arrays flattened as ``tree.lo``, ``tree.hi`` and so on. Carries a
     synopsis built by the JAX package (``{f: np.asarray(getattr(syn, f))}``)
-    into the port bit for bit.
+    into the port bit for bit; a sharded ingestor's base and merged
+    synopsis carry over the same way (their state goes through
+    ``streaming.ingest.stream_state_from_numpy``).
     """
     dev = resolve_device(device)
 

@@ -3,7 +3,8 @@ the port of ``repro/serve/checkpoint.py``.
 
 One ``.npz`` file holds the complete serving state at an epoch boundary:
 every tensor of the source (the synopsis, or a streaming ingestor's base,
-reservoir, delta aggregates, quarantine box and counter) plus a
+reservoir, delta aggregates, quarantine box and counter, or a sharded
+ingestor's per-shard state) plus a
 ``__meta__`` JSON record (format version, source type, epoch counters,
 serving/ci configs). ``load_engine`` rebuilds the source and returns a
 fresh engine whose serving path is bit-identical to the checkpointed one:
@@ -25,6 +26,13 @@ states, its key, its regrow count and any parked overflow rows; the
 universe's ``key_root`` is written as raw ``uint32[2]`` words as the
 reference writes its raw key.
 
+A sharded source (``sharded.ShardedIngestor``) writes its shard count,
+its base, its stacked ``(D, ...)`` state, its key, its streamed-row count,
+its containment counters, its quarantine box (always: +-inf means the
+non-finite checks only) and, during a build, its static route skeleton.
+It restores onto a mesh of the same shard count only (the per-shard state
+is not resharded), by default ``data_mesh(D)`` on the engine's device.
+
 A catalog source (``partitions.CatalogSource``) writes its partitions'
 rows, its config, its selection-draw counter, its degraded partitions and
 its flat ``build_kw``; the restored source draws the same selections next
@@ -32,8 +40,7 @@ and rebuilds the same partition synopses from their seeds.
 
 Checkpoints are taken at epoch boundaries only: ``save_engine`` flushes an
 attached request coalescer first so no admitted query straddles the
-snapshot, and every ``ingest()`` swaps its state once per batch. Sharded
-sources come with ROADMAP Queue 1 item 12.
+snapshot, and every ``ingest()`` swaps its state once per batch.
 """
 from __future__ import annotations
 
@@ -47,15 +54,6 @@ from ..core.types import PartitionTree, Synopsis
 from ..device import resolve_device, to_numpy
 
 CHECKPOINT_VERSION = 1
-
-_NOT_PORTED = {"sharded": ("sharded sources", "item 12, sharded/")}
-
-
-def _not_ported(kind: str):
-    from ..api.engine import _not_ported as _np
-    what, item = _NOT_PORTED[kind]
-    return _np(f"checkpoints of {what}", item)
-
 
 # -- PRNG key round-trip ---------------------------------------------------
 def _put_key(arrays: dict, name: str, key) -> None:
@@ -164,6 +162,7 @@ def save_engine(engine, path) -> dict:
     epoch boundary with no queued request, then dispatches on the source
     type. Returns the metadata dict embedded in the file.
     """
+    from ..sharded.ingest import ShardedIngestor
     from ..streaming.ingest import StreamingIngestor
     from ..streaming.join_ingest import JoinStreamingIngestor
 
@@ -197,6 +196,20 @@ def save_engine(engine, path) -> dict:
             arrays["pending/k"] = np.concatenate(
                 [p[2] for p in src._pending])
             meta["has_pending"] = True
+    elif isinstance(src, ShardedIngestor):
+        meta["source"] = "sharded"
+        meta["backend"] = None
+        meta["n_shards"] = int(src.n_shards)
+        meta["base"] = _put_dc(arrays, "base", src.base)
+        meta["state"] = _put_dc(arrays, "state", src.state)
+        _put_key(arrays, "ing/key", src._key)
+        meta["n_stream"] = int(src.n_stream)
+        meta["fault_stats"] = src.fault_stats()
+        if src._route is not None:
+            arrays["route/lo"] = to_numpy(src._route[0])
+            arrays["route/hi"] = to_numpy(src._route[1])
+            meta["has_route"] = True
+        _put_qbox(arrays, meta, src._qlo, src._qhi)
     elif isinstance(src, StreamingIngestor):
         meta["source"] = "streaming"
         meta["backend"] = None
@@ -235,19 +248,16 @@ def _load_stream_state(arrays, meta: dict, device):
     from ..streaming.ingest import StreamState
     state = _get_dc(StreamState, arrays, "state", meta["state"], device)
     if state.quarantined is None:           # files from before the box
-        state.quarantined = torch.zeros((), dtype=torch.int32,
-                                        device=device)
+        state.quarantined = torch.zeros_like(state.oob)
     return state
 
 
-def _restore_source(arrays, meta: dict, device):
+def _restore_source(arrays, meta: dict, device, mesh):
     from ..streaming.ingest import StreamingIngestor
     from ..streaming.join_ingest import (JoinStreamState,
                                          JoinStreamingIngestor)
 
     kind = meta["source"]
-    if kind in _NOT_PORTED:
-        raise _not_ported(kind)
     if kind == "synopsis":
         return _load_synopsis(arrays, "syn", meta["syn"], device)
     if kind == "streaming":
@@ -258,6 +268,30 @@ def _restore_source(arrays, meta: dict, device):
         ing.state = _load_stream_state(arrays, meta, device)
         ing.n_stream = int(meta["n_stream"])
         ing._epoch = int(meta["epoch"])
+        return ing
+    if kind == "sharded":
+        from ..sharded import ShardedIngestor, data_mesh, num_shards
+        n_shards = int(meta["n_shards"])
+        mesh = mesh if mesh is not None else data_mesh(n_shards,
+                                                       device=device)
+        if num_shards(mesh) != n_shards:
+            raise ValueError(
+                f"checkpoint was taken with {n_shards} shards but the "
+                f"restore mesh has {num_shards(mesh)}; restore on a mesh "
+                "of the same size (per-shard state is not resharded)")
+        route = None
+        if meta.get("has_route"):
+            route = (np.asarray(arrays["route/lo"]),
+                     np.asarray(arrays["route/hi"]))
+        base = _load_synopsis(arrays, "base", meta["base"], mesh.device)
+        ing = ShardedIngestor(base, mesh=mesh, key=_get_key(arrays,
+                                                            "ing/key"),
+                              route_boxes=route,
+                              quarantine_box=_get_qbox(arrays, meta))
+        ing.state = _load_stream_state(arrays, meta, mesh.device)
+        ing.n_stream = int(meta["n_stream"])
+        ing._epoch = int(meta["epoch"])
+        ing._fault_stats.update(meta.get("fault_stats", {}))
         return ing
     if kind == "join_streaming":
         from ..joins.dim import DimTable
@@ -304,11 +338,15 @@ def load_engine(cls, path, *, serving=None, ci=None, mesh=None,
     """Rebuild a ``cls`` (PassEngine) from a :func:`save_engine` file, the
     port's or the JAX package's, serving on ``device`` (None = the CUDA
     card). ``serving=`` / ``ci=`` override the checkpointed configs;
-    ``mesh`` is for sharded checkpoints, which are not ported yet."""
+    ``mesh`` (a :class:`~repro_torch.sharded.ShardMesh`) places a sharded
+    source and must have the checkpoint's shard count; None means
+    ``data_mesh(n_shards)`` on ``device``."""
     from ..api.config import CIConfig, ServingConfig
+    from ..sharded.mesh import ShardMesh
 
-    if mesh is not None:
-        raise _not_ported("sharded")
+    if mesh is not None and not isinstance(mesh, ShardMesh):
+        raise TypeError(f"mesh must be a ShardMesh (sharded.data_mesh), "
+                        f"got {type(mesh).__name__}")
     dev = resolve_device(device)
     with np.load(path, allow_pickle=False) as npz:
         arrays = {k: npz[k] for k in npz.files}
@@ -318,7 +356,7 @@ def load_engine(cls, path, *, serving=None, ci=None, mesh=None,
             f"checkpoint version {meta.get('version')!r} is not supported "
             f"(expected {CHECKPOINT_VERSION})")
 
-    source = _restore_source(arrays, meta, dev)
+    source = _restore_source(arrays, meta, dev, mesh)
     if serving is None:
         serving = _config_from_meta(ServingConfig, meta["serving"])
     if ci is None:

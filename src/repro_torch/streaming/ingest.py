@@ -77,13 +77,16 @@ def stream_state_from_numpy(fields: dict, key=None, *, device=None
     """Carry a stream state across from host arrays, dtypes kept as given:
     ``fields`` maps each :class:`StreamState` field to an array (a JAX
     ``StreamState`` as ``{f: np.asarray(getattr(state, f))}``; a missing
-    or None ``quarantined`` reads 0). ``key`` is a raw ``uint32[2]``
-    threefry key, returned as the port's (2,) int64 key, or None. The
-    companion of :func:`~repro_torch.core.types.synopsis_from_numpy`."""
+    or None ``quarantined`` reads 0). A sharded state carries a leading
+    shard axis D on every field, ``oob`` and ``quarantined`` then (D,).
+    ``key`` is a raw ``uint32[2]`` threefry key, returned as the port's
+    (2,) int64 key, or None. The companion of
+    :func:`~repro_torch.core.types.synopsis_from_numpy`."""
     dev = resolve_device(device)
     vals = dict(fields)
     if vals.get("quarantined") is None:
-        vals["quarantined"] = np.zeros((), np.int32)
+        vals["quarantined"] = np.zeros_like(np.asarray(vals["oob"]),
+                                            np.int32)
     state = StreamState(**{f: torch.tensor(np.asarray(vals[f]), device=dev)
                            for f in STATE_FIELDS})
     if key is not None:

@@ -20,9 +20,10 @@ faults:
   tier retries, then serves the queries overlapping a partition that
   stays failed from catalog hard bounds. Wired:
   ``partitions/source.py`` ``CatalogSource._build_one``.
-* **shard dispatch failures** — the decision function is here, so a
-  plan draws the reference's schedule, but its hook site comes with the
-  sharded ingest (ROADMAP Queue 1 item 12).
+* **shard dispatch failures** — every ``shard_fail_every``-th sharded
+  dispatch fails its first ``shard_fail_persist`` attempts (-1: every
+  attempt); the sharded ingest retries with backoff, then drops the batch
+  and counts it. Wired: ``sharded/ingest.py`` ``ShardedIngestor._dispatch``.
 
 Decisions are functions of (plan, per-site counter) only, never of wall
 clock or global RNG state, so a fixed plan over a fixed call sequence

@@ -133,7 +133,7 @@ def test_version_guard_and_unported_sources(tmp_path):
             (2, "synopsis", ValueError, "version 2 is not supported"),
             (1, "catalog", KeyError, "num_partitions"),
             (1, "join_streaming", KeyError, "jsyn"),
-            (1, "sharded", NotImplementedError, "item 12"),
+            (1, "sharded", KeyError, "n_shards"),
             (1, "zebra", ValueError, "unknown checkpoint source")):
         arrays["__meta__"] = np.asarray(json.dumps(
             dict(meta, version=version, source=kind)))

@@ -266,9 +266,6 @@ def test_normal_quantile_within_four_ulp_of_jax():
             normal_quantile(bad)
 
 
-NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
-
-
 @pytest.mark.parametrize("call,error", [
     (lambda e, q: e.answer(q, plan=object()), (TypeError, "QueryPlan")),
     (lambda e, q: e.answer(q, deadline_ms=5.0, plan=object()),
@@ -282,8 +279,11 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
     (lambda e, q: e.answer_join(q), (TypeError, "JoinSynopsis source")),
     (lambda e, q: PassEngine(q, device="cpu").checkpoint("x.npz"),
      (TypeError, "cannot checkpoint source")),
-    (lambda e, q: PassEngine.restore("x.npz", mesh=object()), NOT_PORTED),
-    (lambda e, q: PassEngine.from_sharded(None, None), NOT_PORTED),
+    (lambda e, q: PassEngine.restore("x.npz", mesh=object()),
+     (TypeError, "mesh must be a ShardMesh")),
+    (lambda e, q: PassEngine.from_sharded(np.zeros(64), np.ones(64), k=4,
+                                          method="zebra", device="cpu"),
+     (ValueError, "unknown skeleton method")),
     (lambda e, q: PassEngine.from_catalog([]),
      (ValueError, "at least one partition")),
     (lambda e, q: executor.compute_artifacts(e.resolve(), q, ("sum",),
@@ -293,13 +293,12 @@ NOT_PORTED = (NotImplementedError, "ROADMAP Queue 1 item")
         "join", "checkpoint", "restore", "sharded", "catalog",
         "plan_masks"])
 def test_unported_entry_points_raise(served, call, error):
-    """Entry points not ported yet (sharded sources and their
-    checkpoints) raise NotImplementedError naming their ROADMAP item.
-    Those ported since (``plan=``, the bootstrap, the executor's
-    ``plan_masks``, the ladder's ``deadline_ms`` and
-    ``answer_progressive``, ``checkpoint``, ``answer_join`` on a source
-    without a join synopsis, ``from_catalog`` without partitions) reject
-    malformed input."""
+    """Entry points once refused as not yet ported reject malformed input:
+    ``plan=``, the bootstrap, the executor's ``plan_masks``, the ladder's
+    ``deadline_ms`` and ``answer_progressive``, ``checkpoint``,
+    ``answer_join`` on a source without a join synopsis, ``restore`` with
+    a mesh that is not a ``ShardMesh``, ``from_sharded`` with an unknown
+    skeleton method and ``from_catalog`` without partitions."""
     _, tsyn, _, tq = served[1]
     eng = PassEngine(tsyn, device="cpu")
     with pytest.raises(error[0], match=error[1]):

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 streaming modules, the threefry port, the bootstrap, the planner, the
-weighted kernels' wrappers and the partition tier included) pulls in
+weighted kernels' wrappers, the partition tier, the sharded layer and the
+distributed helpers included) pulls in
 neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
 the entry points default to the CUDA card rather than the CPU."""
 import ast
@@ -61,7 +62,11 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.engine.planner", "repro_torch.kernels.bootstrap",
                 "repro_torch.kernels.stratified_estimate",
                 "repro_torch.partitions", "repro_torch.partitions.catalog",
-                "repro_torch.partitions.source"):
+                "repro_torch.partitions.source", "repro_torch.sharded",
+                "repro_torch.sharded.mesh", "repro_torch.sharded.ingest",
+                "repro_torch.sharded.build", "repro_torch.sharded.merge",
+                "repro_torch.sharded.reopt", "repro_torch.sharded.catalog",
+                "repro_torch.core.distributed"):
         assert mod in report["imported"]
 
 
@@ -80,6 +85,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.device import resolve_device
     from repro_torch.partitions import build_catalog, partition_stats
     from repro_torch.random import PRNGKey
+    from repro_torch.sharded import (ShardedIngestor, build_synopsis_sharded,
+                                     catalog_delta_sharded, data_mesh)
     from repro_torch.streaming import StreamingIngestor
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c = np.linspace(0, 1, 200)
@@ -95,10 +102,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: build_catalog([(c, a)]),
                  lambda: partition_stats(c, a, np.zeros(200, np.int32), 1,
                                          bins=4, bin_lo=[0.0],
-                                         bin_hi=[1.0])):
+                                         bin_hi=[1.0]),
+                 lambda: data_mesh(),
+                 lambda: ShardedIngestor(syn),
+                 lambda: build_synopsis_sharded(c, a, k=4),
+                 lambda: PassEngine.from_sharded(c, a, k=4),
+                 lambda: catalog_delta_sharded(c, a, np.zeros(200), 1,
+                                               bins=4, bin_lo=[0.0],
+                                               bin_hi=[1.0])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert syn.device.type == "cpu"
     ing = StreamingIngestor(syn, device="cpu").ingest(c[:5], a[:5])
     assert ing.state.seen.device.type == "cpu" and ing.epoch == 1
+    sh = ShardedIngestor(syn, device="cpu").ingest(c[:5], a[:5])
+    assert sh.state.seen.shape == (1, 4) and sh.mesh == data_mesh(
+        1, device="cpu")
     assert resolve_device("cpu") == torch.device("cpu")
