@@ -6,7 +6,9 @@ config can key the engine's prepared-plan cache: :meth:`cache_key`
 returns a hashable token.
 
 The one difference from the reference: ``ServingConfig.backend`` must
-be None (the port picks each kernel by the device of its tensors).
+be None. The port has no named backend: the device of the tensors picks
+each kernel (a CUDA tensor the hand-written kernel, a CPU tensor its
+plain version).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ class ServingConfig:
 
     ``kinds``          aggregate kinds answered per batch (one shared
                        artifact pass covers all of them).
-    ``backend``        must be None: kernels are chosen by tensor device.
+    ``backend``        must be None: the tensors' device picks each
+                       kernel.
     ``lam``            CLT multiplier for the ``ci_half`` field.
     ``use_fpc``        finite-population correction (§2.1.1 footnote 1).
     ``zero_var_rule``  §3.4 zero-variance promotion (stratum-mode AVG).
@@ -59,9 +62,10 @@ class ServingConfig:
                 raise ValueError(f"unknown kind: {k}")
         if self.backend is not None:
             raise ValueError(
-                f"backend={self.backend!r}: repro_torch picks each kernel by "
-                "the device of its tensors, so backend must be None (a "
-                "named backend registry is ROADMAP Queue 1 item 2)")
+                f"backend={self.backend!r}: repro_torch has no named "
+                "backends; the device of the tensors picks each kernel (a "
+                "CUDA tensor the hand-written kernel, a CPU tensor its "
+                "plain version), so backend must be None")
         if self.avg_mode not in ("ratio", "stratum"):
             raise ValueError(f"unknown avg_mode: {self.avg_mode!r}")
         if self.sample_slots is not None and self.sample_slots < 1:

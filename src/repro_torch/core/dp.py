@@ -2,6 +2,7 @@
 
 * ``equal_depth_boundaries`` — Lemma A.1: optimal for 1-D COUNT; also the
   "EQ" baseline of §5.3.
+* ``dp_exact`` — the O(k n^2) DP over the exact oracle (small n only).
 * ``dp_monotone`` — "Sampling + Discretization" (the ** algorithm of the
   paper's experiments): monotone DP with a vectorized lock-step binary
   search over the split point and the O(1) discretized variance oracles.
@@ -26,6 +27,47 @@ from . import prefix as px
 def equal_depth_boundaries(n: int, k: int) -> np.ndarray:
     """Equal-size (equal-depth) cut ranks; optimal for COUNT (Lemma A.1)."""
     return np.round(np.linspace(0, n, k + 1)).astype(np.int64)
+
+
+def dp_exact(values_sorted: np.ndarray, k: int, kind: str,
+             min_len: int = 1) -> tuple[np.ndarray, float]:
+    """O(k n^2) DP over the full exact-oracle table (itself O(n^2) per
+    cell); the Naive DP row of the §4.3 table and the oracle the tests hold
+    the monotone DP against.
+
+    Returns (cut ranks (k+1,), optimal max variance). Small n only.
+    """
+    v = np.asarray(values_sorted, dtype=np.float64)
+    n = v.shape[0]
+    s1, s2 = px.prefix_moments(v)
+    # M[g, w] = max variance of any subquery of partition [g, w)
+    M = np.zeros((n + 1, n + 1), dtype=np.float64)
+    for g in range(n + 1):
+        for w in range(g + 1, n + 1):
+            M[g, w] = px.oracle_exact(s1, s2, g, w, kind, min_len)
+    INF = np.inf
+    A = np.full((n + 1, k + 1), INF)
+    parent = np.zeros((n + 1, k + 1), dtype=np.int64)
+    A[0, :] = 0.0
+    A[:, 0] = INF
+    A[0, 0] = 0.0
+    for j in range(1, k + 1):
+        for i in range(0, n + 1):
+            # h = left cut of the last partition [h, i)
+            best, arg = INF, 0
+            for h in range(0, i + 1):
+                cand = max(A[h, j - 1], M[h, i])
+                if cand < best:
+                    best, arg = cand, h
+            A[i, j] = best
+            parent[i, j] = arg
+    cuts = np.zeros(k + 1, dtype=np.int64)
+    cuts[k] = n
+    i = n
+    for j in range(k, 0, -1):
+        i = parent[i, j]
+        cuts[j - 1] = i
+    return cuts, float(A[n, k])
 
 
 def _make_oracle(values_sorted: np.ndarray, kind: str, delta_frac: float,
@@ -239,6 +281,6 @@ def adp_partition(c: np.ndarray, a: np.ndarray, k: int, m: int,
     return thresholds, assign, vmax
 
 
-__all__ = ["equal_depth_boundaries", "dp_monotone", "cuts_to_thresholds",
+__all__ = ["equal_depth_boundaries", "dp_exact", "dp_monotone", "cuts_to_thresholds",
            "adp_partition", "dp_monotone_device",
            "cuts_to_thresholds_device"]

@@ -1,5 +1,6 @@
 """Ground truth, workload generators and error metrics (paper §5.1).
 
+`answer` is the deprecated single-kind entry over ``PassEngine``.
 `ground_truth` computes exact answers with chunked host scans for scoring.
 The generators reproduce the paper's query distributions: random
 rectangles anchored on data values (§5.1.2) and "challenging" queries
@@ -15,6 +16,45 @@ import torch
 from ..device import resolve_device, to_numpy
 from . import prefix as px
 from .types import QueryBatch, QueryResult
+
+
+def answer(syn, queries: QueryBatch, kind: str = "sum",
+           lam: float | None = None, use_fpc: bool | None = None,
+           zero_var_rule: bool | None = None,
+           use_aggregates: bool | None = None, avg_mode: str | None = None,
+           kinds=None, backend: str | None = None,
+           plan=None, ci: float | None = None, ci_method: str | None = None,
+           small_n_threshold: int | None = None, n_boot: int | None = None,
+           ci_key=None, device=None):
+    """Deprecated single-kind compatibility entry over the serving facade.
+
+    Pass ``kinds=(...)`` to answer several aggregate kinds from one shared
+    classification + moment pass; the result is then a ``{kind:
+    QueryResult}`` dict. Use ``repro_torch.api.PassEngine`` instead: unset
+    kwargs inherit the ``ServingConfig`` / ``CIConfig`` defaults, and a
+    long-lived engine caches prepared plans. ``backend`` must be None;
+    ``device=None`` serves on the CUDA card.
+    """
+    from .. import api
+    from ..api.config import merge_overrides
+    api.warn_once(
+        "repro_torch.core.answer",
+        "repro_torch.api.PassEngine(source, serving=ServingConfig(kinds=...), "
+        "ci=CIConfig(level=...)).answer(queries)")
+    multi = kinds is not None
+    serving = merge_overrides(
+        api.ServingConfig(kinds=kinds if multi else (kind,),
+                          backend=backend),
+        lam=lam, use_fpc=use_fpc, zero_var_rule=zero_var_rule,
+        use_aggregates=use_aggregates, avg_mode=avg_mode)
+    ci_cfg = None
+    if ci is not None:
+        ci_cfg = merge_overrides(
+            api.CIConfig(level=float(ci)), method=ci_method,
+            small_n_threshold=small_n_threshold, n_boot=n_boot, key=ci_key)
+    out = api.PassEngine(syn, serving=serving, ci=ci_cfg,
+                         device=device).answer(queries, plan=plan)
+    return out if multi else out[kind]
 
 
 def ground_truth(c, a, queries: QueryBatch, kind: str = "sum",
@@ -146,6 +186,6 @@ def ci_ratio(res: QueryResult, truth: np.ndarray) -> np.ndarray:
                                                                  1e-12)
 
 
-__all__ = ["ground_truth", "ground_truth_join", "random_queries",
+__all__ = ["answer", "ground_truth", "ground_truth_join", "random_queries",
            "challenging_queries",
            "relative_error", "ci_ratio"]

@@ -162,5 +162,34 @@ def neyman_allocation(n_rows: np.ndarray, stds: np.ndarray,
     return alloc
 
 
+class ReservoirStratum:
+    """Reservoir sampler for one stratum (Vitter [41]; paper §4.5 dynamic
+    updates). Maintains a uniform sample under insertions, drawing from
+    ``default_rng(seed)`` as the JAX package's sampler does; aggregate
+    stats are updated exactly and pushed up the tree by the synopsis
+    owner."""
+
+    def __init__(self, capacity: int, seed: int = 0):
+        self.capacity = capacity
+        self.rng = np.random.default_rng(seed)
+        self.seen = 0
+        self.c: list[np.ndarray] = []
+        self.a: list[float] = []
+
+    def insert(self, c_row: np.ndarray, a_val: float) -> tuple[bool, int]:
+        """Returns (accepted, replaced_slot or -1)."""
+        self.seen += 1
+        if len(self.a) < self.capacity:
+            self.c.append(np.asarray(c_row, dtype=np.float64))
+            self.a.append(float(a_val))
+            return True, len(self.a) - 1
+        j = int(self.rng.integers(0, self.seen))
+        if j < self.capacity:
+            self.c[j] = np.asarray(c_row, dtype=np.float64)
+            self.a[j] = float(a_val)
+            return True, j
+        return False, -1
+
+
 __all__ = ["uniform_sample", "stratified_sample", "proportional_allocation",
-           "neyman_allocation"]
+           "neyman_allocation", "ReservoirStratum"]

@@ -8,6 +8,8 @@ The build is host float64 numpy, step for step the JAX package's:
           samples,
 
 followed by one float32 conversion and one copy to the serving device.
+``delta_encode`` / ``delta_decode`` store sample values as deltas from
+their stratum mean (§3.4), elementwise on the synopsis's device.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import time
 import numpy as np
 import torch
 
+from .. import minmax
 from ..device import resolve_device
 from . import dp as dp_mod
 from . import kdtree
@@ -160,5 +163,42 @@ def synopsis_from_assignment(c, a, assign, k, *, s_per_leaf=None,
     return syn, info
 
 
+def _stratum_mean(syn: Synopsis) -> torch.Tensor:
+    count = syn.leaf_agg[:, AGG_COUNT]
+    return syn.leaf_agg[:, 0] / minmax.maximum(count, torch.ones_like(count))
+
+
+def _absmax(x: torch.Tensor, valid: torch.Tensor) -> float:
+    """max |x| over the valid slots (0.0 when there is none)."""
+    return float(minmax.masked_max(x.abs().reshape(-1), valid.reshape(-1),
+                                   0.0, 0))
+
+
+def delta_encode(syn: Synopsis) -> tuple[Synopsis, dict]:
+    """Delta-encode sample values against their stratum mean (§3.4).
+
+    Returns a synopsis whose ``sample_a`` stores deltas (0.0 on invalid
+    slots) plus the dynamic-range statistics ``orig_absmax`` and
+    ``delta_absmax``. Elementwise float32 on the synopsis's device, the
+    JAX package's operations bit for bit. ``delta_decode`` adds the mean
+    back; in float32 that restores a value to within one rounding of the
+    subtraction and one of the addition, not always to its bits.
+    """
+    mean = _stratum_mean(syn)
+    deltas = torch.where(syn.sample_valid, syn.sample_a - mean[:, None], 0.0)
+    enc = dataclasses.replace(syn, sample_a=deltas)
+    stats = {"orig_absmax": _absmax(syn.sample_a, syn.sample_valid),
+             "delta_absmax": _absmax(deltas, syn.sample_valid)}
+    return enc, stats
+
+
+def delta_decode(syn: Synopsis) -> Synopsis:
+    """Invert :func:`delta_encode`: sample values = deltas + stratum mean
+    on valid slots, 0.0 elsewhere."""
+    mean = _stratum_mean(syn)
+    vals = torch.where(syn.sample_valid, syn.sample_a + mean[:, None], 0.0)
+    return dataclasses.replace(syn, sample_a=vals)
+
+
 __all__ = ["build_synopsis", "synopsis_from_assignment", "partition_assign",
-           "BuildReport"]
+           "BuildReport", "delta_encode", "delta_decode"]

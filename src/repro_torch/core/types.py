@@ -170,9 +170,31 @@ def synopsis_from_numpy(fields: dict[str, np.ndarray], *, num_leaves: int,
                     num_leaves=int(num_leaves), d=int(d))
 
 
+def aqppp_from_numpy(fields: dict, *, device=None):
+    """Build the AQP++ baseline (:class:`~repro_torch.core.baselines.AQPPP`)
+    from host arrays: float64 boxes, aggregates and sample, int64 sample
+    partition ids, on ``device``. ``fields`` holds the dataclass's fields
+    by name (``bound_lo``, ``bound_hi``, ``agg``, ``sample_c``,
+    ``sample_a``, ``sample_leaf``, ``n``), so the JAX package's structure
+    (``dataclasses.asdict``) carries into the port unchanged."""
+    from .baselines import AQPPP
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.tensor(np.asarray(fields[name]), dtype=dtype, device=dev)
+
+    return AQPPP(bound_lo=t("bound_lo", torch.float64),
+                 bound_hi=t("bound_hi", torch.float64),
+                 agg=t("agg", torch.float64),
+                 sample_c=t("sample_c", torch.float64),
+                 sample_a=t("sample_a", torch.float64),
+                 sample_leaf=t("sample_leaf", torch.int64),
+                 n=int(fields["n"]))
+
+
 __all__ = [
     "PartitionTree", "Synopsis", "QueryBatch", "QueryResult",
-    "synopsis_from_numpy",
+    "synopsis_from_numpy", "aqppp_from_numpy",
     "AGG_SUM", "AGG_SUMSQ", "AGG_COUNT", "AGG_MIN", "AGG_MAX", "NUM_AGGS",
     "REL_NONE", "REL_PARTIAL", "REL_COVER",
 ]

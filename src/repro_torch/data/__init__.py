@@ -1,1 +1,2 @@
-"""Dataset generators (numpy)."""
+"""Dataset generators (numpy) and the synthetic token loader."""
+from . import synthetic  # noqa: F401

@@ -6,6 +6,9 @@ tests, a laptop) says so with ``device="cpu"``.
 """
 from __future__ import annotations
 
+import shutil
+import subprocess
+
 import numpy as np
 import torch
 
@@ -29,4 +32,24 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-__all__ = ["resolve_device", "to_numpy"]
+def device_label(device) -> str:
+    """Where numbers were taken: for a CUDA device its name and power limit
+    as ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them (the name alone when nvidia-smi is missing), else the
+    device's type (``cpu``)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    smi = shutil.which("nvidia-smi")
+    if smi:
+        out = subprocess.run(
+            [smi, "-i", str(index), "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+        if out.returncode == 0 and out.stdout.strip():
+            return out.stdout.strip().splitlines()[0]
+    return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+__all__ = ["resolve_device", "to_numpy", "device_label"]

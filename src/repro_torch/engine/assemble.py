@@ -224,4 +224,41 @@ def answer_batch(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
             for k in kinds}
 
 
-__all__ = ["assemble", "answer_batch", "avg_ratio_terms", "KINDS"]
+def answer(syn: Synopsis, queries: QueryBatch, kinds=("sum",), *,
+           lam: float | None = None, use_fpc: bool | None = None,
+           zero_var_rule: bool | None = None,
+           use_aggregates: bool | None = None, avg_mode: str | None = None,
+           backend: str | None = None,
+           plan=None, ci: float | None = None, ci_method: str | None = None,
+           small_n_threshold: int | None = None, n_boot: int | None = None,
+           ci_key=None, device=None) -> dict[str, QueryResult]:
+    """Deprecated shim: answer a batch of rectangular aggregate queries for
+    every requested aggregate kind from one shared artifact pass.
+
+    Returns ``{kind: QueryResult}``. Use ``repro_torch.api.PassEngine``
+    instead: the frozen ``ServingConfig`` / ``CIConfig`` dataclasses there
+    are the single source of truth for every default this signature used
+    to duplicate (unset kwargs below inherit them), and a long-lived
+    engine additionally caches prepared per-shape plans across calls.
+    ``backend`` must be None; ``device=None`` serves on the CUDA card.
+    """
+    from .. import api
+    from ..api.config import merge_overrides
+    api.warn_once(
+        "repro_torch.engine.answer",
+        "repro_torch.api.PassEngine(source, serving=ServingConfig(kinds=...), "
+        "ci=CIConfig(level=...)).answer(queries)")
+    serving = merge_overrides(
+        api.ServingConfig(kinds=kinds, backend=backend),
+        lam=lam, use_fpc=use_fpc, zero_var_rule=zero_var_rule,
+        use_aggregates=use_aggregates, avg_mode=avg_mode)
+    ci_cfg = None
+    if ci is not None:
+        ci_cfg = merge_overrides(
+            api.CIConfig(level=float(ci)), method=ci_method,
+            small_n_threshold=small_n_threshold, n_boot=n_boot, key=ci_key)
+    eng = api.PassEngine(syn, serving=serving, ci=ci_cfg, device=device)
+    return eng.answer(queries, plan=plan)
+
+
+__all__ = ["assemble", "answer", "answer_batch", "avg_ratio_terms", "KINDS"]

@@ -197,7 +197,23 @@ def plan_to_masks(plan, device):
                             ).to(torch.float32))
 
 
-__all__ = ["Artifacts", "compute_artifacts", "resolve_synopsis",
+def artifacts(syn: Synopsis, queries: QueryBatch, kinds,
+              use_aggregates: bool = True, backend: str | None = None,
+              plan=None) -> Artifacts:
+    """Eager entry: one artifact-stage execution on the synopsis's device
+    (``queries`` must lie there too), counted in ``OP_COUNTS``.
+    ``backend`` must be None: the tensors' device picks each kernel."""
+    if backend is not None:
+        raise ValueError(f"backend={backend!r}: repro_torch has no named "
+                         "backends, so backend must be None")
+    kinds = tuple(kinds)
+    count_artifact_pass(kinds)
+    syn = resolve_synopsis(syn)
+    return compute_artifacts(syn, queries, kinds, use_aggregates,
+                             plan_to_masks(plan, syn.device))
+
+
+__all__ = ["Artifacts", "artifacts", "compute_artifacts", "resolve_synopsis",
            "slice_sample_slots", "count_artifact_pass", "plan_to_masks",
            "pad_rows", "take_rows", "PAD_LO", "PAD_HI", "MIN_ROWS",
            "OP_COUNTS", "reset_op_counts"]

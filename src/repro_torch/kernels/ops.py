@@ -4,8 +4,15 @@ In place of the JAX package's named backend registry (``pallas | jnp |
 ref``), the tensors decide: CUDA tensors launch the hand-written kernel
 (or raise), CPU tensors run the plain PyTorch version. No environment
 variable or config routes CUDA tensors to the plain version.
+
+The flat-sample ops (``stratified_moments_flat``, ``weighted_moments_flat``,
+the reference's ``stratified_moments_op`` / ``weighted_moments_op``) take
+(S, d) samples with leaf ids in any order and lay them into the slot
+layout the kernels read.
 """
 from __future__ import annotations
+
+import torch
 
 from .bootstrap import bootstrap_moments_cuda, bootstrap_moments_plain
 from .join_moments import join_cell_moments_cuda, join_cell_moments_plain
@@ -68,6 +75,66 @@ def bootstrap_moments(sample_c, sample_a, sample_valid, weights, q_lo,
     return bootstrap_moments_plain(*args)
 
 
+def flat_slots(sample_c, sample_a, sample_leaf, k: int, weights=None):
+    """Lay flat samples into the synopsis's (k, s_max) slot layout.
+
+    sample_c (S, d), sample_a (S,) and, when given, weights (S,) go to the
+    slots of their stratum sample_leaf (S,) in input order (a stable sort
+    on the leaf id); ids outside [0, k) (-1 pads) are dropped. s_max is
+    the largest stratum's sample count (at least 1; one host readback of
+    the (k,) counts). Returns (sample_c (k, s_max, d), sample_a,
+    sample_valid, weights or None), zeros on unused slots.
+    """
+    d = sample_c.shape[1]
+    dev = sample_c.device
+    leaf = sample_leaf.to(torch.int64)
+    ids = torch.where((leaf >= 0) & (leaf < k), leaf, k)
+    counts = torch.bincount(ids, minlength=k + 1)[:k]
+    counts_host = counts.cpu()
+    s_max = max(int(counts_host.max()) if k else 0, 1)
+    n_keep = int(counts_host.sum())
+    order = torch.sort(ids, stable=True).indices[:n_keep]
+    ids_kept = ids[order]
+    starts = torch.cumsum(counts, 0) - counts
+    slot = ids_kept * s_max + (torch.arange(n_keep, device=dev)
+                               - starts[ids_kept])
+
+    def lay(x, *trail):
+        out = x.new_zeros((k * s_max, *trail))
+        out[slot] = x[order]
+        return out.reshape(k, s_max, *trail)
+
+    valid = torch.zeros(k * s_max, dtype=torch.bool, device=dev)
+    valid[slot] = True
+    w = None if weights is None else lay(weights.to(torch.float32))
+    return (lay(sample_c.to(torch.float32), d),
+            lay(sample_a.to(torch.float32)), valid.reshape(k, s_max), w)
+
+
+def stratified_moments_flat(sample_c, sample_a, sample_leaf, q_lo, q_hi,
+                            k: int):
+    """Flat-sample moments, the counterpart of the JAX package's
+    ``stratified_moments_op``: sample_c (S, d), sample_a (S,), sample_leaf
+    (S,) int ids (-1 = pad) in any order; q_lo/q_hi (Q, d). The samples
+    are laid into the (k, s_max) slot layout (:func:`flat_slots`), then a
+    CUDA tensor launches ``stratified_moments``' kernel and a CPU tensor
+    runs its plain version. Returns (Q, k, 3) = [count, sum a, sum a^2]."""
+    c, a, valid, _ = flat_slots(sample_c, sample_a, sample_leaf, k)
+    return torch.stack(stratified_moments(c, a, valid, q_lo, q_hi), dim=-1)
+
+
+def weighted_moments_flat(sample_c, sample_a, sample_leaf, weights, q_lo,
+                          q_hi, k: int):
+    """Flat-sample weighted moments (one bootstrap resample pass), the
+    counterpart of ``weighted_moments_op``: as
+    :func:`stratified_moments_flat` with a weight (S,) per sample (pads
+    carry weight 0); a CUDA tensor launches
+    ``stratified_weighted_moments``' kernel. Returns (Q, k, 3) =
+    [sum w, sum w*a, sum w*a^2] over the relevant samples."""
+    c, a, valid, w = flat_slots(sample_c, sample_a, sample_leaf, k, weights)
+    return weighted_moments(c, a, valid, w, q_lo, q_hi)
+
+
 def sample_extremes(sample_c, sample_a, sample_valid, q_lo, q_hi):
     """Per-(query, stratum) MIN/MAX over relevant samples; irrelevant
     strata read +BIG / -BIG. Returns (samp_min, samp_max), each (Q, k).
@@ -126,6 +193,7 @@ def join_cell_moments(slots, q_lo, q_hi, cover, sampled, cell_agg,
 
 
 __all__ = ["query_eval", "stratified_moments", "weighted_moments",
+           "flat_slots", "stratified_moments_flat", "weighted_moments_flat",
            "bootstrap_moments", "sample_extremes", "segment_reduce",
            "weighted_segment_reduce", "route_multid", "join_cell_moments",
            "tree_sum_last"]

@@ -77,6 +77,13 @@ def stratified_moments_plain(sample_c, sample_a, sample_valid, q_lo, q_hi):
                         (pred * a * a).sum(-1)], dim=-1)
 
 
+def sample_moments(sample_c, sample_a, sample_valid, q_lo, q_hi):
+    """(k_pred, s_sum, s_sumsq), each (Q, k): the plain version's three
+    planes, the JAX package's ``backends.sample_moments``."""
+    return stratified_moments_plain(sample_c, sample_a, sample_valid, q_lo,
+                                    q_hi).unbind(-1)
+
+
 _lib = None
 
 
@@ -249,7 +256,7 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
 
 
 __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
-           "stratified_moments_plain", "stratified_moments_cuda",
+           "stratified_moments_plain", "sample_moments", "stratified_moments_cuda",
            "weighted_moments_plain", "stratified_weighted_moments_cuda",
            "check_moments_limits", "MOMENTS_QT", "MOMENTS_LT",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",

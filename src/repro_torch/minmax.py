@@ -20,7 +20,12 @@ settles as -0.0 (a max's as +0.0). The rule is order-free: the bits do
 not depend on the order of the inputs (nor, in a kernel, on which thread
 met which value first). NaN stays NaN and +-inf is untouched.
 
-All tensors are float32.
+All tensors are float32, but for :func:`maximum_np` and
+:func:`minimum_np`: the JAX package computes AQP++'s hard bounds
+(``core/baselines.py``) with numpy's ``np.maximum`` / ``np.minimum`` in
+float64, and numpy's rule is not XLA's. It propagates a NaN too, but
+settles a tie of two zeros as the second operand (the SIMD ``max_pd`` /
+``min_pd`` it runs on); these two follow it, on any float dtype.
 """
 from __future__ import annotations
 
@@ -98,5 +103,17 @@ def scatter_max_(out: torch.Tensor, index: torch.Tensor,
     return out.scatter_reduce_(0, index, src, "amax").copysign_(sign)
 
 
-__all__ = ["minimum", "maximum", "max0", "min0", "clip", "masked_min", "masked_max",
-           "scatter_min_", "scatter_max_"]
+def maximum_np(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``np.maximum(a, b)``: NaN propagates, a tie (of zeros too) gives
+    ``b``."""
+    return torch.where((a > b) | torch.isnan(a), a, b)
+
+
+def minimum_np(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``np.minimum(a, b)``: NaN propagates, a tie (of zeros too) gives
+    ``b``."""
+    return torch.where((a < b) | torch.isnan(a), a, b)
+
+
+__all__ = ["minimum", "maximum", "maximum_np", "minimum_np", "max0", "min0",
+           "clip", "masked_min", "masked_max", "scatter_min_", "scatter_max_"]

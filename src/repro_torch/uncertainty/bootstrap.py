@@ -217,5 +217,45 @@ def bootstrap_replicates(syn, queries: QueryBatch, kinds=("avg",), *,
                        bool(fused))
 
 
-__all__ = ["BOOT_KINDS", "bootstrap_answer",
-           "bootstrap_replicates", "key_tensor"]
+def poisson_bootstrap(syn, queries: QueryBatch, kinds=("avg",), *,
+                      level: float = 0.95, n_boot: int = 200, key=None,
+                      seed: int = 0, normalize: str = "hajek",
+                      use_aggregates: bool = True,
+                      backend: str | None = None, plan=None,
+                      device=None) -> dict[str, QueryResult]:
+    """Deprecated shim: percentile bootstrap intervals for ``kinds`` (a
+    subset of SUM/COUNT/AVG). Returns ``{kind: QueryResult}`` with
+    ``ci_lo``/``ci_hi`` the (1 - level)/2 replicate percentiles and
+    ``estimate`` the plain (non-resampled) estimator.
+
+    ``key`` (or ``seed``) fully determines the resample weights
+    (``fold_in(key, r)``), so results are bit-reproducible.
+    ``normalize='hajek'`` rescales each stratum by its resampled size;
+    ``'ht'`` keeps the fixed N_i/K_i design scale. The fused one-pass
+    kernel serves it.
+
+    Use ``repro_torch.api.PassEngine(syn, serving=ServingConfig(
+    kinds=...), ci=CIConfig(method='bootstrap', ...)).answer(queries)``
+    instead. ``backend`` must be None; ``device=None`` serves on the CUDA
+    card.
+    """
+    from .. import api
+    api.warn_once(
+        "repro_torch.uncertainty.poisson_bootstrap",
+        "repro_torch.api.PassEngine(syn, serving=ServingConfig(kinds=...), "
+        "ci=CIConfig(level=..., method='bootstrap', n_boot=..., key=...))"
+        ".answer(queries)")
+    eng = api.PassEngine(
+        syn,
+        serving=api.ServingConfig(kinds=kinds,
+                                  use_aggregates=use_aggregates,
+                                  backend=backend),
+        ci=api.CIConfig(level=level, method="bootstrap", n_boot=int(n_boot),
+                        key=key if key is not None else int(seed),
+                        boot_normalize=normalize),
+        device=device)
+    return eng.answer(queries, plan=plan)
+
+
+__all__ = ["BOOT_KINDS", "bootstrap_answer", "bootstrap_replicates",
+           "key_tensor", "poisson_bootstrap"]

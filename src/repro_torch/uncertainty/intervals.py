@@ -301,5 +301,37 @@ def ci_answer(syn: Synopsis, queries: QueryBatch, plan_masks=None, *,
     return out
 
 
+def answer_with_ci(syn, queries: QueryBatch, kinds, *, level: float,
+                   small_n_threshold: int = 12, use_fpc: bool = True,
+                   zero_var_rule: bool = True, use_aggregates: bool = True,
+                   avg_mode: str = "ratio", backend: str | None = None,
+                   plan=None, delta_budget: str = "stratum", device=None
+                   ) -> dict[str, QueryResult]:
+    """Deprecated shim: every requested kind's QueryResult carries
+    calibrated ``ci_lo``/``ci_hi`` endpoints from ONE artifact pass.
+
+    Use ``repro_torch.api.PassEngine(syn, serving=ServingConfig(
+    kinds=...), ci=CIConfig(level=...)).answer(queries)`` instead: the
+    configs there are the single source of truth for these defaults.
+    ``backend`` must be None; ``device=None`` serves on the CUDA card.
+    """
+    from .. import api
+    api.warn_once(
+        "repro_torch.uncertainty.answer_with_ci",
+        "repro_torch.api.PassEngine(syn, serving=ServingConfig(kinds=...), "
+        "ci=CIConfig(level=..., method='clt')).answer(queries)")
+    eng = api.PassEngine(
+        syn,
+        serving=api.ServingConfig(
+            kinds=tuple(kinds), backend=backend, use_fpc=use_fpc,
+            zero_var_rule=zero_var_rule, use_aggregates=use_aggregates,
+            avg_mode=avg_mode),
+        ci=api.CIConfig(level=float(level), method="clt",
+                        small_n_threshold=int(small_n_threshold),
+                        delta_budget=delta_budget),
+        device=device)
+    return eng.answer(queries, plan=plan)
+
+
 __all__ = ["normal_quantile", "compose_interval", "compose_join_interval",
-           "compose_two_stage", "ci_answer"]
+           "compose_two_stage", "ci_answer", "answer_with_ci"]

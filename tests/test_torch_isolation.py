@@ -1,9 +1,11 @@
 """The port stands alone: importing every module of ``repro_torch`` (the
 streaming modules, the threefry port, the bootstrap, the planner, the
 weighted kernels' wrappers, the partition tier, the sharded layer and the
-distributed helpers included) pulls in
-neither JAX nor the JAX package, ``chip_smoke.py`` imports neither, and
-the entry points default to the CUDA card rather than the CPU."""
+distributed helpers, the baselines, the legacy update path and the
+deprecated shims included) pulls in neither JAX nor the JAX package,
+neither ``chip_smoke.py`` nor the ``examples/torch_*.py`` scripts import
+either, and the entry points default to the CUDA card rather than the
+CPU."""
 import ast
 import json
 import os
@@ -66,7 +68,10 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.sharded.mesh", "repro_torch.sharded.ingest",
                 "repro_torch.sharded.build", "repro_torch.sharded.merge",
                 "repro_torch.sharded.reopt", "repro_torch.sharded.catalog",
-                "repro_torch.core.distributed"):
+                "repro_torch.core.distributed", "repro_torch.core.baselines",
+                "repro_torch.core.updates", "repro_torch.core.estimators",
+                "repro_torch.api.deprecation", "repro_torch.kernels.ref",
+                "repro_torch.data.loader"):
         assert mod in report["imported"]
 
 
@@ -76,6 +81,37 @@ def test_chip_smoke_imports_neither_jax_nor_reference_package():
     assert not imports & {"jax", "jaxlib", "repro"}, imports
     for path in (REPO / "src" / "repro_torch").rglob("*.py"):
         assert not _top_imports(path) & {"jax", "jaxlib", "repro"}, path
+
+
+_EXAMPLE_PROBE = r"""
+import importlib.util, json, pathlib, sys
+names = []
+for path in sorted(pathlib.Path("examples").glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(path.stem)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_torch_examples_import_neither_jax_nor_reference_package():
+    paths = sorted((REPO / "examples").glob("torch_*.py"))
+    assert [p.stem for p in paths] == [
+        "torch_aqp_service", "torch_quickstart", "torch_serve_service",
+        "torch_workload_shift"]
+    for path in paths:
+        imports = _top_imports(path)
+        assert "repro_torch" in imports, path
+        assert not imports & {"jax", "jaxlib", "repro"}, path
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _EXAMPLE_PROBE], env=env,
+                          capture_output=True, text=True, timeout=300,
+                          cwd=str(REPO))
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(report["imported"]) == 4 and report["bad"] == [], report
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -88,6 +124,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
     from repro_torch.sharded import (ShardedIngestor, build_synopsis_sharded,
                                      catalog_delta_sharded, data_mesh)
     from repro_torch.streaming import StreamingIngestor
+    from repro_torch.core.baselines import aqppp_synopsis, uniform_synopsis
+    from repro_torch.core.query import answer
+    from repro_torch.core.types import QueryBatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     c = np.linspace(0, 1, 200)
     a = np.ones(200)
@@ -109,7 +148,11 @@ def test_default_device_raises_without_cuda(monkeypatch):
                  lambda: PassEngine.from_sharded(c, a, k=4),
                  lambda: catalog_delta_sharded(c, a, np.zeros(200), 1,
                                                bins=4, bin_lo=[0.0],
-                                               bin_hi=[1.0])):
+                                               bin_hi=[1.0]),
+                 lambda: aqppp_synopsis(c, a, 4, 20),
+                 lambda: uniform_synopsis(c, a, 20),
+                 lambda: answer(syn, QueryBatch(torch.zeros(1, 1),
+                                                torch.ones(1, 1)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert syn.device.type == "cpu"
