@@ -9,32 +9,48 @@
     python3 chip_smoke.py --table1-only    # only phases 1, 2, 4, 5, 25-28
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
-stratified_moments.cu, segment_reduce.cu, route_multid.cu and
-query_eval.cu (five sources) are built beside the current sources, held
-against the current kernels and timed beside them: rows 1 (query_eval), 2
-(stratified_moments) and 7 (route_multid) must give the baseline's bits at
+stratified_moments.cu, sample_extremes.cu, segment_reduce.cu,
+route_multid.cu and query_eval.cu (six sources) are built beside the
+current sources, held against the current kernels and timed beside them:
+rows 1 (query_eval) and 7 (route_multid) must give the baseline's bits at
 every shape they are checked at (row 7 on non-finite rows too, where it
-differs from its plain version), row 5 (segment_reduce) too but for ties
-of +0.0 and -0.0 in its MIN/MAX columns, which a baseline from before the
-signed-zero rule breaks the other way (counted), rows 3 and 4 (the
-weighted moments) at the bootstrap's shapes and every edge case without a
-NaN coordinate on a valid slot, and row 6 (weighted_segment_reduce) must
-meet it within rtol=3e-5, atol=1e-3. Rows 1-7 of the kernels line then
-carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-7
-baseline_device_ms; null without --baseline).
+differs from its plain version), row 2 (stratified_moments) the first
+version's bits for s <= 2048 slots a stratum (one slot chunk: phase 3's
+single-chunk cases, the 1-D and 3-D serving shapes, Table 1's ST, PASS and
+BSS2x arms); above one chunk its partials are folded in chunk order, so
+the values that differ from the baseline's are counted and, like every
+value, held within tolerance of plain. Row 5 (segment_reduce) must give
+the baseline's bits too but for ties of +0.0 and -0.0 in its MIN/MAX
+columns, which a baseline from before the signed-zero rule breaks the
+other way (counted), rows 3 and 4 (the weighted moments) at the
+bootstrap's shapes and every edge case without a NaN coordinate on a valid
+slot, and row 6 (weighted_segment_reduce) must meet it within rtol=3e-5,
+atol=1e-3. Row 8 (sample_extremes) is bit-equal to its plain version at
+every shape, the baseline's too. Rows 1-8 of the kernels line then carry
+the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
+baseline_device_ms; rows 2 and 8 timed in turns with the baseline's at the
+serving shapes; null without --baseline).
 
 Phases, each of which fails the run:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc
-   (and, with --baseline, DIR's five sources); the wrappers' launch plans
-   against the sources' constants.
+   (and, with --baseline, DIR's six sources); the wrappers' launch plans
+   and rows 2 and 8's slot chunk and scratch against the sources'.
 3. Kernel against plain on the card at edge shapes (ragged Q and k, d up
    to 16, inverted empty leaves, ragged validity, s = 1, several tiles);
    stratified_moments also where covered, empty and mixed pairs all
    appear (k = 53 and 64, s up to 2500, d up to 16, strata without a valid
    slot), each case printing its counts, and with NaN coordinates on valid
-   slots; bit-equal across two launches and to the baseline. query_eval at
+   slots; bit-equal across two launches and (s <= 2048) to the baseline.
+   Above one slot chunk of 2048 (s = 2049, 2500, 4096, 4103, 6151 and
+   38,500; k = 1, 3, 17, 53 and 64; d = 1, 3 and 16) rows 2 and 8 on
+   inputs whose chunks fall into bands of each stratum's cell, so that
+   covered, empty and mixed (query, stratum, chunk) triples all occur in
+   some chunk, with NaN coordinates on valid slots of a chunk: the classes
+   of every chunk printed, row 2 within tolerance and row 8 bit-equal to
+   plain, each bit-equal across two launches and its rows at Q = 1 and a
+   slice bit-equal to the same rows of the batch. query_eval at
    Q = 1 and k = 1, k off every multiple of 32 and of its 1024-leaf tile,
    A from 1 to 8, every leaf covered and none, inverted leaves, NaN in
    leaf boxes and query bounds: rel equal to plain, exact within
@@ -275,7 +291,12 @@ Phases, each of which fails the run:
    s = 38,500, every pair mixed) and the ESS shape (k = 64, s = 19,250),
    timed by events and on the device against their bounds, the plain
    versions and, for row 2, torch.bmm of a prebuilt predicate (checked
-   against the kernel first). Every serving shim once on the card, the
+   against the kernel first); there, rows 2 and 8 of the queries 0, 0-15,
+   0-299 and 700-1023 alone bit-equal to the same rows of the whole batch
+   (a pair's bits do not depend on its batch). With --baseline, row 2 of
+   every arm against the baseline's: bit-equal where s <= 2048 (ST, PASS,
+   BSS2x), the differing values counted above (US, ESS, BSS10x; held
+   within tolerance of plain). Every serving shim once on the card, the
    same bits as PassEngine (poisson_bootstrap: one bootstrap_moments
    launch); the flat ops on the ESS synopsis's samples, shuffled with pad
    rows (one stratified_moments and one stratified_weighted_moments
@@ -285,9 +306,9 @@ Phases, each of which fails the run:
    config: 2 % samples, k = 64 kd with proportional allocation, 512
    queries of 30-80 % a column, seed 19): KD-PASS through PassEngine
    (query_eval and stratified_moments once) holds the truth, the 3-D bar
-   and the CPU answer; its kernels against plain; KD-US
-   (aqppp_synopsis(method="kd")) beside it; ess and skip_rate on the card
-   share one query_eval launch.
+   and the CPU answer; its kernels against plain, and rows 1, 2 and 8
+   timed at its shape as in phase 25; KD-US (aqppp_synopsis(method="kd"))
+   beside it; ess and skip_rate on the card share one query_eval launch.
 27. The legacy update path: phase 4's synopsis in UpdatableSynopsis, the
    first 20,000 rows of nyc_taxi(scale=0.1, seed=7) inserted one by one
    (rows/s), snapshot() on the card served against the truth over base
@@ -586,9 +607,9 @@ def qe_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi,
 def moments_vs_plain(torch, tag, c, a, valid, q_lo, q_hi, base) -> float:
     """stratified_moments kernel against plain on the same CUDA inputs:
     counts equal, sums within rtol=3e-5, atol=1e-3; a second launch
-    bit-equal to the first; with a baseline, bit-equal to the baseline's
-    kernel (the contract: the first version's bits). Returns the max
-    absolute error of the sums."""
+    bit-equal to the first; with a baseline, baseline_moments_check (the
+    first version's bits for s <= PAIR_CHUNK). Returns the max absolute
+    error of the sums."""
     from repro_torch.kernels.stratified_estimate import (
         stratified_moments_cuda, stratified_moments_plain)
     got = stratified_moments_cuda(c, a, valid, q_lo, q_hi)
@@ -600,15 +621,33 @@ def moments_vs_plain(torch, tag, c, a, valid, q_lo, q_hi, base) -> float:
                              "two launches")
     if not torch.equal(got[..., 0], want[..., 0]):
         raise AssertionError(f"{tag}: stratified_moments counts differ")
+    err = max(close(f"{tag} stratified_moments[{i}]", got[..., i].cpu(),
+                    want[..., i].cpu(), K_RTOL, K_ATOL) for i in (1, 2))
     if base is not None:
-        ref = baseline_stratified(torch, base, c, a, valid, q_lo, q_hi)
-        torch.cuda.synchronize()
-        if not bits_equal(torch, got, ref):
-            n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
-            raise AssertionError(f"{tag}: stratified_moments differs from "
-                                 f"the baseline kernel in {n} values")
-    return max(close(f"{tag} stratified_moments[{i}]", got[..., i].cpu(),
-                     want[..., i].cpu(), K_RTOL, K_ATOL) for i in (1, 2))
+        baseline_moments_check(torch, tag, got, base, c, a, valid, q_lo,
+                               q_hi)
+    return err
+
+
+def baseline_moments_check(torch, tag, got, base, c, a, valid, q_lo, q_hi):
+    """Row 2's result ``got`` (already held within tolerance of plain)
+    against the baseline kernel's on the same inputs: bit-equal for
+    s <= PAIR_CHUNK (one slot chunk: the first version's bits); above it
+    the values that differ are counted (the chunk order's new bits).
+    Returns that count."""
+    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK
+    ref = baseline_pair(torch, base, "stratified_moments", c, a, valid, q_lo,
+                        q_hi)
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    s = int(a.shape[1])
+    if s <= PAIR_CHUNK and differ:
+        raise AssertionError(f"{tag}: stratified_moments differs from the "
+                             f"baseline kernel in {differ} values")
+    if s > PAIR_CHUNK:
+        emit(check="row 2 against the baseline above one slot chunk",
+             shape=tag, s=s, values=int(got.numel()), differing=differ)
+    return differ
 
 
 def kernel_vs_plain(torch, tag, leaf_lo, leaf_hi, leaf_agg, sample_c,
@@ -709,8 +748,129 @@ def edge_cases_moments(torch, dev, base) -> float:
         err = max(err, e)
         emit(check="edge_moment_classes", case=tag, **classes,
              nan_strata=nan_strata, max_abs_err=e,
-             baseline_bit_equal=None if base is None else True)
+             baseline_bit_equal=None if base is None else s <= 2048)
     return err
+
+
+def chunk_case(rng, Q, k, s, d, nan=False, special=False):
+    """Inputs above one slot chunk (as tests/test_torch_pair_chunks.py
+    builds them): each stratum's samples in its own cell of a grid over
+    [0, 1)^d, chunk j of its slots in the j-th band of the cell in column 0,
+    so that query edges cover some chunks of a stratum, miss others and cut
+    the rest; ragged validity, stratum k // 2 without a valid slot (k > 2).
+    Query 0 covers everything, 1 misses everything, 2 is inverted, 3 spans
+    the first band of stratum 0's cell. ``nan``: a NaN coordinate on a
+    valid slot of the last chunk of the last stratum, NaN in column 0 of
+    stratum 1's first chunk. ``special``: NaN, +-inf, +-F32_MAX and +-0.0
+    values (row 8 only)."""
+    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK as C
+    n_ch = -(-s // C)
+    cells = max(2, int(np.ceil(k ** (1 / d))))
+    cell = np.stack(np.unravel_index(np.arange(k) % cells ** d,
+                                     (cells,) * d), -1).astype(np.float32)
+    u = rng.uniform(0.05, 0.95, (k, s, d))
+    band = (np.arange(s) // C)[None, :]
+    u[..., 0] = (band + rng.uniform(0.05, 0.95, (k, s))) / n_ch
+    c = ((cell[:, None, :] + u) / cells).astype(np.float32)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.8
+    if k > 2:
+        valid[k // 2] = False
+    if special:
+        w = rng.random((k, s))
+        for lo, hi, x in ((0.0, 0.04, np.nan), (0.04, 0.07, np.inf),
+                          (0.07, 0.10, -np.inf), (0.10, 0.13, F32_MAX),
+                          (0.13, 0.16, -F32_MAX), (0.16, 0.22, -0.0),
+                          (0.22, 0.28, 0.0)):
+            a[(w >= lo) & (w < hi)] = x
+    starts = rng.integers(0, cells, (Q, d)).astype(np.float32)
+    spans = rng.integers(1, 3, (Q, d)).astype(np.float32)
+    edge_lo = rng.integers(0, n_ch + 1, (Q, d)) / n_ch
+    edge_hi = rng.integers(0, n_ch + 1, (Q, d)) / n_ch
+    q_lo = ((starts + edge_lo * 0.9) / cells).astype(np.float32)
+    q_hi = ((starts + spans - 1 + 0.05 + edge_hi * 0.9) / cells
+            ).astype(np.float32)
+    q_lo[0], q_hi[0] = -1.0, 2.0
+    q_lo[1], q_hi[1] = 5.0, 6.0
+    q_lo[2], q_hi[2] = 0.6, 0.4
+    q_lo[3], q_hi[3] = 0.0, 1.0 / cells
+    q_hi[3, 0] = (1.0 / n_ch) / cells
+    if nan:
+        on = np.flatnonzero(valid[k - 1, (n_ch - 1) * C:]) + (n_ch - 1) * C
+        if on.size:
+            c[k - 1, on[0], d - 1] = np.nan
+        if k > 1:
+            c[1, :C, 0] = np.nan
+    return c, a, valid, q_lo, q_hi
+
+
+def chunk_classes(torch, c, valid, q_lo, q_hi) -> list:
+    """pair_classes of each slot chunk of PAIR_CHUNK slots on its own: the
+    (query, stratum, chunk) triples' classes, one dict a chunk."""
+    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK as C
+    s = c.shape[1]
+    return [pair_classes(torch, c[:, s0:s0 + C].contiguous(),
+                         valid[:, s0:s0 + C].contiguous(), q_lo, q_hi)
+            for s0 in range(0, s, C)]
+
+
+def rows_vs_batch(torch, tag, fn, sm, q_lo, q_hi, subsets) -> None:
+    """``fn(*sm, lo, hi)`` of each query subset (a slice) bit-equal (NaN as
+    NaN) to the same rows of the whole batch's: a pair's bits do not
+    depend on its batch."""
+    full = fn(*sm, q_lo, q_hi)
+    full = full if isinstance(full, tuple) else (full,)
+    for sl in subsets:
+        part = fn(*sm, q_lo[sl].contiguous(), q_hi[sl].contiguous())
+        part = part if isinstance(part, tuple) else (part,)
+        for x, y in zip(part, full):
+            if not same_bits(torch, x, y[sl]):
+                raise AssertionError(f"{tag}: rows {sl.start}-{sl.stop - 1} "
+                                     "alone differ from the same rows of the "
+                                     "batch")
+
+
+# (Q, k, s, d) of the cases above one slot chunk: s off and on its
+# multiples, k = 1 (every pair one stratum), 3, 17, 53 and 64, d = 1, 3, 16.
+CHUNK_CASES = ((200, 1, 2049, 1), (37, 3, 4103, 3), (130, 17, 2500, 16),
+               (129, 64, 6151, 1), (33, 53, 4096, 3), (300, 1, 38_500, 1))
+
+
+def edge_cases_chunks(torch, dev, base) -> dict:
+    """Rows 2 and 8 above one slot chunk (CHUNK_CASES; row 2 on finite
+    values, row 8 on special ones too; NaN coordinates on every other
+    case): each chunk's classes printed (all three in some chunk of every
+    case with queries and strata to make them), row 2 within tolerance of
+    plain and row 8 bit-equal (moments_vs_plain, extremes_vs_plain, each
+    also across two launches), rows of query 0 and of a slice alone
+    bit-equal to the batch's. Returns the max absolute error of row 2."""
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import stratified_moments_cuda
+    err = 0.0
+    for i, (Q, k, s, d) in enumerate(CHUNK_CASES):
+        for row in (2, 8):
+            rng = np.random.default_rng(Q * 31 + k * 7 + s + d + row)
+            t = [torch.from_numpy(x).to(dev) for x in chunk_case(
+                rng, Q, k, s, d, nan=i % 2 == 0, special=row == 8)]
+            tag = f"edge chunks row {row} Q={Q} k={k} s={s} d={d}"
+            per_chunk = chunk_classes(torch, t[0], t[2], t[3], t[4])
+            if k > 1 and not any(min(x.values()) > 0 for x in per_chunk):
+                raise AssertionError(f"{tag}: no chunk holds all three "
+                                     f"classes: {per_chunk}")
+            subsets = (slice(0, 1), slice(Q // 3, Q - 1))
+            if row == 2:
+                e = moments_vs_plain(torch, tag, *t, base)
+                err = max(err, e)
+                rows_vs_batch(torch, tag, stratified_moments_cuda, t[:3],
+                              t[3], t[4], subsets)
+            else:
+                e = 0.0
+                extremes_vs_plain(torch, tag, *t)
+                rows_vs_batch(torch, tag, sample_extremes_cuda, t[:3], t[3],
+                              t[4], subsets)
+            emit(check="edge_chunk_classes", case=tag,
+                 chunk_classes=per_chunk, max_abs_err=e)
+    return {"err": err, "cases": 2 * len(CHUNK_CASES)}
 
 
 F32_MAX = np.float32(3.4028235e38)
@@ -1371,14 +1531,32 @@ def timings(torch, tag, run, card, base=None) -> dict:
                                                    lambda: kernel(*args))
     torch.cuda.empty_cache()
     if base is not None:
-        def old():
-            return baseline_stratified(torch, base, *sm_args)
-
         def old_qe():
             return baseline_query_eval(torch, base, *qe_args)
-        times["stratified_moments_baseline"] = cuda_ms(torch, old)
-        times["stratified_moments_baseline_device"] = device_ms(
-            torch, old, one_op=True)
+        # Rows 2 and 8: kernel, baseline, baseline, kernel, by events and
+        # on the device (the baseline's sample_extremes bit-equal first).
+        old_se = baseline_pair(torch, base, "sample_extremes", *sm_args)
+        for name, g in zip(("min", "max"), sample_extremes_cuda(*sm_args)):
+            if not same_bits(torch, g, old_se[0 if name == "min" else 1]):
+                raise AssertionError(f"{tag}: sample_extremes {name} differs "
+                                     "from the baseline kernel")
+        for name, new_fn in (("stratified_moments", stratified_moments_cuda),
+                             ("sample_extremes", sample_extremes_cuda)):
+            def new(fn=new_fn):
+                return fn(*sm_args)
+
+            def old(name=name):
+                return baseline_pair(torch, base, name, *sm_args)
+            ev = [cuda_ms(torch, new)]
+            dev_ms = [device_ms(torch, new, one_op=True)]
+            b_ev = [cuda_ms(torch, old) for _ in range(2)]
+            b_dev = [device_ms(torch, old, one_op=True) for _ in range(2)]
+            ev.append(cuda_ms(torch, new))
+            dev_ms.append(device_ms(torch, new, one_op=True))
+            times[f"{name}_in_turns"] = statistics.mean(ev)
+            times[f"{name}_device_in_turns"] = mean_of(dev_ms)
+            times[f"{name}_baseline"] = statistics.mean(b_ev)
+            times[f"{name}_baseline_device"] = mean_of(b_dev)
         # kernel, baseline, baseline, kernel
         qe_ev = [cuda_ms(torch, lambda: query_eval_cuda(*qe_args))]
         qe_dev = [device_ms(torch, lambda: query_eval_cuda(*qe_args),
@@ -2342,16 +2520,18 @@ def planner_path(torch, tag, run) -> dict:
 
 
 BASELINE_SOURCES = ("weighted_moments", "stratified_moments",
-                    "segment_reduce", "route_multid", "query_eval")
+                    "sample_extremes", "segment_reduce", "route_multid",
+                    "query_eval")
 
 
 def build_baseline(base: Path) -> dict:
-    """The kernels of rows 1-7 from an earlier checkout ``base``: its
-    weighted_moments.cu, stratified_moments.cu, segment_reduce.cu,
-    route_multid.cu and query_eval.cu, built with the same nvcc flags (one
-    process each, all at once) into build/baseline/ and loaded with ctypes,
-    to be held against the current ones and timed beside them on the same
-    card.
+    """The kernels of rows 1-8 from an earlier checkout ``base``: its
+    weighted_moments.cu, stratified_moments.cu, sample_extremes.cu,
+    segment_reduce.cu, route_multid.cu and query_eval.cu, built with the
+    same nvcc flags (one process each, all at once) into build/baseline/
+    and loaded with ctypes, to be held against the current ones and timed
+    beside them on the same card. Rows 2 and 8 from before the slot chunks
+    (no ``repro_<name>_slot_chunk``) take no scratch.
     Weighted sources from before the cover/empty redesign (no
     ``repro_weighted_plan``) take no scratch pointer; segment_reduce.cu
     sources from before the one-launch weighted kernel (no
@@ -2387,10 +2567,14 @@ def build_baseline(base: Path) -> dict:
         [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.repro_stratified_weighted_moments.restype = ctypes.c_int
     lib.repro_bootstrap_moments.restype = ctypes.c_int
-    sm = libs["stratified_moments"]
-    sm.repro_stratified_moments.argtypes = [ctypes.c_void_p] * 6 + \
-        [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    sm.repro_stratified_moments.restype = ctypes.c_int
+    for name in ("stratified_moments", "sample_extremes"):
+        lib = libs[name]
+        lib.chunked = hasattr(lib, f"repro_{name}_slot_chunk")
+        fn = getattr(lib, f"repro_{name}")
+        fn.argtypes = [ctypes.c_void_p] * 6 + (
+            [ctypes.c_void_p, ctypes.c_longlong] if lib.chunked else []) + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     seg = libs["segment_reduce"]
     seg.cooperative = hasattr(seg, "repro_segment_reduce_max_chunks")
     seg.repro_segment_reduce.argtypes = \
@@ -2449,15 +2633,25 @@ def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
     return out
 
 
-def baseline_stratified(torch, libs, c, a, valid, q_lo, q_hi):
-    """The baseline stratified_moments kernel's (Q, k, 3)."""
+def baseline_pair(torch, libs, name, c, a, valid, q_lo, q_hi):
+    """The baseline stratified_moments kernel's (Q, k, 3) or sample_extremes
+    kernel's (2, Q, k); one that takes a scratch gets its own."""
+    from repro_torch.kernels.stratified_estimate import pair_scratch_floats
     k, s, d = c.shape
     Q = q_lo.shape[0]
-    out = torch.empty((Q, k, 3), dtype=torch.float32, device=a.device)
-    baseline_call("stratified_moments",
-                  libs["stratified_moments"].repro_stratified_moments,
-                  *(x.data_ptr() for x in (c, a, valid, q_lo, q_hi, out)), Q,
-                  k, s, d)
+    stats = 3 if name == "stratified_moments" else 2
+    out = torch.empty((Q, k, 3) if stats == 3 else (2, Q, k),
+                      dtype=torch.float32, device=a.device)
+    lib = libs[name]
+    extra = ()
+    if lib.chunked:
+        n = pair_scratch_floats(Q, k, s, d, stats)
+        scratch = (torch.empty(n, dtype=torch.float32, device=a.device)
+                   if n else None)
+        extra = (scratch.data_ptr() if n else None, n)
+    baseline_call(name, getattr(lib, f"repro_{name}"),
+                  *(x.data_ptr() for x in (c, a, valid, q_lo, q_hi, out)),
+                  *extra, Q, k, s, d)
     return out
 
 
@@ -5381,7 +5575,39 @@ def table1_kernel_times(torch, tag, syn, q, card) -> dict:
     emit(times_ms=times, path=f"table1 {tag}", Q=int(Q), k=int(k), s=int(s),
          bounds=bnd, pair_classes=classes, plain_chunk_queries=step,
          bmm_max_abs_err_vs_kernel=lib_err, card=card)
-    return {"times": times, "bounds": bnd, "classes": classes}
+    return {"times": times, "bounds": bnd, "classes": classes, "k": int(k),
+            "s": int(s), "Q": int(Q)}
+
+
+def table1_baseline(torch, syns, q, base) -> dict:
+    """Row 2 of every Table 1 arm against the baseline kernel
+    (baseline_moments_check: bit-equal for s <= PAIR_CHUNK); above one slot
+    chunk the kernel's values are held within tolerance of plain first.
+    Returns the differing values by arm."""
+    from repro_torch.kernels.stratified_estimate import (
+        PAIR_CHUNK, stratified_moments_cuda, stratified_moments_plain)
+    out = {}
+    for name, syn in syns.items():
+        sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+        k, s = syn.sample_a.shape
+        got = stratified_moments_cuda(*sm, q.lo, q.hi)
+        tag = f"table1 {name} baseline"
+        if s > PAIR_CHUNK:
+            want = chunked_plain(torch, stratified_moments_plain, sm, q.lo,
+                                 q.hi, plain_step(k, s))
+            if not torch.equal(got[..., 0], want[..., 0]):
+                raise AssertionError(f"{tag}: stratified_moments counts "
+                                     "differ")
+            for i in (1, 2):
+                close(f"{tag} stratified_moments[{i}]", got[..., i].cpu(),
+                      want[..., i].cpu(), K_RTOL, K_ATOL)
+            del want
+        out[name] = {"s": int(s), "differing": baseline_moments_check(
+            torch, tag, got, base, *sm, q.lo, q.hi)}
+        del got
+        torch.cuda.empty_cache()
+    emit(check="table1 row 2 against the baseline", arms=out)
+    return out
 
 
 def table1_arm(torch, tag, syn, q, card, **serving_kw) -> dict:
@@ -5526,7 +5752,7 @@ def flat_ops_check(torch, syn, q) -> dict:
     return {"launches": launches, "err": err, "werr": werr}
 
 
-def table1_path(torch, card, c, a) -> dict:
+def table1_path(torch, card, c, a, base=None) -> dict:
     """25. Table 1 at paper size (module doc)."""
     from repro_torch.core.baselines import (aqppp_synopsis,
                                             stratified_synopsis,
@@ -5612,20 +5838,38 @@ def table1_path(torch, card, c, a) -> dict:
          card=card)
     if not all(order.values()):
         raise AssertionError(f"table1: SUM ordering fails: {order}, {e}")
-    # Kernels against plain and timed at the US (k = 1) and ESS (k = 64,
-    # s ~ 19,250) shapes.
+    # Kernels against plain and timed at the US (k = 1), ESS (k = 64,
+    # s ~ 19,250) and BSS10x (k = 64, s ~ 6,016) shapes; at US and ESS rows
+    # 2 and 8 of query subsets against the same rows of the batch.
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda)
     shapes = {}
-    for tag, name in (("us", "US"), ("ess", "PASS-ESS")):
-        errs = serving_vs_plain(torch, f"table1 {tag}", syns[name], q)
-        shapes[tag] = table1_kernel_times(torch, tag, syns[name], q, card)
+    subsets = (slice(0, 1), slice(0, 16), slice(0, 300), slice(700, 1024))
+    for tag, name in (("us", "US"), ("ess", "PASS-ESS"),
+                      ("bss10x", "PASS-BSS10x")):
+        syn = syns[name]
+        errs = serving_vs_plain(torch, f"table1 {tag}", syn, q)
+        if tag != "bss10x":
+            sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+            for fn in (stratified_moments_cuda, sample_extremes_cuda):
+                rows_vs_batch(torch, f"table1 {tag}", fn, sm, q.lo, q.hi,
+                              subsets)
+            emit(check="table1 rows against the batch", shape=tag,
+                 subsets=[[x.start, x.stop] for x in subsets],
+                 bit_equal=True)
+        shapes[tag] = table1_kernel_times(torch, tag, syn, q, card)
         shapes[tag]["errs"] = errs
+    base_differs = (None if base is None
+                    else table1_baseline(torch, syns, q, base))
     shims = table1_shims(torch, syns["PASS"], q)
     flat = flat_ops_check(torch, syns["PASS-ESS"], q)
     del syns
     torch.cuda.empty_cache()
     out = {"grid": grid, "arms": arms, "aqppp_times_ms": ap_times,
            "builds_s": builds, "shapes": shapes, "shims": shims,
-           "flat": flat, "K": K, "seconds": time.perf_counter() - t_phase}
+           "flat": flat, "K": K, "baseline_differs": base_differs,
+           "seconds": time.perf_counter() - t_phase}
     emit(phase="25 table1 times", card=card,
          answer_ms={name: x["times_ms"] for name, x in arms.items()},
          aqppp=ap_times, builds_s=builds, seconds=out["seconds"])
@@ -5678,6 +5922,8 @@ def fig8_path(torch, card, c, a) -> dict:
     check_cpu_parity(torch, "fig8 KD-PASS", kd, q, res, n=T1_CPU_Q,
                      kinds=T1_KINDS)
     errs = serving_vs_plain(torch, "fig8 KD-PASS", kd, q)
+    shape = table1_kernel_times(torch, "fig8", kd, q, card)
+    shape["errs"] = errs
     us = kdus.estimate(q, "sum")
     t = truth["sum"]
     keep = np.abs(t) > 1e-9
@@ -5691,7 +5937,8 @@ def fig8_path(torch, card, c, a) -> dict:
         "skip_rate_median": float(np.median(host(sr))),
         "ess_mean": float(host(e).mean()), "launches": launches,
         "ess_skip_rate_launches": tele_launches, "quality": quality,
-        "errs": errs, "build_s": {"KD-PASS": kd_s, "KD-US": kdus_s},
+        "errs": errs, "shape": shape,
+        "build_s": {"KD-PASS": kd_s, "KD-US": kdus_s},
         "answer_ms": cuda_ms(torch, lambda: eng.answer(q), reps=10,
                              warmup=2),
         "kdus_estimate_ms": cuda_ms(torch, lambda: kdus.estimate(q, "sum"),
@@ -5699,7 +5946,7 @@ def fig8_path(torch, card, c, a) -> dict:
         "K": K, "slots": list(kd.sample_a.shape),
         "seconds": time.perf_counter() - t_phase}
     emit(phase="26 fig8 3d", card=card, **{key: v for key, v in out.items()
-                                           if key not in ("errs",)})
+                                           if key not in ("errs", "shape")})
     return out
 
 
@@ -5873,9 +6120,10 @@ def examples_path(torch, card) -> dict:
     return out
 
 
-def table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3) -> dict:
+def table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3,
+                  base=None) -> dict:
     """Phases 25-28 (module doc)."""
-    t1 = table1_path(torch, card, c1, a1)
+    t1 = table1_path(torch, card, c1, a1, base)
     f8 = fig8_path(torch, card, c3, a3)
     cs1, as1 = nyc_taxi(scale=0.1, seed=7)
     leg1 = legacy_updates(torch, "1d", run1, c1, a1, cs1, as1, LEGACY_ROWS,
@@ -5917,7 +6165,8 @@ def table1_rows(rows, tab1) -> None:
                 for tag, x in legs.items()}
             if name != "sample_extremes":
                 extra["launches_fig8_answer"] = f8["launches"].get(name, 0)
-            for tag, x in tab["shapes"].items():
+            shapes = {**tab["shapes"], "fig8": f8["shape"]}
+            for tag, x in shapes.items():
                 tm, bd = x["times"], x["bounds"][name]
                 extra.update({
                     f"ms_{tag}": tm[name],
@@ -5929,19 +6178,19 @@ def table1_rows(rows, tab1) -> None:
                 row["max_abs_err"] = max(row["max_abs_err"],
                                          x["errs"][name])
             extra["table1_shapes"] = {
-                tag: {"k": 1 if tag == "us" else T1_B,
+                tag: {"Q": x["Q"], "k": x["k"], "s": x["s"],
                       "classes": x["classes"]}
-                for tag, x in tab["shapes"].items()}
-            row["max_abs_err"] = max(row["max_abs_err"], f8["errs"][name])
+                for tag, x in shapes.items()}
         if name == "query_eval":
             extra["launches_ess_skip_rate"] = f8["ess_skip_rate_launches"][
                 name]
         if name == "stratified_moments":
-            for tag, x in tab["shapes"].items():
+            for tag, x in {**tab["shapes"], "fig8": f8["shape"]}.items():
                 extra[f"library_ms_{tag}"] = x["times"][
                     "bmm_stratified_moments"]
                 extra[f"library_device_ms_{tag}"] = x["times"][
                     "bmm_stratified_moments_device"]
+            extra["baseline_differing_table1"] = tab["baseline_differs"]
             extra["launches_flat_op"] = tab["flat"]["launches"][name]
             row["max_abs_err"] = max(row["max_abs_err"], tab["flat"]["err"])
         if name == "stratified_weighted_moments":
@@ -5969,8 +6218,11 @@ def table1_summary(tab1) -> dict:
                   for arm, x in tab["arms"].items()},
         "aqppp_ms": tab["aqppp_times_ms"], "builds_s": tab["builds_s"],
         "rows_2_8_at": {tag: {"times_ms": x["times"], "bounds": x["bounds"],
-                              "classes": x["classes"]}
-                        for tag, x in tab["shapes"].items()},
+                              "classes": x["classes"], "k": x["k"],
+                              "s": x["s"], "Q": x["Q"]}
+                        for tag, x in {**tab["shapes"],
+                                       "fig8": tab1["fig8"]["shape"]}.items()},
+        "row2_baseline_differing": tab["baseline_differs"],
         "fig8": {k: tab1["fig8"][k] for k in (
             "sum_median_rel_err", "median_ci_ratio", "skip_rate_median",
             "ess_mean", "answer_ms", "kdus_estimate_ms", "build_s")},
@@ -5988,12 +6240,27 @@ def host_of(res) -> dict:
     return host_results(res)
 
 
+def pair_baseline_fields(t1, t3, name) -> dict:
+    """Row 2's or row 8's times in turns with the baseline's at the 1-D and
+    3-D serving shapes (null without --baseline)."""
+    out = {}
+    for tag, t in (("", t1), ("_3d", t3)):
+        tm = t["times"]
+        out.update({
+            f"ms_in_turns{tag}": tm.get(f"{name}_in_turns"),
+            f"device_ms_in_turns{tag}": tm.get(f"{name}_device_in_turns"),
+            f"baseline_ms{tag}": tm.get(f"{name}_baseline"),
+            f"baseline_device_ms{tag}": tm.get(f"{name}_baseline_device")})
+    return out
+
+
 def check_plan_constants() -> None:
     """The wrappers' launch plans against the CUDA sources' constants:
     weighted_segment_reduce's chunk cap, segment_reduce's chunk rule (on
     which its bits rest), route_multid's block and cluster sizes,
-    query_eval's block, leaf tile and queries a block, and sample_extremes'
-    tiles."""
+    query_eval's block, leaf tile and queries a block, sample_extremes'
+    tiles, rows 2 and 8's slot chunk (on which row 2's bits rest) and
+    their scratch."""
     from repro_torch.kernels import native
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
@@ -6002,7 +6269,10 @@ def check_plan_constants() -> None:
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
+    from repro_torch.kernels.stratified_estimate import (PAIR_CHUNK,
+                                                         pair_scratch_floats)
     seg = native.library("segment_reduce")
+    sm = native.library("stratified_moments")
     rt = native.library("route_multid")
     qe = native.library("query_eval")
     se = native.library("sample_extremes")
@@ -6019,6 +6289,8 @@ def check_plan_constants() -> None:
            qe.repro_query_eval_max_queries(),
            "sample_extremes tiles": (se.repro_sample_extremes_query_tile(),
                                      se.repro_sample_extremes_leaf_tile()),
+           "slot chunk": (sm.repro_stratified_moments_slot_chunk(),
+                          se.repro_sample_extremes_slot_chunk()),
            "join_cell_moments limits": (jmo.repro_join_moments_query_tile(),
                                         jmo.repro_join_moments_max_d())}
     want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
@@ -6030,10 +6302,24 @@ def check_plan_constants() -> None:
             "query_eval leaf tile": QE_LEAF_TILE,
             "query_eval queries a block": QE_MAX_QUERIES,
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
+            "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
             "join_cell_moments limits": (JM_QT, JM_MAX_D)}
     if got != want:
         raise AssertionError(f"launch plans: the sources' constants {got} "
                              f"are not the wrappers' {want}")
+    # The chunked launch's scratch: the wrapper allocates what the source
+    # asks for (the launch refuses less).
+    for lib, name, stats in ((sm, "stratified_moments", 3),
+                             (se, "sample_extremes", 2)):
+        fn = getattr(lib, f"repro_{name}_scratch")
+        fn.argtypes = [ctypes.c_int] * 4
+        fn.restype = ctypes.c_longlong
+        for Q, k, s, d in ((2048, 1024, 75, 3), (1, 1, PAIR_CHUNK, 16),
+                           (2048, 1, 38_500, 1), (2048, 64, 19_250, 1),
+                           (512, 64, PAIR_CHUNK + 1, 3), (7, 3, 6151, 16)):
+            if fn(Q, k, s, d) != pair_scratch_floats(Q, k, s, d, stats):
+                raise AssertionError(f"{name}: the wrapper's scratch for "
+                                     f"{(Q, k, s, d)} is not the source's")
     seg.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
     for n in (0, 1, 255, 4096, 65536, 69696, 10 ** 6):
         if segment_plan(n)[0] != seg.repro_segment_reduce_chunk(n):
@@ -6114,14 +6400,16 @@ def main(argv=None) -> int:
         run3 = main_path(torch, "3d", c3, a3, "kd",
                          lambda c, a, lo, hi: truth_scan(torch, c, a, lo,
                                                          hi), 0.15)
-        tab1 = table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3)
+        tab1 = table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3,
+                             a3, base)
         emit(phase="table1 summary", card=card, **table1_summary(tab1))
         print(card, flush=True)
         return 0
 
     # 3. Kernels against plain at edge shapes.
+    edge_ch = edge_cases_chunks(torch, dev, base)
     edge_sm_err = max(edge_cases(torch, dev, base),
-                      edge_cases_moments(torch, dev, base))
+                      edge_cases_moments(torch, dev, base), edge_ch["err"])
     edge_qe_err = edge_cases_query_eval(torch, dev, base)
     edge_se_cases = edge_cases_extremes(torch, dev)
 
@@ -6221,7 +6509,8 @@ def main(argv=None) -> int:
     # 25. Table 1 at paper size (US, ST, AQP++, PASS at four budgets); 26.
     # fig 8's 3-D cell (KD-PASS against KD-US); 27. the legacy update path
     # and the delta codec; 28. the examples.
-    tab1 = table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3)
+    tab1 = table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3,
+                         base)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
@@ -6258,11 +6547,13 @@ def main(argv=None) -> int:
             "replaces_note": "no pallas_call: the jnp broadcast every JAX "
                              "backend shares",
             "enqueue_host_ms": t1["times"]["sample_extremes_enqueue_host"],
-            "edge_cases": edge_se_cases, "bit_equal_to_plain": True,
+            "edge_cases": edge_se_cases + edge_ch["cases"] // 2,
+            "bit_equal_to_plain": True,
             "classes_1d": t1["classes"], "classes_3d": t3["classes"],
             "device_ms_3d": t3["times"]["sample_extremes_device"],
             "plain_device_ms_3d": t3["times"][
-                "sample_extremes_plain_device"]},
+                "sample_extremes_plain_device"],
+            **pair_baseline_fields(t1, t3, "sample_extremes")},
         "stratified_moments": {
             "library_ms": btimes["bmm_stratified_moments"],
             "library_device_ms": btimes["bmm_stratified_moments_device"],
@@ -6270,12 +6561,9 @@ def main(argv=None) -> int:
             "ms_x20": ov["stratified_moments_x20"],
             "enqueue_host_ms": ov["stratified_moments_enqueue_host"],
             "edge_max_abs_err": edge_sm_err,
-            "baseline_bit_equal": None if base is None else True,
-            "baseline_ms": t1["times"].get("stratified_moments_baseline"),
-            "baseline_device_ms": t1["times"].get(
-                "stratified_moments_baseline_device"),
-            "baseline_ms_3d": t3["times"].get("stratified_moments_baseline"),
-            "device_ms_3d": t3["times"]["stratified_moments_device"]},
+            "baseline_bit_equal_one_chunk": None if base is None else True,
+            "device_ms_3d": t3["times"]["stratified_moments_device"],
+            **pair_baseline_fields(t1, t3, "stratified_moments")},
     }
     rows = []
     for name in ("query_eval", "stratified_moments", "sample_extremes"):

@@ -7,78 +7,131 @@
 // They differ only in the reduction and the output, which a policy class
 // `Acc` supplies (below).
 //
-// Design: a (query, stratum) pair is empty (no valid slot inside the box),
-// covered (every valid slot inside) or mixed. A covered pair's result is
-// the stratum's own reduction over its slots, the same for every query; an
-// empty pair's is the reduction of no relevant slot; only mixed pairs walk
-// their slots. One launch of NT = 256 threads a block; a block owns a tile
-// of LT = 16 leaves and a group of the QT = 128-query tiles (query tiles
-// group, group + groups, ...; groups is the most that keeps every block
-// resident at once, by the occupancy calculator, so the grid runs in one
-// wave):
+// The order contract depends on s alone. The slot axis is cut into chunks
+// of SLOT_CHUNK = 2048 consecutive slots. For s <= SLOT_CHUNK (one chunk)
+// a pair's reduction runs over its slots in slot order from init(). For
+// s > SLOT_CHUNK each chunk gives a partial, in slot order from init() over
+// the chunk's slots, and the pair's result folds the partials in chunk
+// order from init() (merge()). So a pair's bits depend on its slots, s and
+// SLOT_CHUNK only: never on Q, k, the pair's place in the batch or the grid.
 //
+// Classes: a (query, stratum) pair (or, above one chunk, a (query,
+// stratum, chunk) triple) is empty (no valid slot inside the box), covered
+// (every valid slot inside) or mixed. A covered one's reduction is the
+// stratum's (chunk's) own over its slots, the same for every query; an
+// empty one's is the reduction of no relevant slot; only mixed ones walk
+// their slots. Both paths classify from the box around the valid samples
+// (fminf / fmaxf, so NaN coordinates skipped) with the slot test's own
+// compares: covered iff the query box holds the box and no valid slot has
+// a NaN coordinate (the slot test rejects NaN, so a flagged box is never
+// covered), empty iff they are apart in some column. NT = 256 threads a
+// block, QT = 128-query tiles.
+//
+// s <= SLOT_CHUNK, one pass (pair_tile_kernel): a block owns a tile of
+// LT = 16 leaves and a group of query tiles (group, group + groups, ...;
+// groups is the most that keeps every block resident at once, by the
+// occupancy calculator, so the grid runs in one wave):
 //  1. It stages its leaves' slots in shared memory (one 16-byte cp.async
 //     run per array when they fit in STAGE_BYTES and the arrays are
 //     aligned, else chunks of loads with BATCH in flight per thread).
 //  2. Thread l reduces leaf l's slots in slot order; the other threads
-//     take a (leaf, column) pair each for the box around the leaf's valid
-//     samples (fminf / fmaxf) and flag a leaf with a NaN coordinate on a
-//     valid slot: fminf / fmaxf skip NaN, the slot test rejects it, so
-//     such a leaf is never covered. Once per block, so `groups` times per
-//     leaf tile, from L2.
+//     take a (leaf, column) pair each for the box and the NaN flag. Once
+//     per block, so `groups` times per leaf tile, from L2.
 //  3. For each of its query tiles (the next tile's queries arrive by
-//     cp.async while one is served) every pair is classified from the box
-//     with the slot test's own compares: covered iff the query box holds
-//     the leaf's box, empty iff they are apart in some column. Exact for
-//     the non-NaN samples. The tile in shared memory takes the leaf's
-//     result or the empty one, and the other pairs go to a list.
+//     cp.async while one is served) every pair is classified; the tile in
+//     shared memory takes the leaf's result or the empty one, and the
+//     mixed pairs go to a list.
 //  4. The tile goes out as rows of LT * WIDTH contiguous floats a plane:
 //     16-byte stores when k is a multiple of 4 and `out` is aligned,
 //     4-byte ones otherwise.
 //  5. The listed pairs are walked one thread each, all of the block's at
 //     once (the list is flushed only when a tile's pairs might not fit):
 //     the slots from shared memory when they are one staged chunk, else
-//     from global memory (L2), eight slots' loads in flight, every slot
-//     through the same update, and the result overwrites the tile's empty
-//     one in `out`. A walk per tile would hold the block for the loop's
-//     latency once per tile; deferred, the block's walks overlap each
-//     other and the tiles' stores.
+//     from global memory (L2), and the result overwrites the tile's empty
+//     one in `out`.
 //
-// With no replicates to spread them over, the fixed costs decide the time,
-// so the per-leaf reductions and boxes are computed in the blocks rather
-// than in a launch of their own, and the few walks run in the same blocks.
+// s > SLOT_CHUNK, chunk tiles (pair_chunk_kernel), one cooperative launch
+// whose grid is at most the resident blocks. A work item is (leaf, chunk,
+// query group): a group is a run of gq consecutive queries, groups =
+// resident blocks / (k * chunks), at least 1 and at most one per GQ_MIN =
+// 64 queries; at d = 1 the kernel is held to 48 registers a thread, so
+// that five blocks share a multiprocessor. The blocks take the items in a
+// grid-stride loop. Phase 1, for an item:
+//  1. The block stages the leaf's chunk (c, a, valid) in shared memory
+//     with cp.async (16-byte units where the source is 16-byte aligned,
+//     4-byte units where it is 4-byte aligned, bytes otherwise): at most
+//     SLOT_CHUNK * (4d + 5) bytes, one leaf. Every query of the group then
+//     reads the chunk from there: the reuse across queries that a batched
+//     product has.
+//  2. The chunk's box and NaN flag: P = a power of two <= NT / d threads a
+//     column, each over slots part, part + P, ..., then a tree (fminf,
+//     fmaxf and OR are order-free up to the sign of a zero, which no
+//     compare sees). Then an invalid slot's column 0 becomes NaN, which no
+//     bound holds, so that a walk tests coordinates only.
+//  3. The group-0 item writes the box and the flag to the scratch and
+//     lists the chunk's own partial as a walk of the box (-inf, +inf):
+//     every valid slot but one with a NaN coordinate, so exact wherever
+//     it is read (a flagged chunk is never covered).
+//  4. Each thread classifies queries of the group (their bounds from
+//     global memory) and lists the mixed ones; the list holds a group's
+//     queries (up to LIST_MAX a pass), so an item's walks take
+//     ceil(walks / NT) rounds. A walk is one thread's, in slot order from
+//     shared memory, four slots a step, every thread of a warp reading the
+//     same slots (a broadcast); its partial goes to the scratch. Covered
+//     and empty triples write nothing.
+// A grid-wide sync. Phase 2, thread per pair (grid-stride over Q * k):
+// init(), then for each chunk in order the class again from the scratch's
+// box and flag (the same compares on the same bits, so the same class):
+// covered merges the chunk's partial, empty the empty reduction (none()),
+// mixed the walk's partial; write(). The (leaf, chunk) boxes, flags and
+// partials are read from shared memory when they fit in the chunk's room
+// (k * chunks * (2d + STATS + 1) floats). No float atomics, no second
+// launch, no memset.
 //
 // The policy `Acc` (one object is one running reduction):
-//   STATS   floats a leaf's reduction keeps in shared memory;
+//   STATS   floats a reduction keeps (shared memory, the scratch);
 //   PLANES  output planes (1 or 2), Q * k * WIDTH floats each;
 //   WIDTH   floats a pair takes in a plane;
-//   init()              the reduction of no slot;
-//   add(a, in)          one slot, `in` iff relevant; a result depends only
-//                       on the slots' order, which every path keeps;
-//   save(t) / load(t)   to and from the leaf's STATS floats;
+//   init()              the start of every fold;
+//   none()              the reduction of a chunk (s >= 1 slots) with no
+//                       relevant slot;
+//   add(a, in)          one slot, `in` iff relevant;
+//   merge(p)            fold a later chunk's partial p in;
+//   save(t) / load(t)   to and from STATS floats;
 //   fill(tile, q, l, inside)  the tile's entries of a covered (`inside`:
 //                       this reduction) or an empty pair, at tile_at();
-//   write(out, pair, plane)   a walked pair's result, pair = q * k + leaf,
+//   write(out, pair, plane)   a pair's result, pair = q * k + leaf,
 //                       plane = Q * k * WIDTH.
 //
-// Shared memory (dynamic): the tile PLANES * WIDTH * QT * LT * 4 bytes,
-// the staged chunk LT * sc * (4d + 5) bytes <= STAGE_BYTES, two query
-// buffers QT * 16d, boxes, the leaves' reductions, flags and the walk list
-// of LIST_CAP entries.
+// Shared memory (dynamic). One pass: the tile PLANES * WIDTH * QT * LT * 4
+// bytes, the staged chunk LT * sc * (4d + 5) bytes <= STAGE_BYTES, two
+// query buffers QT * 16d, boxes, the leaves' reductions, flags and the walk
+// list of LIST_CAP entries. Chunk tiles: the chunk SLOT_CHUNK * (4d + 5)
+// bytes, the box, the tree's 12 * NT bytes and the list of min(Q,
+// LIST_MAX) + 1 entries (~30 KB at d = 1, ~46 KB at d = 3, ~150 KB at
+// d = 16, Q = 2048). Scratch (the wrapper's, pair_scratch_floats): the
+// walks' partials (chunks, Q, k, STATS), then per (leaf, chunk) the box
+// (2d), the partial (STATS) and the flag.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int NT = 256;            // threads per block
 constexpr int QT = 128;            // queries per tile
 constexpr int LT = 16;             // leaves per tile
 constexpr int MAX_D = 16;          // predicate columns
-constexpr int STAGE_BYTES = 24576; // staged slot chunk, at most
+constexpr int SLOT_CHUNK = 2048;   // slots of a chunk (the order contract)
+constexpr int STAGE_BYTES = 24576; // staged slot chunk, at most (one pass)
 constexpr int BATCH = 8;           // loads in flight per thread (staging)
 constexpr int LIST_CAP = 2 * QT * LT;  // pairs listed for walks, at most
+constexpr int GQ_MIN = 64;         // queries a group, chunk tiles, at least
+constexpr int LIST_MAX = 4096;     // walks listed a pass, chunk tiles (+ 1)
 constexpr int MAX_DEVICES = 64;
 constexpr int VARIANTS = 8;
 
@@ -133,6 +186,115 @@ __device__ __forceinline__ void copy_run(void* dst, const void* src,
     cp_async16((char*)dst + 16 * i, (const char*)src + 16 * i);
   for (int i = (n16 << 4) + threadIdx.x; i < nbytes; i += NT)
     ((uint8_t*)dst)[i] = ((const uint8_t*)src)[i];
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src));
+}
+
+// Copy nbytes from src (global) to dst (shared, 16-byte aligned): 16-byte
+// cp.async where src is 16-byte aligned too, 4-byte cp.async where it is
+// 4-byte aligned, byte loads otherwise and for the tail. The caller
+// commits, waits and syncs.
+__device__ __forceinline__ void copy_any(void* dst, const void* src,
+                                         int nbytes) {
+  const uintptr_t at = (uintptr_t)src;
+  if ((at & 15) == 0) {
+    copy_run(dst, src, nbytes);
+    return;
+  }
+  const int body = (at & 3) == 0 ? nbytes & ~3 : 0;
+  for (int i = 4 * threadIdx.x; i < body; i += 4 * NT)
+    cp_async4((char*)dst + i, (const char*)src + i);
+  for (int i = body + threadIdx.x; i < nbytes; i += NT)
+    ((uint8_t*)dst)[i] = ((const uint8_t*)src)[i];
+}
+
+// A query box (ql, qh) against a box (blo, bhi) of the valid samples, by
+// the slot test's own compares: covered iff it holds the box and no valid
+// slot has a NaN coordinate (`no_nan`), apart iff they are apart in some
+// column; mixed iff neither. Both chunk phases call it on the same bits.
+__device__ __forceinline__ void classify(const float* ql, const float* qh,
+                                         const float* blo, const float* bhi,
+                                         bool no_nan, int d, bool* inside,
+                                         bool* apart) {
+  bool in = no_nan, ap = false;
+#pragma unroll
+  for (int j = 0; j < MAX_D; ++j) {
+    if (j < d) {
+      in &= (ql[j] <= blo[j]) & (bhi[j] <= qh[j]);
+      ap |= (qh[j] < blo[j]) | (bhi[j] < ql[j]);
+    }
+  }
+  *inside = in;
+  *apart = ap;
+}
+
+// Fold n slots of a staged chunk into w in slot order: slot i is relevant
+// iff inside (ql, qh) in every column (an invalid slot carries NaN in
+// column 0, which no bound holds). Four slots a step by vector loads, the
+// next step's loaded while one is folded.
+template <class Acc, int D>
+__device__ __forceinline__ void walk_chunk(Acc& w, const float* av,
+                                           const float* cl, int n, int d,
+                                           const float* ql,
+                                           const float* qh) {
+  int i = 0;
+  if (D > 0) {
+    constexpr int W = D > 0 ? D : 1;
+    const int n4 = n & ~3;
+    float4 a4, c4[W];
+    if (n4 > 0) {
+      a4 = *reinterpret_cast<const float4*>(av);
+#pragma unroll
+      for (int t = 0; t < W; ++t)
+        c4[t] = reinterpret_cast<const float4*>(cl)[t];
+    }
+    for (; i < n4; i += 4) {
+      float4 na4, nc4[W];
+      const int nx = i + 4 < n4 ? i + 4 : i;
+      na4 = *reinterpret_cast<const float4*>(av + nx);
+#pragma unroll
+      for (int t = 0; t < W; ++t)
+        nc4[t] = reinterpret_cast<const float4*>(cl + nx * W)[t];
+      float x[4 * W];
+#pragma unroll
+      for (int t = 0; t < W; ++t) {
+        x[4 * t] = c4[t].x;
+        x[4 * t + 1] = c4[t].y;
+        x[4 * t + 2] = c4[t].z;
+        x[4 * t + 3] = c4[t].w;
+      }
+      bool in[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        in[u] = true;
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          in[u] &= (ql[j] <= x[u * W + j]) & (x[u * W + j] <= qh[j]);
+      }
+      w.add(a4.x, in[0]);
+      w.add(a4.y, in[1]);
+      w.add(a4.z, in[2]);
+      w.add(a4.w, in[3]);
+      a4 = na4;
+#pragma unroll
+      for (int t = 0; t < W; ++t) c4[t] = nc4[t];
+    }
+  }
+  for (; i < n; ++i) {
+    bool in = true;
+#pragma unroll
+    for (int j = 0; j < MAX_D; ++j) {
+      if (j < d) {
+        const float x = cl[i * d + j];
+        in &= (ql[j] <= x) & (x <= qh[j]);
+      }
+    }
+    w.add(av[i], in);
+  }
 }
 
 // The tile's rows out of shared memory, every plane: nq rows of nur store
@@ -437,22 +599,13 @@ pair_tile_kernel(const float* __restrict__ c, const float* __restrict__ a,
   }
 }
 
-// Launch the kernel for policy Acc on `stream` (the caller has checked
-// the arguments). Returns a cudaError_t.
+// The one-pass launch (s <= SLOT_CHUNK) on device dev with sms
+// multiprocessors. Returns a cudaError_t.
 template <class Acc>
-int launch_pair_tiles(const float* c, const float* a, const uint8_t* valid,
-                      const float* q_lo, const float* q_hi, float* out,
-                      int Q, int k, int s, int d, void* stream) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-  static int sms[MAX_DEVICES];
-  if (sms[dev] == 0) {
-    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return (int)err;
-  }
+int launch_one_pass(const float* c, const float* a, const uint8_t* valid,
+                    const float* q_lo, const float* q_hi, float* out, int Q,
+                    int k, int s, int d, void* stream, int dev, int sms) {
+  cudaError_t err;
   // Leaf and query tiles start at multiples of 16 elements, so the staged
   // runs are 16-byte aligned when the arrays are.
   const bool aligned =
@@ -508,10 +661,351 @@ int launch_pair_tiles(const float* c, const float* a, const uint8_t* valid,
     occ[dev][variant] = per_sm > 0 ? per_sm : 1;
     occ_bytes[dev][variant] = p.bytes;
   }
-  set_groups(k, (long long)occ[dev][variant] * sms[dev], &p);
+  set_groups(k, (long long)occ[dev][variant] * sms, &p);
   kernel<<<p.n_blocks, NT, p.bytes, (cudaStream_t)stream>>>(
       c, a, valid, q_lo, q_hi, out, Q, k, s, d, p);
   return (int)cudaGetLastError();
+}
+
+// The chunk tiles' plan (s > SLOT_CHUNK): shared-memory carve-up (bytes),
+// list capacity, scratch carve-up (floats); the launch fills in the grid.
+struct ChunkPlan {
+  int n_ch;           // chunks of SLOT_CHUNK slots
+  int groups;         // query groups: the items of one (leaf, chunk)
+  int gq;             // queries a group: group g has [g * gq, (g + 1) * gq)
+  long long n_items;  // k * n_ch * groups
+  int list;           // walk list entries: a group's queries and one more
+  int off_a, off_v, off_box, off_red, off_list, off_count, bytes;
+  size_t box, stat, nan, floats;  // the walks' partials start at 0
+};
+
+template <class Acc>
+ChunkPlan make_chunk_plan(int Q, int k, int s, int d) {
+  ChunkPlan p;
+  p.n_ch = (int)(((long long)s + SLOT_CHUNK - 1) / SLOT_CHUNK);
+  p.groups = 1;
+  p.gq = Q;
+  p.n_items = (long long)k * p.n_ch;
+  p.list = (Q < LIST_MAX ? Q : LIST_MAX) + 1;
+  long long off = align16(4LL * SLOT_CHUNK * d);  // c at 0
+  p.off_a = (int)off;     off = align16(off + 4LL * SLOT_CHUNK);
+  p.off_v = (int)off;     off = align16(off + SLOT_CHUNK);
+  p.off_box = (int)off;   off = align16(off + 8LL * d + 4);
+  p.off_red = (int)off;   off = align16(off + 12LL * NT);
+  p.off_list = (int)off;  off = align16(off + 4LL * p.list);
+  p.off_count = (int)off; off = align16(off + 4);
+  p.bytes = (int)off;
+  const size_t strata = (size_t)k * p.n_ch;
+  p.box = (size_t)p.n_ch * Q * k * Acc::STATS;
+  p.stat = p.box + strata * 2 * d;
+  p.nan = p.stat + strata * Acc::STATS;
+  p.floats = p.nan + strata;
+  return p;
+}
+
+// Chunk tiles: phase 1 over the items (leaf, chunk, query group) in a
+// grid-stride loop, a grid sync, phase 2 over the pairs (design above).
+// D > 0 fixes d at compile time.
+template <class Acc, int D>
+__global__ void __launch_bounds__(NT, D == 1 ? 5 : 1)
+pair_chunk_kernel(const float* __restrict__ c, const float* __restrict__ a,
+                  const uint8_t* __restrict__ valid,
+                  const float* __restrict__ q_lo,
+                  const float* __restrict__ q_hi, float* __restrict__ out,
+                  float* scratch, int Q, int k, int s, int d, ChunkPlan p) {
+  if (D > 0) d = D;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_c = (float*)smem;                       // [slot][d]
+  float* s_a = (float*)(smem + p.off_a);           // [slot]
+  uint8_t* s_v = smem + p.off_v;                   // [slot]
+  float* s_box = (float*)(smem + p.off_box);       // [lo, hi][d], flag
+  int* s_nan = (int*)(s_box + 2 * d);
+  float* s_rlo = (float*)(smem + p.off_red);       // the tree, [NT] each
+  float* s_rhi = s_rlo + NT;
+  int* s_rnan = (int*)(s_rhi + NT);
+  int* s_list = (int*)(smem + p.off_list);  // queries to walk; -1: own
+  int* s_count = (int*)(smem + p.off_count);
+  float* g_part = scratch;                 // [chunk][q][leaf][STATS]
+  float* g_box = scratch + p.box;          // [leaf][chunk][lo, hi][d]
+  float* g_stat = scratch + p.stat;        // [leaf][chunk][STATS]
+  int* g_nan = (int*)(scratch + p.nan);    // [leaf][chunk]
+
+  const int tid = threadIdx.x;
+  const int n_ch = p.n_ch;
+  const float inf = __int_as_float(0x7f800000);
+  int P = NT / d;  // box threads a column: a power of two
+  while (P & (P - 1)) P &= P - 1;
+  const int bj = tid / P, bpart = tid - bj * P;
+
+  for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    const int group = (int)(item % p.groups);
+    const long long lc = item / p.groups;
+    const int ch = (int)(lc % n_ch), leaf = (int)(lc / n_ch);
+    const int s0 = ch * SLOT_CHUNK, n = min(SLOT_CHUNK, s - s0);
+    const size_t o = (size_t)leaf * s + s0;
+    const size_t gl = (size_t)leaf * n_ch + ch;
+    __syncthreads();  // the previous item's chunk and list are read
+    // 1. The chunk.
+    copy_any(s_c, c + o * d, n * d * 4);
+    copy_any(s_a, a + o, n * 4);
+    copy_any(s_v, valid + o, n);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    // 2. Its box and NaN flag.
+    {
+      float lo = inf, hi = -inf;
+      int nan = 0;
+      if (bj < d) {
+        for (int i = bpart; i < n; i += P) {
+          const bool on = s_v[i] != 0;
+          const float x = s_c[i * d + bj];
+          nan |= on & (x != x);
+          lo = fminf(lo, on ? x : inf);
+          hi = fmaxf(hi, on ? x : -inf);
+        }
+      }
+      s_rlo[tid] = lo;
+      s_rhi[tid] = hi;
+      s_rnan[tid] = nan;
+      __syncthreads();
+      // The box is read: an invalid slot now carries NaN in column 0, so
+      // that the walks test no valid byte.
+      for (int i = tid; i < n; i += NT)
+        if (s_v[i] == 0) s_c[i * d] = __int_as_float(0x7fc00000);
+      for (int w = P / 2; w > 0; w >>= 1) {
+        if (bj < d && bpart < w) {
+          s_rlo[tid] = fminf(s_rlo[tid], s_rlo[tid + w]);
+          s_rhi[tid] = fmaxf(s_rhi[tid], s_rhi[tid + w]);
+          s_rnan[tid] |= s_rnan[tid + w];
+        }
+        __syncthreads();
+      }
+    }
+    if (tid < d) {
+      s_box[tid] = s_rlo[tid * P];
+      s_box[d + tid] = s_rhi[tid * P];
+    }
+    if (tid == 0) {
+      int f = 0;
+      for (int j = 0; j < d; ++j) f |= s_rnan[j * P];
+      *s_nan = f;
+      // 3. The chunk's own partial, walked with the group-0 item's pairs.
+      s_list[0] = -1;
+      *s_count = group == 0 ? 1 : 0;
+    }
+    __syncthreads();
+    if (group == 0) {
+      if (tid < 2 * d) g_box[gl * 2 * d + tid] = s_box[tid];
+      if (tid == 2 * d) g_nan[gl] = *s_nan;
+    }
+    // 4. The group's queries: classes (bounds from global memory), the
+    // mixed ones listed, then the list walked; one pass unless the group
+    // holds more queries than the list.
+    const bool no_nan = *s_nan == 0;
+    const int q1 = (int)min((long long)Q, (long long)(group + 1) * p.gq);
+    for (long long base = (long long)group * p.gq; base < q1;
+         base += p.list - 1) {
+      const int stop = (int)min((long long)q1, base + p.list - 1);
+      for (long long qq = base + tid; qq < stop; qq += NT) {
+        const int q = (int)qq;
+        float ql[MAX_D], qh[MAX_D];
+#pragma unroll
+        for (int j = 0; j < MAX_D; ++j) {
+          ql[j] = j < d ? q_lo[(size_t)q * d + j] : 0.f;
+          qh[j] = j < d ? q_hi[(size_t)q * d + j] : 0.f;
+        }
+        bool inside, apart;
+        classify(ql, qh, s_box, s_box + d, no_nan, d, &inside, &apart);
+        if (!inside && !apart) s_list[atomicAdd(s_count, 1)] = q;
+      }
+      __syncthreads();
+      const int n_walk = *s_count;
+      for (int e = tid; e < n_walk; e += NT) {
+        // The chunk's own partial walks the box (-inf, +inf), which holds
+        // every valid slot but one with a NaN coordinate: the same loop as
+        // the pairs' (no divergence), and exact wherever it is read, since
+        // a chunk with such a slot is never covered.
+        const int q = s_list[e];
+        float ql[MAX_D], qh[MAX_D];
+#pragma unroll
+        for (int j = 0; j < MAX_D; ++j) {
+          ql[j] = j >= d ? 0.f : q >= 0 ? q_lo[(size_t)q * d + j] : -inf;
+          qh[j] = j >= d ? 0.f : q >= 0 ? q_hi[(size_t)q * d + j] : inf;
+        }
+        Acc w;
+        w.init();
+        walk_chunk<Acc, D>(w, s_a, s_c, n, d, ql, qh);
+        w.save(q < 0 ? g_stat + gl * Acc::STATS
+                     : g_part + (((size_t)ch * Q + q) * k + leaf) *
+                                    Acc::STATS);
+      }
+      if (stop < q1) {
+        __syncthreads();
+        if (tid == 0) *s_count = 0;
+        __syncthreads();
+      }
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // Phase 2: each pair folds its chunks' partials in chunk order. The
+  // (leaf, chunk) boxes, flags and partials come from shared memory when
+  // they fit in the chunk's room (every shape with few strata), else
+  // through L2.
+  const size_t n_lc = p.floats - p.box;
+  const bool local = n_lc * 4 <= (size_t)p.off_box;
+  float* s_lc = (float*)smem;
+  if (local) {
+    for (size_t i = tid; i < n_lc; i += NT) s_lc[i] = __ldcg(g_box + i);
+    __syncthreads();
+  }
+  auto lcd = [&](size_t i) { return local ? s_lc[i] : __ldcg(g_box + i); };
+  const size_t o_stat = p.stat - p.box, o_nan = p.nan - p.box;
+  const size_t pairs = (size_t)Q * k, plane = pairs * Acc::WIDTH;
+  for (size_t pair = (size_t)blockIdx.x * NT + tid; pair < pairs;
+       pair += (size_t)gridDim.x * NT) {
+    const int q = (int)(pair / k), leaf = (int)(pair - (size_t)q * k);
+    float ql[MAX_D], qh[MAX_D];
+#pragma unroll
+    for (int j = 0; j < MAX_D; ++j) {
+      ql[j] = j < d ? q_lo[(size_t)q * d + j] : 0.f;
+      qh[j] = j < d ? q_hi[(size_t)q * d + j] : 0.f;
+    }
+    Acc acc;
+    acc.init();
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const size_t gl = (size_t)leaf * n_ch + ch;
+      float blo[MAX_D], bhi[MAX_D];
+#pragma unroll
+      for (int j = 0; j < MAX_D; ++j) {
+        blo[j] = j < d ? lcd(gl * 2 * d + j) : 0.f;
+        bhi[j] = j < d ? lcd(gl * 2 * d + d + j) : 0.f;
+      }
+      bool inside, apart;
+      classify(ql, qh, blo, bhi, __float_as_int(lcd(o_nan + gl)) == 0, d,
+               &inside, &apart);
+      float x[Acc::STATS];
+#pragma unroll
+      for (int i = 0; i < Acc::STATS; ++i)
+        x[i] = inside ? lcd(o_stat + gl * Acc::STATS + i)
+               : apart ? 0.f
+                       : __ldcg(g_part + ((size_t)ch * pairs + pair) *
+                                             Acc::STATS + i);
+      Acc part;
+      if (apart && !inside)
+        part.none();
+      else
+        part.load(x);
+      acc.merge(part);
+    }
+    acc.write(out, pair, plane);
+  }
+}
+
+// The chunked launch (s > SLOT_CHUNK), one cooperative launch on device
+// dev with sms multiprocessors; scratch holds scratch_floats floats, at
+// least pair_scratch_floats(). Returns a cudaError_t.
+template <class Acc>
+int launch_pair_chunks(const float* c, const float* a, const uint8_t* valid,
+                       const float* q_lo, const float* q_hi, float* out,
+                       float* scratch, long long scratch_floats, int Q,
+                       int k, int s, int d, void* stream, int dev, int sms) {
+  ChunkPlan p = make_chunk_plan<Acc>(Q, k, s, d);
+  if (scratch == nullptr || scratch_floats < 0 ||
+      (size_t)scratch_floats < p.floats)
+    return (int)cudaErrorInvalidValue;
+  const int variant = d <= 3 ? d : 0;
+  using Kernel = void (*)(const float*, const float*, const uint8_t*,
+                          const float*, const float*, float*, float*, int,
+                          int, int, int, ChunkPlan);
+  Kernel kernel;
+  switch (variant) {
+    case 1: kernel = pair_chunk_kernel<Acc, 1>; break;
+    case 2: kernel = pair_chunk_kernel<Acc, 2>; break;
+    case 3: kernel = pair_chunk_kernel<Acc, 3>; break;
+    default: kernel = pair_chunk_kernel<Acc, 0>; break;
+  }
+  // Once per device and variant: the largest carveout; above 48 KB (d > 4)
+  // opt in for the largest size asked so far; the resident blocks at these
+  // bytes, which cap the cooperative grid.
+  static int granted[MAX_DEVICES][4], occ_bytes[MAX_DEVICES][4],
+      occ[MAX_DEVICES][4];
+  cudaError_t err;
+  if (granted[dev][variant] == 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev][variant] = 48 * 1024;
+  }
+  if (p.bytes > granted[dev][variant]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+    if (err != cudaSuccess) return (int)err;
+    granted[dev][variant] = p.bytes;
+  }
+  if (occ_bytes[dev][variant] != p.bytes) {
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT,
+                                                        p.bytes);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+    occ[dev][variant] = per_sm;
+    occ_bytes[dev][variant] = p.bytes;
+  }
+  // Query groups: as many as keep the items within the resident blocks,
+  // at least one and at most one per GQ_MIN queries.
+  const long long resident = (long long)occ[dev][variant] * sms;
+  const long long per_group = (long long)k * p.n_ch;
+  const long long most = ((long long)Q + GQ_MIN - 1) / GQ_MIN;
+  long long groups = resident / per_group;
+  groups = groups < 1 ? 1 : groups > most ? most : groups;
+  p.gq = (int)(((long long)Q + groups - 1) / groups);
+  p.groups = (int)(((long long)Q + p.gq - 1) / p.gq);
+  p.n_items = per_group * p.groups;
+  const int grid = (int)(p.n_items < resident ? p.n_items : resident);
+  void* args[] = {(void*)&c,     (void*)&a,    (void*)&valid, (void*)&q_lo,
+                  (void*)&q_hi,  (void*)&out,  (void*)&scratch, (void*)&Q,
+                  (void*)&k,     (void*)&s,    (void*)&d,     (void*)&p};
+  return (int)cudaLaunchCooperativeKernel((void*)kernel, dim3(grid),
+                                          dim3(NT), args, p.bytes,
+                                          (cudaStream_t)stream);
+}
+
+// Floats of the scratch that a launch at these sizes needs: 0 for
+// s <= SLOT_CHUNK (the wrapper's pair_scratch_floats mirrors it).
+template <class Acc>
+long long pair_scratch_floats(int Q, int k, int s, int d) {
+  if (s <= SLOT_CHUNK) return 0;
+  return (long long)make_chunk_plan<Acc>(Q, k, s, d).floats;
+}
+
+// Launch the kernels for policy Acc on `stream` (the caller has checked
+// the arguments): one pass for s <= SLOT_CHUNK, chunk tiles above it.
+// Returns a cudaError_t.
+template <class Acc>
+int launch_pair_tiles(const float* c, const float* a, const uint8_t* valid,
+                      const float* q_lo, const float* q_hi, float* out,
+                      float* scratch, long long scratch_floats, int Q, int k,
+                      int s, int d, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  static int sms[MAX_DEVICES];
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (s > SLOT_CHUNK)
+    return launch_pair_chunks<Acc>(c, a, valid, q_lo, q_hi, out, scratch,
+                                   scratch_floats, Q, k, s, d, stream, dev,
+                                   sms[dev]);
+  return launch_one_pass<Acc>(c, a, valid, q_lo, q_hi, out, Q, k, s, d,
+                              stream, dev, sms[dev]);
 }
 
 }  // namespace

@@ -25,7 +25,7 @@ import torch
 
 from .. import minmax
 from . import native
-from .stratified_estimate import samples_inside
+from .stratified_estimate import pair_launch, samples_inside
 
 # Sentinel of the relevant-sample extremes (``backends.py`` ``_BIG``).
 BIG = 3.4e38
@@ -45,17 +45,18 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = native.library("sample_extremes")
-        lib.repro_sample_extremes.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.repro_sample_extremes.argtypes = [ctypes.c_void_p] * 7 + \
+            [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_sample_extremes.restype = ctypes.c_int
         _lib = lib
     return _lib.repro_sample_extremes
 
 
-# Limits of the kernel's launch (csrc/sample_extremes.cu): row 2's tiles of
-# EXTREMES_QT queries x EXTREMES_LT leaves, at most 2**31 - 1 of them along
-# gridDim.x; sizes that fit a C int; s >= 1 (an empty slot axis has no
-# extreme); d up to 16.
+# Limits of the kernel's launch (csrc/sample_extremes.cu): row 2's one-pass
+# tiles of EXTREMES_QT queries x EXTREMES_LT leaves, at most 2**31 - 1 of
+# them along gridDim.x (above PAIR_CHUNK slots row 2's cooperative chunk
+# grid, at most the resident blocks); sizes that fit a C int; s >= 1 (an
+# empty slot axis has no extreme); d up to 16.
 EXTREMES_QT, EXTREMES_LT = 128, 16
 
 
@@ -86,12 +87,10 @@ def sample_extremes_cuda(sample_c, sample_a, sample_valid, q_lo, q_hi):
         raise ValueError(f"{name}: shapes {sample_c.shape} {sample_a.shape} "
                          f"{sample_valid.shape} {q_lo.shape} {q_hi.shape}")
     check_extremes_limits(name, Q, k, s, d)
-    dev = sample_c.device
-    out = torch.empty((2, Q, k), dtype=torch.float32, device=dev)
-    native.launch(name, dev, _kernel(), sample_c.data_ptr(),
-                  sample_a.data_ptr(), sample_valid.data_ptr(),
-                  q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(), Q, k, s,
-                  d)
+    out = torch.empty((2, Q, k), dtype=torch.float32,
+                      device=sample_c.device)
+    pair_launch(name, _kernel(), sample_c, sample_a, sample_valid, q_lo,
+                q_hi, out, 2)
     return out[0], out[1]
 
 

@@ -91,18 +91,55 @@ def _kernel():
     global _lib
     if _lib is None:
         lib = native.library("stratified_moments")
-        lib.repro_stratified_moments.argtypes = [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.repro_stratified_moments.argtypes = [ctypes.c_void_p] * 7 + \
+            [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_stratified_moments.restype = ctypes.c_int
         _lib = lib
     return _lib.repro_stratified_moments
 
 
+# Rows 2 and 8's order contract (csrc/pair_tiles.cuh SLOT_CHUNK): up to
+# PAIR_CHUNK slots a stratum a pair's reduction runs over its slots in slot
+# order; above it each chunk of PAIR_CHUNK consecutive slots is reduced on
+# its own and the chunks' partials are folded in chunk order, in one
+# cooperative launch that keeps them in a scratch buffer.
+PAIR_CHUNK = 2048
+
+
+def pair_scratch_floats(Q, k, s, d, stats) -> int:
+    """Floats of the chunked launch's scratch (csrc/pair_tiles.cuh
+    make_chunk_plan) for a reduction of ``stats`` floats: the walks'
+    partials (chunks, Q, k, stats), then per (leaf, chunk) the box (2d),
+    the partial and the NaN flag; 0 for s <= PAIR_CHUNK (one pass)."""
+    if s <= PAIR_CHUNK:
+        return 0
+    n_ch = -(-s // PAIR_CHUNK)
+    return n_ch * Q * k * stats + k * n_ch * (2 * d + stats + 1)
+
+
+def pair_launch(name, fn, sample_c, sample_a, sample_valid, q_lo, q_hi,
+                out, stats) -> None:
+    """Launch row 2's or row 8's C entry ``fn`` into ``out``, with the
+    chunked launch's scratch (allocated here, one float32 buffer; none for
+    s <= PAIR_CHUNK)."""
+    k, s, d = sample_c.shape
+    Q = q_lo.shape[0]
+    n = pair_scratch_floats(Q, k, s, d, stats)
+    scratch = (torch.empty(n, dtype=torch.float32, device=out.device)
+               if n else None)
+    native.launch(name, out.device, fn, sample_c.data_ptr(),
+                  sample_a.data_ptr(), sample_valid.data_ptr(),
+                  q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr() if n else None, n, Q, k, s, d)
+
+
 # Limits of stratified_moments' launch (csrc/stratified_moments.cu): its
-# blocks, (tile of 16 leaves, group of 128-query tiles) pairs along
-# gridDim.x, which holds 2**31 - 1, are at most as many as the (query
-# tile, leaf tile) pairs; sizes are C ints; any s (the slots are staged in
-# chunks); d up to 16.
+# one-pass blocks (s <= PAIR_CHUNK), (tile of 16 leaves, group of 128-query
+# tiles) pairs along gridDim.x, which holds 2**31 - 1, are at most as many
+# as the (query tile, leaf tile) pairs; above PAIR_CHUNK the cooperative
+# grid is at most the resident blocks, whatever the sizes (its scratch
+# grows with ceil(s / PAIR_CHUNK) * Q * k); sizes are C ints; any s; d up
+# to 16.
 MOMENTS_QT, MOMENTS_LT = 128, 16
 
 
@@ -133,12 +170,10 @@ def stratified_moments_cuda(sample_c, sample_a, sample_valid, q_lo, q_hi):
         raise ValueError(f"{name}: shapes {sample_c.shape} {sample_a.shape} "
                          f"{sample_valid.shape} {q_lo.shape} {q_hi.shape}")
     check_moments_limits(name, Q, k, s, d)
-    dev = sample_c.device
-    out = torch.empty((Q, k, 3), dtype=torch.float32, device=dev)
-    native.launch(name, dev, _kernel(), sample_c.data_ptr(),
-                  sample_a.data_ptr(), sample_valid.data_ptr(),
-                  q_lo.data_ptr(), q_hi.data_ptr(), out.data_ptr(), Q, k, s,
-                  d)
+    out = torch.empty((Q, k, 3), dtype=torch.float32,
+                      device=sample_c.device)
+    pair_launch(name, _kernel(), sample_c, sample_a, sample_valid, q_lo,
+                q_hi, out, 3)
     return out
 
 
@@ -258,7 +293,8 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
 __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "stratified_moments_plain", "sample_moments", "stratified_moments_cuda",
            "weighted_moments_plain", "stratified_weighted_moments_cuda",
-           "check_moments_limits", "MOMENTS_QT", "MOMENTS_LT",
+           "check_moments_limits", "MOMENTS_QT", "MOMENTS_LT", "PAIR_CHUNK",
+           "pair_scratch_floats", "pair_launch",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",
            "weighted_scratch", "weighted_library", "WEIGHTED_MAX_S",
            "WEIGHTED_MAX_K", "WEIGHTED_MAX_R"]
