@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py     # the whole check, one card
     python3 chip_smoke.py --baseline DIR   # also hold DIR's kernels
-    python3 chip_smoke.py --stream-ab DIR  # only ingest and merge, DIR's
-                                           # package against this one's
+    python3 chip_smoke.py --stream-ab DIR  # only the ingests (streaming,
+                                           # sharded D = 4, join) and the
+                                           # merge, DIR's package against
+                                           # this one's
     python3 chip_smoke.py --sharded-only   # only phases 1, 2, 23 and 24
     python3 chip_smoke.py --table1-only    # only phases 1, 2, 4, 5, 25-28
 
@@ -59,7 +61,15 @@ Phases, each of which fails the run:
    shape above and at sets where covered, empty and mixed pairs all appear
    (counts printed), with NaN coordinates on valid slots, NaN, +-inf and
    values beyond +-3.4e38 on valid and invalid slots, and strata of +0.0
-   and -0.0 in either order.
+   and -0.0 in either order. Row 10 (threefry, csrc/threefry.cu) bit-equal
+   to its plain version (the int64 torch code of repro_torch.random and
+   poisson_weights_plain), each call one launch: split and uniform of
+   n = 1, 2, 31, 32, 33 and 65,537 counters, uniform of 2-D shapes and of
+   key batches (a row view at an offset too), uniform_scalar, fold_in of
+   negative, -2**31, >= 2**31 and >= 2**32 data (int32, int64 and Python
+   ints), under keys whose words are 0 or >= 2**31; the Poisson weights W
+   and K* at R = 1 and 200, ragged k x s, strata with no valid slot and
+   replicate indices that wrap past 2**32.
 4. 1-D main path: nyc_taxi(scale=1.0) (7.7 M trips) -> build_synopsis(k=1024,
    sample_rate=0.01) -> random_queries(2048) -> PassEngine(all five kinds,
    ci=0.95).answer(), through the entry points a user calls. The three
@@ -88,8 +98,9 @@ Phases, each of which fails the run:
    bit-equal to the baseline (their differences from plain counted).
 8. 1-D streaming: StreamingIngestor(phase 4's synopsis, seed=11) ingests
    nyc_taxi(scale=0.1, seed=7) in arrival order, 4096-row batches
-   (770,000 trips, 188 batches). segment_reduce launches once a batch and
-   route_multid never. PassEngine(ingestor).answer() of phase 4's
+   (770,000 trips, 188 batches). segment_reduce launches once a batch,
+   row 10 twice (the key's split, the batch's uniforms) and route_multid
+   never. PassEngine(ingestor).answer() of phase 4's
    queries holds the truth over base plus stream; the port on the CPU
    ingests the first 8 batches to the same state; then reoptimize +
    replace_source and the truth checks again.
@@ -119,8 +130,9 @@ Phases, each of which fails the run:
    totals; weighted_segment_reduce (N up to 65537, k up to 3000).
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
-   n_boot=200, key=5)).answer(). Fused launches bootstrap_moments once,
-   scan (boot_fused=False) stratified_weighted_moments 200 times, and the
+   n_boot=200, key=5)).answer(). Fused launches bootstrap_moments and
+   row 10 (the weights of all 200 replicates) once, scan (boot_fused=False)
+   stratified_weighted_moments and row 10 200 times each, and the
    two answers are torch.equal in both normalize modes; the truth of 64
    queries inside [lower, upper]; the AVG interval overlaps the CLT one on
    at least 0.9 of the queries; the port on the CPU gives the same answer
@@ -141,6 +153,13 @@ Phases, each of which fails the run:
    weighted_segment_reduce at leaf-major and at uniformly random ids, one
    device operation a call, with its host enqueue time;
    bootstrap_moments at the 3-D shapes; the baseline's kernels, if given.
+   Row 10 at the main path's shapes: the fused draw (R = 200 over the
+   1-D synopsis's 1024 x 75 slots), the ingest's uniforms of a 4096- and
+   a 65,536-row batch, split(key, 2) and split(key, 5): bit-equal to plain,
+   by events and on the device against its bound (bytes over 3.35 TB/s or
+   int32 operations over 16.7 T/s), the plain version's time and
+   torch.rand's of the same size (a yardstick only: Philox, not these
+   bits).
 16. The degradation ladder on phase 4's and 5's synopses and queries (all
    five kinds, ci=0.95): answer(deadline_ms=0) serves tier 0 with no
    launch and holds the truth, and on covered queries has the exact
@@ -157,14 +176,14 @@ Phases, each of which fails the run:
    kinds, ci=0.95: fewer dispatches than requests, each serving kernel
    once a dispatch, every tenant's demuxed result the bits of its own
    answer(); 4 tenants under the fused bootstrap (R = 200),
-   bootstrap_moments once a dispatch, bit-equal; the 16 tenants under
+   bootstrap_moments and row 10 once a dispatch, bit-equal; the 16 tenants under
    TickDriver with queries written on a side stream, every future
    resolved and bit-equal, no failure. The coalesced round against the
    per-tenant sequential round, host clock.
 18. Checkpoints and faults on the 1-D stream: 32 of phase 8's batches, a
    checkpoint, a restore into a fresh engine, 32 more batches into both:
-   states torch.equal, answers bit-equal, segment_reduce launched by the
-   restored ingestor; the 3-D synopsis round-trips bit-equal; a FaultPlan
+   states torch.equal, answers bit-equal, segment_reduce (32) and row 10
+   (64) launched by the restored ingestor; the 3-D synopsis round-trips bit-equal; a FaultPlan
    poisoning every 5th of 32 batches: the quarantine counter equals the
    poisoned rows and the state equals a clean run with those batches
    quarantined. File sizes, save and restore seconds.
@@ -178,7 +197,9 @@ Phases, each of which fails the run:
    the same rows of the batch. Then benchmarks/bench_joins.py's
    distributions at the main table's size: 7.7 M fact rows over 30,800
    dimension keys, build_dim_table(P=16) -> build_join_synopsis(k=1024,
-   p_u=0.05, "adp") -> PassEngine(sum/count/avg, ci=0.95).answer_join of
+   p_u=0.05, "adp"), row 10's key_uniforms over the 7.7 M fact keys
+   bit-equal to plain and timed (1-D), -> PassEngine(sum/count/avg,
+   ci=0.95).answer_join of
    2048 join rectangles: query_eval twice and join_cell_moments once in
    that window; row 9 against plain at that shape (and rows against the
    batch); the port on the CPU on the first 256 queries; ground_truth_join
@@ -190,8 +211,10 @@ Phases, each of which fails the run:
    requests and one copy through the coalescer, bit-equal to their own
    answer_join; 770,000 newer fact rows (1 % of their keys outside the
    dimension table) streamed in 188 batches of 4096 (segment_reduce twice
-   a batch; the buffers start full, so overflow and regrow run), the
-   stream served against the truth; a checkpoint after 32 batches whose
+   a batch, row 10 four times a batch and twice a regrow; the buffers
+   start full, so overflow and regrow run), a profiler window of 10
+   batches (device kernels a batch, row 10's share), the stream served
+   against the truth; a checkpoint after 32 batches whose
    restore takes 32 more beside the original, states torch.equal and
    answers bit-equal.
 20. Joins, 3-D: the same at d_fact = 3 (method="kd", one sorted pair a
@@ -240,12 +263,13 @@ Phases, each of which fails the run:
    build_synopsis_sharded(k=1024, sample_budget=77,824, so 76 slots a
    stratum at every D; 65,536-row batches; 1-D "adp", 3-D the kd
    skeleton): segment_reduce (and in 3-D route_multid) once a shard a
-   batch and nothing else; counts, n_rows, MIN / MAX and boxes equal to
+   batch, row 10 D + 1 times a batch (split(key, D + 1), one uniform a
+   shard), and nothing else; counts, n_rows, MIN / MAX and boxes equal to
    the skeleton's exact per-leaf statistics and across D, the tree's
    structure across D, SUM / SUMSQ within f32_sum_rtol of their float64
    sums, the reservoirs filled as the rows were dealt. The 770,000 newer
    trips streamed in 188 batches (D launches of each streaming kernel a
-   batch); at D = 1 the merged synopsis byte-equal to StreamingIngestor's
+   batch, D + 1 of row 10); at D = 1 the merged synopsis byte-equal to StreamingIngestor's
    on the same base and key; PassEngine(all five kinds, ci=0.95) on the
    merged synopsis: query_eval, stratified_moments and sample_extremes
    once, the truth of 64 queries inside [lower, upper], median SUM error
@@ -313,9 +337,9 @@ Phases, each of which fails the run:
    first 20,000 rows of nyc_taxi(scale=0.1, seed=7) inserted one by one
    (rows/s), snapshot() on the card served against the truth over base
    plus those rows, then to_streaming() ingests the remaining 750,000
-   rows in 4096-row batches (segment_reduce once a batch and nothing
-   else) and its answer holds the truth over base plus every row; the
-   same in 3-D on phase 5's synopsis with 2,000 rows and 16 batches
+   rows in 4096-row batches (segment_reduce once a batch, row 10 twice,
+   and nothing else) and its answer holds the truth over base plus every
+   row; the same in 3-D on phase 5's synopsis with 2,000 rows and 16 batches
    (route_multid once a batch too). delta_encode / delta_decode of phase
    4's synopsis: card = CPU bit for bit, each value back within one
    rounding a step (float32 does not round-trip every value bit for bit;
@@ -333,6 +357,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1686,7 +1711,9 @@ def stream_path(torch, tag, run, c_base, a_base, c_s, a_s, max_median_err,
     ingest_s = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
     want = dict.fromkeys(launches, 0)
-    want.update(segment_reduce=nb, route_multid=nb if d > 1 else 0)
+    # Row 10 twice a batch: the key's split, then the batch's uniforms.
+    want.update(segment_reduce=nb, route_multid=nb if d > 1 else 0,
+                threefry=2 * nb)
     if launches != want:
         raise AssertionError(f"{tag} stream: launches {launches} != {want}")
     emit(path=f"{tag} stream", rows=int(a_s.shape[0]), batches=nb,
@@ -1927,42 +1954,60 @@ def stream_timings(torch, tag, run, s, card) -> None:
 
 
 def profile_ingest(torch, tag, s) -> None:
-    """torch.profiler over 10 ingest batches: device kernels per batch, the
-    device-busy share of the window's wall time, and the device time of
-    route_multid and segment_reduce with their shares of the busy and of
-    the wall time."""
-    from torch.profiler import ProfilerActivity, profile
+    """profile_batches over a fresh StreamingIngestor on the path's base,
+    with route_multid and segment_reduce broken out beside row 10."""
     from repro_torch.streaming import StreamingIngestor
     ing = StreamingIngestor(s["ing"].base, seed=11)
-    batches = s["batches"]
-    for cb, ab in batches[:3]:
-        ing.ingest(cb, ab)
+    emit(profile=f"ingest {tag}",
+         **profile_batches(torch, lambda b: ing.ingest(*b), s["batches"],
+                           kernels=("route_multid", "segment_reduce"),
+                           table=f"profile_ingest_{tag}.txt"))
+
+
+def profile_batches(torch, ingest, batches, kernels=(), table=None,
+                    host=False) -> dict:
+    """torch.profiler over ``ingest(b)`` of batches 3-12 after 3 warm-up
+    batches: device kernels, device busy and wall ms a batch and the busy
+    share of the wall time; for row 10 (threefry) and each named kernel of
+    ``kernels`` (weighted ones left out) its records, device ms a batch and
+    shares of the busy and the wall time; with ``host``, the host time by
+    operator (host_split); with ``table``, the profiler's table written
+    under chiprun_out."""
+    from torch.profiler import ProfilerActivity, profile
+    for b in batches[:3]:
+        ingest(b)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for cb, ab in batches[3:13]:
-            ing.ingest(cb, ab)
+        for b in batches[3:13]:
+            ingest(b)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_us, n = device_busy_us(prof)
-    write_table(prof, f"profile_ingest_{tag}.txt")
-    kernels = {}
-    for name in ("route_multid", "segment_reduce"):
+    if table is not None:
+        write_table(prof, table)
+    by_name = {}
+    for name in kernels:
         events = [e for e in prof.events()
                   if str(getattr(e, "device_type", "")).endswith("CUDA")
                   and name in e.name and "weighted" not in e.name]
-        us = sum(e.device_time if hasattr(e, "device_time") else e.cuda_time
-                 for e in events)
-        kernels[name] = {"recorded": len(events),
-                         "device_ms_per_batch": us / 1e3 / 10,
-                         "share_of_busy": us / busy_us if busy_us else None,
-                         "share_of_wall": us / 1e3 / wall_ms}
-    emit(profile=f"ingest {tag}", batches=10,
-         device_kernels_per_batch=n / 10,
-         device_busy_ms_per_batch=busy_us / 1e3 / 10,
-         wall_ms_per_batch=wall_ms / 10,
-         device_busy_share=busy_us / 1e3 / wall_ms, kernels=kernels)
+        by_name[name] = (sum(e.device_time if hasattr(e, "device_time")
+                             else e.cuda_time for e in events), len(events))
+    by_name["threefry"] = row10_device_us(prof)
+    out = {"batches": 10, "device_kernels_per_batch": n / 10,
+           "device_busy_ms_per_batch": busy_us / 1e3 / 10,
+           "wall_ms_per_batch": wall_ms / 10,
+           "device_busy_share": busy_us / 1e3 / wall_ms,
+           "kernels": {name: {"recorded": rec,
+                              "device_ms_per_batch": us / 1e3 / 10,
+                              "share_of_busy": us / busy_us if busy_us
+                              else None,
+                              "share_of_wall": us / 1e3 / wall_ms}
+                       for name, (us, rec) in by_name.items()}}
+    if host:
+        out["host"] = host_split(prof, 10)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2005,14 +2050,19 @@ def stream_probe(torch, card) -> None:
     batch, host time by operator. Where the package has repro_torch.minmax,
     each round also runs with its functions swapped for plain_minmax's (in
     turns: as is, plain, then plain, as is), so that the signed-zero rule's
-    share is read in one process. One JSON line."""
+    share is read in one process. Each round also times the ingest of a
+    ShardedIngestor at D = 4 on the same synopsis and batches, and of a
+    JoinStreamingIngestor on phases 19 and 20's join synopsis and newer
+    fact rows (``{tag} sharded_d4`` and ``{tag} join``). One JSON line."""
     import repro_torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.data.synthetic import nyc_taxi
+    from repro_torch.joins import build_dim_table, build_join_synopsis
     from repro_torch.kernels import native
+    from repro_torch.sharded import ShardedIngestor, data_mesh
     from repro_torch.streaming import (StreamingIngestor, merge_synopsis,
                                        subtree_leaf_matrix)
+    from repro_torch.streaming.join_ingest import JoinStreamingIngestor
     native.build_all()
     try:
         from repro_torch import minmax
@@ -2061,24 +2111,37 @@ def stream_probe(torch, card) -> None:
         for name in variants:
             use(name)
             ing = StreamingIngestor(syn, seed=11)
-            for cb, ab in batches[:3]:
-                ing.ingest(cb, ab)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for cb, ab in batches[3:13]:
-                    ing.ingest(cb, ab)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            busy_us, n = device_busy_us(prof)
-            readings[name]["profile"] = {
-                "wall_ms_per_batch": wall_ms / 10,
-                "device_busy_ms_per_batch": busy_us / 1e3 / 10,
-                "device_kernels_per_batch": n / 10,
-                "host": host_split(prof, 10)}
+            readings[name]["profile"] = profile_batches(
+                torch, lambda b: ing.ingest(*b), batches, host=True)
         use("as_is")
         out[tag] = readings
+
+        cj, aj, kj, dkeys, dattr, _, _ = join_workload(
+            JOIN_N, JOIN_ND, JOIN_Q, 0, dims)
+        jsyn, _ = build_join_synopsis(
+            cj, aj, kj, build_dim_table(dkeys, dattr, num_partitions=JOIN_P),
+            k=JOIN_K, p_u=JOIN_PU, seed=0, method=method)
+        del cj, aj, kj
+        jbatches = join_stream_rows(JOIN_STREAM, JOIN_ND, 1, dims)
+        mesh = data_mesh(4)
+        others = {
+            "sharded_d4": (lambda: ShardedIngestor(syn, mesh=mesh, seed=5),
+                           batches),
+            "join": (lambda: JoinStreamingIngestor(jsyn, seed=11), jbatches)}
+        for name, (make, rows) in others.items():
+            r = {"ingest": [], "ingest_host": []}
+            for _ in range(STREAM_AB_ROUNDS):
+                ing = make()
+                it = iter(rows * 4)
+
+                def one():
+                    ing.ingest(*next(it))
+
+                r["ingest"].append(cuda_ms(torch, one, reps=40, warmup=10))
+                r["ingest_host"].append(host_ms(torch, one, reps=40))
+            out[f"{tag} {name}"] = r
+        del jsyn
+        torch.cuda.empty_cache()
     emit(stream_probe=out, card=card)
 
 
@@ -2109,6 +2172,12 @@ def stream_ab(torch, other: Path, card) -> None:
                     vals = [x for p in probes
                             for x in p[tag][variant][metric]]
                     summary[f"{side} {variant} {tag} {metric}"] = \
+                        statistics.mean(vals)
+            for name in ("sharded_d4", "join"):
+                for metric in ("ingest", "ingest_host"):
+                    vals = [x for p in probes
+                            for x in p[f"{tag} {name}"][metric]]
+                    summary[f"{side} {name} {tag} {metric}"] = \
                         statistics.mean(vals)
     emit(stream_ab_mean_ms=summary, rounds=STREAM_AB_ROUNDS,
          other=str(other), card=card)
@@ -2423,10 +2492,12 @@ def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
         got = dict(native.LAUNCHES)
         want = dict.fromkeys(got, 0)
         want.update(query_eval=1, stratified_moments=1)
+        # Row 10: one draw of all R weight rows, or one a replicate.
         if fused:
-            want["bootstrap_moments"] = 1
+            want.update(bootstrap_moments=1, threefry=1)
         else:
-            want["stratified_weighted_moments"] = N_BOOT
+            want.update(stratified_weighted_moments=N_BOOT,
+                        threefry=N_BOOT)
         if got != want:
             raise AssertionError(f"{tag} bootstrap {norm} fused={fused}: "
                                  f"launches {got} != {want}")
@@ -2501,7 +2572,7 @@ def planner_path(torch, tag, run) -> dict:
     want = dict.fromkeys(launches, 0)
     # The ci=0.95 answer asks all five kinds, so MIN/MAX's extremes too.
     want.update(stratified_moments=2, bootstrap_moments=1,
-                sample_extremes=1)
+                sample_extremes=1, threefry=1)
     if launches != want:
         raise AssertionError(f"{tag} planner: launches {launches} != {want}")
     Q = int(q.lo.shape[0])
@@ -2732,13 +2803,10 @@ def baseline_wseg(torch, libs, v, w, ids, k):
 
 def boot_weights(torch, syn, device):
     """The fused bootstrap's weights (R, k, s) for ``syn``: the threefry
-    draw of BOOT_KEY, zero on invalid slots."""
+    draw of BOOT_KEY (one row-10 launch), zero on invalid slots."""
     from repro_torch.uncertainty import bootstrap as tboot
     key = tboot.key_tensor(BOOT_KEY, device)
-    r = torch.arange(N_BOOT, device=device)
-    k, s = syn.sample_valid.shape
-    return torch.where(syn.sample_valid[None],
-                       tboot._draw_weights(key, r, (k, s)), 0.0)
+    return tboot.poisson_weights(key, syn.sample_valid, N_BOOT)[0]
 
 
 def boot_kernel_3d(torch, run, card, base) -> dict:
@@ -2876,7 +2944,10 @@ def boot_timings(torch, tag, run, boot, card) -> dict:
                            for part in ("totals", "box", "tile", "mixed"))
                     and str(getattr(e, "device_type", "")).endswith("CUDA"))
     times["bootstrap_moments_device"] = kernel_us / 1e3 / 3
+    draw_us, draw_n = row10_device_us(prof)
+    times["draw_device"] = draw_us / 1e3 / 3
     prof_out = {"device_kernels_per_answer": n / 3,
+                "row10_kernels_per_answer": draw_n / 3,
                 "device_busy_ms_per_answer": busy_us / 1e3 / 3,
                 "wall_ms_per_answer": wall_ms / 3,
                 "device_busy_share": busy_us / 1e3 / wall_ms}
@@ -3425,7 +3496,8 @@ def coalescer_path(torch, run, c, card) -> dict:
     b_disp = bco.tick()
     blaunch = launches_now(native)
     if blaunch != {"query_eval": b_disp, "stratified_moments": b_disp,
-                   "bootstrap_moments": b_disp} or not 0 < b_disp < 4:
+                   "bootstrap_moments": b_disp, "threefry": b_disp} \
+            or not 0 < b_disp < 4:
         raise AssertionError(f"coalescer bootstrap: {b_disp} dispatches, "
                              f"launches {blaunch}")
     for i, f in enumerate(bfuts):
@@ -3515,7 +3587,7 @@ def checkpoint_path(torch, run1, run3, s1, card, tmp: Path) -> dict:
     for cb, ab in batches[32:]:
         src2.ingest(cb, ab)
     restored_launches = launches_now(native)
-    if restored_launches != {"segment_reduce": 32}:
+    if restored_launches != {"segment_reduce": 32, "threefry": 64}:
         raise AssertionError(f"restored ingest launched {restored_launches}")
     for cb, ab in batches[32:]:
         ing.ingest(cb, ab)
@@ -3887,6 +3959,9 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     fq = QueryBatch(q.lo[:, :d_fact], q.hi[:, :d_fact])
     dq = QueryBatch(q.lo[:, d_fact:], q.hi[:, d_fact:])
     sv = ServingConfig(kinds=JOIN_KINDS)
+    # Row 10 at the build's shape: the universe test's uniforms of every
+    # fact key (fold_in, then uniform_scalar), against plain.
+    row10 = join_key_uniforms(torch, keys, seed) if d_fact == 1 else None
 
     # The answer, through the entry point, counted.
     eng = PassEngine(jsyn, sv, ci=0.95)
@@ -3999,13 +4074,24 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     path = tmp / f"join{tag}.npz"
     torch.cuda.synchronize()
     native.reset_launches()
+    # A batch regrew the universe buffers where their capacity (a shape,
+    # read on the host) grew.
+    regrows = 0
     t0 = time.perf_counter()
     for cb, ab, kb in batches:
+        cap = ing.jstate.u_a.shape[1]
         ing.ingest(cb, ab, keys=kb)
+        regrows += ing.jstate.u_a.shape[1] != cap
     torch.cuda.synchronize()
     ingest_ms = (time.perf_counter() - t0) * 1e3 / len(batches)
     stream_launches = launches_now(native)
-    want_l = {"segment_reduce": 2 * len(batches)}
+    # Row 10 four times a batch (the key's split, the batch's uniforms, the
+    # universe test's fold_in and uniform_scalar) and twice a regrow (the
+    # universe test of the parked rows).
+    nb = len(batches)
+    if not regrows:
+        raise AssertionError(f"{tag}: the join stream never regrew")
+    want_l = {"segment_reduce": 2 * nb, "threefry": 4 * nb + 2 * regrows}
     if d_fact > 1:
         if stream_launches.get("route_multid", 0) < len(batches):
             raise AssertionError(f"{tag}: route_multid launched "
@@ -4025,10 +4111,14 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     view = ing.as_join_synopsis()
     stream = {"batches": len(batches), "rows": JOIN_STREAM,
               "ingest_ms_per_batch": ingest_ms, "launches": stream_launches,
-              "regrown_rows": ing.n_regrown,
+              "regrows": regrows, "regrown_rows": ing.n_regrown,
               "u_capacity": int(view.u_capacity),
               "u_overflow": int(view.u_overflow.sum()),
               "quarantined": ing.n_quarantined, **squality}
+    pro = JoinStreamingIngestor(jsyn, seed=11)
+    stream["profile"] = profile_batches(
+        torch, lambda b: pro.ingest(b[0], b[1], keys=b[2]), batches)
+    del pro
     emit(check="join stream", path=tag, **stream)
     step("stream and its truth")
 
@@ -4070,6 +4160,7 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
                          "dedup_hits": co_stats["dedup_hits"],
                          "padded_rows": co_stats["padded_rows"]},
            "stream": stream, "checkpoint": ckpt, "step_seconds": steps,
+           "row10_key_uniforms": row10,
            "seconds": time.perf_counter() - t_phase}
     emit(phase=f"{phase} join {tag}", card=card, **out)
     del eng, co, seng, ing, first, feng, reng, args, slots, res, sres
@@ -4877,7 +4968,8 @@ def stream_sharded(torch, tag, ing, batches, d):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launches_now(native)
-    want = {"segment_reduce": D * nb}
+    # Row 10: split(key, D + 1), then one uniform a shard.
+    want = {"segment_reduce": D * nb, "threefry": (D + 1) * nb}
     if d > 1:
         want["route_multid"] = D * nb
     if launches != want:
@@ -4909,26 +5001,11 @@ def same_synopsis(torch, tag, x, y) -> None:
 
 
 def sharded_stream_profile(torch, base, mesh, batches) -> dict:
-    """torch.profiler over 10 batches of a fresh sharded ingestor on the
-    committed base: device operations and busy ms a batch, busy share."""
-    from torch.profiler import ProfilerActivity, profile
+    """profile_batches over a fresh sharded ingestor on the committed
+    base."""
     from repro_torch.sharded import ShardedIngestor
     ing = ShardedIngestor(base, mesh=mesh, seed=5)
-    for cb, ab in batches[:3]:
-        ing.ingest(cb, ab)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for cb, ab in batches[3:13]:
-            ing.ingest(cb, ab)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, n = device_busy_us(prof)
-    return {"device_ops_per_batch": n / 10,
-            "device_busy_ms_per_batch": busy_us / 1e3 / 10,
-            "wall_ms_per_batch": wall_ms / 10,
-            "device_busy_share": busy_us / 1e3 / wall_ms}
+    return profile_batches(torch, lambda b: ing.ingest(*b), batches)
 
 
 def sharded_path(torch, tag, c, a, c_s, a_s, method, max_median_err, card,
@@ -4975,7 +5052,7 @@ def sharded_path(torch, tag, c, a, c_s, a_s, method, max_median_err, card,
             sample_budget=SHARD_BUDGET, batch_rows=SHARD_BATCH_ROWS)
         torch.cuda.synchronize()
         launches = launches_now(native)
-        want = {"segment_reduce": D * n_fill}
+        want = {"segment_reduce": D * n_fill, "threefry": (D + 1) * n_fill}
         if d > 1:
             want["route_multid"] = D * n_fill
         if launches != want:
@@ -5375,7 +5452,7 @@ def sharded_summary(sh1, sh3, dist24) -> dict:
     """The sharded phases' numbers by cell and shard count."""
     keys = ("build_skeleton_s", "build_fill_s", "build_rows_per_s",
             "ingest_ms_per_batch", "streaming_ingestor_ms_per_batch",
-            "kernels_per_batch", "device_ops_per_batch",
+            "kernels_per_batch", "device_kernels_per_batch",
             "device_busy_ms_per_batch", "device_busy_share", "merge_ms",
             "merge_host_ms", "answer_ms", "answer_host_ms",
             "answer_peak_mb_above_resident")
@@ -6004,7 +6081,7 @@ def legacy_updates(torch, tag, run, c_base, a_base, c_s, a_s, rows, batches,
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     stream_launches = launches_now(native)
-    want = {"segment_reduce": n_batches}
+    want = {"segment_reduce": n_batches, "threefry": 2 * n_batches}
     if d > 1:
         want["route_multid"] = n_batches
     if stream_launches != want:
@@ -6254,18 +6331,299 @@ def pair_baseline_fields(t1, t3, name) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Row 10: the threefry draws (csrc/threefry.cu) against their plain version
+# ---------------------------------------------------------------------------
+
+# 64 INT32 lanes an SM x 132 SMs x 1.98 GHz (H100 SXM boost clock): the
+# card's int32 operation rate, the threefry kernel's bound.
+PEAK_INT32_OPS_S = 64 * 132 * 1.98e9
+THREEFRY_KEYS = ((0, 0), (0, 5), (0, 2 ** 31), (0x9E3779B9, 0xF00DBEEF),
+                 (2 ** 32 - 1, 2 ** 32 - 1))
+THREEFRY_N = (1, 2, 31, 32, 33, 65_537)
+# (R, k, s, r0, empty strata): R = 1 is the scan's draw, r0 near 2**32
+# wraps the replicate index.
+POISSON_CASES = ((1, 1, 1, 0, ()), (1, 7, 33, 199, (3,)),
+                 (200, 5, 75, 0, (0, 4)), (3, 37, 31, 2 ** 32 - 2, (36,)),
+                 (2, 3, 4103, 70_001, (1,)), (200, 1, 1, 0, ()))
+
+
+# Row 10's kernels as the profiler names them (csrc/threefry.cu).
+THREEFRY_KERNEL_RE = re.compile(
+    r"(^|::|\s)(fold_in|uniform|poisson_weights)_kernel\(")
+
+
+def row10_device_us(prof) -> tuple[float, int]:
+    """(summed device us, count) of row 10's kernels in a profiler
+    window."""
+    ev = [e for e in prof.events()
+          if str(getattr(e, "device_type", "")).endswith("CUDA")
+          and THREEFRY_KERNEL_RE.search(e.name)]
+    return (sum(e.device_time if hasattr(e, "device_time") else e.cuda_time
+                for e in ev), len(ev))
+
+
+def int32_bound(nbytes, ops) -> dict:
+    """max(bytes / 3.35 TB/s, int32 operations / 16.7 T/s) in ms."""
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops}
+
+
+def one_launch(torch, tag, fn):
+    """``fn()``'s result, holding that it launched row 10 exactly once and
+    nothing else."""
+    from repro_torch.kernels import native
+    native.reset_launches()
+    out = fn()
+    if launches_now(native) != {"threefry": 1}:
+        raise AssertionError(f"{tag}: launched {launches_now(native)}, not "
+                             f"row 10 once")
+    return out
+
+
+def threefry_same(torch, tag, got, want) -> None:
+    """Row 10 against its plain version, bit for bit (int64 key words, or
+    float32 uniforms and weights as int32 views)."""
+    if got.dtype == torch.float32:
+        same = bits_equal(torch, got, want)
+    else:
+        same = got.shape == want.shape and torch.equal(got, want)
+    if not same:
+        n = (int((got != want).sum()) if got.shape == want.shape
+             else "shape")
+        raise AssertionError(f"row 10 {tag}: {n} values differ from plain "
+                             f"({tuple(got.shape)} vs {tuple(want.shape)})")
+
+
+def edge_cases_threefry(torch, dev) -> int:
+    """Row 10 bit-equal to its plain version at edge shapes: split and
+    uniform of n = 1, 2, 31, 32, 33 and 65,537 counters, uniform of 2-D
+    shapes and of key batches (a row view of a batch at an offset
+    included), uniform_scalar, fold_in of int32 (negative, -2**31) and
+    int64 data (>= 2**31, >= 2**32, negative) and of Python ints, under
+    keys whose words are 0 or >= 2**31; the Poisson weights at R = 1 and
+    200, ragged k x s, strata with no valid slot and replicate indices that
+    wrap past 2**32. Each call one launch. Returns the cases checked."""
+    from repro_torch import random as trandom
+    from repro_torch.uncertainty import bootstrap as tboot
+    rng = np.random.default_rng(10)
+    cases = 0
+    for words in THREEFRY_KEYS:
+        key = torch.tensor(words, dtype=torch.int64, device=dev)
+        tag = f"key {words}"
+        for n in THREEFRY_N:
+            threefry_same(torch, f"{tag} split {n}", one_launch(
+                torch, "split", lambda: trandom.split(key, n)),
+                trandom.split_plain(key, n))
+            threefry_same(torch, f"{tag} uniform {n}", one_launch(
+                torch, "uniform", lambda: trandom.uniform(key, (n,))),
+                trandom.uniform_plain(key, (n,)))
+            cases += 2
+        batch = trandom.split(key, 7)
+        for name, keys, shape in (("2-D", key, (3, 5)),
+                                  ("batch", batch, (33,)),
+                                  ("row view", batch[3], (65,)),
+                                  ("batch slice", batch[1:], (31, 2))):
+            threefry_same(torch, f"{tag} uniform {name}", one_launch(
+                torch, "uniform", lambda: trandom.uniform(keys, shape)),
+                trandom.uniform_plain(keys, shape))
+            cases += 1
+        threefry_same(torch, f"{tag} uniform_scalar", one_launch(
+            torch, "uniform_scalar", lambda: trandom.uniform_scalar(batch)),
+            trandom.uniform_scalar_plain(batch))
+        for data in (torch.tensor([-1, -2 ** 31, 0, 7, 2 ** 31 - 1],
+                                  dtype=torch.int32, device=dev),
+                     torch.tensor([2 ** 31, 2 ** 32 - 1, 2 ** 32 + 3, -5, 0],
+                                  dtype=torch.int64, device=dev),
+                     torch.from_numpy(rng.integers(
+                         -2 ** 31, 2 ** 31, (33, 3)).astype(np.int32)
+                     ).to(dev), -3, 0, 2 ** 31 + 7, 2 ** 32 - 1):
+            threefry_same(torch, f"{tag} fold_in {data}", one_launch(
+                torch, "fold_in", lambda: trandom.fold_in(key, data)),
+                trandom.fold_in_plain(key, data))
+            cases += 1
+        cases += 1
+    for R, k, s, r0, empty in POISSON_CASES:
+        for words in THREEFRY_KEYS[1:4]:
+            key = torch.tensor(words, dtype=torch.int64, device=dev)
+            valid = rng.random((k, s)) < 0.8
+            valid[list(empty)] = False
+            valid = torch.from_numpy(valid).to(dev)
+            W, ks = one_launch(torch, "poisson_weights",
+                               lambda: tboot.poisson_weights(key, valid, R,
+                                                             r0))
+            W0, ks0 = tboot.poisson_weights_plain(key, valid, R, r0)
+            tag = f"poisson {(R, k, s, r0)} key {words}"
+            threefry_same(torch, f"{tag} W", W, W0)
+            threefry_same(torch, f"{tag} K*", ks, ks0)
+            if empty and bool(ks[:, list(empty)].any()):
+                raise AssertionError(f"{tag}: an empty stratum drew weight")
+            cases += 1
+    torch.cuda.synchronize()
+    emit(check="row 10 edge cases", cases=cases, bit_equal=True)
+    return cases
+
+
+def threefry_times(torch, tag, fn, plain, nbytes, ops, n_out,
+                   one_op=True) -> dict:
+    """One main-path shape of row 10: the kernel bit-equal to plain, by
+    events and on the device (one device operation a call, unless not
+    ``one_op``) against its bound, the plain version, and torch.rand of
+    the output's size as a yardstick (Philox: not these bits, never called
+    by the port)."""
+    got, want = fn(), plain()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        threefry_same(torch, tag, g, w)
+    del got, want
+    dev = torch.device("cuda")
+    reps = 30 if n_out < 1 << 22 else 10
+    out = {"ms": cuda_ms(torch, fn, reps=reps),
+           "device_ms": device_ms(torch, fn, one_op=one_op),
+           "enqueue_host_ms": enqueue_ms(torch, fn),
+           "plain_ms": cuda_ms(torch, plain, reps=5, warmup=1),
+           "plain_device_ms": device_ms(torch, plain, reps=3, warmup=1),
+           "torch_rand_ms": cuda_ms(torch, lambda: torch.rand(
+               n_out, device=dev), reps=reps),
+           **int32_bound(nbytes, ops)}
+    emit(row10=tag, **out)
+    return out
+
+
+def threefry_main_shapes(torch, run, card) -> dict:
+    """Row 10 at the main path's shapes: the fused bootstrap draw (R = 200
+    on phase 4's k = 1024, s = 75 slots, key 5), the ingest's split and
+    its uniforms over a 4096- and a 65,536-row batch (key 11, as
+    StreamingIngestor draws them), and split(key, 5) (the sharded
+    ingest's at D = 4). The join build's key_uniforms over the 7.7 M fact
+    keys is checked in phase 19."""
+    from repro_torch import random as trandom
+    from repro_torch.kernels.threefry import (COUNT_OPS, HASH_OPS, KEY_OPS,
+                                              UNIFORM_OPS)
+    from repro_torch.uncertainty import bootstrap as tboot
+    dev = torch.device("cuda")
+    valid = run["syn"].sample_valid
+    k, s = valid.shape
+    key = tboot.key_tensor(BOOT_KEY, dev)
+    nv = int(valid.sum())
+    out = {"fused_draw": threefry_times(
+        torch, "fused draw (200, 1024, 75)",
+        lambda: tboot.poisson_weights(key, valid, N_BOOT),
+        lambda: tboot.poisson_weights_plain(key, valid, N_BOOT),
+        4 * N_BOOT * k * s + 4 * N_BOOT * k + k * s + 16 + 64,
+        # a valid slot's hash, uniform, count and K* add; a replicate's
+        # fold_in and its key; the root key once
+        (HASH_OPS + UNIFORM_OPS + COUNT_OPS + 1) * N_BOOT * nv
+        + (HASH_OPS + KEY_OPS) * N_BOOT + KEY_OPS, N_BOOT * k * s)}
+    out["fused_draw"].update(R=N_BOOT, k=k, s=s, valid_slots=nv)
+    ikey = trandom.PRNGKey(11, dev)
+    sub = trandom.split(ikey)[1]
+    for n in (STREAM_BATCH, SHARD_BATCH_ROWS):
+        out[f"uniform_{n}"] = threefry_times(
+            torch, f"ingest uniform {n}", lambda: trandom.uniform(sub, (n,)),
+            lambda: trandom.uniform_plain(sub, (n,)), 16 + 4 * n,
+            (HASH_OPS + UNIFORM_OPS) * n + KEY_OPS, n)
+    for num in (2, 5):
+        out[f"split_{num}"] = threefry_times(
+            torch, f"split {num}", lambda: trandom.split(ikey, num),
+            lambda: trandom.split_plain(ikey, num), 16 + 16 * num,
+            HASH_OPS * num + KEY_OPS, 2 * num)
+    emit(row10_main_shapes=sorted(out), card=card)
+    return out
+
+
+def threefry_row(tf, edge_cases, b1, b3, s1, s3, j1, j3, coal, ckpt,
+                 sharded_stream, sharded_build) -> dict:
+    """Row 10 of the kernels line: the fused bootstrap draw's shape and
+    launches (one a fused answer), the other main-path shapes and the
+    launches of each path beside them."""
+    fd = tf["fused_draw"]
+    row = {
+        "name": "threefry", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/threefry.cu",
+        "replaces": "src/repro/uncertainty/bootstrap.py:67",
+        "pallas_call": None,
+        "replaces_note": "no pallas_call: jax.random's threefry2x32, from "
+                         "uncertainty/bootstrap.py:67-74, streaming/"
+                         "ingest.py:302,386, sharded/ingest.py:113,150,253, "
+                         "streaming/join_ingest.py:149,253, "
+                         "joins/universe.py:37",
+        "launches": b1["launches"]["threefry"],
+        "launches_path": "1d fused bootstrap answer (the default)",
+        "launches_3d": b3["launches"]["threefry"],
+        "launches_scan_answer": b1["scan_launches"]["threefry"],
+        "launches_stream_1d": s1["launches"]["threefry"],
+        "launches_stream_3d": s3["launches"]["threefry"],
+        "launches_join_stream": j1["stream"]["launches"]["threefry"],
+        "launches_join_stream_3d": j3["stream"]["launches"]["threefry"],
+        "launches_sharded_stream_1d": sharded_stream,
+        "launches_sharded_build_1d": sharded_build,
+        "launches_coalesced_bootstrap_tick": coal["bootstrap_launches"][
+            "threefry"],
+        "launches_restored_stream": ckpt["restored_launches"]["threefry"],
+        "max_abs_err": 0.0, "bit_equal_to_plain": True,
+        "edge_cases": edge_cases,
+        "library_ms": None, "library_device_ms": None,
+        "library": "none: torch's generators are Philox, no PyTorch call "
+                   "computes threefry's bits",
+        **{k: fd[k] for k in ("ms", "device_ms", "enqueue_host_ms",
+                              "plain_ms", "plain_device_ms", "bound_ms",
+                              "bound_by", "torch_rand_ms")}}
+    shapes = dict(tf)
+    shapes["join_key_uniforms"] = j1["row10_key_uniforms"]
+    for tag, x in shapes.items():
+        if tag == "fused_draw":
+            continue
+        for k in ("ms", "device_ms", "plain_ms", "plain_device_ms",
+                  "bound_ms", "torch_rand_ms"):
+            row[f"{k}_{tag}"] = x[k]
+    return row
+
+
+def join_key_uniforms(torch, keys, seed) -> dict:
+    """Row 10 at the join build's shape: ``key_uniforms`` of the build's
+    root key over every fact key (two launches: fold_in, uniform_scalar),
+    bit-equal to the plain version, timed against the bound of its 4
+    bytes in and out a key."""
+    from repro_torch import random as trandom
+    from repro_torch.joins.universe import key_uniforms
+    from repro_torch.kernels import native
+    from repro_torch.kernels.threefry import HASH_OPS, KEY_OPS, UNIFORM_OPS
+    dev = torch.device("cuda")
+    root = trandom.PRNGKey(seed, dev)
+    kv = torch.from_numpy(keys).to(dev)
+    native.reset_launches()
+    key_uniforms(root, kv)
+    if launches_now(native) != {"threefry": 2}:
+        raise AssertionError(f"key_uniforms launched {launches_now(native)}")
+    n = kv.numel()
+    return threefry_times(
+        torch, f"join key_uniforms {n}", lambda: key_uniforms(root, kv),
+        lambda: trandom.uniform_scalar_plain(trandom.fold_in_plain(root,
+                                                                   kv)),
+        # fold_in: a hash a key under the root key; uniform_scalar: each
+        # new key prepared and its counter (0, 0) hashed (its add into x1
+        # is free), then the uniform
+        8 * n + 16, HASH_OPS * n + KEY_OPS
+        + (KEY_OPS + HASH_OPS - 1 + UNIFORM_OPS) * n, n, one_op=False)
+
+
 def check_plan_constants() -> None:
     """The wrappers' launch plans against the CUDA sources' constants:
     weighted_segment_reduce's chunk cap, segment_reduce's chunk rule (on
     which its bits rest), route_multid's block and cluster sizes,
     query_eval's block, leaf tile and queries a block, sample_extremes'
     tiles, rows 2 and 8's slot chunk (on which row 2's bits rest) and
-    their scratch."""
+    their scratch, and the length of row 10's Poisson table."""
     from repro_torch.kernels import native
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
     from repro_torch.kernels.join_moments import JM_MAX_D, JM_QT
+    from repro_torch.kernels.threefry import CDF_LEN
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
@@ -6292,7 +6650,9 @@ def check_plan_constants() -> None:
            "slot chunk": (sm.repro_stratified_moments_slot_chunk(),
                           se.repro_sample_extremes_slot_chunk()),
            "join_cell_moments limits": (jmo.repro_join_moments_query_tile(),
-                                        jmo.repro_join_moments_max_d())}
+                                        jmo.repro_join_moments_max_d()),
+           "threefry table": native.library(
+               "threefry").repro_threefry_cdf_len()}
     want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
             "segment_reduce rows": SEG_MIN_ROWS,
             "segment_reduce chunks": SEG_MAX_CHUNKS,
@@ -6303,7 +6663,8 @@ def check_plan_constants() -> None:
             "query_eval queries a block": QE_MAX_QUERIES,
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
-            "join_cell_moments limits": (JM_QT, JM_MAX_D)}
+            "join_cell_moments limits": (JM_QT, JM_MAX_D),
+            "threefry table": CDF_LEN}
     if got != want:
         raise AssertionError(f"launch plans: the sources' constants {got} "
                              f"are not the wrappers' {want}")
@@ -6335,7 +6696,8 @@ def main(argv=None) -> int:
                          "kernels are held against the current ones and "
                          "timed beside them")
     ap.add_argument("--stream-ab", type=Path, default=None, metavar="DIR",
-                    help="only time ingest and merge of DIR's package "
+                    help="only time the ingests (streaming, sharded at "
+                         "D = 4, join) and the merge of DIR's package "
                          "against this checkout's, in turns, and exit")
     ap.add_argument("--stream-probe", type=Path, default=None,
                     help=argparse.SUPPRESS)
@@ -6412,6 +6774,7 @@ def main(argv=None) -> int:
                       edge_cases_moments(torch, dev, base), edge_ch["err"])
     edge_qe_err = edge_cases_query_eval(torch, dev, base)
     edge_se_cases = edge_cases_extremes(torch, dev)
+    edge_tf = edge_cases_threefry(torch, dev)
 
     # 4. 1-D main path; 5. 3-D path.
     t0 = time.perf_counter()
@@ -6472,6 +6835,8 @@ def main(argv=None) -> int:
     bk = boot_kernel_times(torch, run1, bt["W"], card, base)
     del bt["W"]
     b3k = boot_kernel_3d(torch, run3, card, base)
+    # Row 10 at the main path's shapes.
+    tf = threefry_main_shapes(torch, run1, card)
 
     # 16. The degradation ladder, 1-D and 3-D.
     lad1 = ladder_path(torch, "1d", run1, card)
@@ -6814,6 +7179,9 @@ def main(argv=None) -> int:
     }
     for row in rows:
         row.update(sharded_launches.get(row["name"], {}))
+    rows.append(threefry_row(tf, edge_tf, b1, b3, s1, s3, j1, j3, coal,
+                             ckpt, by_d(sh1, "stream_launches", "threefry"),
+                             by_d(sh1, "build_launches", "threefry")))
     table1_rows(rows, tab1)
     emit(phase="table1 summary", card=card, **table1_summary(tab1))
     emit(phase="sharded summary", card=card,

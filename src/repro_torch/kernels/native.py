@@ -33,7 +33,8 @@ KERNELS = {"query_eval": "query_eval",
            "weighted_segment_reduce": "segment_reduce",
            "route_multid": "route_multid",
            "sample_extremes": "sample_extremes",
-           "join_cell_moments": "join_moments"}
+           "join_cell_moments": "join_moments",
+           "threefry": "threefry"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"

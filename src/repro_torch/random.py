@@ -21,16 +21,24 @@ a batch of keys, so all R replicates are drawn in one pass that equals
 ``jax.vmap(lambda r: uniform(fold_in(key, r), shape))(arange(R))``.
 
 A key is a (2,) int64 tensor holding two uint32 words; a batch of keys is
-a (..., 2) tensor. Every word lives in
-an int64 tensor and is masked with ``& 0xFFFFFFFF`` after each add and
-shift, since torch has no uint32 arithmetic on every device. Work runs on
-the key's device.
+a (..., 2) tensor. Work runs on the key's device, and the key's device
+picks the version, as ``kernels/ops.py`` does for the other kernels: a
+CUDA key launches the hand-written kernel of ``kernels/csrc/threefry.cu``
+(row 10; one launch a call, the key words read on the device, so nothing
+is read back to the host), or raises; a CPU key takes the plain version,
+the ``*_plain`` functions below. There every word lives in an int64
+tensor and is masked with ``& 0xFFFFFFFF`` after each add and shift,
+since torch has no uint32 arithmetic on every device. On the card the
+plain versions are the yardstick the kernel is held against, bit for bit.
+:func:`split` and :func:`fold_in` take one key on the card, as
+``jax.random`` does.
 """
 from __future__ import annotations
 
 import torch
 
 from .device import resolve_device
+from .kernels import threefry as _kernel
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -77,10 +85,26 @@ def _bits(key: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
                          torch.zeros_like(lo), lo)
 
 
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)``: a (num, 2) tensor of new keys."""
+def split_plain(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """:func:`split` as int64 torch ops."""
     b1, b2 = _bits(key, num)
     return torch.stack([b1, b2], dim=1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: a (num, 2) tensor of new keys."""
+    if key.device.type == "cuda":
+        return _kernel.split_cuda(key, num)
+    return split_plain(key, num)
+
+
+def fold_in_plain(key: torch.Tensor, data) -> torch.Tensor:
+    """:func:`fold_in` as int64 torch ops; a (..., 2) batch of keys
+    broadcasts against ``data``."""
+    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK32
+    b1, b2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
+                           data)
+    return torch.stack([b1, b2], dim=-1)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -88,24 +112,40 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     pair (0, data mod 2**32) under ``key`` (``threefry_seed(data)`` as the
     count). ``data`` is an int or an int tensor; a (R,) tensor gives the
     (R, 2) batch of ``fold_in(key, data[r])``."""
-    data = torch.as_tensor(data, device=key.device).to(torch.int64) & MASK32
-    b1, b2 = threefry_2x32(key[..., 0], key[..., 1], torch.zeros_like(data),
-                           data)
-    return torch.stack([b1, b2], dim=-1)
+    if key.device.type == "cuda":
+        return _kernel.fold_in_cuda(key, data)
+    return fold_in_plain(key, data)
+
+
+def _uniform_word(b1: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    word = ((b1 ^ b2) >> 9) | 0x3F800000       # < 2**31: fits int32
+    return word.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_plain(key: torch.Tensor, shape) -> torch.Tensor:
+    """:func:`uniform` as int64 torch ops."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    n = 1
+    for s in shape:
+        n *= int(s)
+    b1, b2 = _bits(key, n)
+    return _uniform_word(b1, b2).reshape(*key.shape[:-1], *shape)
 
 
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32)``: 23 random mantissa bits
     under the exponent of 1.0, minus 1, so values lie in [0, 1). A (..., 2)
     batch of keys gives a (..., *shape) tensor, one draw per key."""
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    n = 1
-    for s in shape:
-        n *= int(s)
-    b1, b2 = _bits(key, n)
-    word = ((b1 ^ b2) >> 9) | 0x3F800000       # < 2**31: fits int32
-    return (word.to(torch.int32).view(torch.float32) - 1.0).reshape(
-        *key.shape[:-1], *shape)
+    if key.device.type == "cuda":
+        return _kernel.uniform_cuda(key, shape)
+    return uniform_plain(key, shape)
+
+
+def uniform_scalar_plain(keys: torch.Tensor) -> torch.Tensor:
+    """:func:`uniform_scalar` as int64 torch ops."""
+    zero = torch.zeros_like(keys[..., 0])
+    return _uniform_word(*threefry_2x32(keys[..., 0], keys[..., 1], zero,
+                                        zero))
 
 
 def uniform_scalar(keys: torch.Tensor) -> torch.Tensor:
@@ -113,11 +153,11 @@ def uniform_scalar(keys: torch.Tensor) -> torch.Tensor:
     batch: the hash of the one count pair (0, 0) (``iota_2x32_shape(())``)
     under each key. Returns a (...,) float32 tensor; equal to
     ``uniform(keys, ())`` without the count axis."""
-    zero = torch.zeros_like(keys[..., 0])
-    b1, b2 = threefry_2x32(keys[..., 0], keys[..., 1], zero, zero)
-    word = ((b1 ^ b2) >> 9) | 0x3F800000
-    return word.to(torch.int32).view(torch.float32) - 1.0
+    if keys.device.type == "cuda":
+        return _kernel.uniform_cuda(keys, ())
+    return uniform_scalar_plain(keys)
 
 
 __all__ = ["PRNGKey", "split", "fold_in", "uniform", "uniform_scalar",
-           "threefry_2x32"]
+           "threefry_2x32", "split_plain", "fold_in_plain", "uniform_plain",
+           "uniform_scalar_plain"]

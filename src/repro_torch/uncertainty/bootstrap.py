@@ -12,11 +12,12 @@ replicates stable when a stratum resamples light or heavy.
 Two strategies give bit-identical replicates:
 
 * **fused** (the default, ``CIConfig(boot_fused=True)``): all R weight
-  matrices drawn in one batched threefry pass, then one
-  ``ops.bootstrap_moments`` for the whole (R, Q, k, 3) block;
+  matrices drawn at once (:func:`poisson_weights`, one launch of row 10
+  on the card), then one ``ops.bootstrap_moments`` for the whole
+  (R, Q, k, 3) block;
 * **scan** (the reference, ``boot_fused=False``): a Python loop of R
-  draws and R ``ops.weighted_moments`` calls, stacked into the same
-  contiguous block.
+  draws (the same entry at R = 1) and R ``ops.weighted_moments`` calls,
+  stacked into the same contiguous block.
 
 Both hand the block to one shared epilogue, so they agree bit for bit as
 long as the two moment ops do (``kernels/bootstrap.py``). The weights come
@@ -38,7 +39,7 @@ from ..core.types import QueryBatch, QueryResult, AGG_SUM, AGG_COUNT
 from ..engine import executor as _executor
 from ..engine.assemble import assemble
 from ..engine.executor import compute_artifacts
-from ..kernels import ops
+from ..kernels import ops, threefry
 
 BOOT_KINDS = ("sum", "count", "avg")
 
@@ -72,9 +73,37 @@ def key_tensor(key, device) -> torch.Tensor:
 def _draw_weights(key, r, shape) -> torch.Tensor:
     """Poisson(1) resample weights of replicate r by inverse CDF from one
     ``fold_in(key, r)`` uniform per slot: w = #{t : u >= P(X <= t)}. A
-    (R,) tensor of r draws all R replicates in one pass, (R, *shape)."""
-    u = trandom.uniform(trandom.fold_in(key, r), shape)
+    (R,) tensor of r draws all R replicates in one pass, (R, *shape). The
+    int64 torch ops of ``random``'s plain versions, on the key's device."""
+    u = trandom.uniform_plain(trandom.fold_in_plain(key, r), shape)
     return (u[..., None] >= _P1_CDF.to(u.device)).sum(-1).to(torch.float32)
+
+
+def poisson_weights_plain(key, valid, n_boot: int, r0: int = 0):
+    """The weights of replicates r0 .. r0 + n_boot - 1, +0.0 on invalid
+    slots: W (n_boot, k, s) float32 and the resampled sizes K* = W.sum(-1)
+    (n_boot, k). K* sums small integers: exact in float32 in any order."""
+    r = torch.arange(r0, r0 + n_boot, device=key.device)
+    W = torch.where(valid[None], _draw_weights(key, r, tuple(valid.shape)),
+                    0.0)
+    return W, W.sum(-1)
+
+
+_CDF_ON: dict = {}
+
+
+def poisson_weights(key, valid, n_boot: int, r0: int = 0):
+    """:func:`poisson_weights_plain` by the key's device: a CUDA key draws
+    W and K* in one launch of row 10 (``kernels/threefry.py``), against the
+    table ``_P1_CDF`` copied to the card once; a CPU key takes the plain
+    version."""
+    if key.device.type != "cuda":
+        return poisson_weights_plain(key, valid, n_boot, r0)
+    cdf = _CDF_ON.get(key.device)
+    if cdf is None:
+        cdf = _CDF_ON[key.device] = _P1_CDF.to(key.device)
+    return threefry.poisson_weights_cuda(key, cdf, valid.contiguous(),
+                                         n_boot, r0)
 
 
 def _scan_moments(syn, queries, key, n_boot):
@@ -87,25 +116,23 @@ def _scan_moments(syn, queries, key, n_boot):
     mom = torch.empty((n_boot, Q, k, 3), dtype=torch.float32, device=dev)
     k_star = torch.empty((n_boot, k), dtype=torch.float32, device=dev)
     for r in range(n_boot):
-        w = torch.where(syn.sample_valid, _draw_weights(key, r, (k, s)), 0.0)
+        w, ks = poisson_weights(key, syn.sample_valid, 1, r)
+        k_star[r] = ks[0]
         mom[r] = ops.weighted_moments(syn.sample_c, syn.sample_a,
-                                      syn.sample_valid, w, queries.lo,
+                                      syn.sample_valid, w[0], queries.lo,
                                       queries.hi)
-        # K* sums small integers: exact in float32 in any order.
-        k_star[r] = w.sum(-1)
     return mom, k_star
 
 
 def _fused_moments(syn, queries, key, n_boot):
-    """The fused strategy: all R weight matrices in one batched threefry
-    pass (the scan's draws bit for bit), then one ``bootstrap_moments``
-    for the whole block, a single pass over the samples."""
-    r = torch.arange(n_boot, device=syn.sample_a.device)
-    W = _draw_weights(key, r, tuple(syn.sample_valid.shape))   # (R, k, s)
-    W = torch.where(syn.sample_valid[None], W, 0.0)
+    """The fused strategy: all R weight matrices in one draw (the scan's
+    draws bit for bit: the same entry at R = 1 there), then one
+    ``bootstrap_moments`` for the whole block, a single pass over the
+    samples."""
+    W, k_star = poisson_weights(key, syn.sample_valid, n_boot)  # (R, k, s)
     mom = ops.bootstrap_moments(syn.sample_c, syn.sample_a, syn.sample_valid,
                                 W, queries.lo, queries.hi)     # (R, Q, k, 3)
-    return mom, W.sum(-1)
+    return mom, k_star
 
 
 def _replicates(syn, art, queries, key, kinds, n_boot, normalize, fused):
