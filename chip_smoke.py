@@ -187,36 +187,56 @@ Phases, each of which fails the run:
    poisoning every 5th of 32 batches: the quarantine counter equals the
    poisoned rows and the state equals a clean run with those batches
    quarantined. File sizes, save and restore seconds.
-19. Joins, row 9 and 1-D: join_cell_moments (csrc/join_moments.cu; the
-   JAX package's join stage is plain jnp) against its plain version at
-   edge shapes (Q = 1, k = 1, Q, k and k * P off the kernel's tiles, P = 1
-   and 16, su = 1, leaves with no valid slot, groups of one slot, every
-   key missing from the dimension side, NaN coordinates on valid slots,
-   +-0.0 values, D = 16): within tolerance (bit for bit on +-0.0),
-   bit-equal across two launches, rows at Q = 1, 3, 16, 240 bit-equal to
-   the same rows of the batch. Then benchmarks/bench_joins.py's
-   distributions at the main table's size: 7.7 M fact rows over 30,800
-   dimension keys, build_dim_table(P=16) -> build_join_synopsis(k=1024,
-   p_u=0.05, "adp"), row 10's key_uniforms over the 7.7 M fact keys
-   bit-equal to plain and timed (1-D), -> PassEngine(sum/count/avg,
-   ci=0.95).answer_join of
-   2048 join rectangles: query_eval twice and join_cell_moments once in
-   that window; row 9 against plain at that shape (and rows against the
-   batch); the port on the CPU on the first 256 queries; ground_truth_join
-   of 64 queries inside [lower, upper], the median SUM error at most
-   bench_joins' 0.15, CI95 coverage printed; times (answer_join by events
-   and host clock, device busy and kernels per answer, row 9 by events and
-   device time against its bound and its plain version's, peak memory
-   above resident, which must stay under 16 GB); 16 tenants' join
-   requests and one copy through the coalescer, bit-equal to their own
-   answer_join; 770,000 newer fact rows (1 % of their keys outside the
-   dimension table) streamed in 188 batches of 4096 (segment_reduce twice
-   a batch, row 10 four times a batch and twice a regrow; the buffers
-   start full, so overflow and regrow run), a profiler window of 10
-   batches (device kernels a batch, row 10's share), the stream served
-   against the truth; a checkpoint after 32 batches whose
-   restore takes 32 more beside the original, states torch.equal and
-   answers bit-equal.
+19. Joins, rows 9 and 11 and 1-D: join_cell_moments
+   (csrc/join_moments.cu; the JAX package's join stage is plain jnp)
+   against its plain version at edge shapes (Q = 1, k = 1, Q, k and k * P
+   off the kernel's tiles, P = 1 and 16, su = 1, leaves with no valid
+   slot, groups of one slot, every key missing from the dimension side,
+   NaN coordinates on valid slots, +-0.0 values, D = 16): within tolerance
+   (bit for bit on +-0.0), bit-equal across two launches, rows at Q = 1,
+   3, 16, 240 bit-equal to the same rows of the batch. Row 11
+   (join_epilogue, csrc/join_epilogue.cu; the JAX package's epilogue is
+   plain jnp) against join_epilogue_plain at edge shapes (Q = 1, Q and
+   k * P off its 256-thread block and 4-cell chunks, P = 1 and 16, strata
+   whose universe buffer overflowed, a row with no sampled cell and one
+   with only covered cells, empty cells with +-inf MIN / MAX, an AVG count
+   below 1, +-0.0 values, an int64 u_overflow), each with kinds sum,
+   count, avg and all three, under no interval (lam), 0.95 "stratum",
+   0.95 "union" at small_n_threshold 30 and 0.9 "union" at 12: within
+   tolerance (ci_half as its square: rtol 2 x 3e-5, atol 1e-6 max|est|^2,
+   against plain or, where AVG's C - h_c cancels, the plain composition
+   with float64 row sums; the count printed), bit for bit on rows without
+   a sampled cell and on the +-0.0 case's SUM
+   and AVG, bit-equal across two launches, rows at Q = 1, 3, 16, 240
+   bit-equal to the same rows of the batch. Then
+   benchmarks/bench_joins.py's distributions at the main table's size:
+   7.7 M fact rows over 30,800 dimension keys, build_dim_table(P=16) ->
+   build_join_synopsis(k=1024, p_u=0.05, "adp"), row 10's key_uniforms
+   over the 7.7 M fact keys bit-equal to plain and timed (1-D), ->
+   PassEngine(sum/count/avg, ci=0.95).answer_join of 2048 join
+   rectangles: query_eval twice, join_cell_moments once and join_epilogue
+   once in that window; row 9 against plain at that shape (and rows
+   against the batch); row 11 against plain there under 0.95, no
+   interval and "union" (rows against the batch under 0.95); the port on
+   the CPU on the first 256 queries; ground_truth_join of 64 queries
+   inside [lower, upper], the median SUM error at most bench_joins' 0.15,
+   CI95 coverage printed; times (answer_join by events and host clock,
+   device busy and kernels per answer, row 9 by events and device time
+   against its bound and its plain version's, row 11 by events and device
+   time against its bound and the plain epilogue's device time on the
+   same artifacts, the join answer's stage with row 11 and with the plain
+   epilogue in turns, the answer_join before row 11 as PERF.md records
+   it beside them, peak memory above resident, which must stay under
+   16 GB); 16 tenants' join requests and one copy through the coalescer,
+   bit-equal to their own answer_join, query_eval twice and rows 9 and 11
+   once a dispatch; 770,000 newer fact rows (1 % of their keys outside
+   the dimension table) streamed in 188 batches of 4096 (segment_reduce
+   twice a batch, row 10 four times a batch and twice a regrow; the
+   buffers start full, so overflow and regrow run), a profiler window of
+   10 batches (device kernels a batch, row 10's share), the stream served
+   against the truth; a checkpoint after 32 batches whose restore takes
+   32 more beside the original, states torch.equal and answers
+   bit-equal.
 20. Joins, 3-D: the same at d_fact = 3 (method="kd", one sorted pair a
    fact column); route_multid launches once a stream batch and once a
    regrow.
@@ -3659,6 +3679,14 @@ JOIN_STREAM, JOIN_MISSING = 770_000, 0.01
 # bench_joins' matched-error budget: median |SUM error| / max(|truth|, 1).
 JOIN_ERR = 0.15
 JOIN_CPU_Q = 256
+# The join answer at this shape before row 11 (PERF.md §5: the last whole
+# run of the script with the plain epilogue, on one NVIDIA H100 80GB HBM3
+# at 700 W): ms by events, device busy, device kernels an answer (about
+# 364).
+JOIN_BEFORE_ROW11 = {"1d": {"answer_join_ms": 20.86, "device_busy_ms": 17.48,
+                         "kernels_per_answer": 364},
+                  "3d": {"answer_join_ms": 21.59, "device_busy_ms": 17.71,
+                         "kernels_per_answer": 364}}
 
 
 def join_workload(n, nd, q, seed, d_fact=1):
@@ -3834,6 +3862,243 @@ def edge_cases_join(torch) -> float:
     return err
 
 
+# Row 11, the join epilogue: the requests each case is checked under,
+# (level, delta_budget, small_n_threshold), and the kinds sets.
+EPI_REQUESTS = ((None, "stratum", 12), (0.95, "stratum", 12),
+                (0.95, "union", 30), (0.9, "union", 12))
+EPI_KINDS = (("sum",), ("count",), ("avg",), ("sum", "count", "avg"))
+# (Q, k, su, P, mode): Q = 1; Q and k * P off the kernel's block (256
+# threads of 4-cell chunks: 1024 cells a round) and off its 4-cell chunks
+# (k * P = 185, 13, 1179: no 16-byte loads); P = 1 and 16; more cells than
+# a round (1120, 1179); +-0.0 values ("zeros"); an int64 u_overflow.
+EPI_CASES = ((1, 5, 20, 4, "mixed"), (300, 37, 23, 5, "mixed"),
+             (130, 70, 30, 16, "mixed"), (65, 13, 40, 1, "mixed"),
+             (300, 19, 30, 4, "zeros"), (40, 131, 10, 9, "mixed"),
+             (17, 64, 30, 16, "int64"))
+
+
+def epilogue_case(torch, rng, Q, k, su, P, mode):
+    """(jsyn, jart) of row 11 for a synthetic case: join_case's row 9
+    inputs through the row 9 kernel, and a stand-in synopsis (cell_agg,
+    u_overflow, k, P). Empty cells (count 0) carry +inf / -inf MIN / MAX;
+    every third stratum overflowed its universe buffer. For Q >= 3: row 0
+    has no sampled cell, row 1 only covered cells, row 2 an empty box and
+    no covered cell (a count below 1: AVG divides by 1). "zeros": the
+    fact values, SUM and MIN / MAX +0.0 or -0.0."""
+    import types
+    from repro_torch.joins.executor import JoinArtifacts
+    from repro_torch.kernels.join_moments import join_cell_moments_cuda
+    zeros = mode == "zeros"
+    slots, lo, hi, cover, sampled, agg, total = join_case(
+        torch, rng, Q, k, su, P, 1, 1, "zeros" if zeros else "mixed")
+    kp = k * P
+    lo, hi, cover, sampled, agg = (x.clone() for x in (lo, hi, cover,
+                                                      sampled, agg))
+    if zeros:
+        sign = torch.from_numpy(rng.choice(np.float32([0.0, -0.0]),
+                                           (kp, 5))).to(agg.device)
+        agg[:, 0], agg[:, 3], agg[:, 4] = sign[:, 0], sign[:, 3], sign[:, 4]
+    empty = agg[:, 2] == 0
+    agg[empty, 3] = float("inf")
+    agg[empty, 4] = float("-inf")
+    if Q >= 3:
+        sampled[0] = False
+        cover[1] = True
+        sampled[1] = False
+        hi[2] = lo[2] - 1.0
+        cover[2] = False
+    over = torch.zeros(k, dtype=torch.int64 if mode == "int64"
+                       else torch.int32, device=agg.device)
+    over[::3] = 5
+    m = join_cell_moments_cuda(slots, lo, hi, cover, sampled, agg, total,
+                               0.3)
+    jart = JoinArtifacts(cover=cover, sampled=sampled, exact3=m.exact3,
+                         s_cell=m.s_cell, c_cell=m.c_cell, v_s=m.v_s,
+                         v_c=m.v_c, cov_sc=m.cov_sc, n_grp=m.n_grp,
+                         r_s=m.r_s, r_c=m.r_c, touched=m.touched)
+    jsyn = types.SimpleNamespace(cell_agg=agg, u_overflow=over,
+                                 num_leaves=k, num_partitions=P)
+    return jsyn, jart
+
+
+def jart_rows(jart, n):
+    """The join artifacts of the first n queries."""
+    return dataclasses.replace(jart, **{
+        f.name: getattr(jart, f.name)[:n].contiguous()
+        for f in dataclasses.fields(jart)})
+
+
+def epilogue_kw(request) -> dict:
+    from repro_torch.api import ServingConfig
+    level, budget, thr = request
+    return dict(lam=ServingConfig().lam, level=level,
+                small_n_threshold=thr, delta_budget=budget)
+
+
+def with_f64_row_sums(torch, fn):
+    """``fn()`` with every ``.sum(1)`` of a 2-D float32 tensor taken in
+    float64 and rounded once to float32: run on join_epilogue_plain, the
+    plain composition with its terms as they are and its row sums
+    exact to the last rounding."""
+    orig = torch.Tensor.sum
+
+    def sum64(self, *args, **kw):
+        if self.dtype == torch.float32 and self.dim() == 2 and args == (1,) \
+                and not kw:
+            return orig(self.double(), 1).float()
+        return orig(self, *args, **kw)
+    torch.Tensor.sum = sum64
+    try:
+        return fn()
+    finally:
+        torch.Tensor.sum = orig
+
+
+def half_close(torch, got, want, scale) -> np.ndarray:
+    """Where ci_half meets the tolerance of its square: |got^2 - want^2| <=
+    2 K_RTOL want^2 + 1e-6 scale^2."""
+    g2, w2 = got.cpu().double() ** 2, want.cpu().double() ** 2
+    return ((g2 - w2).abs() <= 2 * K_RTOL * w2 + 1e-6 * scale ** 2).numpy()
+
+
+def epilogue_vs_plain(torch, tag, jsyn, jart, kinds, request, zeros=False,
+                      rows=(1, 3, 16, 240)) -> dict:
+    """Row 11 against its plain version on the same inputs: every field
+    within K_RTOL / K_ATOL; ci_half as the variance it is the root of (2
+    K_RTOL, 1e-6 max|estimate|^2) against the plain version or, on the
+    queries where it is not, against the plain composition with its row
+    sums in float64 (``with_f64_row_sums``; AVG's fallback term divides by
+    C - h_c, which can cancel, and there torch's float32 sums alone put
+    the plain value off the exact-sum one by more than the tolerance);
+    bit for bit on the rows with no sampled cell (every sum exact) and,
+    where ``zeros``, on every SUM and AVG field; bit-equal across two
+    launches; each of ``rows`` first queries served alone bit-equal to
+    the same rows of the batch. Returns the max abs error (ci_half's
+    included) and the count of ci_half values that met only the float64
+    reference."""
+    from repro_torch.kernels.join_epilogue import (FIELDS,
+                                                   join_epilogue_cuda,
+                                                   join_epilogue_plain)
+    kw = epilogue_kw(request)
+    r1 = join_epilogue_cuda(jsyn, jart, kinds, **kw)
+    r2 = join_epilogue_cuda(jsyn, jart, kinds, **kw)
+    plain = join_epilogue_plain(jsyn, jart, kinds, **kw)
+    exact = ~jart.sampled.any(1)
+    err, f64_only = 0.0, 0
+    for kind in kinds:
+        scale = float(plain[kind].estimate.abs().max())
+        for f in FIELDS:
+            got, want = getattr(r1[kind], f), getattr(plain[kind], f)
+            if want is None:
+                if got is not None or getattr(r2[kind], f) is not None:
+                    raise AssertionError(f"{tag} {kind}.{f}: not None")
+                continue
+            if not same_bits(torch, got, getattr(r2[kind], f)):
+                raise AssertionError(f"{tag} {kind}.{f}: differs between "
+                                     "two launches")
+            if f == "ci_half":
+                ok = half_close(torch, got, want, scale)
+                if not ok.all():
+                    exact64 = with_f64_row_sums(
+                        torch, lambda: join_epilogue_plain(
+                            jsyn, jart, (kind,), **kw))[kind].ci_half
+                    ok64 = half_close(torch, got, exact64, scale)
+                    if not (ok | ok64).all():
+                        i = int(np.argwhere(~(ok | ok64))[0, 0])
+                        raise AssertionError(
+                            f"{tag} {kind}.ci_half: {int((~(ok | ok64)).sum())}"
+                            f" values off both references, first at {i}: "
+                            f"{float(got[i])} vs {float(want[i])} (float64 "
+                            f"sums: {float(exact64[i])})")
+                    f64_only += int((~ok).sum())
+                err = max(err, float((got - want).abs().max()))
+            else:
+                err = max(err, close(f"{tag} {kind}.{f}", got.cpu(),
+                                     want.cpu(), K_RTOL, K_ATOL))
+            if not same_bits(torch, got[exact], want[exact]):
+                raise AssertionError(f"{tag} {kind}.{f}: not the plain "
+                                     "version's bits on exact rows")
+            if zeros and kind != "count" and not same_bits(torch, got,
+                                                           want):
+                raise AssertionError(f"{tag} {kind}.{f}: not the plain "
+                                     "version's bits on +-0.0 values")
+    Q = jart.sampled.shape[0]
+    for n in rows:
+        if n >= Q:
+            continue
+        part = join_epilogue_cuda(jsyn, jart_rows(jart, n), kinds, **kw)
+        for kind in kinds:
+            for f in FIELDS:
+                got = getattr(part[kind], f)
+                if got is not None and not bits_equal(
+                        torch, got, getattr(r1[kind], f)[:n]):
+                    raise AssertionError(f"{tag} {kind}.{f}: rows at Q={n} "
+                                         f"differ from the same rows at "
+                                         f"Q={Q}")
+    return {"err": err, "ci_half_f64_only": f64_only}
+
+
+def edge_cases_epilogue(torch) -> dict:
+    """Row 11 against its plain version at EPI_CASES, every kinds set of
+    EPI_KINDS under every request of EPI_REQUESTS."""
+    rng = np.random.default_rng(25)
+    err, n, f64_only = 0.0, 0, 0
+    for Q, k, su, P, mode in EPI_CASES:
+        jsyn, jart = epilogue_case(torch, rng, Q, k, su, P, mode)
+        for kinds in EPI_KINDS:
+            for req in EPI_REQUESTS:
+                got = epilogue_vs_plain(
+                    torch, f"epilogue edge Q={Q} kP={k * P} P={P} {mode} "
+                    f"{'/'.join(kinds)} {req}", jsyn, jart, kinds, req,
+                    zeros=mode == "zeros")
+                err = max(err, got["err"])
+                f64_only += got["ci_half_f64_only"]
+                n += 1
+        del jsyn, jart
+    torch.cuda.empty_cache()
+    emit(check="join_epilogue edge cases", cases=len(EPI_CASES),
+         comparisons=n, max_abs_err=err, ci_half_f64_only=f64_only, ok=True)
+    return {"cases": len(EPI_CASES), "comparisons": n, "err": err,
+            "ci_half_f64_only": f64_only}
+
+
+def epilogue_bound(torch, jsyn, jart, kinds, request) -> dict:
+    """Least time for row 11's work on these inputs: max(bytes / HBM
+    rate, operations / fp32 rate). Bytes: the planes the request reads
+    (s_cell and v_s for sum or avg, c_cell and v_c for count or avg,
+    cov_sc for avg; n_grp and r_s / r_c with a level), sampled, cell_agg,
+    u_overflow, exact3 and touched read once; 5 (7 with a level) rows of
+    Q floats a kind written once. Operations, as the kernel does them a
+    (query, cell): a multiply and an add a masked sum (s, c, vs, vc, csc
+    as needed, the sum's two bounds, the count's upper), 10 for the sum's
+    cell bounds, 2 for the fallback test with a level, 4 for AVG's masked
+    extremes; and a fallback cell of this run's data 12 a kind's half."""
+    level = request[0]
+    w_s = "sum" in kinds or "avg" in kinds
+    w_c = "count" in kinds or "avg" in kinds
+    planes = (2 * w_s + 2 * w_c + ("avg" in kinds)
+              + (level is not None) * (1 + w_s + w_c))
+    Q, kp = jart.sampled.shape
+    P = jsyn.num_partitions
+    nbytes = (planes * Q * kp * 4 + Q * kp + kp * 5 * 4
+              + jsyn.u_overflow.numel() * jsyn.u_overflow.element_size()
+              + Q * 16 + len(kinds) * (7 if level is not None else 5) * Q * 4)
+    sums = (w_s * 2 + w_c * 2 + ("avg" in kinds) + ("sum" in kinds) * 2
+            + ("count" in kinds))
+    per_cell = (2 * sums + 10 * ("sum" in kinds) + 4 * ("avg" in kinds)
+                + 2 * (level is not None))
+    ops = float(per_cell) * Q * kp
+    if level is not None:
+        over = torch.repeat_interleave(jsyn.u_overflow > 0, P)[None]
+        fb = float((jart.sampled & ((jart.n_grp < float(request[2]))
+                                    | over)).sum())
+        ops += fb * 12 * (w_s + w_c) + fb * 10 * ("sum" not in kinds) * w_s
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
+    return {"bytes": nbytes, "operations": ops, "planes_read": planes,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def join_bound(torch, args, jsyn) -> dict:
     """Least time for row 9's work on these inputs: max(bytes / HBM rate,
     operations / fp32 rate). Bytes: the live slots' coordinates, values
@@ -3928,8 +4193,11 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     from repro_torch.core.query import ground_truth_join
     from repro_torch.core.types import QueryBatch
     from repro_torch.joins import build_dim_table, build_join_synopsis
-    from repro_torch.joins.executor import join_slots
+    from repro_torch.joins.executor import (compute_join_artifacts,
+                                            join_answer, join_slots)
     from repro_torch.kernels import native
+    from repro_torch.kernels.join_epilogue import (join_epilogue_cuda,
+                                                   join_epilogue_plain)
     from repro_torch.kernels.join_moments import join_cell_moments_cuda
     from repro_torch.serve import RequestCoalescer
     from repro_torch.serve.coalescer import host_results
@@ -3970,7 +4238,8 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     res = eng.answer_join(fq, dq)
     torch.cuda.synchronize()
     answer_launches = launches_now(native)
-    if answer_launches != {"query_eval": 2, "join_cell_moments": 1}:
+    if answer_launches != {"query_eval": 2, "join_cell_moments": 1,
+                           "join_epilogue": 1}:
         raise AssertionError(f"{tag}: answer_join launched "
                              f"{answer_launches}")
     check_result_shapes(torch, tag, res, JOIN_Q, JOIN_KINDS)
@@ -3986,6 +4255,22 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
                                JOIN_PU, times=plain_time)
     bound = join_bound(torch, args, jsyn)
     step("row 9 against plain")
+
+    # Row 11 against plain at the main shape: the served request (rows
+    # against the batch too), no interval, the "union" budget.
+    jart = compute_join_artifacts(jsyn, q, slots)
+    served = (0.95, "stratum", 12)
+    epi_err, epi_f64_only = 0.0, {}
+    for req in (served, (None, "stratum", 12), (0.95, "union", 30)):
+        got = epilogue_vs_plain(
+            torch, f"{tag} epilogue main Q={JOIN_Q} {req}", jsyn, jart,
+            JOIN_KINDS, req, rows=(1, 3, 16, 240) if req == served else ())
+        epi_err = max(epi_err, got["err"])
+        epi_f64_only[str(req)] = got["ci_half_f64_only"]
+    epi_bound = epilogue_bound(torch, jsyn, jart, JOIN_KINDS, served)
+    emit(check="join_epilogue main shape", path=tag, max_abs_err=epi_err,
+         ci_half_f64_only=epi_f64_only, bound=epi_bound, ok=True)
+    step("row 11 against plain")
 
     # CPU parity, truth.
     join_cpu_parity(torch, tag, jsyn, q, res)
@@ -4032,6 +4317,57 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
             torch, lambda: join_cell_moments_cuda(*args, JOIN_PU)),
         "join_cell_moments_plain": plain_time["join_cell_moments_plain"],
     }
+    # Row 11 at the served request, by events and on the device (the
+    # kernel's record; the wrapper's z and log(3 / delta) are a few torch
+    # ops beside it), against the plain epilogue on the same artifacts.
+    kw = epilogue_kw(served)
+    epi = lambda: join_epilogue_cuda(jsyn, jart, JOIN_KINDS, **kw)  # noqa
+    old_epi = lambda: join_epilogue_plain(jsyn, jart, JOIN_KINDS, **kw)  # noqa
+    eby = device_by_name(torch, epi)
+    plain_prof = device_profile(torch, old_epi, reps=5, warmup=1)
+    times.update({
+        "join_epilogue": cuda_ms(torch, epi, reps=20, warmup=3),
+        "join_epilogue_device": sum(v["ms_per_record"] for name, v in
+                                    eby.items() if "join_epilogue" in name),
+        "join_epilogue_wrapper_device_by_op": {
+            name.split("(")[0][:60]: v["ms_per_record"]
+            for name, v in eby.items()},
+        "join_epilogue_enqueue_host": enqueue_ms(torch, epi),
+        "join_epilogue_plain": cuda_ms(torch, old_epi, reps=5, warmup=1),
+        "join_epilogue_plain_device": plain_prof["ms"],
+        "join_epilogue_plain_ops_per_call": plain_prof["ops_per_call"]})
+    # The join answer's stage with row 11 and with the plain epilogue (the
+    # parent's composition) on the same pinned synopsis, in turns: plain,
+    # kernel, kernel, plain.
+    pinned = (jsyn, slots)
+    ans_kw = dict(kinds=JOIN_KINDS, **kw)
+    new_ans = lambda: join_answer(pinned, q, **ans_kw)  # noqa
+    old_ans = lambda: join_epilogue_plain(  # noqa
+        jsyn, compute_join_artifacts(jsyn, q, slots), JOIN_KINDS, **kw)
+    turns = {"plain": [], "kernel": []}
+    for who in ("plain", "kernel", "kernel", "plain"):
+        fn = old_ans if who == "plain" else new_ans
+        turns[who].append(cuda_ms(torch, fn, reps=5, warmup=1))
+    old_prof = device_profile(torch, old_ans, reps=3, warmup=1)
+    new_prof = device_profile(torch, new_ans, reps=5, warmup=1)
+    times.update({
+        "join_answer_in_turns": statistics.mean(turns["kernel"]),
+        "join_answer_plain_epilogue_in_turns": statistics.mean(
+            turns["plain"]),
+        "join_answer_in_turns_runs": turns,
+        "join_answer_device_busy": new_prof["ms"],
+        "join_answer_kernels": new_prof["ops_per_call"],
+        "join_answer_plain_epilogue_device_busy": old_prof["ms"],
+        "join_answer_plain_epilogue_kernels": old_prof["ops_per_call"],
+        "parent_before_row11": {**JOIN_BEFORE_ROW11[tag], "source": (
+            "PERF.md §5, the last whole run before row 11 (another call: "
+            "not measured here; --baseline builds the parent's kernels, "
+            "not its package)")}})
+    emit(check="join epilogue times", path=tag, card=card,
+         **{k: v for k, v in times.items() if "epilogue" in k
+            or k.startswith("join_answer") or k == "parent_before_row11"},
+         bound=epi_bound)
+    del jart
     torch.cuda.empty_cache()
     step("times")
 
@@ -4052,7 +4388,8 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     co_launches = launches_now(native)
     if (not 0 < n_disp < len(tenants)
             or co_launches != {"query_eval": 2 * n_disp,
-                               "join_cell_moments": n_disp}):
+                               "join_cell_moments": n_disp,
+                               "join_epilogue": n_disp}):
         raise AssertionError(f"{tag} join coalescer: {n_disp} dispatches, "
                              f"launches {co_launches}")
     for i, f in enumerate(futs):
@@ -4152,7 +4489,9 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     step("checkpoint")
     out = {"rows": JOIN_N, "d_fact": d_fact, "method": method,
            "build_s": build_s, "report": report, "kernel_err": kernel_err,
-           "bound": bound, "times_ms": times,
+           "bound": bound, "epilogue_err": epi_err,
+           "epilogue_ci_half_f64_only": epi_f64_only,
+           "epilogue_bound": epi_bound, "times_ms": times,
            "answer_peak_mb_above_resident": peak_mb,
            "answer_launches": answer_launches, "quality": quality,
            "coalescer": {"tenants": len(tenants), "rows": int(sizes.sum()),
@@ -4197,6 +4536,48 @@ def join_kernel_row(j1, j3, edge_err) -> dict:
         "device_ms_3d": t3["join_cell_moments_device"],
         "plain_ms_3d": t3["join_cell_moments_plain"],
         "bound_ms_3d": j3["bound"]["bound_ms"],
+        "bit_stable_across_launches": True,
+        "rows_bit_equal_at_q": [1, 3, 16, 240, JOIN_Q]}
+
+
+def epilogue_kernel_row(j1, j3, edge) -> dict:
+    """Row 11 of the kernels line: the 1-D join answer's shape and
+    launches (its served request: sum/count/avg, ci=0.95), the 3-D ones
+    beside them."""
+    t1, t3 = j1["times_ms"], j3["times_ms"]
+    return {
+        "name": "join_epilogue", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/join_epilogue.cu",
+        "replaces": "src/repro/joins/assemble.py:64",
+        "replaces_note": "no pallas_call: assemble_join and "
+                         "uncertainty/intervals.py:198,217,308, the jnp "
+                         "join epilogue",
+        "pallas_call": None,
+        "launches": j1["answer_launches"]["join_epilogue"],
+        "launches_3d": j3["answer_launches"]["join_epilogue"],
+        "launches_coalesced_tick": j1["coalescer"]["launches"][
+            "join_epilogue"],
+        "coalesced_dispatches": j1["coalescer"]["dispatches"],
+        "max_abs_err": max(edge["err"], j1["epilogue_err"],
+                           j3["epilogue_err"]),
+        "edge_cases": edge["cases"],
+        "edge_comparisons": edge["comparisons"],
+        "edge_max_abs_err": edge["err"],
+        "ci_half_f64_only": {"edge": edge["ci_half_f64_only"],
+                             "1d": j1["epilogue_ci_half_f64_only"],
+                             "3d": j3["epilogue_ci_half_f64_only"]},
+        "ms": t1["join_epilogue"], "plain_ms": t1["join_epilogue_plain"],
+        "bound_ms": j1["epilogue_bound"]["bound_ms"],
+        "bound_by": j1["epilogue_bound"]["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "device_ms": t1["join_epilogue_device"],
+        "plain_device_ms": t1["join_epilogue_plain_device"],
+        "plain_ops_per_call": t1["join_epilogue_plain_ops_per_call"],
+        "enqueue_host_ms": t1["join_epilogue_enqueue_host"],
+        "ms_3d": t3["join_epilogue"],
+        "device_ms_3d": t3["join_epilogue_device"],
+        "plain_device_ms_3d": t3["join_epilogue_plain_device"],
+        "bound_ms_3d": j3["epilogue_bound"]["bound_ms"],
         "bit_stable_across_launches": True,
         "rows_bit_equal_at_q": [1, 3, 16, 240, JOIN_Q]}
 
@@ -6622,6 +7003,7 @@ def check_plan_constants() -> None:
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
+    from repro_torch.kernels.join_epilogue import EPI_CHUNK, EPI_THREADS
     from repro_torch.kernels.join_moments import JM_MAX_D, JM_QT
     from repro_torch.kernels.threefry import CDF_LEN
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
@@ -6652,7 +7034,10 @@ def check_plan_constants() -> None:
            "join_cell_moments limits": (jmo.repro_join_moments_query_tile(),
                                         jmo.repro_join_moments_max_d()),
            "threefry table": native.library(
-               "threefry").repro_threefry_cdf_len()}
+               "threefry").repro_threefry_cdf_len(),
+           "join_epilogue launch": (
+               native.library("join_epilogue").repro_join_epilogue_threads(),
+               native.library("join_epilogue").repro_join_epilogue_chunk())}
     want = {"weighted_segment_reduce chunks": WSEG_MAX_CHUNKS,
             "segment_reduce rows": SEG_MIN_ROWS,
             "segment_reduce chunks": SEG_MAX_CHUNKS,
@@ -6664,7 +7049,8 @@ def check_plan_constants() -> None:
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
             "join_cell_moments limits": (JM_QT, JM_MAX_D),
-            "threefry table": CDF_LEN}
+            "threefry table": CDF_LEN,
+            "join_epilogue launch": (EPI_THREADS, EPI_CHUNK)}
     if got != want:
         raise AssertionError(f"launch plans: the sources' constants {got} "
                              f"are not the wrappers' {want}")
@@ -6855,6 +7241,7 @@ def main(argv=None) -> int:
     # the same in 3-D.
     jtmp = ROOT / "build" / "chip_smoke_checkpoints"
     edge_join_err = edge_cases_join(torch)
+    edge_epi = edge_cases_epilogue(torch)
     j1 = join_path(torch, "1d", 1, "adp", card, jtmp, seed=0)
     j3 = join_path(torch, "3d", 3, "kd", card, jtmp, seed=0)
 
@@ -7080,6 +7467,7 @@ def main(argv=None) -> int:
     for row in rows:
         row.update(join_launches.get(row["name"], {}))
     rows.append(join_kernel_row(j1, j3, edge_join_err))
+    rows.append(epilogue_kernel_row(j1, j3, edge_epi))
     # Launches on the catalog paths (phases 21-22), each read right after
     # its own window: one catalog answer, one partition_stats pass over
     # the 7.7 M rows; rows 1 and 2 timed at the 1-D answer's stacked
@@ -7209,6 +7597,15 @@ def main(argv=None) -> int:
               "device_busy_ms": j["times_ms"]["answer_join_device_busy"],
               "kernels_per_answer": j["times_ms"]["kernels_per_answer"],
               "peak_mb": j["answer_peak_mb_above_resident"],
+              "join_epilogue_device_ms": j["times_ms"][
+                  "join_epilogue_device"],
+              "join_epilogue_plain_device_ms": j["times_ms"][
+                  "join_epilogue_plain_device"],
+              "join_answer_in_turns_ms": j["times_ms"][
+                  "join_answer_in_turns"],
+              "join_answer_plain_epilogue_in_turns_ms": j["times_ms"][
+                  "join_answer_plain_epilogue_in_turns"],
+              "parent_before_row11": j["times_ms"]["parent_before_row11"],
               "ingest_ms_per_batch": j["stream"]["ingest_ms_per_batch"],
               "sum_median_rel_err": j["quality"]["sum_median_rel_err"]}
         for tag, j in (("1d", j1), ("3d", j3))})

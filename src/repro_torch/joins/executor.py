@@ -12,6 +12,10 @@ queries for every requested kind (DESIGN.md §13); the port of
    rectangle on every universe slot, folds the HT-weighted (``1/p``)
    contributions into per-group totals and those into the per-cell
    statistics, and sums the covered cells' exact aggregates.
+4. ``ops.join_epilogue`` (row 11: one launch of a hand-written CUDA kernel
+   on the card, ``assemble_join`` + ``compose_join_interval`` +
+   ``_with_interval`` a kind on the CPU) turns them into every requested
+   kind's estimate, half-width, hard bounds and interval.
 
 :func:`join_answer` is the serving entry ``api.PassEngine.answer_join``
 pins in its plan cache.
@@ -26,7 +30,6 @@ from ..core.types import QueryBatch
 from ..engine.planner import classify_join_cells
 from ..kernels import ops
 from ..kernels import join_moments as _jm
-from .assemble import assemble_join
 from .synopsis import JoinSynopsis, resolve_join_synopsis, JOIN_KINDS
 
 
@@ -93,27 +96,17 @@ def compute_join_artifacts(jsyn: JoinSynopsis, queries: QueryBatch,
 def join_answer(pinned, queries: QueryBatch, plan_masks=None, *, kinds,
                 lam: float, level: float | None, small_n_threshold: int,
                 delta_budget: str):
-    """One join artifact stage feeding every requested kind's epilogue.
+    """One join artifact stage feeding one epilogue for every requested
+    kind (``ops.join_epilogue``: row 11's one launch on the card).
     ``pinned`` is a (JoinSynopsis, JoinSlots) pair; ``level=None`` is the
     plain path (``lam``-scaled CLT half-width, no calibrated endpoints).
     ``plan_masks`` is accepted and ignored (the prepared-entry signature).
     """
-    from ..uncertainty.intervals import (_z_of, _with_interval,
-                                         compose_join_interval)
     jsyn, slots = pinned
     jart = compute_join_artifacts(jsyn, queries, slots)
-    scale = lam if level is None else _z_of(level, jsyn.device)
-    out = {}
-    for kind in kinds:
-        res = assemble_join(jsyn, jart, kind, scale)
-        if level is not None:
-            half, _ = compose_join_interval(
-                jsyn, jart, kind, level,
-                small_n_threshold=small_n_threshold,
-                delta_budget=delta_budget)
-            res = _with_interval(res, half, clip_bounds=True)
-        out[kind] = res
-    return out
+    return ops.join_epilogue(jsyn, jart, kinds, lam=lam, level=level,
+                             small_n_threshold=small_n_threshold,
+                             delta_budget=delta_budget)
 
 
 __all__ = ["JoinArtifacts", "compute_join_artifacts", "universe_group_ids",

@@ -34,7 +34,8 @@ KERNELS = {"query_eval": "query_eval",
            "route_multid": "route_multid",
            "sample_extremes": "sample_extremes",
            "join_cell_moments": "join_moments",
-           "threefry": "threefry"}
+           "threefry": "threefry",
+           "join_epilogue": "join_epilogue"}
 SOURCES = tuple(dict.fromkeys(KERNELS.values()))
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -168,12 +169,18 @@ def check_tensors(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+class DtypeError(TypeError, ValueError):
+    """A tensor of a dtype the kernel does not take: a TypeError, and a
+    ValueError like a wrapper's other refusals of its arguments."""
+
+
 def check_dtype(name: str, dtype, **tensors) -> None:
     for key, t in tensors.items():
         if t.dtype != dtype:
-            raise TypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
+            raise DtypeError(f"{name}: {key} must be {dtype}, got {t.dtype}")
 
 
 __all__ = ["SOURCES", "KERNELS", "LAUNCHES", "reset_launches", "build_all",
            "library", "library_path", "check_launch", "current_stream",
-           "launch", "device_type", "check_tensors", "check_dtype"]
+           "launch", "device_type", "check_tensors", "check_dtype",
+           "DtypeError"]

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .bootstrap import bootstrap_moments_cuda, bootstrap_moments_plain
+from .join_epilogue import join_epilogue_cuda, join_epilogue_plain
 from .join_moments import join_cell_moments_cuda, join_cell_moments_plain
 from .native import device_type
 from .query_eval import query_eval_cuda, query_eval_plain
@@ -192,8 +193,25 @@ def join_cell_moments(slots, q_lo, q_hi, cover, sampled, cell_agg,
     return join_cell_moments_plain(slots, *args, total_rows, p_u)
 
 
+def join_epilogue(jsyn, jart, kinds, *, lam: float, level: float | None,
+                  small_n_threshold: int, delta_budget: str):
+    """Every requested kind's QueryResult of an fk-join batch from the
+    join synopsis and the batch's ``JoinArtifacts`` (row 9's planes,
+    ``sampled``, ``exact3``, ``touched``): estimate, half-width, hard
+    bounds and, with a ``level``, the clipped interval. The reference has
+    no Pallas kernel for it (plain jnp); CUDA tensors launch the
+    hand-written kernel of ``csrc/join_epilogue.cu`` once for all kinds,
+    CPU tensors run the port's composition (``join_epilogue_plain``)."""
+    kw = dict(lam=lam, level=level, small_n_threshold=small_n_threshold,
+              delta_budget=delta_budget)
+    if device_type("join_epilogue", jart.sampled, jart.exact3,
+                   jsyn.cell_agg, jsyn.u_overflow) == "cuda":
+        return join_epilogue_cuda(jsyn, jart, kinds, **kw)
+    return join_epilogue_plain(jsyn, jart, kinds, **kw)
+
+
 __all__ = ["query_eval", "stratified_moments", "weighted_moments",
            "flat_slots", "stratified_moments_flat", "weighted_moments_flat",
            "bootstrap_moments", "sample_extremes", "segment_reduce",
            "weighted_segment_reduce", "route_multid", "join_cell_moments",
-           "tree_sum_last"]
+           "join_epilogue", "tree_sum_last"]

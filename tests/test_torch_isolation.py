@@ -71,7 +71,8 @@ def test_port_imports_no_jax_and_no_reference_package():
                 "repro_torch.core.distributed", "repro_torch.core.baselines",
                 "repro_torch.core.updates", "repro_torch.core.estimators",
                 "repro_torch.api.deprecation", "repro_torch.kernels.ref",
-                "repro_torch.data.loader", "repro_torch.kernels.threefry"):
+                "repro_torch.data.loader", "repro_torch.kernels.threefry",
+                "repro_torch.kernels.join_epilogue"):
         assert mod in report["imported"]
 
 

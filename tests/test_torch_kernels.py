@@ -262,4 +262,5 @@ def test_missing_toolkit_raises(monkeypatch, tmp_path):
     assert set(native.LAUNCHES) == {
         "query_eval", "stratified_moments", "stratified_weighted_moments",
         "bootstrap_moments", "segment_reduce", "weighted_segment_reduce",
-        "route_multid", "sample_extremes", "join_cell_moments", "threefry"}
+        "route_multid", "sample_extremes", "join_cell_moments", "threefry",
+        "join_epilogue"}
