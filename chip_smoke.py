@@ -12,8 +12,9 @@
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
 stratified_moments.cu, sample_extremes.cu, segment_reduce.cu,
-route_multid.cu and query_eval.cu (six sources) are built beside the
-current sources, held against the current kernels and timed beside them:
+route_multid.cu, query_eval.cu and join_moments.cu (seven sources) are
+built beside the current sources, held against the current kernels and
+timed beside them:
 rows 1 (query_eval) and 7 (route_multid) must give the baseline's bits at
 every shape they are checked at (row 7 on non-finite rows too, where it
 differs from its plain version), row 2 (stratified_moments) the first
@@ -24,21 +25,29 @@ the values that differ from the baseline's are counted and, like every
 value, held within tolerance of plain. Row 5 (segment_reduce) must give
 the baseline's bits too but for ties of +0.0 and -0.0 in its MIN/MAX
 columns, which a baseline from before the signed-zero rule breaks the
-other way (counted), rows 3 and 4 (the weighted moments) at the
-bootstrap's shapes and every edge case without a NaN coordinate on a valid
-slot, and row 6 (weighted_segment_reduce) must meet it within rtol=3e-5,
-atol=1e-3. Row 8 (sample_extremes) is bit-equal to its plain version at
-every shape, the baseline's too. Rows 1-8 of the kernels line then carry
-the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
+other way (counted), rows 3 and 4 (the weighted moments) at every shape
+with s <= 2048 slots a stratum (one slot chunk: the bootstrap's shapes,
+the edge and class cases up to 300 slots, the chunk case at 2048; above
+it, up to the baseline's 32,768, their differing values counted), row 9
+(join_cell_moments: its eight planes, exact3 and touched) at every edge
+case and at the join 1-D and 3-D shapes, where it is also timed in turns
+with the baseline's and the join answer is served with either (the same
+bits), and row 6 (weighted_segment_reduce) must meet it within
+rtol=3e-5, atol=1e-3. Row 8 (sample_extremes) is bit-equal to its plain
+version at every shape, the baseline's too. Rows 1-9 of the kernels line
+then carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
 baseline_device_ms; rows 2 and 8 timed in turns with the baseline's at the
-serving shapes; null without --baseline).
+serving shapes, row 9 baseline_row9_ms / baseline_row9_device_ms; null
+without --baseline).
 
 Phases, each of which fails the run:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: the hand-written CUDA kernels from src/repro_torch/kernels/csrc
-   (and, with --baseline, DIR's six sources); the wrappers' launch plans
-   and rows 2 and 8's slot chunk and scratch against the sources'.
+   (and, with --baseline, DIR's seven sources); the wrappers' launch
+   plans, rows 2 and 8's slot chunk and scratch, rows 3 and 4's slot
+   chunk, plan and scratch, and row 9's tiles and scratch against the
+   sources'.
 3. Kernel against plain on the card at edge shapes (ragged Q and k, d up
    to 16, inverted empty leaves, ragged validity, s = 1, several tiles);
    stratified_moments also where covered, empty and mixed pairs all
@@ -127,7 +136,16 @@ Phases, each of which fails the run:
    s up to 2500), each printing its counts, and three of them again with
    NaN coordinates on valid slots (one slot of a stratum, every slot of
    another): those strata mixed or empty under every query, never their
-   totals; weighted_segment_reduce (N up to 65537, k up to 3000).
+   totals; weighted_segment_reduce (N up to 65537, k up to 3000). Then
+   rows 3 and 4 around slot chunks of 2048 (s = 2048, 2049, 32,768,
+   32,769, 40,000 and 65,537; k = 1, 3 and 17; d = 1, 3 and 16; R up to
+   9) on
+   banded inputs where covered, empty and mixed (query, stratum, chunk)
+   triples occur, NaN coordinates on valid slots in every other case,
+   each chunk's classes printed: within tolerance of plain (over query
+   chunks), bit-equal across two launches, the fused block bit-equal to R
+   scan launches, rows of query 0 and of a slice alone bit-equal to the
+   batch's, and at s = 2048 bit-equal to the baseline.
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
    n_boot=200, key=5)).answer(). Fused launches bootstrap_moments and
@@ -192,9 +210,11 @@ Phases, each of which fails the run:
    against its plain version at edge shapes (Q = 1, k = 1, Q, k and k * P
    off the kernel's tiles, P = 1 and 16, su = 1, leaves with no valid
    slot, groups of one slot, every key missing from the dimension side,
-   NaN coordinates on valid slots, +-0.0 values, D = 16): within tolerance
-   (bit for bit on +-0.0), bit-equal across two launches, rows at Q = 1,
-   3, 16, 240 bit-equal to the same rows of the batch. Row 11
+   NaN coordinates on valid slots, +-0.0 values, D = 2, 4, 6 and 16,
+   boxes that hold whole cells, non-finite values), each printing its
+   (query, cell) classes: within tolerance (bit for bit on +-0.0),
+   bit-equal across two launches and to the baseline, rows at Q = 1, 3,
+   16, 240 bit-equal to the same rows of the batch. Row 11
    (join_epilogue, csrc/join_epilogue.cu; the JAX package's epilogue is
    plain jnp) against join_epilogue_plain at edge shapes (Q = 1, Q and
    k * P off its 256-thread block and 4-cell chunks, P = 1 and 16, strata
@@ -215,8 +235,10 @@ Phases, each of which fails the run:
    over the 7.7 M fact keys bit-equal to plain and timed (1-D), ->
    PassEngine(sum/count/avg, ci=0.95).answer_join of 2048 join
    rectangles: query_eval twice, join_cell_moments once and join_epilogue
-   once in that window; row 9 against plain at that shape (and rows
-   against the batch); row 11 against plain there under 0.95, no
+   once in that window; the (query, cell) class split (empty, covered,
+   mixed); row 9 against plain at that shape (and rows against the batch,
+   and bit-equal to the baseline); row 11 against plain there under 0.95,
+   no
    interval and "union" (rows against the batch under 0.95); the port on
    the CPU on the first 256 queries; ground_truth_join of 64 queries
    inside [lower, upper], the median SUM error at most bench_joins' 0.15,
@@ -225,9 +247,11 @@ Phases, each of which fails the run:
    against its bound and its plain version's, row 11 by events and device
    time against its bound and the plain epilogue's device time on the
    same artifacts, the join answer's stage with row 11 and with the plain
-   epilogue in turns, the answer_join before row 11 as PERF.md records
-   it beside them, peak memory above resident, which must stay under
-   16 GB); 16 tenants' join requests and one copy through the coalescer,
+   epilogue in turns; with a baseline, row 9 and answer_join (events, host
+   clock, device busy) with the baseline's row 9 and this one in turns,
+   the answers bit-equal; peak memory above resident, which must stay
+   under 16 GB); 16 tenants' join requests and one copy through the
+   coalescer,
    bit-equal to their own answer_join, query_eval twice and rows 9 and 11
    once a dispatch; 770,000 newer fact rows (1 % of their keys outside
    the dimension table) streamed in 188 batches of 4096 (segment_reduce
@@ -340,9 +364,16 @@ Phases, each of which fails the run:
    (a pair's bits do not depend on its batch). With --baseline, row 2 of
    every arm against the baseline's: bit-equal where s <= 2048 (ST, PASS,
    BSS2x), the differing values counted above (US, ESS, BSS10x; held
-   within tolerance of plain). Every serving shim once on the card, the
-   same bits as PassEngine (poisson_bootstrap: one bootstrap_moments
-   launch); the flat ops on the ESS synopsis's samples, shuffled with pad
+   within tolerance of plain). The US arm under the bootstrap
+   (CIConfig(method="bootstrap", n_boot=200), use_aggregates=False):
+   fused (one bootstrap_moments launch) and scan (200
+   stratified_weighted_moments launches) bit-equal, the truth of 64
+   queries inside [lower, upper], the CPU answer on 16 queries; row 4
+   there against plain on 64 queries, timed by events and on the device
+   against its bound and torch.bmm of a prebuilt predicate. Every serving
+   shim once on the card on the PASS and the US synopses, the same bits
+   as PassEngine (poisson_bootstrap: one bootstrap_moments launch); the
+   flat ops on the ESS and the US synopses' samples, shuffled with pad
    rows (one stratified_moments and one stratified_weighted_moments
    launch), against the kernel on the slots and the weighted plain
    version. Times of each arm's answer, AQPPP.estimate and the builds.
@@ -797,9 +828,10 @@ def edge_cases_moments(torch, dev, base) -> float:
     return err
 
 
-def chunk_case(rng, Q, k, s, d, nan=False, special=False):
-    """Inputs above one slot chunk (as tests/test_torch_pair_chunks.py
-    builds them): each stratum's samples in its own cell of a grid over
+def chunk_case(rng, Q, k, s, d, nan=False, special=False, chunk=None):
+    """Inputs above one slot chunk of ``chunk`` slots (rows 2 and 8's
+    PAIR_CHUNK by default; as tests/test_torch_pair_chunks.py builds them):
+    each stratum's samples in its own cell of a grid over
     [0, 1)^d, chunk j of its slots in the j-th band of the cell in column 0,
     so that query edges cover some chunks of a stratum, miss others and cut
     the rest; ragged validity, stratum k // 2 without a valid slot (k > 2).
@@ -808,7 +840,8 @@ def chunk_case(rng, Q, k, s, d, nan=False, special=False):
     valid slot of the last chunk of the last stratum, NaN in column 0 of
     stratum 1's first chunk. ``special``: NaN, +-inf, +-F32_MAX and +-0.0
     values (row 8 only)."""
-    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK as C
+    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK
+    C = chunk or PAIR_CHUNK
     n_ch = -(-s // C)
     cells = max(2, int(np.ceil(k ** (1 / d))))
     cell = np.stack(np.unravel_index(np.arange(k) % cells ** d,
@@ -849,10 +882,12 @@ def chunk_case(rng, Q, k, s, d, nan=False, special=False):
     return c, a, valid, q_lo, q_hi
 
 
-def chunk_classes(torch, c, valid, q_lo, q_hi) -> list:
-    """pair_classes of each slot chunk of PAIR_CHUNK slots on its own: the
-    (query, stratum, chunk) triples' classes, one dict a chunk."""
-    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK as C
+def chunk_classes(torch, c, valid, q_lo, q_hi, chunk=None) -> list:
+    """pair_classes of each slot chunk of ``chunk`` slots (PAIR_CHUNK by
+    default) on its own: the (query, stratum, chunk) triples' classes, one
+    dict a chunk."""
+    from repro_torch.kernels.stratified_estimate import PAIR_CHUNK
+    C = chunk or PAIR_CHUNK
     s = c.shape[1]
     return [pair_classes(torch, c[:, s0:s0 + C].contiguous(),
                          valid[:, s0:s0 + C].contiguous(), q_lo, q_hi)
@@ -2292,8 +2327,9 @@ def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi,
     inputs: sums within rtol=3e-5, atol=1e-3; each kernel bit-equal across
     two launches; every bootstrap_moments slice r torch.equal to
     stratified_weighted_moments with W[r] (DESIGN.md §10); with a baseline,
-    both bit-equal to the baseline's kernels. Returns the max absolute
-    errors."""
+    both bit-equal to the baseline's kernels up to one slot chunk
+    (WEIGHTED_CHUNK), their differing values counted above it. Returns the
+    max absolute errors."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.stratified_estimate import (
@@ -2316,11 +2352,14 @@ def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi,
             raise AssertionError(f"{tag}: bootstrap_moments[{r}] is not "
                                  f"stratified_weighted_moments(W[{r}])")
     if base is not None:
+        from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
         lib = base["weighted_moments"]
         for name, x, w in (("bootstrap_moments", boot, W),
                            ("stratified_weighted_moments", one, W[0])):
-            if not bits_equal(torch, x, baseline_moments(torch, lib, sm, w,
-                                                         *q)):
+            old = baseline_moments(torch, lib, sm, w, *q)
+            if a.shape[1] > WEIGHTED_CHUNK:
+                weighted_baseline_differing(torch, f"{tag} {name}", x, old)
+            elif not bits_equal(torch, x, old):
                 raise AssertionError(f"{tag}: {name} differs from the "
                                      "baseline kernel")
     return {
@@ -2357,7 +2396,9 @@ def edge_cases_weighted(torch, dev, base=None) -> dict:
     baseline's kernels; three of the class cases again with NaN
     coordinates on valid slots (edge_weighted_nan); weighted_segment_reduce
     over N in {1, 17, 4096, 65537} x k in {1, 53, 1024, 3000} with -1 and
-    out-of-range ids, zero weights, and all rows in one segment."""
+    out-of-range ids, zero weights, and all rows in one segment. Above
+    one slot chunk (s = 2500) the baseline's differing values are
+    counted."""
     errs = dict.fromkeys(("stratified_weighted_moments", "bootstrap_moments",
                           "weighted_segment_reduce"), 0.0)
     reps = (1, 7, 8, 9, 33)
@@ -2395,7 +2436,7 @@ def edge_cases_weighted(torch, dev, base=None) -> dict:
             errs[name] = max(errs[name], err)
         emit(check="edge_weighted_classes", case=tag, **classes,
              max_abs_err=e, baseline_bit_equal=None if base is None
-             else True)
+             or s > 2048 else True)
         class_cases.append(classes)
         cases += 1
     nan_cases = edge_cases_weighted_nan(torch, dev, base, errs)
@@ -2481,6 +2522,124 @@ def edge_cases_weighted_nan(torch, dev, base, errs) -> int:
         emit(check="edge_weighted_nan", case=tag, **classes,
              nan_strata=[l1, l2], max_abs_err=e, baseline_differs=differs)
     return len(shapes)
+
+
+# (Q, k, s, d, R) of rows 3 and 4 around slot chunks of WEIGHTED_CHUNK =
+# 2048: on one chunk (the parent's bits) and one past it; on and past
+# 32,768 (the parent's largest s), Queue 3 item 1's 40,000 slots, past
+# 65,536; k = 1, 3 and 17; d = 1, 3 and 16; NaN coordinates on valid slots
+# in every other case.
+WEIGHTED_CHUNK_CASES = ((33, 3, 2048, 3, 9), (33, 1, 2049, 1, 9),
+                        (17, 17, 32_768, 3, 2), (40, 3, 32_769, 3, 8),
+                        (36, 1, 40_000, 1, 7), (20, 17, 40_000, 16, 2),
+                        (24, 3, 65_537, 3, 3))
+# The most slots a stratum a baseline from before the slot chunks of rows 3
+# and 4 takes.
+BASELINE_WEIGHTED_MAX_S = 32_768
+
+
+def weighted_baseline_differing(torch, tag, x, want) -> int:
+    """Values of rows 3 and 4 that differ from the baseline's above one
+    slot chunk, where the chunk fold changes their summation order (as
+    rows 2 and 8's did in PR 23); printed, and held within tolerance of
+    plain elsewhere."""
+    n = int((x.view(torch.int32) != want.view(torch.int32)).sum())
+    emit(check="weighted baseline above one chunk", case=tag,
+         differing=n, values=int(x.numel()))
+    return n
+
+
+def weighted_plain_chunked(torch, c, a, valid, W, q_lo, q_hi):
+    """bootstrap_moments_plain over chunks of queries, so that its
+    (8, Q', k, s) temporaries stay near 2**25 elements (its replicates
+    already run in blocks of 8)."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_plain
+    k, s = a.shape
+    step = max(1, (1 << 25) // (8 * k * max(s, 1)))
+    return torch.cat([bootstrap_moments_plain(c, a, valid, W, q_lo[i:i + step],
+                                              q_hi[i:i + step])
+                      for i in range(0, q_lo.shape[0], step)], 1)
+
+
+def weighted_chunk_check(torch, tag, c, a, valid, W, q_lo, q_hi,
+                         base=None) -> float:
+    """Rows 3 and 4 at one shape, three ways and against plain:
+    bootstrap_moments bit-equal across two launches; its block bit-equal
+    to R launches of stratified_weighted_moments (the scan); its rows of
+    query 0 and of a slice alone bit-equal to the same rows of the batch;
+    within rtol=3e-5, atol=1e-3 of the plain version (over query chunks);
+    with a baseline and s <= WEIGHTED_CHUNK, both kernels bit-equal to the
+    baseline's. Returns the max absolute error."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        WEIGHTED_CHUNK, stratified_weighted_moments_cuda)
+    sm, q = (c, a, valid), (q_lo, q_hi)
+    boot = bootstrap_moments_cuda(*sm, W, *q)
+    if not bits_equal(torch, boot, bootstrap_moments_cuda(*sm, W, *q)):
+        raise AssertionError(f"{tag}: bootstrap_moments differs between "
+                             "two launches")
+    for r in range(W.shape[0]):
+        if not bits_equal(torch, boot[r], stratified_weighted_moments_cuda(
+                *sm, W[r].contiguous(), *q)):
+            raise AssertionError(f"{tag}: bootstrap_moments[{r}] is not the "
+                                 f"scan's stratified_weighted_moments(W[{r}])")
+    Q = q_lo.shape[0]
+    for sl in (slice(0, 1), slice(Q // 3, Q - 1)):
+        part = bootstrap_moments_cuda(*sm, W, q_lo[sl].contiguous(),
+                                      q_hi[sl].contiguous())
+        if not bits_equal(torch, part, boot[:, sl]):
+            raise AssertionError(f"{tag}: rows {sl.start}-{sl.stop - 1} "
+                                 "alone differ from the batch's")
+    if base is not None and a.shape[1] <= WEIGHTED_CHUNK:
+        lib = base["weighted_moments"]
+        if not (bits_equal(torch, boot, baseline_moments(torch, lib, sm, W,
+                                                         *q))
+                and bits_equal(torch, boot[0], baseline_moments(
+                    torch, lib, sm, W[0].contiguous(), *q))):
+            raise AssertionError(f"{tag}: differs from the baseline kernel")
+    elif base is not None and a.shape[1] <= BASELINE_WEIGHTED_MAX_S:
+        weighted_baseline_differing(torch, tag, boot, baseline_moments(
+            torch, base["weighted_moments"], sm, W, *q))
+    err = close(f"{tag} bootstrap_moments", boot.cpu(),
+                weighted_plain_chunked(torch, *sm, W, *q).cpu(), K_RTOL,
+                K_ATOL)
+    del boot
+    torch.cuda.empty_cache()
+    return err
+
+
+def edge_cases_weighted_chunks(torch, dev, base=None) -> dict:
+    """Rows 3 and 4 around one slot chunk (WEIGHTED_CHUNK_CASES) on
+    chunk_case's banded inputs with Poisson and non-integer weights (on
+    invalid slots too): each chunk's classes printed (all three in some
+    chunk of every case with k > 1), weighted_chunk_check on each, NaN
+    coordinates on valid slots of a chunk in every other case. Returns the
+    max absolute error and the case count."""
+    from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
+    err = 0.0
+    for i, (Q, k, s, d, R) in enumerate(WEIGHTED_CHUNK_CASES):
+        rng = np.random.default_rng(Q * 37 + k * 11 + s + d)
+        c, a, valid, q_lo, q_hi = chunk_case(rng, Q, k, s, d,
+                                             nan=i % 2 == 1,
+                                             chunk=WEIGHTED_CHUNK)
+        W = rng.poisson(1.0, (R, k, s)).astype(np.float32)
+        W[:, :, ::3] = rng.uniform(0, 2.5, W[:, :, ::3].shape)
+        t = [torch.from_numpy(x).to(dev) for x in (c, a, valid, W, q_lo,
+                                                   q_hi)]
+        tag = f"edge weighted chunks Q={Q} k={k} s={s} d={d} R={R}"
+        per_chunk = chunk_classes(torch, t[0], t[2], t[4], t[5],
+                                  chunk=WEIGHTED_CHUNK)
+        if k > 1 and not any(min(x.values()) > 0 for x in per_chunk):
+            raise AssertionError(f"{tag}: no chunk holds all three "
+                                 f"classes: {per_chunk}")
+        e = weighted_chunk_check(torch, tag, *t, base=base)
+        err = max(err, e)
+        emit(check="edge_weighted_chunk_classes", case=tag,
+             chunks=len(per_chunk), chunk_classes=per_chunk,
+             nan=i % 2 == 1, max_abs_err=e,
+             baseline_bit_equal=None if base is None or s > WEIGHTED_CHUNK
+             else True)
+    return {"err": err, "cases": len(WEIGHTED_CHUNK_CASES)}
 
 
 def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
@@ -2612,19 +2771,23 @@ def planner_path(torch, tag, run) -> dict:
 
 BASELINE_SOURCES = ("weighted_moments", "stratified_moments",
                     "sample_extremes", "segment_reduce", "route_multid",
-                    "query_eval")
+                    "query_eval", "join_moments")
 
 
 def build_baseline(base: Path) -> dict:
-    """The kernels of rows 1-8 from an earlier checkout ``base``: its
+    """The kernels of rows 1-9 from an earlier checkout ``base``: its
     weighted_moments.cu, stratified_moments.cu, sample_extremes.cu,
-    segment_reduce.cu, route_multid.cu and query_eval.cu, built with the
-    same nvcc flags (one process each, all at once) into build/baseline/
-    and loaded with ctypes, to be held against the current ones and timed
-    beside them on the same card. Rows 2 and 8 from before the slot chunks
-    (no ``repro_<name>_slot_chunk``) take no scratch.
+    segment_reduce.cu, route_multid.cu, query_eval.cu and join_moments.cu,
+    built with the same nvcc flags (one process each, all at once) into
+    build/baseline/ and loaded with ctypes, to be held against the current
+    ones and timed beside them on the same card. Rows 2 and 8 from before
+    the slot chunks (no ``repro_<name>_slot_chunk``) take no scratch.
     Weighted sources from before the cover/empty redesign (no
-    ``repro_weighted_plan``) take no scratch pointer; segment_reduce.cu
+    ``repro_weighted_plan``) take no scratch pointer, and from before the
+    slot chunks (no ``repro_weighted_chunk``) no scratch size (their
+    scratch is the current one's at s <= WEIGHTED_CHUNK); row 9 from before
+    the class tiles (no ``repro_join_moments_scratch``) takes no scratch;
+    segment_reduce.cu
     sources from before the one-launch weighted kernel (no
     ``repro_weighted_segment_max_chunks``) take a scratch of chunk partials
     and launch twice, and from before the cooperative segment_reduce (no
@@ -2651,11 +2814,13 @@ def build_baseline(base: Path) -> dict:
             for name in BASELINE_SOURCES}
     lib = libs["weighted_moments"]
     lib.scratch = hasattr(lib, "repro_weighted_plan")
-    n_ptr = 8 if lib.scratch else 7
+    lib.chunked = hasattr(lib, "repro_weighted_chunk")
+    ptrs = [ctypes.c_void_p] * (8 if lib.scratch else 7) + (
+        [ctypes.c_longlong] if lib.chunked else [])
     lib.repro_stratified_weighted_moments.argtypes = \
-        [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.repro_bootstrap_moments.argtypes = [ctypes.c_void_p] * n_ptr + \
-        [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.repro_bootstrap_moments.argtypes = ptrs + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
     lib.repro_stratified_weighted_moments.restype = ctypes.c_int
     lib.repro_bootstrap_moments.restype = ctypes.c_int
     for name in ("stratified_moments", "sample_extremes"):
@@ -2688,6 +2853,13 @@ def build_baseline(base: Path) -> dict:
     qe.repro_query_eval.argtypes = [ctypes.c_void_p] * 7 + \
         [ctypes.c_int] * 4 + [ctypes.c_void_p]
     qe.repro_query_eval.restype = ctypes.c_int
+    jm = libs["join_moments"]
+    jm.scratch = hasattr(jm, "repro_join_moments_scratch")
+    jm.repro_join_cell_moments.argtypes = (
+        [ctypes.c_void_p] * (15 if jm.scratch else 14)
+        + ([ctypes.c_longlong] if jm.scratch else []) + [ctypes.c_int] * 5
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+    jm.repro_join_cell_moments.restype = ctypes.c_int
     return libs
 
 
@@ -2714,6 +2886,8 @@ def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
     if lib.scratch:
         scratch = weighted_scratch(R, Q, k, s, d, a.device)
         ptrs.append(scratch.data_ptr())
+        if lib.chunked:
+            ptrs.append(scratch.numel())
     if w.dim() == 2:
         baseline_call("stratified_weighted_moments",
                       lib.repro_stratified_weighted_moments, *ptrs, Q, k, s,
@@ -2722,6 +2896,36 @@ def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
         baseline_call("bootstrap_moments", lib.repro_bootstrap_moments,
                       *ptrs, R, Q, k, s, d)
     return out
+
+
+def baseline_join(torch, libs, slots, q_lo, q_hi, cover, sampled, cell_agg,
+                  total_rows, p_u):
+    """The baseline join_cell_moments kernel's JoinMoments on row 9's
+    arguments; one that takes a scratch gets its own."""
+    from repro_torch.kernels.join_moments import (PLANES, JoinMoments,
+                                                  _scales,
+                                                  join_scratch_floats)
+    lib = libs["join_moments"]
+    k, su, P, D = (slots.num_leaves, slots.capacity, slots.num_partitions,
+                   slots.d)
+    Q, kp = q_lo.shape[0], k * P
+    dev = q_lo.device
+    planes = torch.empty((len(PLANES), Q, kp), dtype=torch.float32,
+                         device=dev)
+    exact3 = torch.empty((Q, 3), dtype=torch.float32, device=dev)
+    touched = torch.empty((Q,), dtype=torch.float32, device=dev)
+    extra = ()
+    if lib.scratch:
+        scratch = torch.empty(join_scratch_floats(kp), dtype=torch.float32,
+                              device=dev)
+        extra = (scratch.data_ptr(), scratch.numel())
+    baseline_call("join_cell_moments", lib.repro_join_cell_moments,
+                  *(x.data_ptr() for x in (
+                      slots.s_coord, slots.s_a, slots.s_last,
+                      slots.cell_start, slots.cell_box, q_lo, q_hi, cover,
+                      sampled, cell_agg, total_rows, planes, exact3,
+                      touched)), *extra, Q, k, su, P, D, *_scales(p_u))
+    return JoinMoments(*planes.unbind(0), exact3=exact3, touched=touched)
 
 
 def baseline_pair(torch, libs, name, c, a, valid, q_lo, q_hi):
@@ -3679,14 +3883,6 @@ JOIN_STREAM, JOIN_MISSING = 770_000, 0.01
 # bench_joins' matched-error budget: median |SUM error| / max(|truth|, 1).
 JOIN_ERR = 0.15
 JOIN_CPU_Q = 256
-# The join answer at this shape before row 11 (PERF.md §5: the last whole
-# run of the script with the plain epilogue, on one NVIDIA H100 80GB HBM3
-# at 700 W): ms by events, device busy, device kernels an answer (about
-# 364).
-JOIN_BEFORE_ROW11 = {"1d": {"answer_join_ms": 20.86, "device_busy_ms": 17.48,
-                         "kernels_per_answer": 364},
-                  "3d": {"answer_join_ms": 21.59, "device_busy_ms": 17.71,
-                         "kernels_per_answer": 364}}
 
 
 def join_workload(n, nd, q, seed, d_fact=1):
@@ -3742,11 +3938,13 @@ def join_rows(args, n):
             cover[:n].contiguous(), sampled[:n].contiguous(), agg, tot)
 
 
-def join_vs_plain(torch, tag, args, p_u, zeros=False, times=None) -> float:
+def join_vs_plain(torch, tag, args, p_u, zeros=False, times=None,
+                  base=None) -> float:
     """Row 9 against its plain version on the same inputs: every output
     within K_RTOL / K_ATOL (bit for bit where ``zeros``: every value +-0.0),
     the kernel bit-equal across two launches, and each of its rows
-    bit-equal at Q = 1, 3, 16 and 240 to the same row of the whole batch.
+    bit-equal at Q = 1, 3, 16 and 240 to the same row of the whole batch;
+    with a baseline, every output bit-equal to the baseline kernel's.
     With ``times``, the plain call's CUDA-event time goes to
     ``times["join_cell_moments_plain"]`` (one cold call: at the main shape
     it takes seconds, so it is timed where it runs for the check). Returns
@@ -3757,6 +3955,13 @@ def join_vs_plain(torch, tag, args, p_u, zeros=False, times=None) -> float:
     fields = PLANES + ("exact3", "touched")
     m1 = join_cell_moments_cuda(*args, p_u)
     m2 = join_cell_moments_cuda(*args, p_u)
+    if base is not None:
+        old = baseline_join(torch, base, *args, p_u)
+        for f in fields:
+            if not bits_equal(torch, getattr(m1, f), getattr(old, f)):
+                raise AssertionError(f"{tag}: {f} differs from the baseline "
+                                     "kernel")
+        del old
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -3771,8 +3976,14 @@ def join_vs_plain(torch, tag, args, p_u, zeros=False, times=None) -> float:
         if not bits_equal(torch, got, getattr(m2, f)):
             raise AssertionError(f"{tag}: {f} differs between two launches")
         want = getattr(plain, f)
-        err = max(err, close(f"{tag} {f}", got.cpu(), want.cpu(), K_RTOL,
-                             K_ATOL))
+        # A non-finite value makes NaN (0 * inf) in both versions, at the
+        # same entries; the rest is held to the tolerance.
+        g, w = got.cpu(), want.cpu()
+        if not torch.equal(torch.isnan(g), torch.isnan(w)):
+            raise AssertionError(f"{tag}: {f} is NaN at other entries than "
+                                 "plain")
+        err = max(err, close(f"{tag} {f}", torch.where(g.isnan(), 0.0, g),
+                             torch.where(w.isnan(), 0.0, w), K_RTOL, K_ATOL))
         if zeros and not bits_equal(torch, got, want):
             raise AssertionError(f"{tag}: {f} not the plain version's bits")
     Q = args[1].shape[0]
@@ -3796,7 +4007,11 @@ def join_case(torch, rng, Q, k, su, P, d_f, d_d, mode, p_u=0.3):
     aggregates. ``mode``: mixed; empty_leaves (every other leaf has no
     valid slot); singles (every key once: groups of one slot); nopart
     (every key missing from the dimension side); nan (NaN coordinates on
-    valid slots); zeros (values +0.0 and -0.0)."""
+    valid slots); zeros (values +0.0 and -0.0); covered (boxes that hold
+    whole cells, Q >= 7); inf (+inf, -inf and NaN values on three valid
+    slots: unbounded cell boxes). Modes covered, inf and nan take boxes
+    over every finite slot, the unbounded box, three cells' boxes exactly,
+    a box with a NaN bound and wide random boxes."""
     from repro_torch.kernels.join_moments import join_slots
     dev = torch.device("cuda")
     u_c = rng.normal(size=(k, su, d_f)).astype(np.float32)
@@ -3814,6 +4029,11 @@ def join_case(torch, rng, Q, k, su, P, d_f, d_d, mode, p_u=0.3):
     elif mode == "zeros":
         u_a = np.where(rng.random((k, su)) < 0.5, 0.0, -0.0).astype(
             np.float32)
+    elif mode == "inf":
+        on = np.argwhere(u_valid)
+        for v, (i, j) in zip((np.inf, -np.inf, np.nan),
+                             on[rng.choice(len(on), 3, replace=False)]):
+            u_a[i, j] = v
     u_part = (u_key % P).astype(np.int32)
     if mode == "nopart":
         u_part[:] = -1
@@ -3823,6 +4043,17 @@ def join_case(torch, rng, Q, k, su, P, d_f, d_d, mode, p_u=0.3):
     D, kp = d_f + d_d, k * P
     lo = rng.normal(-0.5, 1.0, size=(Q, D)).astype(np.float32)
     hi = (lo + rng.uniform(0.0, 2.0, size=(Q, D))).astype(np.float32)
+    if mode in ("covered", "inf", "nan"):
+        # Boxes over every finite slot, unbounded, cell boxes exactly, a
+        # NaN bound, then wide random boxes: covered cells in most rows.
+        box = slots.cell_box.cpu().numpy()
+        finite = np.flatnonzero(np.isfinite(box).all((1, 2)))
+        lo[0], hi[0] = -10.0, 10.0
+        lo[1], hi[1] = -np.inf, np.inf
+        for i, cell in zip(range(2, 5), rng.choice(finite, 3)):
+            lo[i], hi[i] = box[cell, 0], box[cell, 1]
+        lo[5, 0] = np.nan
+        hi[6:] = lo[6:] + rng.uniform(1.0, 4.0, size=(Q - 6, D))
     agg = rng.normal(size=(kp, 5)).astype(np.float32)
     agg[:, 2] = rng.integers(0, 9, kp)
     if mode == "zeros":
@@ -3833,10 +4064,12 @@ def join_case(torch, rng, Q, k, su, P, d_f, d_d, mode, p_u=0.3):
 
 
 # (Q, k, su, P, d_fact, d_dim, mode): Q = 1; k = 1; Q, k, k * P off the
-# kernel's 128-query and 8-cell tiles; P = 1 and 16; su = 1; leaves with no
-# valid slot; groups of one slot; every key missing from the dimension
-# side; NaN coordinates on valid slots; +-0.0 values; D = 16; leaves of
-# more live slots than a block stages (2048), walked from global memory.
+# kernel's 32-query and 128-cell tiles and off multiples of 4 (4-byte
+# stores); P = 1 and 16; su = 1; leaves with no valid slot; groups of one
+# slot; every key missing from the dimension side; NaN coordinates on
+# valid slots; +-0.0 values; D = 2, 4, 6 and 16 (compile-time D up to 4);
+# long runs (3000 slots a leaf); covered cells (boxes holding cells, the
+# unbounded box) with finite and with non-finite values.
 JOIN_CASES = ((1, 5, 20, 4, 1, 1, "mixed"), (70, 1, 30, 3, 1, 1, "mixed"),
               (130, 37, 23, 5, 1, 1, "mixed"), (65, 13, 40, 1, 2, 1, "mixed"),
               (129, 13, 40, 16, 1, 2, "mixed"), (33, 19, 1, 4, 1, 1, "mixed"),
@@ -3844,18 +4077,47 @@ JOIN_CASES = ((1, 5, 20, 4, 1, 1, "mixed"), (70, 1, 30, 3, 1, 1, "mixed"),
               (40, 19, 30, 4, 1, 1, "singles"),
               (40, 19, 30, 4, 1, 1, "nopart"), (65, 19, 30, 4, 1, 2, "nan"),
               (300, 19, 30, 4, 1, 1, "zeros"),
-              (64, 8, 50, 4, 3, 13, "mixed"), (33, 3, 3000, 4, 1, 1, "mixed"))
+              (64, 8, 50, 4, 3, 13, "mixed"), (33, 3, 3000, 4, 1, 1, "mixed"),
+              (70, 9, 40, 16, 1, 1, "covered"), (40, 8, 30, 4, 3, 1,
+                                                 "covered"),
+              (33, 7, 30, 3, 2, 1, "inf"), (20, 5, 30, 4, 1, 5, "covered"),
+              (129, 33, 25, 16, 1, 1, "inf"))
 
 
-def edge_cases_join(torch) -> float:
-    """Row 9 against its plain version at JOIN_CASES."""
+def join_classes(torch, args) -> dict:
+    """Counts of row 9's (query, cell) classes on its arguments (the
+    kernel's rule, join_moments.join_cell_classes), over query chunks."""
+    from repro_torch.kernels.join_moments import (COVERED, EMPTY, MIXED,
+                                                  cell_nan_flags,
+                                                  join_cell_classes)
+    slots, lo, hi = args[:3]
+    flags = cell_nan_flags(slots)
+    out = dict.fromkeys(("empty", "covered", "mixed"), 0)
+    for i in range(0, lo.shape[0], 256):
+        cls = join_cell_classes(slots, lo[i:i + 256], hi[i:i + 256], flags)
+        for name, code in (("empty", EMPTY), ("covered", COVERED),
+                           ("mixed", MIXED)):
+            out[name] += int((cls == code).sum())
+    return out
+
+
+def edge_cases_join(torch, base=None) -> float:
+    """Row 9 against its plain version (and, with a baseline, bit-equal to
+    the baseline kernel) at JOIN_CASES, each case's class counts printed;
+    covered pairs appear in the covered and inf cases."""
     rng = np.random.default_rng(19)
     err = 0.0
     for Q, k, su, P, d_f, d_d, mode in JOIN_CASES:
         args = join_case(torch, rng, Q, k, su, P, d_f, d_d, mode)
-        e = join_vs_plain(torch, f"join edge Q={Q} k={k} su={su} P={P} "
-                          f"D={d_f + d_d} {mode}", args, 0.3,
-                          zeros=mode == "zeros")
+        tag = f"join edge Q={Q} k={k} su={su} P={P} D={d_f + d_d} {mode}"
+        classes = join_classes(torch, args)
+        if mode in ("covered", "inf") and not classes["covered"]:
+            raise AssertionError(f"{tag}: no covered pair: {classes}")
+        e = join_vs_plain(torch, tag, args, 0.3, zeros=mode == "zeros",
+                          base=base)
+        emit(check="join edge classes", case=tag, **classes,
+             max_abs_err=e, baseline_bit_equal=None if base is None
+             else True)
         err = max(err, e)
     emit(check="join_cell_moments edge cases", cases=len(JOIN_CASES),
          max_abs_err=err, ok=True)
@@ -4186,7 +4448,8 @@ def join_cpu_parity(torch, tag, jsyn, q, res, n=JOIN_CPU_Q) -> None:
     emit(check="join cpu_parity", path=tag, queries=n, ok=True)
 
 
-def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
+def join_path(torch, tag, d_fact, method, card, tmp: Path, seed,
+              base=None) -> dict:
     """19 (1-D) / 20 (3-D). Join serving and streaming at the slice's size
     through the entry points a user calls (module doc)."""
     from repro_torch.api import CoalescerConfig, PassEngine, ServingConfig
@@ -4251,8 +4514,12 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     slots = join_slots(jsyn)
     args = join_inputs(torch, slots, jsyn, q.lo, q.hi)
     plain_time = {}
+    classes = join_classes(torch, args)
+    emit(check="join cell classes", path=tag, Q=JOIN_Q,
+         cells=jsyn.num_leaves * jsyn.num_partitions, p_u=JOIN_PU,
+         **classes)
     kernel_err = join_vs_plain(torch, f"{tag} join main Q={JOIN_Q}", args,
-                               JOIN_PU, times=plain_time)
+                               JOIN_PU, times=plain_time, base=base)
     bound = join_bound(torch, args, jsyn)
     step("row 9 against plain")
 
@@ -4317,6 +4584,9 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
             torch, lambda: join_cell_moments_cuda(*args, JOIN_PU)),
         "join_cell_moments_plain": plain_time["join_cell_moments_plain"],
     }
+    if base is not None:
+        times.update(join_baseline_turns(torch, tag, eng, fq, dq, args,
+                                         base))
     # Row 11 at the served request, by events and on the device (the
     # kernel's record; the wrapper's z and log(3 / delta) are a few torch
     # ops beside it), against the plain epilogue on the same artifacts.
@@ -4358,15 +4628,10 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
         "join_answer_device_busy": new_prof["ms"],
         "join_answer_kernels": new_prof["ops_per_call"],
         "join_answer_plain_epilogue_device_busy": old_prof["ms"],
-        "join_answer_plain_epilogue_kernels": old_prof["ops_per_call"],
-        "parent_before_row11": {**JOIN_BEFORE_ROW11[tag], "source": (
-            "PERF.md §5, the last whole run before row 11 (another call: "
-            "not measured here; --baseline builds the parent's kernels, "
-            "not its package)")}})
+        "join_answer_plain_epilogue_kernels": old_prof["ops_per_call"]})
     emit(check="join epilogue times", path=tag, card=card,
          **{k: v for k, v in times.items() if "epilogue" in k
-            or k.startswith("join_answer") or k == "parent_before_row11"},
-         bound=epi_bound)
+            or k.startswith("join_answer")}, bound=epi_bound)
     del jart
     torch.cuda.empty_cache()
     step("times")
@@ -4489,7 +4754,7 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     step("checkpoint")
     out = {"rows": JOIN_N, "d_fact": d_fact, "method": method,
            "build_s": build_s, "report": report, "kernel_err": kernel_err,
-           "bound": bound, "epilogue_err": epi_err,
+           "bound": bound, "classes": classes, "epilogue_err": epi_err,
            "epilogue_ci_half_f64_only": epi_f64_only,
            "epilogue_bound": epi_bound, "times_ms": times,
            "answer_peak_mb_above_resident": peak_mb,
@@ -4507,7 +4772,52 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed) -> dict:
     return out
 
 
-def join_kernel_row(j1, j3, edge_err) -> dict:
+def join_baseline_turns(torch, tag, eng, fq, dq, args, base) -> dict:
+    """Row 9 and the join answer with the baseline's row 9 and with this
+    one, in turns (baseline, current, current, baseline): row 9 by events
+    and on the device (its kernels' mean records), answer_join by events,
+    host clock and device busy. The baseline's row 9 goes in through
+    kernels.ops, which the join executor calls; the answers with it are
+    the current answers' bits."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve.coalescer import host_results
+    own = kops.join_cell_moments_cuda
+
+    def old_row9(slots, *rest):
+        return baseline_join(torch, base, slots, *rest)
+
+    row9 = {"current": lambda: own(*args, JOIN_PU),
+            "baseline": lambda: old_row9(*args, JOIN_PU)}
+
+    def answer():
+        return eng.answer_join(fq, dq)
+
+    runs = {"baseline": [], "current": []}
+    want = host_results(answer())
+    for who in ("baseline", "current", "current", "baseline"):
+        kops.join_cell_moments_cuda = own if who == "current" else old_row9
+        try:
+            require_same(f"{tag} join answer with the {who} row 9",
+                         host_results(answer()), want, JOIN_KINDS)
+            kby = device_by_name(torch, row9[who])
+            runs[who].append({
+                "row9_ms": cuda_ms(torch, row9[who], reps=10, warmup=2),
+                "row9_device_ms": sum(v["ms_per_record"]
+                                      for v in kby.values()),
+                "answer_join_ms": cuda_ms(torch, answer, reps=10, warmup=2),
+                "answer_join_host_ms": host_ms(torch, answer, reps=10),
+                "answer_join_device_busy_ms": device_profile(
+                    torch, answer, reps=5, warmup=1)["ms"]})
+        finally:
+            kops.join_cell_moments_cuda = own
+    out = {f"{who}_{key}": mean_of([r[key] for r in rs])
+           for who, rs in runs.items() for key in rs[0]}
+    emit(check="join row 9 in turns with the baseline", path=tag, **out,
+         runs=runs, answers_bit_equal=True)
+    return {"in_turns": out}
+
+
+def join_kernel_row(j1, j3, edge_err, base=None) -> dict:
     """Row 9 of the kernels line: the 1-D join answer's shapes and
     launches, the 3-D ones beside them."""
     t1, t3 = j1["times_ms"], j3["times_ms"]
@@ -4536,8 +4846,14 @@ def join_kernel_row(j1, j3, edge_err) -> dict:
         "device_ms_3d": t3["join_cell_moments_device"],
         "plain_ms_3d": t3["join_cell_moments_plain"],
         "bound_ms_3d": j3["bound"]["bound_ms"],
+        "classes_1d": j1["classes"], "classes_3d": j3["classes"],
         "bit_stable_across_launches": True,
-        "rows_bit_equal_at_q": [1, 3, 16, 240, JOIN_Q]}
+        "rows_bit_equal_at_q": [1, 3, 16, 240, JOIN_Q],
+        "baseline_bit_equal": None if base is None else True,
+        **{f"{key}{sfx}": (j["times_ms"].get("in_turns") or {}).get(key)
+           for sfx, j in (("", j1), ("_3d", j3))
+           for key in ("baseline_row9_ms", "baseline_row9_device_ms",
+                       "current_row9_ms", "current_row9_device_ms")}}
 
 
 def epilogue_kernel_row(j1, j3, edge) -> dict:
@@ -5861,6 +6177,9 @@ def sharded_summary(sh1, sh3, dist24) -> dict:
 T1_RATE, T1_B, T1_Q, T1_SEED = 0.005, 64, 2048, 11
 T1_KINDS = ("count", "sum", "avg")
 T1_CPU_Q = 128
+# Queries of the plain bootstrap at the US shape (k = 1, s = 38,500, R =
+# 200): its (8, Q', 1, s) temporaries take ~80 MB each at Q' = 64.
+US_PLAIN_Q = 64
 # tests/test_system.py's ordering on SUM, and AQP++'s bar there.
 T1_AQPPP_ERR = 0.1
 # A plain version's chunk of queries keeps its (Q, k, s) planes at ~2**27
@@ -6158,6 +6477,124 @@ def table1_shims(torch, syn, q) -> dict:
     return out
 
 
+def weighted_device_ms(torch, fn) -> float:
+    """Device ms of one weighted launch (rows 3 and 4): the sum of the mean
+    record of each of its kernels (weighted_*_kernel) in a profiler
+    window."""
+    kby = device_by_name(torch, fn)
+    return sum(v["ms_per_record"] for name, v in kby.items()
+               if "weighted_" in name and "_kernel" in name)
+
+
+def us_bootstrap(torch, card, syn, q, truth) -> dict:
+    """Table 1's US arm (k = 1, s = 38,500: above one slot chunk of rows 3
+    and 4) under CIConfig(method="bootstrap", n_boot=200, key=5) through
+    PassEngine (use_aggregates=False, as the arm serves): fused (one
+    bootstrap_moments and one row-10 launch) and scan (200 of each of
+    stratified_weighted_moments and row 10), bit-equal; the truth of 64
+    queries inside [lower, upper]; the port's CPU answer on the first 16
+    queries. Then row 4 at this shape against plain on the first
+    US_PLAIN_Q queries, timed by events and on the device against its
+    bound (bytes, or R x Q x (slots inside) x 5 float operations plus the
+    slot tests at 67 TFLOP/s) and torch.bmm of a prebuilt predicate (TF32
+    off); the poisson_bootstrap shim and weighted_moments_flat run on it
+    in table1_shims and flat_ops_check."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.kernels import native
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
+    from repro_torch.kernels.stratified_estimate import (WEIGHTED_CHUNK,
+                                                         samples_inside,
+                                                         weighted_plan)
+    sv = ServingConfig(kinds=BOOT_KINDS, use_aggregates=False)
+    Q = int(q.lo.shape[0])
+    res, launches = {}, {}
+    for fused in (True, False):
+        eng = PassEngine(syn, sv, boot_ci(boot_fused=fused))
+        torch.cuda.synchronize()
+        native.reset_launches()
+        res[fused] = eng.answer(q)
+        torch.cuda.synchronize()
+        launches[fused] = launches_now(native)
+        check_result_shapes(torch, f"table1 US bootstrap fused={fused}",
+                            res[fused], Q, BOOT_KINDS)
+    if (launches[True].get("bootstrap_moments") != 1
+            or "stratified_weighted_moments" in launches[True]
+            or launches[False].get("stratified_weighted_moments") != N_BOOT
+            or "bootstrap_moments" in launches[False]):
+        raise AssertionError(f"table1 US bootstrap launches {launches}")
+    for kind in BOOT_KINDS:
+        for field in ("estimate", "ci_lo", "ci_hi", "ci_half"):
+            x, y = getattr(res[True][kind], field), getattr(res[False][kind],
+                                                            field)
+            if not bits_equal(torch, x, y):
+                raise AssertionError(f"table1 US bootstrap {kind}.{field}: "
+                                     "fused != scan")
+    n = 64
+    quality = check_truth("table1 US bootstrap", res[True],
+                          {key: v[:n] for key, v in truth.items()}, n, 0.1,
+                          BOOT_KINDS)
+    check_cpu_parity(torch, "table1 US bootstrap", syn, q, res[True], n=16,
+                     kinds=BOOT_KINDS, ci=boot_ci(), use_aggregates=False)
+    # Row 4 alone at this shape.
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    k, s = syn.sample_a.shape
+    d = int(q.lo.shape[1])
+    W = boot_weights(torch, syn, q.lo.device)
+    R = int(W.shape[0])
+    ql, qh = q.lo[:US_PLAIN_Q], q.hi[:US_PLAIN_Q]
+    err = close(f"table1 US bootstrap_moments Q={US_PLAIN_Q}",
+                bootstrap_moments_cuda(*sm, W, ql, qh).cpu(),
+                bootstrap_moments_plain(*sm, W, ql, qh).cpu(), K_RTOL,
+                K_ATOL)
+    inside = samples_inside(*sm[::2], q.lo, q.hi)            # (Q, k, s)
+    n_inside = int(inside.sum())
+    ops = 5.0 * R * n_inside + 2.0 * d * Q * k * s + 5.0 * R * k * s
+    nbytes = (4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
+              + 4 * R * k * s + 12 * R * Q * k)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    pred = inside.permute(1, 0, 2).to(torch.float32).contiguous()
+    a = syn.sample_a
+    rhs = torch.stack([W, W * a, W * a * a], -1).permute(1, 2, 0, 3
+                                                         ).reshape(k, s, -1)
+    rhs = rhs.contiguous()
+    del inside
+
+    def kernel():
+        return bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
+
+    def library():
+        return torch.bmm(pred, rhs)
+
+    times = {"bootstrap_moments": cuda_ms(torch, kernel, reps=10, warmup=2),
+             "bootstrap_moments_device": weighted_device_ms(torch, kernel),
+             f"bootstrap_moments_plain_q{US_PLAIN_Q}": cuda_ms(
+                 torch, lambda: bootstrap_moments_plain(*sm, W, ql, qh),
+                 reps=2, warmup=1),
+             f"bootstrap_moments_q{US_PLAIN_Q}": cuda_ms(
+                 torch, lambda: bootstrap_moments_cuda(*sm, W, ql, qh),
+                 reps=10, warmup=2),
+             "bmm_bootstrap_moments": cuda_ms(torch, library, reps=10,
+                                              warmup=2),
+             # cuBLAS splits this k = 1 product: a memset and a GEMM a call.
+             "bmm_bootstrap_moments_device": device_ms(
+                 torch, library, reps=10, warmup=1),
+             "answer_fused": cuda_ms(torch, lambda: PassEngine(
+                 syn, sv, boot_ci()).answer(q), reps=5, warmup=1)}
+    bound = {"bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": nbytes, "operations": ops, "slots_inside": n_inside}
+    del pred, rhs, W
+    torch.cuda.empty_cache()
+    out = {"launches_fused": launches[True], "launches_scan": launches[False],
+           "fused_equals_scan": True, "quality": quality, "max_abs_err": err,
+           "times_ms": times, "bound": bound, "k": k, "s": s, "R": R,
+           "chunks": -(-s // WEIGHTED_CHUNK),
+           "plan_segments_per_tile_and_smem_bytes": weighted_plan(Q, k, s, d)}
+    emit(phase="25 table1 US bootstrap", card=card, **out)
+    return out
+
+
 def flat_ops_check(torch, syn, q) -> dict:
     """The flat-sample ops on the card: the synopsis's valid samples
     flattened and shuffled (seed 23) with pad rows, through
@@ -6320,13 +6757,17 @@ def table1_path(torch, card, c, a, base=None) -> dict:
         shapes[tag]["errs"] = errs
     base_differs = (None if base is None
                     else table1_baseline(torch, syns, q, base))
+    us_boot = us_bootstrap(torch, card, syns["US"], q, truth)
     shims = table1_shims(torch, syns["PASS"], q)
+    shims_us = table1_shims(torch, syns["US"], q)
     flat = flat_ops_check(torch, syns["PASS-ESS"], q)
+    flat_us = flat_ops_check(torch, syns["US"], q)
     del syns
     torch.cuda.empty_cache()
     out = {"grid": grid, "arms": arms, "aqppp_times_ms": ap_times,
            "builds_s": builds, "shapes": shapes, "shims": shims,
-           "flat": flat, "K": K, "baseline_differs": base_differs,
+           "shims_us": shims_us, "flat": flat, "flat_us": flat_us,
+           "us_bootstrap": us_boot, "K": K, "baseline_differs": base_differs,
            "seconds": time.perf_counter() - t_phase}
     emit(phase="25 table1 times", card=card,
          answer_ms={name: x["times_ms"] for name, x in arms.items()},
@@ -6651,12 +7092,36 @@ def table1_rows(rows, tab1) -> None:
             extra["baseline_differing_table1"] = tab["baseline_differs"]
             extra["launches_flat_op"] = tab["flat"]["launches"][name]
             row["max_abs_err"] = max(row["max_abs_err"], tab["flat"]["err"])
+        us = tab["us_bootstrap"]
         if name == "stratified_weighted_moments":
             extra["launches_flat_op"] = tab["flat"]["launches"][name]
-            row["max_abs_err"] = max(row["max_abs_err"], tab["flat"]["werr"])
+            extra["launches_flat_op_us"] = tab["flat_us"]["launches"][name]
+            extra["launches_us_scan_bootstrap_answer"] = us[
+                "launches_scan"][name]
+            row["max_abs_err"] = max(row["max_abs_err"], tab["flat"]["werr"],
+                                     tab["flat_us"]["werr"])
         if name == "bootstrap_moments":
-            extra["launches_poisson_bootstrap_shim"] = tab["shims"][
-                "uncertainty.poisson_bootstrap"][name]
+            ut = us["times_ms"]
+            extra.update({
+                "launches_poisson_bootstrap_shim": tab["shims"][
+                    "uncertainty.poisson_bootstrap"][name],
+                "launches_poisson_bootstrap_shim_us": tab["shims_us"][
+                    "uncertainty.poisson_bootstrap"][name],
+                "launches_us_fused_bootstrap_answer": us["launches_fused"][
+                    name],
+                "us_shape": {"Q": T1_Q, "k": us["k"], "s": us["s"],
+                             "R": us["R"], "chunks": us["chunks"]},
+                "ms_us": ut["bootstrap_moments"],
+                "device_ms_us": ut["bootstrap_moments_device"],
+                "bound_ms_us": us["bound"]["bound_ms"],
+                "bound_by_us": us["bound"]["bound_by"],
+                f"plain_ms_us_q{US_PLAIN_Q}": ut[
+                    f"bootstrap_moments_plain_q{US_PLAIN_Q}"],
+                f"ms_us_q{US_PLAIN_Q}": ut[f"bootstrap_moments_q{US_PLAIN_Q}"],
+                "library_ms_us": ut["bmm_bootstrap_moments"],
+                "library_device_ms_us": ut["bmm_bootstrap_moments_device"],
+                "us_fused_answer_ms": ut["answer_fused"]})
+            row["max_abs_err"] = max(row["max_abs_err"], us["max_abs_err"])
         if name in ("segment_reduce", "route_multid"):
             for tag, x in legs.items():
                 if name in x["stream_launches"]:
@@ -6998,25 +7463,31 @@ def check_plan_constants() -> None:
     which its bits rest), route_multid's block and cluster sizes,
     query_eval's block, leaf tile and queries a block, sample_extremes'
     tiles, rows 2 and 8's slot chunk (on which row 2's bits rest) and
-    their scratch, and the length of row 10's Poisson table."""
+    their scratch, rows 3 and 4's slot chunk (on which their bits rest
+    above it), segments a tile, shared memory and scratch, row 9's query
+    and cell tiles and scratch, and the length of row 10's Poisson
+    table."""
     from repro_torch.kernels import native
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
     from repro_torch.kernels.join_epilogue import EPI_CHUNK, EPI_THREADS
-    from repro_torch.kernels.join_moments import JM_MAX_D, JM_QT
+    from repro_torch.kernels.join_moments import (JM_CT, JM_MAX_D, JM_QT,
+                                                  join_scratch_floats)
     from repro_torch.kernels.threefry import CDF_LEN
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
-    from repro_torch.kernels.stratified_estimate import (PAIR_CHUNK,
-                                                         pair_scratch_floats)
+    from repro_torch.kernels.stratified_estimate import (
+        PAIR_CHUNK, WEIGHTED_CHUNK, pair_scratch_floats, weighted_library,
+        weighted_plan, weighted_scratch_floats)
     seg = native.library("segment_reduce")
     sm = native.library("stratified_moments")
     rt = native.library("route_multid")
     qe = native.library("query_eval")
     se = native.library("sample_extremes")
     jmo = native.library("join_moments")
+    wm = weighted_library()
     got = {"weighted_segment_reduce chunks":
            seg.repro_weighted_segment_max_chunks(),
            "segment_reduce rows": seg.repro_segment_reduce_min_rows(),
@@ -7031,8 +7502,10 @@ def check_plan_constants() -> None:
                                      se.repro_sample_extremes_leaf_tile()),
            "slot chunk": (sm.repro_stratified_moments_slot_chunk(),
                           se.repro_sample_extremes_slot_chunk()),
-           "join_cell_moments limits": (jmo.repro_join_moments_query_tile(),
-                                        jmo.repro_join_moments_max_d()),
+           "weighted slot chunk": wm.repro_weighted_chunk(),
+           "join_cell_moments tiles": (jmo.repro_join_moments_query_tile(),
+                                       jmo.repro_join_moments_cell_tile(),
+                                       jmo.repro_join_moments_max_d()),
            "threefry table": native.library(
                "threefry").repro_threefry_cdf_len(),
            "join_epilogue launch": (
@@ -7048,7 +7521,8 @@ def check_plan_constants() -> None:
             "query_eval queries a block": QE_MAX_QUERIES,
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
-            "join_cell_moments limits": (JM_QT, JM_MAX_D),
+            "weighted slot chunk": WEIGHTED_CHUNK,
+            "join_cell_moments tiles": (JM_QT, JM_CT, JM_MAX_D),
             "threefry table": CDF_LEN,
             "join_epilogue launch": (EPI_THREADS, EPI_CHUNK)}
     if got != want:
@@ -7067,6 +7541,30 @@ def check_plan_constants() -> None:
             if fn(Q, k, s, d) != pair_scratch_floats(Q, k, s, d, stats):
                 raise AssertionError(f"{name}: the wrapper's scratch for "
                                      f"{(Q, k, s, d)} is not the source's")
+    # Rows 3 and 4: the plan (segments a tile, shared memory) and scratch
+    # at the serving shapes, around one chunk and at Table 1's US shape.
+    lt, nbytes = ctypes.c_int(), ctypes.c_int()
+    for R, Q, k, s, d in ((200, 2048, 1024, 75, 1), (200, 2048, 1024, 75, 3),
+                          (1, 2048, 1, 38_500, 1), (200, 2048, 1, 38_500, 1),
+                          (9, 33, 1, WEIGHTED_CHUNK, 1),
+                          (8, 40, 3, WEIGHTED_CHUNK + 1, 3),
+                          (2, 20, 17, 40_000, 16), (3, 24, 3, 65_537, 3),
+                          (200, 2048, 64, 19_250, 1), (7, 129, 53, 2500, 3),
+                          (1, 1, 1, 0, 1)):
+        if (wm.repro_weighted_plan(Q, k, s, d, ctypes.byref(lt),
+                                   ctypes.byref(nbytes)) != 0
+                or (lt.value, nbytes.value) != weighted_plan(Q, k, s, d)
+                or wm.repro_weighted_scratch(R, Q, k, s, d)
+                != weighted_scratch_floats(R, Q, k, s, d)):
+            raise AssertionError(f"weighted kernels: the wrapper's plan or "
+                                 f"scratch for {(R, Q, k, s, d)} is not the "
+                                 "source's")
+    jmo.repro_join_moments_scratch.argtypes = [ctypes.c_int]
+    jmo.repro_join_moments_scratch.restype = ctypes.c_longlong
+    for kp in (1, 15, 16_384):
+        if jmo.repro_join_moments_scratch(kp) != join_scratch_floats(kp):
+            raise AssertionError(f"join_cell_moments: the wrapper's scratch "
+                                 f"for k*P={kp} is not the source's")
     seg.repro_segment_reduce_chunk.argtypes = [ctypes.c_int]
     for n in (0, 1, 255, 4096, 65536, 69696, 10 ** 6):
         if segment_plan(n)[0] != seg.repro_segment_reduce_chunk(n):
@@ -7204,8 +7702,10 @@ def main(argv=None) -> int:
     profile_ingest(torch, "1d", s1)
     profile_ingest(torch, "3d", s3)
 
-    # 11. The bootstrap's kernels against plain at edge shapes.
+    # 11. The bootstrap's kernels against plain at edge shapes, then rows 3
+    # and 4 around one slot chunk.
     edge_w = edge_cases_weighted(torch, dev, base)
+    edge_wch = edge_cases_weighted_chunks(torch, dev, base)
 
     # 12. 1-D bootstrap serving, fused and scan; 13. 3-D, fused.
     b1 = boot_serve(torch, "1d", run1, 0.05, scan=True)
@@ -7240,10 +7740,10 @@ def main(argv=None) -> int:
     # 19. Row 9 at edge shapes, then 1-D join serving and streaming; 20.
     # the same in 3-D.
     jtmp = ROOT / "build" / "chip_smoke_checkpoints"
-    edge_join_err = edge_cases_join(torch)
+    edge_join_err = edge_cases_join(torch, base)
     edge_epi = edge_cases_epilogue(torch)
-    j1 = join_path(torch, "1d", 1, "adp", card, jtmp, seed=0)
-    j3 = join_path(torch, "3d", 3, "kd", card, jtmp, seed=0)
+    j1 = join_path(torch, "1d", 1, "adp", card, jtmp, seed=0, base=base)
+    j3 = join_path(torch, "3d", 3, "kd", card, jtmp, seed=0, base=base)
 
     # 21. The partition catalog tier, 1-D: rows 1, 2 and 5 at catalog edge
     # shapes, the time-bucket lake, bench_partitions' defaults, faults and
@@ -7424,12 +7924,17 @@ def main(argv=None) -> int:
     }
     for name, row in boot_rows.items():
         source, replaces = SOURCES[name]
+        chunked = name in ("stratified_weighted_moments",
+                           "bootstrap_moments")
         rows.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "max_abs_err": max(edge_w[name], bk["errs"][name]),
+            "max_abs_err": max(edge_w[name], bk["errs"][name],
+                               edge_wch["err"] if chunked else 0.0),
             "bound_ms": bb[name]["bound_ms"],
             "bound_by": bb[name]["bound_by"], **row})
+        if chunked:
+            rows[-1]["chunk_edge_cases"] = edge_wch["cases"]
     # Launches on the serve layer's paths (phases 16-18), each read right
     # after its own window: one ladder tier, one coalesced tick of 16
     # tenants, one coalesced tick of 4 bootstrap tenants, the restored
@@ -7466,7 +7971,7 @@ def main(argv=None) -> int:
     }
     for row in rows:
         row.update(join_launches.get(row["name"], {}))
-    rows.append(join_kernel_row(j1, j3, edge_join_err))
+    rows.append(join_kernel_row(j1, j3, edge_join_err, base))
     rows.append(epilogue_kernel_row(j1, j3, edge_epi))
     # Launches on the catalog paths (phases 21-22), each read right after
     # its own window: one catalog answer, one partition_stats pass over
@@ -7605,7 +8110,7 @@ def main(argv=None) -> int:
                   "join_answer_in_turns"],
               "join_answer_plain_epilogue_in_turns_ms": j["times_ms"][
                   "join_answer_plain_epilogue_in_turns"],
-              "parent_before_row11": j["times_ms"]["parent_before_row11"],
+              "row9_in_turns_with_baseline": j["times_ms"].get("in_turns"),
               "ingest_ms_per_batch": j["stream"]["ingest_ms_per_batch"],
               "sum_median_rel_err": j["quality"]["sum_median_rel_err"]}
         for tag, j in (("1d", j1), ("3d", j3))})

@@ -49,13 +49,17 @@ def bootstrap_moments_plain(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
 def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
     """Launch the CUDA kernels on the tensors' device and current stream.
 
-    First each leaf's moments over its valid slots for every replicate,
-    and each leaf's box and valid bits, into ``weighted_scratch``. Then one
-    block per tile of 32 queries x up to 32 leaves classifies each (query,
-    leaf) pair once and writes every replicate's tile as contiguous rows:
-    the leaf's totals where the query box holds all of its valid samples,
-    +0.0 where it holds none. Last, one thread per (other pair, replicate)
-    walks that pair's slots in slot order (``csrc/weighted_moments.cu``)."""
+    The kernels work on segments, a stratum's chunk of at most
+    WEIGHTED_CHUNK slots each (one a stratum up to one chunk). First each
+    segment's moments over its valid slots for every replicate, and each
+    segment's box and valid bits, into ``weighted_scratch``. Then one
+    block per tile of 32 queries x up to 32 segments classifies each
+    (query, segment) pair once and writes every replicate's tile as
+    contiguous rows: the segment's totals where the query box holds all of
+    its valid samples, +0.0 where it holds none. Then one thread per (other
+    pair, replicate) walks that pair's slots in slot order. Above one chunk
+    these are partials, folded in chunk order into the output
+    (``csrc/weighted_moments.cu``)."""
     name = "bootstrap_moments"
     if W.dim() != 3:
         raise ValueError(f"{name}: W must be (R, k, s), got "
@@ -69,13 +73,11 @@ def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
     dev = sample_c.device
     out = torch.empty((R, Q, k, 3), dtype=torch.float32, device=dev)
     scratch = weighted_scratch(R, Q, k, s, d, dev)
-    fn = weighted_library().repro_bootstrap_moments
-    with torch.cuda.device(dev):
-        err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
-                 sample_valid.data_ptr(), W.data_ptr(), q_lo.data_ptr(),
-                 q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(), R, Q, k,
-                 s, d, torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
+    native.launch(name, dev, weighted_library().repro_bootstrap_moments,
+                  sample_c.data_ptr(), sample_a.data_ptr(),
+                  sample_valid.data_ptr(), W.data_ptr(), q_lo.data_ptr(),
+                  q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), R, Q, k, s, d)
     return out
 
 

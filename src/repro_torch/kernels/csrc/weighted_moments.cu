@@ -26,67 +26,91 @@
 // cannot round two paths differently. No float atomics; the result is the
 // same bits on every launch.
 //
+// Order contract (rows 3 and 4): the slot axis of a stratum is cut into
+// chunks of CHUNK = 2048 consecutive slots (WEIGHTED_CHUNK in
+// stratified_estimate.py; rows 2 and 8's SLOT_CHUNK). Up to one chunk a
+// stratum, a pair's moments are one slot-order fold from +0.0, written as
+// they are (PR 14's bits). Above it, every chunk gives a partial, the
+// slot-order fold from +0.0 of its own slots, and a pair's moments are the
+// left fold of its partials in chunk order, from chunk 0's, through
+// __fadd_rn. So a pair's bits depend on its slots and s alone: never on
+// Q, R, the pair's place in the batch, the replicate block or the grid.
+// (One serial fold of 32,768 mixed-sign slots lies up to 1.25x the
+// reference's rtol 3e-5 / atol 1e-3 bar away from the plain pairwise sum;
+// chunks of 2048 keep it within 0.21x: tools/weighted_chunk_error.py.)
+//
 // What bounds it on an H100: at the bootstrap's shapes (Q = 2048, k =
 // 1024, s = 75, R = 200) the bytes of the (R, Q, k, 3) output, 5.03 GB,
-// ~1.5 ms at 3.35 TB/s. The operations come under that.
+// ~1.5 ms at 3.35 TB/s. The operations come under that. At few strata
+// with many slots (Table 1's US arm: k = 1, s = 38,500) the operations of
+// the mixed pairs' walks.
 //
-// Design: a (query, stratum) pair is empty (no valid slot inside the box),
-// covered (every valid slot inside) or mixed. A covered pair's moments are
-// the stratum's totals T[r, leaf]: its relevant slots are exactly the
-// leaf's valid slots, in the same order, through the same update, so the
-// bits are those of a walk. An empty pair's are +0.0: its accumulators
-// would never leave +0.0. Only a mixed pair walks its slots. In 1-D a
-// query box cuts at most 2 of the leaves, so almost every pair is covered
-// or empty and the work is the output's store. Four kernels per launch:
+// Design: the kernels below work on "segments", a stratum's chunk each:
+// segment g = leaf * n_ch + ch, n_ch = ceil(s / CHUNK) (one segment a
+// leaf up to one chunk). A (query, segment) pair is empty (no valid slot
+// inside the box), covered (every valid slot inside) or mixed. A covered
+// pair's moments are the segment's totals T[r, g]: its relevant slots are
+// exactly the segment's valid slots, in the same order, through the same
+// update, so the bits are those of a walk. An empty pair's are +0.0: its
+// accumulators would never leave +0.0. Only a mixed pair walks its slots.
+// In 1-D a query box cuts at most 2 of the leaves, so almost every pair is
+// covered or empty and the work is the output's store. Four kernels per
+// launch, a fifth above one chunk:
 //
-//  1. weighted_totals_kernel: T[r, leaf] over the leaf's valid slots in
-//     slot order. One warp per (replicate, 32 leaves) stages 32 slots of
-//     each leaf at a time with coalesced loads; lane l walks leaf l.
-//  2. weighted_box_kernel: one warp per leaf writes the box around its
+//  1. weighted_totals_kernel: T[r, g] over the segment's valid slots in
+//     slot order. One warp per (replicate, 32 segments) stages 32 slots of
+//     each at a time with coalesced loads; lane l walks segment l.
+//  2. weighted_box_kernel: one warp per segment writes the box around its
 //     valid samples (+inf / -inf without one), its valid bits and a flag
 //     for a NaN coordinate on a valid slot: fminf / fmaxf skip a NaN that
-//     the slot test rejects, so a flagged leaf is never covered.
+//     the slot test rejects, so a flagged segment is never covered.
 //  3. weighted_tile_kernel: one block of NT = 256 threads per tile of
-//     QT = 32 queries x LT leaves (LT = 32 unless s is large), tiles along
-//     blockIdx.x. The block
-//     a. classifies every pair from the leaf's box (lane = query, warp =
-//        leaf): covered iff the query box holds the leaf's box and the
-//        leaf is not flagged, empty iff they are apart in some column.
+//     QT = 32 queries x LT segments (LT = 32 unless s is large), tiles
+//     along blockIdx.x. The block
+//     a. classifies every pair from the segment's box (lane = query, warp
+//        = segment): covered iff the query box holds the box and the
+//        segment is not flagged, empty iff they are apart in some column.
 //        Exact: the box is the min / max of the valid non-NaN samples, a
 //        NaN sample is inside no query, and the test is the slot test's
 //        compares;
 //     b. tests the slots of the remaining pairs once per (query, slot)
 //        into a bitmask in shared memory, ANDed with the valid bits; a pair
 //        with no bit set is empty, else mixed (never covered: the sample
-//        at an edge of the leaf's box lies outside). The coordinates of
-//        the leaves with such pairs arrive in chunks of 32 slots x SL
-//        leaves by cp.async, double-buffered, so the next chunk loads while
-//        the current one is tested;
+//        at an edge of the box lies outside). The coordinates of the
+//        segments with such pairs arrive in chunks of 32 slots x SL
+//        segments by cp.async, double-buffered, so the next chunk loads
+//        while the current one is tested;
 //     c. lists the mixed pairs with their masks in the scratch;
 //     d. loops over all R replicates in batches of RB_MAX, reusing the
 //        classes: it stages the batch's totals tile with cp.async (the next
 //        batch's load while this one is stored) and writes each
 //        replicate's (QT, LT, 3) tile as rows of LT * 12 contiguous bytes,
 //        T for covered pairs and +0.0 elsewhere: 16-byte streaming stores
-//        when k and LT are multiples of 4 (every row then starts 16-byte
-//        aligned), 4-byte ones otherwise; neighbouring threads write
-//        neighbouring addresses.
+//        when the segment count and LT are multiples of 4 (every row then
+//        starts 16-byte aligned), 4-byte ones otherwise; neighbouring
+//        threads write neighbouring addresses.
 //  4. weighted_mixed_kernel: one thread per (mixed pair, replicate) walks
 //     the set bits of the pair's mask in ascending slot order, WALK slot
 //     loads in flight at a time, and overwrites the pair's +0.0. Its
-//     products w*a and (w*a)*a are formed where they are added: only mixed
-//     (pair, replicate, slot) triples reach them (0.2 % of the pairs in
-//     1-D on the bootstrap's queries), so staging them once per
-//     (replicate, slot) would cost shared memory sized for the worst case
-//     and a barrier per batch for little. Walking inside the tile kernel
-//     would hold all its warps at each batch's barrier for the walk's load
-//     latency; in a kernel of its own the walks wait for nothing.
+//     products
+//     w*a and (w*a)*a are formed where they are added: only mixed (pair,
+//     replicate, slot) triples reach them (0.2 % of the pairs in 1-D on
+//     the bootstrap's queries), so staging them once per (replicate, slot)
+//     would cost shared memory sized for the worst case and a barrier per
+//     batch for little. Walking inside the tile kernel would hold all its
+//     warps at each batch's barrier for the walk's load latency; in a
+//     kernel of its own the walks wait for nothing.
+//  5. weighted_fold_kernel (above one chunk only): kernels 3 and 4 write
+//     the (R, Q, k * n_ch, 3) partials to the scratch, and one thread per
+//     (replicate, query, leaf) folds its n_ch partials in chunk order into
+//     the output.
 //
 // Shared memory of the tile kernel (dynamic, chosen by make_plan): two
-// totals tiles 2 * RB_MAX * LT * 12 bytes, the leaves' boxes, two
-// coordinate chunks of at most 2 KB, the mask QT * LT * ceil(s/32) * 4
-// bytes, the classes and a little bookkeeping: ~24 KB at s = 75, LT = 32,
-// d = 1. When the mask would not fit, LT halves (down to 1, s <= MAX_S).
+// totals tiles 2 * RB_MAX * LT * 12 bytes, the segments' boxes, two
+// coordinate chunks of at most 2 KB, the mask QT * LT * ceil(min(s,
+// CHUNK) / 32) * 4 bytes, the classes and a little bookkeeping: ~24 KB at
+// s = 75, LT = 32, d = 1; ~136 KB at one full chunk, LT = 16. When the
+// mask would not fit, LT halves.
 // Registers are capped at 64 (4 blocks an SM); nvcc -Xptxas=-v prints the
 // counts at build. No float atomics, no tensor cores (no TF32): after the
 // cover/empty split no large contraction is left to feed them.
@@ -100,14 +124,16 @@ constexpr int NT = 256;          // threads per tile block: 8 warps
 constexpr int TILE_BLOCKS = 4;   // tile blocks an SM: caps registers at 64
 constexpr int RB_MAX = 8;        // replicates per batch of the tile loop
 constexpr int QT = 32;           // queries per tile: one per lane
-constexpr int LT_MAX = 32;       // leaves per tile
+constexpr int LT_MAX = 32;       // segments per tile
 constexpr int MAX_D = 16;        // predicate columns
-constexpr int MAX_S = 32768;     // slots: the mask of one leaf x QT fits
+constexpr int CHUNK = 2048;      // slots a segment: the order contract
 constexpr int LEAF_T = 128;      // threads per totals and box block
 constexpr int MIX_T = 128;       // threads per mixed-pair block
 constexpr int MIX_R = 16;        // replicates per mixed-pair block
 constexpr int WALK = 8;          // slot loads in flight per mixed pair
+constexpr int FOLD_T = 256;      // threads per fold block
 constexpr int MAX_SMEM = 232448;
+constexpr int MAX_GRID_Y = 65535;
 // Pair classes; MAYBE until the pair's slots are tested.
 constexpr uint8_t EMPTY = 0, COVERED = 1, MAYBE = 2, MIXED = 3;
 
@@ -142,26 +168,57 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// One launch's tiles, scratch layout (in 4-byte words) and shared-memory
-// carve-up (bytes).
+// The slot segments: segment g = leaf * n_ch + ch holds slots [ch * CHUNK,
+// min(s, ch * CHUNK + CHUNK)) of its leaf; one segment a leaf (g = leaf,
+// all s slots) when s <= CHUNK.
+// CH: the launch has more than one segment a leaf; without it (s <=
+// CHUNK) a segment is a leaf and the kernels compile to PR 14's indexing.
+struct Segs {
+  int s, n_ch;
+  // Offset of the segment's first slot in the (k, s) slot arrays.
+  template <bool CH>
+  __device__ __forceinline__ size_t base(int g) const {
+    if (!CH) return (size_t)g * s;
+    const int l = g / n_ch;
+    return (size_t)l * s + (size_t)(g - l * n_ch) * CHUNK;
+  }
+  template <bool CH>
+  __device__ __forceinline__ int len(int g) const {
+    if (!CH) return s;
+    const int rest = s - (g - (g / n_ch) * n_ch) * CHUNK;
+    return rest < CHUNK ? rest : CHUNK;
+  }
+};
+
+// One launch's segments, tiles, scratch layout (in 4-byte words) and
+// shared-memory carve-up (bytes).
 struct Plan {
-  int lt;       // leaves per tile
-  int nw;       // mask words per (query, leaf): ceil(s / 32)
-  int sl;       // leaves per staged coordinate chunk
+  Segs seg;
+  int K;        // segments: k * n_ch
+  int lt;       // segments per tile
+  int nw;       // mask words per (query, segment): ceil(min(s, CHUNK) / 32)
+  int sl;       // segments per staged coordinate chunk
   int n_qt, n_tiles;
-  size_t box, vbits, nan, counts, pairs;  // scratch offsets past the totals
+  size_t box, vbits, nan, counts, pairs, part, floats;  // scratch offsets
   int off_t, off_box, off_c, off_mask, off_cls, off_meta, bytes;
 };
 
-int align16(long long x) { return (int)((x + 15) & ~15LL); }
+long long align16(long long x) { return (x + 15) & ~15LL; }
 
 bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
-  const int nw = (s + 31) / 32;
-  // Coordinate chunks of at most 2 KB, at least one leaf a warp.
+  if (R < 1 || Q < 1 || k < 1 || s < 0 || d < 1 || d > MAX_D) return false;
+  const long long n_ch = s > CHUNK ? (s + (long long)CHUNK - 1) / CHUNK : 1;
+  const long long K = (long long)k * n_ch;
+  if (K > (long long)MAX_GRID_Y * LEAF_T) return false;
+  const int cs = s < CHUNK ? s : CHUNK;
+  const int nw = (cs + 31) / 32;
+  // Coordinate chunks of at most 2 KB, at least one segment a warp.
   int sl = 32;
   while (sl > 8 && sl * 32 * d * 4 > 2048) sl /= 2;
   for (int lt = LT_MAX; lt >= 1; lt /= 2) {
     Plan p;
+    p.seg = Segs{s, (int)n_ch};
+    p.K = (int)K;
     p.lt = lt;
     p.nw = nw;
     p.sl = sl < lt ? sl : lt;
@@ -174,51 +231,66 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.off_meta = (int)off; off = align16(off + 4LL * (3 * LT_MAX + 2));
     p.bytes = (int)off;
     if (off > MAX_SMEM) continue;
-    const long long n_qt = (Q + QT - 1) / QT, n_lt = (k + lt - 1) / lt;
+    const long long n_qt = (Q + QT - 1) / QT, n_lt = (K + lt - 1) / lt;
     if (n_qt * n_lt > INT_MAX) return false;
     p.n_qt = (int)n_qt;
     p.n_tiles = (int)(n_qt * n_lt);
-    p.box = (size_t)R * k * 3;
-    p.vbits = p.box + (size_t)k * 2 * d;
-    p.nan = p.vbits + (size_t)k * nw;
-    p.counts = p.nan + k;
+    p.box = (size_t)R * K * 3;
+    p.vbits = p.box + (size_t)K * 2 * d;
+    p.nan = p.vbits + (size_t)K * nw;
+    p.counts = p.nan + K;
     p.pairs = p.counts + p.n_tiles;
+    // The partials start 16-byte aligned: the tiles store 4 floats at once.
+    const size_t end = p.pairs + (size_t)p.n_tiles * QT * lt * (1 + nw);
+    p.part = (end + 3) & ~(size_t)3;
+    p.floats = n_ch > 1 ? p.part + (size_t)R * Q * K * 3 : end;
     *plan = p;
     return true;
   }
   return false;
 }
 
-// Per (replicate, leaf): T = the moments of the leaf's valid slots in slot
-// order. One warp per (replicate, 32 leaves) stages 32 slots of each leaf
-// at a time with coalesced loads; lane l then walks leaf l's slots.
+// Per (replicate, segment): T = the moments of the segment's valid slots
+// in slot order. One warp per (replicate, 32 segments) stages 32 slots of
+// each at a time with coalesced loads; lane l then walks segment l's.
+template <bool CH>
 __global__ void __launch_bounds__(LEAF_T)
 weighted_totals_kernel(const float* __restrict__ a,
                        const uint8_t* __restrict__ valid,
                        const float* __restrict__ W, float* __restrict__ T,
-                       int k, int s) {
+                       int k, Segs seg, int K) {
   __shared__ float s_w[LEAF_T / 32][32][33];
   __shared__ float s_a[LEAF_T / 32][32][33];
   __shared__ uint8_t s_v[LEAF_T / 32][32][33];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = blockIdx.x;
-  const int leaf0 = (blockIdx.y * (LEAF_T / 32) + warp) * 32;
-  if (leaf0 >= k) return;
-  const int nl = min(32, k - leaf0);
-  const float* w = W + (size_t)r * k * s;
+  const int g0 = (blockIdx.y * (LEAF_T / 32) + warp) * 32;
+  if (g0 >= K) return;
+  const int nl = min(32, K - g0);
+  const float* w = W + (size_t)r * k * seg.s;
+  const int my_len = lane < nl ? seg.len<CH>(g0 + lane) : 0;
+  const int span = seg.s < CHUNK ? seg.s : CHUNK;  // the longest segment
   float m[3] = {0.f, 0.f, 0.f};
-  for (int s0 = 0; s0 < s; s0 += 32) {
-    const int n = min(32, s - s0);
-    if (lane < n) {
+  for (int s0 = 0; s0 < span; s0 += 32) {
+    auto stage = [&](int li, size_t o) {
+      s_w[warp][li][lane] = w[o];
+      s_a[warp][li][lane] = a[o];
+      s_v[warp][li][lane] = valid[o];
+    };
+    if (CH) {
       for (int li = 0; li < nl; ++li) {
-        const size_t o = (size_t)(leaf0 + li) * s + s0 + lane;
-        s_w[warp][li][lane] = w[o];
-        s_a[warp][li][lane] = a[o];
-        s_v[warp][li][lane] = valid[o];
+        const int g = g0 + li;
+        if (lane < min(32, seg.len<CH>(g) - s0))
+          stage(li, seg.base<CH>(g) + s0 + lane);
       }
+    } else if (lane < min(32, seg.s - s0)) {
+      // One bound for the warp's segments: their loads issue together.
+      for (int li = 0; li < nl; ++li)
+        stage(li, (size_t)(g0 + li) * seg.s + s0 + lane);
     }
     __syncwarp();
     if (lane < nl) {
+      const int n = min(32, my_len - s0);
       for (int j = 0; j < n; ++j)
         if (s_v[warp][lane][j])
           weighted_add(m, weighted_terms(s_w[warp][lane][j],
@@ -227,26 +299,29 @@ weighted_totals_kernel(const float* __restrict__ a,
     __syncwarp();
   }
   if (lane < nl) {
-    float* o = T + ((size_t)r * k + leaf0 + lane) * 3;
+    float* o = T + ((size_t)r * K + g0 + lane) * 3;
     o[0] = m[0];
     o[1] = m[1];
     o[2] = m[2];
   }
 }
 
-// Per leaf (one warp): its box around its valid samples (lo = +inf, hi =
-// -inf without one), its valid bits, 32 slots a word, and its NaN flag (1
-// iff a valid slot holds a NaN coordinate, x != x).
+// Per segment (one warp): its box around its valid samples (lo = +inf, hi
+// = -inf without one), its valid bits, 32 slots a word (nw words, zero
+// past its slots), and its NaN flag (1 iff a valid slot holds a NaN
+// coordinate, x != x).
+template <bool CH>
 __global__ void __launch_bounds__(LEAF_T)
 weighted_box_kernel(const float* __restrict__ c,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ box, uint32_t* __restrict__ vbits,
-                    int* __restrict__ nan_flag, int k, int s, int d) {
-  const int leaf = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
+                    int* __restrict__ nan_flag, Segs seg, int K, int nw,
+                    int d) {
+  const int g = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (leaf >= k) return;
-  const int nw = (s + 31) / 32;
-  const size_t base = (size_t)leaf * s;
+  if (g >= K) return;
+  const size_t base = seg.base<CH>(g);
+  const int len = seg.len<CH>(g);
   float lo[MAX_D], hi[MAX_D];
 #pragma unroll
   for (int j = 0; j < MAX_D; ++j) {
@@ -256,9 +331,9 @@ weighted_box_kernel(const float* __restrict__ c,
   bool nan = false;
   for (int w = 0; w < nw; ++w) {
     const int i = w * 32 + lane;
-    const bool v = i < s && valid[base + i] != 0;
+    const bool v = i < len && valid[base + i] != 0;
     const unsigned bits = __ballot_sync(0xffffffffu, v);
-    if (lane == 0) vbits[(size_t)leaf * nw + w] = bits;
+    if (lane == 0) vbits[(size_t)g * nw + w] = bits;
     if (v) {
 #pragma unroll
       for (int j = 0; j < MAX_D; ++j) {
@@ -272,7 +347,7 @@ weighted_box_kernel(const float* __restrict__ c,
     }
   }
   nan = __any_sync(0xffffffffu, nan);
-  if (lane == 0) nan_flag[leaf] = nan;
+  if (lane == 0) nan_flag[g] = nan;
 #pragma unroll
   for (int j = 0; j < MAX_D; ++j) {
     if (j < d) {
@@ -281,49 +356,53 @@ weighted_box_kernel(const float* __restrict__ c,
         hi[j] = fmaxf(hi[j], __shfl_xor_sync(0xffffffffu, hi[j], off));
       }
       if (lane == 0) {
-        box[(size_t)leaf * 2 * d + j] = lo[j];
-        box[(size_t)leaf * 2 * d + d + j] = hi[j];
+        box[(size_t)g * 2 * d + j] = lo[j];
+        box[(size_t)g * 2 * d + d + j] = hi[j];
       }
     }
   }
 }
 
-// One block per tile of QT queries x LT leaves: classes, the mixed pairs'
-// masks into the scratch, and every replicate's tile with T for covered
-// pairs and +0.0 elsewhere. VW floats per store (4 when k and LT are
-// multiples of 4, else 1); D > 0 fixes d at compile time.
-template <int VW, int D>
+// One block per tile of QT queries x LT segments: classes, the mixed
+// pairs' masks into the scratch, and every replicate's tile with T for
+// covered pairs and +0.0 elsewhere, into `out` (R, Q, K, 3): the output
+// itself at one segment a leaf, the partials above. VW floats per store (4
+// when K and LT are multiples of 4, else 1); D > 0 fixes d at compile
+// time.
+template <int VW, int D, bool CH>
 __global__ void __launch_bounds__(NT, TILE_BLOCKS)
 weighted_tile_kernel(const float* __restrict__ c,
                      const float* __restrict__ q_lo,
                      const float* __restrict__ q_hi, float* __restrict__ out,
-                     float* __restrict__ scratch, int R, int Q, int k, int s,
-                     int d, Plan p) {
+                     float* __restrict__ scratch, int R, int Q, int d,
+                     Plan p) {
   if (D > 0) d = D;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_t = (float*)(smem + p.off_t);       // [2][RB_MAX][LT * 3]
-  float* s_box = (float*)(smem + p.off_box);   // [leaf][lo, hi][d]
+  float* s_box = (float*)(smem + p.off_box);   // [segment][lo, hi][d]
   float* s_c = (float*)(smem + p.off_c);       // [2][SL][32 * d]
   uint32_t* s_mask = (uint32_t*)(smem + p.off_mask);  // [word][rank][q]
-  uint8_t* s_cls = smem + p.off_cls;                  // [q][leaf]
-  int* s_flag = (int*)(smem + p.off_meta);  // leaf has a MAYBE pair
-  int* s_rank = s_flag + LT_MAX;            // its rank among those leaves
-  int* s_list = s_rank + LT_MAX;            // those leaves in order
-  int* s_count = s_list + LT_MAX;           // [0] such leaves, [1] mixed
+  uint8_t* s_cls = smem + p.off_cls;                  // [q][segment]
+  int* s_flag = (int*)(smem + p.off_meta);  // segment has a MAYBE pair
+  int* s_rank = s_flag + LT_MAX;            // its rank among those
+  int* s_list = s_rank + LT_MAX;            // those segments in order
+  int* s_count = s_list + LT_MAX;           // [0] such segments, [1] mixed
   const float* T = scratch;
   const float* box = scratch + p.box;
   const uint32_t* vbits = (const uint32_t*)(scratch + p.vbits);
   const int* nan_flag = (const int*)(scratch + p.nan);
+  const Segs seg = p.seg;
+  const int K = p.K;
 
   const int LT = p.lt, NW = p.nw;
   const int tile = blockIdx.x;
   const int q0 = (tile % p.n_qt) * QT;
-  const int leaf0 = (tile / p.n_qt) * LT;
-  const int nq = min(QT, Q - q0), nl = min(LT, k - leaf0);
+  const int g0 = (tile / p.n_qt) * LT;
+  const int nq = min(QT, Q - q0), nl = min(LT, K - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int i = tid; i < nl * 2 * d; i += NT)
-    s_box[i] = box[(size_t)leaf0 * 2 * d + i];
+    s_box[i] = box[(size_t)g0 * 2 * d + i];
   for (int i = tid; i < LT_MAX; i += NT) s_flag[i] = 0;
   if (tid == 0) s_count[1] = 0;
   const bool q_active = lane < nq;
@@ -342,21 +421,22 @@ weighted_tile_kernel(const float* __restrict__ c,
     for (int i = tid; i < nr * row; i += NT) {
       const int rb = i / row, j = i - rb * row;
       cp_async4(dst + rb * pitch + j,
-                T + ((size_t)(r0 + rb) * k + leaf0) * 3 + j);
+                T + ((size_t)(r0 + rb) * K + g0) * 3 + j);
     }
     cp_async_commit();
   };
   fetch(0, 0, min(RB_MAX, R));
   __syncthreads();
 
-  // 1. Classes from the leaf boxes (lane = query, warp = leaf): covered
-  // iff the box holds every valid sample and none is NaN, empty iff it is
-  // apart from them in some column, else MAYBE until the slots are tested.
+  // 1. Classes from the segment boxes (lane = query, warp = segment):
+  // covered iff the box holds every valid sample and none is NaN, empty
+  // iff it is apart from them in some column, else MAYBE until the slots
+  // are tested.
   for (int l = warp; l < LT; l += NT / 32) {
     uint8_t cls = EMPTY;
     if (l < nl && q_active) {
       const float* bl = s_box + l * 2 * d;
-      bool inside = nan_flag[leaf0 + l] == 0, apart = false;
+      bool inside = nan_flag[g0 + l] == 0, apart = false;
 #pragma unroll
       for (int j = 0; j < MAX_D; ++j) {
         if (j < d) {
@@ -386,22 +466,23 @@ weighted_tile_kernel(const float* __restrict__ c,
   const int n_maybe = s_count[0];
 
   // 2. Slot tests of the MAYBE pairs, once per (query, slot), into the
-  // mask; stage t holds leaves [g * SL, g * SL + SL) of the list x slots
-  // [ch * 32, ch * 32 + 32), g = t / NW, ch = t % NW, double-buffered.
+  // mask; stage t holds segments [gr * SL, gr * SL + SL) of the list x
+  // slots [ch * 32, ch * 32 + 32), gr = t / NW, ch = t % NW,
+  // double-buffered. A segment shorter than the tile's longest has no
+  // slots in its last words: nothing is loaded or tested there.
   const int SL = p.sl;
   const int row_f = 32 * d;
   const int n_stage = (n_maybe + SL - 1) / SL * NW;
   auto stage = [&](int t) {
     if (t < n_stage) {
-      const int g = t / NW, ch = t - g * NW;
-      const int n = min(32, s - ch * 32) * d;
-      const int gl = min(SL, n_maybe - g * SL);
+      const int gr = t / NW, ch = t - gr * NW;
+      const int gl = min(SL, n_maybe - gr * SL);
       float* dst = s_c + (t & 1) * SL * row_f;
       for (int i = tid; i < gl * row_f; i += NT) {
         const int li = i / row_f, j = i - li * row_f;
-        if (j < n)
-          cp_async4(dst + i, c + ((size_t)(leaf0 + s_list[g * SL + li]) * s +
-                                  ch * 32) * d + j);
+        const int g = g0 + s_list[gr * SL + li];
+        if (j < min(32, seg.len<CH>(g) - ch * 32) * d)
+          cp_async4(dst + i, c + (seg.base<CH>(g) + ch * 32) * d + j);
       }
     }
     cp_async_commit();
@@ -414,19 +495,19 @@ weighted_tile_kernel(const float* __restrict__ c,
     stage(t + 1);
     cp_async_wait<1>();
     __syncthreads();
-    const int g = t / NW, ch = t - g * NW;
-    const int n = min(32, s - ch * 32);
+    const int gr = t / NW, ch = t - gr * NW;
     const float* cs = s_c + (t & 1) * SL * row_f;
 #pragma unroll
     for (int i = 0; i < LT_MAX / 8; ++i) {
       const int gl = warp + 8 * i;
-      const int mi = g * SL + gl;
+      const int mi = gr * SL + gl;
       if (gl < SL && mi < n_maybe) {
         const int l = s_list[mi];
+        const int n = min(32, seg.len<CH>(g0 + l) - ch * 32);
         const bool test = s_cls[lane * LT + l] == MAYBE;
         uint32_t bits = 0;
         if (test) {
-          const uint32_t vb = vbits[(size_t)(leaf0 + l) * NW + ch];
+          const uint32_t vb = vbits[(size_t)(g0 + l) * NW + ch];
           const float* cl = cs + gl * row_f;
           for (int b = 0; b < n; ++b) {
             bool in = true;
@@ -454,8 +535,8 @@ weighted_tile_kernel(const float* __restrict__ c,
   __syncthreads();
 
   // 3. The mixed pairs and their masks go to the scratch for the mixed
-  // kernel: entry = (q << 16 | leaf, NW mask words). The integer atomic
-  // only orders the entries; no output depends on the order.
+  // kernel: entry = (q << 16 | segment, NW mask words). The integer
+  // atomic only orders the entries; no output depends on the order.
   uint32_t* pairs = (uint32_t*)(scratch + p.pairs) +
                     (size_t)tile * QT * LT * (1 + NW);
   for (int pi = tid; pi < QT * LT; pi += NT) {
@@ -492,7 +573,7 @@ weighted_tile_kernel(const float* __restrict__ c,
   // 5. Replicates in batches of RB_MAX: the next batch's totals arrive by
   // cp.async while this one is stored, as rows of LT * 12 bytes.
   const int n_batch = (R + RB_MAX - 1) / RB_MAX;
-  const size_t out_pitch = (size_t)k * 3;
+  const size_t out_pitch = (size_t)K * 3;
   for (int b = 0; b < n_batch; ++b) {
     cp_async_wait<0>();
     // Batch b's totals are in; batch b - 1's stores no longer read the
@@ -504,7 +585,7 @@ weighted_tile_kernel(const float* __restrict__ c,
     const float* tb = s_t + (b & 1) * RB_MAX * pitch;
     for (int rb = 0; rb < nr; ++rb) {
       const float* tr = tb + rb * pitch;
-      float* ob = out + (((size_t)(r0 + rb) * Q + q0) * k + leaf0) * 3;
+      float* ob = out + (((size_t)(r0 + rb) * Q + q0) * K + g0) * 3;
 #pragma unroll
       for (int u = 0; u < UPT; ++u) {
         const int id = tid + u * NT;
@@ -529,31 +610,32 @@ weighted_tile_kernel(const float* __restrict__ c,
 // The mixed pairs of tile blockIdx.x for replicates [blockIdx.y * MIX_R,
 // + MIX_R): one thread per (pair, replicate) walks the set bits of the
 // pair's mask in ascending slot order and overwrites the +0.0 that the
-// tile kernel wrote there. The loads of up to WALK slots are in
-// flight together; the updates run in slot order.
+// tile kernel wrote there. The loads of up to WALK slots are in flight
+// together; the updates run in slot order.
+template <bool CH>
 __global__ void __launch_bounds__(MIX_T)
 weighted_mixed_kernel(const float* __restrict__ a,
                       const float* __restrict__ W,
                       const float* __restrict__ scratch,
-                      float* __restrict__ out, int R, int Q, int k, int s,
+                      float* __restrict__ out, int R, int Q, int k,
                       Plan p) {
   const int tile = blockIdx.x;
   const int n_mixed = ((const int*)(scratch + p.counts))[tile];
   const int r0 = blockIdx.y * MIX_R, nr = min(MIX_R, R - r0);
   if (n_mixed == 0) return;
-  const int NW = p.nw;
+  const int NW = p.nw, K = p.K;
   const int q0 = (tile % p.n_qt) * QT;
-  const int leaf0 = (tile / p.n_qt) * p.lt;
+  const int g0 = (tile / p.n_qt) * p.lt;
   const uint32_t* pairs = (const uint32_t*)(scratch + p.pairs) +
                           (size_t)tile * QT * p.lt * (1 + NW);
-  const size_t ks = (size_t)k * s;
+  const size_t ks = (size_t)k * p.seg.s;
   for (int it = threadIdx.x; it < n_mixed * nr; it += MIX_T) {
     const int rb = it / n_mixed, e = it - rb * n_mixed;
     const uint32_t* ent = pairs + (size_t)e * (1 + NW);
     const int q = q0 + (int)(ent[0] >> 16);
-    const int leaf = leaf0 + (int)(ent[0] & 0xffffu);
+    const int g = g0 + (int)(ent[0] & 0xffffu);
     const int r = r0 + rb;
-    const size_t o = (size_t)leaf * s;
+    const size_t o = p.seg.base<CH>(g);
     const float* wr = W + (size_t)r * ks + o;
     float m[3] = {0.f, 0.f, 0.f};
     for (int wd = 0; wd < NW; ++wd) {
@@ -578,85 +660,145 @@ weighted_mixed_kernel(const float* __restrict__ a,
           if (js[u] >= 0) weighted_add(m, weighted_terms(wv[u], av[u]));
       }
     }
-    float* dst = out + (((size_t)r * Q + q) * k + leaf) * 3;
+    float* dst = out + (((size_t)r * Q + q) * K + g) * 3;
     dst[0] = m[0];
     dst[1] = m[1];
     dst[2] = m[2];
   }
 }
 
-int launch(const float* c, const float* a, const uint8_t* valid,
-           const float* W, const float* q_lo, const float* q_hi, float* out,
-           float* scratch, int R, int Q, int k, int s, int d,
-           cudaStream_t stream) {
-  if (R < 1 || Q < 1 || k < 1 || s < 0 || s > MAX_S || d < 1 || d > MAX_D)
-    return (int)cudaErrorInvalidValue;
-  Plan p;
-  if (!make_plan(R, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
-  const long long leaf_y = (k + LEAF_T - 1) / LEAF_T;
+// Above one chunk: out[r, q, leaf] = the left fold of the pair's n_ch
+// partials part[r, q, leaf * n_ch + ch] in chunk order, from chunk 0's.
+__global__ void __launch_bounds__(FOLD_T)
+weighted_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
+                     size_t n_pairs, int n_ch) {
+  for (size_t i = (size_t)blockIdx.x * FOLD_T + threadIdx.x; i < n_pairs;
+       i += (size_t)gridDim.x * FOLD_T) {
+    const float* pp = part + i * n_ch * 3;
+    float m0 = pp[0], m1 = pp[1], m2 = pp[2];
+    for (int ch = 1; ch < n_ch; ++ch) {
+      m0 = __fadd_rn(m0, pp[ch * 3]);
+      m1 = __fadd_rn(m1, pp[ch * 3 + 1]);
+      m2 = __fadd_rn(m2, pp[ch * 3 + 2]);
+    }
+    out[i * 3] = m0;
+    out[i * 3 + 1] = m1;
+    out[i * 3 + 2] = m2;
+  }
+}
+
+template <bool CH>
+int launch_kernels(const float* c, const float* a, const uint8_t* valid,
+                   const float* W, const float* q_lo, const float* q_hi,
+                   float* out, float* scratch, int R, int Q, int k, int d,
+                   const Plan& p, cudaStream_t stream) {
+  const long long leaf_y = (p.K + LEAF_T - 1) / LEAF_T;
   const long long mix_y = (R + MIX_R - 1) / MIX_R;
-  if (leaf_y > 65535 || mix_y > 65535)
+  if (leaf_y > MAX_GRID_Y || mix_y > MAX_GRID_Y)
     return (int)cudaErrorInvalidConfiguration;
-  weighted_totals_kernel<<<dim3(R, (unsigned)leaf_y), LEAF_T, 0, stream>>>(
-      a, valid, W, scratch, k, s);
-  weighted_box_kernel<<<(k + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T, 0,
-                        stream>>>(c, valid, scratch + p.box,
-                                  (uint32_t*)(scratch + p.vbits),
-                                  (int*)(scratch + p.nan), k, s, d);
+  weighted_totals_kernel<CH><<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
+                               stream>>>(a, valid, W, scratch, k, p.seg,
+                                         p.K);
+  weighted_box_kernel<CH><<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T,
+                            0, stream>>>(c, valid, scratch + p.box,
+                                         (uint32_t*)(scratch + p.vbits),
+                                         (int*)(scratch + p.nan), p.seg, p.K,
+                                         p.nw, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const bool vec = k % 4 == 0 && p.lt % 4 == 0;
-  auto kernel = vec ? weighted_tile_kernel<4, 0> : weighted_tile_kernel<1, 0>;
-  if (d == 1) kernel = vec ? weighted_tile_kernel<4, 1> : weighted_tile_kernel<1, 1>;
-  if (d == 2) kernel = vec ? weighted_tile_kernel<4, 2> : weighted_tile_kernel<1, 2>;
-  if (d == 3) kernel = vec ? weighted_tile_kernel<4, 3> : weighted_tile_kernel<1, 3>;
+  // Above one chunk the tiles and walks write the partials.
+  float* dst = CH ? scratch + p.part : out;
+  const bool vec = p.K % 4 == 0 && p.lt % 4 == 0;
+  auto kernel = vec ? weighted_tile_kernel<4, 0, CH>
+                    : weighted_tile_kernel<1, 0, CH>;
+  if (d == 1)
+    kernel = vec ? weighted_tile_kernel<4, 1, CH>
+                 : weighted_tile_kernel<1, 1, CH>;
+  if (d == 2)
+    kernel = vec ? weighted_tile_kernel<4, 2, CH>
+                 : weighted_tile_kernel<1, 2, CH>;
+  if (d == 3)
+    kernel = vec ? weighted_tile_kernel<4, 3, CH>
+                 : weighted_tile_kernel<1, 3, CH>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.bytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<p.n_tiles, NT, p.bytes, stream>>>(c, q_lo, q_hi, out, scratch, R,
-                                             Q, k, s, d, p);
+  kernel<<<p.n_tiles, NT, p.bytes, stream>>>(c, q_lo, q_hi, dst, scratch, R,
+                                             Q, d, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  weighted_mixed_kernel<<<dim3(p.n_tiles, (unsigned)mix_y), MIX_T, 0,
-                          stream>>>(a, W, scratch, out, R, Q, k, s, p);
+  weighted_mixed_kernel<CH><<<dim3(p.n_tiles, (unsigned)mix_y), MIX_T, 0,
+                              stream>>>(a, W, scratch, dst, R, Q, k, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !CH) return (int)err;
+  const size_t n_pairs = (size_t)R * Q * k;
+  const size_t blocks = (n_pairs + FOLD_T - 1) / FOLD_T;
+  weighted_fold_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), FOLD_T,
+                         0, stream>>>(scratch + p.part, out, n_pairs,
+                                      p.seg.n_ch);
   return (int)cudaGetLastError();
+}
+
+int launch(const float* c, const float* a, const uint8_t* valid,
+           const float* W, const float* q_lo, const float* q_hi, float* out,
+           float* scratch, long long scratch_floats, int R, int Q, int k,
+           int s, int d, cudaStream_t stream) {
+  Plan p;
+  if (!make_plan(R, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
+  if (scratch_floats < (long long)p.floats)
+    return (int)cudaErrorInvalidValue;
+  return p.seg.n_ch > 1
+      ? launch_kernels<true>(c, a, valid, W, q_lo, q_hi, out, scratch, R, Q,
+                             k, d, p, stream)
+      : launch_kernels<false>(c, a, valid, W, q_lo, q_hi, out, scratch, R,
+                              Q, k, d, p, stream);
 }
 
 }  // namespace
 
-// `scratch` holds the floats weighted_scratch (stratified_estimate.py)
-// allocates (R = 1 here); out is (Q, k, 3).
+// `scratch` holds `scratch_floats` floats, at least repro_weighted_scratch
+// of the launch (weighted_scratch in stratified_estimate.py allocates it;
+// R = 1 here); out is (Q, k, 3).
 extern "C" int repro_stratified_weighted_moments(
     const float* c, const float* a, const uint8_t* valid, const float* w,
-    const float* q_lo, const float* q_hi, float* out, float* scratch, int Q,
-    int k, int s, int d, void* stream) {
-  return launch(c, a, valid, w, q_lo, q_hi, out, scratch, 1, Q, k, s, d,
-                (cudaStream_t)stream);
+    const float* q_lo, const float* q_hi, float* out, float* scratch,
+    long long scratch_floats, int Q, int k, int s, int d, void* stream) {
+  return launch(c, a, valid, w, q_lo, q_hi, out, scratch, scratch_floats, 1,
+                Q, k, s, d, (cudaStream_t)stream);
 }
 
 extern "C" int repro_bootstrap_moments(const float* c, const float* a,
                                        const uint8_t* valid, const float* W,
                                        const float* q_lo, const float* q_hi,
-                                       float* out, float* scratch, int R,
+                                       float* out, float* scratch,
+                                       long long scratch_floats, int R,
                                        int Q, int k, int s, int d,
                                        void* stream) {
-  return launch(c, a, valid, W, q_lo, q_hi, out, scratch, R, Q, k, s, d,
-                (cudaStream_t)stream);
+  return launch(c, a, valid, W, q_lo, q_hi, out, scratch, scratch_floats, R,
+                Q, k, s, d, (cudaStream_t)stream);
 }
 
-// The leaves per tile and dynamic shared memory of a launch at (Q, k, s,
+// The segments per tile and dynamic shared memory of a launch at (Q, k, s,
 // d), for the record: returns 0 and fills lt / bytes, or a cudaError_t.
 extern "C" int repro_weighted_plan(int Q, int k, int s, int d, int* lt,
                                    int* bytes) {
   Plan p;
-  if (Q < 1 || k < 1 || s < 0 || s > MAX_S || d < 1 || d > MAX_D ||
-      !make_plan(1, Q, k, s, d, &p))
-    return (int)cudaErrorInvalidValue;
+  if (!make_plan(1, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
   *lt = p.lt;
   *bytes = p.bytes;
   return 0;
 }
+
+// The floats of a launch's scratch, or -1 where no plan exists.
+extern "C" long long repro_weighted_scratch(int R, int Q, int k, int s,
+                                            int d) {
+  Plan p;
+  return make_plan(R, Q, k, s, d, &p) ? (long long)p.floats : -1;
+}
+
+// Slots a segment: the order contract's chunk.
+extern "C" int repro_weighted_chunk() { return CHUNK; }
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -11,6 +11,11 @@ CPU), evaluated in query chunks so that its memory stays bounded: the
 version CPU tensors take and the reference the kernel is held against on
 the card.
 
+The kernel sorts every (query, cell) pair into three classes
+(:func:`join_cell_classes`, its rule in torch): empty pairs write +0.0,
+covered ones copy the cell's totals walked once with every slot inside,
+and only mixed ones walk; each gives the walk's bits.
+
 A cell is a (fact leaf, dim partition) pair, id ``leaf * P + part``. Both
 versions take a :class:`JoinSlots` (built once per synopsis epoch by
 :func:`join_slots`, plain torch) and return a :class:`JoinMoments`: the
@@ -243,6 +248,48 @@ def join_cell_moments_plain(slots: JoinSlots, q_lo, q_hi, cover, sampled,
     return JoinMoments(*planes.unbind(0), exact3=exact3, touched=touched)
 
 
+def cell_nan_flags(slots: JoinSlots) -> torch.Tensor:
+    """(k*P,) bool: a slot of the cell's run has a NaN coordinate. The
+    slot test rejects NaN and the cell's box leaves it out, so such a cell
+    is never covered (:func:`join_cell_classes`)."""
+    k, su, P = slots.num_leaves, slots.capacity, slots.num_partitions
+    dev = slots.s_coord.device
+    pos = torch.arange(su, dtype=torch.int32, device=dev).expand(k, su)
+    # A slot's partition within its leaf's runs; P past the last run.
+    part = torch.searchsorted(slots.cell_start[:, 1:].contiguous(),
+                              pos.contiguous(), right=True).to(torch.int64)
+    cid = torch.where(part < P, torch.arange(k, device=dev)[:, None] * P
+                      + part, k * P).reshape(-1)
+    nan = torch.isnan(slots.s_coord).any(-1).reshape(-1).to(torch.int64)
+    flags = torch.zeros(k * P + 1, dtype=torch.int64, device=dev)
+    flags.index_add_(0, cid, nan)
+    return flags[:k * P] > 0
+
+
+# (query, cell) classes of row 9's kernel.
+EMPTY, COVERED, MIXED = 0, 1, 2
+
+
+def join_cell_classes(slots: JoinSlots, q_lo, q_hi,
+                      nan_flags=None) -> torch.Tensor:
+    """(Q, k*P) int8, the class the kernel gives each (query, cell) pair,
+    by the kernel's compares on ``cell_box``: EMPTY where the query box
+    misses the cell's box in some column (the walk's own test: no slot is
+    inside, every statistic +0.0), COVERED where it holds the box and no
+    slot of the run has a NaN coordinate (every slot inside: the cell's
+    own totals, the same for every such query), MIXED otherwise (walked)."""
+    if nan_flags is None:
+        nan_flags = cell_nan_flags(slots)
+    lo, hi = slots.cell_box[None, :, 0], slots.cell_box[None, :, 1]
+    ql, qh = q_lo[:, None, :], q_hi[:, None, :]
+    walk = ~((qh < lo) | (ql > hi)).any(-1)
+    covered = walk & ~nan_flags[None] & ((ql <= lo) & (hi <= qh)).all(-1)
+    out = torch.full(walk.shape, EMPTY, dtype=torch.int8, device=walk.device)
+    out[walk] = MIXED
+    out[covered] = COVERED
+    return out
+
+
 _lib = None
 
 
@@ -251,35 +298,45 @@ def _kernel():
     if _lib is None:
         lib = native.library("join_moments")
         lib.repro_join_cell_moments.argtypes = (
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 15 + [ctypes.c_longlong]
+            + [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_void_p])
         lib.repro_join_cell_moments.restype = ctypes.c_int
         _lib = lib
     return _lib.repro_join_cell_moments
 
 
-# Limits of the launch (csrc/join_moments.cu): JM_QT queries a block along
-# gridDim.y (at most 65535 tiles), one leaf a block along gridDim.x, up to
-# JM_MAX_D predicate columns, sizes that fit a C int.
-JM_QT, JM_MAX_D = 128, 16
+# Limits of the launch (csrc/join_moments.cu): tiles of JM_CT cells along
+# gridDim.x and JM_QT queries along gridDim.y (at most 65535 tiles), up to
+# JM_MAX_D predicate columns, k * P cells and sizes that fit a C int.
+JM_QT, JM_CT, JM_MAX_D = 32, 128, 16
+
+
+def join_scratch_floats(kp: int) -> int:
+    """Floats of the launch's scratch: each cell's totals (8, k*P) and its
+    NaN flag (k*P,)."""
+    return (len(PLANES) + 1) * kp
 
 
 def check_join_limits(name, Q, k, su, P, D):
     """Raise ValueError unless the join kernel takes these sizes."""
     if not (1 <= Q < 2 ** 31 and -(-Q // JM_QT) <= 65535
             and 1 <= k < 2 ** 31 and 1 <= su < 2 ** 31
-            and 1 <= P < 2 ** 31 and 1 <= D <= JM_MAX_D
-            and k * su * D < 2 ** 62):
+            and 1 <= P < 2 ** 31 and k * P < 2 ** 31
+            and 1 <= D <= JM_MAX_D and k * su * D < 2 ** 62):
         raise ValueError(
-            f"{name}: needs 1 <= Q <= {65535 * JM_QT}, 1 <= k, su, P < "
-            f"2**31 and 1 <= D <= {JM_MAX_D}, got Q={Q} k={k} su={su} P={P} "
-            f"D={D}")
+            f"{name}: needs 1 <= Q <= {65535 * JM_QT}, 1 <= k, su, P and "
+            f"k * P < 2**31, 1 <= D <= {JM_MAX_D}, got Q={Q} k={k} su={su} "
+            f"P={P} D={D}")
 
 
 def join_cell_moments_cuda(slots: JoinSlots, q_lo, q_hi, cover, sampled,
                            cell_agg, total_rows, p_u: float) -> JoinMoments:
-    """Launch the CUDA kernels on the tensors' device and current stream.
-    The eight planes are the planes of the launch's one buffer."""
+    """Launch the CUDA kernels on the tensors' device and current stream:
+    each cell's totals with every slot inside (into a scratch), then the
+    planes tile by tile (a covered pair copies its cell's totals, an empty
+    one writes +0.0, a mixed one walks the run; :func:`join_cell_classes`),
+    then exact3 and touched. The eight planes are the planes of the
+    launch's one buffer."""
     name = "join_cell_moments"
     native.check_tensors(
         name, s_coord=slots.s_coord, s_a=slots.s_a, s_last=slots.s_last,
@@ -314,18 +371,21 @@ def join_cell_moments_cuda(slots: JoinSlots, q_lo, q_hi, cover, sampled,
                          device=dev)
     exact3 = torch.empty((Q, 3), dtype=torch.float32, device=dev)
     touched = torch.empty((Q,), dtype=torch.float32, device=dev)
+    scratch = torch.empty(join_scratch_floats(kp), dtype=torch.float32,
+                          device=dev)
     native.launch(name, dev, _kernel(), slots.s_coord.data_ptr(),
                   slots.s_a.data_ptr(), slots.s_last.data_ptr(),
                   slots.cell_start.data_ptr(), slots.cell_box.data_ptr(),
                   q_lo.data_ptr(), q_hi.data_ptr(), cover.data_ptr(),
                   sampled.data_ptr(), cell_agg.data_ptr(),
                   total_rows.data_ptr(), planes.data_ptr(),
-                  exact3.data_ptr(), touched.data_ptr(), Q, k, su, P, D,
-                  inv_p, one_m_p)
+                  exact3.data_ptr(), touched.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), Q, k, su, P, D, inv_p, one_m_p)
     return JoinMoments(*planes.unbind(0), exact3=exact3, touched=touched)
 
 
 __all__ = ["JoinSlots", "JoinMoments", "join_slots", "universe_group_ids",
            "join_cell_moments_plain", "join_cell_moments_cuda",
-           "check_join_limits", "plain_chunk_rows", "JM_QT", "JM_MAX_D",
-           "PLANES"]
+           "check_join_limits", "plain_chunk_rows", "join_scratch_floats",
+           "cell_nan_flags", "join_cell_classes", "EMPTY", "COVERED", "MIXED",
+           "JM_QT", "JM_CT", "JM_MAX_D", "PLANES"]

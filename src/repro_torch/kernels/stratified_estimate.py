@@ -18,13 +18,16 @@ w (k, s) float32 and returns [sum w, sum w*a, sum w*a^2] over the
 relevant samples; an invalid slot counts as w = 0 whatever w holds.
 ``stratified_weighted_moments_cuda`` launches the kernels of
 ``csrc/weighted_moments.cu`` with one weight row (they replace the Pallas
-kernel ``stratified_weighted_moments``); ``weighted_moments_plain`` is
-``backends.weighted_sample_moments``, its slots reduced by the
+kernel ``stratified_weighted_moments``), at any slot count: above
+``WEIGHTED_CHUNK`` slots a stratum the launch cuts each stratum into
+chunks and folds their partials in chunk order; ``weighted_moments_plain``
+is ``backends.weighted_sample_moments``, its slots reduced by the
 fixed-order :func:`tree_sum_last`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -185,65 +188,114 @@ def weighted_library():
     if _wlib is None:
         lib = native.library("weighted_moments")
         lib.repro_stratified_weighted_moments.argtypes = \
-            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.repro_stratified_weighted_moments.restype = ctypes.c_int
         lib.repro_bootstrap_moments.argtypes = [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            [ctypes.c_longlong] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         lib.repro_bootstrap_moments.restype = ctypes.c_int
         lib.repro_weighted_plan.argtypes = [ctypes.c_int] * 4 + \
             [ctypes.POINTER(ctypes.c_int)] * 2
         lib.repro_weighted_plan.restype = ctypes.c_int
+        lib.repro_weighted_scratch.argtypes = [ctypes.c_int] * 5
+        lib.repro_weighted_scratch.restype = ctypes.c_longlong
         _wlib = lib
     return _wlib
+
+
+# Rows 3 and 4's order contract (csrc/weighted_moments.cu CHUNK), rows 2
+# and 8's chunk: up to WEIGHTED_CHUNK slots a stratum a pair's moments are
+# one slot-order fold; above it each chunk of WEIGHTED_CHUNK consecutive
+# slots gives a partial, folded in chunk order from chunk 0's.
+WEIGHTED_CHUNK = PAIR_CHUNK
+# The launch's constants that its plan and scratch follow: queries a tile,
+# the most segments a tile, replicates a batch of the tile loop, predicate
+# columns, the tile kernel's shared-memory cap, and the totals kernel's
+# segment tiles of 128 along gridDim.y (at most 65535) and the mixed-pair
+# kernel's replicate tiles of 16 along gridDim.y.
+_WQT, _WLT_MAX, _WRB_MAX, _WMAX_D, _WMAX_SMEM = 32, 32, 8, 16, 232448
+WEIGHTED_MAX_K = 65535 * 128
+WEIGHTED_MAX_R = 65535 * 16
+
+
+def weighted_chunks(s) -> int:
+    """Slot chunks a stratum: the segments of each leaf in the launch."""
+    return max(1, -(-s // WEIGHTED_CHUNK))
+
+
+@functools.lru_cache(maxsize=256)
+def weighted_plan(Q, k, s, d):
+    """(segments per tile, dynamic shared-memory bytes) of a weighted
+    launch, as csrc/weighted_moments.cu make_plan chooses them: the tile's
+    (query, slot) mask of ceil(min(s, WEIGHTED_CHUNK) / 32) words per
+    (query, segment) has to fit, so the segments a tile halve from 32."""
+    def a16(x):
+        return (x + 15) & ~15
+    nw = -(-min(s, WEIGHTED_CHUNK) // 32)
+    sl = 32
+    while sl > 8 and sl * 32 * d * 4 > 2048:
+        sl //= 2
+    lt = _WLT_MAX
+    while lt >= 1:
+        off = a16(2 * _WRB_MAX * lt * 12)
+        off = a16(off + 8 * lt * d)
+        off = a16(off + 8 * min(sl, lt) * 32 * d)
+        off = a16(off + 4 * nw * lt * _WQT)
+        off = a16(off + _WQT * lt)
+        off = a16(off + 4 * (3 * _WLT_MAX + 2))
+        if off <= _WMAX_SMEM:
+            return lt, off
+        lt //= 2
+    raise ValueError(f"weighted kernels: no launch plan for Q={Q} k={k} "
+                     f"s={s} d={d}")
 
 
 # Limits of the weighted kernels' launch (csrc/weighted_moments.cu): the
 # replicates loop inside each tile block, but the mixed-pair kernel puts
 # replicate tiles of 16 along gridDim.y, which holds 65535, as does the
-# totals kernel its leaf tiles of 128; the tiles of 32 queries x LT leaves
-# (LT >= 1) run along gridDim.x, which holds 2**31 - 1; the (query, slot)
-# bitmask of one leaf and 32 queries has to fit in shared memory.
-WEIGHTED_MAX_S = 32768
-WEIGHTED_MAX_K = 65535 * 128
-WEIGHTED_MAX_R = 65535 * 16
-
-
+# totals kernel its tiles of 128 segments (a stratum's slot chunks, k *
+# weighted_chunks(s) of them); the tiles of 32 queries x LT segments
+# (LT >= 1) run along gridDim.x, which holds 2**31 - 1; sizes are C ints.
 def check_weighted_limits(name, Q, k, s, d, R=1):
     """Raise ValueError unless the weighted kernels take these sizes."""
-    if not (1 <= Q and 1 <= k <= WEIGHTED_MAX_K
-            and -(-Q // 32) * k <= 2 ** 31 - 1
-            and 0 <= s <= WEIGHTED_MAX_S and 1 <= d <= 16
-            and 1 <= R <= WEIGHTED_MAX_R):
+    K = k * weighted_chunks(s) if s >= 0 else 0
+    if not (1 <= Q < 2 ** 31 and 1 <= k and 0 <= s < 2 ** 31
+            and 1 <= K <= WEIGHTED_MAX_K
+            and -(-Q // _WQT) * K <= 2 ** 31 - 1
+            and 1 <= d <= _WMAX_D and 1 <= R <= WEIGHTED_MAX_R):
         raise ValueError(
-            f"{name}: needs Q >= 1, 1 <= k <= {WEIGHTED_MAX_K}, "
-            f"ceil(Q / 32) * k < 2**31, s <= {WEIGHTED_MAX_S}, "
-            f"1 <= d <= 16 and 1 <= R <= {WEIGHTED_MAX_R}, got Q={Q} k={k} "
-            f"s={s} d={d} R={R}")
+            f"{name}: needs Q >= 1, k >= 1, 0 <= s < 2**31, "
+            f"k * ceil(s / {WEIGHTED_CHUNK}) <= {WEIGHTED_MAX_K}, "
+            f"ceil(Q / {_WQT}) * k * ceil(s / {WEIGHTED_CHUNK}) < 2**31, "
+            f"1 <= d <= {_WMAX_D} and 1 <= R <= {WEIGHTED_MAX_R}, got Q={Q} "
+            f"k={k} s={s} d={d} R={R}")
+
+
+@functools.lru_cache(maxsize=256)
+def weighted_scratch_floats(R, Q, k, s, d) -> int:
+    """Floats of the weighted kernels' scratch (make_plan's layout): per
+    (replicate, segment) totals (R, K, 3), K = k * weighted_chunks(s)
+    segments; each segment's box around its valid samples (K, 2, d), its
+    valid bits (K, ceil(min(s, WEIGHTED_CHUNK) / 32)) and NaN flag (K,);
+    per tile of 32 queries x LT segments a count and a list of mixed pairs
+    with their slot masks; above one chunk the (R, Q, K, 3) partials,
+    from a multiple of 4 floats."""
+    n_ch = weighted_chunks(s)
+    K = k * n_ch
+    nw = -(-min(s, WEIGHTED_CHUNK) // 32)
+    lt, _ = weighted_plan(Q, k, s, d)
+    n_tiles = -(-Q // _WQT) * -(-K // lt)
+    floats = (R * K * 3 + K * 2 * d + K * nw + K + n_tiles
+              + n_tiles * _WQT * lt * (1 + nw))
+    # The partials start 16-byte aligned (the tiles' 4-float stores).
+    return -(-floats // 4) * 4 + R * Q * K * 3 if n_ch > 1 else floats
 
 
 def weighted_scratch(R, Q, k, s, d, device) -> torch.Tensor:
-    """The weighted kernels' scratch, one float32 buffer: per-(replicate,
-    leaf) totals (R, k, 3), each leaf's box around its valid samples
-    (k, 2, d), its valid bits (k, ceil(s / 32)), its NaN flag (k,), and
-    per tile of 32 queries a count and a list of mixed pairs with their
-    slot masks, sized for the narrowest tile."""
-    nw = -(-s // 32)
-    n_qt = -(-Q // 32)
-    return torch.empty(R * k * 3 + k * 2 * d + k * nw + k + n_qt * k
-                       + n_qt * 32 * (k + 31) * (1 + nw),
+    """The weighted kernels' scratch, one float32 buffer of
+    :func:`weighted_scratch_floats`."""
+    return torch.empty(weighted_scratch_floats(R, Q, k, s, d),
                        dtype=torch.float32, device=device)
-
-
-def weighted_plan(Q, k, s, d):
-    """(leaves per tile, dynamic shared-memory bytes) of a weighted launch,
-    as the CUDA source chooses them."""
-    lt, nbytes = ctypes.c_int(), ctypes.c_int()
-    err = weighted_library().repro_weighted_plan(
-        Q, k, s, d, ctypes.byref(lt), ctypes.byref(nbytes))
-    if err != 0:
-        raise ValueError(f"weighted kernels: no launch plan for Q={Q} k={k} "
-                         f"s={s} d={d}")
-    return lt.value, nbytes.value
 
 
 def check_weighted_args(name, sample_c, sample_a, sample_valid, w, q_lo,
@@ -280,13 +332,11 @@ def stratified_weighted_moments_cuda(sample_c, sample_a, sample_valid, w,
     dev = sample_c.device
     out = torch.empty((Q, k, 3), dtype=torch.float32, device=dev)
     scratch = weighted_scratch(1, Q, k, s, d, dev)
-    fn = weighted_library().repro_stratified_weighted_moments
-    with torch.cuda.device(dev):
-        err = fn(sample_c.data_ptr(), sample_a.data_ptr(),
-                 sample_valid.data_ptr(), w.data_ptr(), q_lo.data_ptr(),
-                 q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(), Q, k, s,
-                 d, torch.cuda.current_stream(dev).cuda_stream)
-    native.check_launch(name, err)
+    native.launch(name, dev, weighted_library().repro_stratified_weighted_moments,
+                  sample_c.data_ptr(), sample_a.data_ptr(),
+                  sample_valid.data_ptr(), w.data_ptr(), q_lo.data_ptr(),
+                  q_hi.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                  scratch.numel(), Q, k, s, d)
     return out
 
 
@@ -296,5 +346,6 @@ __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "check_moments_limits", "MOMENTS_QT", "MOMENTS_LT", "PAIR_CHUNK",
            "pair_scratch_floats", "pair_launch",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",
-           "weighted_scratch", "weighted_library", "WEIGHTED_MAX_S",
-           "WEIGHTED_MAX_K", "WEIGHTED_MAX_R"]
+           "weighted_scratch", "weighted_scratch_floats", "weighted_chunks",
+           "weighted_library", "WEIGHTED_CHUNK", "WEIGHTED_MAX_K",
+           "WEIGHTED_MAX_R"]

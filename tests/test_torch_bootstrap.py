@@ -43,7 +43,7 @@ from repro_torch.kernels.segment_reduce import (
     WSEG_MAX_CHUNKS, WSEG_MIN_ROWS, weighted_segment_plan,
     weighted_segment_reduce_cuda, weighted_segment_reduce_plain)
 from repro_torch.kernels.stratified_estimate import (
-    WEIGHTED_MAX_K, WEIGHTED_MAX_R, WEIGHTED_MAX_S, check_weighted_limits,
+    WEIGHTED_CHUNK, WEIGHTED_MAX_K, WEIGHTED_MAX_R, check_weighted_limits,
     stratified_weighted_moments_cuda, weighted_moments_plain,
     weighted_scratch)
 from repro_torch import random as trandom
@@ -334,14 +334,17 @@ def test_plain_empty_pair_negative_zero_when_every_value_is_negative():
 
 def test_weighted_kernel_limits():
     """The sizes the CUDA wrappers take: tiles of 32 queries along
-    gridDim.x, the totals kernel's leaf tiles of 128 and the mixed-pair
-    kernel's replicate tiles of 16 along gridDim.y, and s bounded by the
-    slot mask in shared memory."""
+    gridDim.x, the totals kernel's tiles of 128 segments (a stratum's slot
+    chunks of WEIGHTED_CHUNK) and the mixed-pair kernel's replicate tiles of
+    16 along gridDim.y, any slot count a C int holds."""
     check_weighted_limits("w", 2048, 1024, 75, 3, R=WEIGHTED_MAX_R)
-    check_weighted_limits("w", 1, WEIGHTED_MAX_K, WEIGHTED_MAX_S, 16)
+    check_weighted_limits("w", 1, WEIGHTED_MAX_K, WEIGHTED_CHUNK, 16)
     check_weighted_limits("w", 1, 1, 0, 1)
+    check_weighted_limits("w", 2048, 1, 40_000, 1, R=200)
+    check_weighted_limits("w", 1, 1, 2 ** 31 - 1, 16)
     for bad in (dict(Q=0), dict(k=0), dict(k=WEIGHTED_MAX_K + 1),
-                dict(s=WEIGHTED_MAX_S + 1), dict(s=-1), dict(d=0),
+                dict(k=WEIGHTED_MAX_K, s=WEIGHTED_CHUNK + 1), dict(s=2 ** 31),
+                dict(s=-1), dict(d=0),
                 dict(d=17), dict(R=0), dict(R=WEIGHTED_MAX_R + 1),
                 dict(Q=2 ** 31 - 1, k=64)):
         args = dict(Q=8, k=16, s=4, d=2, R=3)
@@ -350,11 +353,17 @@ def test_weighted_kernel_limits():
             check_weighted_limits("w", args["Q"], args["k"], args["s"],
                                   args["d"], args["R"])
     # totals (R, k, 3), boxes (k, 2, d), valid bits (k, ceil(s / 32)), a
-    # NaN flag per leaf, a count per (query tile, leaf) and a list entry of
-    # 1 + ceil(s / 32) words per (query, leaf), leaves rounded up to a tile
-    # of 32.
+    # NaN flag per leaf, a count per tile of 32 queries x 32 leaves and a
+    # list entry of 1 + ceil(s / 32) words per (query, leaf) of a tile.
     assert weighted_scratch(3, 40, 5, 33, 2, "cpu").numel() == \
-        45 + 20 + 10 + 5 + 2 * 5 + 2 * 32 * 36 * 3
+        45 + 20 + 10 + 5 + 2 + 2 * 32 * 32 * 3
+    # Above one chunk of WEIGHTED_CHUNK = 2048 slots: 20 segments of one
+    # leaf, 16 a tile (the masks of 64 words a query fill the tile's shared
+    # memory), and the (R, Q, 20, 3) partials from a multiple of 4 floats.
+    assert WEIGHTED_CHUNK == 2048
+    head = 2 * 20 * 3 + 20 * 2 + 20 * 64 + 20 + 2 + 2 * 32 * 16 * 65
+    assert weighted_scratch(2, 3, 1, 40_000, 1, "cpu").numel() == \
+        -(-head // 4) * 4 + 2 * 3 * 20 * 3
 
 
 @pytest.mark.parametrize("backend", ["pallas", "jnp"])
