@@ -145,7 +145,13 @@ Phases, each of which fails the run:
    each chunk's classes printed: within tolerance of plain (over query
    chunks), bit-equal across two launches, the fused block bit-equal to R
    scan launches, rows of query 0 and of a slice alone bit-equal to the
-   batch's, and at s = 2048 bit-equal to the baseline.
+   batch's, and bit-equal to the baseline at every s when it folds the
+   same chunks (else at s = 2048). Then the walks of the mixed pairs
+   (WALK_CASES): R = 1, 31, 33 and 200 (both lane layouts of the staged
+   walk and the direct one), Q off multiples of 32, ragged last chunks,
+   mask bits only in a chunk's last word, every pair mixed, NaN
+   coordinates on valid slots, +-inf and NaN weights on invalid slots;
+   the same checks.
 12. 1-D bootstrap serving on phase 4's synopsis and queries:
    PassEngine(kinds=sum/count/avg, CIConfig(method="bootstrap",
    n_boot=200, key=5)).answer(). Fused launches bootstrap_moments and
@@ -170,7 +176,9 @@ Phases, each of which fails the run:
    overhead of the weighted kernels and stratified_moments;
    weighted_segment_reduce at leaf-major and at uniformly random ids, one
    device operation a call, with its host enqueue time;
-   bootstrap_moments at the 3-D shapes; the baseline's kernels, if given.
+   bootstrap_moments at the 3-D shapes; with a baseline, rows 3 and 4 at
+   the 1-D and 3-D shapes in turns with its kernels (kernel, baseline,
+   baseline, kernel; events and device time), bit-equal to them.
    Row 10 at the main path's shapes: the fused draw (R = 200 over the
    1-D synopsis's 1024 x 75 slots), the ingest's uniforms of a 4096- and
    a 65,536-row batch, split(key, 2) and split(key, 5): bit-equal to plain,
@@ -370,7 +378,13 @@ Phases, each of which fails the run:
    stratified_weighted_moments launches) bit-equal, the truth of 64
    queries inside [lower, upper], the CPU answer on 16 queries; row 4
    there against plain on 64 queries, timed by events and on the device
-   against its bound and torch.bmm of a prebuilt predicate. Every serving
+   against its bound and torch.bmm of a prebuilt predicate; row 3 there
+   (R = 1) against the R = 1 product, timed the same way; each kernel's
+   device time in both launches; the scan answer's time; with a baseline, rows 3 and 4 in turns with its
+   kernels. Row 4 at the ESS shape (k = 64, s = 19,250, R = 200) against
+   plain on 8 queries, timed against its bound and torch.bmm of a
+   predicate built over chunks of queries, and with a baseline in turns
+   with its kernels. Every serving
    shim once on the card on the PASS and the US synopses, the same bits
    as PassEngine (poisson_bootstrap: one bootstrap_moments launch); the
    flat ops on the ESS and the US synopses' samples, shuffled with pad
@@ -554,6 +568,22 @@ def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
     event bracket around one call of a microsecond kernel measures the
     host's issue time instead, because the card waits for the launch."""
     return device_profile(torch, fn, reps, warmup, one_op)["ms"]
+
+
+def call_device_ms(torch, fn, reps: int = 10, warmup: int = 1) -> dict:
+    """Device ms of one call of ``fn()``, a library call of one or more
+    device operations, from a torch.profiler window of ``reps`` calls. A
+    window has kept the records of only some calls (torch.bmm at the ESS
+    shape read 1/3 and 2/3 of its event time over 3 calls), and a window
+    around one call has kept none, so the ms is each operation's mean
+    record times its records a call (rounded, at least 1), summed over
+    the operations; the records are beside it."""
+    kby = device_by_name(torch, fn, reps=reps, warmup=warmup)
+    ms = sum(v["ms_per_record"] * max(1, round(v["records"] / reps))
+             for v in kby.values())
+    return {"ms": ms if kby else None,
+            "records": {name: v["records"] for name, v in kby.items()},
+            "reps": reps}
 
 
 def device_by_name(torch, fn, reps: int = 10, warmup: int = 2) -> dict:
@@ -2327,9 +2357,9 @@ def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi,
     inputs: sums within rtol=3e-5, atol=1e-3; each kernel bit-equal across
     two launches; every bootstrap_moments slice r torch.equal to
     stratified_weighted_moments with W[r] (DESIGN.md §10); with a baseline,
-    both bit-equal to the baseline's kernels up to one slot chunk
-    (WEIGHTED_CHUNK), their differing values counted above it. Returns the
-    max absolute errors."""
+    both bit-equal to the baseline's kernels wherever
+    baseline_bits_required, their differing values counted elsewhere.
+    Returns the max absolute errors."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.stratified_estimate import (
@@ -2352,12 +2382,11 @@ def weighted_vs_plain(torch, tag, c, a, valid, W, q_lo, q_hi,
             raise AssertionError(f"{tag}: bootstrap_moments[{r}] is not "
                                  f"stratified_weighted_moments(W[{r}])")
     if base is not None:
-        from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
         lib = base["weighted_moments"]
         for name, x, w in (("bootstrap_moments", boot, W),
                            ("stratified_weighted_moments", one, W[0])):
             old = baseline_moments(torch, lib, sm, w, *q)
-            if a.shape[1] > WEIGHTED_CHUNK:
+            if not baseline_bits_required(lib, a.shape[1]):
                 weighted_baseline_differing(torch, f"{tag} {name}", x, old)
             elif not bits_equal(torch, x, old):
                 raise AssertionError(f"{tag}: {name} differs from the "
@@ -2436,7 +2465,8 @@ def edge_cases_weighted(torch, dev, base=None) -> dict:
             errs[name] = max(errs[name], err)
         emit(check="edge_weighted_classes", case=tag, **classes,
              max_abs_err=e, baseline_bit_equal=None if base is None
-             or s > 2048 else True)
+             or not baseline_bits_required(base["weighted_moments"], s)
+             else True)
         class_cases.append(classes)
         cases += 1
     nan_cases = edge_cases_weighted_nan(torch, dev, base, errs)
@@ -2473,8 +2503,8 @@ def edge_cases_weighted_nan(torch, dev, base, errs) -> int:
     (weighted_vs_plain) and never give either stratum its totals, the
     moments of all its valid slots, which a covered pair would copy. With
     a baseline, whether the baseline's kernel differs is recorded (its box
-    skipped NaN and covered such strata). Updates ``errs``; returns the
-    number of cases."""
+    skipped NaN and covered such strata); one with the same slot chunks
+    must give its bits. Updates ``errs``; returns the number of cases."""
     from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
     from repro_torch.kernels.stratified_estimate import samples_inside
     shapes = ((129, 64, 75, 1, 9), (129, 53, 75, 3, 33),
@@ -2517,8 +2547,12 @@ def edge_cases_weighted_nan(torch, dev, base, errs) -> int:
                                      f"totals in {int(hit.sum())} pairs")
         differs = None
         if base is not None:
+            lib = base["weighted_moments"]
             differs = not bits_equal(torch, boot, baseline_moments(
-                torch, base["weighted_moments"], t[:3], t[3], t[4], t[5]))
+                torch, lib, t[:3], t[3], t[4], t[5]))
+            if differs and lib.same_chunks:
+                raise AssertionError(f"{tag}: differs from the baseline "
+                                     "kernel")
         emit(check="edge_weighted_nan", case=tag, **classes,
              nan_strata=[l1, l2], max_abs_err=e, baseline_differs=differs)
     return len(shapes)
@@ -2536,6 +2570,15 @@ WEIGHTED_CHUNK_CASES = ((33, 3, 2048, 3, 9), (33, 1, 2049, 1, 9),
 # The most slots a stratum a baseline from before the slot chunks of rows 3
 # and 4 takes.
 BASELINE_WEIGHTED_MAX_S = 32_768
+
+
+def baseline_bits_required(lib, s) -> bool:
+    """Whether rows 3 and 4 must give the baseline's bits at s slots a
+    stratum: always when the baseline folds the same slot chunks of
+    WEIGHTED_CHUNK (its ``repro_weighted_chunk``), else up to one chunk,
+    where an older baseline's one fold is the same order."""
+    from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
+    return lib.same_chunks or s <= WEIGHTED_CHUNK
 
 
 def weighted_baseline_differing(torch, tag, x, want) -> int:
@@ -2568,11 +2611,12 @@ def weighted_chunk_check(torch, tag, c, a, valid, W, q_lo, q_hi,
     to R launches of stratified_weighted_moments (the scan); its rows of
     query 0 and of a slice alone bit-equal to the same rows of the batch;
     within rtol=3e-5, atol=1e-3 of the plain version (over query chunks);
-    with a baseline and s <= WEIGHTED_CHUNK, both kernels bit-equal to the
-    baseline's. Returns the max absolute error."""
+    with a baseline, both kernels bit-equal to the baseline's wherever
+    baseline_bits_required, the differing values counted elsewhere up to
+    BASELINE_WEIGHTED_MAX_S. Returns the max absolute error."""
     from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
     from repro_torch.kernels.stratified_estimate import (
-        WEIGHTED_CHUNK, stratified_weighted_moments_cuda)
+        stratified_weighted_moments_cuda)
     sm, q = (c, a, valid), (q_lo, q_hi)
     boot = bootstrap_moments_cuda(*sm, W, *q)
     if not bits_equal(torch, boot, bootstrap_moments_cuda(*sm, W, *q)):
@@ -2590,7 +2634,8 @@ def weighted_chunk_check(torch, tag, c, a, valid, W, q_lo, q_hi,
         if not bits_equal(torch, part, boot[:, sl]):
             raise AssertionError(f"{tag}: rows {sl.start}-{sl.stop - 1} "
                                  "alone differ from the batch's")
-    if base is not None and a.shape[1] <= WEIGHTED_CHUNK:
+    if base is not None and baseline_bits_required(base["weighted_moments"],
+                                                   a.shape[1]):
         lib = base["weighted_moments"]
         if not (bits_equal(torch, boot, baseline_moments(torch, lib, sm, W,
                                                          *q))
@@ -2637,9 +2682,103 @@ def edge_cases_weighted_chunks(torch, dev, base=None) -> dict:
         emit(check="edge_weighted_chunk_classes", case=tag,
              chunks=len(per_chunk), chunk_classes=per_chunk,
              nan=i % 2 == 1, max_abs_err=e,
-             baseline_bit_equal=None if base is None or s > WEIGHTED_CHUNK
+             baseline_bit_equal=None if base is None
+             or not baseline_bits_required(base["weighted_moments"], s)
              else True)
     return {"err": err, "cases": len(WEIGHTED_CHUNK_CASES)}
+
+
+# (Q, k, s, d, R, layout) of the walk of rows 3 and 4's mixed pairs: R = 1
+# (lanes take pairs), 31, 33 and 200 (lanes take replicates: one block of
+# 31, a block and one replicate, six and a part); Q off multiples of 32;
+# ragged last chunks (4100 = 2 x 2048 + 4, 2049) and one short segment (s
+# = 75); masks with bits only in a chunk's last word ("last"), every pair
+# mixed as at Table 1's US arm ("uniform"), NaN coordinates on valid slots
+# ("nan").
+WALK_CASES = ((45, 1, 4100, 1, 1, "uniform"), (45, 1, 4100, 1, 33, "uniform"),
+              (70, 2, 2049, 2, 31, "last"), (70, 2, 2049, 2, 1, "last"),
+              (33, 3, 6000, 1, 200, "nan"), (97, 1, 75, 3, 33, "uniform"),
+              (40, 2, 4096, 3, 200, "last"), (31, 1, 2048, 1, 31, "nan"))
+
+
+def walk_case(rng, Q, k, s, d, R, layout):
+    """Inputs of one WALK_CASES case: c ~ U(0, 1)^d (every chunk spans the
+    cube, so every (query, chunk) pair of a box query is mixed), ragged
+    validity, Poisson and non-integer weights (on invalid slots too, with
+    +-inf and NaN there), boxes of 5-60 % a column and query 0 over every
+    sample. "last": the slots of each chunk's last word of 32 lie in [0.9,
+    1)^d and the rest below 0.85, and every other query is [0.9, 1]^d, so
+    its mask bits lie in that word alone; "nan": a NaN coordinate on the
+    first valid slot of each stratum's chunks."""
+    from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
+    c = rng.uniform(0, 1, (k, s, d)).astype(np.float32)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.8
+    W = rng.poisson(1.0, (R, k, s)).astype(np.float32)
+    W[:, :, ::3] = rng.uniform(0, 2.5, W[:, :, ::3].shape)
+    bad = np.array([np.inf, -np.inf, np.nan], np.float32)
+    W[:, ~valid] = bad[rng.integers(0, 3, (R, int((~valid).sum())))]
+    q_lo = rng.uniform(0, 0.9, (Q, d)).astype(np.float32)
+    q_hi = np.minimum(q_lo + rng.uniform(0.05, 0.6, (Q, d)), 1.0
+                      ).astype(np.float32)
+    pos = np.arange(s) % WEIGHTED_CHUNK
+    ch_len = np.minimum(WEIGHTED_CHUNK, s - np.arange(s) // WEIGHTED_CHUNK
+                        * WEIGHTED_CHUNK)
+    if layout == "last":
+        last = pos >= (ch_len - 1) // 32 * 32
+        c[:, last] = rng.uniform(0.9, 1.0, (k, int(last.sum()), d))
+        c[:, ~last] = rng.uniform(0.0, 0.85, (k, int((~last).sum()), d))
+        q_lo[1::2], q_hi[1::2] = 0.9, 1.0
+    if layout == "nan":
+        for leaf in range(k):
+            for s0 in range(0, s, WEIGHTED_CHUNK):
+                on = np.flatnonzero(valid[leaf, s0:s0 + WEIGHTED_CHUNK])
+                if on.size:
+                    c[leaf, s0 + on[0], d - 1] = np.nan
+    q_lo[0], q_hi[0] = -1.0, 2.0
+    return c, a, valid, W, q_lo, q_hi
+
+
+def edge_cases_weighted_walk(torch, dev, base=None) -> dict:
+    """Rows 3 and 4's walk of the mixed pairs at WALK_CASES: each case's
+    chunk classes printed (mixed pairs in every case), weighted_chunk_check
+    (within tolerance of plain, bit-equal across launches, fused = R scan
+    launches, rows = batch, the baseline's bits); "last" cases have mask
+    bits in a chunk's last word only. Returns the max absolute error and
+    the case count."""
+    from repro_torch.kernels.stratified_estimate import (WEIGHTED_CHUNK,
+                                                         weighted_walk)
+    t0 = time.perf_counter()
+    err = 0.0
+    for i, (Q, k, s, d, R, layout) in enumerate(WALK_CASES):
+        rng = np.random.default_rng(1000 + i)
+        x = walk_case(rng, Q, k, s, d, R, layout)
+        t = [torch.from_numpy(v).to(dev) for v in x]
+        tag = f"edge weighted walk Q={Q} k={k} s={s} d={d} R={R} {layout}"
+        per_chunk = chunk_classes(torch, t[0], t[2], t[4], t[5],
+                                  chunk=WEIGHTED_CHUNK)
+        if not any(cl["mixed"] for cl in per_chunk):
+            raise AssertionError(f"{tag}: no mixed pair: {per_chunk}")
+        if layout == "last":
+            from repro_torch.kernels.stratified_estimate import samples_inside
+            held = samples_inside(t[0], t[2], t[4][1::2], t[5][1::2]).any(0)
+            j = torch.arange(s, device=dev)
+            start = j // WEIGHTED_CHUNK * WEIGHTED_CHUNK
+            ch_len = torch.clamp(s - start, max=WEIGHTED_CHUNK)
+            if (held & (j - start < (ch_len - 1) // 32 * 32)).any():
+                raise AssertionError(f"{tag}: a mask bit outside a chunk's "
+                                     "last word")
+        e = weighted_chunk_check(torch, tag, *t, base=base)
+        err = max(err, e)
+        emit(check="edge_weighted_walk", case=tag, walk=weighted_walk(R, s),
+             chunk_classes=per_chunk, max_abs_err=e,
+             baseline_bit_equal=None if base is None
+             or not baseline_bits_required(base["weighted_moments"], s)
+             else True)
+    out = {"err": err, "cases": len(WALK_CASES),
+           "seconds": time.perf_counter() - t0}
+    emit(check="edge_weighted_walk_cases", **out)
+    return out
 
 
 def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
@@ -2784,8 +2923,9 @@ def build_baseline(base: Path) -> dict:
     the slot chunks (no ``repro_<name>_slot_chunk``) take no scratch.
     Weighted sources from before the cover/empty redesign (no
     ``repro_weighted_plan``) take no scratch pointer, and from before the
-    slot chunks (no ``repro_weighted_chunk``) no scratch size (their
-    scratch is the current one's at s <= WEIGHTED_CHUNK); row 9 from before
+    slot chunks (no ``repro_weighted_chunk``) no scratch size; the
+    scratch is the size the baseline's ``repro_weighted_scratch`` asks for,
+    or the current one's without it; row 9 from before
     the class tiles (no ``repro_join_moments_scratch``) takes no scratch;
     segment_reduce.cu
     sources from before the one-launch weighted kernel (no
@@ -2815,6 +2955,14 @@ def build_baseline(base: Path) -> dict:
     lib = libs["weighted_moments"]
     lib.scratch = hasattr(lib, "repro_weighted_plan")
     lib.chunked = hasattr(lib, "repro_weighted_chunk")
+    # A baseline with this checkout's slot chunks folds rows 3 and 4 in the
+    # same order at every s: its bits are required everywhere.
+    from repro_torch.kernels.stratified_estimate import WEIGHTED_CHUNK
+    lib.same_chunks = (lib.chunked
+                       and lib.repro_weighted_chunk() == WEIGHTED_CHUNK)
+    if hasattr(lib, "repro_weighted_scratch"):
+        lib.repro_weighted_scratch.argtypes = [ctypes.c_int] * 5
+        lib.repro_weighted_scratch.restype = ctypes.c_longlong
     ptrs = [ctypes.c_void_p] * (8 if lib.scratch else 7) + (
         [ctypes.c_longlong] if lib.chunked else [])
     lib.repro_stratified_weighted_moments.argtypes = \
@@ -2884,7 +3032,10 @@ def baseline_moments(torch, lib, sm, w, q_lo, q_hi):
                       dtype=torch.float32, device=a.device)
     ptrs = [x.data_ptr() for x in (c, a, valid, w, q_lo, q_hi, out)]
     if lib.scratch:
-        scratch = weighted_scratch(R, Q, k, s, d, a.device)
+        n = (lib.repro_weighted_scratch(R, Q, k, s, d)
+             if hasattr(lib, "repro_weighted_scratch") else -1)
+        scratch = (weighted_scratch(R, Q, k, s, d, a.device) if n < 0
+                   else torch.empty(n, dtype=torch.float32, device=a.device))
         ptrs.append(scratch.data_ptr())
         if lib.chunked:
             ptrs.append(scratch.numel())
@@ -3035,8 +3186,8 @@ def boot_weights(torch, syn, device):
 
 def boot_kernel_3d(torch, run, card, base) -> dict:
     """bootstrap_moments at the 3-D bootstrap answer's shapes (R = 200):
-    its time, the pair classes there and, with a baseline, the baseline's
-    time and its output torch.equal to the current one."""
+    its time, the pair classes there and, with a baseline, rows 3 and 4 in
+    turns with its kernels (weighted_turns), bit-equal to them."""
     from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
     from repro_torch.kernels.stratified_estimate import weighted_plan
     syn, q = run["syn"], run["q"]
@@ -3050,15 +3201,8 @@ def boot_kernel_3d(torch, run, card, base) -> dict:
            "ms": cuda_ms(torch, lambda: bootstrap_moments_cuda(
                *sm, W, q.lo, q.hi), reps=10)}
     if base is not None:
-        base_lib = base["weighted_moments"]
-        got = bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
-        if not torch.equal(got, baseline_moments(torch, base_lib, sm, W,
-                                                 q.lo, q.hi)):
-            raise AssertionError("3d bootstrap_moments differs from the "
-                                 "baseline kernel")
-        del got
-        out["ms_baseline"] = cuda_ms(torch, lambda: baseline_moments(
-            torch, base_lib, sm, W, q.lo, q.hi), reps=5, warmup=1)
+        out["turns"] = weighted_turns(torch, "3d", sm, W, q.lo, q.hi, base)
+        out["ms_baseline"] = out["turns"]["bootstrap_moments"]["baseline_ms"]
     emit(bootstrap_moments_3d=out, Q=int(q.lo.shape[0]), k=k, s=s,
          R=N_BOOT, card=card)
     return out
@@ -3197,7 +3341,8 @@ def boot_kernel_times(torch, run, W, card, base=None) -> dict:
     per call, which must be 1; with a baseline, its weighted kernels'
     times and outputs torch.equal to the current ones, and its
     weighted_segment_reduce's times and output within rtol=3e-5,
-    atol=1e-3 of the current one."""
+    atol=1e-3 of the current one; with a baseline, rows 3 and 4 in turns
+    with its kernels (weighted_turns), bit-equal to them."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.segment_reduce import (
@@ -3251,30 +3396,11 @@ def boot_kernel_times(torch, run, W, card, base=None) -> dict:
         "stratified_moments_enqueue_host": enqueue_ms(torch, smo)}
     base_ms = {}
     if base is not None:
-        base_lib = base["weighted_moments"]
-        for name, w, fn in (
-                ("stratified_weighted_moments", w0, swm),
-                ("bootstrap_moments", W,
-                 lambda: bootstrap_moments_cuda(*sm, W, q.lo, q.hi))):
-            if not torch.equal(fn(), baseline_moments(torch, base_lib, sm, w,
-                                                      q.lo, q.hi)):
-                raise AssertionError(f"1d {name} differs from the baseline "
-                                     "kernel")
-            torch.cuda.empty_cache()
-        base_ms = {
-            "stratified_weighted_moments": cuda_ms(
-                torch, lambda: baseline_moments(torch, base_lib, sm, w0,
-                                                q.lo, q.hi)),
-            "stratified_weighted_moments_device": device_ms(
-                torch, lambda: baseline_moments(torch, base_lib, sm, w0,
-                                                q.lo, q.hi)),
-            "stratified_weighted_moments_x20": cuda_ms(
-                torch, x20(lambda: baseline_moments(torch, base_lib, sm, w0,
-                                                    q.lo, q.hi)),
-                reps=10) / 20,
-            "bootstrap_moments": cuda_ms(
-                torch, lambda: baseline_moments(torch, base_lib, sm, W, q.lo,
-                                                q.hi), reps=5, warmup=1)}
+        turns = weighted_turns(torch, "1d", sm, W, q.lo, q.hi, base)
+        base_ms = {"turns": turns}
+        for name in ("stratified_weighted_moments", "bootstrap_moments"):
+            base_ms[name] = turns[name]["baseline_ms"]
+            base_ms[f"{name}_device"] = turns[name]["baseline_device_ms"]
 
     pred = samples_inside(syn.sample_c, syn.sample_valid, q.lo, q.hi
                           ).permute(1, 0, 2).to(torch.float32).contiguous()
@@ -6486,7 +6612,104 @@ def weighted_device_ms(torch, fn) -> float:
                if "weighted_" in name and "_kernel" in name)
 
 
-def us_bootstrap(torch, card, syn, q, truth) -> dict:
+def weighted_turns(torch, tag, sm, W, q_lo, q_hi, base, reps=10) -> dict:
+    """Rows 3 (the weight row W[0]) and 4 (W) at one shape in turns with
+    the baseline's kernels, kernel, baseline, baseline, kernel, each turn
+    by events (median of ``reps``) and on the device (weighted_device_ms);
+    first each output bit-equal to the baseline's where
+    baseline_bits_required. Without a baseline, the kernel's two turns."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_weighted_moments_cuda)
+    t0 = time.perf_counter()
+    w0 = W[0].contiguous()
+    lib = None if base is None else base["weighted_moments"]
+    out = {}
+    for name, w, fn in (
+            ("stratified_weighted_moments", w0,
+             lambda: stratified_weighted_moments_cuda(*sm, w0, q_lo, q_hi)),
+            ("bootstrap_moments", W,
+             lambda: bootstrap_moments_cuda(*sm, W, q_lo, q_hi))):
+        turns = [("kernel", fn)]
+        if lib is not None:
+            def old(w=w):
+                return baseline_moments(torch, lib, sm, w, q_lo, q_hi)
+            if (baseline_bits_required(lib, sm[1].shape[1])
+                    and not bits_equal(torch, fn(), old())):
+                raise AssertionError(f"{tag} {name} differs from the "
+                                     "baseline kernel")
+            torch.cuda.empty_cache()
+            turns += [("baseline", old), ("baseline", old)]
+        turns.append(("kernel", fn))
+        row = {"order": [who for who, _ in turns], "ms": [],
+               "device_ms": []}
+        for _, f in turns:
+            row["ms"].append(cuda_ms(torch, f, reps=reps, warmup=2))
+            row["device_ms"].append(weighted_device_ms(torch, f))
+        for who in ("kernel", "baseline"):
+            got = [i for i, x in enumerate(row["order"]) if x == who]
+            if got:
+                row[f"{who}_ms"] = mean_of(row["ms"][i] for i in got)
+                row[f"{who}_device_ms"] = mean_of(row["device_ms"][i]
+                                                  for i in got)
+        out[name] = row
+    emit(check="rows 3 and 4 in turns with the baseline", shape=tag,
+         Q=int(q_lo.shape[0]), k=int(sm[1].shape[0]), s=int(sm[1].shape[1]),
+         R=int(W.shape[0]), turns=out, seconds=time.perf_counter() - t0)
+    return out
+
+
+def walk_bound(torch, c, valid, q_lo, q_hi, R, step) -> dict:
+    """Least time for rows 3 and 4 at R replicates on these inputs: the
+    bytes (samples, weights and queries read once, the (R, Q, k, 3)
+    output written once) over 3.35 TB/s, or the operations over 67
+    TFLOP/s: 5 a valid slot and replicate for the segments' totals, 4d
+    compares a (query, segment) pair for its class, and for the mixed
+    pairs (some but not all of a segment's valid slots inside; segments of
+    WEIGHTED_CHUNK slots) 2d compares a slot and 5 a relevant (replicate,
+    slot). Counted over chunks of ``step`` queries."""
+    from repro_torch.kernels.stratified_estimate import (WEIGHTED_CHUNK,
+                                                         samples_inside,
+                                                         weighted_chunks)
+    k, s, d = c.shape
+    Q = int(q_lo.shape[0])
+    n_ch = weighted_chunks(s)
+    pad = n_ch * WEIGHTED_CHUNK - s if s > WEIGHTED_CHUNK else 0
+    width = WEIGHTED_CHUNK if s > WEIGHTED_CHUNK else max(s, 1)
+    seg_valid = torch.nn.functional.pad(valid, (0, pad)).view(
+        k, n_ch, width).sum(-1)
+    seg_len = torch.nn.functional.pad(torch.ones_like(valid), (0, pad)).view(
+        k, n_ch, width).sum(-1)
+    mixed = slots = rel = 0
+    for i in range(0, Q, step):
+        n_in = torch.nn.functional.pad(samples_inside(
+            c, valid, q_lo[i:i + step], q_hi[i:i + step]), (0, pad)).view(
+                -1, k, n_ch, width).sum(-1)
+        m = (n_in > 0) & (n_in < seg_valid)
+        mixed += int(m.sum())
+        slots += int((seg_len * m).sum())
+        rel += int((n_in * m).sum())
+    n_valid = int(valid.sum())
+    nbytes = (4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 4 * R * k * s
+              + 12 * R * Q * k)
+    ops = (5.0 * R * n_valid + 4.0 * d * Q * k * n_ch + 2.0 * d * slots
+           + 5.0 * R * rel)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops, "mixed_pairs": mixed,
+            "mixed_pair_slots": slots, "relevant_slots_in_mixed": rel}
+
+
+def bmm_rhs(torch, W, a):
+    """[w, w*a, w*a^2] of R' weight rows (R', k, s) as (k, s, 3R'), the
+    right side of the library yardstick's product."""
+    k, s = a.shape
+    t = torch.stack([W, W * a, W * a * a], dim=-1)
+    return t.permute(1, 2, 0, 3).reshape(k, s, -1).contiguous()
+
+
+def us_bootstrap(torch, card, syn, q, truth, base=None) -> dict:
     """Table 1's US arm (k = 1, s = 38,500: above one slot chunk of rows 3
     and 4) under CIConfig(method="bootstrap", n_boot=200, key=5) through
     PassEngine (use_aggregates=False, as the arm serves): fused (one
@@ -6495,17 +6718,21 @@ def us_bootstrap(torch, card, syn, q, truth) -> dict:
     queries inside [lower, upper]; the port's CPU answer on the first 16
     queries. Then row 4 at this shape against plain on the first
     US_PLAIN_Q queries, timed by events and on the device against its
-    bound (bytes, or R x Q x (slots inside) x 5 float operations plus the
-    slot tests at 67 TFLOP/s) and torch.bmm of a prebuilt predicate (TF32
-    off); the poisson_bootstrap shim and weighted_moments_flat run on it
-    in table1_shims and flat_ops_check."""
+    bound (walk_bound) and torch.bmm of a prebuilt predicate (TF32 off);
+    row 3 there (R = 1, the scan's launch) the same way against the R = 1
+    product; the device ms of each kernel of both launches; the scan
+    answer's time; with a baseline, rows 3 and 4 in turns with its kernels
+    (weighted_turns). The poisson_bootstrap shim
+    and weighted_moments_flat run on it in table1_shims and
+    flat_ops_check."""
     from repro_torch.api import PassEngine, ServingConfig
     from repro_torch.kernels import native
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
-    from repro_torch.kernels.stratified_estimate import (WEIGHTED_CHUNK,
-                                                         samples_inside,
-                                                         weighted_plan)
+    from repro_torch.kernels.stratified_estimate import (
+        WEIGHTED_CHUNK, samples_inside, stratified_weighted_moments_cuda,
+        weighted_plan)
+    t0 = time.perf_counter()
     sv = ServingConfig(kinds=BOOT_KINDS, use_aggregates=False)
     Q = int(q.lo.shape[0])
     res, launches = {}, {}
@@ -6547,24 +6774,32 @@ def us_bootstrap(torch, card, syn, q, truth) -> dict:
                 bootstrap_moments_cuda(*sm, W, ql, qh).cpu(),
                 bootstrap_moments_plain(*sm, W, ql, qh).cpu(), K_RTOL,
                 K_ATOL)
-    inside = samples_inside(*sm[::2], q.lo, q.hi)            # (Q, k, s)
-    n_inside = int(inside.sum())
-    ops = 5.0 * R * n_inside + 2.0 * d * Q * k * s + 5.0 * R * k * s
-    nbytes = (4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
-              + 4 * R * k * s + 12 * R * Q * k)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
-    pred = inside.permute(1, 0, 2).to(torch.float32).contiguous()
-    a = syn.sample_a
-    rhs = torch.stack([W, W * a, W * a * a], -1).permute(1, 2, 0, 3
-                                                         ).reshape(k, s, -1)
-    rhs = rhs.contiguous()
-    del inside
+    step = plain_step(k, s)
+    bound = walk_bound(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi, R,
+                       step)
+    bound1 = walk_bound(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi, 1,
+                        step)
+    pred = samples_inside(*sm[::2], q.lo, q.hi).permute(1, 0, 2).to(
+        torch.float32).contiguous()
+    w0 = W[0].contiguous()
+    rhs = bmm_rhs(torch, W, syn.sample_a)
+    rhs1 = bmm_rhs(torch, w0[None], syn.sample_a)
+    err1 = close("table1 US stratified_weighted_moments",
+                 stratified_weighted_moments_cuda(*sm, w0, q.lo, q.hi).cpu(),
+                 torch.bmm(pred, rhs1).permute(1, 0, 2).cpu(), K_RTOL,
+                 K_ATOL)
 
     def kernel():
         return bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
 
+    def kernel1():
+        return stratified_weighted_moments_cuda(*sm, w0, q.lo, q.hi)
+
     def library():
         return torch.bmm(pred, rhs)
+
+    def library1():
+        return torch.bmm(pred, rhs1)
 
     times = {"bootstrap_moments": cuda_ms(torch, kernel, reps=10, warmup=2),
              "bootstrap_moments_device": weighted_device_ms(torch, kernel),
@@ -6577,21 +6812,116 @@ def us_bootstrap(torch, card, syn, q, truth) -> dict:
              "bmm_bootstrap_moments": cuda_ms(torch, library, reps=10,
                                               warmup=2),
              # cuBLAS splits this k = 1 product: a memset and a GEMM a call.
-             "bmm_bootstrap_moments_device": device_ms(
-                 torch, library, reps=10, warmup=1),
+             "bmm_bootstrap_moments_device": call_device_ms(
+                 torch, library)["ms"],
+             "stratified_weighted_moments": cuda_ms(torch, kernel1, reps=10,
+                                                    warmup=2),
+             "stratified_weighted_moments_device": weighted_device_ms(
+                 torch, kernel1),
+             "bmm_stratified_weighted_moments": cuda_ms(torch, library1,
+                                                        reps=10, warmup=2),
+             "bmm_stratified_weighted_moments_device": call_device_ms(
+                 torch, library1)["ms"],
              "answer_fused": cuda_ms(torch, lambda: PassEngine(
-                 syn, sv, boot_ci()).answer(q), reps=5, warmup=1)}
-    bound = {"bound_ms": max(t_bytes, t_ops),
-             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-             "bytes": nbytes, "operations": ops, "slots_inside": n_inside}
-    del pred, rhs, W
+                 syn, sv, boot_ci()).answer(q), reps=5, warmup=1),
+             "answer_scan": cuda_ms(torch, lambda: PassEngine(
+                 syn, sv, boot_ci(boot_fused=False)).answer(q), reps=3,
+                 warmup=1)}
+    # The device ms a call of each kernel of the two launches.
+    by_kernel = {row: {name: v["ms_per_record"] for name, v in
+                       device_by_name(torch, fn).items()}
+                 for row, fn in (("bootstrap_moments", kernel),
+                                 ("stratified_weighted_moments", kernel1))}
+    del pred, rhs, rhs1
+    torch.cuda.empty_cache()
+    turns = weighted_turns(torch, "table1 US", sm, W, q.lo, q.hi, base,
+                           reps=5)
+    del W
     torch.cuda.empty_cache()
     out = {"launches_fused": launches[True], "launches_scan": launches[False],
-           "fused_equals_scan": True, "quality": quality, "max_abs_err": err,
-           "times_ms": times, "bound": bound, "k": k, "s": s, "R": R,
+           "fused_equals_scan": True, "quality": quality,
+           "max_abs_err": err, "max_abs_err_row3": err1, "turns": turns,
+           "times_ms": times, "device_ms_by_kernel": by_kernel, "bound": bound, "bound_row3": bound1, "k": k,
+           "s": s, "R": R,
            "chunks": -(-s // WEIGHTED_CHUNK),
            "plan_segments_per_tile_and_smem_bytes": weighted_plan(Q, k, s, d)}
+    out["seconds"] = time.perf_counter() - t0
     emit(phase="25 table1 US bootstrap", card=card, **out)
+    return out
+
+
+ESS_PLAIN_Q = 8
+# Queries on which the ESS shape's torch.bmm yardstick is held to the
+# kernel (all 2048 cost seconds of host copies and compares).
+ESS_LIB_Q = 256
+
+
+def ess_bootstrap_kernel(torch, card, syn, q, base=None) -> dict:
+    """Row 4 at the PASS-ESS arm's shape (k = 64, s = 19,250: 10 slot
+    chunks a stratum, Q = 2048, R = 200, the fused draw of BOOT_KEY) against
+    plain on its first ESS_PLAIN_Q queries; timed by events and on the
+    device against walk_bound and torch.bmm of a predicate (k, Q, s) built
+    beforehand over chunks of PLAIN_ELEMS, TF32 off (checked against the
+    kernel first on ESS_LIB_Q queries); with a baseline, rows 3 and 4 in turns with its
+    kernels."""
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
+    from repro_torch.kernels.stratified_estimate import samples_inside
+    t0 = time.perf_counter()
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    k, s = syn.sample_a.shape
+    Q = int(q.lo.shape[0])
+    W = boot_weights(torch, syn, q.lo.device)
+    R = int(W.shape[0])
+    n = ESS_PLAIN_Q
+    err = close(f"table1 ESS bootstrap_moments Q={n}",
+                bootstrap_moments_cuda(*sm, W, q.lo[:n], q.hi[:n]).cpu(),
+                bootstrap_moments_plain(*sm, W, q.lo[:n], q.hi[:n]).cpu(),
+                K_RTOL, K_ATOL)
+    step = plain_step(k, s)
+    bound = walk_bound(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi, R,
+                       step)
+    pred = torch.empty((k, Q, s), dtype=torch.float32, device=q.lo.device)
+    for i in range(0, Q, step):
+        pred[:, i:i + step] = samples_inside(
+            syn.sample_c, syn.sample_valid, q.lo[i:i + step],
+            q.hi[i:i + step]).permute(1, 0, 2)
+    rhs = bmm_rhs(torch, W, syn.sample_a)
+
+    def kernel():
+        return bootstrap_moments_cuda(*sm, W, q.lo, q.hi)
+
+    def library():
+        return torch.bmm(pred, rhs)
+
+    got = kernel()
+    n_lib = ESS_LIB_Q
+    lib = library().view(k, Q, R, 3)[:, :n_lib].permute(2, 1, 0, 3)
+    lib_err = close(f"table1 ESS torch.bmm Q={n_lib}", lib.cpu(),
+                    got[:, :n_lib].cpu(), K_RTOL, K_ATOL)
+    del got, lib
+    torch.cuda.empty_cache()
+    times = {"bootstrap_moments": cuda_ms(torch, kernel, reps=10, warmup=2),
+             "bootstrap_moments_device": weighted_device_ms(torch, kernel),
+             "bmm_bootstrap_moments": cuda_ms(torch, library, reps=3,
+                                              warmup=1)}
+    lib_dev = call_device_ms(torch, library, reps=3, warmup=0)
+    times["bmm_bootstrap_moments_device"] = lib_dev["ms"]
+    # The same calls as device_ms reads them, their summed records over 3:
+    # lower than the above where the window dropped a call's records.
+    window = device_profile(torch, library, reps=3, warmup=0)
+    times["bmm_bootstrap_moments_device_one_window"] = window["ms"]
+    del pred, rhs
+    torch.cuda.empty_cache()
+    turns = weighted_turns(torch, "table1 ESS", sm, W, q.lo, q.hi, base,
+                           reps=5)
+    out = {"k": int(k), "s": int(s), "Q": Q, "R": R, "times_ms": times,
+           "bound": bound, "max_abs_err": err, "plain_queries": n,
+           "bmm_max_abs_err_vs_kernel": lib_err, "turns": turns,
+           "bmm_device_records": lib_dev["records"],
+           "bmm_ops_per_call_one_window": window["ops_per_call"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(phase="25 table1 ESS bootstrap_moments", card=card, **out)
     return out
 
 
@@ -6757,7 +7087,8 @@ def table1_path(torch, card, c, a, base=None) -> dict:
         shapes[tag]["errs"] = errs
     base_differs = (None if base is None
                     else table1_baseline(torch, syns, q, base))
-    us_boot = us_bootstrap(torch, card, syns["US"], q, truth)
+    us_boot = us_bootstrap(torch, card, syns["US"], q, truth, base)
+    ess_boot = ess_bootstrap_kernel(torch, card, syns["PASS-ESS"], q, base)
     shims = table1_shims(torch, syns["PASS"], q)
     shims_us = table1_shims(torch, syns["US"], q)
     flat = flat_ops_check(torch, syns["PASS-ESS"], q)
@@ -6767,7 +7098,8 @@ def table1_path(torch, card, c, a, base=None) -> dict:
     out = {"grid": grid, "arms": arms, "aqppp_times_ms": ap_times,
            "builds_s": builds, "shapes": shapes, "shims": shims,
            "shims_us": shims_us, "flat": flat, "flat_us": flat_us,
-           "us_bootstrap": us_boot, "K": K, "baseline_differs": base_differs,
+           "us_bootstrap": us_boot, "ess_bootstrap": ess_boot, "K": K,
+           "baseline_differs": base_differs,
            "seconds": time.perf_counter() - t_phase}
     emit(phase="25 table1 times", card=card,
          answer_ms={name: x["times_ms"] for name, x in arms.items()},
@@ -7098,8 +7430,18 @@ def table1_rows(rows, tab1) -> None:
             extra["launches_flat_op_us"] = tab["flat_us"]["launches"][name]
             extra["launches_us_scan_bootstrap_answer"] = us[
                 "launches_scan"][name]
+            ut = us["times_ms"]
+            extra.update({
+                "ms_us": ut[name], "device_ms_us": ut[f"{name}_device"],
+                "bound_ms_us": us["bound_row3"]["bound_ms"],
+                "bound_by_us": us["bound_row3"]["bound_by"],
+                "library_ms_us": ut[f"bmm_{name}"],
+                "library_device_ms_us": ut[f"bmm_{name}_device"],
+                "us_scan_answer_ms": ut["answer_scan"],
+                "baseline_turns_us": us["turns"][name]})
             row["max_abs_err"] = max(row["max_abs_err"], tab["flat"]["werr"],
-                                     tab["flat_us"]["werr"])
+                                     tab["flat_us"]["werr"],
+                                     us["max_abs_err_row3"])
         if name == "bootstrap_moments":
             ut = us["times_ms"]
             extra.update({
@@ -7120,8 +7462,21 @@ def table1_rows(rows, tab1) -> None:
                 f"ms_us_q{US_PLAIN_Q}": ut[f"bootstrap_moments_q{US_PLAIN_Q}"],
                 "library_ms_us": ut["bmm_bootstrap_moments"],
                 "library_device_ms_us": ut["bmm_bootstrap_moments_device"],
-                "us_fused_answer_ms": ut["answer_fused"]})
-            row["max_abs_err"] = max(row["max_abs_err"], us["max_abs_err"])
+                "us_fused_answer_ms": ut["answer_fused"],
+                "baseline_turns_us": us["turns"][name]})
+            ess = tab["ess_bootstrap"]
+            et = ess["times_ms"]
+            extra.update({
+                "ess_shape": {"Q": ess["Q"], "k": ess["k"], "s": ess["s"],
+                              "R": ess["R"]},
+                "ms_ess": et[name], "device_ms_ess": et[f"{name}_device"],
+                "bound_ms_ess": ess["bound"]["bound_ms"],
+                "bound_by_ess": ess["bound"]["bound_by"],
+                "library_ms_ess": et[f"bmm_{name}"],
+                "library_device_ms_ess": et[f"bmm_{name}_device"],
+                "baseline_turns_ess": ess["turns"][name]})
+            row["max_abs_err"] = max(row["max_abs_err"], us["max_abs_err"],
+                                     ess["max_abs_err"])
         if name in ("segment_reduce", "route_multid"):
             for tag, x in legs.items():
                 if name in x["stream_launches"]:
@@ -7464,7 +7819,9 @@ def check_plan_constants() -> None:
     query_eval's block, leaf tile and queries a block, sample_extremes'
     tiles, rows 2 and 8's slot chunk (on which row 2's bits rest) and
     their scratch, rows 3 and 4's slot chunk (on which their bits rest
-    above it), segments a tile, shared memory and scratch, row 9's query
+    above it), the pairs from which their walk stages a segment and the R
+    up to which its lanes take pairs, segments a tile, shared memory and
+    scratch, row 9's query
     and cell tiles and scratch, and the length of row 10's Poisson
     table."""
     from repro_torch.kernels import native
@@ -7479,8 +7836,9 @@ def check_plan_constants() -> None:
     from repro_torch.kernels.segment_reduce import (
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
     from repro_torch.kernels.stratified_estimate import (
-        PAIR_CHUNK, WEIGHTED_CHUNK, pair_scratch_floats, weighted_library,
-        weighted_plan, weighted_scratch_floats)
+        PAIR_CHUNK, WEIGHTED_CHUNK, WEIGHTED_PAIR_R, _WSTAGE,
+        pair_scratch_floats, weighted_library, weighted_plan,
+        weighted_scratch_floats)
     seg = native.library("segment_reduce")
     sm = native.library("stratified_moments")
     rt = native.library("route_multid")
@@ -7503,6 +7861,8 @@ def check_plan_constants() -> None:
            "slot chunk": (sm.repro_stratified_moments_slot_chunk(),
                           se.repro_sample_extremes_slot_chunk()),
            "weighted slot chunk": wm.repro_weighted_chunk(),
+           "weighted walks": (wm.repro_weighted_stage(),
+                              wm.repro_weighted_pair_r()),
            "join_cell_moments tiles": (jmo.repro_join_moments_query_tile(),
                                        jmo.repro_join_moments_cell_tile(),
                                        jmo.repro_join_moments_max_d()),
@@ -7522,6 +7882,7 @@ def check_plan_constants() -> None:
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
             "weighted slot chunk": WEIGHTED_CHUNK,
+            "weighted walks": (_WSTAGE, WEIGHTED_PAIR_R),
             "join_cell_moments tiles": (JM_QT, JM_CT, JM_MAX_D),
             "threefry table": CDF_LEN,
             "join_epilogue launch": (EPI_THREADS, EPI_CHUNK)}
@@ -7706,6 +8067,7 @@ def main(argv=None) -> int:
     # and 4 around one slot chunk.
     edge_w = edge_cases_weighted(torch, dev, base)
     edge_wch = edge_cases_weighted_chunks(torch, dev, base)
+    edge_walk = edge_cases_weighted_walk(torch, dev, base)
 
     # 12. 1-D bootstrap serving, fused and scan; 13. 3-D, fused.
     b1 = boot_serve(torch, "1d", run1, 0.05, scan=True)
@@ -7930,11 +8292,13 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "max_abs_err": max(edge_w[name], bk["errs"][name],
-                               edge_wch["err"] if chunked else 0.0),
+                               edge_wch["err"] if chunked else 0.0,
+                               edge_walk["err"] if chunked else 0.0),
             "bound_ms": bb[name]["bound_ms"],
             "bound_by": bb[name]["bound_by"], **row})
         if chunked:
             rows[-1]["chunk_edge_cases"] = edge_wch["cases"]
+            rows[-1]["walk_edge_cases"] = edge_walk["cases"]
     # Launches on the serve layer's paths (phases 16-18), each read right
     # after its own window: one ladder tier, one coalesced tick of 16
     # tenants, one coalesced tick of 4 bootstrap tenants, the restored

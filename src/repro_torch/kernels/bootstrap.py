@@ -56,9 +56,13 @@ def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
     block per tile of 32 queries x up to 32 segments classifies each
     (query, segment) pair once and writes every replicate's tile as
     contiguous rows: the segment's totals where the query box holds all of
-    its valid samples, +0.0 where it holds none. Then one thread per (other
-    pair, replicate) walks that pair's slots in slot order. Above one chunk
-    these are partials, folded in chunk order into the output
+    its valid samples, +0.0 where it holds none, and lists each segment's
+    other pairs. Then the walks add each listed pair's relevant slots in
+    slot order: a segment's pairs of one tile one thread per (pair,
+    replicate) when they are fewer than 8, else with the segment's weights
+    staged in shared memory once for 128 replicates at a time, a lane 4
+    replicates (a lane a pair up to R = 8). Above one chunk these are
+    partials, folded in chunk order into the output
     (``csrc/weighted_moments.cu``)."""
     name = "bootstrap_moments"
     if W.dim() != 3:
@@ -66,9 +70,6 @@ def bootstrap_moments_cuda(sample_c, sample_a, sample_valid, W, q_lo, q_hi):
                          f"{tuple(W.shape)}")
     Q, k, s, d = check_weighted_args(name, sample_c, sample_a, sample_valid,
                                      W, q_lo, q_hi)
-    # The replicates loop inside each tile block; the mixed pairs' replicate
-    # tiles of 16 run along gridDim.y (check_weighted_args holds R to
-    # 65535 * 16).
     R = W.shape[0]
     dev = sample_c.device
     out = torch.empty((R, Q, k, 3), dtype=torch.float32, device=dev)

@@ -39,11 +39,17 @@
 // reference's rtol 3e-5 / atol 1e-3 bar away from the plain pairwise sum;
 // chunks of 2048 keep it within 0.21x: tools/weighted_chunk_error.py.)
 //
-// What bounds it on an H100: at the bootstrap's shapes (Q = 2048, k =
-// 1024, s = 75, R = 200) the bytes of the (R, Q, k, 3) output, 5.03 GB,
-// ~1.5 ms at 3.35 TB/s. The operations come under that. At few strata
-// with many slots (Table 1's US arm: k = 1, s = 38,500) the operations of
-// the mixed pairs' walks.
+// What bounds it on an H100: at the bootstrap's serving shapes (Q = 2048,
+// k = 1024, s = 75, R = 200) the bytes of the (R, Q, k, 3) output, 5.03
+// GB, ~1.5 ms at 3.35 TB/s; the operations come under that. At few strata
+// with many slots (Table 1's US arm: k = 1, s = 38,500, every pair mixed)
+// the operations of the mixed pairs' walks: 5 a relevant (replicate,
+// query, slot) triple, ~2.3 G triples at R = 200 (0.18 ms at 67 TFLOP/s).
+// There a (replicate, slot) weight is wanted by every mixed query that
+// holds the slot, so a walk that loads it once a (query, replicate) moves
+// ~75 GB through L2 (PR 26: 15 ms); the staged walk loads it once a (query
+// tile, segment) item into shared memory, and issue bounds it: ~31
+// instructions a relevant (pair, slot) for RL = 4 replicates a lane.
 //
 // Design: the kernels below work on "segments", a stratum's chunk each:
 // segment g = leaf * n_ch + ch, n_ch = ceil(s / CHUNK) (one segment a
@@ -54,16 +60,22 @@
 // update, so the bits are those of a walk. An empty pair's are +0.0: its
 // accumulators would never leave +0.0. Only a mixed pair walks its slots.
 // In 1-D a query box cuts at most 2 of the leaves, so almost every pair is
-// covered or empty and the work is the output's store. Four kernels per
-// launch, a fifth above one chunk:
+// covered or empty and the work is the output's store. Five kernels per
+// launch, a sixth above one chunk:
 //
 //  1. weighted_totals_kernel: T[r, g] over the segment's valid slots in
 //     slot order. One warp per (replicate, 32 segments) stages 32 slots of
-//     each at a time with coalesced loads; lane l walks segment l.
+//     each at a time with coalesced loads; lane l walks segment l. Above
+//     one chunk (few strata, long segments: 19 segments at the US shape,
+//     so 200 warps of 19 lanes waited for their loads one round a stratum,
+//     0.60 ms on an H100) weighted_totals_rep_kernel instead: a warp a
+//     (segment, 32 replicates), lane = replicate, each lane reading 32
+//     slots of its weight row at once.
 //  2. weighted_box_kernel: one warp per segment writes the box around its
 //     valid samples (+inf / -inf without one), its valid bits and a flag
 //     for a NaN coordinate on a valid slot: fminf / fmaxf skip a NaN that
-//     the slot test rejects, so a flagged segment is never covered.
+//     the slot test rejects, so a flagged segment is never covered. It
+//     zeroes the staged walk's counters too.
 //  3. weighted_tile_kernel: one block of NT = 256 threads per tile of
 //     QT = 32 queries x LT segments (LT = 32 unless s is large), tiles
 //     along blockIdx.x. The block
@@ -80,7 +92,12 @@
 //        segments with such pairs arrive in chunks of 32 slots x SL
 //        segments by cp.async, double-buffered, so the next chunk loads
 //        while the current one is tested;
-//     c. lists the mixed pairs with their masks in the scratch;
+//     c. lists the mixed pairs with their masks in the scratch, by
+//        segment and in query order within one, each at a prefix sum of
+//        step b's counts: those of segments with fewer than N_STAGE of
+//        them first (their count per tile), then the others, each such
+//        segment appended to the staged walk's items (tile, segment, first
+//        entry, pairs);
 //     d. loops over all R replicates in batches of RB_MAX, reusing the
 //        classes: it stages the batch's totals tile with cp.async (the next
 //        batch's load while this one is stored) and writes each
@@ -88,18 +105,55 @@
 //        T for covered pairs and +0.0 elsewhere: 16-byte streaming stores
 //        when the segment count and LT are multiples of 4 (every row then
 //        starts 16-byte aligned), 4-byte ones otherwise; neighbouring
-//        threads write neighbouring addresses.
-//  4. weighted_mixed_kernel: one thread per (mixed pair, replicate) walks
-//     the set bits of the pair's mask in ascending slot order, WALK slot
-//     loads in flight at a time, and overwrites the pair's +0.0. Its
-//     products
-//     w*a and (w*a)*a are formed where they are added: only mixed (pair,
-//     replicate, slot) triples reach them (0.2 % of the pairs in 1-D on
-//     the bootstrap's queries), so staging them once per (replicate, slot)
-//     would cost shared memory sized for the worst case and a barrier per
-//     batch for little. Walking inside the tile kernel would hold all its
-//     warps at each batch's barrier for the walk's load latency; in a
-//     kernel of its own the walks wait for nothing.
+//        threads write neighbouring addresses. A tile whose pairs are all
+//        mixed (every tile at the US shape) stores nothing: its walks
+//        write every float of it.
+//  4. The walks of the mixed pairs, each overwriting its pair's floats.
+//     Every (pair, replicate) is the slot-order fold from +0.0 of its
+//     relevant slots of the segment through weighted_terms / weighted_add,
+//     in every walk; only which thread does it differs, so the bits are
+//     PR 14's.
+//     A segment's mixed pairs of one tile take one of two walks:
+//     a. fewer than N_STAGE of them: weighted_mixed_kernel (PR 14's walk),
+//        one thread per (pair, replicate) loading the pair's relevant
+//        weights from device memory, WALK loads in flight. At the serving
+//        shapes a tile holds one or two mixed pairs of a segment (0.2 % of
+//        the pairs in 1-D, 2.5 % in 3-D), and a staged walk there would
+//        stage a segment's weights for 128 replicates to walk one pair:
+//        it cost the 3-D row 4 +45 % (1.83 ms against ~0.7) on an H100.
+//     b. N_STAGE or more (an item of the staged walks: at the US shape all
+//        32 queries of a tile in every segment): blocks take units (an
+//        item and a block of replicates) from a counter until none is
+//        left, so the grid is the resident blocks whatever the share of
+//        mixed pairs. The lane layout follows R:
+//        - weighted_walk_reps_kernel (R > PAIR_R): lane = RL = 4
+//          replicates (RB = 128 a unit), warp = up to PPW = 4 of the
+//          item's pairs, their RL x 3 accumulators in registers. The
+//          segment's slots arrive in sub-chunks of SUB slots by cp.async,
+//          double-buffered: the RB weight rows transposed to
+//          [slot][replicate] (a pitch of RB + 1 floats: no bank conflict
+//          on either side; neighbouring threads read neighbouring slots of
+//          a row) and a once. A pair's mask word is the same across its
+//          warp, so the walk of its set bits does not diverge; a lane
+//          reads its replicates' weights from shared memory, a[slot] is a
+//          broadcast. So a (replicate, slot) weight comes from device
+//          memory once an item instead of once a (query, replicate).
+//        - weighted_walk_pairs_kernel (R <= PAIR_R: row 3's scan and flat
+//          op, R = 1): lane = pair, warp = (item, replicate). With a lane
+//          a replicate, all but R of RB lanes would idle. Lane b computes
+//          the terms of slot 32 w + b into shared memory; then every lane
+//          tests its own pair's bit for each of those 32 slots in order
+//          and adds the terms where it is set (no multiply by a 0/1 mask:
+//          0 x inf is NaN).
+//     N_STAGE = 8: one pair a warp of a staged block; below it warps idle
+//     while a whole segment is staged for the few pairs. PAIR_R = 8: a
+//     unit of the pair layout costs ~6 instructions a (slot, replicate)
+//     for up to 32 pairs, the replicate layout ~31 a relevant (pair, slot)
+//     for RB replicates; with every pair of an item mixed and ~15 % of its
+//     slots relevant (the US shape) the pair layout is the cheaper up to R
+//     ~ 8. Up to R = PAIR_R and one chunk a stratum (row 3 at the serving
+//     shapes) the direct walk takes every mixed pair and the staged walk
+//     is not launched: its empty launch cost 1.2 us, ~2 % of row 3 there.
 //  5. weighted_fold_kernel (above one chunk only): kernels 3 and 4 write
 //     the (R, Q, k * n_ch, 3) partials to the scratch, and one thread per
 //     (replicate, query, leaf) folds its n_ch partials in chunk order into
@@ -110,10 +164,13 @@
 // coordinate chunks of at most 2 KB, the mask QT * LT * ceil(min(s,
 // CHUNK) / 32) * 4 bytes, the classes and a little bookkeeping: ~24 KB at
 // s = 75, LT = 32, d = 1; ~136 KB at one full chunk, LT = 16. When the
-// mask would not fit, LT halves.
-// Registers are capped at 64 (4 blocks an SM); nvcc -Xptxas=-v prints the
-// counts at build. No float atomics, no tensor cores (no TF32): after the
-// cover/empty split no large contraction is left to feed them.
+// mask would not fit, LT halves. The replicate walk holds two staged
+// sub-chunks, 2 * SUB * (RB + 2) * 4 bytes (~66 KB, dynamic).
+// Registers are capped at 64 in the tile kernel (4 blocks an SM); nvcc
+// -Xptxas=-v prints the counts at build. No float atomics, no tensor cores
+// (no TF32): after the cover/empty split no large contraction is left to
+// feed them. The walk's unit counter and item list are integer atomics
+// that only order the work; no output depends on the order.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -128,9 +185,21 @@ constexpr int LT_MAX = 32;       // segments per tile
 constexpr int MAX_D = 16;        // predicate columns
 constexpr int CHUNK = 2048;      // slots a segment: the order contract
 constexpr int LEAF_T = 128;      // threads per totals and box block
-constexpr int MIX_T = 128;       // threads per mixed-pair block
-constexpr int MIX_R = 16;        // replicates per mixed-pair block
-constexpr int WALK = 8;          // slot loads in flight per mixed pair
+constexpr int MIX_T = 128;       // threads per direct-walk block
+constexpr int MIX_R = 16;        // replicates per direct-walk block
+constexpr int WALK = 8;          // slot loads in flight per direct walk
+constexpr int N_STAGE = 8;       // a tile's pairs of a segment to stage it
+constexpr int WALK_T = 256;      // threads per staged-walk block: 8 warps
+constexpr int WALK_WARPS = WALK_T / 32;
+constexpr int RL = 4;            // replicates a lane of the replicate walk
+constexpr int RB = 32 * RL;      // replicates a unit of the replicate walk
+constexpr int SUB = 64;          // slots a staged sub-chunk: two words
+constexpr int PPW = QT / WALK_WARPS;  // pairs a warp of that walk, at most
+constexpr int PAIR_R = 8;        // up to R = PAIR_R lanes take pairs
+// Dynamic shared memory of the replicate walk: two sub-chunks of weights
+// [slot][RB + 1] and of a.
+constexpr int WALK_SMEM = (2 * SUB * (RB + 1) + 2 * SUB) * 4;
+constexpr int MAX_DEVICES = 64;
 constexpr int FOLD_T = 256;      // threads per fold block
 constexpr int MAX_SMEM = 232448;
 constexpr int MAX_GRID_Y = 65535;
@@ -199,7 +268,8 @@ struct Plan {
   int nw;       // mask words per (query, segment): ceil(min(s, CHUNK) / 32)
   int sl;       // segments per staged coordinate chunk
   int n_qt, n_tiles;
-  size_t box, vbits, nan, counts, pairs, part, floats;  // scratch offsets
+  int stage_min;  // a tile's mixed pairs of a segment the staged walk takes
+  size_t box, vbits, nan, counts, ctr, items, pairs, part, floats;
   int off_t, off_box, off_c, off_mask, off_cls, off_meta, bytes;
 };
 
@@ -221,6 +291,9 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.K = (int)K;
     p.lt = lt;
     p.nw = nw;
+    // Up to R = PAIR_R and one chunk a stratum the direct walk takes every
+    // mixed pair (the launch has no staged walk).
+    p.stage_min = R > PAIR_R || n_ch > 1 ? N_STAGE : QT + 1;
     p.sl = sl < lt ? sl : lt;
     long long off = 0;
     p.off_t = (int)off;    off = align16(off + 2LL * RB_MAX * lt * 12);
@@ -228,7 +301,7 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.off_c = (int)off;    off = align16(off + 8LL * p.sl * 32 * d);
     p.off_mask = (int)off; off = align16(off + 4LL * nw * lt * QT);
     p.off_cls = (int)off;  off = align16(off + (long long)QT * lt);
-    p.off_meta = (int)off; off = align16(off + 4LL * (3 * LT_MAX + 2));
+    p.off_meta = (int)off; off = align16(off + 4LL * (3 * LT_MAX + 1));
     p.bytes = (int)off;
     if (off > MAX_SMEM) continue;
     const long long n_qt = (Q + QT - 1) / QT, n_lt = (K + lt - 1) / lt;
@@ -239,7 +312,12 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.vbits = p.box + (size_t)K * 2 * d;
     p.nan = p.vbits + (size_t)K * nw;
     p.counts = p.nan + K;
-    p.pairs = p.counts + p.n_tiles;
+    // 16 bytes from a multiple of 4 floats: the staged walk's next unit
+    // (64-bit) and item count; then an item (int2) per (tile, segment) at
+    // most.
+    p.ctr = (p.counts + p.n_tiles + 3) & ~(size_t)3;
+    p.items = p.ctr + 4;
+    p.pairs = p.items + 2 * (size_t)p.n_tiles * lt;
     // The partials start 16-byte aligned: the tiles store 4 floats at once.
     const size_t end = p.pairs + (size_t)p.n_tiles * QT * lt * (1 + nw);
     p.part = (end + 3) & ~(size_t)3;
@@ -250,10 +328,10 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
   return false;
 }
 
-// Per (replicate, segment): T = the moments of the segment's valid slots
-// in slot order. One warp per (replicate, 32 segments) stages 32 slots of
-// each at a time with coalesced loads; lane l then walks segment l's.
-template <bool CH>
+// Per (replicate, leaf), one segment a leaf (s <= CHUNK): T = the moments
+// of the leaf's valid slots in slot order. One warp per (replicate, 32
+// leaves) stages 32 slots of each at a time with coalesced loads; lane l
+// then walks leaf l's.
 __global__ void __launch_bounds__(LEAF_T)
 weighted_totals_kernel(const float* __restrict__ a,
                        const uint8_t* __restrict__ valid,
@@ -268,29 +346,20 @@ weighted_totals_kernel(const float* __restrict__ a,
   if (g0 >= K) return;
   const int nl = min(32, K - g0);
   const float* w = W + (size_t)r * k * seg.s;
-  const int my_len = lane < nl ? seg.len<CH>(g0 + lane) : 0;
-  const int span = seg.s < CHUNK ? seg.s : CHUNK;  // the longest segment
   float m[3] = {0.f, 0.f, 0.f};
-  for (int s0 = 0; s0 < span; s0 += 32) {
-    auto stage = [&](int li, size_t o) {
-      s_w[warp][li][lane] = w[o];
-      s_a[warp][li][lane] = a[o];
-      s_v[warp][li][lane] = valid[o];
-    };
-    if (CH) {
+  for (int s0 = 0; s0 < seg.s; s0 += 32) {
+    if (lane < min(32, seg.s - s0)) {
+      // One bound for the warp's leaves: their loads issue together.
       for (int li = 0; li < nl; ++li) {
-        const int g = g0 + li;
-        if (lane < min(32, seg.len<CH>(g) - s0))
-          stage(li, seg.base<CH>(g) + s0 + lane);
+        const size_t o = (size_t)(g0 + li) * seg.s + s0 + lane;
+        s_w[warp][li][lane] = w[o];
+        s_a[warp][li][lane] = a[o];
+        s_v[warp][li][lane] = valid[o];
       }
-    } else if (lane < min(32, seg.s - s0)) {
-      // One bound for the warp's segments: their loads issue together.
-      for (int li = 0; li < nl; ++li)
-        stage(li, (size_t)(g0 + li) * seg.s + s0 + lane);
     }
     __syncwarp();
     if (lane < nl) {
-      const int n = min(32, my_len - s0);
+      const int n = min(32, seg.s - s0);
       for (int j = 0; j < n; ++j)
         if (s_v[warp][lane][j])
           weighted_add(m, weighted_terms(s_w[warp][lane][j],
@@ -306,19 +375,67 @@ weighted_totals_kernel(const float* __restrict__ a,
   }
 }
 
+// Above one chunk (few strata with long segments): one warp per (segment,
+// 32 replicates), lane = replicate. Each 32 slots, the warp reads the
+// segment's a into shared memory and its valid bytes into a ballot, both
+// coalesced, and each lane its own weight row's 32 slots, all in flight
+// together; then every lane folds the valid ones in slot order, the same
+// fold as weighted_totals_kernel's.
+__global__ void __launch_bounds__(LEAF_T)
+weighted_totals_rep_kernel(const float* __restrict__ a,
+                           const uint8_t* __restrict__ valid,
+                           const float* __restrict__ W,
+                           float* __restrict__ T, int R, int k, Segs seg,
+                           int K) {
+  __shared__ float s_a[LEAF_T / 32][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long wid = (long long)blockIdx.x * (LEAF_T / 32) + warp;
+  const int n_rb = (R + 31) / 32;
+  if (wid >= (long long)K * n_rb) return;
+  const int g = (int)(wid / n_rb), r = (int)(wid % n_rb) * 32 + lane;
+  const size_t o = seg.base<true>(g);
+  const int len = seg.len<true>(g);
+  const float* wr = W + (size_t)(r < R ? r : R - 1) * k * seg.s + o;
+  float m[3] = {0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < len; j0 += 32) {
+    const int j = j0 + lane;
+    s_a[warp][lane] = j < len ? a[o + j] : 0.f;
+    const uint32_t bits = __ballot_sync(0xffffffffu,
+                                        j < len && valid[o + j] != 0);
+    float wv[32];
+#pragma unroll
+    for (int b = 0; b < 32; ++b) wv[b] = j0 + b < len ? wr[j0 + b] : 0.f;
+    __syncwarp();
+#pragma unroll
+    for (int b = 0; b < 32; ++b)
+      if (bits & (1u << b))
+        weighted_add(m, weighted_terms(wv[b], s_a[warp][b]));
+    __syncwarp();  // before the next 32 slots' a overwrite these
+  }
+  if (r < R) {
+    float* dst = T + ((size_t)r * K + g) * 3;
+    dst[0] = m[0];
+    dst[1] = m[1];
+    dst[2] = m[2];
+  }
+}
+
 // Per segment (one warp): its box around its valid samples (lo = +inf, hi
 // = -inf without one), its valid bits, 32 slots a word (nw words, zero
 // past its slots), and its NaN flag (1 iff a valid slot holds a NaN
-// coordinate, x != x).
+// coordinate, x != x). Block 0 also zeroes the staged walk's counters.
 template <bool CH>
 __global__ void __launch_bounds__(LEAF_T)
 weighted_box_kernel(const float* __restrict__ c,
                     const uint8_t* __restrict__ valid,
                     float* __restrict__ box, uint32_t* __restrict__ vbits,
-                    int* __restrict__ nan_flag, Segs seg, int K, int nw,
-                    int d) {
+                    int* __restrict__ nan_flag, int* __restrict__ ctr,
+                    Segs seg, int K, int nw, int d) {
   const int g = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
+  // The staged walk's two counters start at 0 (the tile kernel, next in
+  // the stream, appends its items).
+  if (blockIdx.x == 0 && threadIdx.x < 4) ctr[threadIdx.x] = 0;
   if (g >= K) return;
   const size_t base = seg.base<CH>(g);
   const int len = seg.len<CH>(g);
@@ -383,10 +500,11 @@ weighted_tile_kernel(const float* __restrict__ c,
   float* s_c = (float*)(smem + p.off_c);       // [2][SL][32 * d]
   uint32_t* s_mask = (uint32_t*)(smem + p.off_mask);  // [word][rank][q]
   uint8_t* s_cls = smem + p.off_cls;                  // [q][segment]
-  int* s_flag = (int*)(smem + p.off_meta);  // segment has a MAYBE pair
+  // Segment has a MAYBE pair; from step 2 on, its mixed pairs.
+  int* s_flag = (int*)(smem + p.off_meta);
   int* s_rank = s_flag + LT_MAX;            // its rank among those
   int* s_list = s_rank + LT_MAX;            // those segments in order
-  int* s_count = s_list + LT_MAX;           // [0] such segments, [1] mixed
+  int* s_count = s_list + LT_MAX;  // such segments
   const float* T = scratch;
   const float* box = scratch + p.box;
   const uint32_t* vbits = (const uint32_t*)(scratch + p.vbits);
@@ -404,7 +522,6 @@ weighted_tile_kernel(const float* __restrict__ c,
   for (int i = tid; i < nl * 2 * d; i += NT)
     s_box[i] = box[(size_t)g0 * 2 * d + i];
   for (int i = tid; i < LT_MAX; i += NT) s_flag[i] = 0;
-  if (tid == 0) s_count[1] = 0;
   const bool q_active = lane < nq;
   float ql[MAX_D], qh[MAX_D];
 #pragma unroll
@@ -454,6 +571,7 @@ weighted_tile_kernel(const float* __restrict__ c,
   __syncthreads();
   if (warp == 0) {
     const bool f = s_flag[lane] != 0;
+    s_flag[lane] = 0;  // step 2 counts the segment's mixed pairs here
     const unsigned b = __ballot_sync(0xffffffffu, f);
     if (f) {
       const int m = __popc(b & ((1u << lane) - 1u));
@@ -526,34 +644,76 @@ weighted_tile_kernel(const float* __restrict__ c,
         if (ch == 0) cnt[i] = 0;
         cnt[i] += __popc(bits);
         // A MAYBE pair is never covered: some valid sample lies outside.
-        if (ch == NW - 1 && test)
-          s_cls[lane * LT + l] = cnt[i] == 0 ? EMPTY : MIXED;
+        if (ch == NW - 1) {
+          if (test) s_cls[lane * LT + l] = cnt[i] == 0 ? EMPTY : MIXED;
+          const unsigned mb = __ballot_sync(0xffffffffu, test && cnt[i] != 0);
+          if (lane == 0) s_flag[l] = __popc(mb);
+        }
       }
     }
     __syncthreads();  // before stage(t + 2) overwrites this buffer
   }
   __syncthreads();
 
-  // 3. The mixed pairs and their masks go to the scratch for the mixed
-  // kernel: entry = (q << 16 | segment, NW mask words). The integer
-  // atomic only orders the entries; no output depends on the order.
+  // 3. The mixed pairs and their masks go to the scratch for the walks:
+  // entry = (q << 16 | segment, NW mask words). A segment with fewer than
+  // stage_min mixed pairs in the tile is walked directly
+  // (weighted_mixed_kernel: its entries first, their count in the tile's
+  // count); each other one becomes a staged walk's item (tile, segment |
+  // first entry << 5 | pairs << 15) at the end of the launch's list, its
+  // entries after the direct ones. Each kind of entries is listed by
+  // segment, each segment's in query order, from inclusive prefixes over
+  // the segments; the integer atomic only orders the items. Every warp
+  // reads step 2's counts (lane = segment) and forms the same sums and
+  // prefixes.
+  const int n_l = s_flag[lane];
+  const bool staged = n_l >= p.stage_min;
+  const unsigned staged_l = __ballot_sync(0xffffffffu, staged);
+  const int n_mixed = __reduce_add_sync(0xffffffffu, n_l);
+  // Every pair of the tile mixed: the walks write all of it.
+  const bool all_mixed = n_mixed == nq * nl;
   uint32_t* pairs = (uint32_t*)(scratch + p.pairs) +
                     (size_t)tile * QT * LT * (1 + NW);
-  for (int pi = tid; pi < QT * LT; pi += NT) {
-    if (s_cls[pi] == MIXED) {
-      const int e = atomicAdd(&s_count[1], 1);
-      const int q = pi / LT, l = pi - q * LT;
-      uint32_t* ent = pairs + (size_t)e * (1 + NW);
-      ent[0] = ((uint32_t)q << 16) | (uint32_t)l;
-      for (int wd = 0; wd < NW; ++wd)
-        ent[1 + wd] = s_mask[(wd * LT + s_rank[l]) * QT + q];
+  int xd = staged ? 0 : n_l, xs = staged ? n_l : 0;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int yd = __shfl_up_sync(0xffffffffu, xd, off);
+    const int ys = __shfl_up_sync(0xffffffffu, xs, off);
+    if (lane >= off) {
+      xd += yd;
+      xs += ys;
     }
   }
-  __syncthreads();
-  if (tid == 0) ((int*)(scratch + p.counts))[tile] = s_count[1];
+  const int n_direct = __shfl_sync(0xffffffffu, xd, 31);
+  const int first = staged ? n_direct + xs - n_l : xd - n_l;
+  if (warp == 0) {
+    int item = 0;
+    if (lane == 0 && staged_l != 0)
+      item = atomicAdd((int*)(scratch + p.ctr) + 2, __popc(staged_l));
+    item = __shfl_sync(0xffffffffu, item, 0);
+    if (staged)
+      ((int2*)(scratch + p.items))[item + __popc(staged_l &
+                                                 ((1u << lane) - 1u))] =
+          make_int2(tile, lane | first << 5 | n_l << 15);
+    if (lane == 0) ((int*)(scratch + p.counts))[tile] = n_direct;
+  }
+  for (int l = warp; l < LT; l += NT / 32) {
+    const int first_l = __shfl_sync(0xffffffffu, first, l);
+    const bool mixed = s_cls[lane * LT + l] == MIXED;
+    const unsigned b = __ballot_sync(0xffffffffu, mixed);
+    if (mixed) {
+      uint32_t* ent = pairs + (size_t)(first_l + __popc(
+                                           b & ((1u << lane) - 1u))) *
+                                  (1 + NW);
+      ent[0] = ((uint32_t)lane << 16) | (uint32_t)l;
+      for (int wd = 0; wd < NW; ++wd)
+        ent[1 + wd] = s_mask[(wd * LT + s_rank[l]) * QT + lane];
+    }
+  }
 
   // 4. The store units this thread owns (VW floats each) and which of
-  // their floats are covered; the same for every replicate.
+  // their floats are covered; the same for every replicate. A tile whose
+  // pairs are all mixed (the US shape) stores nothing: the walks write
+  // every float of it.
   constexpr int UPT = QT * LT_MAX * 3 / VW / NT;
   const int nur = nl * 3 / VW;  // units per output row of the tile
   const int n_units = nq * nur;
@@ -576,6 +736,7 @@ weighted_tile_kernel(const float* __restrict__ c,
   const size_t out_pitch = (size_t)K * 3;
   for (int b = 0; b < n_batch; ++b) {
     cp_async_wait<0>();
+    if (all_mixed) return;  // the same in every thread
     // Batch b's totals are in; batch b - 1's stores no longer read the
     // other half of s_t.
     __syncthreads();
@@ -607,11 +768,13 @@ weighted_tile_kernel(const float* __restrict__ c,
   }
 }
 
-// The mixed pairs of tile blockIdx.x for replicates [blockIdx.y * MIX_R,
-// + MIX_R): one thread per (pair, replicate) walks the set bits of the
-// pair's mask in ascending slot order and overwrites the +0.0 that the
-// tile kernel wrote there. The loads of up to WALK slots are in flight
-// together; the updates run in slot order.
+// The direct walk: the mixed pairs of tile blockIdx.x's segments with
+// fewer than N_STAGE of them (its first counts[tile] entries), replicates
+// [blockIdx.y * MIX_R, + MIX_R): one thread per (pair, replicate) walks
+// the set bits of the pair's mask in ascending slot order and writes the
+// pair's moments over the tile kernel's +0.0. The loads of up to WALK
+// slots are in flight together; the updates run in slot order. PR 14's
+// walk.
 template <bool CH>
 __global__ void __launch_bounds__(MIX_T)
 weighted_mixed_kernel(const float* __restrict__ a,
@@ -667,6 +830,283 @@ weighted_mixed_kernel(const float* __restrict__ a,
   }
 }
 
+// A staged walk's item: segment l of tile `tile` and its n >= N_STAGE
+// mixed pairs, entries [first, first + n) of the tile's list.
+struct Item {
+  int tile, l, first, n;
+};
+
+// What a staged walk's unit needs of its item: where the segment's slots
+// start and how many it has, the item's first query and segment, and its
+// first entry.
+struct Unit {
+  Item it;
+  int q0, g, len;
+  size_t o;
+  const uint32_t* ent;
+};
+
+template <bool CH>
+__device__ __forceinline__ Unit unit_of(const float* scratch, const Plan& p,
+                                        unsigned long long item) {
+  const int2 v = ((const int2*)(scratch + p.items))[item];
+  Unit u;
+  u.it = {v.x, v.y & 31, (v.y >> 5) & 1023, v.y >> 15};
+  u.q0 = (u.it.tile % p.n_qt) * QT;
+  u.g = (u.it.tile / p.n_qt) * p.lt + u.it.l;
+  u.o = p.seg.base<CH>(u.g);
+  u.len = p.seg.len<CH>(u.g);
+  u.ent = (const uint32_t*)(scratch + p.pairs) +
+          ((size_t)u.it.tile * QT * p.lt + u.it.first) * (1 + p.nw);
+  return u;
+}
+
+// The staged replicate walk (R > PAIR_R): blocks of WALK_WARPS warps take
+// units (item, block of RB replicates) from the counter until none is
+// left, replicate-block major (the units running together share their
+// block's weights in L2). Lane l holds replicates l, l + 32, ... (RL of
+// them); warp w walks the item's pairs w, w + WALK_WARPS, ... (PPW at
+// most), each with RL x 3 accumulators in registers across the
+// sub-chunks. The segment's weights, a and the pairs' mask words arrive
+// in sub-chunks of SUB slots, double-buffered: thread t stages slot t %
+// SUB of replicates t / SUB, t / SUB + WALK_T / SUB, ... (neighbouring
+// threads read neighbouring slots of a row; the pitch RB + 1 spreads the
+// stores and the lanes' reads over the banks). A pair's set bits, the
+// same across its warp, are added in ascending slot order.
+template <bool CH>
+__global__ void __launch_bounds__(WALK_T, 2)
+weighted_walk_reps_kernel(const float* __restrict__ a,
+                          const float* __restrict__ W,
+                          float* __restrict__ scratch,
+                          float* __restrict__ out, int R, int Q, int k,
+                          Plan p) {
+  extern __shared__ __align__(16) float s_walk[];
+  float* s_w = s_walk;                          // [2][SUB][RB + 1]
+  float* s_a = s_walk + 2 * SUB * (RB + 1);     // [2][SUB]
+  __shared__ uint32_t s_m[2][QT][SUB / 32];     // the pairs' mask words
+  __shared__ unsigned long long s_unit;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned long long* next = (unsigned long long*)(scratch + p.ctr);
+  const int n_rb = (R + RB - 1) / RB;
+  const int n_items = ((const int*)(scratch + p.ctr))[2];
+  const unsigned long long n_units = (unsigned long long)n_items * n_rb;
+  if (n_units == 0) return;
+  const int NW = p.nw, K = p.K;
+  const size_t ks = (size_t)k * p.seg.s;
+  const int jj = tid % SUB, rr0 = tid / SUB;
+  for (;;) {
+    if (tid == 0) s_unit = atomicAdd(next, 1ULL);
+    __syncthreads();
+    const unsigned long long id = s_unit;
+    if (id >= n_units) return;
+    const Unit u = unit_of<CH>(scratch, p, id % n_items);
+    const int r0 = (int)(id / n_items) * RB, nr = min(RB, R - r0);
+    const float* wsrc = W + (size_t)(r0 + rr0) * ks + u.o + jj;
+    auto stage = [&](int t) {
+      const int j0 = t * SUB, buf = t & 1;
+      if (j0 + jj < u.len) {
+        float* dw = s_w + (buf * SUB + jj) * (RB + 1);
+        for (int rr = rr0; rr < nr; rr += WALK_T / SUB)
+          cp_async4(dw + rr, wsrc + (size_t)(rr - rr0) * ks + j0);
+        if (rr0 == 0) cp_async4(s_a + buf * SUB + jj, a + u.o + j0 + jj);
+      }
+      // The item's mask words of these slots: pair tid / (SUB / 32).
+      const int e = tid / (SUB / 32), wd = t * (SUB / 32) + tid % (SUB / 32);
+      if (j0 < u.len && e < u.it.n && wd < NW)
+        cp_async4((float*)&s_m[buf][e][wd - t * (SUB / 32)],
+                  (const float*)(u.ent + (size_t)e * (1 + NW) + 1 + wd));
+      cp_async_commit();
+    };
+    const int np = (u.it.n - warp + WALK_WARPS - 1) / WALK_WARPS;
+    float m[PPW][RL][3];
+#pragma unroll
+    for (int i = 0; i < PPW; ++i)
+#pragma unroll
+      for (int v = 0; v < RL; ++v) m[i][v][0] = m[i][v][1] = m[i][v][2] = 0.f;
+    const int n_sub = (u.len + SUB - 1) / SUB;
+    stage(0);
+    for (int t = 0; t < n_sub; ++t) {
+      cp_async_wait<0>();
+      // Sub-chunk t is in for every thread, and every warp has left
+      // sub-chunk t - 1, whose buffer stage(t + 1) refills.
+      __syncthreads();
+      stage(t + 1);
+      const int buf = t & 1;
+      const float* sw = s_w + buf * SUB * (RB + 1) + lane;
+      const float* sa = s_a + buf * SUB;
+      const int wd0 = t * (SUB / 32);
+#pragma unroll
+      for (int i = 0; i < PPW; ++i) {
+        if (i < np) {
+          const uint32_t* ent = s_m[buf][warp + i * WALK_WARPS];
+#pragma unroll
+          for (int wd = 0; wd < SUB / 32; ++wd) {
+            uint32_t bits = wd0 + wd < NW ? ent[wd] : 0u;
+            while (bits) {
+              const int j = wd * 32 + __ffs(bits) - 1;
+              bits &= bits - 1;
+              const float av = sa[j];
+              const float* wj = sw + j * (RB + 1);
+              float wv[RL];
+#pragma unroll
+              for (int v = 0; v < RL; ++v) wv[v] = wj[32 * v];
+#pragma unroll
+              for (int v = 0; v < RL; ++v)
+                weighted_add(m[i][v], weighted_terms(wv[v], av));
+            }
+          }
+        }
+      }
+    }
+    // Before the next unit's stages and counter read overwrite the
+    // buffers and s_unit.
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PPW; ++i) {
+      if (i < np) {
+        const int q = u.q0 + (int)(u.ent[(size_t)(warp + i * WALK_WARPS) *
+                                         (1 + NW)] >> 16);
+#pragma unroll
+        for (int v = 0; v < RL; ++v) {
+          if (lane + 32 * v < nr) {
+            float* dst = out + (((size_t)(r0 + lane + 32 * v) * Q + q) * K +
+                                u.g) * 3;
+            dst[0] = m[i][v][0];
+            dst[1] = m[i][v][1];
+            dst[2] = m[i][v][2];
+          }
+        }
+      }
+    }
+  }
+}
+
+// The replicate walk's launch: its dynamic shared memory opted in and its
+// resident blocks counted once per device; its grid the fewer of those and
+// the units it could have.
+template <bool CH>
+int launch_reps(const float* a, const float* W, float* scratch, float* dst,
+                int R, int Q, int k, const Plan& p, cudaStream_t stream) {
+  static int resident[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    err = cudaFuncSetAttribute(weighted_walk_reps_kernel<CH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WALK_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, weighted_walk_reps_kernel<CH>, WALK_T, WALK_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    resident[dev] = (per_sm > 0 ? per_sm : 1) * sms;
+  }
+  const long long want = (long long)p.n_tiles * p.lt * ((R + RB - 1) / RB);
+  const int grid = (int)(want < resident[dev] ? want : resident[dev]);
+  weighted_walk_reps_kernel<CH><<<grid, WALK_T, WALK_SMEM, stream>>>(
+      a, W, scratch, dst, R, Q, k, p);
+  return (int)cudaGetLastError();
+}
+
+// The staged pair walk (R <= PAIR_R): each warp takes units (item,
+// replicate) from the counter; lane = pair. Per word of 32 slots, lane b
+// computes slot b's terms into shared memory; then every lane adds, slot
+// by slot in order, the terms of the slots its pair's mask word holds.
+template <bool CH>
+__global__ void __launch_bounds__(WALK_T)
+weighted_walk_pairs_kernel(const float* __restrict__ a,
+                           const float* __restrict__ W,
+                           float* __restrict__ scratch,
+                           float* __restrict__ out, int R, int Q, int k,
+                           Plan p) {
+  __shared__ float4 s_t[WALK_WARPS][32];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned long long* next = (unsigned long long*)(scratch + p.ctr);
+  const int n_items = ((const int*)(scratch + p.ctr))[2];
+  const unsigned long long n_units = (unsigned long long)n_items * R;
+  if (n_units == 0) return;
+  const int NW = p.nw, K = p.K;
+  const size_t ks = (size_t)k * p.seg.s;
+  float4* st = s_t[warp];
+  for (;;) {
+    unsigned long long id = 0;
+    if (lane == 0) id = atomicAdd(next, 1ULL);
+    id = __shfl_sync(0xffffffffu, id, 0);
+    if (id >= n_units) return;
+    // Replicate major, as the replicate walk.
+    const Unit u = unit_of<CH>(scratch, p, id % n_items);
+    const int r = (int)(id / n_items);
+    const bool has = lane < u.it.n;
+    const uint32_t* ent = u.ent + (size_t)(has ? lane : 0) * (1 + NW);
+    const float* wr = W + (size_t)r * ks + u.o;
+    const float* ar = a + u.o;
+    float m[3] = {0.f, 0.f, 0.f};
+    const int nwd = (u.len + 31) / 32;
+    // Word wd + 1's weight, a and mask bits load while word wd is walked.
+    float wn = 0.f, an = 0.f;
+    uint32_t bn = 0u;
+    auto fetch = [&](int wd) {
+      const int j = wd * 32 + lane;
+      wn = j < u.len ? wr[j] : 0.f;
+      an = j < u.len ? ar[j] : 0.f;
+      bn = has ? ent[1 + wd] : 0u;
+    };
+    fetch(0);
+    for (int wd = 0; wd < nwd; ++wd) {
+      const float wv = wn, av = an;
+      const uint32_t bits = bn;
+      if (wd + 1 < nwd) fetch(wd + 1);
+      // Past the segment's slots wv = av = 0: terms +0.0, never added.
+      const Terms t = weighted_terms(wv, av);
+      st[lane] = make_float4(t.w, t.wa, t.waa, 0.f);
+      __syncwarp();
+      if (__any_sync(0xffffffffu, bits != 0)) {
+#pragma unroll
+        for (int b = 0; b < 32; ++b) {
+          const float4 x = st[b];
+          if (bits & (1u << b)) weighted_add(m, Terms{x.x, x.y, x.z});
+        }
+      }
+      __syncwarp();  // before the next word's terms overwrite these
+    }
+    if (has) {
+      const int q = u.q0 + (int)(ent[0] >> 16);
+      float* dst = out + (((size_t)r * Q + q) * K + u.g) * 3;
+      dst[0] = m[0];
+      dst[1] = m[1];
+      dst[2] = m[2];
+    }
+  }
+}
+
+// The blocks of the pair walk the card holds at once, per device, once:
+// its grid.
+template <bool CH>
+int pairs_grid(int* grid) {
+  static int resident[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, weighted_walk_pairs_kernel<CH>, WALK_T, 0);
+    if (err != cudaSuccess) return (int)err;
+    // Two blocks an SM at most: a launch whose items are all walked
+    // directly (the serving shapes) then costs little more than the launch.
+    resident[dev] = (per_sm > 2 ? 2 : per_sm > 0 ? per_sm : 1) * sms;
+  }
+  *grid = resident[dev];
+  return 0;
+}
+
 // Above one chunk: out[r, q, leaf] = the left fold of the pair's n_ch
 // partials part[r, q, leaf * n_ch + ch] in chunk order, from chunk 0's.
 __global__ void __launch_bounds__(FOLD_T)
@@ -696,13 +1136,21 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
   const long long mix_y = (R + MIX_R - 1) / MIX_R;
   if (leaf_y > MAX_GRID_Y || mix_y > MAX_GRID_Y)
     return (int)cudaErrorInvalidConfiguration;
-  weighted_totals_kernel<CH><<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
-                               stream>>>(a, valid, W, scratch, k, p.seg,
-                                         p.K);
+  if (CH) {
+    const long long warps = (long long)p.K * ((R + 31) / 32);
+    weighted_totals_rep_kernel<<<(unsigned)((warps + LEAF_T / 32 - 1) /
+                                            (LEAF_T / 32)),
+                                 LEAF_T, 0, stream>>>(a, valid, W, scratch,
+                                                      R, k, p.seg, p.K);
+  } else {
+    weighted_totals_kernel<<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
+                             stream>>>(a, valid, W, scratch, k, p.seg, p.K);
+  }
   weighted_box_kernel<CH><<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T,
                             0, stream>>>(c, valid, scratch + p.box,
                                          (uint32_t*)(scratch + p.vbits),
-                                         (int*)(scratch + p.nan), p.seg, p.K,
+                                         (int*)(scratch + p.nan),
+                                         (int*)(scratch + p.ctr), p.seg, p.K,
                                          p.nw, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -726,6 +1174,28 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
   if (err != cudaSuccess) return (int)err;
   kernel<<<p.n_tiles, NT, p.bytes, stream>>>(c, q_lo, q_hi, dst, scratch, R,
                                              Q, d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // The staged walk, then the direct one: at most one item a (tile,
+  // segment), R units an item in the pair layout (a warp each), ceil(R /
+  // RB) in the replicate layout (a block each); never more blocks than
+  // the card holds at once.
+  if (R <= PAIR_R && !CH) {
+    // The direct walk takes every mixed pair (plan.stage_min).
+  } else if (R <= PAIR_R) {
+    int grid = 0;
+    const int gerr = pairs_grid<CH>(&grid);
+    if (gerr != 0) return gerr;
+    const long long want =
+        ((long long)p.n_tiles * p.lt * R + WALK_WARPS - 1) / WALK_WARPS;
+    if (want < grid) grid = (int)want;
+    weighted_walk_pairs_kernel<CH><<<grid, WALK_T, 0, stream>>>(
+        a, W, scratch, dst, R, Q, k, p);
+  } else {
+    const int rerr = launch_reps<CH>(a, W, scratch, dst, R, Q, k, p,
+                                     stream);
+    if (rerr != 0) return rerr;
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   weighted_mixed_kernel<CH><<<dim3(p.n_tiles, (unsigned)mix_y), MIX_T, 0,
@@ -799,6 +1269,11 @@ extern "C" long long repro_weighted_scratch(int R, int Q, int k, int s,
 
 // Slots a segment: the order contract's chunk.
 extern "C" int repro_weighted_chunk() { return CHUNK; }
+
+// The walks: a tile's pairs of a segment are staged from N_STAGE of them;
+// the staged walk's lanes take pairs up to R = PAIR_R, replicates above.
+extern "C" int repro_weighted_stage() { return N_STAGE; }
+extern "C" int repro_weighted_pair_r() { return PAIR_R; }
 
 extern "C" const char* repro_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

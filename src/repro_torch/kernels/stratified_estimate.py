@@ -199,6 +199,8 @@ def weighted_library():
         lib.repro_weighted_plan.restype = ctypes.c_int
         lib.repro_weighted_scratch.argtypes = [ctypes.c_int] * 5
         lib.repro_weighted_scratch.restype = ctypes.c_longlong
+        lib.repro_weighted_pair_r.restype = ctypes.c_int
+        lib.repro_weighted_stage.restype = ctypes.c_int
         _wlib = lib
     return _wlib
 
@@ -211,11 +213,30 @@ WEIGHTED_CHUNK = PAIR_CHUNK
 # The launch's constants that its plan and scratch follow: queries a tile,
 # the most segments a tile, replicates a batch of the tile loop, predicate
 # columns, the tile kernel's shared-memory cap, and the totals kernel's
-# segment tiles of 128 along gridDim.y (at most 65535) and the mixed-pair
-# kernel's replicate tiles of 16 along gridDim.y.
+# segment tiles of 128 and the direct walk's replicate tiles of 16 along
+# gridDim.y (at most 65535).
 _WQT, _WLT_MAX, _WRB_MAX, _WMAX_D, _WMAX_SMEM = 32, 32, 8, 16, 232448
 WEIGHTED_MAX_K = 65535 * 128
 WEIGHTED_MAX_R = 65535 * 16
+# The walks of the mixed pairs: a segment's pairs of one tile are staged
+# when they are _WSTAGE or more, walked directly (one thread a (pair,
+# replicate)) below; the staged walk's lanes take pairs up to R =
+# WEIGHTED_PAIR_R (row 3's R = 1), replicates above, in units of _WRB =
+# 128 replicates, its blocks of _WWALK_T threads staging _WSUB slots at a
+# time.
+WEIGHTED_PAIR_R, _WSTAGE, _WRB, _WSUB, _WWALK_T = 8, 8, 128, 64, 256
+
+
+def weighted_walk(R, s) -> str:
+    """How the launch at R replicates and s slots a stratum walks a tile's
+    segments with _WSTAGE or more mixed pairs: "direct" (one thread a
+    (pair, replicate), as the rest: up to R = WEIGHTED_PAIR_R and one
+    chunk), "pairs" (staged, a lane a pair, a warp a (segment, replicate))
+    or "replicates" (staged, a lane 4 replicates, a warp up to 4 pairs, 128
+    replicates a block)."""
+    if R > WEIGHTED_PAIR_R:
+        return "replicates"
+    return "pairs" if s > WEIGHTED_CHUNK else "direct"
 
 
 def weighted_chunks(s) -> int:
@@ -242,7 +263,7 @@ def weighted_plan(Q, k, s, d):
         off = a16(off + 8 * min(sl, lt) * 32 * d)
         off = a16(off + 4 * nw * lt * _WQT)
         off = a16(off + _WQT * lt)
-        off = a16(off + 4 * (3 * _WLT_MAX + 2))
+        off = a16(off + 4 * (3 * _WLT_MAX + 1))
         if off <= _WMAX_SMEM:
             return lt, off
         lt //= 2
@@ -251,11 +272,12 @@ def weighted_plan(Q, k, s, d):
 
 
 # Limits of the weighted kernels' launch (csrc/weighted_moments.cu): the
-# replicates loop inside each tile block, but the mixed-pair kernel puts
+# replicates loop inside each tile block, but the direct walk puts
 # replicate tiles of 16 along gridDim.y, which holds 65535, as does the
 # totals kernel its tiles of 128 segments (a stratum's slot chunks, k *
 # weighted_chunks(s) of them); the tiles of 32 queries x LT segments
-# (LT >= 1) run along gridDim.x, which holds 2**31 - 1; sizes are C ints.
+# (LT >= 1) run along gridDim.x, which holds 2**31 - 1; the staged walk's
+# units count in 64 bits; sizes are C ints.
 def check_weighted_limits(name, Q, k, s, d, R=1):
     """Raise ValueError unless the weighted kernels take these sizes."""
     K = k * weighted_chunks(s) if s >= 0 else 0
@@ -277,15 +299,18 @@ def weighted_scratch_floats(R, Q, k, s, d) -> int:
     (replicate, segment) totals (R, K, 3), K = k * weighted_chunks(s)
     segments; each segment's box around its valid samples (K, 2, d), its
     valid bits (K, ceil(min(s, WEIGHTED_CHUNK) / 32)) and NaN flag (K,);
-    per tile of 32 queries x LT segments a count and a list of mixed pairs
-    with their slot masks; above one chunk the (R, Q, K, 3) partials,
-    from a multiple of 4 floats."""
+    per tile of 32 queries x LT segments its directly walked pairs' count;
+    from a multiple of 4 floats the staged walk's two counters (4 floats),
+    its items (2 ints a (tile, segment)) and per tile a list of mixed pairs
+    with their slot masks; above one chunk the (R, Q, K, 3) partials, from
+    a multiple of 4 floats."""
     n_ch = weighted_chunks(s)
     K = k * n_ch
     nw = -(-min(s, WEIGHTED_CHUNK) // 32)
     lt, _ = weighted_plan(Q, k, s, d)
     n_tiles = -(-Q // _WQT) * -(-K // lt)
-    floats = (R * K * 3 + K * 2 * d + K * nw + K + n_tiles
+    head = -(-(R * K * 3 + K * 2 * d + K * nw + K + n_tiles) // 4) * 4
+    floats = (head + 4 + 2 * n_tiles * lt
               + n_tiles * _WQT * lt * (1 + nw))
     # The partials start 16-byte aligned (the tiles' 4-float stores).
     return -(-floats // 4) * 4 + R * Q * K * 3 if n_ch > 1 else floats
@@ -347,5 +372,5 @@ __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "pair_scratch_floats", "pair_launch",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",
            "weighted_scratch", "weighted_scratch_floats", "weighted_chunks",
-           "weighted_library", "WEIGHTED_CHUNK", "WEIGHTED_MAX_K",
-           "WEIGHTED_MAX_R"]
+           "weighted_library", "weighted_walk", "WEIGHTED_CHUNK",
+           "WEIGHTED_MAX_K", "WEIGHTED_MAX_R", "WEIGHTED_PAIR_R"]

@@ -335,8 +335,8 @@ def test_plain_empty_pair_negative_zero_when_every_value_is_negative():
 def test_weighted_kernel_limits():
     """The sizes the CUDA wrappers take: tiles of 32 queries along
     gridDim.x, the totals kernel's tiles of 128 segments (a stratum's slot
-    chunks of WEIGHTED_CHUNK) and the mixed-pair kernel's replicate tiles of
-    16 along gridDim.y, any slot count a C int holds."""
+    chunks of WEIGHTED_CHUNK) and the direct walk's replicate tiles of 16
+    along gridDim.y, any slot count a C int holds."""
     check_weighted_limits("w", 2048, 1024, 75, 3, R=WEIGHTED_MAX_R)
     check_weighted_limits("w", 1, WEIGHTED_MAX_K, WEIGHTED_CHUNK, 16)
     check_weighted_limits("w", 1, 1, 0, 1)
@@ -353,15 +353,18 @@ def test_weighted_kernel_limits():
             check_weighted_limits("w", args["Q"], args["k"], args["s"],
                                   args["d"], args["R"])
     # totals (R, k, 3), boxes (k, 2, d), valid bits (k, ceil(s / 32)), a
-    # NaN flag per leaf, a count per tile of 32 queries x 32 leaves and a
-    # list entry of 1 + ceil(s / 32) words per (query, leaf) of a tile.
+    # NaN flag per leaf and a count per tile of 32 queries x 32 leaves (82
+    # floats, padded to 84), the staged walk's two counters (4 floats), an
+    # item (2 ints) per (tile, leaf) of the 2 tiles, and a list entry of
+    # 1 + ceil(s / 32) words per (query, leaf) of a tile.
     assert weighted_scratch(3, 40, 5, 33, 2, "cpu").numel() == \
-        45 + 20 + 10 + 5 + 2 + 2 * 32 * 32 * 3
+        45 + 20 + 10 + 5 + 2 + 2 + 4 + 2 * 2 * 32 + 2 * 32 * 32 * 3
     # Above one chunk of WEIGHTED_CHUNK = 2048 slots: 20 segments of one
     # leaf, 16 a tile (the masks of 64 words a query fill the tile's shared
     # memory), and the (R, Q, 20, 3) partials from a multiple of 4 floats.
     assert WEIGHTED_CHUNK == 2048
-    head = 2 * 20 * 3 + 20 * 2 + 20 * 64 + 20 + 2 + 2 * 32 * 16 * 65
+    head = 2 * 20 * 3 + 20 * 2 + 20 * 64 + 20 + 2
+    head = -(-head // 4) * 4 + 4 + 2 * 2 * 16 + 2 * 32 * 16 * 65
     assert weighted_scratch(2, 3, 1, 40_000, 1, "cpu").numel() == \
         -(-head // 4) * 4 + 2 * 3 * 20 * 3
 

@@ -38,9 +38,11 @@ from repro_torch.api import PassEngine, ServingConfig, CIConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.bootstrap import bootstrap_moments_plain
 from repro_torch.kernels.stratified_estimate import (
-    WEIGHTED_CHUNK, _WLT_MAX, _WMAX_D, _WMAX_SMEM, _WQT, _WRB_MAX,
-    samples_inside, weighted_chunks, weighted_moments_plain, weighted_plan,
-    weighted_scratch_floats)
+    WEIGHTED_CHUNK, WEIGHTED_PAIR_R, _WLT_MAX, _WMAX_D, _WMAX_SMEM, _WQT,
+    _WRB, _WRB_MAX, _WSTAGE, _WSUB, _WWALK_T, samples_inside,
+    weighted_chunks,
+    weighted_moments_plain, weighted_plan, weighted_scratch_floats,
+    weighted_walk)
 from test_torch_engine import (assert_results_close, carry, carry_queries)
 
 C = WEIGHTED_CHUNK
@@ -155,6 +157,18 @@ def test_constants_match_source():
     assert (const("QT"), const("LT_MAX"), const("RB_MAX"), const("MAX_D"),
             const("MAX_SMEM")) == (_WQT, _WLT_MAX, _WRB_MAX, _WMAX_D,
                                    _WMAX_SMEM)
+    # The walks: a tile's pairs of a segment are staged from N_STAGE of
+    # them; the staged walk's lanes take pairs up to R = PAIR_R, else RL
+    # replicates a lane (units of RB = 32 * RL) staging SUB slots at a
+    # time, in blocks of WALK_T threads.
+    assert (const("PAIR_R"), const("N_STAGE"), const("RL"), const("SUB"),
+            const("WALK_T")) == (WEIGHTED_PAIR_R, _WSTAGE, _WRB // 32,
+                                 _WSUB, _WWALK_T) == (8, 8, 4, 64, 256)
+    assert re.search(r"constexpr int RB = 32 \* RL;", src)
+    assert [weighted_walk(R, C + 1) for R in (1, 8, 9, 200)] == \
+        ["pairs", "pairs", "replicates", "replicates"]
+    assert [weighted_walk(R, C) for R in (1, 8, 9)] == \
+        ["direct", "direct", "replicates"]
 
 
 @pytest.mark.parametrize("s,d,lt", [(75, 1, 32), (75, 16, 32), (300, 3, 32),
@@ -172,20 +186,24 @@ def test_scratch_above_one_chunk():
     """The scratch grows with the segments and, above one chunk, holds the
     (R, Q, k * n_ch, 3) partials; it is sized for the plan's own tiles, not
     for the narrowest one (PR 14 sized 32 * (k + 31) list entries a query
-    tile)."""
+    tile). The walk's two counters start at a multiple of 4 floats (a
+    64-bit one first) and hold an item (2 ints) per (tile, segment)."""
     assert C == 2048
     assert weighted_chunks(0) == weighted_chunks(C) == 1
     assert weighted_chunks(C + 1) == 2 and weighted_chunks(3 * C + 1) == 4
     # Table 1's US shape: 19 segments of one stratum, 16 a tile.
     us = weighted_scratch_floats(200, 2048, 1, 38_500, 1)
     K, tiles = 19, 64 * 2
-    head = (200 * K * 3 + K * 2 + K * 64 + K + tiles
+    head = 200 * K * 3 + K * 2 + K * 64 + K + tiles
+    assert head % 4
+    head = (-(-head // 4) * 4 + 4 + 2 * tiles * 16
             + tiles * 32 * 16 * 65)
     # The partials start at a multiple of 4 floats (16-byte stores).
-    assert head % 4 and us == -(-head // 4) * 4 + 200 * 2048 * K * 3
+    assert us == -(-head // 4) * 4 + 200 * 2048 * K * 3
     assert us * 4 < 128 * 2 ** 20
     one = weighted_scratch_floats(200, 2048, 1, C, 1)
-    assert one == 200 * 3 + 2 + 64 + 1 + 64 + 64 * 32 * 16 * 65
+    assert one == (-(-(200 * 3 + 2 + 64 + 1 + 64) // 4) * 4 + 4
+                   + 2 * 64 * 16 + 64 * 32 * 16 * 65)
 
 
 # ---------------------------------------------------------------------------
