@@ -9,6 +9,7 @@
                                            # this one's
     python3 chip_smoke.py --sharded-only   # only phases 1, 2, 23 and 24
     python3 chip_smoke.py --table1-only    # only phases 1, 2, 4, 5, 25-28
+    python3 chip_smoke.py --wide-only      # only phases 1, 2, 29 and 30
 
 DIR is a checkout of an earlier commit. Its weighted_moments.cu,
 stratified_moments.cu, sample_extremes.cu, segment_reduce.cu,
@@ -413,6 +414,43 @@ Phases, each of which fails the run:
    each launches rows 1 and 2, prints its numbers beside the card's name
    and power limit, and its summary holds what it shows.
 
+29. Any d: rows 1-4, 7, 8 and 9 at d = 16, 17, 31, 32, 33, 64 and 300
+   (WIDE_DS; above 16 columns their wide instantiations, the columns in
+   blocks of 16) against their plain versions as phases 3, 7, 11 and 19
+   hold them: query_eval at k off its leaf tile and Q past a block,
+   inverted and NaN boxes, a NaN bound; rows 2 and 8 at one slot chunk
+   and above it (s = 2500; NaN coordinates, row 8's special values), rows
+   alone bit-equal to the batch's; rows 3 and 4 (weighted_chunk_check:
+   fused = scan, rows alone, plain) at s = 75 (R = 9), 300 (R = 1) and
+   2049 (R = 3) with NaN coordinates on valid slots; route_multid with
+   ties and an inverted box, bit-equal; row 9 at D = d on mixed and NaN
+   inputs. At each d > 16 the bit identity: on a 16-column input (the
+   d <= 16 code) and on the same input with d - 16 more columns (the
+   wide code), whose query bounds are -+3.4e38 and data finite, rows 1-4,
+   8 and 9 give the same bits; row 7, its rows inside every box there,
+   the same leaf ids and distances.
+30. The 24-column table at paper size: nyc_taxi(scale=1.0, dims=5)'s
+   five columns and 19 generated ones (wide_table: uniform, lognormal,
+   integer codes; value trip distance), 2048 queries each bounding 2-4
+   columns by random_queries' rule on them (wide_queries) and every other
+   column at its [min, max]. build_synopsis(k=1024, sample_rate=0.01,
+   "kd") -> PassEngine(all five kinds, ci=0.95).answer() with phase 4's
+   checks (rows 1, 2, 8 against plain at these shapes, the CPU answer,
+   the truth of 64 queries inside [lower, upper], median SUM error at
+   most WIDE_ERR, set by tools/reference_wide_error.py); the fused and
+   the scan bootstrap at R = 200 (rows 10, 4 and 3; bit-equal, phase 12's
+   checks); nyc_taxi(scale=0.1, seed=7)'s 770,000 trips with the same 19
+   columns streamed in 4096-row batches (rows 10, 5 and 7; phase 8's
+   checks, no reoptimize: 1-D only); one answer_join on join_workload's
+   distributions with 24 fact columns at 7.7 M fact rows, each rectangle
+   bounding 2-4 fact columns and the dimension pair (rows 1, 9 and 11;
+   row 9 against plain, the truth of 64 queries). Each window's launches
+   are read right after it. Times: rows 1-4, 7 and 8 by events and on the
+   device, their plain versions and bounds at d = 24, rows 2-4's
+   torch.bmm yardstick (a prebuilt predicate, as in Table 1), row 9 and
+   the answers; the pair classes. With --wide-only the script runs
+   phases 1, 2, 29 and 30 alone.
+
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
 after it and the exit code is not 0.
@@ -440,6 +478,10 @@ KINDS = ("sum", "count", "avg", "min", "max")
 # (non-tensor) operations/s.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+# Profiler windows a device-time reading of the wide path takes at most
+# while a window keeps no device record (profiled); the windows taken again.
+PROFILE_TRIES = 3
+PROFILE_RETRIES = {"windows": 0}
 # Kernel vs plain: the bar tests/test_kernels.py sets for Pallas (fp32 sums
 # taken in another order).
 K_RTOL, K_ATOL = 3e-5, 1e-3
@@ -530,8 +572,28 @@ def device_busy_us(prof) -> tuple[float, int]:
                 for e in events), len(events))
 
 
+def profiled(torch, fn, reps: int, tries: int = 1):
+    """A torch.profiler window (CPU and CUDA) around ``reps`` calls of
+    ``fn()`` and a synchronize. On an H100 a window has kept no device
+    record at all, where the same call in the next window was recorded;
+    with ``tries`` > 1 such a window is taken again (counted in
+    PROFILE_RETRIES), up to ``tries`` windows in all, and the last one is
+    returned whatever it kept."""
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(tries):
+        PROFILE_RETRIES["windows"] += attempt > 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        if device_busy_us(prof)[1]:
+            break
+    return prof
+
+
 def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
-                   one_op: bool = False) -> dict:
+                   one_op: bool = False, tries: int = 1) -> dict:
     """What ``fn()`` ran on the card over ``reps`` calls, from
     torch.profiler: the names of the device operations, their count per
     call, and the device ms per call, their summed time over ``reps``. On
@@ -539,16 +601,11 @@ def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
     launched (ctypes launches included), so for ``fn`` that is one device
     operation (``one_op``, held: the recorded ones share one name and are
     no more than the calls) the ms per call is their mean; and a window
-    around a long library call has recorded none (ms None)."""
-    from torch.profiler import ProfilerActivity, profile
+    has recorded none (ms None; ``tries`` as in profiled)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(torch, fn, reps, tries)
     events = [e for e in prof.events()
               if str(getattr(e, "device_type", "")).endswith("CUDA")]
     busy_us, n = device_busy_us(prof)
@@ -563,14 +620,15 @@ def device_profile(torch, fn, reps: int = 20, warmup: int = 3,
 
 
 def device_ms(torch, fn, reps: int = 20, warmup: int = 3,
-              one_op: bool = False) -> float:
+              one_op: bool = False, tries: int = 1) -> float:
     """Device time per call of ``fn()`` in ms (``device_profile``). An
     event bracket around one call of a microsecond kernel measures the
     host's issue time instead, because the card waits for the launch."""
-    return device_profile(torch, fn, reps, warmup, one_op)["ms"]
+    return device_profile(torch, fn, reps, warmup, one_op, tries)["ms"]
 
 
-def call_device_ms(torch, fn, reps: int = 10, warmup: int = 1) -> dict:
+def call_device_ms(torch, fn, reps: int = 10, warmup: int = 1,
+                   tries: int = 1) -> dict:
     """Device ms of one call of ``fn()``, a library call of one or more
     device operations, from a torch.profiler window of ``reps`` calls. A
     window has kept the records of only some calls (torch.bmm at the ESS
@@ -578,7 +636,7 @@ def call_device_ms(torch, fn, reps: int = 10, warmup: int = 1) -> dict:
     around one call has kept none, so the ms is each operation's mean
     record times its records a call (rounded, at least 1), summed over
     the operations; the records are beside it."""
-    kby = device_by_name(torch, fn, reps=reps, warmup=warmup)
+    kby = device_by_name(torch, fn, reps=reps, warmup=warmup, tries=tries)
     ms = sum(v["ms_per_record"] * max(1, round(v["records"] / reps))
              for v in kby.values())
     return {"ms": ms if kby else None,
@@ -586,19 +644,16 @@ def call_device_ms(torch, fn, reps: int = 10, warmup: int = 1) -> dict:
             "reps": reps}
 
 
-def device_by_name(torch, fn, reps: int = 10, warmup: int = 2) -> dict:
+def device_by_name(torch, fn, reps: int = 10, warmup: int = 2,
+                   tries: int = 1) -> dict:
     """Device ms per call of ``fn()`` by device-operation name, from a
     torch.profiler window (a window that dropped records under-counts;
-    the count of records each name got is beside it)."""
-    from torch.profiler import ProfilerActivity, profile
+    the count of records each name got is beside it; ``tries`` as in
+    profiled)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(torch, fn, reps, tries)
     out = {}
     for e in prof.events():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -608,6 +663,14 @@ def device_by_name(torch, fn, reps: int = 10, warmup: int = 2) -> dict:
         out[e.name] = (ms + t / 1e3, n + 1)
     return {name: {"ms_per_record": ms / n, "records": n}
             for name, (ms, n) in out.items()}
+
+
+def records_ms(kby, keep=lambda name: True):
+    """The summed mean record of the kept names of a device_by_name
+    reading: the device ms a call of a launch of several kernels; None when
+    the window kept no record of any of them (it measured nothing)."""
+    got = [v["ms_per_record"] for name, v in kby.items() if keep(name)]
+    return sum(got) if got else None
 
 
 def mean_of(readings):
@@ -1491,7 +1554,11 @@ def check_cpu_parity(torch, tag, syn, q, res, n: int = 512, kinds=KINDS,
 # ---------------------------------------------------------------------------
 
 def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
-              base=None) -> dict:
+              base=None, queries=None, cpu_queries=512) -> dict:
+    """build_synopsis(k=1024, sample_rate=0.01) -> PassEngine(all five
+    kinds, ci=0.95).answer() of ``queries`` (random_queries(c, 2048,
+    seed=3) by default), then the checks of phases 4 and 5 (the CPU answer
+    on the first ``cpu_queries``)."""
     from repro_torch.api import PassEngine, ServingConfig
     from repro_torch.core.query import random_queries
     from repro_torch.core.synopsis import build_synopsis
@@ -1504,7 +1571,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
     t0 = time.perf_counter()
     syn, report = build_synopsis(c, a, k=1024, sample_rate=0.01,
                                  method=method)
-    q = random_queries(c, 2048, seed=3)
+    q = random_queries(c, 2048, seed=3) if queries is None else queries
     eng = PassEngine(syn, ServingConfig(kinds=KINDS), ci=0.95)
     res = eng.answer(q)
     torch.cuda.synchronize()
@@ -1518,7 +1585,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
         if launches[name] < 1:
             raise AssertionError(f"{tag}: kernel {name} was not launched by "
                                  "PassEngine.answer")
-    check_result_shapes(torch, tag, res, 2048)
+    check_result_shapes(torch, tag, res, int(q.lo.shape[0]))
 
     errs = kernel_vs_plain(torch, f"{tag} main Q=2048 k=1024",
                            syn.leaf_lo, syn.leaf_hi, syn.leaf_agg,
@@ -1530,7 +1597,7 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
                       view.sample_c, view.sample_a, view.sample_valid, q.lo,
                       q.hi)
     torch.cuda.empty_cache()
-    check_cpu_parity(torch, tag, syn, q, res)
+    check_cpu_parity(torch, tag, syn, q, res, n=cpu_queries)
     n = 64
     q_lo = q.lo[:n].cpu().numpy()
     q_hi = q.hi[:n].cpu().numpy()
@@ -1889,7 +1956,8 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
     (one device operation a call, held), its host issue; the plain
     version's events and device time; with a baseline the baseline's, in
     turns with the kernel's (kernel, baseline, baseline, kernel; the two
-    readings of each averaged)."""
+    readings of each averaged; the baseline's device time, like the
+    kernel's, a mean per record)."""
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     from repro_torch.kernels.segment_reduce import (segment_reduce_cuda,
@@ -1929,7 +1997,12 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
             profs = [device_profile(torch, fn, one_op=True)]
             ev = [cuda_ms(torch, fn)]
             if name in bases:
-                bdev = [device_ms(torch, bases[name]) for _ in range(2)]
+                # Each device operation's mean record, as the kernel's
+                # reading: a dropped record leaves it whole (busy time over
+                # the calls read 0.95 of it when the profiler kept 19
+                # records of 20).
+                bdev = [call_device_ms(torch, bases[name])["ms"]
+                        for _ in range(2)]
                 bev = [cuda_ms(torch, bases[name]) for _ in range(2)]
             profs.append(device_profile(torch, fn, one_op=True))
             ev.append(cuda_ms(torch, fn))
@@ -1949,8 +2022,7 @@ def stream_kernel_times(torch, s1, s3, card, base=None) -> dict:
             bdev = [x for x in bdev if x is not None]
             row[f"{name}_baseline"] = statistics.mean(bev)
             row[f"{name}_baseline_readings"] = bev
-            row[f"{name}_baseline_device"] = statistics.mean(bdev) if bdev \
-                else None
+            row[f"{name}_baseline_device"] = mean_of(bdev)
             row[f"{name}_baseline_enqueue_host"] = enqueue_ms(torch,
                                                               bases[name])
             row[f"{name}_baseline_bit_equal"] = (name != "segment_reduce"
@@ -1988,8 +2060,8 @@ def seg_zero_times(torch, v, ids, k, base=None) -> dict:
 
         dev = [device_ms(torch, fn, one_op=True)]
         if base is not None:
-            bdev = [device_ms(torch, lambda: baseline_segment(
-                torch, base, vals, ids, k)) for _ in range(2)]
+            bdev = [call_device_ms(torch, lambda: baseline_segment(
+                torch, base, vals, ids, k))["ms"] for _ in range(2)]
             out[f"{name}_baseline_device"] = mean_of(bdev)
             out[f"{name}_baseline_zero_ties"] = ties
         dev.append(device_ms(torch, fn, one_op=True))
@@ -4701,8 +4773,7 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed,
         "kernels_per_answer": prof["ops_per_call"],
         "join_cell_moments": cuda_ms(torch, lambda: join_cell_moments_cuda(
             *args, JOIN_PU), reps=10, warmup=2),
-        "join_cell_moments_device": sum(v["ms_per_record"]
-                                        for v in kby.values()),
+        "join_cell_moments_device": records_ms(kby),
         "join_cell_moments_by_kernel": {
             name.split("::")[-1].split("(")[0]: v["ms_per_record"]
             for name, v in kby.items()},
@@ -4723,8 +4794,8 @@ def join_path(torch, tag, d_fact, method, card, tmp: Path, seed,
     plain_prof = device_profile(torch, old_epi, reps=5, warmup=1)
     times.update({
         "join_epilogue": cuda_ms(torch, epi, reps=20, warmup=3),
-        "join_epilogue_device": sum(v["ms_per_record"] for name, v in
-                                    eby.items() if "join_epilogue" in name),
+        "join_epilogue_device": records_ms(
+            eby, lambda name: "join_epilogue" in name),
         "join_epilogue_wrapper_device_by_op": {
             name.split("(")[0][:60]: v["ms_per_record"]
             for name, v in eby.items()},
@@ -4928,8 +4999,7 @@ def join_baseline_turns(torch, tag, eng, fq, dq, args, base) -> dict:
             kby = device_by_name(torch, row9[who])
             runs[who].append({
                 "row9_ms": cuda_ms(torch, row9[who], reps=10, warmup=2),
-                "row9_device_ms": sum(v["ms_per_record"]
-                                      for v in kby.values()),
+                "row9_device_ms": records_ms(kby),
                 "answer_join_ms": cuda_ms(torch, answer, reps=10, warmup=2),
                 "answer_join_host_ms": host_ms(torch, answer, reps=10),
                 "answer_join_device_busy_ms": device_profile(
@@ -6607,9 +6677,8 @@ def weighted_device_ms(torch, fn) -> float:
     """Device ms of one weighted launch (rows 3 and 4): the sum of the mean
     record of each of its kernels (weighted_*_kernel) in a profiler
     window."""
-    kby = device_by_name(torch, fn)
-    return sum(v["ms_per_record"] for name, v in kby.items()
-               if "weighted_" in name and "_kernel" in name)
+    return records_ms(device_by_name(torch, fn), lambda name: (
+        "weighted_" in name and "_kernel" in name))
 
 
 def weighted_turns(torch, tag, sm, W, q_lo, q_hi, base, reps=10) -> dict:
@@ -7812,6 +7881,780 @@ def join_key_uniforms(torch, keys, seed) -> dict:
         + (KEY_OPS + HASH_OPS - 1 + UNIFORM_OPS) * n, n, one_op=False)
 
 
+# ---------------------------------------------------------------------------
+# Any d: rows 1-4, 7, 8 and 9 above 16 predicate columns
+# ---------------------------------------------------------------------------
+
+# Phase 29's widths: the most columns the d <= 16 instantiations take, one
+# past it, either side of two blocks of 16 and on it, and two far ones.
+WIDE_DS = (16, 17, 31, 32, 33, 64, 300)
+WIDE_BASE_D = 16
+# The extra columns of the bit identity: query bounds -+WIDE_BIG there and
+# finite data, so that the widened input selects what its first 16 columns
+# select; for row 7 every row lies inside every box there (each term +0.0).
+WIDE_BIG = np.float32(3.4e38)
+
+
+def widen_queries(q_lo, q_hi, extra, at=None):
+    """(Q, d) bounds with ``extra`` columns of -+WIDE_BIG inserted before
+    column ``at`` (appended by default)."""
+    at = q_lo.shape[1] if at is None else at
+    lo = np.full((q_lo.shape[0], extra), -WIDE_BIG, np.float32)
+    return (np.concatenate([q_lo[:, :at], lo, q_lo[:, at:]], 1),
+            np.concatenate([q_hi[:, :at], -lo, q_hi[:, at:]], 1))
+
+
+def widen_cols(rng, x, extra, lo=0.05, hi=0.95):
+    """x (..., d) with ``extra`` more columns of finite uniform data."""
+    add = rng.uniform(lo, hi, x.shape[:-1] + (extra,)).astype(np.float32)
+    return np.concatenate([x, add], -1)
+
+
+def wide_bounded(rng, Q, d, lo, hi, first=1, fixed=3):
+    """(Q, d) bounds at (lo, hi) in every column, then 2-4 columns from
+    ``first`` on of each query after the first ``fixed`` bounded to a
+    random interval of (0, 1): the rule of the wide tables' queries."""
+    q_lo = np.full((Q, d), lo, np.float32)
+    q_hi = np.full((Q, d), hi, np.float32)
+    for i in range(fixed, Q):
+        n = min(d - first, int(rng.integers(2, 5)))
+        if n < 1:
+            continue
+        cols = first + rng.choice(d - first, n, replace=False)
+        q_lo[i, cols] = rng.uniform(0.0, 0.5, n)
+        q_hi[i, cols] = q_lo[i, cols] + rng.uniform(0.3, 0.7, n)
+    return q_lo, q_hi
+
+
+def wide_query_eval_case(rng, Q, k, d, A):
+    """Row 1 at any d: leaf boxes in (-1, 1.5), leaf k // 2 inverted and
+    leaf 1 NaN in the last column; query 0 unbounded, query 1 apart from
+    every leaf in the last column only, query 2 a NaN bound there; the
+    rest bound 2-4 columns (wide_bounded)."""
+    lo = rng.uniform(-1, 0.5, (k, d)).astype(np.float32)
+    hi = (lo + rng.uniform(0, 1, (k, d))).astype(np.float32)
+    if k > 2:
+        lo[k // 2, d - 1], hi[k // 2, d - 1] = 1.0, 0.0
+        lo[1, d - 1] = np.nan
+    agg = rng.normal(0, 1, (k, A)).astype(np.float32)
+    q_lo, q_hi = wide_bounded(rng, Q, d, -2.0, 2.0, first=0, fixed=1)
+    q_lo = np.where(q_lo > -2.0, q_lo - 1.0, q_lo).astype(np.float32)
+    if Q > 2:
+        q_lo[1, d - 1], q_hi[1, d - 1] = 5.0, 6.0
+        q_lo[2, d - 1] = np.nan
+    return lo, hi, agg, q_lo, q_hi
+
+
+def wide_pair_case(rng, Q, k, s, d, nan=False, special=False,
+                   chunk=2048):
+    """Rows 2-4 and 8 at any d: stratum i's samples in band i of column 0
+    (chunk j of its slots in the j-th part of the band), the other columns
+    uniform in (0.05, 0.95); ragged validity, stratum k // 2 without a
+    valid slot (k > 2). Query 0 holds everything, 1 misses everything, 2
+    is inverted; the others cut column 0 at band edges and bound 2-4 other
+    columns (wide_bounded), so that covered, empty and mixed pairs occur.
+    ``nan``: NaN coordinates on valid slots, in the last column of stratum
+    k - 1's last chunk and in column 17 % d of stratum 1's first 40 slots;
+    ``special``: NaN, +-inf, +-F32_MAX and +-0.0 values (row 8)."""
+    n_ch = -(-s // chunk)
+    c = rng.uniform(0.05, 0.95, (k, s, d)).astype(np.float32)
+    band = (np.arange(s) // chunk)[None, :]
+    c[..., 0] = ((np.arange(k)[:, None]
+                  + (band + rng.uniform(0.05, 0.95, (k, s))) / n_ch) / k)
+    a = rng.normal(0, 3, (k, s)).astype(np.float32)
+    valid = rng.random((k, s)) < 0.8
+    if k > 2:
+        valid[k // 2] = False
+    if special:
+        w = rng.random((k, s))
+        for lo, hi, x in ((0.0, 0.04, np.nan), (0.04, 0.07, np.inf),
+                          (0.07, 0.10, -np.inf), (0.10, 0.13, F32_MAX),
+                          (0.13, 0.16, -F32_MAX), (0.16, 0.22, -0.0),
+                          (0.22, 0.28, 0.0)):
+            a[(w >= lo) & (w < hi)] = x
+    q_lo, q_hi = wide_bounded(rng, Q, d, -1.0, 2.0)
+    start = rng.integers(0, k, Q)
+    span = rng.integers(1, 3, Q)
+    e_lo = rng.integers(0, n_ch + 1, Q) / n_ch
+    e_hi = rng.integers(0, n_ch + 1, Q) / n_ch
+    q_lo[3:, 0] = ((start + e_lo * 0.9) / k)[3:]
+    q_hi[3:, 0] = ((start + span - 1 + 0.05 + e_hi * 0.9) / k)[3:]
+    q_lo[1], q_hi[1] = 5.0, 6.0
+    if Q > 2:
+        q_lo[2], q_hi[2] = 0.6, 0.4
+    if nan:
+        on = np.flatnonzero(valid[k - 1, (n_ch - 1) * chunk:])
+        if on.size:
+            c[k - 1, (n_ch - 1) * chunk + on[0], d - 1] = np.nan
+        if k > 1:
+            c[1, :40, 17 % d] = np.nan
+    return c, a, valid, q_lo, q_hi
+
+
+def wide_weights(rng, R, k, s):
+    """Poisson weights with non-integers on every third slot, on invalid
+    slots too."""
+    W = rng.poisson(1.0, (R, k, s)).astype(np.float32)
+    W[:, :, ::3] = rng.uniform(0, 2.5, W[:, :, ::3].shape)
+    return W
+
+
+def wide_join_case(torch, dev, rng, Q, k, su, P, d_f, d_d, nan=False,
+                   extra=0):
+    """Row 9 at D = d_f + d_d columns on join_case's "mixed" distributions
+    (``nan``: NaN coordinates on valid slots); query 0 holds every finite
+    slot, the others bound 2-4 columns of (-0.5, 1.5)-wide random boxes
+    and leave the rest (-10, 10), so that covered, empty and mixed cells
+    occur. With ``extra``, also the same inputs with that many more fact
+    columns of finite data after the first d_f, bounded -+WIDE_BIG.
+    Returns (args, widened args or None)."""
+    from repro_torch.kernels.join_moments import join_slots
+    u_c = rng.normal(size=(k, su, d_f)).astype(np.float32)
+    u_d = rng.normal(size=(k, su, d_d)).astype(np.float32)
+    u_a = rng.gamma(2.0, 1.0, size=(k, su)).astype(np.float32)
+    u_key = rng.integers(0, 3 * su, size=(k, su)).astype(np.int32)
+    u_valid = rng.random((k, su)) < 0.7
+    if nan:
+        u_c[u_valid & (rng.random((k, su)) < 0.2), d_f - 1] = np.nan
+        u_d[u_valid & (rng.random((k, su)) < 0.1), -1] = np.nan
+    u_part = (u_key % P).astype(np.int32)
+    D, kp = d_f + d_d, k * P
+    q_lo, q_hi = wide_bounded(rng, Q, D, -10.0, 10.0, first=0, fixed=1)
+    q_lo = np.where(q_lo > -10.0, q_lo * 4.0 - 2.0, q_lo).astype(np.float32)
+    q_hi = np.where(q_hi < 10.0, q_hi * 4.0 - 2.0, q_hi).astype(np.float32)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    rest = (T(rng.random((Q, kp)) < 0.2), T(rng.random((Q, kp)) < 0.3),
+            T(rng.normal(size=(kp, 5)).astype(np.float32)),
+            torch.tensor(1234.0, device=dev))
+    tail = (T(u_a), T(u_key), T(u_part), T(u_valid), P)
+    args = (join_slots(T(u_c), T(u_d), *tail), T(q_lo), T(q_hi), *rest)
+    if not extra:
+        return args, None
+    wq = widen_queries(q_lo, q_hi, extra, at=d_f)
+    wide = (join_slots(T(widen_cols(rng, u_c, extra, -3.0, 3.0)), T(u_d),
+                       *tail), T(wq[0]), T(wq[1]), *rest)
+    return args, wide
+
+
+def require_bits(torch, tag, name, got, want) -> None:
+    """got bit for bit want (NaN as NaN), or fail naming the count."""
+    if not same_bits(torch, got, want):
+        n = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        raise AssertionError(f"{tag}: {name} of the widened input differs "
+                             f"from the 16-column input's in {n} values")
+
+
+def wide_identity(torch, dev, d) -> int:
+    """The bit identity at d > 16 (module doc, phase 29): each kernel's
+    output on a 16-column input, from its d <= 16 instantiation, against
+    its output on that input with d - 16 more columns, from the wide one.
+    Returns the cases held."""
+    from repro_torch.kernels.bootstrap import bootstrap_moments_cuda
+    from repro_torch.kernels.join_moments import (PLANES,
+                                                  join_cell_moments_cuda)
+    from repro_torch.kernels.query_eval import query_eval_cuda
+    from repro_torch.kernels.route import route_multid_cuda
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda, stratified_weighted_moments_cuda)
+    extra = d - WIDE_BASE_D
+    rng = np.random.default_rng(29_500 + d)
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    tag = f"wide identity d={d}"
+    cases = 0
+    # Row 1, k past one leaf tile.
+    lo, hi, agg, q_lo, q_hi = wide_query_eval_case(rng, 37, 1030, 16, 5)
+    lo_x = rng.uniform(-1, 0, (lo.shape[0], extra)).astype(np.float32)
+    hi_x = (lo_x + rng.uniform(0, 1, lo_x.shape)).astype(np.float32)
+    wq = widen_queries(q_lo, q_hi, extra)
+    r16 = query_eval_cuda(T(lo), T(hi), T(agg), T(q_lo), T(q_hi))
+    rw = query_eval_cuda(T(np.concatenate([lo, lo_x], 1)),
+                         T(np.concatenate([hi, hi_x], 1)), T(agg),
+                         T(wq[0]), T(wq[1]))
+    torch.cuda.synchronize()
+    if not torch.equal(r16[0], rw[0]):
+        raise AssertionError(f"{tag}: query_eval rel differs")
+    require_bits(torch, tag, "query_eval exact", rw[1], r16[1])
+    cases += 1
+    # Rows 2, 3, 4 and 8: one chunk and above it, NaN coordinates.
+    for Q, k, s in ((130, 53, 75), (37, 3, 2500)):
+        c, a, valid, q_lo, q_hi = wide_pair_case(rng, Q, k, s, 16, nan=True)
+        W = T(wide_weights(rng, 9, k, s))
+        sm16 = (T(c), T(a), T(valid))
+        smw = (T(widen_cols(rng, c, extra)), sm16[1], sm16[2])
+        q16 = (T(q_lo), T(q_hi))
+        qw = tuple(T(x) for x in widen_queries(q_lo, q_hi, extra))
+        for name, fn in (
+                ("stratified_moments", lambda sm, q: (
+                    stratified_moments_cuda(*sm, *q),)),
+                ("sample_extremes", lambda sm, q: sample_extremes_cuda(
+                    *sm, *q)),
+                ("stratified_weighted_moments", lambda sm, q: (
+                    stratified_weighted_moments_cuda(*sm, W[0], *q),)),
+                ("bootstrap_moments", lambda sm, q: (
+                    bootstrap_moments_cuda(*sm, W, *q),))):
+            for g, w in zip(fn(smw, qw), fn(sm16, q16)):
+                require_bits(torch, f"{tag} s={s}", name, g, w)
+            cases += 1
+    # Row 7: ties, an inverted box; every row inside every box in the
+    # extra columns.
+    lo, hi, c = route_case(rng, 4096, 1024, 16)
+    box_x = np.ones((lo.shape[0], extra), np.float32)
+    rows_x = rng.uniform(-0.5, 0.5, (c.shape[0], extra)).astype(np.float32)
+    l16, d16 = route_multid_cuda(T(lo), T(hi), T(c))
+    lw, dw = route_multid_cuda(T(np.concatenate([lo, -box_x], 1)),
+                               T(np.concatenate([hi, box_x], 1)),
+                               T(np.concatenate([c, rows_x], 1)))
+    torch.cuda.synchronize()
+    if not torch.equal(l16, lw):
+        raise AssertionError(f"{tag}: route_multid leaf ids differ in "
+                             f"{int((l16 != lw).sum())} rows")
+    require_bits(torch, tag, "route_multid dist", dw, d16)
+    cases += 1
+    # Row 9: 15 + extra fact columns and one dimension attribute.
+    args, wargs = wide_join_case(torch, dev, rng, 65, 13, 40, 4, 15, 1,
+                                 nan=True, extra=extra)
+    m16 = join_cell_moments_cuda(*args, 0.3)
+    mw = join_cell_moments_cuda(*wargs, 0.3)
+    for f in PLANES + ("exact3", "touched"):
+        require_bits(torch, tag, f"join_cell_moments {f}", getattr(mw, f),
+                     getattr(m16, f))
+    cases += 1
+    emit(check="wide bit identity", d=d, extra_columns=extra, cases=cases,
+         ok=True)
+    return cases
+
+
+def edge_cases_wide(torch, dev) -> dict:
+    """29. Rows 1-4, 7, 8 and 9 at every d of WIDE_DS against their plain
+    versions, as phases 3, 7, 11 and 19 hold them: row 1 at k off the
+    leaf tile and Q past a block's 8 queries, rel equal and exact within
+    tolerance; rows 2 and 8 at one slot chunk (k = 53) and above it (s =
+    2500, NaN coordinates), within tolerance and bit-equal, rows alone
+    bit-equal to the batch's; rows 3 and 4 (weighted_chunk_check: fused =
+    scan, rows alone, within tolerance) at one chunk with R = 9 and R = 1,
+    and above it, NaN coordinates on valid slots; row 7 with ties, an
+    inverted box and B off the row tile, bit-equal; row 9 at D = d (d - 1
+    fact columns) on mixed and NaN inputs. Then at each d > 16 the bit
+    identity with the 16-column input (wide_identity). Returns the max
+    absolute errors and the case counts."""
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda)
+    t0 = time.perf_counter()
+    T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    errs = dict.fromkeys(("query_eval", "stratified_moments",
+                          "bootstrap_moments", "join_cell_moments"), 0.0)
+    cases = dict.fromkeys(("query_eval", "stratified_moments",
+                           "sample_extremes", "bootstrap_moments",
+                           "route_multid", "join_cell_moments",
+                           "identity"), 0)
+    classes = {}
+    for d in WIDE_DS:
+        rng = np.random.default_rng(29_000 + d)
+        for Q, k in ((9, 53), (37, 1030)):
+            e, covered = qe_vs_plain(
+                torch, f"wide query_eval d={d} Q={Q} k={k}",
+                *(T(x) for x in wide_query_eval_case(rng, Q, k, d, 5)))
+            errs["query_eval"] = max(errs["query_eval"], e)
+            cases["query_eval"] += 1
+        for Q, k, s in ((130, 53, 75), (37, 3, 2500)):
+            for row in (2, 8):
+                t = [T(x) for x in wide_pair_case(
+                    rng, Q, k, s, d, nan=s > 2048, special=row == 8)]
+                tag = f"wide row {row} d={d} Q={Q} k={k} s={s}"
+                if row == 2:
+                    classes[f"d={d} s={s}"] = pair_classes(
+                        torch, t[0], t[2], t[3], t[4], chunk=32)
+                subsets = (slice(0, 1), slice(Q // 3, Q - 1))
+                if row == 2:
+                    e = moments_vs_plain(torch, tag, *t, None)
+                    errs["stratified_moments"] = max(
+                        errs["stratified_moments"], e)
+                    rows_vs_batch(torch, tag, stratified_moments_cuda,
+                                  t[:3], t[3], t[4], subsets)
+                    cases["stratified_moments"] += 1
+                else:
+                    extremes_vs_plain(torch, tag, *t)
+                    rows_vs_batch(torch, tag, sample_extremes_cuda, t[:3],
+                                  t[3], t[4], subsets)
+                    cases["sample_extremes"] += 1
+        for Q, k, s, R in ((40, 17, 75, 9), (35, 5, 300, 1),
+                           (33, 3, 2049, 3)):
+            c, a, valid, q_lo, q_hi = wide_pair_case(rng, Q, k, s, d,
+                                                     nan=True)
+            e = weighted_chunk_check(
+                torch, f"wide rows 3, 4 d={d} Q={Q} k={k} s={s} R={R}",
+                *(T(x) for x in (c, a, valid, wide_weights(rng, R, k, s),
+                                 q_lo, q_hi)))
+            errs["bootstrap_moments"] = max(errs["bootstrap_moments"], e)
+            cases["bootstrap_moments"] += 1
+        for B, k in ((1000, 257), (4096, 1024)):
+            route_vs_plain(torch, f"wide route_multid d={d} B={B} k={k}",
+                           *(T(x) for x in route_case(rng, B, k, d)))
+            cases["route_multid"] += 1
+        for Q, k, su, P, nan in ((65, 13, 40, 4, False),
+                                 (40, 9, 30, 3, True)):
+            args, _ = wide_join_case(torch, dev, rng, Q, k, su, P, d - 1, 1,
+                                     nan)
+            tag = f"wide join D={d} Q={Q} k={k} su={su} P={P} nan={nan}"
+            e = join_vs_plain(torch, tag, args, 0.3)
+            classes[tag] = join_classes(torch, args)
+            errs["join_cell_moments"] = max(errs["join_cell_moments"], e)
+            cases["join_cell_moments"] += 1
+        if d > WIDE_BASE_D:
+            cases["identity"] += wide_identity(torch, dev, d)
+        torch.cuda.empty_cache()
+    out = {"widths": list(WIDE_DS), "max_abs_err": errs, "cases": cases,
+           "classes": classes, "seconds": time.perf_counter() - t0}
+    emit(phase="29 wide edge cases", **out)
+    return out
+
+
+# Phase 30's table: nyc_taxi's five columns at paper size (7.7 M trips) and
+# 19 more from a generator seeded with WIDE_SEED (uniform, lognormal and
+# integer codes): 24 predicate columns, the value trip distance. Its
+# queries bound 2 to 4 columns each (wide_queries).
+WIDE_D, WIDE_SEED, WIDE_Q = 24, 24, 2048
+# The wide path's bar on the median relative SUM error of its first 64
+# queries: about twice the JAX package's own median there, 0.0769, on the
+# same table at scale 0.1 with the same 75 slots a stratum and the same
+# queries (tools/reference_wide_error.py on the CPU; 0.0701 over 248
+# non-empty queries of 256).
+WIDE_ERR = 0.15
+
+
+def wide_columns(n, seed):
+    """The wide table's 19 extra columns over n rows: seven uniform, six
+    lognormal and six integer codes of 2 to 1000 values."""
+    rng = np.random.default_rng(seed)
+    cols = [rng.uniform(0.0, 100.0, n) for _ in range(7)]
+    cols += [rng.lognormal(1.0, 0.75, n) for _ in range(6)]
+    cols += [rng.integers(0, m, n).astype(np.float64)
+             for m in (2, 7, 24, 64, 265, 1000)]
+    return np.stack(cols, 1)
+
+
+def wide_table(nyc_taxi, scale, seed=2):
+    """(c (n, 24), a (n,)): ``nyc_taxi(scale, seed, dims=5)``'s columns and
+    wide_columns(n, WIDE_SEED + seed); ``nyc_taxi`` is the JAX package's or
+    the port's (the same generator)."""
+    c5, a = nyc_taxi(scale=scale, seed=seed, dims=5)
+    return (np.concatenate([c5, wide_columns(a.shape[0], WIDE_SEED + seed)],
+                           1), a)
+
+
+def wide_queries(c, num, seed, sort=np.sort):
+    """num rectangles over c (n, d): each bounds 2-4 columns chosen from
+    the seed, by random_queries' rule on each (endpoints anchored on the
+    column's sorted float32 values, a width of 0.5-30 % of the rows), and
+    holds every other column at its float32 [min, max]. random_queries
+    over all 24 columns would select nothing. ``sort`` sorts a float32
+    column (any exact sort gives the same values). Returns float32 (q_lo,
+    q_hi)."""
+    rng = np.random.default_rng(seed)
+    n, d = c.shape
+    bound = np.zeros((num, d), bool)
+    for i in range(num):
+        bound[i, rng.choice(d, int(rng.integers(2, 5)), replace=False)] = True
+    q_lo = np.empty((num, d), np.float32)
+    q_hi = np.empty((num, d), np.float32)
+    for j in range(d):
+        vals = sort(c[:, j].astype(np.float32))
+        q_lo[:, j], q_hi[:, j] = vals[0], vals[-1]
+        qs = np.flatnonzero(bound[:, j])
+        width = rng.uniform(0.005, 0.3, qs.size)
+        start = rng.uniform(0, 1 - width)
+        lo_idx = (start * (n - 1)).astype(np.int64)
+        hi_idx = np.minimum(((start + width) * (n - 1)).astype(np.int64),
+                            n - 1)
+        q_lo[qs, j], q_hi[qs, j] = vals[lo_idx], vals[hi_idx]
+    return q_lo, q_hi
+
+
+def wide_kernel_times(torch, run, boot, s_run, card) -> dict:
+    """Rows 1-4, 7 and 8 at the wide path's shapes (d = 24): rows 3 and 4
+    against plain; CUDA-event and device ms of the kernel and of its plain
+    version, and its bound (bounds, boot_bounds, stream_bounds); the pair
+    classes; rows 2-4's library yardstick (wide_bmm_times)."""
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
+    from repro_torch.kernels.query_eval import (query_eval_cuda,
+                                                query_eval_plain)
+    from repro_torch.kernels.route import (route_multid_cuda,
+                                           route_multid_plain)
+    from repro_torch.kernels.sample_extremes import (sample_extremes_cuda,
+                                                     sample_extremes_plain)
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda, stratified_moments_plain,
+        stratified_weighted_moments_cuda, weighted_moments_plain)
+    syn, q = run["syn"], run["q"]
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    qe = (syn.leaf_lo, syn.leaf_hi, syn.leaf_agg, q.lo, q.hi)
+    W = boot_weights(torch, syn, q.lo.device)
+    rel, _ = query_eval_cuda(*qe)
+    classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi,
+                           chunk=64)
+    bnd = bounds(syn, q, rel, classes)
+    bnd.update(boot_bounds(syn, q, classes, N_BOOT, 0))
+    del bnd["weighted_segment_reduce"]
+    state = s_run["ing"].state
+    cb = torch.from_numpy(s_run["batches"][0][0]).cuda()
+    route = (state.leaf_lo, state.leaf_hi, cb)
+    k, d = state.leaf_lo.shape
+    bnd["route_multid"] = stream_bounds(0, k, int(cb.shape[0]), d)[
+        "route_multid"]
+    pq = slice(0, PLAIN_BOOT_Q)
+    # Rows 3 and 4 against plain at these shapes (row 4 on the first
+    # PLAIN_BOOT_Q queries), as phase 15 holds them.
+    errs = {
+        "stratified_weighted_moments": close(
+            "wide24 stratified_weighted_moments",
+            stratified_weighted_moments_cuda(*sm, W[0], q.lo, q.hi).cpu(),
+            weighted_moments_plain(*sm, W[0], q.lo, q.hi).cpu(), K_RTOL,
+            K_ATOL),
+        "bootstrap_moments": close(
+            f"wide24 bootstrap_moments Q={PLAIN_BOOT_Q}",
+            bootstrap_moments_cuda(*sm, W, q.lo[pq].contiguous(),
+                                   q.hi[pq].contiguous()).cpu(),
+            bootstrap_moments_plain(*sm, W, q.lo[pq].contiguous(),
+                                    q.hi[pq].contiguous()).cpu(), K_RTOL,
+            K_ATOL)}
+    torch.cuda.empty_cache()
+    one_op = {"query_eval", "stratified_moments", "sample_extremes",
+              "route_multid"}
+    fns = {
+        "query_eval": (lambda: query_eval_cuda(*qe),
+                       lambda: query_eval_plain(*qe), 10),
+        "stratified_moments": (lambda: stratified_moments_cuda(
+            *sm, q.lo, q.hi), lambda: stratified_moments_plain(
+            *sm, q.lo, q.hi), 2),
+        "sample_extremes": (lambda: sample_extremes_cuda(*sm, q.lo, q.hi),
+                            lambda: sample_extremes_plain(*sm, q.lo, q.hi),
+                            2),
+        "stratified_weighted_moments": (
+            lambda: stratified_weighted_moments_cuda(*sm, W[0], q.lo, q.hi),
+            lambda: weighted_moments_plain(*sm, W[0], q.lo, q.hi), 2),
+        "bootstrap_moments": (
+            lambda: bootstrap_moments_cuda(*sm, W, q.lo, q.hi),
+            lambda: bootstrap_moments_plain(*sm, W, q.lo[pq].contiguous(),
+                                            q.hi[pq].contiguous()), 1),
+        "route_multid": (lambda: route_multid_cuda(*route),
+                         lambda: route_multid_plain(*route), 10)}
+    times = {}
+    for name, (kernel, plain, plain_reps) in fns.items():
+        reps = 10 if name == "bootstrap_moments" else 30
+        times[name] = cuda_ms(torch, kernel, reps=reps)
+        times[f"{name}_device"] = (
+            device_ms(torch, kernel, reps=reps, one_op=True,
+                      tries=PROFILE_TRIES)
+            if name in one_op else call_device_ms(
+                torch, kernel, tries=PROFILE_TRIES)["ms"])
+        times[f"{name}_plain"] = cuda_ms(torch, plain, reps=plain_reps,
+                                         warmup=1)
+        torch.cuda.empty_cache()
+    times["bootstrap_moments_plain_queries"] = PLAIN_BOOT_Q
+    t_lib = time.perf_counter()
+    lib_err = wide_bmm_times(torch, syn, q, W, times)
+    lib_s = time.perf_counter() - t_lib
+    Q, dq = q.lo.shape
+    emit(phase="30 wide kernel times", times_ms=times, bounds=bnd,
+         pair_classes=classes, max_abs_err=errs,
+         bmm_max_abs_err_vs_kernel=lib_err, bmm_s=lib_s,
+         profile_windows_retried=PROFILE_RETRIES["windows"], Q=int(Q),
+         k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]), d=int(dq),
+         R=N_BOOT, route_B=int(cb.shape[0]), card=card)
+    return {"times": times, "bounds": bnd, "classes": classes, "errs": errs}
+
+
+def wide_bmm_times(torch, syn, q, W, times) -> float:
+    """Rows 2, 3 and 4's library yardstick at the wide shape, as in Table
+    1: torch.bmm of the prebuilt (k, Q, s) predicate (samples_inside, in
+    query chunks; TF32 off) with [1, a, a^2], [w, wa, wa^2] of W[0] and of
+    all of W, whose work does not depend on d; each product's counts equal
+    to the kernel's and its moments within K_RTOL / K_ATOL of it; its
+    event and device ms into ``times`` (bmm_<row>, bmm_<row>_device).
+    Returns the largest absolute difference."""
+    from repro_torch.kernels.stratified_estimate import (
+        samples_inside, stratified_moments_cuda,
+        stratified_weighted_moments_cuda)
+    c, a, valid = syn.sample_c, syn.sample_a, syn.sample_valid
+    k, s = a.shape
+    Q = int(q.lo.shape[0])
+    step = max(1, plain_step(k, s) // max(1, int(c.shape[2])))
+    pred = torch.empty((k, Q, s), dtype=torch.float32, device=q.lo.device)
+    for i in range(0, Q, step):
+        pred[:, i:i + step] = samples_inside(
+            c, valid, q.lo[i:i + step], q.hi[i:i + step]).permute(1, 0, 2)
+    w0 = W[0].contiguous()
+    rhs = {"stratified_moments": bmm_rhs(torch, torch.ones_like(a)[None],
+                                         a),
+           "stratified_weighted_moments": bmm_rhs(torch, w0[None], a),
+           "bootstrap_moments": bmm_rhs(torch, W, a)}
+    # The kernel's counts are integers in fp32: the product's must equal
+    # them; rows 3 and 4 were held to plain above.
+    ker = {"stratified_moments": stratified_moments_cuda(c, a, valid, q.lo,
+                                                         q.hi),
+           "stratified_weighted_moments": stratified_weighted_moments_cuda(
+               c, a, valid, w0, q.lo, q.hi)}
+    err = 0.0
+    for name, want in ker.items():
+        got = torch.bmm(pred, rhs[name]).permute(1, 0, 2)
+        if name == "stratified_moments" and not torch.equal(got[..., 0],
+                                                            want[..., 0]):
+            raise AssertionError("wide24: torch.bmm's counts differ from "
+                                 "stratified_moments'")
+        err = max(err, close(f"wide24 torch.bmm {name}", got.cpu(),
+                             want.cpu(), K_RTOL, K_ATOL))
+    del ker, got, want
+    for name, r in rhs.items():
+        reps = 10 if name == "bootstrap_moments" else 30
+
+        def library(r=r):
+            return torch.bmm(pred, r)
+        times[f"bmm_{name}"] = cuda_ms(torch, library, reps=reps)
+        times[f"bmm_{name}_device"] = call_device_ms(
+            torch, library, tries=PROFILE_TRIES)["ms"]
+        torch.cuda.empty_cache()
+    del pred, rhs
+    torch.cuda.empty_cache()
+    return err
+
+
+def join_truth_scan(torch, c, a, keys, dkeys, dattr, q_lo, q_hi) -> dict:
+    """ground_truth_join's SUM, COUNT and AVG with the scan on the card:
+    the fact rows inner-joined with the dimension rows on the key on the
+    host (each joined row's coordinates [fact coords, dim attrs]), then
+    truth_scan (float64 sums, membership on float32). At 24 fact columns
+    the host scan of ground_truth_join takes minutes."""
+    order = np.argsort(dkeys, kind="stable")
+    dk = np.asarray(dkeys)[order]
+    da = np.asarray(dattr, np.float32).reshape(dk.size, -1)[order]
+    idx = np.clip(np.searchsorted(dk, keys), 0, dk.size - 1)
+    found = dk[idx] == keys
+    joined = np.concatenate([np.asarray(c, np.float32).reshape(
+        keys.size, -1)[found], da[idx[found]]], 1)
+    t = truth_scan(torch, joined, np.asarray(a, np.float64)[found], q_lo,
+                   q_hi)
+    return {kind: t[kind] for kind in ("sum", "count", "avg")}
+
+
+def wide_join(torch, card, seed=0) -> dict:
+    """30, join: join_workload's distributions with WIDE_D fact columns at
+    the join slice's size (JOIN_N fact rows over JOIN_ND keys, P = 16,
+    p_u = 0.05, k = 1024, "kd"), each of its JOIN_Q rectangles bounding 2-4
+    fact columns (the rest at the data's [min, max]) and the dimension
+    pair; PassEngine(sum/count/avg, ci=0.95).answer_join: query_eval
+    twice, rows 9 and 11 once; row 9 against plain at that shape (its
+    first JOIN_CPU_Q queries, as the plain time); the truth
+    of 64 queries (join_truth_scan) inside [lower, upper], median SUM error
+    at most JOIN_ERR; times of the answer and of row 9 against its
+    bound."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.joins import build_dim_table, build_join_synopsis
+    from repro_torch.joins.executor import join_slots
+    from repro_torch.kernels import native
+    from repro_torch.kernels.join_moments import join_cell_moments_cuda
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    c, a, keys, dkeys, dattr, q_lo, q_hi = join_workload(
+        JOIN_N, JOIN_ND, JOIN_Q, seed, WIDE_D)
+    rng = np.random.default_rng(seed + 30)
+    free = np.ones((JOIN_Q, WIDE_D), bool)
+    for i in range(JOIN_Q):
+        free[i, rng.choice(WIDE_D, int(rng.integers(2, 5)),
+                           replace=False)] = False
+    mins, maxs = c.min(0), c.max(0)
+    q_lo[:, :WIDE_D] = np.where(free, mins, q_lo[:, :WIDE_D])
+    q_hi[:, :WIDE_D] = np.where(free, maxs, q_hi[:, :WIDE_D])
+    dim = build_dim_table(dkeys, dattr, num_partitions=JOIN_P)
+    jsyn, report = build_join_synopsis(c, a, keys, dim, k=JOIN_K,
+                                       p_u=JOIN_PU, seed=seed, method="kd")
+    build_s = time.perf_counter() - t0
+    q = QueryBatch(torch.from_numpy(q_lo).to(dev),
+                   torch.from_numpy(q_hi).to(dev))
+    fq = QueryBatch(q.lo[:, :WIDE_D], q.hi[:, :WIDE_D])
+    dq = QueryBatch(q.lo[:, WIDE_D:], q.hi[:, WIDE_D:])
+    eng = PassEngine(jsyn, ServingConfig(kinds=JOIN_KINDS), ci=0.95)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    res = eng.answer_join(fq, dq)
+    torch.cuda.synchronize()
+    launches = launches_now(native)
+    if launches != {"query_eval": 2, "join_cell_moments": 1,
+                    "join_epilogue": 1}:
+        raise AssertionError(f"wide join: answer_join launched {launches}")
+    check_result_shapes(torch, "wide join", res, JOIN_Q, JOIN_KINDS)
+    slots = join_slots(jsyn)
+    args = join_inputs(torch, slots, jsyn, q.lo, q.hi)
+    classes = join_classes(torch, args)
+    # Row 9 against plain on the first JOIN_CPU_Q rows at the wide shape
+    # (every cell): the plain version takes ~9 s for all 2048.
+    plain_time = {}
+    err = join_vs_plain(torch, f"wide join main Q={JOIN_CPU_Q}",
+                        join_rows(args, JOIN_CPU_Q), JOIN_PU,
+                        times=plain_time)
+    n = 64
+    truth = join_truth_scan(torch, c, a, keys, dkeys, dattr, q_lo[:n],
+                            q_hi[:n])
+    quality = join_truth_check("wide join", res, truth, n)
+
+    def row9():
+        return join_cell_moments_cuda(*args, JOIN_PU)
+    kby = device_by_name(torch, row9, tries=PROFILE_TRIES)
+    times = {"answer_join": cuda_ms(torch, lambda: eng.answer_join(fq, dq),
+                                    reps=10, warmup=2),
+             "answer_join_host": host_ms(torch, lambda: eng.answer_join(
+                 fq, dq), reps=10),
+             "join_cell_moments": cuda_ms(torch, row9, reps=10, warmup=2),
+             "join_cell_moments_device": records_ms(kby),
+             "join_cell_moments_plain": plain_time[
+                 "join_cell_moments_plain"],
+             "join_cell_moments_plain_queries": JOIN_CPU_Q}
+    out = {"rows": JOIN_N, "fact_columns": WIDE_D, "build_s": build_s,
+           "report": report, "launches": launches, "classes": classes,
+           "max_abs_err": err, "quality": quality, "times_ms": times,
+           "bound": join_bound(torch, args, jsyn),
+           "seconds": time.perf_counter() - t0}
+    emit(phase="30 wide join", card=card, **out)
+    return out
+
+
+def wide_path(torch, card) -> dict:
+    """30. The 24-column table at paper size through the port's main paths
+    (module doc): answer (rows 1, 2, 8), the fused and the scan bootstrap
+    (rows 10, 4, 3), a 4096-row stream (rows 10, 5, 7), a join answer
+    (rows 1, 9, 11); each window's launches read right after it; rows'
+    times and bounds at d = 24."""
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.data.synthetic import nyc_taxi
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    c, a = wide_table(nyc_taxi, 1.0)
+    cs, as_ = wide_table(nyc_taxi, 0.1, seed=7)
+    q_lo, q_hi = wide_queries(c, WIDE_Q, WIDE_SEED, sort=lambda x: torch.sort(
+        torch.from_numpy(x).to(dev)).values.cpu().numpy())
+    q = QueryBatch(torch.from_numpy(q_lo).to(dev),
+                   torch.from_numpy(q_hi).to(dev))
+    emit(phase="30 wide data", rows=int(a.shape[0]), d=int(c.shape[1]),
+         stream_rows=int(as_.shape[0]), seconds=time.perf_counter() - t0)
+    steps = {"data": time.perf_counter() - t0}
+
+    def step(name):
+        steps[name] = time.perf_counter() - t0 - sum(steps.values())
+    # The CPU answer on 128 queries: the plain versions over 24 columns on
+    # the host take ~4x longer a query than in 3-D.
+    run = main_path(torch, "wide24", c, a, "kd",
+                    lambda c, a, lo, hi: truth_scan(torch, c, a, lo, hi),
+                    WIDE_ERR, queries=q, cpu_queries=128)
+    step("build, answer, checks")
+    boot = boot_serve(torch, "wide24", run, WIDE_ERR, scan=True)
+    step("bootstrap")
+    s_run = stream_path(torch, "wide24", run, c, a, cs, as_, WIDE_ERR,
+                        reopt=False)
+    step("stream")
+    kt = wide_kernel_times(torch, run, boot, s_run, card)
+    step("kernel times")
+    rows = {"query_eval": run["launches"]["query_eval"],
+            "stratified_moments": run["launches"]["stratified_moments"],
+            "sample_extremes": run["launches"]["sample_extremes"],
+            "stratified_weighted_moments": boot["scan_launches"][
+                "stratified_weighted_moments"],
+            "bootstrap_moments": boot["launches"]["bootstrap_moments"],
+            "threefry": boot["launches"]["threefry"],
+            "segment_reduce": s_run["launches"]["segment_reduce"],
+            "route_multid": s_run["launches"]["route_multid"]}
+    times = {"answer": cuda_ms(torch, lambda: run["eng"].answer(run["q"]),
+                               reps=10, warmup=2),
+             "answer_bootstrap_fused": cuda_ms(
+                 torch, lambda: boot["eng"].answer(run["q"]), reps=5,
+                 warmup=1)}
+    step("answer times")
+    del c, a, cs, as_
+    torch.cuda.empty_cache()
+    join = wide_join(torch, card)
+    step("join")
+    rows.update(join_cell_moments=join["launches"]["join_cell_moments"],
+                join_epilogue=join["launches"]["join_epilogue"])
+    idle = [name for name, n in rows.items() if n < 1]
+    if idle:
+        raise AssertionError(f"wide path: {idle} never launched")
+    out = {"run": run, "boot": boot, "stream": s_run, "kernels": kt,
+           "join": join, "times_ms": times, "steps_s": steps,
+           "seconds": time.perf_counter() - t0}
+    emit(phase="30 wide path", card=card, times_ms=times, steps_s=steps,
+         launches={"answer": run["launches"], "bootstrap_fused":
+                   boot["launches"], "bootstrap_scan": boot["scan_launches"],
+                   "stream": s_run["launches"],
+                   "join_answer": join["launches"]},
+         seconds=out["seconds"])
+    return out
+
+
+def wide_rows(wide, edge) -> list:
+    """Each kernel's ``wide`` entry for the kernels line: its launches on
+    phase 30's windows (answer, fused and scan bootstrap, stream, join
+    answer) and, for the kernels whose work depends on d, its times, plain
+    times and bound at d = 24, phase 29's cases and its max absolute error
+    against plain there."""
+    kt, t, b = wide["kernels"], wide["kernels"]["times"], \
+        wide["kernels"]["bounds"]
+    j = wide["join"]
+    ans, fused = wide["run"]["launches"], wide["boot"]["launches"]
+    scan, stream = wide["boot"]["scan_launches"], wide["stream"]["launches"]
+    err, cases = dict(edge["max_abs_err"]), edge["cases"]
+    main = wide["run"]["errs"]
+    for name in ("query_eval", "stratified_moments"):
+        err[name] = max(err[name], main[name])
+    boot_err = max(err["bootstrap_moments"], *kt["errs"].values())
+    out = []
+    for name, launches, e, n in (
+            ("query_eval", ans["query_eval"], err["query_eval"],
+             cases["query_eval"]),
+            ("stratified_moments", ans["stratified_moments"],
+             err["stratified_moments"], cases["stratified_moments"]),
+            ("sample_extremes", ans["sample_extremes"], 0.0,
+             cases["sample_extremes"]),
+            ("stratified_weighted_moments",
+             scan["stratified_weighted_moments"], boot_err,
+             cases["bootstrap_moments"]),
+            ("bootstrap_moments", fused["bootstrap_moments"], boot_err,
+             cases["bootstrap_moments"]),
+            ("route_multid", stream["route_multid"], 0.0,
+             cases["route_multid"])):
+        out.append({"name": name, "wide": {
+            "d": WIDE_D, "launches": launches, "max_abs_err": e,
+            "edge_cases": n, "edge_widths": edge["widths"],
+            "ms": t[name], "device_ms": t[f"{name}_device"],
+            "plain_ms": t[f"{name}_plain"],
+            "bound_ms": b[name]["bound_ms"], "bound_by": b[name]["bound_by"],
+            "library_ms": t.get(f"bmm_{name}"),
+            "library_device_ms": t.get(f"bmm_{name}_device")}})
+    out[4]["wide"]["plain_queries"] = t["bootstrap_moments_plain_queries"]
+    out[1]["wide"]["pair_classes"] = kt["classes"]
+    jt = j["times_ms"]
+    out.append({"name": "join_cell_moments", "wide": {
+        "d": WIDE_D + 1, "launches": j["launches"]["join_cell_moments"],
+        "max_abs_err": max(err["join_cell_moments"], j["max_abs_err"]),
+        "edge_cases": cases["join_cell_moments"],
+        "edge_widths": edge["widths"], "ms": jt["join_cell_moments"],
+        "device_ms": jt["join_cell_moments_device"],
+        "plain_ms": jt["join_cell_moments_plain"],
+        "plain_queries": jt["join_cell_moments_plain_queries"],
+        "bound_ms": j["bound"]["bound_ms"], "bound_by": j["bound"]["bound_by"],
+        "library_ms": None, "library_device_ms": None,
+        "cell_classes": j["classes"]}})
+    out.append({"name": "segment_reduce", "wide": {
+        "launches": stream["segment_reduce"], "max_abs_err": 0.0}})
+    out.append({"name": "threefry", "wide": {
+        "launches": fused["threefry"] + scan["threefry"]
+        + stream["threefry"], "max_abs_err": 0.0}})
+    out.append({"name": "join_epilogue", "wide": {
+        "launches": j["launches"]["join_epilogue"], "max_abs_err": 0.0}})
+    return out
+
+
 def check_plan_constants() -> None:
     """The wrappers' launch plans against the CUDA sources' constants:
     weighted_segment_reduce's chunk cap, segment_reduce's chunk rule (on
@@ -7898,7 +8741,8 @@ def check_plan_constants() -> None:
         fn.restype = ctypes.c_longlong
         for Q, k, s, d in ((2048, 1024, 75, 3), (1, 1, PAIR_CHUNK, 16),
                            (2048, 1, 38_500, 1), (2048, 64, 19_250, 1),
-                           (512, 64, PAIR_CHUNK + 1, 3), (7, 3, 6151, 16)):
+                           (512, 64, PAIR_CHUNK + 1, 3), (7, 3, 6151, 16),
+                           (2048, 1024, 75, 24), (37, 3, 2500, 300)):
             if fn(Q, k, s, d) != pair_scratch_floats(Q, k, s, d, stats):
                 raise AssertionError(f"{name}: the wrapper's scratch for "
                                      f"{(Q, k, s, d)} is not the source's")
@@ -7911,7 +8755,9 @@ def check_plan_constants() -> None:
                           (8, 40, 3, WEIGHTED_CHUNK + 1, 3),
                           (2, 20, 17, 40_000, 16), (3, 24, 3, 65_537, 3),
                           (200, 2048, 64, 19_250, 1), (7, 129, 53, 2500, 3),
-                          (1, 1, 1, 0, 1)):
+                          (1, 1, 1, 0, 1), (200, 2048, 1024, 75, 24),
+                          (1, 2048, 1024, 75, 24), (3, 33, 3, 2049, 300),
+                          (9, 40, 17, 75, 17)):
         if (wm.repro_weighted_plan(Q, k, s, d, ctypes.byref(lt),
                                    ctypes.byref(nbytes)) != 0
                 or (lt.value, nbytes.value) != weighted_plan(Q, k, s, d)
@@ -7949,6 +8795,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sharded-only", action="store_true",
                     help="only phases 1, 2, 23 and 24 (the sharded state "
                          "and the distributed helpers), then exit")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="only phases 1, 2, 29 and 30 (rows 1-4, 7, 8 and "
+                         "9 above 16 columns at edge shapes, then the "
+                         "24-column table at paper size), then exit")
     ap.add_argument("--table1-only", action="store_true",
                     help="only phases 1, 2, 4, 5 and 25-28 (Table 1 at "
                          "paper size, fig 8's 3-D cell, the legacy update "
@@ -7998,6 +8848,14 @@ def main(argv=None) -> int:
         sh1, sh3, dist24 = sharded_phases(torch, nyc_taxi, card)
         emit(phase="sharded summary", card=card,
              **sharded_summary(sh1, sh3, dist24))
+        print(card, flush=True)
+        return 0
+    if args.wide_only:
+        edge_wide = edge_cases_wide(torch, dev)
+        wide = wide_path(torch, card)
+        emit(phase="wide summary", card=card,
+             rows=[{"name": r["name"], **r["wide"]}
+                   for r in wide_rows(wide, edge_wide)])
         print(card, flush=True)
         return 0
     if args.table1_only:
@@ -8125,6 +8983,13 @@ def main(argv=None) -> int:
     # and the delta codec; 28. the examples.
     tab1 = table1_phases(torch, nyc_taxi, card, run1, run3, c1, a1, c3, a3,
                          base)
+
+    # 29. Rows 1-4, 7, 8 and 9 above 16 columns at edge shapes; 30. the
+    # 24-column table at paper size through every main path.
+    del c1, a1, c3, a3
+    torch.cuda.empty_cache()
+    edge_wide = edge_cases_wide(torch, dev)
+    wide = wide_path(torch, card)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =
@@ -8440,6 +9305,11 @@ def main(argv=None) -> int:
                              ckpt, by_d(sh1, "stream_launches", "threefry"),
                              by_d(sh1, "build_launches", "threefry")))
     table1_rows(rows, tab1)
+    by_name = {r["name"]: r for r in rows}
+    for r in wide_rows(wide, edge_wide):
+        by_name[r["name"]]["wide"] = r["wide"]
+        by_name[r["name"]]["max_abs_err"] = max(
+            by_name[r["name"]]["max_abs_err"], r["wide"]["max_abs_err"])
     emit(phase="table1 summary", card=card, **table1_summary(tab1))
     emit(phase="sharded summary", card=card,
          **sharded_summary(sh1, sh3, dist24))

@@ -96,8 +96,22 @@
 //     is folded, and the next 16 terms are formed while the current 16 are
 //     added, so the 2 * Q * kP mask bytes stream from HBM under the chain.
 //     The chain itself, 16,384 dependent adds at the join shape, bounds it.
+//
+// Any D. Up to MAX_D = 16 columns the tile kernel holds the tile's cell
+// boxes whole in shared memory and a query's bounds in registers. Above
+// 16 its wide instantiation (DD = -1) takes the columns in blocks of
+// WIDE_COLS = 16 (wide_cols.cuh), so that shared memory and registers do
+// not grow with D: for each block the cells' box columns go to shared
+// memory and every warp ANDs its (query, cell) pairs' walk / covered bits
+// (already one bit a pair) over the blocks before it lists the mixed
+// ones; a walk tests 32 slots of its run at a time, block by block, then
+// adds them in slot order, folding at each group's end. The compares are
+// exact, so the classes, the walks' `in` and every bit are those of the
+// D <= 16 kernel's test.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_cols.cuh"
 
 namespace {
 
@@ -105,7 +119,7 @@ constexpr int CT = 128;        // cells a tile (moments)
 constexpr int QB = 32;         // queries a block (moments)
 constexpr int NT = 256;        // threads a block (moments): 8 warps
 constexpr int STATS = 8;       // output planes
-constexpr int MAX_D = 16;      // predicate columns
+constexpr int MAX_D = 16;      // predicate columns whole; above, blocks
 constexpr int CELL_T = 128;    // threads a block (cell totals)
 constexpr int WB = 8;          // slots a walk loads at once
 constexpr int QW = QB / (NT / 32);  // queries a warp (tile kernel)
@@ -234,6 +248,24 @@ __device__ __forceinline__ void walk_run(const Run& run, const float* ql,
   }
 }
 
+// walk_run at D > MAX_D: 32 slots tested at a time (slots_inside_wide, the
+// query's rows lo / hi of D bounds), then added in slot order, each group
+// folded at its last slot: the same adds and folds as walk_run's.
+__device__ __forceinline__ void walk_run_wide(const Run& run,
+                                              const float* lo,
+                                              const float* hi, int D,
+                                              float inv_p, CellSums& acc) {
+  for (int i0 = run.start; i0 < run.end; i0 += 32) {
+    const int n = min(32, run.end - i0);
+    const uint32_t m =
+        slots_inside_wide(run.lc + (size_t)i0 * D, n, D, lo, hi);
+    for (int b = 0; b < n; ++b) {
+      acc.add((m >> b) & 1u, run.la[i0 + b], inv_p);
+      if (run.lend[i0 + b]) acc.fold();
+    }
+  }
+}
+
 // 1. Per cell (a warp): the walk of its run with every slot inside (the
 // totals a covered pair takes), into totals (8, kP), and its NaN-coordinate
 // flag. The lanes load 32 slots of the run at once; every lane then folds
@@ -284,7 +316,7 @@ join_cells_kernel(const float* __restrict__ coord,
 // listed queries once: the cell's totals (covered), the walk (mixed) or
 // +0.0 (empty). One round of walks serves all of the warp's queries whose
 // mixed cells fit the list.
-template <int VW, int DD>
+template <int VW, int DD>  // DD > 0: D fixed; 0: D <= MAX_D; -1: any D
 __global__ void __launch_bounds__(NT, 4)
 join_tile_kernel(const float* __restrict__ coord,
                  const float* __restrict__ a,
@@ -298,9 +330,11 @@ join_tile_kernel(const float* __restrict__ coord,
                  int Q, int kP, int su, int P, int D, float inv_p,
                  float one_m_p) {
   if (DD > 0) D = DD;
+  // The box columns shared memory holds at once: all D, or a block.
+  const int DB = DD < 0 ? WIDE_COLS : D;
   extern __shared__ __align__(16) float smem[];
-  float* s_box = smem;                   // [D][lo, hi][CT]
-  float* s_tot = s_box + 2 * D * CT;     // [STATS][CT]
+  float* s_box = smem;                   // [DB][lo, hi][CT]
+  float* s_tot = s_box + 2 * DB * CT;    // [STATS][CT]
   int* s_flag = (int*)(s_tot + STATS * CT);  // [CT]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   float* w_res = (float*)(s_flag + CT) + warp * STATS * W_CAP;  // [8][W_CAP]
@@ -309,10 +343,12 @@ join_tile_kernel(const float* __restrict__ coord,
   const int cell0 = blockIdx.x * CT;
   const int q0 = blockIdx.y * QB;
   const int nc = min(CT, kP - cell0);
-  for (int i = tid; i < nc * 2 * D; i += NT) {
-    const int e = i / (2 * D), r = i - e * 2 * D;
-    const int side = r / D, j = r - side * D;
-    s_box[(j * 2 + side) * CT + e] = cell_box[(size_t)cell0 * 2 * D + i];
+  if constexpr (DD >= 0) {
+    for (int i = tid; i < nc * 2 * D; i += NT) {
+      const int e = i / (2 * D), r = i - e * 2 * D;
+      const int side = r / D, j = r - side * D;
+      s_box[(j * 2 + side) * CT + e] = cell_box[(size_t)cell0 * 2 * D + i];
+    }
   }
   for (int i = tid; i < STATS * nc; i += NT) {
     const int st = i / nc, e = i - st * nc;
@@ -340,18 +376,23 @@ join_tile_kernel(const float* __restrict__ coord,
     for (int m = lane; m < n_mix; m += 32) {
       const int w = w_list[m] >> 7, ce = w_list[m] & 0x7f;
       const int q = q0 + warp + (NT / 32) * w;
-      float ql[ND], qh[ND];
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const bool on = DD > 0 || j < D;
-        ql[j] = on ? q_lo[(size_t)q * D + j] : 0.0f;
-        qh[j] = on ? q_hi[(size_t)q * D + j] : 0.0f;
-      }
       const Run run = cell_run(coord, a, last, cell_start, cell0 + ce, su,
                                P, D);
       CellSums acc;
       acc.init();
-      walk_run<DD>(run, ql, qh, D, inv_p, acc);
+      if constexpr (DD < 0) {
+        walk_run_wide(run, q_lo + (size_t)q * D, q_hi + (size_t)q * D, D,
+                      inv_p, acc);
+      } else {
+        float ql[ND], qh[ND];
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          const bool on = DD > 0 || j < D;
+          ql[j] = on ? q_lo[(size_t)q * D + j] : 0.0f;
+          qh[j] = on ? q_hi[(size_t)q * D + j] : 0.0f;
+        }
+        walk_run<DD>(run, ql, qh, D, inv_p, acc);
+      }
       acc.save(w_res + m, W_CAP, one_m_p);
     }
     __syncwarp();
@@ -388,69 +429,161 @@ join_tile_kernel(const float* __restrict__ coord,
     w_first = w_end;
   };
 
+  if constexpr (DD < 0) {
+    // The classes a column block at a time: for each block its cells' box
+    // columns into s_box, then every (query w, cell c) bit 4w + c of walks
+    // (apart in no block so far) and covers (inside every block so far).
 #pragma unroll
-  for (int w = 0; w < QW; ++w) {
-    if (w >= n_q) break;
-    const int q = q0 + warp + (NT / 32) * w;
-    float ql[ND], qh[ND];
+    for (int w = 0; w < QW; ++w) {
+      if (w >= n_q) break;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      const bool on = DD > 0 || j < D;
-      ql[j] = on ? q_lo[(size_t)q * D + j] : 0.0f;
-      qh[j] = on ? q_hi[(size_t)q * D + j] : 0.0f;
-    }
-    // Classes of the lane's cells by the walk's own compares: empty iff
-    // apart in a column.
-    unsigned mixed = 0u;
+      for (int r = 0; r < UR; ++r) {
+        const int u = r * 32 + lane;
+        const bool live = u < n_units;
+        const int o = (live ? u : 0) * VW;
 #pragma unroll
-    for (int r = 0; r < UR; ++r) {
-      const int u = r * 32 + lane;
-      const bool live = u < n_units;
-      const int o = (live ? u : 0) * VW;
-      bool walk[VW], covered[VW];
-#pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        walk[e] = live && u * VW + e < nc;
-        covered[e] = s_flag[o + e] == 0;
-      }
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        if (DD > 0 || j < D) {
-#pragma unroll
-          for (int e = 0; e < VW; ++e) {
-            const float lo = s_box[(j * 2) * CT + o + e];
-            const float hi = s_box[(j * 2 + 1) * CT + o + e];
-            walk[e] = walk[e] && !(qh[j] < lo || ql[j] > hi);
-            covered[e] = covered[e] && ql[j] <= lo && hi <= qh[j];
+        for (int e = 0; e < VW; ++e) {
+          const int bit = 4 * w + r * VW + e;
+          if (live && u * VW + e < nc) {
+            walks |= 1u << bit;
+            if (s_flag[o + e] == 0) covers |= 1u << bit;
           }
         }
       }
+    }
+    for (int j0 = 0; j0 < D; j0 += WIDE_COLS) {
+      const int nj = min(WIDE_COLS, D - j0);
+      __syncthreads();  // the previous block's boxes are read
+      for (int i = tid; i < nc * 2 * nj; i += NT) {
+        const int e = i / (2 * nj), r = i - e * 2 * nj;
+        const int side = r / nj, j = r - side * nj;
+        s_box[(j * 2 + side) * CT + e] =
+            cell_box[(size_t)(cell0 + e) * 2 * D + (size_t)side * D + j0 + j];
+      }
+      __syncthreads();
+#pragma unroll 1
+      for (int w = 0; w < QW; ++w) {
+        if (w >= n_q) break;
+        const size_t qr = (size_t)(q0 + warp + (NT / 32) * w) * D + j0;
+        float ql[WIDE_COLS], qh[WIDE_COLS];
 #pragma unroll
-      for (int e = 0; e < VW; ++e) {
-        const int bit = 4 * w + r * VW + e;
-        walks |= (unsigned)walk[e] << bit;
-        covers |= (unsigned)(walk[e] && covered[e]) << bit;
-        mixed |= (unsigned)(walk[e] && !covered[e]) << (r * VW + e);
+        for (int j = 0; j < WIDE_COLS; ++j) {
+          ql[j] = j < nj ? q_lo[qr + j] : 0.0f;
+          qh[j] = j < nj ? q_hi[qr + j] : 0.0f;
+        }
+#pragma unroll
+        for (int r = 0; r < UR; ++r) {
+          const int u = r * 32 + lane;
+          const int o = (u < n_units ? u : 0) * VW;
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            bool walk = true, covered = true;
+#pragma unroll
+            for (int j = 0; j < WIDE_COLS; ++j) {
+              if (j < nj) {
+                const float lo = s_box[(j * 2) * CT + o + e];
+                const float hi = s_box[(j * 2 + 1) * CT + o + e];
+                walk = walk && !(qh[j] < lo || ql[j] > hi);
+                covered = covered && ql[j] <= lo && hi <= qh[j];
+              }
+            }
+            const int bit = 4 * w + r * VW + e;
+            if (!walk) walks &= ~(1u << bit);
+            if (!covered) covers &= ~(1u << bit);
+          }
+        }
       }
     }
-    // The list takes the query's mixed cells, after a flush of the
-    // queries before it when they would not fit.
-    int count = __popc(mixed);
+    covers &= walks;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      count += __shfl_xor_sync(0xffffffffu, count, off);
-    if (n_mix + count > W_CAP) flush(w);
-    pos[w] = 0u;
+    for (int w = 0; w < QW; ++w) {
+      if (w >= n_q) break;
+      const unsigned mixed = ((walks & ~covers) >> (4 * w)) & 0xfu;
+      // The list takes the query's mixed cells, after a flush of the
+      // queries before it when they would not fit.
+      int count = __popc(mixed);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const bool m = (mixed >> c) & 1u;
-      const unsigned b = __ballot_sync(0xffffffffu, m);
-      const int at = n_mix + __popc(b & below);
-      if (m) {
-        w_list[at] = (uint16_t)(w << 7 | ((c / VW) * 32 + lane) * VW + c % VW);
-        pos[w] |= (unsigned)at << (8 * c);
+      for (int off = 16; off > 0; off >>= 1)
+        count += __shfl_xor_sync(0xffffffffu, count, off);
+      if (n_mix + count > W_CAP) flush(w);
+      pos[w] = 0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool m = (mixed >> c) & 1u;
+        const unsigned b = __ballot_sync(0xffffffffu, m);
+        const int at = n_mix + __popc(b & below);
+        if (m) {
+          w_list[at] = (uint16_t)(w << 7 | ((c / VW) * 32 + lane) * VW + c % VW);
+          pos[w] |= (unsigned)at << (8 * c);
+        }
+        n_mix += __popc(b);
       }
-      n_mix += __popc(b);
+    }
+  } else {
+#pragma unroll
+    for (int w = 0; w < QW; ++w) {
+      if (w >= n_q) break;
+      const int q = q0 + warp + (NT / 32) * w;
+      float ql[ND], qh[ND];
+#pragma unroll
+      for (int j = 0; j < ND; ++j) {
+        const bool on = DD > 0 || j < D;
+        ql[j] = on ? q_lo[(size_t)q * D + j] : 0.0f;
+        qh[j] = on ? q_hi[(size_t)q * D + j] : 0.0f;
+      }
+      // Classes of the lane's cells by the walk's own compares: empty iff
+      // apart in a column.
+      unsigned mixed = 0u;
+#pragma unroll
+      for (int r = 0; r < UR; ++r) {
+        const int u = r * 32 + lane;
+        const bool live = u < n_units;
+        const int o = (live ? u : 0) * VW;
+        bool walk[VW], covered[VW];
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          walk[e] = live && u * VW + e < nc;
+          covered[e] = s_flag[o + e] == 0;
+        }
+#pragma unroll
+        for (int j = 0; j < ND; ++j) {
+          if (DD > 0 || j < D) {
+#pragma unroll
+            for (int e = 0; e < VW; ++e) {
+              const float lo = s_box[(j * 2) * CT + o + e];
+              const float hi = s_box[(j * 2 + 1) * CT + o + e];
+              walk[e] = walk[e] && !(qh[j] < lo || ql[j] > hi);
+              covered[e] = covered[e] && ql[j] <= lo && hi <= qh[j];
+            }
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < VW; ++e) {
+          const int bit = 4 * w + r * VW + e;
+          walks |= (unsigned)walk[e] << bit;
+          covers |= (unsigned)(walk[e] && covered[e]) << bit;
+          mixed |= (unsigned)(walk[e] && !covered[e]) << (r * VW + e);
+        }
+      }
+      // The list takes the query's mixed cells, after a flush of the
+      // queries before it when they would not fit.
+      int count = __popc(mixed);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        count += __shfl_xor_sync(0xffffffffu, count, off);
+      if (n_mix + count > W_CAP) flush(w);
+      pos[w] = 0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool m = (mixed >> c) & 1u;
+        const unsigned b = __ballot_sync(0xffffffffu, m);
+        const int at = n_mix + __popc(b & below);
+        if (m) {
+          w_list[at] = (uint16_t)(w << 7 | ((c / VW) * 32 + lane) * VW + c % VW);
+          pos[w] |= (unsigned)at << (8 * c);
+        }
+        n_mix += __popc(b);
+      }
     }
   }
   flush(n_q);
@@ -612,7 +745,8 @@ join_exact_kernel(const uint8_t* __restrict__ cover,
 // Dynamic shared memory of the tile kernel: boxes, totals and flags, and
 // per warp the walks' results and the list of mixed cells.
 size_t tile_smem(int D) {
-  return sizeof(float) * (2 * (size_t)D * CT + (size_t)STATS * CT + CT
+  const size_t db = D > MAX_D ? WIDE_COLS : D;  // box columns held at once
+  return sizeof(float) * (2 * db * CT + (size_t)STATS * CT + CT
                           + (size_t)NT / 32 * STATS * W_CAP)
       + sizeof(uint16_t) * NT / 32 * W_CAP;
 }
@@ -630,6 +764,7 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
   if (D == 2) kernel = join_tile_kernel<VW, 2>;
   if (D == 3) kernel = join_tile_kernel<VW, 3>;
   if (D == 4) kernel = join_tile_kernel<VW, 4>;
+  if (D > MAX_D) kernel = join_tile_kernel<VW, -1>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -644,6 +779,7 @@ cudaError_t launch_tiles(dim3 grid, size_t smem, cudaStream_t st,
 // The launch's constants, for the wrapper's limits and scratch.
 extern "C" int repro_join_moments_query_tile() { return QB; }
 extern "C" int repro_join_moments_cell_tile() { return CT; }
+// Columns the tile kernel holds whole; above, it takes blocks of this many.
 extern "C" int repro_join_moments_max_d() { return MAX_D; }
 // Floats of the scratch: the cells' totals (8, kP) and flags (kP,).
 extern "C" long long repro_join_moments_scratch(int kP) {
@@ -661,7 +797,7 @@ extern "C" int repro_join_cell_moments(
     int Q, int k, int su, int P, int D, float inv_p, float one_m_p,
     void* stream) {
   const long long kP = (long long)k * P;
-  if (Q < 1 || k < 1 || su < 1 || P < 1 || D < 1 || D > MAX_D
+  if (Q < 1 || k < 1 || su < 1 || P < 1 || D < 1
       || kP > 0x7fffffffLL || (Q + QB - 1) / QB > MAX_GRID_Y
       || scratch_floats < (STATS + 1) * kP)
     return (int)cudaErrorInvalidValue;

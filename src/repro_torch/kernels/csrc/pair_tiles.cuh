@@ -112,11 +112,38 @@
 // d = 16, Q = 2048). Scratch (the wrapper's, pair_scratch_floats): the
 // walks' partials (chunks, Q, k, STATS), then per (leaf, chunk) the box
 // (2d), the partial (STATS) and the flag.
+//
+// Any d. The kernels above take d <= MAX_D = 16 columns (compile-time d
+// of 1..3, a runtime d up to 16), whose bounds and boxes sit in register
+// arrays and whose chunks are staged whole. Above 16 columns the launch
+// runs wide instantiations of the same two kernels (pair_tile_wide_kernel,
+// pair_chunk_wide_kernel), whose shared memory and registers do not grow
+// with d: the columns go in blocks of WIDE_COLS = 16 (wide_cols.cuh).
+//  * One pass: a leaf's reduction reads its slots from L2 in slot order;
+//    for each query tile and column block the block's query bounds go to
+//    shared memory and the leaves' box columns of the block are formed
+//    there, a thread a (leaf, column); each thread ANDs / ORs its 8 pairs'
+//    inside / apart bits over the blocks. The walks go in rounds of NT
+//    pairs: for each 32 slots and column block the leaf tile's
+//    coordinates are staged in shared memory, a walk ANDs its pair's 32
+//    slot bits over the blocks, then adds the 32 slots in slot order.
+//  * Chunk tiles: an item stages only the chunk's a and valid bytes; its
+//    box is formed block by block (16 threads a column, the same tree),
+//    written to the scratch by the group-0 item, and the group's queries
+//    (at most LIST_MAX a pass: 16 a thread) AND / OR their flags over the
+//    blocks; walks as the one pass's, in slot order over the chunk. Phase 2
+//    reads the boxes through L2, a column at a time.
+// The reductions, the folds and their orders are the d <= 16 kernels':
+// only which columns a compare sees at once differs, and the compares are
+// exact, so every class, every `in` and every bit is the same as if the d
+// columns were tested at once.
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wide_cols.cuh"
 
 namespace {
 
@@ -133,7 +160,9 @@ constexpr int LIST_CAP = 2 * QT * LT;  // pairs listed for walks, at most
 constexpr int GQ_MIN = 64;         // queries a group, chunk tiles, at least
 constexpr int LIST_MAX = 4096;     // walks listed a pass, chunk tiles (+ 1)
 constexpr int MAX_DEVICES = 64;
-constexpr int VARIANTS = 8;
+constexpr int VARIANTS = 10;  // VW x (d = 0, 1, 2, 3), then the wide two
+static_assert(WIDE_COLS == MAX_D, "the wide kernels' blocks are MAX_D");
+static_assert(LT * WIDE_COLS == NT, "a thread a (leaf, column) of a block");
 
 // The tile's entry of plane m, query q, leaf l: [plane][q][leaf][WIDTH].
 template <class Acc>
@@ -599,6 +628,245 @@ pair_tile_kernel(const float* __restrict__ c, const float* __restrict__ a,
   }
 }
 
+// The wide one pass's shared-memory carve-up (bytes), the same at every
+// d: the tile, a column block's query bounds (two planes of QT x
+// WIDE_COLS) and leaf boxes, the leaves' reductions, flags and the list.
+template <class Acc>
+bool make_wide_plan(int Q, int k, Plan* plan) {
+  Plan p;
+  p.sc = 0;
+  p.runs = 0;
+  long long off = 0;
+  off = align16(off + 4LL * Acc::PLANES * Acc::WIDTH * QT * LT);
+  p.off_c = p.off_a = p.off_v = (int)off;  // nothing of the slots staged
+  p.off_q = (int)off;     off = align16(off + 2 * 4LL * QT * WIDE_COLS);
+  // The walks stage LT x 32 slots x WIDE_COLS floats over the tile and
+  // the query buffers.
+  if (off < 4LL * LT * 32 * WIDE_COLS) off = 4LL * LT * 32 * WIDE_COLS;
+  p.off_box = (int)off;   off = align16(off + 8LL * LT * WIDE_COLS);
+  p.off_stat = (int)off;  off = align16(off + 4LL * Acc::STATS * LT);
+  p.off_nan = (int)off;   off = align16(off + 4LL * LT);
+  p.off_list = (int)off;  off = align16(off + 2LL * LIST_CAP);
+  p.off_count = (int)off; off = align16(off + 4);
+  p.bytes = (int)off;
+  const long long n_qt = (Q + QT - 1) / QT, n_lt = (k + LT - 1) / LT;
+  if (n_qt * n_lt > 0x7fffffffLL) return false;
+  p.n_qt = (int)n_qt;
+  p.groups = 1;
+  p.n_blocks = (int)n_lt;
+  *plan = p;
+  return true;
+}
+
+// The one pass at d > MAX_D (s <= SLOT_CHUNK): pair_tile_kernel's blocks,
+// classes, tiles, stores and walk list, with the columns in blocks of
+// WIDE_COLS (design above, "Any d").
+template <class Acc, int VW>
+__global__ void __launch_bounds__(NT)
+pair_tile_wide_kernel(const float* __restrict__ c,
+                      const float* __restrict__ a,
+                      const uint8_t* __restrict__ valid,
+                      const float* __restrict__ q_lo,
+                      const float* __restrict__ q_hi,
+                      float* __restrict__ out, int Q, int k, int s, int d,
+                      Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_tile = (float*)smem;                    // tile_at()
+  float* s_q = (float*)(smem + p.off_q);   // [lo, hi][q][WIDE_COLS]
+  float* s_box = (float*)(smem + p.off_box);  // [leaf][lo, hi][WIDE_COLS]
+  float* s_stat = (float*)(smem + p.off_stat);     // [leaf][STATS]
+  int* s_nan = (int*)(smem + p.off_nan);           // [leaf]
+  uint16_t* s_list = (uint16_t*)(smem + p.off_list);  // pairs to walk
+  int* s_count = (int*)(smem + p.off_count);
+  constexpr int PQ = QT * LT / NT;  // pairs a thread classifies
+
+  const int tid = threadIdx.x;
+  const int group = blockIdx.x % p.groups;
+  const int leaf0 = (blockIdx.x / p.groups) * LT;
+  const int nl = min(LT, k - leaf0);
+  const size_t plane = (size_t)Q * k * Acc::WIDTH;
+  const float inf = __int_as_float(0x7f800000);
+  if (tid < LT) s_nan[tid] = 0;
+  if (tid == 0) *s_count = 0;
+
+  // 1. The leaves' reductions, thread l < nl over leaf l's slots in slot
+  // order, from L2.
+  if (tid < nl) {
+    const size_t o = (size_t)(leaf0 + tid) * s;
+    Acc acc;
+    acc.init();
+#pragma unroll 8
+    for (int i = 0; i < s; ++i) acc.add(a[o + i], valid[o + i] != 0);
+    acc.save(s_stat + tid * Acc::STATS);
+  }
+
+  // 5. The walks of the listed pairs, one thread each, in rounds of NT
+  // pairs: for each 32 slots and column block the leaf tile's coordinates
+  // are staged over the tile and the query buffers (both free during the
+  // walks), [leaf][slot][column ^ leaf] so that the 16 leaves' columns
+  // fall on distinct banks; each thread tests its pair's 32 slots there,
+  // then adds them in slot order.
+  float* s_x = (float*)smem;  // [LT][32][WIDE_COLS]
+  int it_base = 0;
+  auto walk_all = [&](int n_walk) {
+    for (int r0 = 0; r0 < n_walk; r0 += NT) {
+      const int e = r0 + tid;
+      const bool on = e < n_walk;
+      int l = 0, q = 0;
+      if (on) {
+        const int ent = s_list[e];
+        l = ent & (LT - 1);
+        const int qt = (it_base + (ent >> 11)) * p.groups + group;
+        q = qt * QT + ((ent >> 4) & (QT - 1));
+      }
+      const size_t o = (size_t)(leaf0 + l) * s;
+      const float* xl = s_x + l * 32 * WIDE_COLS;
+      Acc w;
+      w.init();
+      for (int i0 = 0; i0 < s; i0 += 32) {
+        const int n = min(32, s - i0);
+        uint32_t m = on ? (n >= 32 ? 0xffffffffu : (1u << n) - 1u) : 0u;
+        for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+          const int nj = min(WIDE_COLS, d - j0);
+          __syncthreads();  // the previous coordinates are read
+          for (int i = tid; i < nl * n * nj; i += NT) {
+            const int lb = i / nj, j = i - lb * nj;
+            const int ll = lb / n, b = lb - ll * n;
+            s_x[(ll * 32 + b) * WIDE_COLS + (j ^ ll)] =
+                c[((size_t)(leaf0 + ll) * s + i0 + b) * d + j0 + j];
+          }
+          __syncthreads();
+          if (m != 0u) {
+            float ql[WIDE_COLS], qh[WIDE_COLS];
+#pragma unroll
+            for (int j = 0; j < WIDE_COLS; ++j) {
+              ql[j] = j < nj ? q_lo[(size_t)q * d + j0 + j] : 0.f;
+              qh[j] = j < nj ? q_hi[(size_t)q * d + j0 + j] : 0.f;
+            }
+            for (int b = 0; b < n; ++b) {
+              const float* xb = xl + b * WIDE_COLS;
+              bool in = true;
+#pragma unroll
+              for (int j = 0; j < WIDE_COLS; ++j) {
+                if (j < nj) {
+                  const float x = xb[j ^ l];
+                  in &= (ql[j] <= x) & (x <= qh[j]);
+                }
+              }
+              if (!in) m &= ~(1u << b);
+            }
+          }
+        }
+        if (on) {
+          for (int b = 0; b < n; ++b)
+            w.add(a[o + i0 + b],
+                  ((m >> b) & 1u) && valid[o + i0 + b] != 0);
+        }
+      }
+      if (on) w.write(out, (size_t)q * k + leaf0 + l, plane);
+    }
+  };
+
+  // The box thread's (leaf, column) of a block; the classes' leaf.
+  const int bl = tid / WIDE_COLS, bj = tid - bl * WIDE_COLS;
+  const int pl = tid % LT;
+  for (int it = 0, qt = group; qt < p.n_qt; ++it, qt += p.groups) {
+    const int q0 = qt * QT, nq = min(QT, Q - q0);
+    // 3. Classes, a column block at a time: bit i of in_b / ap_b is the
+    // pair (query tid / LT + i * NT / LT, leaf tid % LT) inside in every
+    // block so far / apart in some block.
+    unsigned in_b = (1u << PQ) - 1u, ap_b = 0u;
+    for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+      const int nj = min(WIDE_COLS, d - j0);
+      __syncthreads();  // the previous block's bounds and boxes are read
+      for (int i = tid; i < nq * nj; i += NT) {
+        const int q = i / nj, j = i - q * nj;
+        const size_t at = (size_t)(q0 + q) * d + j0 + j;
+        s_q[q * WIDE_COLS + j] = q_lo[at];
+        s_q[(QT + q) * WIDE_COLS + j] = q_hi[at];
+      }
+      if (bl < nl && bj < nj) {
+        const size_t o = (size_t)(leaf0 + bl) * s;
+        float lo = inf, hi = -inf;
+        bool nan = false;
+#pragma unroll 8
+        for (int i = 0; i < s; ++i) {
+          const bool on = valid[o + i] != 0;
+          const float x = c[(o + i) * d + j0 + bj];
+          nan |= on & (x != x);
+          lo = fminf(lo, on ? x : inf);
+          hi = fmaxf(hi, on ? x : -inf);
+        }
+        s_box[bl * 2 * WIDE_COLS + bj] = lo;
+        s_box[(bl * 2 + 1) * WIDE_COLS + bj] = hi;
+        if (nan) s_nan[bl] = 1;
+      }
+      __syncthreads();
+      if (pl < nl) {
+        const float* blo = s_box + pl * 2 * WIDE_COLS;
+        const float* bhi = blo + WIDE_COLS;
+#pragma unroll
+        for (int i = 0; i < PQ; ++i) {
+          const int q = tid / LT + i * (NT / LT);
+          if (q < nq) {
+            bool inside = true, apart = false;
+#pragma unroll
+            for (int j = 0; j < WIDE_COLS; ++j) {
+              if (j < nj) {
+                const float ql = s_q[q * WIDE_COLS + j];
+                const float qh = s_q[(QT + q) * WIDE_COLS + j];
+                inside &= (ql <= blo[j]) & (bhi[j] <= qh);
+                apart |= (qh < blo[j]) | (bhi[j] < ql);
+              }
+            }
+            if (!inside) in_b &= ~(1u << i);
+            if (apart) ap_b |= 1u << i;
+          }
+        }
+      }
+    }
+    __syncthreads();  // every block's NaN flags are in
+    if (pl < nl) {
+      const bool no_nan = s_nan[pl] == 0;
+      Acc leaf;
+      leaf.load(s_stat + pl * Acc::STATS);
+#pragma unroll
+      for (int i = 0; i < PQ; ++i) {
+        const int q = tid / LT + i * (NT / LT);
+        if (q < nq) {
+          const bool inside = no_nan && ((in_b >> i) & 1u);
+          const bool apart = (ap_b >> i) & 1u;
+          leaf.fill(s_tile, q, pl, inside);
+          if (!inside && !apart)
+            s_list[atomicAdd(s_count, 1)] =
+                (uint16_t)((it - it_base) << 11 | q << 4 | pl);
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. The tile goes out as rows of nl * WIDTH contiguous floats a plane.
+    constexpr int W = Acc::WIDTH;
+    float* ob = out + ((size_t)q0 * k + leaf0) * W;
+    if (nl == LT)
+      store_tile<Acc, VW, LT * W / VW>(s_tile, ob, nq, 0, (size_t)k * W,
+                                       plane);
+    else
+      store_tile<Acc, VW, 0>(s_tile, ob, nq, nl * W / VW, (size_t)k * W,
+                             plane);
+    __syncthreads();  // the tile is free again; its stores precede walks
+
+    const int n_walk = *s_count;
+    if (n_walk > LIST_CAP - QT * LT || it + 1 - it_base == 32 ||
+        qt + p.groups >= p.n_qt) {
+      walk_all(n_walk);
+      __syncthreads();
+      if (tid == 0) *s_count = 0;
+      it_base = it + 1;
+    }
+  }
+}
+
 // The one-pass launch (s <= SLOT_CHUNK) on device dev with sms
 // multiprocessors. Returns a cudaError_t.
 template <class Acc>
@@ -611,13 +879,16 @@ int launch_one_pass(const float* c, const float* a, const uint8_t* valid,
   const bool aligned =
       (((uintptr_t)c | (uintptr_t)a | (uintptr_t)valid | (uintptr_t)q_lo |
         (uintptr_t)q_hi) & 15) == 0;
+  const bool wide = d > MAX_D;
   Plan p;
-  if (!make_plan<Acc>(Q, k, s, d, aligned, &p))
+  if (!(wide ? make_wide_plan<Acc>(Q, k, &p)
+             : make_plan<Acc>(Q, k, s, d, aligned, &p)))
     return (int)cudaErrorInvalidConfiguration;
   // 16-byte stores need every row start 16-byte aligned: k a multiple of
   // 4 and an aligned buffer.
   const bool vec = k % 4 == 0 && ((uintptr_t)out & 15) == 0;
-  const int variant = (vec ? 4 : 0) + (d <= 3 ? d : 0);
+  const int variant =
+      wide ? 8 + vec : (vec ? 4 : 0) + (d <= 3 ? d : 0);
   using Kernel = void (*)(const float*, const float*, const uint8_t*,
                           const float*, const float*, float*, int, int, int,
                           int, Plan);
@@ -630,6 +901,8 @@ int launch_one_pass(const float* c, const float* a, const uint8_t* valid,
     case 5: kernel = pair_tile_kernel<Acc, 4, 1>; break;
     case 6: kernel = pair_tile_kernel<Acc, 4, 2>; break;
     case 7: kernel = pair_tile_kernel<Acc, 4, 3>; break;
+    case 8: kernel = pair_tile_wide_kernel<Acc, 1>; break;
+    case 9: kernel = pair_tile_wide_kernel<Acc, 4>; break;
     default: kernel = pair_tile_kernel<Acc, 1, 0>; break;
   }
   // Once per device and variant: prefer the largest shared-memory
@@ -687,10 +960,13 @@ ChunkPlan make_chunk_plan(int Q, int k, int s, int d) {
   p.gq = Q;
   p.n_items = (long long)k * p.n_ch;
   p.list = (Q < LIST_MAX ? Q : LIST_MAX) + 1;
-  long long off = align16(4LL * SLOT_CHUNK * d);  // c at 0
+  // At d > MAX_D nothing of c is staged and the box holds a column block.
+  const bool wide = d > MAX_D;
+  long long off = wide ? 0 : align16(4LL * SLOT_CHUNK * d);  // c at 0
   p.off_a = (int)off;     off = align16(off + 4LL * SLOT_CHUNK);
   p.off_v = (int)off;     off = align16(off + SLOT_CHUNK);
-  p.off_box = (int)off;   off = align16(off + 8LL * d + 4);
+  p.off_box = (int)off;
+  off = align16(off + 8LL * (wide ? WIDE_COLS : d) + 4);
   p.off_red = (int)off;   off = align16(off + 12LL * NT);
   p.off_list = (int)off;  off = align16(off + 4LL * p.list);
   p.off_count = (int)off; off = align16(off + 4);
@@ -904,6 +1180,192 @@ pair_chunk_kernel(const float* __restrict__ c, const float* __restrict__ a,
   }
 }
 
+// Chunk tiles at d > MAX_D: pair_chunk_kernel's items, phases and order,
+// with the columns in blocks of WIDE_COLS (design above, "Any d").
+template <class Acc>
+__global__ void __launch_bounds__(NT)
+pair_chunk_wide_kernel(const float* __restrict__ c,
+                       const float* __restrict__ a,
+                       const uint8_t* __restrict__ valid,
+                       const float* __restrict__ q_lo,
+                       const float* __restrict__ q_hi,
+                       float* __restrict__ out, float* scratch, int Q, int k,
+                       int s, int d, ChunkPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_a = (float*)(smem + p.off_a);           // [slot]
+  uint8_t* s_v = smem + p.off_v;                   // [slot]
+  float* s_rlo = (float*)(smem + p.off_red);       // the tree, [NT] each
+  float* s_rhi = s_rlo + NT;
+  int* s_rnan = (int*)(s_rhi + NT);
+  int* s_list = (int*)(smem + p.off_list);  // queries to walk; -1: own
+  int* s_count = (int*)(smem + p.off_count);
+  float* g_part = scratch;                 // [chunk][q][leaf][STATS]
+  float* g_box = scratch + p.box;          // [leaf][chunk][lo, hi][d]
+  float* g_stat = scratch + p.stat;        // [leaf][chunk][STATS]
+  int* g_nan = (int*)(scratch + p.nan);    // [leaf][chunk]
+  constexpr int P = NT / WIDE_COLS;        // box threads a column
+  constexpr int PQ = LIST_MAX / NT;        // queries a thread a pass
+  static_assert(PQ <= 32, "a thread's queries' flags in one word");
+
+  const int tid = threadIdx.x;
+  const int n_ch = p.n_ch;
+  const float inf = __int_as_float(0x7f800000);
+  const int bj = tid / P, bpart = tid - bj * P;
+
+  for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x) {
+    const int group = (int)(item % p.groups);
+    const long long lc = item / p.groups;
+    const int ch = (int)(lc % n_ch), leaf = (int)(lc / n_ch);
+    const int s0 = ch * SLOT_CHUNK, n = min(SLOT_CHUNK, s - s0);
+    const size_t o = (size_t)leaf * s + s0;
+    const size_t gl = (size_t)leaf * n_ch + ch;
+    __syncthreads();  // the previous item's chunk and list are read
+    // 1. The chunk's values and valid bytes.
+    copy_any(s_a, a + o, n * 4);
+    copy_any(s_v, valid + o, n);
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    if (tid == 0) {
+      // 3. The chunk's own partial, walked with the group-0 item's pairs.
+      s_list[0] = -1;
+      *s_count = group == 0 ? 1 : 0;
+    }
+    __syncthreads();
+    const long long q_first = (long long)group * p.gq;
+    const int q1 = (int)min((long long)Q, q_first + p.gq);
+    for (long long base = q_first; base < q1; base += p.list - 1) {
+      const int stop = (int)min((long long)q1, base + p.list - 1);
+      // 2 and 4. The box and NaN flag a column block at a time (P threads
+      // a column, then the tree), the group-0 item's first pass writing
+      // them to the scratch; bit i of in_b / ap_b: query base + tid + i *
+      // NT inside the box in every block so far / apart in some block.
+      unsigned in_b = 0xffffffffu, ap_b = 0u;
+      int nan = 0;
+      for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+        const int nj = min(WIDE_COLS, d - j0);
+        float lo = inf, hi = -inf;
+        int fl = 0;
+        if (bj < nj) {
+          for (int i = bpart; i < n; i += P) {
+            const bool on = s_v[i] != 0;
+            const float x = c[(o + i) * d + j0 + bj];
+            fl |= on & (x != x);
+            lo = fminf(lo, on ? x : inf);
+            hi = fmaxf(hi, on ? x : -inf);
+          }
+        }
+        s_rlo[tid] = lo;
+        s_rhi[tid] = hi;
+        s_rnan[tid] = fl;
+        __syncthreads();
+        for (int w = P / 2; w > 0; w >>= 1) {
+          if (bj < nj && bpart < w) {
+            s_rlo[tid] = fminf(s_rlo[tid], s_rlo[tid + w]);
+            s_rhi[tid] = fmaxf(s_rhi[tid], s_rhi[tid + w]);
+            s_rnan[tid] |= s_rnan[tid + w];
+          }
+          __syncthreads();
+        }
+        if (group == 0 && base == q_first && tid < nj) {
+          g_box[gl * 2 * d + j0 + tid] = s_rlo[tid * P];
+          g_box[gl * 2 * d + d + j0 + tid] = s_rhi[tid * P];
+        }
+        for (int j = 0; j < nj; ++j) nan |= s_rnan[j * P];
+#pragma unroll
+        for (int i = 0; i < PQ; ++i) {
+          const long long q = base + tid + (long long)i * NT;
+          if (q < stop) {
+            bool inside = true, apart = false;
+            for (int j = 0; j < nj; ++j) {
+              const float blo = s_rlo[j * P], bhi = s_rhi[j * P];
+              const float ql = q_lo[(size_t)q * d + j0 + j];
+              const float qh = q_hi[(size_t)q * d + j0 + j];
+              inside &= (ql <= blo) & (bhi <= qh);
+              apart |= (qh < blo) | (bhi < ql);
+            }
+            if (!inside) in_b &= ~(1u << i);
+            if (apart) ap_b |= 1u << i;
+          }
+        }
+        __syncthreads();  // before the next block's tree
+      }
+      if (group == 0 && base == q_first && tid == 0) g_nan[gl] = nan;
+#pragma unroll
+      for (int i = 0; i < PQ; ++i) {
+        const long long q = base + tid + (long long)i * NT;
+        const bool inside = nan == 0 && ((in_b >> i) & 1u);
+        if (q < stop && !inside && !((ap_b >> i) & 1u))
+          s_list[atomicAdd(s_count, 1)] = (int)q;
+      }
+      __syncthreads();
+      const int n_walk = *s_count;
+      for (int e = tid; e < n_walk; e += NT) {
+        // The chunk's own partial walks the unbounded box, as in
+        // pair_chunk_kernel.
+        const int q = s_list[e];
+        const float* ql = q >= 0 ? q_lo + (size_t)q * d : nullptr;
+        const float* qh = q >= 0 ? q_hi + (size_t)q * d : nullptr;
+        Acc w;
+        w.init();
+        for (int i0 = 0; i0 < n; i0 += 32) {
+          const int nb = min(32, n - i0);
+          const uint32_t m =
+              slots_inside_wide(c + (o + i0) * d, nb, d, ql, qh);
+          for (int b = 0; b < nb; ++b)
+            w.add(s_a[i0 + b], ((m >> b) & 1u) && s_v[i0 + b] != 0);
+        }
+        w.save(q < 0 ? g_stat + gl * Acc::STATS
+                     : g_part + (((size_t)ch * Q + q) * k + leaf) *
+                                    Acc::STATS);
+      }
+      if (stop < q1) {
+        __syncthreads();
+        if (tid == 0) *s_count = 0;
+        __syncthreads();
+      }
+    }
+  }
+
+  cg::this_grid().sync();
+
+  // Phase 2: each pair folds its chunks' partials in chunk order, the
+  // classes again from the scratch's boxes and flags (through L2), a column
+  // at a time.
+  const size_t pairs = (size_t)Q * k, plane = pairs * Acc::WIDTH;
+  for (size_t pair = (size_t)blockIdx.x * NT + tid; pair < pairs;
+       pair += (size_t)gridDim.x * NT) {
+    const int q = (int)(pair / k), leaf = (int)(pair - (size_t)q * k);
+    const float* ql = q_lo + (size_t)q * d;
+    const float* qh = q_hi + (size_t)q * d;
+    Acc acc;
+    acc.init();
+    for (int ch = 0; ch < n_ch; ++ch) {
+      const size_t gl = (size_t)leaf * n_ch + ch;
+      const float* bx = g_box + gl * 2 * d;
+      bool inside = __ldcg(g_nan + gl) == 0, apart = false;
+      for (int j = 0; j < d; ++j) {
+        const float blo = __ldcg(bx + j), bhi = __ldcg(bx + d + j);
+        inside &= (ql[j] <= blo) & (bhi <= qh[j]);
+        apart |= (qh[j] < blo) | (bhi < ql[j]);
+      }
+      float x[Acc::STATS];
+#pragma unroll
+      for (int i = 0; i < Acc::STATS; ++i)
+        x[i] = inside ? __ldcg(g_stat + gl * Acc::STATS + i)
+               : apart ? 0.f
+                       : __ldcg(g_part + ((size_t)ch * pairs + pair) *
+                                             Acc::STATS + i);
+      Acc part;
+      if (apart && !inside)
+        part.none();
+      else
+        part.load(x);
+      acc.merge(part);
+    }
+    acc.write(out, pair, plane);
+  }
+}
+
 // The chunked launch (s > SLOT_CHUNK), one cooperative launch on device
 // dev with sms multiprocessors; scratch holds scratch_floats floats, at
 // least pair_scratch_floats(). Returns a cudaError_t.
@@ -916,7 +1378,7 @@ int launch_pair_chunks(const float* c, const float* a, const uint8_t* valid,
   if (scratch == nullptr || scratch_floats < 0 ||
       (size_t)scratch_floats < p.floats)
     return (int)cudaErrorInvalidValue;
-  const int variant = d <= 3 ? d : 0;
+  const int variant = d > MAX_D ? 4 : d <= 3 ? d : 0;
   using Kernel = void (*)(const float*, const float*, const uint8_t*,
                           const float*, const float*, float*, float*, int,
                           int, int, int, ChunkPlan);
@@ -925,13 +1387,14 @@ int launch_pair_chunks(const float* c, const float* a, const uint8_t* valid,
     case 1: kernel = pair_chunk_kernel<Acc, 1>; break;
     case 2: kernel = pair_chunk_kernel<Acc, 2>; break;
     case 3: kernel = pair_chunk_kernel<Acc, 3>; break;
+    case 4: kernel = pair_chunk_wide_kernel<Acc>; break;
     default: kernel = pair_chunk_kernel<Acc, 0>; break;
   }
   // Once per device and variant: the largest carveout; above 48 KB (d > 4)
   // opt in for the largest size asked so far; the resident blocks at these
   // bytes, which cap the cooperative grid.
-  static int granted[MAX_DEVICES][4], occ_bytes[MAX_DEVICES][4],
-      occ[MAX_DEVICES][4];
+  static int granted[MAX_DEVICES][5], occ_bytes[MAX_DEVICES][5],
+      occ[MAX_DEVICES][5];
   cudaError_t err;
   if (granted[dev][variant] == 0) {
     err = cudaFuncSetAttribute(kernel,

@@ -55,6 +55,16 @@
 // Any Q and k are taken by masking the ragged edge; leaves past k
 // classify as empty and are never covered.
 //
+// Any d. Up to MAX_D = 16 columns the queries' bounds sit in shared memory
+// and a leaf's box in registers, whole (D = 1..3 fixed at compile time, D
+// = 0 up to 16). Above it the wide instantiation (D = -1) takes the
+// columns in blocks of 16: the block's bounds in the same shared arrays,
+// the leaves' box columns of the block in the same registers, and the
+// thread's (query, leaf) pairs' cover and disjoint bits (8 queries x 4
+// leaves: one 32-bit word each) and its leaves' non-empty bits ANDed /
+// ORed over the blocks. The compares are exact, so rel is the d <= 16
+// formula's whatever the block order; steps 1, 3 and 4 are unchanged.
+//
 // Shared memory: the aggregates (LK + 1) * A * 4 bytes (dynamic, 32 KB at
 // A = 8), the lists MAX_QB * (LK + 16) * 2 = 16.3 KB, bitmasks, counts and
 // bounds.
@@ -67,15 +77,16 @@ constexpr int NT = 256;        // threads per block
 constexpr int LPT = 4;         // leaves per thread
 constexpr int LK = NT * LPT;   // leaves per tile
 constexpr int NW = LK / 32;    // cover words per query row and tile
-constexpr int MAX_D = 16;      // predicate columns
+constexpr int MAX_D = 16;      // predicate columns whole; above, a block
 constexpr int MAX_A = 8;       // aggregate columns
 constexpr int MAX_QB = NT / 32;  // queries per block: one warp compacts each
 constexpr int WALK = 8;        // listed leaves a walk loads at once (16 B)
 constexpr int MAX_DEVICES = 64;
-constexpr int VARIANTS = 8;
+constexpr int VARIANTS = 10;
 
 static_assert(NW == 32, "one lane per cover word");
 static_assert(MAX_QB * MAX_A <= NT, "a walker per (query, column)");
+static_assert(MAX_QB * LPT <= 32, "a thread's pairs' bits in one word");
 
 // dst[i] = src[i] for i < n (dst in shared memory, 16-byte aligned): by
 // 16-byte cp.async when src is 16-byte aligned too, a 4-byte copy for the
@@ -96,7 +107,8 @@ __device__ __forceinline__ void stage_run(float* dst,
   for (int i = head + threadIdx.x; i < n; i += NT) dst[i] = src[i];
 }
 
-// One block per QB queries. D > 0 fixes d at compile time; VEC writes rel
+// One block per QB queries. D > 0 fixes d at compile time, D = 0 takes d
+// up to MAX_D, D = -1 any d in blocks of MAX_D columns; VEC writes rel
 // rows with 16-byte stores (k a multiple of 4, rel 16-byte aligned).
 template <int D, bool VEC>
 __global__ void __launch_bounds__(NT)
@@ -123,10 +135,12 @@ query_eval_kernel(const float* __restrict__ leaf_lo,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * QB;
   const int nq = min(QB, Q - q0);
-  for (int i = tid; i < nq * d; i += NT) {
-    const int qq = i / d, j = i - qq * d;
-    s_qlo[qq][j] = q_lo[(size_t)q0 * d + i];
-    s_qhi[qq][j] = q_hi[(size_t)q0 * d + i];
+  if (D >= 0) {
+    for (int i = tid; i < nq * d; i += NT) {
+      const int qq = i / d, j = i - qq * d;
+      s_qlo[qq][j] = q_lo[(size_t)q0 * d + i];
+      s_qhi[qq][j] = q_hi[(size_t)q0 * d + i];
+    }
   }
   if (tid < A) s_agg[LK * A + tid] = 0.f;
   const bool walker = tid < nq * A;
@@ -144,53 +158,131 @@ query_eval_kernel(const float* __restrict__ leaf_lo,
 
     // 2. Classification of leaves leaf0 .. leaf0 + 3 (past k: empty).
     const int leaf0 = k0 + tid * LPT;
-    float lo[DD][LPT], hi[DD][LPT];
-    bool nonempty[LPT];
+    if constexpr (D < 0) {
+      // The columns in blocks of MAX_D: the block's query bounds in
+      // s_qlo / s_qhi, the leaves' columns of the block in registers. Bit
+      // qq * LPT + u of cov / dis: query qq covers / is disjoint from leaf
+      // u in every block so far / in some block; bit u of ne: leaf u is
+      // not inverted in any column so far.
+      unsigned cov = 0xffffffffu, dis = 0u, ne = (1u << LPT) - 1u;
+      for (int j0 = 0; j0 < d; j0 += MAX_D) {
+        const int nj = min(MAX_D, d - j0);
+        __syncthreads();  // the previous block's bounds are read
+        for (int i = tid; i < nq * nj; i += NT) {
+          const int qq = i / nj, j = i - qq * nj;
+          s_qlo[qq][j] = q_lo[(size_t)(q0 + qq) * d + j0 + j];
+          s_qhi[qq][j] = q_hi[(size_t)(q0 + qq) * d + j0 + j];
+        }
+        __syncthreads();
+        float lo[MAX_D][LPT], hi[MAX_D][LPT];
 #pragma unroll
-    for (int u = 0; u < LPT; ++u) {
-      const bool in = leaf0 + u < k;
-      nonempty[u] = true;
+        for (int u = 0; u < LPT; ++u) {
+          const bool in = leaf0 + u < k;
+          const size_t row = (size_t)(leaf0 + u) * d + j0;
 #pragma unroll
-      for (int j = 0; j < DD; ++j) {
-        if (j < d) {
-          lo[j][u] = in ? leaf_lo[(size_t)(leaf0 + u) * d + j] : 1.f;
-          hi[j][u] = in ? leaf_hi[(size_t)(leaf0 + u) * d + j] : -1.f;
-          nonempty[u] &= lo[j][u] <= hi[j][u];
+          for (int j = 0; j < MAX_D; ++j) {
+            if (j < nj) {
+              lo[j][u] = in ? leaf_lo[row + j] : 1.f;
+              hi[j][u] = in ? leaf_hi[row + j] : -1.f;
+              if (!(lo[j][u] <= hi[j][u])) ne &= ~(1u << u);
+            }
+          }
+        }
+        for (int qq = 0; qq < nq; ++qq) {
+#pragma unroll
+          for (int u = 0; u < LPT; ++u) {
+            bool cover = true, disjoint = false;
+#pragma unroll
+            for (int j = 0; j < MAX_D; ++j) {
+              if (j < nj) {
+                const float ql = s_qlo[qq][j], qh = s_qhi[qq][j];
+                cover &= (ql <= lo[j][u]) & (hi[j][u] <= qh);
+                disjoint |= (qh < lo[j][u]) | (ql > hi[j][u]);
+              }
+            }
+            const unsigned bit = 1u << (qq * LPT + u);
+            if (!cover) cov &= ~bit;
+            if (disjoint) dis |= bit;
+          }
         }
       }
-    }
-    for (int qq = 0; qq < nq; ++qq) {
-      int code[LPT];
-      unsigned bits = 0;
+      for (int qq = 0; qq < nq; ++qq) {
+        int code[LPT];
+        unsigned bits = 0;
+#pragma unroll
+        for (int u = 0; u < LPT; ++u) {
+          const bool nonempty = (ne >> u) & 1u;
+          const unsigned at = qq * LPT + u;
+          const bool cover = nonempty & ((cov >> at) & 1u);
+          const bool disjoint = !nonempty | ((dis >> at) & 1u);
+          code[u] = cover ? 2 : (disjoint ? 0 : 1);
+          bits |= (unsigned)cover << u;
+        }
+        int32_t* row = rel + (size_t)(q0 + qq) * k;
+        if (VEC) {
+          if (leaf0 < k)
+            *reinterpret_cast<int4*>(row + leaf0) =
+                make_int4(code[0], code[1], code[2], code[3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < LPT; ++u)
+            if (leaf0 + u < k) row[leaf0 + u] = code[u];
+        }
+        bits <<= (lane & 7) * LPT;
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
+        if ((lane & 7) == 0) s_mask[qq][tid >> 3] = bits;
+      }
+    } else {
+      float lo[DD][LPT], hi[DD][LPT];
+      bool nonempty[LPT];
 #pragma unroll
       for (int u = 0; u < LPT; ++u) {
-        bool cover = nonempty[u], disjoint = !nonempty[u];
+        const bool in = leaf0 + u < k;
+        nonempty[u] = true;
 #pragma unroll
         for (int j = 0; j < DD; ++j) {
           if (j < d) {
-            const float ql = s_qlo[qq][j], qh = s_qhi[qq][j];
-            cover &= (ql <= lo[j][u]) & (hi[j][u] <= qh);
-            disjoint |= (qh < lo[j][u]) | (ql > hi[j][u]);
+            lo[j][u] = in ? leaf_lo[(size_t)(leaf0 + u) * d + j] : 1.f;
+            hi[j][u] = in ? leaf_hi[(size_t)(leaf0 + u) * d + j] : -1.f;
+            nonempty[u] &= lo[j][u] <= hi[j][u];
           }
         }
-        code[u] = cover ? 2 : (disjoint ? 0 : 1);
-        bits |= (unsigned)cover << u;
       }
-      int32_t* row = rel + (size_t)(q0 + qq) * k;
-      if (VEC) {
-        if (leaf0 < k)
-          *reinterpret_cast<int4*>(row + leaf0) =
-              make_int4(code[0], code[1], code[2], code[3]);
-      } else {
+      for (int qq = 0; qq < nq; ++qq) {
+        int code[LPT];
+        unsigned bits = 0;
 #pragma unroll
-        for (int u = 0; u < LPT; ++u)
-          if (leaf0 + u < k) row[leaf0 + u] = code[u];
+        for (int u = 0; u < LPT; ++u) {
+          bool cover = nonempty[u], disjoint = !nonempty[u];
+#pragma unroll
+          for (int j = 0; j < DD; ++j) {
+            if (j < d) {
+              const float ql = s_qlo[qq][j], qh = s_qhi[qq][j];
+              cover &= (ql <= lo[j][u]) & (hi[j][u] <= qh);
+              disjoint |= (qh < lo[j][u]) | (ql > hi[j][u]);
+            }
+          }
+          code[u] = cover ? 2 : (disjoint ? 0 : 1);
+          bits |= (unsigned)cover << u;
+        }
+        int32_t* row = rel + (size_t)(q0 + qq) * k;
+        if (VEC) {
+          if (leaf0 < k)
+            *reinterpret_cast<int4*>(row + leaf0) =
+                make_int4(code[0], code[1], code[2], code[3]);
+        } else {
+#pragma unroll
+          for (int u = 0; u < LPT; ++u)
+            if (leaf0 + u < k) row[leaf0 + u] = code[u];
+        }
+        bits <<= (lane & 7) * LPT;
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
+        bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
+        if ((lane & 7) == 0) s_mask[qq][tid >> 3] = bits;
       }
-      bits <<= (lane & 7) * LPT;
-      bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-      bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
-      bits |= __shfl_xor_sync(0xffffffffu, bits, 4);
-      if ((lane & 7) == 0) s_mask[qq][tid >> 3] = bits;
     }
     asm volatile("cp.async.wait_group 0;\n" ::);
     __syncthreads();
@@ -259,14 +351,15 @@ extern "C" int repro_query_eval(const float* leaf_lo, const float* leaf_hi,
                                 const float* leaf_agg, const float* q_lo,
                                 const float* q_hi, int32_t* rel, float* exact,
                                 int Q, int k, int d, int A, void* stream) {
-  if (Q < 1 || k < 1 || d < 1 || d > MAX_D || A < 1 || A > MAX_A)
+  if (Q < 1 || k < 1 || d < 1 || A < 1 || A > MAX_A)
     return (int)cudaErrorInvalidValue;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   const bool vec = k % 4 == 0 && ((uintptr_t)rel & 15) == 0;
-  const int variant = (vec ? 4 : 0) + (d <= 3 ? d : 0);
+  const int variant =
+      d > MAX_D ? 8 + vec : (vec ? 4 : 0) + (d <= 3 ? d : 0);
   using Kernel = void (*)(const float*, const float*, const float*,
                           const float*, const float*, int32_t*, float*, int,
                           int, int, int, int);
@@ -279,6 +372,8 @@ extern "C" int repro_query_eval(const float* leaf_lo, const float* leaf_hi,
     case 5: kernel = query_eval_kernel<1, true>; break;
     case 6: kernel = query_eval_kernel<2, true>; break;
     case 7: kernel = query_eval_kernel<3, true>; break;
+    case 8: kernel = query_eval_kernel<-1, false>; break;
+    case 9: kernel = query_eval_kernel<-1, true>; break;
     default: kernel = query_eval_kernel<0, false>; break;
   }
   const int bytes = (LK + 1) * A * 4;  // the aggregates and the zero slot

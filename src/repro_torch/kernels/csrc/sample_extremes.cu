@@ -133,7 +133,7 @@ extern "C" int repro_sample_extremes(const float* c, const float* a,
                                      float* scratch, long long scratch_floats,
                                      int Q, int k, int s, int d,
                                      void* stream) {
-  if (Q < 1 || k < 1 || s < 1 || d < 1 || d > MAX_D)
+  if (Q < 1 || k < 1 || s < 1 || d < 1)
     return (int)cudaErrorInvalidValue;
   return launch_pair_tiles<Extremes>(c, a, valid, q_lo, q_hi, out, scratch,
                                      scratch_floats, Q, k, s, d, stream);

@@ -46,7 +46,8 @@
 // bits are those of a walk; an empty one's are +0.0, where a walk's
 // accumulators would stay. The one-pass tile is (QT, LT, 3) floats, one
 // plane: rows of LT * 12 contiguous bytes. Shared memory ~45 KB at d = 1,
-// ~59 KB at d = 3, ~92 KB at d = 16 (one pass).
+// ~59 KB at d = 3, ~92 KB at d = 16 (one pass); ~51 KB at every d > 16,
+// whose wide kernels take the columns in blocks of 16 (pair_tiles.cuh).
 #include "pair_tiles.cuh"
 
 namespace {
@@ -109,7 +110,7 @@ extern "C" int repro_stratified_moments(const float* c, const float* a,
                                         float* out, float* scratch,
                                         long long scratch_floats, int Q,
                                         int k, int s, int d, void* stream) {
-  if (Q < 1 || k < 1 || s < 0 || d < 1 || d > MAX_D)
+  if (Q < 1 || k < 1 || s < 0 || d < 1)
     return (int)cudaErrorInvalidValue;
   return launch_pair_tiles<Moments>(c, a, valid, q_lo, q_hi, out, scratch,
                                     scratch_floats, Q, k, s, d, stream);

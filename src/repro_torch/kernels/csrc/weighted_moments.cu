@@ -167,13 +167,33 @@
 // mask would not fit, LT halves. The replicate walk holds two staged
 // sub-chunks, 2 * SUB * (RB + 2) * 4 bytes (~66 KB, dynamic).
 // Registers are capped at 64 in the tile kernel (4 blocks an SM); nvcc
-// -Xptxas=-v prints the counts at build. No float atomics, no tensor cores
+// -Xptxas=-v prints the counts at build.
+//
+// Any d. Up to MAX_D = 16 columns the box kernel keeps a segment's box in
+// registers, the tile kernel its queries' bounds in registers and its
+// segments' boxes and staged coordinate chunks in shared memory, all d
+// columns at once. Above 16 the wide instantiations (weighted_box_wide_
+// kernel, weighted_tile_kernel with D = -1) take the columns in blocks of
+// WIDE_COLS = 16 (wide_cols.cuh), so that shared memory and registers do
+// not grow with d: the box a block at a time (the valid bits with the
+// first); step 1's classes with the block's boxes in shared memory and
+// its bounds in registers, each pair's covered / apart bit ANDed / ORed
+// over the blocks; step 2 tests a pair's 32 slots of a word block by block
+// from L2 (nothing staged), then ANDs the valid bits as before. (Staging
+// the words' coordinates a column block at a time was 15 % slower for row
+// 3 at the 24-column serving shape on an H100: the walks, which never see
+// a coordinate, take its time there.) The masks,
+// classes and lists are the d <= 16 ones (the compares are exact), so the
+// walks, tiles and folds, which never see a coordinate, are unchanged and
+// fused = scan holds at every d. No float atomics, no tensor cores
 // (no TF32): after the cover/empty split no large contraction is left to
 // feed them. The walk's unit counter and item list are integer atomics
 // that only order the work; no output depends on the order.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "wide_cols.cuh"
 
 namespace {
 
@@ -182,7 +202,7 @@ constexpr int TILE_BLOCKS = 4;   // tile blocks an SM: caps registers at 64
 constexpr int RB_MAX = 8;        // replicates per batch of the tile loop
 constexpr int QT = 32;           // queries per tile: one per lane
 constexpr int LT_MAX = 32;       // segments per tile
-constexpr int MAX_D = 16;        // predicate columns
+constexpr int MAX_D = 16;        // predicate columns whole; above, blocks
 constexpr int CHUNK = 2048;      // slots a segment: the order contract
 constexpr int LEAF_T = 128;      // threads per totals and box block
 constexpr int MIX_T = 128;       // threads per direct-walk block
@@ -276,7 +296,9 @@ struct Plan {
 long long align16(long long x) { return (x + 15) & ~15LL; }
 
 bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
-  if (R < 1 || Q < 1 || k < 1 || s < 0 || d < 1 || d > MAX_D) return false;
+  if (R < 1 || Q < 1 || k < 1 || s < 0 || d < 1) return false;
+  // Above MAX_D columns: boxes a column block, no staged coordinates.
+  const bool wide = d > MAX_D;
   const long long n_ch = s > CHUNK ? (s + (long long)CHUNK - 1) / CHUNK : 1;
   const long long K = (long long)k * n_ch;
   if (K > (long long)MAX_GRID_Y * LEAF_T) return false;
@@ -284,7 +306,7 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
   const int nw = (cs + 31) / 32;
   // Coordinate chunks of at most 2 KB, at least one segment a warp.
   int sl = 32;
-  while (sl > 8 && sl * 32 * d * 4 > 2048) sl /= 2;
+  while (!wide && sl > 8 && sl * 32 * d * 4 > 2048) sl /= 2;
   for (int lt = LT_MAX; lt >= 1; lt /= 2) {
     Plan p;
     p.seg = Segs{s, (int)n_ch};
@@ -297,8 +319,9 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.sl = sl < lt ? sl : lt;
     long long off = 0;
     p.off_t = (int)off;    off = align16(off + 2LL * RB_MAX * lt * 12);
-    p.off_box = (int)off;  off = align16(off + 8LL * lt * d);
-    p.off_c = (int)off;    off = align16(off + 8LL * p.sl * 32 * d);
+    p.off_box = (int)off;
+    off = align16(off + 8LL * lt * (wide ? WIDE_COLS : d));
+    p.off_c = (int)off;    off = align16(off + (wide ? 0 : 8LL * p.sl * 32 * d));
     p.off_mask = (int)off; off = align16(off + 4LL * nw * lt * QT);
     p.off_cls = (int)off;  off = align16(off + (long long)QT * lt);
     p.off_meta = (int)off; off = align16(off + 4LL * (3 * LT_MAX + 1));
@@ -480,12 +503,73 @@ weighted_box_kernel(const float* __restrict__ c,
   }
 }
 
+// weighted_box_kernel at d > MAX_D: the same box, bits and flag, the
+// columns a block of WIDE_COLS at a time (the valid bits with the first).
+template <bool CH>
+__global__ void __launch_bounds__(LEAF_T)
+weighted_box_wide_kernel(const float* __restrict__ c,
+                         const uint8_t* __restrict__ valid,
+                         float* __restrict__ box, uint32_t* __restrict__ vbits,
+                         int* __restrict__ nan_flag, int* __restrict__ ctr,
+                         Segs seg, int K, int nw, int d) {
+  const int g = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (blockIdx.x == 0 && threadIdx.x < 4) ctr[threadIdx.x] = 0;
+  if (g >= K) return;
+  const size_t base = seg.base<CH>(g);
+  const int len = seg.len<CH>(g);
+  bool nan = false;
+  for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+    const int nj = min(WIDE_COLS, d - j0);
+    float lo[WIDE_COLS], hi[WIDE_COLS];
+#pragma unroll
+    for (int j = 0; j < WIDE_COLS; ++j) {
+      lo[j] = __int_as_float(0x7f800000);
+      hi[j] = -lo[j];
+    }
+    for (int w = 0; w < nw; ++w) {
+      const int i = w * 32 + lane;
+      const bool v = i < len && valid[base + i] != 0;
+      if (j0 == 0) {
+        const unsigned bits = __ballot_sync(0xffffffffu, v);
+        if (lane == 0) vbits[(size_t)g * nw + w] = bits;
+      }
+      if (v) {
+#pragma unroll
+        for (int j = 0; j < WIDE_COLS; ++j) {
+          if (j < nj) {
+            const float x = c[(base + i) * d + j0 + j];
+            nan |= x != x;
+            lo[j] = fminf(lo[j], x);
+            hi[j] = fmaxf(hi[j], x);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < WIDE_COLS; ++j) {
+      if (j < nj) {
+        for (int off = 16; off > 0; off >>= 1) {
+          lo[j] = fminf(lo[j], __shfl_xor_sync(0xffffffffu, lo[j], off));
+          hi[j] = fmaxf(hi[j], __shfl_xor_sync(0xffffffffu, hi[j], off));
+        }
+        if (lane == 0) {
+          box[(size_t)g * 2 * d + j0 + j] = lo[j];
+          box[(size_t)g * 2 * d + d + j0 + j] = hi[j];
+        }
+      }
+    }
+  }
+  nan = __any_sync(0xffffffffu, nan);
+  if (lane == 0) nan_flag[g] = nan;
+}
+
 // One block per tile of QT queries x LT segments: classes, the mixed
 // pairs' masks into the scratch, and every replicate's tile with T for
 // covered pairs and +0.0 elsewhere, into `out` (R, Q, K, 3): the output
 // itself at one segment a leaf, the partials above. VW floats per store (4
 // when K and LT are multiples of 4, else 1); D > 0 fixes d at compile
-// time.
+// time, D = 0 takes d up to MAX_D, D = -1 any d in column blocks.
 template <int VW, int D, bool CH>
 __global__ void __launch_bounds__(NT, TILE_BLOCKS)
 weighted_tile_kernel(const float* __restrict__ c,
@@ -519,8 +603,10 @@ weighted_tile_kernel(const float* __restrict__ c,
   const int nq = min(QT, Q - q0), nl = min(LT, K - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  for (int i = tid; i < nl * 2 * d; i += NT)
-    s_box[i] = box[(size_t)g0 * 2 * d + i];
+  if constexpr (D >= 0) {
+    for (int i = tid; i < nl * 2 * d; i += NT)
+      s_box[i] = box[(size_t)g0 * 2 * d + i];
+  }
   for (int i = tid; i < LT_MAX; i += NT) s_flag[i] = 0;
   const bool q_active = lane < nq;
   float ql[MAX_D], qh[MAX_D];
@@ -549,24 +635,74 @@ weighted_tile_kernel(const float* __restrict__ c,
   // covered iff the box holds every valid sample and none is NaN, empty
   // iff it is apart from them in some column, else MAYBE until the slots
   // are tested.
-  for (int l = warp; l < LT; l += NT / 32) {
-    uint8_t cls = EMPTY;
-    if (l < nl && q_active) {
-      const float* bl = s_box + l * 2 * d;
-      bool inside = nan_flag[g0 + l] == 0, apart = false;
+  if constexpr (D < 0) {
+    // The columns in blocks of WIDE_COLS: the block's boxes in s_box, its
+    // bounds in ql / qh; bit l of in_m / ap_m: segment l inside the
+    // query's box in every block so far / apart in some block.
+    uint32_t in_m = 0u, ap_m = 0u;
+    for (int l = warp; l < LT; l += NT / 32)
+      if (l < nl && q_active && nan_flag[g0 + l] == 0) in_m |= 1u << l;
+    for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+      const int nj = min(WIDE_COLS, d - j0);
+      __syncthreads();  // the previous block's boxes are read
+      for (int i = tid; i < nl * 2 * nj; i += NT) {
+        const int l = i / (2 * nj), r = i - l * 2 * nj;
+        const int side = r / nj, j = r - side * nj;
+        s_box[(l * 2 + side) * WIDE_COLS + j] =
+            box[(size_t)(g0 + l) * 2 * d + (size_t)side * d + j0 + j];
+      }
 #pragma unroll
       for (int j = 0; j < MAX_D; ++j) {
-        if (j < d) {
-          const float lo = bl[j], hi = bl[d + j];
-          inside &= (ql[j] <= lo) & (hi <= qh[j]);
-          apart |= (qh[j] < lo) | (hi < ql[j]);
+        const bool on = q_active && j < nj;
+        ql[j] = on ? q_lo[(size_t)(q0 + lane) * d + j0 + j] : 0.f;
+        qh[j] = on ? q_hi[(size_t)(q0 + lane) * d + j0 + j] : 0.f;
+      }
+      __syncthreads();
+      for (int l = warp; l < LT; l += NT / 32) {
+        if (l < nl && q_active) {
+          const float* bl = s_box + l * 2 * WIDE_COLS;
+          bool inside = true, apart = false;
+#pragma unroll
+          for (int j = 0; j < MAX_D; ++j) {
+            if (j < nj) {
+              const float lo = bl[j], hi = bl[WIDE_COLS + j];
+              inside &= (ql[j] <= lo) & (hi <= qh[j]);
+              apart |= (qh[j] < lo) | (hi < ql[j]);
+            }
+          }
+          if (!inside) in_m &= ~(1u << l);
+          if (apart) ap_m |= 1u << l;
         }
       }
-      cls = inside ? COVERED : apart ? EMPTY : MAYBE;
     }
-    s_cls[lane * LT + l] = cls;
-    const bool any = __any_sync(0xffffffffu, cls == MAYBE);
-    if (any && lane == 0) s_flag[l] = 1;
+    for (int l = warp; l < LT; l += NT / 32) {
+      uint8_t cls = EMPTY;
+      if (l < nl && q_active)
+        cls = (in_m >> l) & 1u ? COVERED : (ap_m >> l) & 1u ? EMPTY : MAYBE;
+      s_cls[lane * LT + l] = cls;
+      const bool any = __any_sync(0xffffffffu, cls == MAYBE);
+      if (any && lane == 0) s_flag[l] = 1;
+    }
+  } else {
+    for (int l = warp; l < LT; l += NT / 32) {
+      uint8_t cls = EMPTY;
+      if (l < nl && q_active) {
+        const float* bl = s_box + l * 2 * d;
+        bool inside = nan_flag[g0 + l] == 0, apart = false;
+#pragma unroll
+        for (int j = 0; j < MAX_D; ++j) {
+          if (j < d) {
+            const float lo = bl[j], hi = bl[d + j];
+            inside &= (ql[j] <= lo) & (hi <= qh[j]);
+            apart |= (qh[j] < lo) | (hi < ql[j]);
+          }
+        }
+        cls = inside ? COVERED : apart ? EMPTY : MAYBE;
+      }
+      s_cls[lane * LT + l] = cls;
+      const bool any = __any_sync(0xffffffffu, cls == MAYBE);
+      if (any && lane == 0) s_flag[l] = 1;
+    }
   }
   __syncthreads();
   if (warp == 0) {
@@ -589,10 +725,10 @@ weighted_tile_kernel(const float* __restrict__ c,
   // double-buffered. A segment shorter than the tile's longest has no
   // slots in its last words: nothing is loaded or tested there.
   const int SL = p.sl;
-  const int row_f = 32 * d;
+  const int row_f = D < 0 ? 0 : 32 * d;  // the wide kernel stages nothing
   const int n_stage = (n_maybe + SL - 1) / SL * NW;
   auto stage = [&](int t) {
-    if (t < n_stage) {
+    if (D >= 0 && t < n_stage) {
       const int gr = t / NW, ch = t - gr * NW;
       const int gl = min(SL, n_maybe - gr * SL);
       float* dst = s_c + (t & 1) * SL * row_f;
@@ -626,17 +762,24 @@ weighted_tile_kernel(const float* __restrict__ c,
         uint32_t bits = 0;
         if (test) {
           const uint32_t vb = vbits[(size_t)(g0 + l) * NW + ch];
-          const float* cl = cs + gl * row_f;
-          for (int b = 0; b < n; ++b) {
-            bool in = true;
+          if constexpr (D < 0) {
+            const size_t qr = (size_t)(q0 + lane) * d;
+            bits = slots_inside_wide(
+                c + (seg.base<CH>(g0 + l) + ch * 32) * d, n, d, q_lo + qr,
+                q_hi + qr);
+          } else {
+            const float* cl = cs + gl * row_f;
+            for (int b = 0; b < n; ++b) {
+              bool in = true;
 #pragma unroll
-            for (int j = 0; j < MAX_D; ++j) {
-              if (j < d) {
-                const float x = cl[b * d + j];
-                in &= (ql[j] <= x) & (x <= qh[j]);
+              for (int j = 0; j < MAX_D; ++j) {
+                if (j < d) {
+                  const float x = cl[b * d + j];
+                  in &= (ql[j] <= x) & (x <= qh[j]);
+                }
               }
+              bits |= (uint32_t)in << b;
             }
-            bits |= (uint32_t)in << b;
           }
           bits &= vb;
         }
@@ -1146,12 +1289,13 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
     weighted_totals_kernel<<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
                              stream>>>(a, valid, W, scratch, k, p.seg, p.K);
   }
-  weighted_box_kernel<CH><<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T,
-                            0, stream>>>(c, valid, scratch + p.box,
-                                         (uint32_t*)(scratch + p.vbits),
-                                         (int*)(scratch + p.nan),
-                                         (int*)(scratch + p.ctr), p.seg, p.K,
-                                         p.nw, d);
+  auto box_kernel = d > MAX_D ? weighted_box_wide_kernel<CH>
+                              : weighted_box_kernel<CH>;
+  box_kernel<<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T, 0,
+               stream>>>(c, valid, scratch + p.box,
+                         (uint32_t*)(scratch + p.vbits),
+                         (int*)(scratch + p.nan), (int*)(scratch + p.ctr),
+                         p.seg, p.K, p.nw, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // Above one chunk the tiles and walks write the partials.
@@ -1168,6 +1312,9 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
   if (d == 3)
     kernel = vec ? weighted_tile_kernel<4, 3, CH>
                  : weighted_tile_kernel<1, 3, CH>;
+  if (d > MAX_D)
+    kernel = vec ? weighted_tile_kernel<4, -1, CH>
+                 : weighted_tile_kernel<1, -1, CH>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.bytes);

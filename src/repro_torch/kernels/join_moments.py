@@ -306,8 +306,10 @@ def _kernel():
 
 
 # Limits of the launch (csrc/join_moments.cu): tiles of JM_CT cells along
-# gridDim.x and JM_QT queries along gridDim.y (at most 65535 tiles), up to
-# JM_MAX_D predicate columns, k * P cells and sizes that fit a C int.
+# gridDim.x and JM_QT queries along gridDim.y (at most 65535 tiles), k * P
+# cells and sizes that fit a C int, any D: the tile kernel holds up to
+# JM_MAX_D predicate columns whole and takes more in blocks of JM_MAX_D
+# (the same shared memory and registers at every D).
 JM_QT, JM_CT, JM_MAX_D = 32, 128, 16
 
 
@@ -322,11 +324,11 @@ def check_join_limits(name, Q, k, su, P, D):
     if not (1 <= Q < 2 ** 31 and -(-Q // JM_QT) <= 65535
             and 1 <= k < 2 ** 31 and 1 <= su < 2 ** 31
             and 1 <= P < 2 ** 31 and k * P < 2 ** 31
-            and 1 <= D <= JM_MAX_D and k * su * D < 2 ** 62):
+            and 1 <= D < 2 ** 31 and k * su * D < 2 ** 62):
         raise ValueError(
             f"{name}: needs 1 <= Q <= {65535 * JM_QT}, 1 <= k, su, P and "
-            f"k * P < 2**31, 1 <= D <= {JM_MAX_D}, got Q={Q} k={k} su={su} "
-            f"P={P} D={D}")
+            f"k * P < 2**31, 1 <= D < 2**31, k * su * D < 2**62, got Q={Q} "
+            f"k={k} su={su} P={P} D={D}")
 
 
 def join_cell_moments_cuda(slots: JoinSlots, q_lo, q_hi, cover, sampled,

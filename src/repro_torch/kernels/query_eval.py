@@ -61,10 +61,21 @@ def _kernel():
 # The kernel's launch (csrc/query_eval.cu): blocks of QE_THREADS threads,
 # each owning up to QE_MAX_QUERIES whole query rows (one warp lists each
 # row's covered leaves) and walking the leaves in tiles of QE_LEAF_TILE;
-# d up to 16 and A up to 8.
+# A up to 8 and any d < 2**31 (a C int): above 16 columns a wide
+# instantiation takes them in blocks of 16, its registers and shared
+# memory the same at every d.
 QE_THREADS = 256
 QE_LEAF_TILE = 1024
 QE_MAX_QUERIES = 8
+
+
+def check_query_eval_limits(name, Q, k, d, A):
+    """Raise ValueError unless query_eval's kernel takes these sizes:
+    sizes that fit a C int, A up to 8 aggregate columns, any d."""
+    if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d < 2 ** 31
+            and 1 <= A <= 8):
+        raise ValueError(f"{name}: needs 1 <= Q, k, d < 2**31 and "
+                         f"1 <= A <= 8, got Q={Q} k={k} d={d} A={A}")
 
 
 def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
@@ -82,10 +93,7 @@ def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
             or q_lo.shape != (Q, d) or q_hi.shape != (Q, d)):
         raise ValueError(f"{name}: shapes {leaf_lo.shape} {leaf_hi.shape} "
                          f"{leaf_agg.shape} {q_lo.shape} {q_hi.shape}")
-    if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d <= 16
-            and 1 <= A <= 8):
-        raise ValueError(f"{name}: needs 1 <= Q, k < 2**31, 1 <= d <= 16 "
-                         f"and 1 <= A <= 8, got Q={Q} k={k} d={d} A={A}")
+    check_query_eval_limits(name, Q, k, d, A)
     rel = torch.empty((Q, k), dtype=torch.int32, device=q_lo.device)
     exact = torch.empty((Q, A), dtype=torch.float32, device=q_lo.device)
     native.launch(name, q_lo.device, _kernel(), leaf_lo.data_ptr(),
@@ -97,4 +105,4 @@ def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
 
 __all__ = ["classify_leaves", "query_eval_plain", "query_eval_cuda",
            "REL_NONE", "REL_PARTIAL", "REL_COVER", "QE_THREADS",
-           "QE_LEAF_TILE", "QE_MAX_QUERIES"]
+           "QE_LEAF_TILE", "QE_MAX_QUERIES", "check_query_eval_limits"]

@@ -100,6 +100,15 @@ def _kernel():
     return _lib
 
 
+def check_route_limits(name, B, k, d):
+    """Raise ValueError unless route_multid's kernel takes these sizes:
+    sizes that fit a C int, any d (above 16 columns a wide instantiation
+    takes them in blocks of 16, its registers the same at every d)."""
+    if not (1 <= B < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d < 2 ** 31):
+        raise ValueError(f"{name}: needs 1 <= B, k, d < 2**31, got "
+                         f"B={B} k={k} d={d}")
+
+
 def route_multid_cuda(leaf_lo, leaf_hi, c):
     """Launch the CUDA kernel (one cluster launch) on the tensors' device
     and current stream."""
@@ -112,9 +121,7 @@ def route_multid_cuda(leaf_lo, leaf_hi, c):
     if leaf_hi.shape != (k, d) or c.shape != (B, d):
         raise ValueError(f"{name}: shapes {leaf_lo.shape} {leaf_hi.shape} "
                          f"{c.shape}")
-    if not (1 <= B < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= d <= 16):
-        raise ValueError(f"{name}: needs B, k >= 1 and 1 <= d <= 16, got "
-                         f"B={B} k={k} d={d}")
+    check_route_limits(name, B, k, d)
     rt, g, lg = route_plan(B, k)
     leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
     dist = c.new_empty((B,))
@@ -125,5 +132,6 @@ def route_multid_cuda(leaf_lo, leaf_hi, c):
 
 
 __all__ = ["dist_matrix", "route_multid_plain", "route_multid_cuda",
-           "route_plan", "route_groups", "ROUTE_THREADS",
+           "route_plan", "route_groups", "check_route_limits",
+           "ROUTE_THREADS",
            "ROUTE_MAX_GROUPS", "ROUTE_SMS"]

@@ -56,17 +56,18 @@ def _kernel():
 # tiles of EXTREMES_QT queries x EXTREMES_LT leaves, at most 2**31 - 1 of
 # them along gridDim.x (above PAIR_CHUNK slots row 2's cooperative chunk
 # grid, at most the resident blocks); sizes that fit a C int; s >= 1 (an
-# empty slot axis has no extreme); d up to 16.
+# empty slot axis has no extreme); any d (above 16 columns row 2's wide
+# kernels, the columns in blocks of 16).
 EXTREMES_QT, EXTREMES_LT = 128, 16
 
 
 def check_extremes_limits(name, Q, k, s, d):
     """Raise ValueError unless the extremes kernel takes these sizes."""
     if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 1 <= s < 2 ** 31
-            and 1 <= d <= 16
+            and 1 <= d < 2 ** 31
             and -(-Q // EXTREMES_QT) * -(-k // EXTREMES_LT) < 2 ** 31):
         raise ValueError(
-            f"{name}: needs 1 <= Q, k, s < 2**31, 1 <= d <= 16 and "
+            f"{name}: needs 1 <= Q, k, s, d < 2**31 and "
             f"ceil(Q / {EXTREMES_QT}) * ceil(k / {EXTREMES_LT}) < 2**31, "
             f"got Q={Q} k={k} s={s} d={d}")
 

@@ -141,8 +141,9 @@ def pair_launch(name, fn, sample_c, sample_a, sample_valid, q_lo, q_hi,
 # tiles) pairs along gridDim.x, which holds 2**31 - 1, are at most as many
 # as the (query tile, leaf tile) pairs; above PAIR_CHUNK the cooperative
 # grid is at most the resident blocks, whatever the sizes (its scratch
-# grows with ceil(s / PAIR_CHUNK) * Q * k); sizes are C ints; any s; d up
-# to 16.
+# grows with ceil(s / PAIR_CHUNK) * Q * k); sizes are C ints; any s; any
+# d (above 16 columns the wide kernels take them in blocks of 16, with the
+# same shared memory and registers at every d).
 MOMENTS_QT, MOMENTS_LT = 128, 16
 
 
@@ -150,11 +151,11 @@ def check_moments_limits(name, Q, k, s, d):
     """Raise ValueError unless stratified_moments' kernel takes these
     sizes."""
     if not (1 <= Q < 2 ** 31 and 1 <= k < 2 ** 31 and 0 <= s < 2 ** 31
-            and 1 <= d <= 16
+            and 1 <= d < 2 ** 31
             and -(-Q // MOMENTS_QT) * -(-k // MOMENTS_LT) < 2 ** 31):
         raise ValueError(
-            f"{name}: needs 1 <= Q, k < 2**31, 0 <= s < 2**31, 1 <= d <= 16 "
-            f"and ceil(Q / {MOMENTS_QT}) * ceil(k / {MOMENTS_LT}) < 2**31, "
+            f"{name}: needs 1 <= Q, k, d < 2**31, 0 <= s < 2**31 and "
+            f"ceil(Q / {MOMENTS_QT}) * ceil(k / {MOMENTS_LT}) < 2**31, "
             f"got Q={Q} k={k} s={s} d={d}")
 
 
@@ -212,7 +213,8 @@ def weighted_library():
 WEIGHTED_CHUNK = PAIR_CHUNK
 # The launch's constants that its plan and scratch follow: queries a tile,
 # the most segments a tile, replicates a batch of the tile loop, predicate
-# columns, the tile kernel's shared-memory cap, and the totals kernel's
+# columns taken whole (above _WMAX_D the wide kernels take them in blocks of
+# _WMAX_D), the tile kernel's shared-memory cap, and the totals kernel's
 # segment tiles of 128 and the direct walk's replicate tiles of 16 along
 # gridDim.y (at most 65535).
 _WQT, _WLT_MAX, _WRB_MAX, _WMAX_D, _WMAX_SMEM = 32, 32, 8, 16, 232448
@@ -249,18 +251,21 @@ def weighted_plan(Q, k, s, d):
     """(segments per tile, dynamic shared-memory bytes) of a weighted
     launch, as csrc/weighted_moments.cu make_plan chooses them: the tile's
     (query, slot) mask of ceil(min(s, WEIGHTED_CHUNK) / 32) words per
-    (query, segment) has to fit, so the segments a tile halve from 32."""
+    (query, segment) has to fit, so the segments a tile halve from 32.
+    Above _WMAX_D columns the boxes hold a column block and no coordinates
+    are staged, so the bytes do not grow with d."""
     def a16(x):
         return (x + 15) & ~15
+    wide = d > _WMAX_D
     nw = -(-min(s, WEIGHTED_CHUNK) // 32)
     sl = 32
-    while sl > 8 and sl * 32 * d * 4 > 2048:
+    while not wide and sl > 8 and sl * 32 * d * 4 > 2048:
         sl //= 2
     lt = _WLT_MAX
     while lt >= 1:
         off = a16(2 * _WRB_MAX * lt * 12)
-        off = a16(off + 8 * lt * d)
-        off = a16(off + 8 * min(sl, lt) * 32 * d)
+        off = a16(off + 8 * lt * min(d, _WMAX_D))
+        off = a16(off + (0 if wide else 8 * min(sl, lt) * 32 * d))
         off = a16(off + 4 * nw * lt * _WQT)
         off = a16(off + _WQT * lt)
         off = a16(off + 4 * (3 * _WLT_MAX + 1))
@@ -277,19 +282,19 @@ def weighted_plan(Q, k, s, d):
 # totals kernel its tiles of 128 segments (a stratum's slot chunks, k *
 # weighted_chunks(s) of them); the tiles of 32 queries x LT segments
 # (LT >= 1) run along gridDim.x, which holds 2**31 - 1; the staged walk's
-# units count in 64 bits; sizes are C ints.
+# units count in 64 bits; sizes are C ints; any d.
 def check_weighted_limits(name, Q, k, s, d, R=1):
     """Raise ValueError unless the weighted kernels take these sizes."""
     K = k * weighted_chunks(s) if s >= 0 else 0
     if not (1 <= Q < 2 ** 31 and 1 <= k and 0 <= s < 2 ** 31
             and 1 <= K <= WEIGHTED_MAX_K
             and -(-Q // _WQT) * K <= 2 ** 31 - 1
-            and 1 <= d <= _WMAX_D and 1 <= R <= WEIGHTED_MAX_R):
+            and 1 <= d < 2 ** 31 and 1 <= R <= WEIGHTED_MAX_R):
         raise ValueError(
             f"{name}: needs Q >= 1, k >= 1, 0 <= s < 2**31, "
             f"k * ceil(s / {WEIGHTED_CHUNK}) <= {WEIGHTED_MAX_K}, "
             f"ceil(Q / {_WQT}) * k * ceil(s / {WEIGHTED_CHUNK}) < 2**31, "
-            f"1 <= d <= {_WMAX_D} and 1 <= R <= {WEIGHTED_MAX_R}, got Q={Q} "
+            f"1 <= d < 2**31 and 1 <= R <= {WEIGHTED_MAX_R}, got Q={Q} "
             f"k={k} s={s} d={d} R={R}")
 
 

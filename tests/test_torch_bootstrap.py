@@ -336,16 +336,19 @@ def test_weighted_kernel_limits():
     """The sizes the CUDA wrappers take: tiles of 32 queries along
     gridDim.x, the totals kernel's tiles of 128 segments (a stratum's slot
     chunks of WEIGHTED_CHUNK) and the direct walk's replicate tiles of 16
-    along gridDim.y, any slot count a C int holds."""
+    along gridDim.y, any slot count a C int holds, any d a C int holds
+    (above 16 the wide kernels, the columns in blocks of 16)."""
     check_weighted_limits("w", 2048, 1024, 75, 3, R=WEIGHTED_MAX_R)
     check_weighted_limits("w", 1, WEIGHTED_MAX_K, WEIGHTED_CHUNK, 16)
     check_weighted_limits("w", 1, 1, 0, 1)
     check_weighted_limits("w", 2048, 1, 40_000, 1, R=200)
     check_weighted_limits("w", 1, 1, 2 ** 31 - 1, 16)
+    check_weighted_limits("w", 1, 1, 75, 17)
+    check_weighted_limits("w", 2048, 1024, 75, 300, R=200)
     for bad in (dict(Q=0), dict(k=0), dict(k=WEIGHTED_MAX_K + 1),
                 dict(k=WEIGHTED_MAX_K, s=WEIGHTED_CHUNK + 1), dict(s=2 ** 31),
                 dict(s=-1), dict(d=0),
-                dict(d=17), dict(R=0), dict(R=WEIGHTED_MAX_R + 1),
+                dict(d=2 ** 31), dict(R=0), dict(R=WEIGHTED_MAX_R + 1),
                 dict(Q=2 ** 31 - 1, k=64)):
         args = dict(Q=8, k=16, s=4, d=2, R=3)
         args.update(bad)

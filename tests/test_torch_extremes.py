@@ -469,12 +469,16 @@ def test_extremes_replay_on_a_sliced_view():
 
 
 def test_extremes_kernel_limits():
-    """The sizes the CUDA wrapper takes: row 2's tiles, s >= 1."""
+    """The sizes the CUDA wrapper takes: row 2's tiles, s >= 1, any d
+    that fits a C int (above 16 the wide kernels)."""
     assert (EXTREMES_QT, EXTREMES_LT) == (128, 16)
     check_extremes_limits("e", 2048, 1024, 75, 3)
     check_extremes_limits("e", 1, 1, 1, 16)
-    for bad in (dict(Q=0), dict(k=0), dict(s=0), dict(d=0), dict(d=17),
-                dict(Q=2 ** 31), dict(Q=2 ** 31 - 1, k=2048)):
+    check_extremes_limits("e", 1, 1, 1, 17)
+    check_extremes_limits("e", 2048, 1024, 75, 300)
+    for bad in (dict(Q=0), dict(k=0), dict(s=0), dict(d=0),
+                dict(d=2 ** 31), dict(Q=2 ** 31),
+                dict(Q=2 ** 31 - 1, k=2048)):
         args = dict(Q=8, k=16, s=4, d=2)
         args.update(bad)
         with pytest.raises(ValueError, match="needs"):

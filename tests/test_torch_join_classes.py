@@ -184,6 +184,9 @@ def test_nan_cells_never_covered(seed, d_f, d_d):
 
 
 def test_launch_constants_match_source():
+    """The tiles, the columns the tile kernel holds whole (its block
+    width above them: MAX_D is no limit on D) and the scratch, against
+    csrc/join_moments.cu."""
     src = SOURCE.read_text()
 
     def const(name):

@@ -445,8 +445,12 @@ def test_join_slots_layout():
 
 
 def test_join_kernel_limits_and_refusal():
-    with pytest.raises(ValueError, match="D <= 16"):
-        jm.check_join_limits("x", 4, 2, 3, 2, 17)
+    # Any D a C int holds: above JM_MAX_D the wide tile kernel takes the
+    # columns in blocks of JM_MAX_D.
+    jm.check_join_limits("x", 4, 2, 3, 2, 17)
+    jm.check_join_limits("x", 4, 2, 3, 2, 300)
+    with pytest.raises(ValueError, match="D < 2"):
+        jm.check_join_limits("x", 4, 2, 3, 2, 2 ** 31)
     with pytest.raises(ValueError, match="Q <= "):
         jm.check_join_limits("x", 65536 * jm.JM_QT, 2, 3, 2, 2)
     jm.check_join_limits("x", 65535 * jm.JM_QT, 1, 1, 1, 16)

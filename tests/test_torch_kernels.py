@@ -195,14 +195,19 @@ def test_plain_empty_pair_is_zero(seed):
 
 def test_moments_kernel_limits():
     """The sizes the CUDA wrapper takes: tiles of 128 queries x 16 leaves
-    along gridDim.x, sizes that fit a C int, any s, d up to 16."""
+    along gridDim.x, sizes that fit a C int, any s, any d (above 16 the
+    wide kernels, the columns in blocks of 16): d is refused only past a C
+    int."""
     assert (MOMENTS_QT, MOMENTS_LT) == (128, 16)
     check_moments_limits("m", 2048, 1024, 75, 3)
     check_moments_limits("m", 1, 1, 0, 16)
+    check_moments_limits("m", 1, 1, 0, 17)
+    check_moments_limits("m", 2048, 1024, 75, 300)
     check_moments_limits("m", 2 ** 31 - 1, 16, 2 ** 31 - 1, 1)
-    for bad in (dict(Q=0), dict(k=0), dict(s=-1), dict(d=0), dict(d=17),
-                dict(Q=2 ** 31), dict(k=2 ** 31), dict(s=2 ** 31),
-                dict(Q=2 ** 31 - 1, k=2048)):
+    check_moments_limits("m", 1, 1, 1, 2 ** 31 - 1)
+    for bad in (dict(Q=0), dict(k=0), dict(s=-1), dict(d=0),
+                dict(d=2 ** 31), dict(Q=2 ** 31), dict(k=2 ** 31),
+                dict(s=2 ** 31), dict(Q=2 ** 31 - 1, k=2048)):
         args = dict(Q=8, k=16, s=4, d=2)
         args.update(bad)
         with pytest.raises(ValueError, match="needs"):
