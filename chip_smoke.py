@@ -35,7 +35,10 @@ case and at the join 1-D and 3-D shapes, where it is also timed in turns
 with the baseline's and the join answer is served with either (the same
 bits), and row 6 (weighted_segment_reduce) must meet it within
 rtol=3e-5, atol=1e-3. Row 8 (sample_extremes) is bit-equal to its plain
-version at every shape, the baseline's too. Rows 1-9 of the kernels line
+version at every shape, the baseline's too. A baseline with wide kernels
+(d > 16) must give rows 2 and 8's bits at every d > 16 and s (phase 29's
+cases, phase 30's shapes and its chunk path), where both are also timed
+in turns with it. Rows 1-9 of the kernels line
 then carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
 baseline_device_ms; rows 2 and 8 timed in turns with the baseline's at the
 serving shapes, row 9 baseline_row9_ms / baseline_row9_device_ms; null
@@ -419,9 +422,13 @@ Phases, each of which fails the run:
    blocks of 16) against their plain versions as phases 3, 7, 11 and 19
    hold them: query_eval at k off its leaf tile and Q past a block,
    inverted and NaN boxes, a NaN bound; rows 2 and 8 at one slot chunk
-   and above it (s = 2500; NaN coordinates, row 8's special values), rows
-   alone bit-equal to the batch's; rows 3 and 4 (weighted_chunk_check:
-   fused = scan, rows alone, plain) at s = 75 (R = 9), 300 (R = 1) and
+   (s = 75; s = 33, a window and a slot) and above it (s = 2500, 2049),
+   NaN coordinates on valid slots, row 8's special values, in two cases
+   queries bounding 5-8 columns (pairs past CUT_MAX cut columns), rows
+   alone bit-equal to the batch's and, with a --baseline that has wide
+   kernels, bit-equal to its at every d > 16; rows 3 and 4
+   (weighted_chunk_check: fused = scan, rows alone, plain) at s = 75 (R =
+   9), 300 (R = 1) and
    2049 (R = 3) with NaN coordinates on valid slots; route_multid with
    ties and an inverted box, bit-equal; row 9 at D = d on mixed and NaN
    inputs. At each d > 16 the bit identity: on a 16-column input (the
@@ -448,8 +455,14 @@ Phases, each of which fails the run:
    are read right after it. Times: rows 1-4, 7 and 8 by events and on the
    device, their plain versions and bounds at d = 24, rows 2-4's
    torch.bmm yardstick (a prebuilt predicate, as in Table 1), row 9 and
-   the answers; the pair classes. With --wide-only the script runs
-   phases 1, 2, 29 and 30 alone.
+   the answers; the pair classes; with a --baseline that has wide kernels,
+   rows 2 and 8 in turns with its (bit-equal first), and the answer and
+   the fused bootstrap answer with its rows 2 and 8 and with this
+   checkout's, in turns (the same bits). The chunk path: rows
+   2 and 8 at k = 1, s = 38,500 (a uniform sample of the table: Table 1's
+   US size), Q = 2048, against plain, in turns with the baseline's, beside
+   torch.bmm and the bound. With --wide-only the script runs phases 1, 2,
+   29 and 30 alone.
 
 The line before the last is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}. Any failure raises, so nothing is printed
@@ -3046,6 +3059,9 @@ def build_baseline(base: Path) -> dict:
     for name in ("stratified_moments", "sample_extremes"):
         lib = libs[name]
         lib.chunked = hasattr(lib, f"repro_{name}_slot_chunk")
+        # A baseline with wide kernels (d > 16) folds every pair in the
+        # same order: rows 2 and 8 must give its bits at every d and s.
+        lib.wide = (csrc / "wide_cols.cuh").exists()
         fn = getattr(lib, f"repro_{name}")
         fn.argtypes = [ctypes.c_void_p] * 6 + (
             [ctypes.c_void_p, ctypes.c_longlong] if lib.chunked else []) + \
@@ -7910,14 +7926,15 @@ def widen_cols(rng, x, extra, lo=0.05, hi=0.95):
     return np.concatenate([x, add], -1)
 
 
-def wide_bounded(rng, Q, d, lo, hi, first=1, fixed=3):
-    """(Q, d) bounds at (lo, hi) in every column, then 2-4 columns from
-    ``first`` on of each query after the first ``fixed`` bounded to a
-    random interval of (0, 1): the rule of the wide tables' queries."""
+def wide_bounded(rng, Q, d, lo, hi, first=1, fixed=3, span=(2, 5)):
+    """(Q, d) bounds at (lo, hi) in every column, then 2-4 (``span``: a
+    range) columns from ``first`` on of each query after the first
+    ``fixed`` bounded to a random interval of (0, 1): the rule of the wide
+    tables' queries."""
     q_lo = np.full((Q, d), lo, np.float32)
     q_hi = np.full((Q, d), hi, np.float32)
     for i in range(fixed, Q):
-        n = min(d - first, int(rng.integers(2, 5)))
+        n = min(d - first, int(rng.integers(*span)))
         if n < 1:
             continue
         cols = first + rng.choice(d - first, n, replace=False)
@@ -7946,7 +7963,7 @@ def wide_query_eval_case(rng, Q, k, d, A):
 
 
 def wide_pair_case(rng, Q, k, s, d, nan=False, special=False,
-                   chunk=2048):
+                   chunk=2048, many=False):
     """Rows 2-4 and 8 at any d: stratum i's samples in band i of column 0
     (chunk j of its slots in the j-th part of the band), the other columns
     uniform in (0.05, 0.95); ragged validity, stratum k // 2 without a
@@ -7955,7 +7972,9 @@ def wide_pair_case(rng, Q, k, s, d, nan=False, special=False,
     columns (wide_bounded), so that covered, empty and mixed pairs occur.
     ``nan``: NaN coordinates on valid slots, in the last column of stratum
     k - 1's last chunk and in column 17 % d of stratum 1's first 40 slots;
-    ``special``: NaN, +-inf, +-F32_MAX and +-0.0 values (row 8)."""
+    ``special``: NaN, +-inf, +-F32_MAX and +-0.0 values (row 8); ``many``:
+    the queries bound 5-8 columns, so that most mixed pairs have more cut
+    columns than a listed pair keeps (CUT_MAX = 4, csrc/wide_cols.cuh)."""
     n_ch = -(-s // chunk)
     c = rng.uniform(0.05, 0.95, (k, s, d)).astype(np.float32)
     band = (np.arange(s) // chunk)[None, :]
@@ -7972,7 +7991,8 @@ def wide_pair_case(rng, Q, k, s, d, nan=False, special=False,
                           (0.13, 0.16, -F32_MAX), (0.16, 0.22, -0.0),
                           (0.22, 0.28, 0.0)):
             a[(w >= lo) & (w < hi)] = x
-    q_lo, q_hi = wide_bounded(rng, Q, d, -1.0, 2.0)
+    q_lo, q_hi = wide_bounded(rng, Q, d, -1.0, 2.0,
+                              span=(5, 9) if many else (2, 5))
     start = rng.integers(0, k, Q)
     span = rng.integers(1, 3, Q)
     e_lo = rng.integers(0, n_ch + 1, Q) / n_ch
@@ -8034,6 +8054,32 @@ def wide_join_case(torch, dev, rng, Q, k, su, P, d_f, d_d, nan=False,
     wide = (join_slots(T(widen_cols(rng, u_c, extra, -3.0, 3.0)), T(u_d),
                        *tail), T(wq[0]), T(wq[1]), *rest)
     return args, wide
+
+
+def wide_baseline_bits(torch, tag, base, c, a, valid, q_lo, q_hi) -> int:
+    """Rows 2 and 8 at d > 16 against a baseline with wide kernels: bit for
+    bit (NaN as NaN for row 8) at every s, its fold order being theirs.
+    Returns the cases held (0 without such a baseline)."""
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda)
+    if base is None or not base["stratified_moments"].wide:
+        return 0
+    sm = (c, a, valid, q_lo, q_hi)
+    got = stratified_moments_cuda(*sm)
+    ref = baseline_pair(torch, base, "stratified_moments", *sm)
+    mn, mx = sample_extremes_cuda(*sm)
+    ref8 = baseline_pair(torch, base, "sample_extremes", *sm)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, got, ref):
+        n = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        raise AssertionError(f"{tag}: stratified_moments differs from the "
+                             f"baseline kernel in {n} values")
+    for name, g, w in (("min", mn, ref8[0]), ("max", mx, ref8[1])):
+        if not same_bits(torch, g, w):
+            raise AssertionError(f"{tag}: sample_extremes {name} differs "
+                                 "from the baseline kernel")
+    return 1
 
 
 def require_bits(torch, tag, name, got, want) -> None:
@@ -8125,14 +8171,18 @@ def wide_identity(torch, dev, d) -> int:
     return cases
 
 
-def edge_cases_wide(torch, dev) -> dict:
+def edge_cases_wide(torch, dev, base=None) -> dict:
     """29. Rows 1-4, 7, 8 and 9 at every d of WIDE_DS against their plain
     versions, as phases 3, 7, 11 and 19 hold them: row 1 at k off the
     leaf tile and Q past a block's 8 queries, rel equal and exact within
-    tolerance; rows 2 and 8 at one slot chunk (k = 53) and above it (s =
-    2500, NaN coordinates), within tolerance and bit-equal, rows alone
-    bit-equal to the batch's; rows 3 and 4 (weighted_chunk_check: fused =
-    scan, rows alone, within tolerance) at one chunk with R = 9 and R = 1,
+    tolerance; rows 2 and 8 at one slot chunk (k = 53, s = 75; k = 17 and
+    s = 33, a window and a slot) and above it (s = 2500 and 2049), NaN
+    coordinates on valid slots, in two of the cases queries that bound
+    5-8 columns (pairs past CUT_MAX cut columns), within tolerance and
+    bit-equal, rows alone bit-equal to the batch's and, with a baseline
+    that has wide kernels, bit-equal to its; rows 3 and 4
+    (weighted_chunk_check: fused = scan, rows alone, within tolerance) at
+    one chunk with R = 9 and R = 1,
     and above it, NaN coordinates on valid slots; row 7 with ties, an
     inverted box and B off the row tile, bit-equal; row 9 at D = d (d - 1
     fact columns) on mixed and NaN inputs. Then at each d > 16 the bit
@@ -8148,7 +8198,7 @@ def edge_cases_wide(torch, dev) -> dict:
     cases = dict.fromkeys(("query_eval", "stratified_moments",
                            "sample_extremes", "bootstrap_moments",
                            "route_multid", "join_cell_moments",
-                           "identity"), 0)
+                           "identity", "baseline_bits"), 0)
     classes = {}
     for d in WIDE_DS:
         rng = np.random.default_rng(29_000 + d)
@@ -8158,13 +8208,18 @@ def edge_cases_wide(torch, dev) -> dict:
                 *(T(x) for x in wide_query_eval_case(rng, Q, k, d, 5)))
             errs["query_eval"] = max(errs["query_eval"], e)
             cases["query_eval"] += 1
-        for Q, k, s in ((130, 53, 75), (37, 3, 2500)):
+        for Q, k, s, many in ((130, 53, 75, False), (40, 17, 33, True),
+                              (37, 3, 2500, False), (33, 3, 2049, True)):
             for row in (2, 8):
                 t = [T(x) for x in wide_pair_case(
-                    rng, Q, k, s, d, nan=s > 2048, special=row == 8)]
-                tag = f"wide row {row} d={d} Q={Q} k={k} s={s}"
+                    rng, Q, k, s, d, nan=True, special=row == 8,
+                    many=many)]
+                tag = f"wide row {row} d={d} Q={Q} k={k} s={s} many={many}"
+                if d > WIDE_BASE_D:
+                    cases["baseline_bits"] += wide_baseline_bits(
+                        torch, tag, base, *t)
                 if row == 2:
-                    classes[f"d={d} s={s}"] = pair_classes(
+                    classes[f"d={d} s={s} many={many}"] = pair_classes(
                         torch, t[0], t[2], t[3], t[4], chunk=32)
                 subsets = (slice(0, 1), slice(Q // 3, Q - 1))
                 if row == 2:
@@ -8272,11 +8327,73 @@ def wide_queries(c, num, seed, sort=np.sort):
     return q_lo, q_hi
 
 
-def wide_kernel_times(torch, run, boot, s_run, card) -> dict:
+def pair_turns(torch, tag, sm, base, times) -> None:
+    """Rows 2 and 8 in turns with a baseline's (kernel, baseline,
+    baseline, kernel), by events and on the device, after holding each to
+    the baseline's bits (wide_baseline_bits): <row>_in_turns,
+    <row>_device_in_turns, <row>_baseline and <row>_baseline_device into
+    ``times``."""
+    from repro_torch.kernels.sample_extremes import sample_extremes_cuda
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda)
+    wide_baseline_bits(torch, tag, base, *sm)
+    for name, fn in (("stratified_moments", stratified_moments_cuda),
+                     ("sample_extremes", sample_extremes_cuda)):
+        def new(fn=fn):
+            return fn(*sm)
+
+        def old(name=name):
+            return baseline_pair(torch, base, name, *sm)
+        ev, dev_ms, b_ev, b_dev = [], [], [], []
+        for run, evs, devs in ((new, ev, dev_ms), (old, b_ev, b_dev),
+                               (old, b_ev, b_dev), (new, ev, dev_ms)):
+            evs.append(cuda_ms(torch, run, reps=10))
+            devs.append(device_ms(torch, run, reps=10, one_op=True,
+                                  tries=PROFILE_TRIES))
+        times[f"{name}_in_turns"] = statistics.mean(ev)
+        times[f"{name}_device_in_turns"] = mean_of(dev_ms)
+        times[f"{name}_baseline"] = statistics.mean(b_ev)
+        times[f"{name}_baseline_device"] = mean_of(b_dev)
+
+
+def wide_answer_turns(torch, calls, base) -> dict:
+    """Each of ``calls`` ({name: (answer fn, reps, warmup)}) with this
+    checkout's rows 2 and 8 and with the baseline's, in turns (current,
+    baseline, baseline, current), by events. The baseline's libraries go in
+    as the wrappers' loaded ones (the same C entries), and each answer with
+    them must have the current answer's bits. Returns {<name>_current,
+    <name>_baseline: mean ms}."""
+    from repro_torch.kernels import sample_extremes as se
+    from repro_torch.kernels import stratified_estimate as st
+    from repro_torch.serve.coalescer import host_results
+    st._kernel(), se._kernel()  # this checkout's, loaded before the swap
+    libs = {"current": (st._lib, se._lib),
+            "baseline": (base["stratified_moments"], base["sample_extremes"])}
+    want = {n: host_results(fn()) for n, (fn, _, _) in calls.items()}
+    runs = {f"{n}_{who}": [] for n in calls for who in libs}
+    try:
+        for who in ("current", "baseline", "baseline", "current"):
+            st._lib, se._lib = libs[who]
+            for n, (fn, reps, warmup) in calls.items():
+                require_same(f"wide24 {n} with the {who} rows 2 and 8",
+                             host_results(fn()), want[n], tuple(want[n]))
+                runs[f"{n}_{who}"].append(cuda_ms(torch, fn, reps=reps,
+                                                  warmup=warmup))
+    finally:
+        st._lib, se._lib = libs["current"]
+    out = {key: statistics.mean(v) for key, v in runs.items()}
+    emit(check="wide24 answers in turns with the baseline", **out, runs=runs,
+         answers_bit_equal=True)
+    return out
+
+
+def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
     """Rows 1-4, 7 and 8 at the wide path's shapes (d = 24): rows 3 and 4
     against plain; CUDA-event and device ms of the kernel and of its plain
     version, and its bound (bounds, boot_bounds, stream_bounds); the pair
-    classes; rows 2-4's library yardstick (wide_bmm_times)."""
+    classes; rows 2-4's library yardstick (wide_bmm_times); with a
+    baseline that has wide kernels, rows 2 and 8 in turns with its
+    (pair_turns)."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.query_eval import (query_eval_cuda,
@@ -8354,6 +8471,8 @@ def wide_kernel_times(torch, run, boot, s_run, card) -> dict:
                                          warmup=1)
         torch.cuda.empty_cache()
     times["bootstrap_moments_plain_queries"] = PLAIN_BOOT_Q
+    if base is not None and base["stratified_moments"].wide:
+        pair_turns(torch, "wide24", (*sm, q.lo, q.hi), base, times)
     t_lib = time.perf_counter()
     lib_err = wide_bmm_times(torch, syn, q, W, times)
     lib_s = time.perf_counter() - t_lib
@@ -8367,18 +8486,17 @@ def wide_kernel_times(torch, run, boot, s_run, card) -> dict:
     return {"times": times, "bounds": bnd, "classes": classes, "errs": errs}
 
 
-def wide_bmm_times(torch, syn, q, W, times) -> float:
-    """Rows 2, 3 and 4's library yardstick at the wide shape, as in Table
-    1: torch.bmm of the prebuilt (k, Q, s) predicate (samples_inside, in
-    query chunks; TF32 off) with [1, a, a^2], [w, wa, wa^2] of W[0] and of
-    all of W, whose work does not depend on d; each product's counts equal
-    to the kernel's and its moments within K_RTOL / K_ATOL of it; its
-    event and device ms into ``times`` (bmm_<row>, bmm_<row>_device).
-    Returns the largest absolute difference."""
-    from repro_torch.kernels.stratified_estimate import (
-        samples_inside, stratified_moments_cuda,
-        stratified_weighted_moments_cuda)
-    c, a, valid = syn.sample_c, syn.sample_a, syn.sample_valid
+def bmm_yardstick(torch, tag, sm, q, rhs, ker, times, reps=30) -> float:
+    """The library yardstick of a wide shape, as in Table 1: torch.bmm of
+    the prebuilt (k, Q, s) predicate (samples_inside over sm = (c, a,
+    valid), in query chunks; TF32 off) with each right-hand side of
+    ``rhs`` ({row: (R, s, 3)}, whose work does not depend on d); against
+    each kernel output of ``ker`` ({row: (Q, k, 3)}), the product's counts
+    equal to row 2's and its moments within K_RTOL / K_ATOL; its event and
+    device ms into ``times`` (bmm_<row>, bmm_<row>_device; row 4 at most
+    10 calls). Returns the largest absolute difference."""
+    from repro_torch.kernels.stratified_estimate import samples_inside
+    c, a, valid = sm
     k, s = a.shape
     Q = int(q.lo.shape[0])
     step = max(1, plain_step(k, s) // max(1, int(c.shape[2])))
@@ -8386,39 +8504,123 @@ def wide_bmm_times(torch, syn, q, W, times) -> float:
     for i in range(0, Q, step):
         pred[:, i:i + step] = samples_inside(
             c, valid, q.lo[i:i + step], q.hi[i:i + step]).permute(1, 0, 2)
-    w0 = W[0].contiguous()
-    rhs = {"stratified_moments": bmm_rhs(torch, torch.ones_like(a)[None],
-                                         a),
-           "stratified_weighted_moments": bmm_rhs(torch, w0[None], a),
-           "bootstrap_moments": bmm_rhs(torch, W, a)}
     # The kernel's counts are integers in fp32: the product's must equal
-    # them; rows 3 and 4 were held to plain above.
-    ker = {"stratified_moments": stratified_moments_cuda(c, a, valid, q.lo,
-                                                         q.hi),
-           "stratified_weighted_moments": stratified_weighted_moments_cuda(
-               c, a, valid, w0, q.lo, q.hi)}
+    # them.
     err = 0.0
     for name, want in ker.items():
         got = torch.bmm(pred, rhs[name]).permute(1, 0, 2)
         if name == "stratified_moments" and not torch.equal(got[..., 0],
                                                             want[..., 0]):
-            raise AssertionError("wide24: torch.bmm's counts differ from "
+            raise AssertionError(f"{tag}: torch.bmm's counts differ from "
                                  "stratified_moments'")
-        err = max(err, close(f"wide24 torch.bmm {name}", got.cpu(),
+        err = max(err, close(f"{tag} torch.bmm {name}", got.cpu(),
                              want.cpu(), K_RTOL, K_ATOL))
-    del ker, got, want
+        del got
     for name, r in rhs.items():
-        reps = 10 if name == "bootstrap_moments" else 30
-
         def library(r=r):
             return torch.bmm(pred, r)
-        times[f"bmm_{name}"] = cuda_ms(torch, library, reps=reps)
+        n = min(reps, 10) if name == "bootstrap_moments" else reps
+        times[f"bmm_{name}"] = cuda_ms(torch, library, reps=n)
         times[f"bmm_{name}_device"] = call_device_ms(
             torch, library, tries=PROFILE_TRIES)["ms"]
         torch.cuda.empty_cache()
-    del pred, rhs
+    del pred
     torch.cuda.empty_cache()
     return err
+
+
+def wide_bmm_times(torch, syn, q, W, times) -> float:
+    """Rows 2, 3 and 4's yardstick at the wide shape (bmm_yardstick): the
+    predicate with [1, a, a^2], [w, wa, wa^2] of W[0] and of all of W,
+    held to rows 2 and 3's kernels (rows 3 and 4 were held to plain
+    above)."""
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda, stratified_weighted_moments_cuda)
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    a, w0 = sm[1], W[0].contiguous()
+    rhs = {"stratified_moments": bmm_rhs(torch, torch.ones_like(a)[None],
+                                         a),
+           "stratified_weighted_moments": bmm_rhs(torch, w0[None], a),
+           "bootstrap_moments": bmm_rhs(torch, W, a)}
+    ker = {"stratified_moments": stratified_moments_cuda(*sm, q.lo, q.hi),
+           "stratified_weighted_moments": stratified_weighted_moments_cuda(
+               *sm, w0, q.lo, q.hi)}
+    return bmm_yardstick(torch, "wide24", sm, q, rhs, ker, times)
+
+
+# The chunk path's reading: Table 1's US arm's sample size (K = 0.5 % of
+# the 7.7 M trips: one stratum of 38,500 slots) drawn uniformly from the
+# 24-column table, under phase 30's queries.
+WIDE_US_S = 38_500
+
+
+def wide_us_times(torch, c, a, q, card, base=None) -> dict:
+    """30, the chunk path: rows 2 and 8 at k = 1, s = WIDE_US_S (a uniform
+    sample of the wide table's rows, every slot valid), d = 24, Q =
+    WIDE_Q: held to plain (over query chunks; row 2 counts exact, sums
+    within K_RTOL / K_ATOL, row 8 bit for bit) and, with a baseline that
+    has wide kernels, to its bits; CUDA-event and device ms of each
+    kernel, in turns with the baseline's; torch.bmm of the prebuilt (1, Q,
+    s) predicate against [1, a, a^2] (bmm_yardstick, held to the kernel)
+    by events and on the device; the bounds (bounds(), this run's pair
+    classes)."""
+    import types
+    from repro_torch.kernels.sample_extremes import (sample_extremes_cuda,
+                                                     sample_extremes_plain)
+    from repro_torch.kernels.stratified_estimate import (
+        stratified_moments_cuda, stratified_moments_plain)
+    t0 = time.perf_counter()
+    dev = q.lo.device
+    rng = np.random.default_rng(WIDE_SEED + 38)
+    idx = np.sort(rng.choice(a.shape[0], WIDE_US_S, replace=False))
+    sm = (torch.from_numpy(np.ascontiguousarray(
+              c[idx], np.float32)[None]).to(dev),
+          torch.from_numpy(np.asarray(a[idx], np.float32)[None]).to(dev),
+          torch.ones((1, WIDE_US_S), dtype=torch.bool, device=dev))
+    k, s = sm[1].shape
+    d = int(sm[0].shape[2])
+    step = max(1, plain_step(k, s) // d)
+    got = stratified_moments_cuda(*sm, q.lo, q.hi)
+    want = chunked_plain(torch, stratified_moments_plain, sm, q.lo, q.hi,
+                         step)
+    if not torch.equal(got[..., 0], want[..., 0]):
+        raise AssertionError("wide US: stratified_moments counts differ")
+    err = max(close(f"wide US stratified_moments[{i}]", got[..., i].cpu(),
+                    want[..., i].cpu(), K_RTOL, K_ATOL) for i in (1, 2))
+    for name, g, w in zip(("min", "max"), sample_extremes_cuda(
+            *sm, q.lo, q.hi), chunked_plain(
+            torch, sample_extremes_plain, sm, q.lo, q.hi, step)):
+        if not same_bits(torch, g, w):
+            raise AssertionError(f"wide US: sample_extremes {name} differs "
+                                 "from plain")
+    classes = pair_classes(torch, *sm[::2], q.lo, q.hi, chunk=step)
+    shim = types.SimpleNamespace(sample_a=sm[1], sample_valid=sm[2],
+                                 leaf_agg=torch.zeros((k, 5)))
+    bnd = bounds(shim, q, torch.zeros((q.lo.shape[0], k)), classes)
+    del bnd["query_eval"]
+    times = {}
+    for name, fn in (("stratified_moments", stratified_moments_cuda),
+                     ("sample_extremes", sample_extremes_cuda)):
+        times[name] = cuda_ms(torch, lambda fn=fn: fn(*sm, q.lo, q.hi),
+                              reps=10)
+        times[f"{name}_device"] = device_ms(
+            torch, lambda fn=fn: fn(*sm, q.lo, q.hi), reps=10, one_op=True,
+            tries=PROFILE_TRIES)
+    if base is not None and base["stratified_moments"].wide:
+        pair_turns(torch, "wide US", (*sm, q.lo, q.hi), base, times)
+    del want
+    lib_err = bmm_yardstick(
+        torch, "wide US", sm, q,
+        {"stratified_moments": bmm_rhs(torch, torch.ones_like(sm[1])[None],
+                                       sm[1])},
+        {"stratified_moments": got}, times, reps=10)
+    del got
+    out = {"k": int(k), "s": int(s), "d": d, "Q": int(q.lo.shape[0]),
+           "times_ms": times, "bounds": bnd, "pair_classes": classes,
+           "max_abs_err": err, "bmm_max_abs_err_vs_kernel": lib_err,
+           "seconds": time.perf_counter() - t0}
+    emit(phase="30 wide chunk path", card=card, **out)
+    return out
 
 
 def join_truth_scan(torch, c, a, keys, dkeys, dattr, q_lo, q_hi) -> dict:
@@ -8521,12 +8723,13 @@ def wide_join(torch, card, seed=0) -> dict:
     return out
 
 
-def wide_path(torch, card) -> dict:
+def wide_path(torch, card, base=None) -> dict:
     """30. The 24-column table at paper size through the port's main paths
     (module doc): answer (rows 1, 2, 8), the fused and the scan bootstrap
     (rows 10, 4, 3), a 4096-row stream (rows 10, 5, 7), a join answer
     (rows 1, 9, 11); each window's launches read right after it; rows'
-    times and bounds at d = 24."""
+    times and bounds at d = 24; rows 2 and 8 on the chunk path
+    (wide_us_times)."""
     from repro_torch.core.types import QueryBatch
     from repro_torch.data.synthetic import nyc_taxi
     t0 = time.perf_counter()
@@ -8554,8 +8757,10 @@ def wide_path(torch, card) -> dict:
     s_run = stream_path(torch, "wide24", run, c, a, cs, as_, WIDE_ERR,
                         reopt=False)
     step("stream")
-    kt = wide_kernel_times(torch, run, boot, s_run, card)
+    kt = wide_kernel_times(torch, run, boot, s_run, card, base)
     step("kernel times")
+    us = wide_us_times(torch, c, a, q, card, base)
+    step("chunk path")
     rows = {"query_eval": run["launches"]["query_eval"],
             "stratified_moments": run["launches"]["stratified_moments"],
             "sample_extremes": run["launches"]["sample_extremes"],
@@ -8565,11 +8770,13 @@ def wide_path(torch, card) -> dict:
             "threefry": boot["launches"]["threefry"],
             "segment_reduce": s_run["launches"]["segment_reduce"],
             "route_multid": s_run["launches"]["route_multid"]}
-    times = {"answer": cuda_ms(torch, lambda: run["eng"].answer(run["q"]),
-                               reps=10, warmup=2),
-             "answer_bootstrap_fused": cuda_ms(
-                 torch, lambda: boot["eng"].answer(run["q"]), reps=5,
-                 warmup=1)}
+    calls = {"answer": (lambda: run["eng"].answer(run["q"]), 10, 2),
+             "answer_bootstrap_fused": (lambda: boot["eng"].answer(run["q"]),
+                                        5, 1)}
+    times = {n: cuda_ms(torch, fn, reps=reps, warmup=warmup)
+             for n, (fn, reps, warmup) in calls.items()}
+    if base is not None and base["stratified_moments"].wide:
+        times["in_turns"] = wide_answer_turns(torch, calls, base)
     step("answer times")
     del c, a, cs, as_
     torch.cuda.empty_cache()
@@ -8581,7 +8788,7 @@ def wide_path(torch, card) -> dict:
     if idle:
         raise AssertionError(f"wide path: {idle} never launched")
     out = {"run": run, "boot": boot, "stream": s_run, "kernels": kt,
-           "join": join, "times_ms": times, "steps_s": steps,
+           "us": us, "join": join, "times_ms": times, "steps_s": steps,
            "seconds": time.perf_counter() - t0}
     emit(phase="30 wide path", card=card, times_ms=times, steps_s=steps,
          launches={"answer": run["launches"], "bootstrap_fused":
@@ -8633,6 +8840,24 @@ def wide_rows(wide, edge) -> list:
             "library_device_ms": t.get(f"bmm_{name}_device")}})
     out[4]["wide"]["plain_queries"] = t["bootstrap_moments_plain_queries"]
     out[1]["wide"]["pair_classes"] = kt["classes"]
+    us = wide["us"]
+    for r in out[1:3]:
+        name, ut = r["name"], us["times_ms"]
+        r["wide"].update({
+            key: t.get(f"{name}_{key}") for key in (
+                "in_turns", "device_in_turns", "baseline",
+                "baseline_device")})
+        r["wide"]["chunk_path"] = {
+            "k": us["k"], "s": us["s"], "d": us["d"], "Q": us["Q"],
+            "ms": ut[name], "device_ms": ut[f"{name}_device"],
+            "bound_ms": us["bounds"][name]["bound_ms"],
+            "bound_by": us["bounds"][name]["bound_by"],
+            "library_ms": ut.get(f"bmm_{name}"),
+            "library_device_ms": ut.get(f"bmm_{name}_device"),
+            **{key: ut.get(f"{name}_{key}") for key in (
+                "device_in_turns", "baseline_device")}}
+    out[1]["wide"]["baseline_bit_equal_cases"] = edge["cases"][
+        "baseline_bits"]
     jt = j["times_ms"]
     out.append({"name": "join_cell_moments", "wide": {
         "d": WIDE_D + 1, "launches": j["launches"]["join_cell_moments"],
@@ -8851,8 +9076,8 @@ def main(argv=None) -> int:
         print(card, flush=True)
         return 0
     if args.wide_only:
-        edge_wide = edge_cases_wide(torch, dev)
-        wide = wide_path(torch, card)
+        edge_wide = edge_cases_wide(torch, dev, base)
+        wide = wide_path(torch, card, base)
         emit(phase="wide summary", card=card,
              rows=[{"name": r["name"], **r["wide"]}
                    for r in wide_rows(wide, edge_wide)])
@@ -8988,8 +9213,8 @@ def main(argv=None) -> int:
     # 24-column table at paper size through every main path.
     del c1, a1, c3, a3
     torch.cuda.empty_cache()
-    edge_wide = edge_cases_wide(torch, dev)
-    wide = wide_path(torch, card)
+    edge_wide = edge_cases_wide(torch, dev, base)
+    wide = wide_path(torch, card, base)
 
     # 16. The kernels line: serving kernels at the 1-D answer's shapes and
     # launches per answer; streaming kernels at one ingest batch (B =

@@ -117,26 +117,43 @@
 // of 1..3, a runtime d up to 16), whose bounds and boxes sit in register
 // arrays and whose chunks are staged whole. Above 16 columns the launch
 // runs wide instantiations of the same two kernels (pair_tile_wide_kernel,
-// pair_chunk_wide_kernel), whose shared memory and registers do not grow
-// with d: the columns go in blocks of WIDE_COLS = 16 (wide_cols.cuh).
+// pair_chunk_wide_kernel), whose registers do not grow with d: the columns
+// go in blocks of WIDE_COLS = 16 (wide_cols.cuh). While they classify,
+// they note the columns that cut each pair, and their walks test only
+// those (wide_cols.cuh: a column whose extent the query holds changes no
+// valid slot's bit).
 //  * One pass: a leaf's reduction reads its slots from L2 in slot order;
 //    for each query tile and column block the block's query bounds go to
-//    shared memory and the leaves' box columns of the block are formed
-//    there, a thread a (leaf, column); each thread ANDs / ORs its 8 pairs'
-//    inside / apart bits over the blocks. The walks go in rounds of NT
-//    pairs: for each 32 slots and column block the leaf tile's
-//    coordinates are staged in shared memory, a walk ANDs its pair's 32
-//    slot bits over the blocks, then adds the 32 slots in slot order.
-//  * Chunk tiles: an item stages only the chunk's a and valid bytes; its
+//    shared memory (over the tile, free until the tile is filled) by
+//    cp.async, and the leaves' box columns of the block are
+//    formed, a thread a (leaf, column), once a block up to BOX_D = 32
+//    columns (kept for every tile), else for each tile (at d = 24 forming
+//    them for each tile takes 12 % longer on an H100: tools/
+//    wide_walk_split.py, variant no_box_once); each thread ANDs /
+//    ORs its 8 pairs' inside / apart bits over the blocks, and a query's
+//    cut word takes the columns that cut any of its pairs with the tile's
+//    leaves (the 16 lanes of those pairs OR their masks). The mixed pairs
+//    are listed in a bucket per leaf, CUT_TILES query tiles at most, and
+//    walked in rounds of NT (walk_wide), in the buckets' order, so that a
+//    round's pairs share few leaves: the round's leaves' values, valid
+//    bits and the columns its pairs need are staged for as many windows
+//    of WALK_WIN = 32 slots as WALK_X_BYTES holds, then each pair tests
+//    its query's cut columns, the held slots one by one once few are
+//    left, and adds the window's relevant slots in slot order. Four blocks
+//    share a multiprocessor (64 registers a thread, ~54 KB of shared
+//    memory at every d).
+//  * Chunk tiles: an item stages only the chunk's valid bytes; its
 //    box is formed block by block (16 threads a column, the same tree),
 //    written to the scratch by the group-0 item, and the group's queries
-//    (at most LIST_MAX a pass: 16 a thread) AND / OR their flags over the
-//    blocks; walks as the one pass's, in slot order over the chunk. Phase 2
-//    reads the boxes through L2, a column at a time.
+//    (at most LIST_MAX a pass: 16 a thread) AND / OR their flags and note
+//    their own cut columns over the blocks; the walks as the one pass's,
+//    one leaf's chunk a round, its own partial cutting its NaN columns.
+//    Phase 2 reads the boxes a column at a time, from shared memory when
+//    every (leaf, chunk)'s fits in the block's, else through L2.
 // The reductions, the folds and their orders are the d <= 16 kernels':
-// only which columns a compare sees at once differs, and the compares are
-// exact, so every class, every `in` and every bit is the same as if the d
-// columns were tested at once.
+// only which columns a compare sees, and when, differs, and the compares
+// are exact, so every class, every `in` and every bit is the same as if
+// the d columns were tested at once.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -161,8 +178,18 @@ constexpr int GQ_MIN = 64;         // queries a group, chunk tiles, at least
 constexpr int LIST_MAX = 4096;     // walks listed a pass, chunk tiles (+ 1)
 constexpr int MAX_DEVICES = 64;
 constexpr int VARIANTS = 10;  // VW x (d = 0, 1, 2, 3), then the wide two
+constexpr int WALK_WIN = 32;   // slots a window of the wide walks
+constexpr int WALK_ROW = 36;   // floats a staged row of a window (16-byte)
+constexpr int NEED_WORDS = CUT_COLS / 32;  // a round's needed columns
+constexpr int BOX_D = 2 * WIDE_COLS;  // box columns a wide one pass keeps
+constexpr int CUT_TILES = 4;  // query tiles a wide walk list holds
+constexpr int SPARSE_MAX = 8;  // held slots a window tests one by one
+constexpr int WALK_ROWS = LT;  // (leaf, window) rows of a wide walk stage
+constexpr int WALK_X_BYTES = 32768;  // a wide walk's staged rows, at least
 static_assert(WIDE_COLS == MAX_D, "the wide kernels' blocks are MAX_D");
 static_assert(LT * WIDE_COLS == NT, "a thread a (leaf, column) of a block");
+static_assert(NEED_WORDS == 32, "one warp lane a word of needed columns");
+static_assert(CUT_COLS < 0xfffe, "a column fits a cut word's field");
 
 // The tile's entry of plane m, query q, leaf l: [plane][q][leaf][WIDTH].
 template <class Acc>
@@ -628,27 +655,257 @@ pair_tile_kernel(const float* __restrict__ c, const float* __restrict__ a,
   }
 }
 
+__host__ __device__ constexpr int al16(int x) { return (x + 15) & ~15; }
+
+// The wide walks' shared memory besides the staged rows: the window's
+// values and valid bits of each leaf, the round's needed columns (by
+// round parity: a round clears the other buffer for the next), the set
+// bits before each word of them, the needed columns in order, the flags.
+struct WalkRoom {
+  float* x;        // the staged rows: [leaf][column][WALK_ROW]
+  int x_floats;    // their room
+  float* a;        // [leaf][window][WALK_WIN] the stage's values
+  uint32_t* v;     // [leaf][window] their valid bits
+  uint32_t* need;  // [parity][NEED_WORDS] the round's cut columns
+  int* pre;        // [NEED_WORDS] columns needed before each word
+  uint16_t* col;   // [CUT_COLS] the needed columns in order
+  int* misc;       // [parity]: a pair tests every column; [2]: columns
+};
+
+__host__ __device__ constexpr int walk_room_bytes() {
+  return al16(4 * WALK_ROWS * WALK_WIN) + al16(4 * WALK_ROWS) +
+         al16(8 * NEED_WORDS) + al16(4 * NEED_WORDS) + al16(2 * CUT_COLS) +
+         16;
+}
+
+__device__ __forceinline__ WalkRoom walk_room(unsigned char* at, float* x,
+                                              int x_floats) {
+  WalkRoom r;
+  r.x = x;
+  r.x_floats = x_floats;
+  r.a = (float*)at;       at += al16(4 * WALK_ROWS * WALK_WIN);
+  r.v = (uint32_t*)at;    at += al16(4 * WALK_ROWS);
+  r.need = (uint32_t*)at; at += al16(8 * NEED_WORDS);
+  r.pre = (int*)at;       at += al16(4 * NEED_WORDS);
+  r.col = (uint16_t*)at;  at += al16(2 * CUT_COLS);
+  r.misc = (int*)at;
+  return r;
+}
+
+// No column needed, before the first round (a __syncthreads follows).
+__device__ __forceinline__ void clear_walk_room(const WalkRoom& r) {
+  for (int i = threadIdx.x; i < 2 * NEED_WORDS; i += NT) r.need[i] = 0u;
+  if (threadIdx.x < 3) r.misc[threadIdx.x] = 0;
+}
+
+// One round of the wide walks, every thread of the block (on: it holds a
+// pair): the pair of leaf row lr of the round's nlr leaves, whose slots i
+// < ns sit at rows lr * ls + i of c0 (d floats a row), a0 and v0 (global
+// memory), with cut word cw and query bounds ql / qh (nullptr: the
+// unbounded box), folded into w in slot order. For each window of
+// WALK_WIN slots the block stages the leaves' values and valid bits and
+// the columns the round's pairs need (the union of their cut columns, or
+// every column if one pair tests every column) column-major, as many a
+// stage as the room holds, every copy of a stage in flight at once
+// (cp.async); a pair ANDs its valid bits with the row bits of its own cut
+// columns (wide_cols.cuh: the others change no bit), then adds the
+// window's slots in order. par: the round's parity.
+template <class Acc>
+__device__ void walk_wide(Acc& w, bool on, int lr, uint64_t cw,
+                          const float* __restrict__ ql,
+                          const float* __restrict__ qh,
+                          const float* __restrict__ c0,
+                          const float* __restrict__ a0,
+                          const uint8_t* __restrict__ v0, size_t ls, int nlr,
+                          int ns, int d, const WalkRoom& r, int par) {
+  const int tid = threadIdx.x;
+  const float inf = __int_as_float(0x7f800000);
+  const bool every = on && cw == CUT_ALL;
+  uint32_t* need = r.need + par * NEED_WORDS;
+  // 1. The round's columns: a word of them at a time, ORed over the warp
+  // first, so that one lane a warp sets them.
+  if (every) r.misc[par] = 1;
+  const int n_words = min(NEED_WORDS, (d + 31) / 32);
+  for (int wd = 0; wd < n_words; ++wd) {
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int t = 0; t < CUT_MAX; ++t) {
+      const int j = cut_col(cw, t);
+      if (on && !every && j < CUT_COLS && j >> 5 == wd)
+        bits |= 1u << (j & 31);
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (bits != 0u && tid % 32 == 0) atomicOr(&need[wd], bits);
+  }
+  __syncthreads();
+  const bool all = r.misc[par] != 0;
+  if (tid < 32) {
+    const uint32_t word = all ? 0u : need[tid];
+    const int cnt = __popc(word);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, o);
+      if (tid >= o) incl += y;
+    }
+    int at = incl - cnt;
+    r.pre[tid] = at;
+    for (uint32_t b = word; b != 0u; b &= b - 1u)
+      r.col[at++] = (uint16_t)(tid * 32 + __ffs(b) - 1);
+    if (tid == 31) r.misc[2] = all ? d : incl;
+    r.need[(par ^ 1) * NEED_WORDS + tid] = 0u;
+    if (tid == 0) r.misc[par ^ 1] = 0;
+  }
+  __syncthreads();
+  const int nu = r.misc[2];
+  // 2. The staged position and the bounds of each of the pair's columns.
+  int pos[CUT_MAX];
+  float lo[CUT_MAX], hi[CUT_MAX];
+#pragma unroll
+  for (int t = 0; t < CUT_MAX; ++t) {
+    const int j = cut_col(cw, t);
+    const bool use = on && !every && j < CUT_COLS;
+    pos[t] = !use ? -1
+             : all ? j
+                   : r.pre[j >> 5] +
+                         __popc(need[j >> 5] & ((1u << (j & 31)) - 1u));
+    lo[t] = use && ql != nullptr ? ql[j] : -inf;
+    hi[t] = use && qh != nullptr ? qh[j] : inf;
+  }
+  // 3. The windows, nw at once when the room holds every needed column of
+  // the round's leaves for them (a stage), else one at a time with the
+  // columns in stages of `room`.
+  const int cap = r.x_floats / WALK_ROW;  // staged rows the room holds
+  int room = min(NT, cap / nlr), wps = 1;
+  if (nu <= room) {
+    room = max(nu, 1);
+    wps = max(1, min(WALK_ROWS / nlr, cap / (nlr * room)));
+  }
+  for (int i0 = 0; i0 < ns; i0 += wps * WALK_WIN) {
+    const int nw = min(wps, (ns - i0 + WALK_WIN - 1) / WALK_WIN);
+    const int rows = nlr * nw * WALK_WIN;  // (leaf, window, slot) <= 2 NT
+    __syncthreads();  // the previous windows' values and rows are read
+    // The leaves' values (cp.async) and valid bits (a warp a leaf's
+    // window), whose loads go out with the first stage's.
+    bool vv[2];
+#pragma unroll
+    for (int z = 0; z < 2; ++z) {
+      const int t = tid + z * NT;
+      const int i = i0 + t % (nw * WALK_WIN);
+      const size_t at = t / (nw * WALK_WIN) * ls + i;
+      const bool in = t < rows && i < ns;
+      if (in) cp_async4(r.a + t, a0 + at);
+      vv[z] = in && v0[at] != 0;
+    }
+    uint32_t m = 0u;  // one window's bits across stages of columns
+    for (int u0 = 0;; u0 += room) {
+      const int nuc = min(room, nu - u0);  // columns of this stage
+      if (u0 > 0) __syncthreads();  // the previous stage's rows are read
+      if (nuc > 0) {
+        // [leaf][column][window][slot] by cp.async, every copy in flight
+        // at once: a thread one column, slots step apart.
+        const int step = NT / nuc, u = tid % nuc;
+        if (tid < step * nuc) {
+          const float* src = c0 + (all ? u0 + u : r.col[u0 + u]);
+          for (int l = 0; l < nlr; ++l)
+            for (int k = tid / nuc; k < nw * WALK_WIN && i0 + k < ns;
+                 k += step)
+              cp_async4(r.x + ((l * nuc + u) * nw + k / WALK_WIN) * WALK_ROW +
+                            k % WALK_WIN,
+                        src + (l * ls + i0 + k) * (size_t)d);
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      if (u0 == 0) {
+#pragma unroll
+        for (int z = 0; z < 2; ++z) {
+          const int t = tid + z * NT;
+          if (t < rows) {
+            const uint32_t bits = __ballot_sync(0xffffffffu, vv[z]);
+            if (t % WALK_WIN == 0) r.v[t / WALK_WIN] = bits;
+          }
+        }
+      }
+      __syncthreads();
+      const bool last = u0 + room >= nu;
+      for (int wi = 0; wi < nw; ++wi) {
+        uint32_t mw = u0 > 0 ? m : on ? r.v[lr * nw + wi] : 0u;
+        if (nuc > 0) {
+          const float* xl = r.x + (lr * nuc * nw + wi) * WALK_ROW;
+          if (every && mw != 0u) {
+            for (int u = 0; u < nuc && mw != 0u; ++u) {
+              const int j = u0 + u;
+              mw &= row_bits(xl + u * nw * WALK_ROW,
+                             ql != nullptr ? ql[j] : -inf,
+                             qh != nullptr ? qh[j] : inf);
+            }
+          }
+          // A pair's own columns (pos is -1 past them and for every-column
+          // pairs): the whole row while a lane of the warp holds more than
+          // SPARSE_MAX slots, else only the slots still held.
+#pragma unroll
+          for (int t = 0; t < CUT_MAX; ++t) {
+            const int u = pos[t] - u0;
+            const bool use = mw != 0u && pos[t] >= 0 && u >= 0 && u < nuc;
+            const bool dense =
+                __any_sync(0xffffffffu, use && __popc(mw) > SPARSE_MAX);
+            const float* row = xl + u * nw * WALK_ROW;
+            if (use)
+              mw = dense ? mw & row_bits(row, lo[t], hi[t])
+                         : held_bits(row, mw, lo[t], hi[t]);
+          }
+        }
+        m = mw;
+        // The window's relevant slots in slot order, then one irrelevant
+        // slot for all the others: one adds +0.0 to row 2's sums, which
+        // changes no bit (a sum from +0.0 never holds -0.0), and the empty
+        // terms to row 8's fold, which is order-free and takes a term once
+        // or n times alike.
+        if (last && on) {
+          const float* ar = r.a + (lr * nw + wi) * WALK_WIN;
+          for (uint32_t b = mw; b != 0u; b &= b - 1u)
+            w.add(ar[__ffs(b) - 1], true);
+          if (__popc(mw) < min(WALK_WIN, ns - i0 - wi * WALK_WIN))
+            w.add(0.f, false);
+        }
+      }
+      if (last) break;
+    }
+  }
+}
+
 // The wide one pass's shared-memory carve-up (bytes), the same at every
-// d: the tile, a column block's query bounds (two planes of QT x
-// WIDE_COLS) and leaf boxes, the leaves' reductions, flags and the list.
+// d: the tile, over which lie a column block's query bounds (two planes of
+// QT x WIDE_COLS) and the walks' staged rows; the leaves' box columns
+// (all of them up to BOX_D columns, else a block's) and their NaN flags,
+// the leaves' reductions and flags; the walk list in LT buckets of a
+// leaf's pairs (tags) and their counts; the cut words of the listed
+// tiles' queries (CUT_TILES x QT); the tile's box (its leaves' boxes
+// folded) and each query's columns that hold it; the walk's room.
+template <class Acc>
+struct WideTile {
+  static constexpr int tile = 4 * Acc::PLANES * Acc::WIDTH * QT * LT;
+  static constexpr int room = tile > 8 * QT * WIDE_COLS ? tile
+                                                        : 8 * QT * WIDE_COLS;
+  static constexpr int box =
+      al16(room > WALK_X_BYTES ? room : WALK_X_BYTES);
+  static constexpr int cnan = al16(box + 8 * LT * BOX_D);
+  static constexpr int stat = al16(cnan + LT * BOX_D);
+  static constexpr int nan = al16(stat + 4 * Acc::STATS * LT);
+  static constexpr int list = al16(nan + 4 * LT);
+  static constexpr int count = al16(list + 2 * LIST_CAP);
+  static constexpr int cut = al16(count + 4 * LT);
+  static constexpr int tbox = al16(cut + 8 * CUT_TILES * QT);
+  static constexpr int hold = al16(tbox + 8 * BOX_D);
+  static constexpr int walk = al16(hold + 4 * QT);
+  static constexpr int bytes = walk + walk_room_bytes();
+};
+
 template <class Acc>
 bool make_wide_plan(int Q, int k, Plan* plan) {
-  Plan p;
-  p.sc = 0;
-  p.runs = 0;
-  long long off = 0;
-  off = align16(off + 4LL * Acc::PLANES * Acc::WIDTH * QT * LT);
-  p.off_c = p.off_a = p.off_v = (int)off;  // nothing of the slots staged
-  p.off_q = (int)off;     off = align16(off + 2 * 4LL * QT * WIDE_COLS);
-  // The walks stage LT x 32 slots x WIDE_COLS floats over the tile and
-  // the query buffers.
-  if (off < 4LL * LT * 32 * WIDE_COLS) off = 4LL * LT * 32 * WIDE_COLS;
-  p.off_box = (int)off;   off = align16(off + 8LL * LT * WIDE_COLS);
-  p.off_stat = (int)off;  off = align16(off + 4LL * Acc::STATS * LT);
-  p.off_nan = (int)off;   off = align16(off + 4LL * LT);
-  p.off_list = (int)off;  off = align16(off + 2LL * LIST_CAP);
-  p.off_count = (int)off; off = align16(off + 4);
-  p.bytes = (int)off;
+  Plan p = {};
+  p.bytes = WideTile<Acc>::bytes;
   const long long n_qt = (Q + QT - 1) / QT, n_lt = (k + LT - 1) / LT;
   if (n_qt * n_lt > 0x7fffffffLL) return false;
   p.n_qt = (int)n_qt;
@@ -659,10 +916,12 @@ bool make_wide_plan(int Q, int k, Plan* plan) {
 }
 
 // The one pass at d > MAX_D (s <= SLOT_CHUNK): pair_tile_kernel's blocks,
-// classes, tiles, stores and walk list, with the columns in blocks of
-// WIDE_COLS (design above, "Any d").
+// classes, tiles and stores, with the columns in blocks of WIDE_COLS and
+// the walks of walk_wide (design above, "Any d"). Held to 64 registers a
+// thread, so that four blocks share a multiprocessor (shared memory
+// allows it).
 template <class Acc, int VW>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 4)
 pair_tile_wide_kernel(const float* __restrict__ c,
                       const float* __restrict__ a,
                       const uint8_t* __restrict__ valid,
@@ -670,15 +929,22 @@ pair_tile_wide_kernel(const float* __restrict__ c,
                       const float* __restrict__ q_hi,
                       float* __restrict__ out, int Q, int k, int s, int d,
                       Plan p) {
+  using L = WideTile<Acc>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_tile = (float*)smem;                    // tile_at()
-  float* s_q = (float*)(smem + p.off_q);   // [lo, hi][q][WIDE_COLS]
-  float* s_box = (float*)(smem + p.off_box);  // [leaf][lo, hi][WIDE_COLS]
-  float* s_stat = (float*)(smem + p.off_stat);     // [leaf][STATS]
-  int* s_nan = (int*)(smem + p.off_nan);           // [leaf]
-  uint16_t* s_list = (uint16_t*)(smem + p.off_list);  // pairs to walk
-  int* s_count = (int*)(smem + p.off_count);
+  float* s_tile = (float*)smem;            // tile_at()
+  float* s_q = (float*)smem;               // [lo, hi][q][WIDE_COLS]
+  float* s_box = (float*)(smem + L::box);  // [leaf][lo, hi][BOX_D]
+  uint8_t* s_cnan = smem + L::cnan;        // [leaf][BOX_D]
+  float* s_stat = (float*)(smem + L::stat);        // [leaf][STATS]
+  int* s_nan = (int*)(smem + L::nan);              // [leaf]
+  uint16_t* s_list = (uint16_t*)(smem + L::list);  // [leaf][BUCKET] tags
+  int* s_count = (int*)(smem + L::count);          // [leaf]
+  uint64_t* s_cut = (uint64_t*)(smem + L::cut);    // [tile][QT] cut words
+  float* s_tbox = (float*)(smem + L::tbox);        // [lo, hi][BOX_D]
+  unsigned* s_hold = (unsigned*)(smem + L::hold);  // [QT]
+  const WalkRoom room = walk_room(smem + L::walk, (float*)smem, L::box / 4);
   constexpr int PQ = QT * LT / NT;  // pairs a thread classifies
+  constexpr int BUCKET = LIST_CAP / LT;  // a leaf's listed pairs, at most
 
   const int tid = threadIdx.x;
   const int group = blockIdx.x % p.groups;
@@ -686,8 +952,11 @@ pair_tile_wide_kernel(const float* __restrict__ c,
   const int nl = min(LT, k - leaf0);
   const size_t plane = (size_t)Q * k * Acc::WIDTH;
   const float inf = __int_as_float(0x7f800000);
-  if (tid < LT) s_nan[tid] = 0;
-  if (tid == 0) *s_count = 0;
+  if (tid < LT) {
+    s_nan[tid] = 0;
+    s_count[tid] = 0;
+  }
+  clear_walk_room(room);
 
   // 1. The leaves' reductions, thread l < nl over leaf l's slots in slot
   // order, from L2.
@@ -700,69 +969,38 @@ pair_tile_wide_kernel(const float* __restrict__ c,
     acc.save(s_stat + tid * Acc::STATS);
   }
 
-  // 5. The walks of the listed pairs, one thread each, in rounds of NT
-  // pairs: for each 32 slots and column block the leaf tile's coordinates
-  // are staged over the tile and the query buffers (both free during the
-  // walks), [leaf][slot][column ^ leaf] so that the 16 leaves' columns
-  // fall on distinct banks; each thread tests its pair's 32 slots there,
-  // then adds them in slot order.
-  float* s_x = (float*)smem;  // [LT][32][WIDE_COLS]
-  int it_base = 0;
+  // 5. The walks of the listed pairs in rounds of NT, a thread a pair, in
+  // the buckets' order (leaf by leaf), so that a round's pairs share few
+  // leaves: walk_wide over those leaves' slots, with the cut word of the
+  // pair's query.
+  int it_base = 0, rounds = 0;
+  auto locate = [&](int e, int* l) {
+    int at = 0, ll = 0;
+    while (ll < LT - 1 && e >= at + s_count[ll]) at += s_count[ll++];
+    *l = ll;
+    return e - at;
+  };
   auto walk_all = [&](int n_walk) {
-    for (int r0 = 0; r0 < n_walk; r0 += NT) {
+    for (int r0 = 0; r0 < n_walk; r0 += NT, ++rounds) {
       const int e = r0 + tid;
       const bool on = e < n_walk;
-      int l = 0, q = 0;
+      int la, lb, l = 0, q = 0;
+      uint64_t cw = CUT_ALL;
+      locate(r0, &la);
+      locate(min(r0 + NT, n_walk) - 1, &lb);
       if (on) {
-        const int ent = s_list[e];
-        l = ent & (LT - 1);
+        const int at = locate(e, &l);
+        const int ent = s_list[l * BUCKET + at];
+        cw = s_cut[(ent >> 11) * QT + ((ent >> 4) & (QT - 1))];
         const int qt = (it_base + (ent >> 11)) * p.groups + group;
         q = qt * QT + ((ent >> 4) & (QT - 1));
       }
-      const size_t o = (size_t)(leaf0 + l) * s;
-      const float* xl = s_x + l * 32 * WIDE_COLS;
+      const size_t o = (size_t)(leaf0 + la) * s;
       Acc w;
       w.init();
-      for (int i0 = 0; i0 < s; i0 += 32) {
-        const int n = min(32, s - i0);
-        uint32_t m = on ? (n >= 32 ? 0xffffffffu : (1u << n) - 1u) : 0u;
-        for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
-          const int nj = min(WIDE_COLS, d - j0);
-          __syncthreads();  // the previous coordinates are read
-          for (int i = tid; i < nl * n * nj; i += NT) {
-            const int lb = i / nj, j = i - lb * nj;
-            const int ll = lb / n, b = lb - ll * n;
-            s_x[(ll * 32 + b) * WIDE_COLS + (j ^ ll)] =
-                c[((size_t)(leaf0 + ll) * s + i0 + b) * d + j0 + j];
-          }
-          __syncthreads();
-          if (m != 0u) {
-            float ql[WIDE_COLS], qh[WIDE_COLS];
-#pragma unroll
-            for (int j = 0; j < WIDE_COLS; ++j) {
-              ql[j] = j < nj ? q_lo[(size_t)q * d + j0 + j] : 0.f;
-              qh[j] = j < nj ? q_hi[(size_t)q * d + j0 + j] : 0.f;
-            }
-            for (int b = 0; b < n; ++b) {
-              const float* xb = xl + b * WIDE_COLS;
-              bool in = true;
-#pragma unroll
-              for (int j = 0; j < WIDE_COLS; ++j) {
-                if (j < nj) {
-                  const float x = xb[j ^ l];
-                  in &= (ql[j] <= x) & (x <= qh[j]);
-                }
-              }
-              if (!in) m &= ~(1u << b);
-            }
-          }
-        }
-        if (on) {
-          for (int b = 0; b < n; ++b)
-            w.add(a[o + i0 + b],
-                  ((m >> b) & 1u) && valid[o + i0 + b] != 0);
-        }
-      }
+      walk_wide<Acc>(w, on, on ? l - la : 0, cw, q_lo + (size_t)q * d,
+                     q_hi + (size_t)q * d, c + o * d, a + o, valid + o,
+                     (size_t)s, lb - la + 1, s, d, room, rounds & 1);
       if (on) w.write(out, (size_t)q * k + leaf0 + l, plane);
     }
   };
@@ -770,62 +1008,128 @@ pair_tile_wide_kernel(const float* __restrict__ c,
   // The box thread's (leaf, column) of a block; the classes' leaf.
   const int bl = tid / WIDE_COLS, bj = tid - bl * WIDE_COLS;
   const int pl = tid % LT;
+  const bool keep_cuts = d <= CUT_COLS, box_once = d <= BOX_D;
   for (int it = 0, qt = group; qt < p.n_qt; ++it, qt += p.groups) {
     const int q0 = qt * QT, nq = min(QT, Q - q0);
+    uint64_t* cut = s_cut + (it - it_base) * QT;  // this tile's queries'
+    if (tid < QT) cut[tid] = keep_cuts ? CUT_NONE : CUT_ALL;
     // 3. Classes, a column block at a time: bit i of in_b / ap_b is the
     // pair (query tid / LT + i * NT / LT, leaf tid % LT) inside in every
-    // block so far / apart in some block.
+    // block so far / apart in some block. A query's cut word takes the
+    // columns that cut any of its pairs with the tile's leaves (wide_cols.
+    // cuh), ORed over the 16 lanes of its pairs.
     unsigned in_b = (1u << PQ) - 1u, ap_b = 0u;
     for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
       const int nj = min(WIDE_COLS, d - j0);
-      __syncthreads();  // the previous block's bounds and boxes are read
-      for (int i = tid; i < nq * nj; i += NT) {
-        const int q = i / nj, j = i - q * nj;
-        const size_t at = (size_t)(q0 + q) * d + j0 + j;
-        s_q[q * WIDE_COLS + j] = q_lo[at];
-        s_q[(QT + q) * WIDE_COLS + j] = q_hi[at];
+      const int jb = box_once ? j0 : 0;  // the block's place in the boxes
+      __syncthreads();  // the previous block's bounds (or the tile) read
+      for (int i = tid; i < nq * WIDE_COLS; i += NT) {
+        const size_t at = (size_t)(q0 + i / WIDE_COLS) * d + j0 +
+                          i % WIDE_COLS;
+        if (i % WIDE_COLS < nj) {
+          cp_async4(s_q + i, q_lo + at);
+          cp_async4(s_q + QT * WIDE_COLS + i, q_hi + at);
+        }
       }
-      if (bl < nl && bj < nj) {
+      asm volatile("cp.async.commit_group;\n" ::);
+      // The boxes: every column's once a block up to BOX_D columns (a
+      // thread two columns), else the block's for each tile.
+      const bool box_now = box_once ? it == 0 && j0 == 0 : true;
+      const int n_box = box_once ? d : nj;  // box columns, from jb on
+      if (box_now && bl < nl && bj < n_box) {
         const size_t o = (size_t)(leaf0 + bl) * s;
-        float lo = inf, hi = -inf;
-        bool nan = false;
+        const int j2 = bj + WIDE_COLS < n_box ? bj + WIDE_COLS : bj;
+        float lo = inf, hi = -inf, lo2 = inf, hi2 = -inf;
+        bool nan = false, nan2 = false;
 #pragma unroll 8
         for (int i = 0; i < s; ++i) {
           const bool on = valid[o + i] != 0;
           const float x = c[(o + i) * d + j0 + bj];
+          const float x2 = c[(o + i) * d + j0 + j2];
           nan |= on & (x != x);
           lo = fminf(lo, on ? x : inf);
           hi = fmaxf(hi, on ? x : -inf);
+          nan2 |= on & (x2 != x2);
+          lo2 = fminf(lo2, on ? x2 : inf);
+          hi2 = fmaxf(hi2, on ? x2 : -inf);
         }
-        s_box[bl * 2 * WIDE_COLS + bj] = lo;
-        s_box[(bl * 2 + 1) * WIDE_COLS + bj] = hi;
-        if (nan) s_nan[bl] = 1;
+        s_box[bl * 2 * BOX_D + jb + bj] = lo;
+        s_box[(bl * 2 + 1) * BOX_D + jb + bj] = hi;
+        s_cnan[bl * BOX_D + jb + bj] = nan;
+        s_box[bl * 2 * BOX_D + jb + j2] = lo2;
+        s_box[(bl * 2 + 1) * BOX_D + jb + j2] = hi2;
+        s_cnan[bl * BOX_D + jb + j2] = nan2;
+        if (nan || nan2) s_nan[bl] = 1;
+      }
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      if (box_now) {
+        // The tile's box: the leaves' boxes folded (fminf / fmaxf; an
+        // empty leaf's (+inf, -inf) changes nothing), a thread a (column,
+        // side).
+        __syncthreads();
+        if (tid < 2 * BOX_D && tid % BOX_D < n_box) {
+          const int j = tid % BOX_D, side = tid / BOX_D;
+          float x = side ? -inf : inf;
+          for (int l = 0; l < nl; ++l) {
+            const float y = s_box[(l * 2 + side) * BOX_D + jb + j];
+            x = side ? fmaxf(x, y) : fminf(x, y);
+          }
+          s_tbox[side * BOX_D + jb + j] = x;
+        }
       }
       __syncthreads();
-      if (pl < nl) {
-        const float* blo = s_box + pl * 2 * WIDE_COLS;
-        const float* bhi = blo + WIDE_COLS;
+      // The block's columns where a query holds the tile's box: there it
+      // holds every leaf's box and is apart from none (an empty leaf's
+      // pairs are inside in every column whatever apart says), so the
+      // pairs' compares skip them.
+      if (tid < nq) {
+        unsigned h = 0u;
+        for (int j = 0; j < nj; ++j)
+          h |= (unsigned)((s_q[tid * WIDE_COLS + j] <= s_tbox[jb + j]) &
+                          (s_tbox[BOX_D + jb + j] <=
+                           s_q[(QT + tid) * WIDE_COLS + j])) << j;
+        s_hold[tid] = h;
+      }
+      __syncthreads();
+      const bool act = pl < nl;
+      const float* blo = s_box + pl * 2 * BOX_D + jb;
+      const float* bhi = blo + BOX_D;
+      unsigned cn = 0u;  // the block's columns with a NaN on a valid slot
 #pragma unroll
-        for (int i = 0; i < PQ; ++i) {
-          const int q = tid / LT + i * (NT / LT);
-          if (q < nq) {
-            bool inside = true, apart = false;
+      for (int j = 0; j < WIDE_COLS; ++j)
+        if (act && j < nj && s_cnan[pl * BOX_D + jb + j]) cn |= 1u << j;
 #pragma unroll
-            for (int j = 0; j < WIDE_COLS; ++j) {
-              if (j < nj) {
-                const float ql = s_q[q * WIDE_COLS + j];
-                const float qh = s_q[(QT + q) * WIDE_COLS + j];
-                inside &= (ql <= blo[j]) & (bhi[j] <= qh);
-                apart |= (qh < blo[j]) | (bhi[j] < ql);
-              }
-            }
-            if (!inside) in_b &= ~(1u << i);
-            if (apart) ap_b |= 1u << i;
+      for (int i = 0; i < PQ; ++i) {
+        const int q = tid / LT + i * (NT / LT);
+        unsigned cm = 0u;  // the block's columns that cut the pair
+        if (act && q < nq) {
+          bool inside = true, apart = false;
+          for (unsigned todo = ~s_hold[q] & ((1u << nj) - 1u); todo != 0u;
+               todo &= todo - 1u) {
+            const int j = __ffs(todo) - 1;
+            const float ql = s_q[q * WIDE_COLS + j];
+            const float qh = s_q[(QT + q) * WIDE_COLS + j];
+            const bool holds = (ql <= blo[j]) & (bhi[j] <= qh);
+            inside &= holds;
+            apart |= (qh < blo[j]) | (bhi[j] < ql);
+            cm |= (unsigned)!holds << j;
           }
+          if (!inside) in_b &= ~(1u << i);
+          if (apart) ap_b |= 1u << i;
+          cm |= cn;
+        }
+#pragma unroll
+        for (int o = 1; o < LT; o <<= 1)
+          cm |= __shfl_xor_sync(0xffffffffu, cm, o);
+        if (keep_cuts && pl == 0 && q < nq && cm != 0u) {
+          uint64_t w = cut[q];
+          for (; cm != 0u && w != CUT_ALL; cm &= cm - 1u)
+            w = add_cut(w, j0 + __ffs(cm) - 1);
+          cut[q] = w;
         }
       }
     }
-    __syncthreads();  // every block's NaN flags are in
+    __syncthreads();  // every block's NaN flags are in, the bounds read
     if (pl < nl) {
       const bool no_nan = s_nan[pl] == 0;
       Acc leaf;
@@ -838,7 +1142,7 @@ pair_tile_wide_kernel(const float* __restrict__ c,
           const bool apart = (ap_b >> i) & 1u;
           leaf.fill(s_tile, q, pl, inside);
           if (!inside && !apart)
-            s_list[atomicAdd(s_count, 1)] =
+            s_list[pl * BUCKET + atomicAdd(&s_count[pl], 1)] =
                 (uint16_t)((it - it_base) << 11 | q << 4 | pl);
         }
       }
@@ -856,12 +1160,18 @@ pair_tile_wide_kernel(const float* __restrict__ c,
                              plane);
     __syncthreads();  // the tile is free again; its stores precede walks
 
-    const int n_walk = *s_count;
-    if (n_walk > LIST_CAP - QT * LT || it + 1 - it_base == 32 ||
+    // The list is walked when a leaf's next pairs might not fit its
+    // bucket, when CUT_TILES tiles are listed, and after the last tile.
+    int n_walk = 0, most = 0;
+    for (int l = 0; l < LT; ++l) {
+      n_walk += s_count[l];
+      most = max(most, s_count[l]);
+    }
+    if (most > BUCKET - QT || it + 1 - it_base == CUT_TILES ||
         qt + p.groups >= p.n_qt) {
       walk_all(n_walk);
       __syncthreads();
-      if (tid == 0) *s_count = 0;
+      if (tid < LT) s_count[tid] = 0;
       it_base = it + 1;
     }
   }
@@ -952,6 +1262,23 @@ struct ChunkPlan {
   size_t box, stat, nan, floats;  // the walks' partials start at 0
 };
 
+// The wide chunk tiles' room after the walk list (byte offsets): the
+// listed pairs' cut words, the staged rows (WALK_X_BYTES) and the walk's
+// room.
+struct WideChunkTail {
+  int cut, x, walk, bytes;
+};
+
+__host__ __device__ inline WideChunkTail wide_chunk_tail(int off_count,
+                                                         int list) {
+  WideChunkTail t;
+  t.cut = al16(off_count + 4);
+  t.x = al16(t.cut + 8 * list);
+  t.walk = al16(t.x + WALK_X_BYTES);
+  t.bytes = t.walk + walk_room_bytes();
+  return t;
+}
+
 template <class Acc>
 ChunkPlan make_chunk_plan(int Q, int k, int s, int d) {
   ChunkPlan p;
@@ -960,17 +1287,19 @@ ChunkPlan make_chunk_plan(int Q, int k, int s, int d) {
   p.gq = Q;
   p.n_items = (long long)k * p.n_ch;
   p.list = (Q < LIST_MAX ? Q : LIST_MAX) + 1;
-  // At d > MAX_D nothing of c is staged and the box holds a column block.
+  // At d > MAX_D only the valid bytes are staged (the walks stage their
+  // own windows) and the box holds a column block.
   const bool wide = d > MAX_D;
   long long off = wide ? 0 : align16(4LL * SLOT_CHUNK * d);  // c at 0
-  p.off_a = (int)off;     off = align16(off + 4LL * SLOT_CHUNK);
+  p.off_a = (int)off;
+  if (!wide) off = align16(off + 4LL * SLOT_CHUNK);
   p.off_v = (int)off;     off = align16(off + SLOT_CHUNK);
   p.off_box = (int)off;
   off = align16(off + 8LL * (wide ? WIDE_COLS : d) + 4);
   p.off_red = (int)off;   off = align16(off + 12LL * NT);
   p.off_list = (int)off;  off = align16(off + 4LL * p.list);
   p.off_count = (int)off; off = align16(off + 4);
-  p.bytes = (int)off;
+  p.bytes = wide ? wide_chunk_tail(p.off_count, p.list).bytes : (int)off;
   const size_t strata = (size_t)k * p.n_ch;
   p.box = (size_t)p.n_ch * Q * k * Acc::STATS;
   p.stat = p.box + strata * 2 * d;
@@ -1192,13 +1521,16 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
                        float* __restrict__ out, float* scratch, int Q, int k,
                        int s, int d, ChunkPlan p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* s_a = (float*)(smem + p.off_a);           // [slot]
   uint8_t* s_v = smem + p.off_v;                   // [slot]
   float* s_rlo = (float*)(smem + p.off_red);       // the tree, [NT] each
   float* s_rhi = s_rlo + NT;
   int* s_rnan = (int*)(s_rhi + NT);
   int* s_list = (int*)(smem + p.off_list);  // queries to walk; -1: own
   int* s_count = (int*)(smem + p.off_count);
+  const WideChunkTail tail = wide_chunk_tail(p.off_count, p.list);
+  uint64_t* s_cut = (uint64_t*)(smem + tail.cut);  // the list's cut words
+  const WalkRoom room =
+      walk_room(smem + tail.walk, (float*)(smem + tail.x), WALK_X_BYTES / 4);
   float* g_part = scratch;                 // [chunk][q][leaf][STATS]
   float* g_box = scratch + p.box;          // [leaf][chunk][lo, hi][d]
   float* g_stat = scratch + p.stat;        // [leaf][chunk][STATS]
@@ -1211,6 +1543,9 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
   const int n_ch = p.n_ch;
   const float inf = __int_as_float(0x7f800000);
   const int bj = tid / P, bpart = tid - bj * P;
+  const bool keep_cuts = d <= CUT_COLS;
+  int rounds = 0;
+  clear_walk_room(room);
 
   for (long long item = blockIdx.x; item < p.n_items; item += gridDim.x) {
     const int group = (int)(item % p.groups);
@@ -1220,8 +1555,7 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
     const size_t o = (size_t)leaf * s + s0;
     const size_t gl = (size_t)leaf * n_ch + ch;
     __syncthreads();  // the previous item's chunk and list are read
-    // 1. The chunk's values and valid bytes.
-    copy_any(s_a, a + o, n * 4);
+    // 1. The chunk's valid bytes (the box reads them).
     copy_any(s_v, valid + o, n);
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::);
@@ -1238,14 +1572,21 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
       // 2 and 4. The box and NaN flag a column block at a time (P threads
       // a column, then the tree), the group-0 item's first pass writing
       // them to the scratch; bit i of in_b / ap_b: query base + tid + i *
-      // NT inside the box in every block so far / apart in some block.
+      // NT inside the box in every block so far / apart in some block;
+      // cw[i] its cut columns (wide_cols.cuh), own the chunk's own
+      // partial's (its columns with a NaN on a valid slot).
       unsigned in_b = 0xffffffffu, ap_b = 0u;
+      const uint64_t none = keep_cuts ? CUT_NONE : CUT_ALL;
+      uint64_t cw[PQ], own = none;
+#pragma unroll
+      for (int i = 0; i < PQ; ++i) cw[i] = none;
       int nan = 0;
       for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
         const int nj = min(WIDE_COLS, d - j0);
         float lo = inf, hi = -inf;
         int fl = 0;
         if (bj < nj) {
+#pragma unroll 8
           for (int i = bpart; i < n; i += P) {
             const bool on = s_v[i] != 0;
             const float x = c[(o + i) * d + j0 + bj];
@@ -1270,21 +1611,33 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
           g_box[gl * 2 * d + j0 + tid] = s_rlo[tid * P];
           g_box[gl * 2 * d + d + j0 + tid] = s_rhi[tid * P];
         }
-        for (int j = 0; j < nj; ++j) nan |= s_rnan[j * P];
+        unsigned cn = 0u;  // the block's columns with a NaN on a valid slot
+        for (int j = 0; j < nj; ++j) {
+          nan |= s_rnan[j * P];
+          if (s_rnan[j * P]) cn |= 1u << j;
+        }
+        if (tid == 0)
+          for (unsigned b = cn; b != 0u && own != CUT_ALL; b &= b - 1u)
+            own = add_cut(own, j0 + __ffs(b) - 1);
 #pragma unroll
         for (int i = 0; i < PQ; ++i) {
           const long long q = base + tid + (long long)i * NT;
           if (q < stop) {
             bool inside = true, apart = false;
+            unsigned cm = 0u;  // the block's columns that cut the pair
             for (int j = 0; j < nj; ++j) {
               const float blo = s_rlo[j * P], bhi = s_rhi[j * P];
               const float ql = q_lo[(size_t)q * d + j0 + j];
               const float qh = q_hi[(size_t)q * d + j0 + j];
-              inside &= (ql <= blo) & (bhi <= qh);
+              const bool holds = (ql <= blo) & (bhi <= qh);
+              inside &= holds;
               apart |= (qh < blo) | (bhi < ql);
+              cm |= (unsigned)!holds << j;
             }
             if (!inside) in_b &= ~(1u << i);
             if (apart) ap_b |= 1u << i;
+            for (cm |= cn; cm != 0u && cw[i] != CUT_ALL; cm &= cm - 1u)
+              cw[i] = add_cut(cw[i], j0 + __ffs(cm) - 1);
           }
         }
         __syncthreads();  // before the next block's tree
@@ -1294,29 +1647,32 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
       for (int i = 0; i < PQ; ++i) {
         const long long q = base + tid + (long long)i * NT;
         const bool inside = nan == 0 && ((in_b >> i) & 1u);
-        if (q < stop && !inside && !((ap_b >> i) & 1u))
-          s_list[atomicAdd(s_count, 1)] = (int)q;
+        if (q < stop && !inside && !((ap_b >> i) & 1u)) {
+          const int at = atomicAdd(s_count, 1);
+          s_list[at] = (int)q;
+          s_cut[at] = cw[i];
+        }
       }
+      if (tid == 0 && group == 0 && base == q_first) s_cut[0] = own;
       __syncthreads();
+      // The walks in rounds of NT, a thread a listed query (walk_wide over
+      // the chunk's slots, its values and valid bytes from shared memory);
+      // the chunk's own partial walks the unbounded box, as in
+      // pair_chunk_kernel.
       const int n_walk = *s_count;
-      for (int e = tid; e < n_walk; e += NT) {
-        // The chunk's own partial walks the unbounded box, as in
-        // pair_chunk_kernel.
-        const int q = s_list[e];
-        const float* ql = q >= 0 ? q_lo + (size_t)q * d : nullptr;
-        const float* qh = q >= 0 ? q_hi + (size_t)q * d : nullptr;
+      for (int r0 = 0; r0 < n_walk; r0 += NT, ++rounds) {
+        const bool on = r0 + tid < n_walk;
+        const int q = on ? s_list[r0 + tid] : 0;
         Acc w;
         w.init();
-        for (int i0 = 0; i0 < n; i0 += 32) {
-          const int nb = min(32, n - i0);
-          const uint32_t m =
-              slots_inside_wide(c + (o + i0) * d, nb, d, ql, qh);
-          for (int b = 0; b < nb; ++b)
-            w.add(s_a[i0 + b], ((m >> b) & 1u) && s_v[i0 + b] != 0);
-        }
-        w.save(q < 0 ? g_stat + gl * Acc::STATS
-                     : g_part + (((size_t)ch * Q + q) * k + leaf) *
-                                    Acc::STATS);
+        walk_wide<Acc>(w, on, 0, on ? s_cut[r0 + tid] : CUT_ALL,
+                       q >= 0 ? q_lo + (size_t)q * d : nullptr,
+                       q >= 0 ? q_hi + (size_t)q * d : nullptr, c + o * d,
+                       a + o, valid + o, 0, 1, n, d, room, rounds & 1);
+        if (on)
+          w.save(q < 0 ? g_stat + gl * Acc::STATS
+                       : g_part + (((size_t)ch * Q + q) * k + leaf) *
+                                      Acc::STATS);
       }
       if (stop < q1) {
         __syncthreads();
@@ -1329,8 +1685,18 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
   cg::this_grid().sync();
 
   // Phase 2: each pair folds its chunks' partials in chunk order, the
-  // classes again from the scratch's boxes and flags (through L2), a column
-  // at a time.
+  // classes again from the scratch's boxes and flags, a column at a time:
+  // from shared memory when every (leaf, chunk)'s box, partial and flag
+  // fit in the block's (few strata of many slots), else through L2.
+  const size_t n_lc = p.floats - p.box;
+  const bool local = n_lc * 4 <= (size_t)p.bytes;
+  float* s_lc = (float*)smem;
+  if (local) {
+    for (size_t i = tid; i < n_lc; i += NT) s_lc[i] = __ldcg(g_box + i);
+    __syncthreads();
+  }
+  auto lcd = [&](size_t i) { return local ? s_lc[i] : __ldcg(g_box + i); };
+  const size_t o_stat = p.stat - p.box, o_nan = p.nan - p.box;
   const size_t pairs = (size_t)Q * k, plane = pairs * Acc::WIDTH;
   for (size_t pair = (size_t)blockIdx.x * NT + tid; pair < pairs;
        pair += (size_t)gridDim.x * NT) {
@@ -1341,17 +1707,16 @@ pair_chunk_wide_kernel(const float* __restrict__ c,
     acc.init();
     for (int ch = 0; ch < n_ch; ++ch) {
       const size_t gl = (size_t)leaf * n_ch + ch;
-      const float* bx = g_box + gl * 2 * d;
-      bool inside = __ldcg(g_nan + gl) == 0, apart = false;
+      bool inside = __float_as_int(lcd(o_nan + gl)) == 0, apart = false;
       for (int j = 0; j < d; ++j) {
-        const float blo = __ldcg(bx + j), bhi = __ldcg(bx + d + j);
+        const float blo = lcd(gl * 2 * d + j), bhi = lcd(gl * 2 * d + d + j);
         inside &= (ql[j] <= blo) & (bhi <= qh[j]);
         apart |= (qh[j] < blo) | (bhi < ql[j]);
       }
       float x[Acc::STATS];
 #pragma unroll
       for (int i = 0; i < Acc::STATS; ++i)
-        x[i] = inside ? __ldcg(g_stat + gl * Acc::STATS + i)
+        x[i] = inside ? lcd(o_stat + gl * Acc::STATS + i)
                : apart ? 0.f
                        : __ldcg(g_part + ((size_t)ch * pairs + pair) *
                                              Acc::STATS + i);

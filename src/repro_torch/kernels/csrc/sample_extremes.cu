@@ -40,7 +40,8 @@
 // (s >= 1); only mixed pairs walk their slots; a chunk (s > 2048) the
 // same. The one-pass tile is two planes of (QT, LT) floats, the min's and
 // the max's: rows of LT * 4 contiguous bytes each. Shared memory ~37 KB at
-// d = 1, ~51 KB at d = 3, ~84 KB at d = 16 (one pass).
+// d = 1, ~51 KB at d = 3, ~84 KB at d = 16 (one pass); at every d > 16 as
+// stratified_moments.cu's (pair_tiles.cuh's wide kernels).
 #include <limits.h>
 
 #include "pair_tiles.cuh"

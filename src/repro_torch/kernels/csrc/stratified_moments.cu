@@ -46,8 +46,9 @@
 // bits are those of a walk; an empty one's are +0.0, where a walk's
 // accumulators would stay. The one-pass tile is (QT, LT, 3) floats, one
 // plane: rows of LT * 12 contiguous bytes. Shared memory ~45 KB at d = 1,
-// ~59 KB at d = 3, ~92 KB at d = 16 (one pass); ~51 KB at every d > 16,
-// whose wide kernels take the columns in blocks of 16 (pair_tiles.cuh).
+// ~59 KB at d = 3, ~92 KB at d = 16 (one pass); at every d > 16, whose
+// wide kernels take the columns in blocks of 16 (pair_tiles.cuh), ~54 KB
+// (one pass) and 66-90 KB (chunk tiles, by Q).
 #include "pair_tiles.cuh"
 
 namespace {
