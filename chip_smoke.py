@@ -427,9 +427,10 @@ Phases, each of which fails the run:
    queries bounding 5-8 columns (pairs past CUT_MAX cut columns), rows
    alone bit-equal to the batch's and, with a --baseline that has wide
    kernels, bit-equal to its at every d > 16; rows 3 and 4
-   (weighted_chunk_check: fused = scan, rows alone, plain) at s = 75 (R =
-   9), 300 (R = 1) and
-   2049 (R = 3) with NaN coordinates on valid slots; route_multid with
+   (weighted_chunk_check: fused = scan, rows alone, plain and, with such
+   a baseline, its bits) at s = 75 (R = 8, 9 and 33), 300 (R = 1) and
+   2049 (R = 3 and 9) with NaN coordinates on valid slots, in three cases
+   queries bounding 5-8 columns (cut words past CUT_MAX); route_multid with
    ties and an inverted box, bit-equal; row 9 at D = d on mixed and NaN
    inputs. At each d > 16 the bit identity: on a 16-column input (the
    d <= 16 code) and on the same input with d - 16 more columns (the
@@ -456,9 +457,11 @@ Phases, each of which fails the run:
    device, their plain versions and bounds at d = 24, rows 2-4's
    torch.bmm yardstick (a prebuilt predicate, as in Table 1), row 9 and
    the answers; the pair classes; with a --baseline that has wide kernels,
-   rows 2 and 8 in turns with its (bit-equal first), and the answer and
-   the fused bootstrap answer with its rows 2 and 8 and with this
-   checkout's, in turns (the same bits). The chunk path: rows
+   rows 2 and 8 in turns with its (bit-equal first), rows 3 and 4 the
+   same (weighted_turns), the mixed pairs each walk of rows 3 and 4 took,
+   and the answer, the fused and the scan bootstrap answer with its rows
+   2, 3, 4 and 8 and with this checkout's, in turns (the same bits). The
+   chunk path: rows
    2 and 8 at k = 1, s = 38,500 (a uniform sample of the table: Table 1's
    US size), Q = 2048, against plain, in turns with the baseline's, beside
    torch.bmm and the bound. With --wide-only the script runs phases 1, 2,
@@ -1642,15 +1645,17 @@ def bounds(syn, q, rel, classes) -> dict:
     # pair's class from the boxes (two compares a column for covered, two
     # for apart), each leaf's reduction over its slots (4 operations a slot
     # for the moments, a min and a max for the extremes), and the mixed
-    # pairs' walks (the slot test, 2d compares, and the update); a covered
-    # or empty pair costs a copy. Outputs: (Q, k, 3) and two (Q, k).
+    # pairs' walks (the slot test, 2 compares a slot in each column that
+    # cuts the pair, pair_classes' mixed_cut_columns, and the update); a
+    # covered or empty pair costs a copy. Outputs: (Q, k, 3) and two (Q,
+    # k).
     in_bytes = 4 * k * s * d + 4 * k * s + k * s + 8 * Q * d
     shared_ops = 2 * d * valid + 4 * d * Q * k
-    mixed = classes["mixed"]
+    mixed, cut = classes["mixed"], classes["mixed_cut_columns"]
     sm_bytes = in_bytes + 12 * Q * k
-    sm_ops = shared_ops + 4 * k * s + mixed * s * (2 * d + 4)
+    sm_ops = shared_ops + 4 * k * s + s * (2 * cut + 4 * mixed)
     se_bytes = in_bytes + 8 * Q * k
-    se_ops = shared_ops + 2 * k * s + mixed * s * (2 * d + 2)
+    se_ops = shared_ops + 2 * k * s + s * (2 * cut + 2 * mixed)
     out = {}
     for name, nbytes, ops in (("query_eval", qe_bytes, qe_ops),
                               ("stratified_moments", sm_bytes, sm_ops),
@@ -2417,22 +2422,50 @@ def weighted_class_inputs(rng, Q, k, s, d, R):
     return c, a, valid, W, q_lo, q_hi
 
 
+def slot_extents(torch, c, valid):
+    """Each stratum's extent of its valid slots, a column at a time: (lo,
+    hi, nan) of shape (k, d); nan where a valid slot has NaN there (lo /
+    hi are then NaN too). A stratum without valid slots gets (+inf, -inf),
+    which every query holds."""
+    inf = float("inf")
+    v = valid[..., None]
+    return (torch.where(v, c, inf).amin(1), torch.where(v, c, -inf).amax(1),
+            (v & torch.isnan(c)).any(1))
+
+
+def cut_columns(ext, q_lo, q_hi):
+    """(Q, k): the columns that cut each (query, stratum) pair, ext =
+    slot_extents: those where the query does not hold the extent of the
+    stratum's valid slots, or a valid slot has NaN (csrc/wide_cols.cuh).
+    Every other column passes every valid slot, so a slot test needs its
+    two compares only in these."""
+    lo, hi, nan = ext
+    held = (q_lo[:, None] <= lo[None]) & (hi[None] <= q_hi[:, None])
+    return (~held | nan[None]).sum(-1)
+
+
 def pair_classes(torch, c, valid, q_lo, q_hi, chunk: int = 256) -> dict:
     """Counts of (query, stratum) pairs whose box holds none of the
     stratum's valid samples (empty; strata without one among them), all of
     them (covered) or some (mixed): the classes the weighted kernels tell
-    apart."""
+    apart; and the mixed pairs' cut columns (cut_columns), summed: the
+    columns their slot tests need."""
     from repro_torch.kernels.stratified_estimate import samples_inside
     nvalid = valid.sum(-1)
+    ext = slot_extents(torch, c, valid)
     out = dict.fromkeys(("covered", "empty", "mixed"), 0)
+    out["mixed_cut_columns"] = 0
     for i in range(0, q_lo.shape[0], chunk):
-        n = samples_inside(c, valid, q_lo[i:i + chunk],
-                           q_hi[i:i + chunk]).sum(-1)
+        ql, qh = q_lo[i:i + chunk], q_hi[i:i + chunk]
+        n = samples_inside(c, valid, ql, qh).sum(-1)
         empty = n == 0
         covered = ~empty & (n == nvalid)
+        mixed = ~empty & ~covered
         out["empty"] += int(empty.sum())
         out["covered"] += int(covered.sum())
-        out["mixed"] += int((~empty & ~covered).sum())
+        out["mixed"] += int(mixed.sum())
+        out["mixed_cut_columns"] += int(
+            cut_columns(ext, ql, qh)[mixed].sum())
     return out
 
 
@@ -2941,6 +2974,7 @@ def boot_serve(torch, tag, run, max_median_err, scan: bool) -> dict:
         raise AssertionError(f"{tag}: AVG bootstrap overlaps CLT on "
                              f"{overlap} of the queries < 0.9")
     return {"eng": engs["hajek", True], "res": out,
+            "scan_eng": engs.get(("hajek", False)),
             "launches": launches["hajek", True],
             "scan_launches": launches.get(("hajek", False))}
 
@@ -3302,7 +3336,8 @@ def boot_bounds(syn, q, classes, R, N) -> dict:
     once and write 12 bytes per (replicate, query, stratum); they need each
     leaf's box and each pair's class as bounds() counts them, each leaf's
     weighted totals (5 operations a slot and replicate) and the mixed
-    pairs' walks (2d compares a slot, 5 operations a slot and replicate).
+    pairs' walks (2 compares a slot in each column that cuts the pair, as
+    bounds() counts them, 5 operations a slot and replicate).
     weighted_segment_reduce reads 12 bytes a row, writes 12 a segment, 5
     operations a row."""
     Q, d = q.lo.shape
@@ -3313,7 +3348,8 @@ def boot_bounds(syn, q, classes, R, N) -> dict:
 
     def moments_ops(r):
         return (shared_ops + 5 * r * k * s
-                + classes["mixed"] * s * (2 * d + 5 * r))
+                + s * (2 * classes["mixed_cut_columns"]
+                       + 5 * r * classes["mixed"]))
     out = {}
     for name, nbytes, ops in (
             ("stratified_weighted_moments", samples + 4 * k * s + 12 * Q * k,
@@ -6751,8 +6787,9 @@ def walk_bound(torch, c, valid, q_lo, q_hi, R, step) -> dict:
     TFLOP/s: 5 a valid slot and replicate for the segments' totals, 4d
     compares a (query, segment) pair for its class, and for the mixed
     pairs (some but not all of a segment's valid slots inside; segments of
-    WEIGHTED_CHUNK slots) 2d compares a slot and 5 a relevant (replicate,
-    slot). Counted over chunks of ``step`` queries."""
+    WEIGHTED_CHUNK slots) 2 compares a slot in each column that cuts the
+    pair (cut_columns of the segment) and 5 a relevant (replicate, slot).
+    Counted over chunks of ``step`` queries."""
     from repro_torch.kernels.stratified_estimate import (WEIGHTED_CHUNK,
                                                          samples_inside,
                                                          weighted_chunks)
@@ -6765,25 +6802,32 @@ def walk_bound(torch, c, valid, q_lo, q_hi, R, step) -> dict:
         k, n_ch, width).sum(-1)
     seg_len = torch.nn.functional.pad(torch.ones_like(valid), (0, pad)).view(
         k, n_ch, width).sum(-1)
-    mixed = slots = rel = 0
+    ext = slot_extents(
+        torch, torch.nn.functional.pad(c, (0, 0, 0, pad)).view(
+            k * n_ch, width, d),
+        torch.nn.functional.pad(valid, (0, pad)).view(k * n_ch, width))
+    mixed = slots = rel = cut_slots = 0
     for i in range(0, Q, step):
+        ql, qh = q_lo[i:i + step], q_hi[i:i + step]
         n_in = torch.nn.functional.pad(samples_inside(
-            c, valid, q_lo[i:i + step], q_hi[i:i + step]), (0, pad)).view(
-                -1, k, n_ch, width).sum(-1)
+            c, valid, ql, qh), (0, pad)).view(-1, k, n_ch, width).sum(-1)
         m = (n_in > 0) & (n_in < seg_valid)
         mixed += int(m.sum())
         slots += int((seg_len * m).sum())
         rel += int((n_in * m).sum())
+        cut = cut_columns(ext, ql, qh).view(-1, k, n_ch)
+        cut_slots += int((seg_len * m * cut).sum())
     n_valid = int(valid.sum())
     nbytes = (4 * k * s * d + 4 * k * s + k * s + 8 * Q * d + 4 * R * k * s
               + 12 * R * Q * k)
-    ops = (5.0 * R * n_valid + 4.0 * d * Q * k * n_ch + 2.0 * d * slots
+    ops = (5.0 * R * n_valid + 4.0 * d * Q * k * n_ch + 2.0 * cut_slots
            + 5.0 * R * rel)
     t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_F32_OPS_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "operations": ops, "mixed_pairs": mixed,
-            "mixed_pair_slots": slots, "relevant_slots_in_mixed": rel}
+            "mixed_pair_slots": slots, "relevant_slots_in_mixed": rel,
+            "mixed_pair_cut_column_slots": cut_slots}
 
 
 def bmm_rhs(torch, W, a):
@@ -8181,9 +8225,10 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
     5-8 columns (pairs past CUT_MAX cut columns), within tolerance and
     bit-equal, rows alone bit-equal to the batch's and, with a baseline
     that has wide kernels, bit-equal to its; rows 3 and 4
-    (weighted_chunk_check: fused = scan, rows alone, within tolerance) at
-    one chunk with R = 9 and R = 1,
-    and above it, NaN coordinates on valid slots; row 7 with ties, an
+    (weighted_chunk_check: fused = scan, rows alone, within tolerance and,
+    with such a baseline, its bits) at one chunk with R = 8, 9, 33 and 1
+    and above it with R = 3 and 9, NaN coordinates on valid slots, in
+    three cases queries that bound 5-8 columns; row 7 with ties, an
     inverted box and B off the row tile, bit-equal; row 9 at D = d (d - 1
     fact columns) on mixed and NaN inputs. Then at each d > 16 the bit
     identity with the 16-column input (wide_identity). Returns the max
@@ -8198,7 +8243,8 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
     cases = dict.fromkeys(("query_eval", "stratified_moments",
                            "sample_extremes", "bootstrap_moments",
                            "route_multid", "join_cell_moments",
-                           "identity", "baseline_bits"), 0)
+                           "identity", "baseline_bits",
+                           "weighted_baseline_bits"), 0)
     classes = {}
     for d in WIDE_DS:
         rng = np.random.default_rng(29_000 + d)
@@ -8234,16 +8280,25 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
                     rows_vs_batch(torch, tag, sample_extremes_cuda, t[:3],
                                   t[3], t[4], subsets)
                     cases["sample_extremes"] += 1
-        for Q, k, s, R in ((40, 17, 75, 9), (35, 5, 300, 1),
-                           (33, 3, 2049, 3)):
+        # R on both sides of WEIGHTED_PAIR_R (8); ``many``: pairs past
+        # CUT_MAX cut columns (their tests take every column).
+        wbase = base if base is not None and d > WIDE_BASE_D and base[
+            "stratified_moments"].wide else None
+        for Q, k, s, R, many in ((40, 17, 75, 9, False),
+                                 (35, 5, 300, 1, False),
+                                 (33, 3, 2049, 3, False),
+                                 (40, 17, 75, 8, True), (37, 9, 75, 33, True),
+                                 (33, 3, 2049, 9, True)):
             c, a, valid, q_lo, q_hi = wide_pair_case(rng, Q, k, s, d,
-                                                     nan=True)
+                                                     nan=True, many=many)
             e = weighted_chunk_check(
-                torch, f"wide rows 3, 4 d={d} Q={Q} k={k} s={s} R={R}",
+                torch, f"wide rows 3, 4 d={d} Q={Q} k={k} s={s} R={R} "
+                f"many={many}",
                 *(T(x) for x in (c, a, valid, wide_weights(rng, R, k, s),
-                                 q_lo, q_hi)))
+                                 q_lo, q_hi)), base=wbase)
             errs["bootstrap_moments"] = max(errs["bootstrap_moments"], e)
             cases["bootstrap_moments"] += 1
+            cases["weighted_baseline_bits"] += wbase is not None
         for B, k in ((1000, 257), (4096, 1024)):
             route_vs_plain(torch, f"wide route_multid d={d} B={B} k={k}",
                            *(T(x) for x in route_case(rng, B, k, d)))
@@ -8358,29 +8413,37 @@ def pair_turns(torch, tag, sm, base, times) -> None:
 
 def wide_answer_turns(torch, calls, base) -> dict:
     """Each of ``calls`` ({name: (answer fn, reps, warmup)}) with this
-    checkout's rows 2 and 8 and with the baseline's, in turns (current,
-    baseline, baseline, current), by events. The baseline's libraries go in
-    as the wrappers' loaded ones (the same C entries), and each answer with
-    them must have the current answer's bits. Returns {<name>_current,
-    <name>_baseline: mean ms}."""
+    checkout's rows 2, 3, 4 and 8 and with the baseline's, in turns
+    (current, baseline, baseline, current), by events. The baseline's
+    libraries go in as the wrappers' loaded ones (the same C entries; rows
+    3 and 4 with the baseline's scratch size, its repro_weighted_scratch),
+    and each answer with them must have the current answer's bits.
+    Returns {<name>_current, <name>_baseline: mean ms}."""
     from repro_torch.kernels import sample_extremes as se
     from repro_torch.kernels import stratified_estimate as st
     from repro_torch.serve.coalescer import host_results
     st._kernel(), se._kernel()  # this checkout's, loaded before the swap
-    libs = {"current": (st._lib, se._lib),
-            "baseline": (base["stratified_moments"], base["sample_extremes"])}
+    st.weighted_library()
+    wb = base["weighted_moments"]
+    libs = {"current": (st._lib, se._lib, st._wlib,
+                        st.weighted_scratch_floats),
+            "baseline": (base["stratified_moments"], base["sample_extremes"],
+                         wb, lambda R, Q, k, s, d: int(
+                             wb.repro_weighted_scratch(R, Q, k, s, d)))}
     want = {n: host_results(fn()) for n, (fn, _, _) in calls.items()}
     runs = {f"{n}_{who}": [] for n in calls for who in libs}
     try:
         for who in ("current", "baseline", "baseline", "current"):
-            st._lib, se._lib = libs[who]
+            (st._lib, se._lib, st._wlib,
+             st.weighted_scratch_floats) = libs[who]
             for n, (fn, reps, warmup) in calls.items():
-                require_same(f"wide24 {n} with the {who} rows 2 and 8",
+                require_same(f"wide24 {n} with the {who} rows 2-4 and 8",
                              host_results(fn()), want[n], tuple(want[n]))
                 runs[f"{n}_{who}"].append(cuda_ms(torch, fn, reps=reps,
                                                   warmup=warmup))
     finally:
-        st._lib, se._lib = libs["current"]
+        (st._lib, se._lib, st._wlib,
+         st.weighted_scratch_floats) = libs["current"]
     out = {key: statistics.mean(v) for key, v in runs.items()}
     emit(check="wide24 answers in turns with the baseline", **out, runs=runs,
          answers_bit_equal=True)
@@ -8404,7 +8467,8 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
                                                      sample_extremes_plain)
     from repro_torch.kernels.stratified_estimate import (
         stratified_moments_cuda, stratified_moments_plain,
-        stratified_weighted_moments_cuda, weighted_moments_plain)
+        stratified_weighted_moments_cuda, weighted_moments_plain,
+        weighted_walk)
     syn, q = run["syn"], run["q"]
     sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
     qe = (syn.leaf_lo, syn.leaf_hi, syn.leaf_agg, q.lo, q.hi)
@@ -8412,6 +8476,11 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
     rel, _ = query_eval_cuda(*qe)
     classes = pair_classes(torch, syn.sample_c, syn.sample_valid, q.lo, q.hi,
                            chunk=64)
+    # Every MAYBE pair of a launch at d > 16 goes to its one group walk:
+    # the mixed pairs are those with a relevant slot.
+    _, s, d = syn.sample_c.shape
+    walk_pairs = {f"R={R}": {weighted_walk(R, s, d): classes["mixed"]}
+                  for R in (1, N_BOOT)}
     bnd = bounds(syn, q, rel, classes)
     bnd.update(boot_bounds(syn, q, classes, N_BOOT, 0))
     del bnd["weighted_segment_reduce"]
@@ -8473,17 +8542,24 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
     times["bootstrap_moments_plain_queries"] = PLAIN_BOOT_Q
     if base is not None and base["stratified_moments"].wide:
         pair_turns(torch, "wide24", (*sm, q.lo, q.hi), base, times)
+        # Rows 3 and 4 bit-equal to the baseline's, then in turns.
+        turns = weighted_turns(torch, "wide24", sm, W, q.lo, q.hi, base)
+        for name, row in turns.items():
+            times[f"{name}_device_in_turns"] = row["kernel_device_ms"]
+            times[f"{name}_baseline_device"] = row["baseline_device_ms"]
+        torch.cuda.empty_cache()
     t_lib = time.perf_counter()
     lib_err = wide_bmm_times(torch, syn, q, W, times)
     lib_s = time.perf_counter() - t_lib
     Q, dq = q.lo.shape
     emit(phase="30 wide kernel times", times_ms=times, bounds=bnd,
-         pair_classes=classes, max_abs_err=errs,
+         pair_classes=classes, max_abs_err=errs, walk_pairs=walk_pairs,
          bmm_max_abs_err_vs_kernel=lib_err, bmm_s=lib_s,
          profile_windows_retried=PROFILE_RETRIES["windows"], Q=int(Q),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]), d=int(dq),
          R=N_BOOT, route_B=int(cb.shape[0]), card=card)
-    return {"times": times, "bounds": bnd, "classes": classes, "errs": errs}
+    return {"times": times, "bounds": bnd, "classes": classes, "errs": errs,
+            "walk_pairs": walk_pairs}
 
 
 def bmm_yardstick(torch, tag, sm, q, rhs, ker, times, reps=30) -> float:
@@ -8555,20 +8631,26 @@ WIDE_US_S = 38_500
 
 
 def wide_us_times(torch, c, a, q, card, base=None) -> dict:
-    """30, the chunk path: rows 2 and 8 at k = 1, s = WIDE_US_S (a uniform
-    sample of the wide table's rows, every slot valid), d = 24, Q =
-    WIDE_Q: held to plain (over query chunks; row 2 counts exact, sums
-    within K_RTOL / K_ATOL, row 8 bit for bit) and, with a baseline that
-    has wide kernels, to its bits; CUDA-event and device ms of each
-    kernel, in turns with the baseline's; torch.bmm of the prebuilt (1, Q,
-    s) predicate against [1, a, a^2] (bmm_yardstick, held to the kernel)
-    by events and on the device; the bounds (bounds(), this run's pair
-    classes)."""
+    """30, the chunk path: rows 2, 8, 3 and 4 at k = 1, s = WIDE_US_S (a
+    uniform sample of the wide table's rows, every slot valid), d = 24, Q
+    = WIDE_Q, rows 3 and 4 with the fused bootstrap's weights
+    (boot_weights): held to plain (over query chunks; row 2 counts exact,
+    sums within K_RTOL / K_ATOL, row 8 bit for bit, rows 3 and 4 within
+    K_RTOL / K_ATOL, row 4 on the first PLAIN_BOOT_Q queries) and, with a
+    baseline that has wide kernels, to its bits; CUDA-event and device ms
+    of each kernel, in turns with the baseline's (pair_turns,
+    weighted_turns); torch.bmm of the prebuilt (1, Q, s) predicate against
+    [1, a, a^2] and [w, wa, wa^2] of W[0] and of W (bmm_yardstick, held to
+    rows 2 and 3) by events and on the device; the bounds (bounds() with
+    this run's pair classes, walk_bound for rows 3 and 4)."""
     import types
+    from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
+                                               bootstrap_moments_plain)
     from repro_torch.kernels.sample_extremes import (sample_extremes_cuda,
                                                      sample_extremes_plain)
     from repro_torch.kernels.stratified_estimate import (
-        stratified_moments_cuda, stratified_moments_plain)
+        stratified_moments_cuda, stratified_moments_plain,
+        stratified_weighted_moments_cuda, weighted_moments_plain)
     t0 = time.perf_counter()
     dev = q.lo.device
     rng = np.random.default_rng(WIDE_SEED + 38)
@@ -8606,18 +8688,51 @@ def wide_us_times(torch, c, a, q, card, base=None) -> dict:
         times[f"{name}_device"] = device_ms(
             torch, lambda fn=fn: fn(*sm, q.lo, q.hi), reps=10, one_op=True,
             tries=PROFILE_TRIES)
-    if base is not None and base["stratified_moments"].wide:
+    wide_base = base is not None and base["stratified_moments"].wide
+    if wide_base:
         pair_turns(torch, "wide US", (*sm, q.lo, q.hi), base, times)
     del want
+    # Rows 3 and 4: above one chunk the query walk takes every MAYBE pair.
+    W = boot_weights(torch, shim, dev)
+    w0 = W[0].contiguous()
+    one = stratified_weighted_moments_cuda(*sm, w0, q.lo, q.hi)
+    n = PLAIN_BOOT_Q
+    werr = {
+        "stratified_weighted_moments": close(
+            "wide US stratified_weighted_moments", one.cpu(), chunked_plain(
+                torch, weighted_moments_plain, (*sm, w0), q.lo, q.hi,
+                step).cpu(), K_RTOL, K_ATOL),
+        "bootstrap_moments": close(
+            f"wide US bootstrap_moments Q={n}", bootstrap_moments_cuda(
+                *sm, W, q.lo[:n], q.hi[:n]).cpu(),
+            bootstrap_moments_plain(*sm, W, q.lo[:n], q.hi[:n]).cpu(),
+            K_RTOL, K_ATOL)}
+    turns = weighted_turns(torch, "wide US", sm, W, q.lo, q.hi,
+                           base if wide_base else None)
+    for name, row in turns.items():
+        times[name] = row["kernel_ms"]
+        times[f"{name}_device"] = row["kernel_device_ms"]
+        if wide_base:
+            times[f"{name}_device_in_turns"] = row["kernel_device_ms"]
+            times[f"{name}_baseline_device"] = row["baseline_device_ms"]
+    for name, R in (("stratified_weighted_moments", 1),
+                    ("bootstrap_moments", int(W.shape[0]))):
+        bnd[name] = walk_bound(torch, sm[0], sm[2], q.lo, q.hi, R, step)
+    torch.cuda.empty_cache()
+    ones = torch.ones_like(sm[1])[None]
     lib_err = bmm_yardstick(
         torch, "wide US", sm, q,
-        {"stratified_moments": bmm_rhs(torch, torch.ones_like(sm[1])[None],
-                                       sm[1])},
-        {"stratified_moments": got}, times, reps=10)
-    del got
+        {"stratified_moments": bmm_rhs(torch, ones, sm[1]),
+         "stratified_weighted_moments": bmm_rhs(torch, w0[None], sm[1]),
+         "bootstrap_moments": bmm_rhs(torch, W, sm[1])},
+        {"stratified_moments": got, "stratified_weighted_moments": one},
+        times, reps=10)
+    del got, one, W
     out = {"k": int(k), "s": int(s), "d": d, "Q": int(q.lo.shape[0]),
-           "times_ms": times, "bounds": bnd, "pair_classes": classes,
-           "max_abs_err": err, "bmm_max_abs_err_vs_kernel": lib_err,
+           "R": N_BOOT, "times_ms": times, "bounds": bnd,
+           "pair_classes": classes, "max_abs_err": err,
+           "weighted_max_abs_err": werr,
+           "bmm_max_abs_err_vs_kernel": lib_err,
            "seconds": time.perf_counter() - t0}
     emit(phase="30 wide chunk path", card=card, **out)
     return out
@@ -8728,7 +8843,7 @@ def wide_path(torch, card, base=None) -> dict:
     (module doc): answer (rows 1, 2, 8), the fused and the scan bootstrap
     (rows 10, 4, 3), a 4096-row stream (rows 10, 5, 7), a join answer
     (rows 1, 9, 11); each window's launches read right after it; rows'
-    times and bounds at d = 24; rows 2 and 8 on the chunk path
+    times and bounds at d = 24; rows 2, 8, 3 and 4 on the chunk path
     (wide_us_times)."""
     from repro_torch.core.types import QueryBatch
     from repro_torch.data.synthetic import nyc_taxi
@@ -8772,7 +8887,9 @@ def wide_path(torch, card, base=None) -> dict:
             "route_multid": s_run["launches"]["route_multid"]}
     calls = {"answer": (lambda: run["eng"].answer(run["q"]), 10, 2),
              "answer_bootstrap_fused": (lambda: boot["eng"].answer(run["q"]),
-                                        5, 1)}
+                                        5, 1),
+             "answer_bootstrap_scan": (
+                 lambda: boot["scan_eng"].answer(run["q"]), 2, 1)}
     times = {n: cuda_ms(torch, fn, reps=reps, warmup=warmup)
              for n, (fn, reps, warmup) in calls.items()}
     if base is not None and base["stratified_moments"].wide:
@@ -8842,11 +8959,13 @@ def wide_rows(wide, edge) -> list:
     out[1]["wide"]["pair_classes"] = kt["classes"]
     us = wide["us"]
     for r in out[1:3]:
-        name, ut = r["name"], us["times_ms"]
+        name = r["name"]
         r["wide"].update({
             key: t.get(f"{name}_{key}") for key in (
                 "in_turns", "device_in_turns", "baseline",
                 "baseline_device")})
+    for r in out[1:5]:
+        name, ut = r["name"], us["times_ms"]
         r["wide"]["chunk_path"] = {
             "k": us["k"], "s": us["s"], "d": us["d"], "Q": us["Q"],
             "ms": ut[name], "device_ms": ut[f"{name}_device"],
@@ -8858,6 +8977,13 @@ def wide_rows(wide, edge) -> list:
                 "device_in_turns", "baseline_device")}}
     out[1]["wide"]["baseline_bit_equal_cases"] = edge["cases"][
         "baseline_bits"]
+    for r in out[3:5]:
+        name = r["name"]
+        r["wide"].update(
+            walk_pairs=kt["walk_pairs"],
+            device_in_turns=t.get(f"{name}_device_in_turns"),
+            baseline_device=t.get(f"{name}_baseline_device"),
+            baseline_bit_equal_cases=edge["cases"]["weighted_baseline_bits"])
     jt = j["times_ms"]
     out.append({"name": "join_cell_moments", "wide": {
         "d": WIDE_D + 1, "launches": j["launches"]["join_cell_moments"],
@@ -8889,9 +9015,9 @@ def check_plan_constants() -> None:
     their scratch, rows 3 and 4's slot chunk (on which their bits rest
     above it), the pairs from which their walk stages a segment and the R
     up to which its lanes take pairs, segments a tile, shared memory and
-    scratch, row 9's query
-    and cell tiles and scratch, and the length of row 10's Poisson
-    table."""
+    scratch, above 16 columns their group walk (lane layout, segments a
+    group), row 9's query and cell tiles and scratch, and the length of
+    row 10's Poisson table."""
     from repro_torch.kernels import native
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
                                                 QE_THREADS)
@@ -8905,7 +9031,7 @@ def check_plan_constants() -> None:
         SEG_MAX_CHUNKS, SEG_MIN_ROWS, WSEG_MAX_CHUNKS, segment_plan)
     from repro_torch.kernels.stratified_estimate import (
         PAIR_CHUNK, WEIGHTED_CHUNK, WEIGHTED_PAIR_R, _WSTAGE,
-        pair_scratch_floats, weighted_library, weighted_plan,
+        pair_scratch_floats, weighted_group, weighted_library, weighted_plan,
         weighted_scratch_floats)
     seg = native.library("segment_reduce")
     sm = native.library("stratified_moments")
@@ -8991,6 +9117,19 @@ def check_plan_constants() -> None:
             raise AssertionError(f"weighted kernels: the wrapper's plan or "
                                  f"scratch for {(R, Q, k, s, d)} is not the "
                                  "source's")
+    # Above 16 columns: the group walk's lane layout and segments a group.
+    gs, gbytes = ctypes.c_int(), ctypes.c_int()
+    wm.repro_weighted_group.argtypes = [ctypes.c_int] * 5 + \
+        [ctypes.POINTER(ctypes.c_int)] * 2
+    for R, s in ((200, 75), (1, 75), (8, 75), (9, 300), (33, 620),
+                 (33, 621), (200, 2049), (3, 40_000), (200, 0)):
+        reps = wm.repro_weighted_group(R, 2048, 1024, s, 24, ctypes.byref(gs),
+                                       ctypes.byref(gbytes))
+        got = ("replicates" if reps == 1 else "queries", gs.value)
+        if reps < 0 or got != weighted_group(R, s):
+            raise AssertionError(f"weighted kernels: the group walk at R={R} "
+                                 f"s={s} is {got} in the source, "
+                                 f"{weighted_group(R, s)} in the wrapper")
     jmo.repro_join_moments_scratch.argtypes = [ctypes.c_int]
     jmo.repro_join_moments_scratch.restype = ctypes.c_longlong
     for kp in (1, 15, 16_384):
@@ -9002,6 +9141,13 @@ def check_plan_constants() -> None:
         if segment_plan(n)[0] != seg.repro_segment_reduce_chunk(n):
             raise AssertionError(f"segment_reduce: the wrapper's chunk for "
                                  f"N={n} is not the source's")
+
+
+def print_ok(torch) -> None:
+    """The last line: {"ok": true, "device": {...}}."""
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
 
 
 def main(argv=None) -> int:
@@ -9082,6 +9228,7 @@ def main(argv=None) -> int:
              rows=[{"name": r["name"], **r["wide"]}
                    for r in wide_rows(wide, edge_wide)])
         print(card, flush=True)
+        print_ok(torch)
         return 0
     if args.table1_only:
         c1, a1 = nyc_taxi(scale=1.0)
@@ -9583,9 +9730,7 @@ def main(argv=None) -> int:
                                            "save3d_s", "restore3d_s")})
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print_ok(torch)
     return 0
 
 

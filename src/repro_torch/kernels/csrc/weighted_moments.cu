@@ -172,23 +172,44 @@
 // Any d. Up to MAX_D = 16 columns the box kernel keeps a segment's box in
 // registers, the tile kernel its queries' bounds in registers and its
 // segments' boxes and staged coordinate chunks in shared memory, all d
-// columns at once. Above 16 the wide instantiations (weighted_box_wide_
-// kernel, weighted_tile_kernel with D = -1) take the columns in blocks of
-// WIDE_COLS = 16 (wide_cols.cuh), so that shared memory and registers do
-// not grow with d: the box a block at a time (the valid bits with the
-// first); step 1's classes with the block's boxes in shared memory and
-// its bounds in registers, each pair's covered / apart bit ANDed / ORed
-// over the blocks; step 2 tests a pair's 32 slots of a word block by block
-// from L2 (nothing staged), then ANDs the valid bits as before. (Staging
-// the words' coordinates a column block at a time was 15 % slower for row
-// 3 at the 24-column serving shape on an H100: the walks, which never see
-// a coordinate, take its time there.) The masks,
-// classes and lists are the d <= 16 ones (the compares are exact), so the
-// walks, tiles and folds, which never see a coordinate, are unchanged and
+// columns at once. Above 16 a launch runs its own kernels (launch_wide),
+// whose registers and shared memory do not grow with d, and writes every
+// output float once, whole rows at a time:
+//  a. the totals kernel as above;
+//  b. weighted_box_wide_kernel: the box a column block of WIDE_COLS = 16
+//     at a time (wide_cols.cuh), the valid bits, the NaN flag and the NaN
+//     columns (a valid slot holds a NaN there);
+//  c. weighted_class_wide_kernel: each (query, segment) pair's class from
+//     the boxes a column block at a time, and a MAYBE pair's cut word: the
+//     columns that cut it (the query does not hold the box there, or a NaN
+//     column), CUT_ALL past CUT_MAX of them (wide_cols.cuh);
+//  d. weighted_test_wide_kernel: a MAYBE pair's slots tested on its cut
+//     columns only, a segment's run of TQ queries a block, the run's
+//     needed column blocks staged once for all its queries (a column whose
+//     extent the query holds changes no valid slot's bit: the masks are
+//     the all-column test's);
+//  e. a group walk over groups of up to GROUP segments and all Q queries,
+//     writing every float of the group's (replicate, query) rows: T for a
+//     covered pair, +0.0 for an empty one, the slot-order fold from +0.0
+//     of a MAYBE pair's mask (the MAYBE pairs with no slot inside give
+//     +0.0 too). With a lane a replicate (R > PAIR_R), a unit stages the
+//     weights of two neighbouring groups for WRB replicates once for every
+//     query; with a lane a query, the group's terms for one replicate. A
+//     group's 96-byte piece of a row goes out whole, and the replicate
+//     walk writes the two groups' pieces of a row back to back.
+// Design from a measured split (tools/wide_walk_split.py --target
+// weighted, PERF.md, PR 30): at the 24-column serving shape (26.6 % of
+// the pairs mixed) the previous wide path tested every MAYBE pair's slots
+// on all 24 columns from L2 (~2.3 ms of row 3's 2.5) and, at R = 200,
+// wrote its walks' 111 M results as 12-byte pieces, each a read-modify-
+// write of a DRAM sector (~7.1 ms of row 4's 12.8). Every (pair,
+// replicate) stays the slot-order fold of its relevant slots through
+// weighted_terms / weighted_add, so the bits are the d <= 16 launches' and
 // fused = scan holds at every d. No float atomics, no tensor cores
 // (no TF32): after the cover/empty split no large contraction is left to
-// feed them. The walk's unit counter and item list are integer atomics
-// that only order the work; no output depends on the order.
+// feed them. The walks' unit counters and the test kernel's needed-block
+// OR are integer atomics that only order or size the work; no output
+// depends on them.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -252,6 +273,12 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -296,9 +323,7 @@ struct Plan {
 long long align16(long long x) { return (x + 15) & ~15LL; }
 
 bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
-  if (R < 1 || Q < 1 || k < 1 || s < 0 || d < 1) return false;
-  // Above MAX_D columns: boxes a column block, no staged coordinates.
-  const bool wide = d > MAX_D;
+  if (R < 1 || Q < 1 || k < 1 || s < 0 || d < 1 || d > MAX_D) return false;
   const long long n_ch = s > CHUNK ? (s + (long long)CHUNK - 1) / CHUNK : 1;
   const long long K = (long long)k * n_ch;
   if (K > (long long)MAX_GRID_Y * LEAF_T) return false;
@@ -306,7 +331,7 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
   const int nw = (cs + 31) / 32;
   // Coordinate chunks of at most 2 KB, at least one segment a warp.
   int sl = 32;
-  while (!wide && sl > 8 && sl * 32 * d * 4 > 2048) sl /= 2;
+  while (sl > 8 && sl * 32 * d * 4 > 2048) sl /= 2;
   for (int lt = LT_MAX; lt >= 1; lt /= 2) {
     Plan p;
     p.seg = Segs{s, (int)n_ch};
@@ -319,9 +344,8 @@ bool make_plan(int R, int Q, int k, int s, int d, Plan* plan) {
     p.sl = sl < lt ? sl : lt;
     long long off = 0;
     p.off_t = (int)off;    off = align16(off + 2LL * RB_MAX * lt * 12);
-    p.off_box = (int)off;
-    off = align16(off + 8LL * lt * (wide ? WIDE_COLS : d));
-    p.off_c = (int)off;    off = align16(off + (wide ? 0 : 8LL * p.sl * 32 * d));
+    p.off_box = (int)off;  off = align16(off + 8LL * lt * d);
+    p.off_c = (int)off;    off = align16(off + 8LL * p.sl * 32 * d);
     p.off_mask = (int)off; off = align16(off + 4LL * nw * lt * QT);
     p.off_cls = (int)off;  off = align16(off + (long long)QT * lt);
     p.off_meta = (int)off; off = align16(off + 4LL * (3 * LT_MAX + 1));
@@ -504,21 +528,25 @@ weighted_box_kernel(const float* __restrict__ c,
 }
 
 // weighted_box_kernel at d > MAX_D: the same box, bits and flag, the
-// columns a block of WIDE_COLS at a time (the valid bits with the first).
+// columns a block of WIDE_COLS at a time (the valid bits with the first),
+// and the segment's NaN columns, bit j % 32 of word j / 32 of nanw (ncw
+// words a segment) set iff a valid slot holds a NaN in column j: the
+// columns that cut every pair of the segment (wide_cols.cuh).
 template <bool CH>
 __global__ void __launch_bounds__(LEAF_T)
 weighted_box_wide_kernel(const float* __restrict__ c,
                          const uint8_t* __restrict__ valid,
                          float* __restrict__ box, uint32_t* __restrict__ vbits,
-                         int* __restrict__ nan_flag, int* __restrict__ ctr,
-                         Segs seg, int K, int nw, int d) {
+                         int* __restrict__ nan_flag,
+                         uint32_t* __restrict__ nanw, int* __restrict__ ctr,
+                         Segs seg, int K, int nw, int ncw, int d) {
   const int g = blockIdx.x * (LEAF_T / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (blockIdx.x == 0 && threadIdx.x < 4) ctr[threadIdx.x] = 0;
   if (g >= K) return;
   const size_t base = seg.base<CH>(g);
   const int len = seg.len<CH>(g);
-  bool nan = false;
+  uint32_t word = 0u, flag = 0u;  // NaN columns of the current 32, of all
   for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
     const int nj = min(WIDE_COLS, d - j0);
     float lo[WIDE_COLS], hi[WIDE_COLS];
@@ -527,6 +555,7 @@ weighted_box_wide_kernel(const float* __restrict__ c,
       lo[j] = __int_as_float(0x7f800000);
       hi[j] = -lo[j];
     }
+    uint32_t nan = 0u;  // this lane's NaN columns of the block
     for (int w = 0; w < nw; ++w) {
       const int i = w * 32 + lane;
       const bool v = i < len && valid[base + i] != 0;
@@ -539,12 +568,18 @@ weighted_box_wide_kernel(const float* __restrict__ c,
         for (int j = 0; j < WIDE_COLS; ++j) {
           if (j < nj) {
             const float x = c[(base + i) * d + j0 + j];
-            nan |= x != x;
+            nan |= (uint32_t)(x != x) << j;
             lo[j] = fminf(lo[j], x);
             hi[j] = fmaxf(hi[j], x);
           }
         }
       }
+    }
+    word |= __reduce_or_sync(0xffffffffu, nan) << (j0 & 31);
+    if ((j0 & 31) != 0 || j0 + WIDE_COLS >= d) {
+      if (lane == 0) nanw[(size_t)g * ncw + (j0 >> 5)] = word;
+      flag |= word;
+      word = 0u;
     }
 #pragma unroll
     for (int j = 0; j < WIDE_COLS; ++j) {
@@ -560,8 +595,7 @@ weighted_box_wide_kernel(const float* __restrict__ c,
       }
     }
   }
-  nan = __any_sync(0xffffffffu, nan);
-  if (lane == 0) nan_flag[g] = nan;
+  if (lane == 0) nan_flag[g] = flag != 0u;
 }
 
 // One block per tile of QT queries x LT segments: classes, the mixed
@@ -569,7 +603,7 @@ weighted_box_wide_kernel(const float* __restrict__ c,
 // covered pairs and +0.0 elsewhere, into `out` (R, Q, K, 3): the output
 // itself at one segment a leaf, the partials above. VW floats per store (4
 // when K and LT are multiples of 4, else 1); D > 0 fixes d at compile
-// time, D = 0 takes d up to MAX_D, D = -1 any d in column blocks.
+// time, D = 0 takes d up to MAX_D (above it launch_wide).
 template <int VW, int D, bool CH>
 __global__ void __launch_bounds__(NT, TILE_BLOCKS)
 weighted_tile_kernel(const float* __restrict__ c,
@@ -603,10 +637,8 @@ weighted_tile_kernel(const float* __restrict__ c,
   const int nq = min(QT, Q - q0), nl = min(LT, K - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  if constexpr (D >= 0) {
-    for (int i = tid; i < nl * 2 * d; i += NT)
-      s_box[i] = box[(size_t)g0 * 2 * d + i];
-  }
+  for (int i = tid; i < nl * 2 * d; i += NT)
+    s_box[i] = box[(size_t)g0 * 2 * d + i];
   for (int i = tid; i < LT_MAX; i += NT) s_flag[i] = 0;
   const bool q_active = lane < nq;
   float ql[MAX_D], qh[MAX_D];
@@ -635,74 +667,24 @@ weighted_tile_kernel(const float* __restrict__ c,
   // covered iff the box holds every valid sample and none is NaN, empty
   // iff it is apart from them in some column, else MAYBE until the slots
   // are tested.
-  if constexpr (D < 0) {
-    // The columns in blocks of WIDE_COLS: the block's boxes in s_box, its
-    // bounds in ql / qh; bit l of in_m / ap_m: segment l inside the
-    // query's box in every block so far / apart in some block.
-    uint32_t in_m = 0u, ap_m = 0u;
-    for (int l = warp; l < LT; l += NT / 32)
-      if (l < nl && q_active && nan_flag[g0 + l] == 0) in_m |= 1u << l;
-    for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
-      const int nj = min(WIDE_COLS, d - j0);
-      __syncthreads();  // the previous block's boxes are read
-      for (int i = tid; i < nl * 2 * nj; i += NT) {
-        const int l = i / (2 * nj), r = i - l * 2 * nj;
-        const int side = r / nj, j = r - side * nj;
-        s_box[(l * 2 + side) * WIDE_COLS + j] =
-            box[(size_t)(g0 + l) * 2 * d + (size_t)side * d + j0 + j];
-      }
+  for (int l = warp; l < LT; l += NT / 32) {
+    uint8_t cls = EMPTY;
+    if (l < nl && q_active) {
+      const float* bl = s_box + l * 2 * d;
+      bool inside = nan_flag[g0 + l] == 0, apart = false;
 #pragma unroll
       for (int j = 0; j < MAX_D; ++j) {
-        const bool on = q_active && j < nj;
-        ql[j] = on ? q_lo[(size_t)(q0 + lane) * d + j0 + j] : 0.f;
-        qh[j] = on ? q_hi[(size_t)(q0 + lane) * d + j0 + j] : 0.f;
-      }
-      __syncthreads();
-      for (int l = warp; l < LT; l += NT / 32) {
-        if (l < nl && q_active) {
-          const float* bl = s_box + l * 2 * WIDE_COLS;
-          bool inside = true, apart = false;
-#pragma unroll
-          for (int j = 0; j < MAX_D; ++j) {
-            if (j < nj) {
-              const float lo = bl[j], hi = bl[WIDE_COLS + j];
-              inside &= (ql[j] <= lo) & (hi <= qh[j]);
-              apart |= (qh[j] < lo) | (hi < ql[j]);
-            }
-          }
-          if (!inside) in_m &= ~(1u << l);
-          if (apart) ap_m |= 1u << l;
+        if (j < d) {
+          const float lo = bl[j], hi = bl[d + j];
+          inside &= (ql[j] <= lo) & (hi <= qh[j]);
+          apart |= (qh[j] < lo) | (hi < ql[j]);
         }
       }
+      cls = inside ? COVERED : apart ? EMPTY : MAYBE;
     }
-    for (int l = warp; l < LT; l += NT / 32) {
-      uint8_t cls = EMPTY;
-      if (l < nl && q_active)
-        cls = (in_m >> l) & 1u ? COVERED : (ap_m >> l) & 1u ? EMPTY : MAYBE;
-      s_cls[lane * LT + l] = cls;
-      const bool any = __any_sync(0xffffffffu, cls == MAYBE);
-      if (any && lane == 0) s_flag[l] = 1;
-    }
-  } else {
-    for (int l = warp; l < LT; l += NT / 32) {
-      uint8_t cls = EMPTY;
-      if (l < nl && q_active) {
-        const float* bl = s_box + l * 2 * d;
-        bool inside = nan_flag[g0 + l] == 0, apart = false;
-#pragma unroll
-        for (int j = 0; j < MAX_D; ++j) {
-          if (j < d) {
-            const float lo = bl[j], hi = bl[d + j];
-            inside &= (ql[j] <= lo) & (hi <= qh[j]);
-            apart |= (qh[j] < lo) | (hi < ql[j]);
-          }
-        }
-        cls = inside ? COVERED : apart ? EMPTY : MAYBE;
-      }
-      s_cls[lane * LT + l] = cls;
-      const bool any = __any_sync(0xffffffffu, cls == MAYBE);
-      if (any && lane == 0) s_flag[l] = 1;
-    }
+    s_cls[lane * LT + l] = cls;
+    const bool any = __any_sync(0xffffffffu, cls == MAYBE);
+    if (any && lane == 0) s_flag[l] = 1;
   }
   __syncthreads();
   if (warp == 0) {
@@ -725,10 +707,10 @@ weighted_tile_kernel(const float* __restrict__ c,
   // double-buffered. A segment shorter than the tile's longest has no
   // slots in its last words: nothing is loaded or tested there.
   const int SL = p.sl;
-  const int row_f = D < 0 ? 0 : 32 * d;  // the wide kernel stages nothing
+  const int row_f = 32 * d;
   const int n_stage = (n_maybe + SL - 1) / SL * NW;
   auto stage = [&](int t) {
-    if (D >= 0 && t < n_stage) {
+    if (t < n_stage) {
       const int gr = t / NW, ch = t - gr * NW;
       const int gl = min(SL, n_maybe - gr * SL);
       float* dst = s_c + (t & 1) * SL * row_f;
@@ -762,24 +744,17 @@ weighted_tile_kernel(const float* __restrict__ c,
         uint32_t bits = 0;
         if (test) {
           const uint32_t vb = vbits[(size_t)(g0 + l) * NW + ch];
-          if constexpr (D < 0) {
-            const size_t qr = (size_t)(q0 + lane) * d;
-            bits = slots_inside_wide(
-                c + (seg.base<CH>(g0 + l) + ch * 32) * d, n, d, q_lo + qr,
-                q_hi + qr);
-          } else {
-            const float* cl = cs + gl * row_f;
-            for (int b = 0; b < n; ++b) {
-              bool in = true;
+          const float* cl = cs + gl * row_f;
+          for (int b = 0; b < n; ++b) {
+            bool in = true;
 #pragma unroll
-              for (int j = 0; j < MAX_D; ++j) {
-                if (j < d) {
-                  const float x = cl[b * d + j];
-                  in &= (ql[j] <= x) & (x <= qh[j]);
-                }
+            for (int j = 0; j < MAX_D; ++j) {
+              if (j < d) {
+                const float x = cl[b * d + j];
+                in &= (ql[j] <= x) & (x <= qh[j]);
               }
-              bits |= (uint32_t)in << b;
             }
+            bits |= (uint32_t)in << b;
           }
           bits &= vb;
         }
@@ -1270,6 +1245,782 @@ weighted_fold_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Any d above MAX_D (design in the header, "Any d"): weighted_box_wide_
+// kernel, weighted_class_wide_kernel, weighted_test_wide_kernel and a group
+// walk that writes every float of the output.
+
+constexpr int GROUP = 8;         // segments a walk group, at most
+constexpr int WRB = 32;          // replicates a unit of the replicate walk
+constexpr int REPS_STAGE = 81920;  // bytes of a group's staged weights, most
+constexpr int QRY_STAGE = 98304;   // bytes of a group's staged terms, most
+constexpr int GW_T = 256;        // threads a group-walk block: 8 warps
+constexpr int QRY_UNITS = 1024;  // query-walk units a launch, at least
+constexpr int GW_WARPS = GW_T / 32;
+constexpr int REPS_T = 512;      // threads of the replicate walk's one block
+constexpr int REPS_WARPS = REPS_T / 32;  // an SM
+// Floats a row of the store buffer: 16-byte rows, so that a group's 3 *
+// GROUP floats go in and out as float4s.
+constexpr int ROW_PITCH = 3 * GROUP + 4;
+constexpr int TQ = 512;          // queries (threads) a test-kernel block
+constexpr int TB = 32;           // columns a staged block of the test kernel
+constexpr int XP = TB + 1;       // floats a staged slot row: no conflict
+constexpr int WG = 4;            // words a stage of the test kernel
+constexpr int NP = 2;            // pairs a round of the test kernel's tests
+static_assert(ROW_PITCH % 4 == 0 && (3 * GROUP) % 4 == 0,
+              "a group's row is whole float4s");
+
+// A launch at d > MAX_D: its segments, class tiles of QT queries x LT_MAX
+// segments, walk groups, scratch layout (4-byte words) and the walk's
+// dynamic shared memory.
+struct WPlan {
+  Segs seg;
+  int K, nw, ncw;        // segments; mask words of a segment; NaN words
+  int n_qt, n_tiles;
+  int gs, n_groups, reps;  // segments a group; groups; 1: a lane a replicate
+  int parts;               // query walk: a (group, replicate)'s query parts
+  size_t box, vbits, nan, nanw, ctr, cls, mask, cut, part, floats;
+  int walk_bytes;
+};
+
+bool make_wide_plan(int R, int Q, int k, int s, int d, WPlan* plan) {
+  if (R < 1 || Q < 1 || k < 1 || s < 0 || d <= MAX_D) return false;
+  const long long n_ch = s > CHUNK ? (s + (long long)CHUNK - 1) / CHUNK : 1;
+  const long long K = (long long)k * n_ch;
+  if (K > (long long)MAX_GRID_Y * LEAF_T) return false;
+  WPlan p;
+  p.seg = Segs{s, (int)n_ch};
+  p.K = (int)K;
+  const int len = s < CHUNK ? s : CHUNK;  // slots of the longest segment
+  p.nw = (len + 31) / 32;
+  p.ncw = (d + 31) / 32;
+  const long long n_qt = (Q + QT - 1) / QT, n_lt = (K + LT_MAX - 1) / LT_MAX;
+  if (n_qt * n_lt > INT_MAX) return false;
+  p.n_qt = (int)n_qt;
+  p.n_tiles = (int)(n_qt * n_lt);
+  // The replicate walk (R > PAIR_R) while a group's weights fit, its mask
+  // words in a warp's lanes; else the query walk, one replicate a unit.
+  // A group fits only segments of at most 620 slots, so the query walk
+  // serves every launch above one chunk (launch_wide<true>).
+  const long long ls = len > 0 ? len : 1;
+  int gs = GROUP;
+  while (gs > 0 && (gs * ls * (WRB + 1) * 4 > REPS_STAGE || gs * p.nw > 32))
+    gs /= 2;
+  p.reps = R > PAIR_R && gs > 0;
+  if (!p.reps)
+    for (gs = GROUP; gs > 1 && gs * ls * 16 > QRY_STAGE;) gs /= 2;
+  p.gs = gs;
+  p.n_groups = (int)((K + gs - 1) / gs);
+  // The query walk's units at least QRY_UNITS where the queries allow (a
+  // part at least a batch of 32 queries a warp): at R = 1 the groups alone
+  // would leave most of the card idle.
+  const long long gr = (long long)p.n_groups * R;
+  const long long want = (QRY_UNITS + gr - 1) / gr;
+  const long long most = (Q + GW_T - 1) / GW_T;
+  p.parts = (int)(gr >= QRY_UNITS ? 1 : want < most ? want : most);
+  p.box = (size_t)R * K * 3;
+  p.vbits = p.box + (size_t)K * 2 * d;
+  p.nan = p.vbits + (size_t)K * p.nw;
+  p.nanw = p.nan + K;
+  // The walk's unit counter (64-bit) from a multiple of 4 floats.
+  p.ctr = (p.nanw + (size_t)K * p.ncw + 3) & ~(size_t)3;
+  p.cls = p.ctr + 4;
+  p.mask = p.cls + ((size_t)K * Q + 3) / 4;
+  // The MAYBE pairs' cut words (8 bytes each) from a multiple of 2 floats.
+  p.cut = (p.mask + (size_t)K * p.nw * Q + 1) & ~(size_t)1;
+  const size_t end = p.cut + 2 * (size_t)K * Q;
+  p.part = (end + 3) & ~(size_t)3;
+  p.floats = n_ch > 1 ? p.part + (size_t)R * Q * K * 3 : end;
+  // The replicate walk stages two groups a unit, for REPS_WARPS warps.
+  p.walk_bytes = p.reps
+      ? 4 * (((2 * gs * (int)ls * (WRB + 2) + 2 * gs * WRB * 3 + 3) & ~3) +
+             REPS_WARPS * 32 * ROW_PITCH)
+      : 16 * gs * (int)ls + 4 * (GROUP * 3 + GW_WARPS * 32 * ROW_PITCH);
+  *plan = p;
+  return true;
+}
+
+// One block per tile of QT queries (lane) x LT_MAX segments (warp w: w,
+// w + 8, ...): each pair's class into cls [segment][query] (EMPTY,
+// COVERED, MAYBE) and a MAYBE pair's cut word into cut [segment][query].
+// Classes a column block at a time (the block's bounds and boxes in shared
+// memory), each pair's inside / apart bit ANDed / ORed over the blocks,
+// and its cut columns (not held, or NaN on a valid slot) appended to its
+// cut word in registers (wide_cols.cuh).
+template <bool CH>
+__global__ void __launch_bounds__(NT, TILE_BLOCKS)
+weighted_class_wide_kernel(const float* __restrict__ q_lo,
+                           const float* __restrict__ q_hi,
+                           float* __restrict__ scratch, int Q, int d,
+                           WPlan p) {
+  // [lo, hi][QT][QP]: a query's row of the block's bounds, padded so that
+  // the lanes' reads of one column hit 32 banks.
+  constexpr int QP = WIDE_COLS + 1;
+  __shared__ float s_q[2 * QT * QP];
+  __shared__ float s_box[LT_MAX * 2 * WIDE_COLS];    // [segment][lo, hi][cols]
+  __shared__ float s_tb[2 * WIDE_COLS];  // the tile's box: its boxes folded
+  const float* box = scratch + p.box;
+  const int* nan_flag = (const int*)(scratch + p.nan);
+  const uint32_t* nanw = (const uint32_t*)(scratch + p.nanw);
+  uint8_t* cls = (uint8_t*)(scratch + p.cls);
+  uint64_t* cut_w = (uint64_t*)(scratch + p.cut);
+  const int K = p.K;
+  const int tile = blockIdx.x;
+  const int q0 = (tile % p.n_qt) * QT;
+  const int g0 = (tile / p.n_qt) * LT_MAX;
+  const int nq = min(QT, Q - q0), nl = min(LT_MAX, K - g0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int q = q0 + lane;
+  const bool q_on = lane < nq;
+  const bool keep_cuts = d <= CUT_COLS;
+  constexpr int PL = LT_MAX / (NT / 32);  // pairs a thread
+  // Bit i: pair (lane, warp + 8 i) inside in every block so far / apart in
+  // some block.
+  uint32_t in_m = 0u, ap_m = 0u;
+  uint64_t cw[PL];
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    const int l = warp + 8 * i;
+    cw[i] = keep_cuts ? CUT_NONE : CUT_ALL;
+    if (l < nl && q_on && nan_flag[g0 + l] == 0) in_m |= 1u << i;
+  }
+  for (int j0 = 0; j0 < d; j0 += WIDE_COLS) {
+    const int nj = min(WIDE_COLS, d - j0);
+    __syncthreads();  // the previous block's bounds and boxes are read
+    for (int i = tid; i < 2 * QT * WIDE_COLS; i += NT) {
+      const int side = i / (QT * WIDE_COLS), r = i - side * QT * WIDE_COLS;
+      const int qq = r / WIDE_COLS, j = r - qq * WIDE_COLS;
+      if (qq < nq && j < nj)
+        s_q[(side * QT + qq) * QP + j] =
+            (side ? q_hi : q_lo)[(size_t)(q0 + qq) * d + j0 + j];
+    }
+    for (int i = tid; i < nl * 2 * WIDE_COLS; i += NT) {
+      const int l = i / (2 * WIDE_COLS), r = i - l * 2 * WIDE_COLS;
+      const int side = r / WIDE_COLS, j = r - side * WIDE_COLS;
+      if (j < nj)
+        s_box[i] = box[(size_t)(g0 + l) * 2 * d + (size_t)side * d + j0 + j];
+    }
+    __syncthreads();
+    // The tile's box (fminf / fmaxf of its segments' boxes; an empty
+    // segment's +inf / -inf change nothing), a thread a (side, column).
+    if (tid < 2 * WIDE_COLS) {
+      const int side = tid / WIDE_COLS, j = tid % WIDE_COLS;
+      const float inf = __int_as_float(0x7f800000);
+      float x = side ? -inf : inf;
+      for (int l = 0; l < nl; ++l) {
+        const float y = s_box[l * 2 * WIDE_COLS + tid];
+        x = side ? fmaxf(x, y) : fminf(x, y);
+      }
+      if (j < nj) s_tb[tid] = x;
+    }
+    __syncthreads();
+    const float* ql = s_q + lane * QP;
+    const float* qh = s_q + (QT + lane) * QP;
+    // The block's columns where the query holds the tile's box: there it
+    // holds every segment's box and is apart from none but empty ones
+    // (which are covered whatever apart says), so the pairs' compares skip
+    // them (as rows 2 and 8's one pass does, pair_tiles.cuh).
+    uint32_t test = 0u;
+    for (int j = 0; j < nj; ++j)
+      test |= (uint32_t)!((ql[j] <= s_tb[j]) &
+                          (s_tb[WIDE_COLS + j] <= qh[j])) << j;
+#pragma unroll
+    for (int i = 0; i < PL; ++i) {
+      const int l = warp + 8 * i;
+      if (l < nl && q_on) {
+        const float* bl = s_box + l * 2 * WIDE_COLS;
+        uint32_t cut = 0u;  // the block's columns the query does not hold
+        bool apart = false;
+        for (uint32_t todo = test; todo != 0u; todo &= todo - 1u) {
+          const int j = __ffs(todo) - 1;
+          const float lo = bl[j], hi = bl[WIDE_COLS + j];
+          cut |= (uint32_t)!((ql[j] <= lo) & (hi <= qh[j])) << j;
+          apart |= (qh[j] < lo) | (hi < ql[j]);
+        }
+        if (cut != 0u) in_m &= ~(1u << i);
+        if (apart) ap_m |= 1u << i;
+        if (keep_cuts) {
+          cut |= (nanw[(size_t)(g0 + l) * p.ncw + (j0 >> 5)] >> (j0 & 31)) &
+                 ((1u << nj) - 1u);
+          for (; cut != 0u && cw[i] != CUT_ALL; cut &= cut - 1u)
+            cw[i] = add_cut(cw[i], j0 + __ffs(cut) - 1);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < PL; ++i) {
+    const int l = warp + 8 * i;
+    if (l < nl && q_on) {
+      const size_t at = (size_t)(g0 + l) * Q + q;
+      const bool maybe = !((in_m | ap_m) >> i & 1u);
+      cls[at] = (in_m >> i & 1u) ? COVERED : maybe ? MAYBE : EMPTY;
+      if (maybe) cut_w[at] = cw[i];
+    }
+  }
+}
+
+// The slot tests of the MAYBE pairs: one block per (segment, run of TQ
+// queries), a warp a run of 32 (lane = query), the runs along blockIdx.x
+// within a segment. The column blocks of TB columns that the run's MAYBE
+// pairs' cut words name (every block when one pair tests every column)
+// are staged a (word, block) at a time by cp.async, 32 slots x TB columns
+// row-major (rows of TB + 1 floats: a contiguous copy, and lane b's reads
+// of slot b hit no common bank), once for all the run's queries; lane b
+// then holds slot b, and for each (pair, cut column) of the block the warp
+// compares its 32 slots with the pair's bounds at once, the pair's lane
+// ANDing the ballot into its bits. A column whose extent the query holds
+// changes no valid slot's bit, so the masks, written to mask [segment]
+// [word][query], are the all-column test's ANDed with the valid bits.
+template <bool CH>
+__global__ void __launch_bounds__(TQ)
+weighted_test_wide_kernel(const float* __restrict__ c,
+                          const float* __restrict__ q_lo,
+                          const float* __restrict__ q_hi,
+                          float* __restrict__ scratch, int Q, int d,
+                          WPlan p) {
+  __shared__ float s_x[2][WG * 32 * XP];     // staged (words, block)s
+  __shared__ unsigned long long s_need[2];   // blocks 0-63 / past 63: all
+  __shared__ int s_any;
+  const uint32_t* vbits = (const uint32_t*)(scratch + p.vbits);
+  const uint8_t* cls = (const uint8_t*)(scratch + p.cls);
+  const uint64_t* cut_w = (const uint64_t*)(scratch + p.cut);
+  uint32_t* mask = (uint32_t*)(scratch + p.mask);
+  const int NW = p.nw;
+  const int n_run = (Q + TQ - 1) / TQ;
+  const int g = (int)(blockIdx.x / n_run);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int q = (int)(blockIdx.x % n_run) * TQ + tid;
+  if (tid < 2) s_need[tid] = 0ull;
+  if (tid == 0) s_any = 0;
+  __syncthreads();
+  const size_t at = (size_t)g * Q + q;
+  // Both loads in flight at once (a pair that is not MAYBE has no cut
+  // word written: its load's value goes unused).
+  const uint64_t cw_at = q < Q ? cut_w[at] : CUT_NONE;
+  const bool maybe = q < Q && cls[at] == MAYBE;
+  const uint64_t cw = maybe ? cw_at : CUT_NONE;
+  const bool every = maybe && cw == CUT_ALL;
+  const float inf = __int_as_float(0x7f800000);
+  const int nblk = (d + TB - 1) / TB;
+  int col[CUT_MAX];
+  float lo[CUT_MAX], hi[CUT_MAX];
+  uint64_t need = 0u;  // column blocks the pair needs
+#pragma unroll
+  for (int t = 0; t < CUT_MAX; ++t) {
+    const int j = cut_col(cw, t);
+    const bool use = maybe && !every && j < CUT_COLS;
+    col[t] = use ? j : -1;
+    lo[t] = use ? q_lo[(size_t)q * d + j] : inf;
+    hi[t] = use ? q_hi[(size_t)q * d + j] : -inf;
+    if (use) need |= 1ull << (j / TB);
+  }
+  // The run's needed blocks: a warp's OR, then one lane's atomic.
+  const bool all_w = __any_sync(0xffffffffu, every);
+  const bool any_w = __any_sync(0xffffffffu, maybe);
+  need = (uint64_t)__reduce_or_sync(0xffffffffu, (unsigned)(need >> 32))
+             << 32 |
+         __reduce_or_sync(0xffffffffu, (unsigned)need);
+  if (lane == 0) {
+    if (need != 0u) atomicOr(&s_need[0], (unsigned long long)need);
+    if (all_w) atomicOr(&s_need[1], 1ull);
+    if (any_w) s_any = 1;
+  }
+  __syncthreads();
+  if (s_any == 0) return;  // the same in every thread
+  const bool all = s_need[1] != 0u || nblk > 64;
+  const uint64_t need_run = s_need[0];
+  const size_t base = p.seg.base<CH>(g);
+  const int len = p.seg.len<CH>(g), nwd = (len + 31) / 32;
+  const int nb = all ? nblk : __popcll(need_run);
+  const int ngr = (nwd + WG - 1) / WG;  // groups of WG words
+  const int n_st = nb * ngr;  // stages (word group, needed block)
+  auto block_of = [&](int t) {
+    const int b = t % nb;
+    if (all) return b;
+    uint64_t m = need_run;  // its b-th set bit
+    for (int i = 0; i < b; ++i) m &= m - 1u;
+    return __ffsll((long long)m) - 1;
+  };
+  // Stage t into buffer t & 1, slot-major rows of XP floats: every
+  // thread's copies, then its commit.
+  auto stage = [&](int t) {
+    if (t < n_st) {
+      const int w0 = t / nb * WG, jc = block_of(t) * TB;
+      const int nj = min(TB, d - jc), n = min(WG * 32, len - w0 * 32);
+      float* dst = s_x[t & 1];
+      for (int i = tid; i < WG * 32 * TB; i += TQ) {
+        const int r = i / TB, cc = i - r * TB;
+        if (r < n && cc < nj)
+          cp_async4(dst + r * XP + cc,
+                    c + (base + w0 * 32 + r) * d + jc + cc);
+      }
+    }
+    cp_async_commit();
+  };
+  // The pair's bits of the group's words; lane b holds slot b of each.
+  uint32_t bits[WG];
+  stage(0);
+  for (int t = 0; t < n_st; ++t) {
+    stage(t + 1);
+    cp_async_wait<1>();
+    __syncthreads();  // stage t is in for every thread
+    const int w0 = t / nb * WG, jc = block_of(t) * TB, nj = min(TB, d - jc);
+    const int nwg = min(WG, nwd - w0);
+    if (t % nb == 0) {
+#pragma unroll
+      for (int k = 0; k < WG; ++k)
+        bits[k] = maybe && k < nwg ? vbits[(size_t)g * NW + w0 + k] : 0u;
+    }
+    uint32_t live = 0u;  // any word of the pair still holds a slot
+#pragma unroll
+    for (int k = 0; k < WG; ++k) live |= bits[k];
+    const float* x = s_x[t & 1] + lane * XP;  // this lane's slot, word 0
+    // Each (pair, cut column) of the block: the pair's bounds to every
+    // lane once, a ballot a word; NP pairs at a time (their chains
+    // overlap; the last ones repeat a pair where fewer are left, which
+    // ANDs the same ballot twice).
+#pragma unroll
+    for (int u = 0; u < CUT_MAX; ++u) {
+      for (uint32_t todo = __ballot_sync(
+               0xffffffffu, live != 0u && col[u] >= jc && col[u] < jc + nj);
+           todo != 0u;) {
+        int sr[NP], cr[NP];
+        float lr[NP], hr[NP];
+#pragma unroll
+        for (int e = 0; e < NP; ++e) {
+          sr[e] = todo != 0u ? __ffs(todo) - 1 : sr[0];
+          todo &= todo - 1u;
+          cr[e] = __shfl_sync(0xffffffffu, col[u], sr[e]) - jc;
+          lr[e] = __shfl_sync(0xffffffffu, lo[u], sr[e]);
+          hr[e] = __shfl_sync(0xffffffffu, hi[u], sr[e]);
+        }
+#pragma unroll
+        for (int k = 0; k < WG; ++k) {
+          if (k < nwg) {
+#pragma unroll
+            for (int e = 0; e < NP; ++e) {
+              const float v = x[k * 32 * XP + cr[e]];
+              const uint32_t in = __ballot_sync(
+                  0xffffffffu, (lr[e] <= v) & (v <= hr[e]));
+              if (lane == sr[e]) bits[k] &= in;
+            }
+          }
+        }
+      }
+    }
+    // Pairs that test every column, one at a time.
+    for (uint32_t todo = __ballot_sync(0xffffffffu, every && live != 0u);
+         todo != 0u; todo &= todo - 1u) {
+      const int src = __ffs(todo) - 1;
+      const size_t qr = (size_t)__shfl_sync(0xffffffffu, q, src) * d + jc;
+      for (int cc = 0; cc < nj; ++cc) {
+        const float l = q_lo[qr + cc], h = q_hi[qr + cc];
+#pragma unroll
+        for (int k = 0; k < WG; ++k) {
+          if (k < nwg) {
+            const float v = x[k * 32 * XP + cc];
+            const uint32_t in = __ballot_sync(0xffffffffu,
+                                              (l <= v) & (v <= h));
+            if (lane == src) bits[k] &= in;
+          }
+        }
+      }
+    }
+    // Past the segment's slots the valid bits are 0: stale rows there
+    // changed no bit.
+    if (maybe && t % nb == nb - 1) {
+#pragma unroll
+      for (int k = 0; k < WG; ++k)
+        if (k < nwg) mask[((size_t)g * NW + w0 + k) * Q + q] = bits[k];
+    }
+    __syncthreads();  // before stage t + 2 overwrites this buffer
+  }
+}
+
+// A lane's row of the store buffer: the group's gs x 3 floats of m, as
+// float4s for a whole group.
+__device__ __forceinline__ void put_row(float* row, const float (*m)[3],
+                                        int gs) {
+  if (gs == GROUP) {
+#pragma unroll
+    for (int f = 0; f < 3 * GROUP; f += 4)
+      *reinterpret_cast<float4*>(row + f) =
+          make_float4(m[f / 3][f % 3], m[(f + 1) / 3][(f + 1) % 3],
+                      m[(f + 2) / 3][(f + 2) % 3], m[(f + 3) / 3][(f + 3) % 3]);
+  } else {
+#pragma unroll
+    for (int gl = 0; gl < GROUP; ++gl)
+      if (gl < gs) {
+        row[gl * 3] = m[gl][0];
+        row[gl * 3 + 1] = m[gl][1];
+        row[gl * 3 + 2] = m[gl][2];
+      }
+  }
+}
+
+// The first n_rows rows of a warp's store buffer ([row][ROW_PITCH], nf
+// floats each) to out, row i at out + row_at(i): each row's nf * 4
+// contiguous bytes from neighbouring lanes, by float4 when ``vec`` (a whole
+// group, rows 16-byte aligned in out).
+template <class RowAt>
+__device__ __forceinline__ void store_rows(const float* buf, float* out,
+                                           int n_rows, int nf, bool vec,
+                                           RowAt row_at, int lane) {
+  if (vec) {
+    constexpr int P = 3 * GROUP / 4;  // float4s a row
+    for (int e = lane; e < n_rows * P; e += 32) {
+      const int i = e / P, f = (e - i * P) * 4;
+      __stcs(reinterpret_cast<float4*>(out + row_at(i) + f),
+             *reinterpret_cast<const float4*>(buf + i * ROW_PITCH + f));
+    }
+  } else {
+    for (int i = 0; i < n_rows; ++i)
+      if (lane < nf) __stcs(out + row_at(i) + lane, buf[i * ROW_PITCH + lane]);
+  }
+}
+
+// The group walk, a lane a replicate (R > PAIR_R, one chunk: a group's
+// weights fit only segments of up to 620 slots): one block of REPS_T
+// threads an SM takes units (two neighbouring groups of gs segments, block
+// of WRB replicates) from the counter until none is left, replicate-block
+// major. A unit stages the groups' weights [slot][replicate] (pitch WRB +
+// 1), a and totals once, then its warps take the queries in batches of 32
+// (a lane loads query i's classes, and each group's mask words of the next
+// query while this one is walked): for each (query, segment) the lane's
+// replicate gets T (covered), +0.0 (empty) or the slot-order fold from +0.0
+// of the mask's slots (MAYBE); each group's gs x 3 floats of a (replicate,
+// query) row go out whole, the two groups' back to back, so that a row's 2
+// x 96 bytes reach memory as whole 64-byte pieces (one group's 96 bytes
+// alone leave a half piece, which memory then reads to write: +0.7 ms at
+// the 24-column shape, tools/wide_walk_split.py).
+__global__ void __launch_bounds__(REPS_T, 1)
+weighted_group_reps_kernel(const float* __restrict__ a,
+                           const float* __restrict__ W,
+                           float* __restrict__ scratch,
+                           float* __restrict__ out, int R, int Q, int k,
+                           WPlan p) {
+  extern __shared__ __align__(16) float s_g[];
+  const int L = p.seg.s < CHUNK ? p.seg.s : CHUNK;  // a segment's stride
+  const int G2 = 2 * p.gs;                           // segments a unit
+  float* s_w = s_g;                                  // [G2 * L][WRB + 1]
+  float* s_a = s_w + G2 * L * (WRB + 1);             // [G2 * L]
+  float* s_t = s_a + G2 * L;                         // [G2][WRB][3]
+  // [warp][32][ROW_PITCH], from a multiple of 4 floats.
+  float* s_row = s_g + ((G2 * L * (WRB + 2) + G2 * WRB * 3 + 3) & ~3);
+  __shared__ unsigned long long s_unit;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned long long* next = (unsigned long long*)(scratch + p.ctr);
+  const uint8_t* cls = (const uint8_t*)(scratch + p.cls);
+  const uint32_t* mask = (const uint32_t*)(scratch + p.mask);
+  const float* T = scratch;
+  const int K = p.K, NW = p.nw;
+  const size_t ks = (size_t)k * p.seg.s;
+  const int n_rb = (R + WRB - 1) / WRB, n_pair = (p.n_groups + 1) / 2;
+  const unsigned long long n_units = (unsigned long long)n_pair * n_rb;
+  float* buf = s_row + warp * 32 * ROW_PITCH;
+  // Rows of a whole group start 16-byte aligned in out.
+  const bool vec_out = K % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  // Lane gl * NW + w holds mask word w of a group's segment gl of a query
+  // (gs * NW <= 32: make_wide_plan).
+  const int mg = lane / NW, mw = lane - mg * NW;
+  for (;;) {
+    __syncthreads();  // the last unit's staged rows are read
+    if (tid == 0) s_unit = atomicAdd(next, 1ULL);
+    __syncthreads();
+    const unsigned long long id = s_unit;
+    if (id >= n_units) return;
+    const int g0 = (int)(id % n_pair) * G2;
+    const int r0 = (int)(id / n_pair) * WRB, nr = min(WRB, R - r0);
+    const int gs2 = min(G2, K - g0);  // the unit's segments
+    for (int i = tid; i < gs2 * L * nr; i += REPS_T) {
+      const int rr = i / (gs2 * L), e = i - rr * gs2 * L;
+      const int gl = e / L, j = e - gl * L;
+      if (j < p.seg.len<false>(g0 + gl)) {
+        const size_t o = p.seg.base<false>(g0 + gl) + j;
+        cp_async4(s_w + e * (WRB + 1) + rr, W + (size_t)(r0 + rr) * ks + o);
+        if (rr == 0) cp_async4(s_a + e, a + o);
+      }
+    }
+    for (int i = tid; i < gs2 * nr * 3; i += REPS_T) {
+      const int gl = i / (nr * 3), e = i - gl * nr * 3;
+      const int rr = e / 3, m = e - rr * 3;
+      s_t[(gl * WRB + rr) * 3 + m] =
+          T[((size_t)(r0 + rr) * K + g0 + gl) * 3 + m];
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int qb = warp; qb * 32 < Q; qb += REPS_WARPS) {
+      const int qa = qb * 32, nq = min(32, Q - qa);
+      // Byte gl of cl[h]: the class of (query qa + lane, segment g0 + h *
+      // gs + gl).
+      uint64_t cl[2] = {0u, 0u};
+      if (lane < nq)
+        for (int gl = 0; gl < gs2; ++gl) {
+          const uint64_t x = cls[(size_t)(g0 + gl) * Q + qa + lane];
+          if (gl < p.gs)
+            cl[0] |= x << (8 * gl);
+          else
+            cl[1] |= x << (8 * (gl - p.gs));
+        }
+      auto words = [&](int h, int i) {
+        const int gh = g0 + h * p.gs;
+        return i < nq && mg < min(p.gs, gs2 - h * p.gs)
+                   ? mask[((size_t)(gh + mg) * NW + mw) * Q + qa + i]
+                   : 0u;
+      };
+      uint32_t mw_next[2] = {words(0, 0), words(1, 0)};
+      for (int i = 0; i < nq; ++i) {
+        const int q = qa + i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gh = g0 + h * p.gs, gs = min(p.gs, gs2 - h * p.gs);
+          if (gs <= 0) break;  // the same in every lane
+          const uint32_t mw_cur = mw_next[h];
+          mw_next[h] = words(h, i + 1);
+          const uint64_t ci = __shfl_sync(0xffffffffu, cl[h], i);
+          // Bit gl * NW + w: word w of a MAYBE pair of segment gh + gl
+          // holds a relevant slot (the words of other pairs are not
+          // written).
+          const uint32_t nz = __ballot_sync(
+              0xffffffffu, mg < gs && ((ci >> (8 * mg)) & 0xff) == MAYBE &&
+                               mw * 32 < p.seg.len<false>(gh + mg) &&
+                               mw_cur != 0u);
+          const float* tw = s_t + h * p.gs * WRB * 3;
+          const int ow = h * p.gs * L;
+          float m[GROUP][3];
+#pragma unroll
+          for (int gl = 0; gl < GROUP; ++gl) {
+            const bool cov = gl < gs && ((ci >> (8 * gl)) & 0xff) == COVERED;
+            const float* t3 = tw + (gl * WRB + lane) * 3;
+            m[gl][0] = cov ? t3[0] : 0.f;
+            m[gl][1] = cov ? t3[1] : 0.f;
+            m[gl][2] = cov ? t3[2] : 0.f;
+            for (uint32_t wm = gl < gs ? (nz >> (gl * NW)) & ((1u << NW) - 1u)
+                                       : 0u;
+                 wm != 0u; wm &= wm - 1u) {
+              const int w = __ffs(wm) - 1;
+              uint32_t bits = __shfl_sync(0xffffffffu, mw_cur, gl * NW + w);
+              const int o = ow + gl * L + w * 32;
+              while (bits) {
+                const int j = o + __ffs(bits) - 1;
+                bits &= bits - 1;
+                weighted_add(m[gl],
+                             weighted_terms(s_w[j * (WRB + 1) + lane], s_a[j]));
+              }
+            }
+          }
+          put_row(buf + lane * ROW_PITCH, m, gs);
+          __syncwarp();
+          store_rows(buf, out, nr, gs * 3, gs == GROUP && vec_out,
+                     [&](int rr) {
+                       return (((size_t)(r0 + rr) * Q + q) * K + gh) * 3;
+                     },
+                     lane);
+          __syncwarp();  // before the next rows overwrite buf
+        }
+      }
+    }
+  }
+}
+
+// The group walk, a lane a query (R <= PAIR_R, or a group's weights too
+// large for the replicate walk): blocks take units (group, replicate)
+// from the counter, replicate major. A unit stages the terms [w, w*a,
+// (w*a)*a] of the group's slots (weighted_terms) and its totals once; its
+// warps take the queries 32 at a time, a lane a query, each (query,
+// segment) T, +0.0 or the slot-order fold of its mask's terms; each
+// query's gs x 3 floats go out whole.
+template <bool CH>
+__global__ void __launch_bounds__(GW_T)
+weighted_group_queries_kernel(const float* __restrict__ a,
+                              const float* __restrict__ W,
+                              float* __restrict__ scratch,
+                              float* __restrict__ out, int R, int Q, int k,
+                              WPlan p) {
+  extern __shared__ __align__(16) float s_g[];
+  const int L = p.seg.s < CHUNK ? p.seg.s : CHUNK;
+  float4* s_v = (float4*)s_g;                      // [gs * L] the terms
+  float* s_t = s_g + 4 * p.gs * L;                 // [gs][3]
+  float* s_row = s_t + GROUP * 3;                  // [warp][32][ROW_PITCH]
+  __shared__ unsigned long long s_unit;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  unsigned long long* next = (unsigned long long*)(scratch + p.ctr);
+  const uint8_t* cls = (const uint8_t*)(scratch + p.cls);
+  const uint32_t* mask = (const uint32_t*)(scratch + p.mask);
+  const float* T = scratch;
+  const int K = p.K, NW = p.nw;
+  const size_t ks = (size_t)k * p.seg.s;
+  const unsigned long long n_units =
+      (unsigned long long)p.n_groups * R * p.parts;
+  const int nbq = (Q + 31) / 32, bp = (nbq + p.parts - 1) / p.parts;
+  float* buf = s_row + warp * 32 * ROW_PITCH;
+  // Rows of a whole group start 16-byte aligned in out.
+  const bool vec_out = K % 4 == 0 && ((uintptr_t)out & 15) == 0;
+  for (;;) {
+    __syncthreads();
+    if (tid == 0) s_unit = atomicAdd(next, 1ULL);
+    __syncthreads();
+    const unsigned long long id = s_unit;
+    if (id >= n_units) return;
+    const int part = (int)(id % p.parts);
+    const unsigned long long gu = id / p.parts;
+    const int g0 = (int)(gu % p.n_groups) * p.gs;
+    const int r = (int)(gu / p.n_groups);
+    const int gs = min(p.gs, K - g0), nf = gs * 3;
+    const bool vec = gs == GROUP && vec_out;
+    const int qb_end = min(nbq, (part + 1) * bp);
+    for (int e = tid; e < gs * L; e += GW_T) {
+      const int gl = e / L, j = e - gl * L;
+      if (j < p.seg.len<CH>(g0 + gl)) {
+        const size_t o = p.seg.base<CH>(g0 + gl) + j;
+        const Terms t = weighted_terms(W[(size_t)r * ks + o], a[o]);
+        s_v[e] = make_float4(t.w, t.wa, t.waa, 0.f);
+      }
+    }
+    if (tid < nf) s_t[tid] = T[((size_t)r * K + g0) * 3 + tid];
+    __syncthreads();
+    for (int qb = part * bp + warp; qb < qb_end; qb += GW_WARPS) {
+      const int qa = qb * 32, q = qa + lane, nq = min(32, Q - qa);
+      // The classes first, all loads in flight together.
+      int code[GROUP];
+#pragma unroll
+      for (int gl = 0; gl < GROUP; ++gl)
+        code[gl] = gl < gs && q < Q ? cls[(size_t)(g0 + gl) * Q + q] : EMPTY;
+      float mq[GROUP][3];
+#pragma unroll
+      for (int gl = 0; gl < GROUP; ++gl) {
+        float* m = mq[gl];
+        m[0] = m[1] = m[2] = 0.f;
+        if (gl < gs) {
+          const int g = g0 + gl;
+          if (code[gl] == COVERED) {
+            m[0] = s_t[gl * 3];
+            m[1] = s_t[gl * 3 + 1];
+            m[2] = s_t[gl * 3 + 2];
+          } else if (code[gl] == MAYBE) {
+            const int nwd = (p.seg.len<CH>(g) + 31) / 32;
+            for (int w = 0; w < nwd; ++w) {
+              uint32_t bits = mask[((size_t)g * NW + w) * Q + q];
+              const float4* v = s_v + gl * L + w * 32;
+              while (bits) {
+                const float4 x = v[__ffs(bits) - 1];
+                bits &= bits - 1;
+                weighted_add(m, Terms{x.x, x.y, x.z});
+              }
+            }
+          }
+        }
+      }
+      put_row(buf + lane * ROW_PITCH, mq, gs);
+      __syncwarp();
+      store_rows(buf, out, nq, nf, vec, [&](int i) {
+        return (((size_t)r * Q + qa + i) * K + g0) * 3;
+      }, lane);
+      __syncwarp();
+    }
+  }
+}
+
+// A group walk's grid: the blocks the card holds at once at these shared-
+// memory bytes (opted in above 48 KB), at most its units; cached per
+// (kernel, device, bytes).
+int walk_grid(const void* kernel, int bytes, int threads, long long units,
+              int* grid) {
+  struct Entry {
+    const void* fn;
+    int dev, bytes, most;
+  };
+  static Entry cache[32];
+  static int n_cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int most = 0;
+  for (int i = 0; i < n_cache; ++i)
+    if (cache[i].fn == kernel && cache[i].dev == dev &&
+        cache[i].bytes == bytes)
+      most = cache[i].most;
+  if (most == 0) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err != cudaSuccess) return (int)err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, bytes);
+    if (err != cudaSuccess) return (int)err;
+    most = (per_sm > 0 ? per_sm : 1) * sms;
+    if (n_cache < 32) cache[n_cache++] = Entry{kernel, dev, bytes, most};
+  }
+  *grid = (int)(units < most ? units : most);
+  return 0;
+}
+
+template <bool CH>
+int launch_wide(const float* c, const float* a, const uint8_t* valid,
+                const float* W, const float* q_lo, const float* q_hi,
+                float* out, float* scratch, int R, int Q, int k, int d,
+                const WPlan& p, cudaStream_t stream) {
+  const long long leaf_y = (p.K + LEAF_T - 1) / LEAF_T;
+  if (leaf_y > MAX_GRID_Y) return (int)cudaErrorInvalidConfiguration;
+  if (CH) {
+    const long long warps = (long long)p.K * ((R + 31) / 32);
+    weighted_totals_rep_kernel<<<(unsigned)((warps + LEAF_T / 32 - 1) /
+                                            (LEAF_T / 32)),
+                                 LEAF_T, 0, stream>>>(a, valid, W, scratch,
+                                                      R, k, p.seg, p.K);
+  } else {
+    weighted_totals_kernel<<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
+                             stream>>>(a, valid, W, scratch, k, p.seg, p.K);
+  }
+  weighted_box_wide_kernel<CH><<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32),
+                                 LEAF_T, 0, stream>>>(
+      c, valid, scratch + p.box, (uint32_t*)(scratch + p.vbits),
+      (int*)(scratch + p.nan), (uint32_t*)(scratch + p.nanw),
+      (int*)(scratch + p.ctr), p.seg, p.K, p.nw, p.ncw, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  weighted_class_wide_kernel<CH><<<p.n_tiles, NT, 0, stream>>>(
+      q_lo, q_hi, scratch, Q, d, p);
+  const long long runs = (long long)p.K * ((Q + TQ - 1) / TQ);
+  if (runs > INT_MAX) return (int)cudaErrorInvalidConfiguration;
+  weighted_test_wide_kernel<CH><<<(unsigned)runs, TQ, 0, stream>>>(
+      c, q_lo, q_hi, scratch, Q, d, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // Above one chunk the walk writes the partials.
+  float* dst = CH ? scratch + p.part : out;
+  int grid = 0, gerr;
+  if (!CH && p.reps) {
+    gerr = walk_grid((const void*)weighted_group_reps_kernel,
+                     p.walk_bytes, REPS_T,
+                     (long long)(p.n_groups + 1) / 2 * ((R + WRB - 1) / WRB),
+                     &grid);
+    if (gerr != 0) return gerr;
+    weighted_group_reps_kernel<<<grid, REPS_T, p.walk_bytes, stream>>>(
+        a, W, scratch, dst, R, Q, k, p);
+  } else {
+    gerr = walk_grid((const void*)weighted_group_queries_kernel<CH>,
+                     p.walk_bytes, GW_T,
+                     (long long)p.n_groups * R * p.parts, &grid);
+    if (gerr != 0) return gerr;
+    weighted_group_queries_kernel<CH><<<grid, GW_T, p.walk_bytes, stream>>>(
+        a, W, scratch, dst, R, Q, k, p);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !CH) return (int)err;
+  const size_t n_pairs = (size_t)R * Q * k;
+  const size_t blocks = (n_pairs + FOLD_T - 1) / FOLD_T;
+  weighted_fold_kernel<<<(unsigned)(blocks < 8192 ? blocks : 8192), FOLD_T,
+                         0, stream>>>(scratch + p.part, out, n_pairs,
+                                      p.seg.n_ch);
+  return (int)cudaGetLastError();
+}
+
 template <bool CH>
 int launch_kernels(const float* c, const float* a, const uint8_t* valid,
                    const float* W, const float* q_lo, const float* q_hi,
@@ -1289,13 +2040,12 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
     weighted_totals_kernel<<<dim3(R, (unsigned)leaf_y), LEAF_T, 0,
                              stream>>>(a, valid, W, scratch, k, p.seg, p.K);
   }
-  auto box_kernel = d > MAX_D ? weighted_box_wide_kernel<CH>
-                              : weighted_box_kernel<CH>;
-  box_kernel<<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T, 0,
-               stream>>>(c, valid, scratch + p.box,
-                         (uint32_t*)(scratch + p.vbits),
-                         (int*)(scratch + p.nan), (int*)(scratch + p.ctr),
-                         p.seg, p.K, p.nw, d);
+  weighted_box_kernel<CH><<<(p.K + LEAF_T / 32 - 1) / (LEAF_T / 32), LEAF_T,
+                            0, stream>>>(c, valid, scratch + p.box,
+                                         (uint32_t*)(scratch + p.vbits),
+                                         (int*)(scratch + p.nan),
+                                         (int*)(scratch + p.ctr), p.seg, p.K,
+                                         p.nw, d);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // Above one chunk the tiles and walks write the partials.
@@ -1312,9 +2062,6 @@ int launch_kernels(const float* c, const float* a, const uint8_t* valid,
   if (d == 3)
     kernel = vec ? weighted_tile_kernel<4, 3, CH>
                  : weighted_tile_kernel<1, 3, CH>;
-  if (d > MAX_D)
-    kernel = vec ? weighted_tile_kernel<4, -1, CH>
-                 : weighted_tile_kernel<1, -1, CH>;
   err = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              p.bytes);
@@ -1361,6 +2108,17 @@ int launch(const float* c, const float* a, const uint8_t* valid,
            const float* W, const float* q_lo, const float* q_hi, float* out,
            float* scratch, long long scratch_floats, int R, int Q, int k,
            int s, int d, cudaStream_t stream) {
+  if (d > MAX_D) {
+    WPlan p;
+    if (!make_wide_plan(R, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
+    if (scratch_floats < (long long)p.floats)
+      return (int)cudaErrorInvalidValue;
+    return p.seg.n_ch > 1
+        ? launch_wide<true>(c, a, valid, W, q_lo, q_hi, out, scratch, R, Q,
+                            k, d, p, stream)
+        : launch_wide<false>(c, a, valid, W, q_lo, q_hi, out, scratch, R, Q,
+                             k, d, p, stream);
+  }
   Plan p;
   if (!make_plan(R, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
   if (scratch_floats < (long long)p.floats)
@@ -1400,6 +2158,13 @@ extern "C" int repro_bootstrap_moments(const float* c, const float* a,
 // d), for the record: returns 0 and fills lt / bytes, or a cudaError_t.
 extern "C" int repro_weighted_plan(int Q, int k, int s, int d, int* lt,
                                    int* bytes) {
+  if (d > MAX_D) {
+    WPlan w;
+    if (!make_wide_plan(1, Q, k, s, d, &w)) return (int)cudaErrorInvalidValue;
+    *lt = LT_MAX;
+    *bytes = 0;  // the class and test kernels' shared memory is static
+    return 0;
+  }
   Plan p;
   if (!make_plan(1, Q, k, s, d, &p)) return (int)cudaErrorInvalidValue;
   *lt = p.lt;
@@ -1410,8 +2175,24 @@ extern "C" int repro_weighted_plan(int Q, int k, int s, int d, int* lt,
 // The floats of a launch's scratch, or -1 where no plan exists.
 extern "C" long long repro_weighted_scratch(int R, int Q, int k, int s,
                                             int d) {
+  if (d > MAX_D) {
+    WPlan w;
+    return make_wide_plan(R, Q, k, s, d, &w) ? (long long)w.floats : -1;
+  }
   Plan p;
   return make_plan(R, Q, k, s, d, &p) ? (long long)p.floats : -1;
+}
+
+// The group walk of a launch at d > MAX_D: returns 1 for the replicate
+// walk (a lane a replicate), 0 for the query walk, -1 without a plan; gs:
+// segments a group, bytes: its dynamic shared memory.
+extern "C" int repro_weighted_group(int R, int Q, int k, int s, int d,
+                                    int* gs, int* bytes) {
+  WPlan w;
+  if (!make_wide_plan(R, Q, k, s, d, &w)) return -1;
+  *gs = w.gs;
+  *bytes = w.walk_bytes;
+  return w.reps;
 }
 
 // Slots a segment: the order contract's chunk.

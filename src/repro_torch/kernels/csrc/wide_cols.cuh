@@ -7,7 +7,8 @@
 // OR (apart). The compares are exact, so the order of the blocks changes
 // no bit: a slot, a pair or a leaf gets the flags of the d <= 16 test.
 //
-// Cut columns (rows 2 and 8, pair_tiles.cuh). A (query, leaf) pair whose
+// Cut columns (rows 2 and 8, pair_tiles.cuh; rows 3 and 4, a (query,
+// segment) pair's own, weighted_moments.cu). A (query, leaf) pair whose
 // query box holds the extent of the leaf's valid slots in column j, where
 // no valid slot has a NaN coordinate, passes column j for every valid
 // slot: lo_j <= min <= c_j <= max <= hi_j, with the slot test's own

@@ -227,18 +227,50 @@ WEIGHTED_MAX_R = 65535 * 16
 # 128 replicates, its blocks of _WWALK_T threads staging _WSUB slots at a
 # time.
 WEIGHTED_PAIR_R, _WSTAGE, _WRB, _WSUB, _WWALK_T = 8, 8, 128, 64, 256
+# Above _WMAX_D columns (make_wide_plan): the test kernel's runs of _WTQ
+# queries and staged blocks of _WTB columns, and the group walk: groups of
+# up to _WGROUP segments; a lane a replicate, units of _WGRB, while a
+# group's weights ([slot][_WGRB + 1]) fit _WREPS_STAGE bytes and its mask
+# words a warp's lanes; else a lane a query, a unit a replicate, the
+# group's terms (16 bytes a slot) within _WQRY_STAGE bytes.
+_WGROUP, _WGRB, _WREPS_STAGE, _WQRY_STAGE = 8, 32, 81920, 98304
+_WTQ, _WTB = 512, 32
 
 
-def weighted_walk(R, s) -> str:
-    """How the launch at R replicates and s slots a stratum walks a tile's
-    segments with _WSTAGE or more mixed pairs: "direct" (one thread a
-    (pair, replicate), as the rest: up to R = WEIGHTED_PAIR_R and one
-    chunk), "pairs" (staged, a lane a pair, a warp a (segment, replicate))
-    or "replicates" (staged, a lane 4 replicates, a warp up to 4 pairs, 128
-    replicates a block)."""
+def weighted_walk(R, s, d=1) -> str:
+    """How the launch at R replicates, s slots a stratum and d columns
+    walks its mixed pairs. Up to _WMAX_D columns, a tile's segments with
+    _WSTAGE or more mixed pairs: "direct" (one thread a (pair, replicate),
+    as the rest: up to R = WEIGHTED_PAIR_R and one chunk), "pairs" (staged,
+    a lane a pair, a warp a (segment, replicate)) or "replicates" (staged,
+    a lane 4 replicates, a warp up to 4 pairs, 128 replicates a block).
+    Above, every pair: "group replicates" or "group queries"
+    (weighted_group)."""
+    if d > _WMAX_D:
+        return "group " + weighted_group(R, s)[0]
     if R > WEIGHTED_PAIR_R:
         return "replicates"
     return "pairs" if s > WEIGHTED_CHUNK else "direct"
+
+
+def weighted_group(R, s) -> tuple:
+    """(lane layout, segments a group) of the group walk at d > _WMAX_D
+    (csrc/weighted_moments.cu make_wide_plan): "replicates" (a lane a
+    replicate, units of _WGRB) when R > WEIGHTED_PAIR_R and some group of
+    1-8 segments fits, else "queries" (a lane a query, a unit a
+    replicate)."""
+    ls = max(min(s, WEIGHTED_CHUNK), 1)
+    nw = -(-min(s, WEIGHTED_CHUNK) // 32)
+    gs = _WGROUP
+    while gs > 0 and (gs * ls * (_WGRB + 1) * 4 > _WREPS_STAGE
+                      or gs * nw > 32):
+        gs //= 2
+    if R > WEIGHTED_PAIR_R and gs > 0:
+        return "replicates", gs
+    gs = _WGROUP
+    while gs > 1 and gs * ls * 16 > _WQRY_STAGE:
+        gs //= 2
+    return "queries", gs
 
 
 def weighted_chunks(s) -> int:
@@ -252,20 +284,21 @@ def weighted_plan(Q, k, s, d):
     launch, as csrc/weighted_moments.cu make_plan chooses them: the tile's
     (query, slot) mask of ceil(min(s, WEIGHTED_CHUNK) / 32) words per
     (query, segment) has to fit, so the segments a tile halve from 32.
-    Above _WMAX_D columns the boxes hold a column block and no coordinates
-    are staged, so the bytes do not grow with d."""
+    Above _WMAX_D columns (make_wide_plan) 32 segments a tile and no
+    dynamic shared memory."""
     def a16(x):
         return (x + 15) & ~15
-    wide = d > _WMAX_D
+    if d > _WMAX_D:
+        return _WLT_MAX, 0
     nw = -(-min(s, WEIGHTED_CHUNK) // 32)
     sl = 32
-    while not wide and sl > 8 and sl * 32 * d * 4 > 2048:
+    while sl > 8 and sl * 32 * d * 4 > 2048:
         sl //= 2
     lt = _WLT_MAX
     while lt >= 1:
         off = a16(2 * _WRB_MAX * lt * 12)
-        off = a16(off + 8 * lt * min(d, _WMAX_D))
-        off = a16(off + (0 if wide else 8 * min(sl, lt) * 32 * d))
+        off = a16(off + 8 * lt * d)
+        off = a16(off + 8 * min(sl, lt) * 32 * d)
         off = a16(off + 4 * nw * lt * _WQT)
         off = a16(off + _WQT * lt)
         off = a16(off + 4 * (3 * _WLT_MAX + 1))
@@ -308,10 +341,21 @@ def weighted_scratch_floats(R, Q, k, s, d) -> int:
     from a multiple of 4 floats the staged walk's two counters (4 floats),
     its items (2 ints a (tile, segment)) and per tile a list of mixed pairs
     with their slot masks; above one chunk the (R, Q, K, 3) partials, from
-    a multiple of 4 floats."""
+    a multiple of 4 floats. Above _WMAX_D columns (make_wide_plan): after
+    the NaN flags each segment's NaN columns (ceil(d / 32) words), from a
+    multiple of 4 floats the walk's counter (4 floats), each (segment,
+    query)'s class (a byte) and (segment, word, query)'s slot mask, from a
+    multiple of 2 floats each (segment, query)'s cut word (8 bytes), then
+    the partials as below."""
     n_ch = weighted_chunks(s)
     K = k * n_ch
     nw = -(-min(s, WEIGHTED_CHUNK) // 32)
+    if d > _WMAX_D:
+        ctr = -(-(R * K * 3 + K * 2 * d + K * nw + K + K * -(-d // 32))
+                // 4) * 4
+        mask = ctr + 4 + -(-(K * Q) // 4)
+        end = -(-(mask + K * nw * Q) // 2) * 2 + 2 * K * Q
+        return -(-end // 4) * 4 + R * Q * K * 3 if n_ch > 1 else end
     lt, _ = weighted_plan(Q, k, s, d)
     n_tiles = -(-Q // _WQT) * -(-K // lt)
     head = -(-(R * K * 3 + K * 2 * d + K * nw + K + n_tiles) // 4) * 4
@@ -377,5 +421,6 @@ __all__ = ["samples_inside", "tree_sum_last", "weighted_terms",
            "pair_scratch_floats", "pair_launch",
            "check_weighted_args", "check_weighted_limits", "weighted_plan",
            "weighted_scratch", "weighted_scratch_floats", "weighted_chunks",
-           "weighted_library", "weighted_walk", "WEIGHTED_CHUNK",
+           "weighted_library", "weighted_walk", "weighted_group",
+           "WEIGHTED_CHUNK",
            "WEIGHTED_MAX_K", "WEIGHTED_MAX_R", "WEIGHTED_PAIR_R"]

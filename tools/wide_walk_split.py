@@ -1,16 +1,20 @@
-"""Where row 2's wide one pass spends its time: the kernel built from this
-checkout's sources and from copies with one part taken out, timed on the
-card at chip_smoke.py phase 30's shape (the 24-column table at paper
+"""Where a wide (d > 16) kernel spends its time: the kernel built from
+this checkout's sources and from copies with one part taken out, timed on
+the card at chip_smoke.py phase 30's shape (the 24-column table at paper
 size: build_synopsis(k=1024, sample_rate=0.01, method="kd"), its 2048
 queries).
 
-    python3 tools/wide_walk_split.py [--reps N] [--out FILE]
+    python3 tools/wide_walk_split.py [--target stratified|weighted]
+                                     [--reps N] [--out FILE]
 
-The variants patch csrc/pair_tiles.cuh in a copy and build
-csrc/stratified_moments.cu with the port's nvcc flags. Each patch names
-the text it replaces; a variant whose text is no longer found exactly once
-in the source (the walk was edited since) is left out and reported as
-stale, so the tool times what still applies:
+The variants patch a source in a copy of csrc/ and build it with the
+port's nvcc flags. Each patch names the text it replaces; a variant whose
+text is no longer found exactly once in the source (the code was edited
+since) is left out and reported as stale, so the tool times what still
+applies.
+
+Target ``stratified`` (the default): row 2's one pass, csrc/pair_tiles.cuh
+patched, csrc/stratified_moments.cu built:
 
     full       the kernel as it is;
     no_walk    the listed pairs are never walked (classes, tiles, stores);
@@ -28,6 +32,28 @@ stale, so the tool times what still applies:
                query does not hold the tile's box;
     no_box_once  the leaves' boxes formed for each query tile and column
                block, as above BOX_D columns, not once a block.
+
+Target ``weighted``: rows 3 (R = 1, the scan's launch) and 4 (R = 200,
+the fused bootstrap's weights), csrc/weighted_moments.cu patched and
+built; each variant also read by kernel (the profiler's mean record of
+each weighted_*_kernel a launch):
+
+    full        the kernels as they are;
+    no_walk     no group walk (totals, boxes, classes, slot tests);
+    no_stage    the test kernel stages no column (it tests stale rows);
+    no_tests    the test kernel tests no column (a MAYBE pair keeps its
+                valid bits, so the walks fold more);
+    all_columns every MAYBE pair tests every column (no cut words);
+    walk_no_fold    the walks fold no slot of a MAYBE pair;
+    walk_no_writes  the walks write no row;
+    bank_conflicts  the class kernel's bound rows unpadded (16 floats);
+    no_hold     the class kernel compares every column, not only those
+                where the query does not hold the tile's box;
+    four_pairs, one_pair  the slot tests take 4 / 1 pairs a round, not 2;
+    runs_256, runs_1024   the test kernel's runs of 256 / 1024 queries,
+                not 512;
+    one_group_units  a replicate-walk unit takes one group, not two
+                neighbouring ones (a row's 96 bytes go out alone).
 
 A taken-out part changes the results, so nothing here is checked against
 plain: the times only say what each part costs. Each variant is timed by
@@ -51,7 +77,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-PATCHES = {
+STRATIFIED = {
     "no_walk": [("CUT_TILES ||\n        qt + p.groups >= p.n_qt) {\n"
                  "      walk_all(n_walk);\n",
                  "CUT_TILES ||\n        qt + p.groups >= p.n_qt) {\n")],
@@ -87,12 +113,56 @@ PATCHES = {
     "no_box_once": [("box_once = d <= BOX_D;", "box_once = false;")],
 }
 
+WEIGHTED = {
+    "no_walk": [("  // Above one chunk the walk writes the partials.\n",
+                 "  return 0;\n")],
+    "no_stage": [("        if (r < n && cc < nj)\n          cp_async4(dst",
+                  "        if (false)\n          cp_async4(dst")],
+    "no_tests": [
+        ("      for (uint32_t todo = __ballot_sync(\n"
+         "               0xffffffffu, live != 0u && col[u]",
+         "      for (uint32_t todo = 0u * __ballot_sync(\n"
+         "               0xffffffffu, live != 0u && col[u]"),
+        ("    for (uint32_t todo = __ballot_sync(0xffffffffu, every && live",
+         "    for (uint32_t todo = 0u * __ballot_sync(0xffffffffu, every && live")],
+    "all_columns": [("  const bool keep_cuts = d <= CUT_COLS;\n  constexpr int PL",
+                     "  const bool keep_cuts = false;\n  constexpr int PL")],
+    "walk_no_fold": [
+        ("              while (bits) {\n                const int j = o",
+         "              while (false) {\n                const int j = o"),
+        ("              while (bits) {\n                const float4 x",
+         "              while (false) {\n                const float4 x")],
+    "walk_no_writes": [
+        ("  if (vec) {\n    constexpr int P = 3 * GROUP / 4;",
+         "  if (lane >= 0) return;\n  if (vec) {\n"
+         "    constexpr int P = 3 * GROUP / 4;")],
+    "bank_conflicts": [("  constexpr int QP = WIDE_COLS + 1;",
+                        "  constexpr int QP = WIDE_COLS;")],
+    "no_hold": [("        for (uint32_t todo = test; todo != 0u; todo &= todo - 1u) {",
+                 "        for (uint32_t todo = (1u << nj) - 1u; todo != 0u;\n"
+                 "             todo &= todo - 1u) {")],
+    "four_pairs": [("constexpr int NP = 2;", "constexpr int NP = 4;")],
+    "one_pair": [("constexpr int NP = 2;", "constexpr int NP = 1;")],
+    "runs_256": [("constexpr int TQ = 512;", "constexpr int TQ = 256;")],
+    "runs_1024": [("constexpr int TQ = 512;", "constexpr int TQ = 1024;")],
+    "one_group_units": [("  const int n_rb = (R + WRB - 1) / WRB, n_pair = (p.n_groups + 1) / 2;",
+                         "  const int n_rb = (R + WRB - 1) / WRB, n_pair = p.n_groups;"),
+                        ("  const int G2 = 2 * p.gs;                           // segments a unit",
+                         "  const int G2 = p.gs;                           // segments a unit")],
+}
+# Per target: the file the patches edit, the source built, the variants.
+TARGETS = {"stratified": ("pair_tiles.cuh", "stratified_moments.cu",
+                          STRATIFIED),
+           "weighted": ("weighted_moments.cu", "weighted_moments.cu",
+                        WEIGHTED)}
 
-def build(name: str, patches, out_dir: Path):
-    """Copy csrc, apply ``patches`` to pair_tiles.cuh, start nvcc; None
-    when a patch's text is not found exactly once."""
+
+def build(name: str, target: str, patches, out_dir: Path):
+    """Copy csrc, apply ``patches`` to the target's file, start nvcc on its
+    source; None when a patch's text is not found exactly once."""
     from repro_torch.kernels import native
-    text = (native.CSRC / "pair_tiles.cuh").read_text()
+    edited, source, _ = TARGETS[target]
+    text = (native.CSRC / edited).read_text()
     for old, new in patches:
         if text.count(old) != 1:
             return None
@@ -101,18 +171,75 @@ def build(name: str, patches, out_dir: Path):
     if src.exists():
         shutil.rmtree(src)
     shutil.copytree(native.CSRC, src)
-    header = src / "pair_tiles.cuh"
-    header.write_text(text)
+    (src / edited).write_text(text)
     lib = out_dir / f"{name}.so"
     proc = subprocess.Popen(
         [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
-         str(src / "stratified_moments.cu")], stdout=subprocess.PIPE,
+         str(src / source)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
     return proc, lib
 
 
+def stratified_calls(torch, libs, sm, ql, qh):
+    """{(variant, ""): one launch of row 2} for each built variant."""
+    from repro_torch.kernels.stratified_estimate import pair_scratch_floats
+    k, s, d = sm[0].shape
+    Q = ql.shape[0]
+    if pair_scratch_floats(Q, k, s, d, 3):
+        raise SystemExit("wide_walk_split: times the one pass (s <= 2048)")
+    out = torch.empty((Q, k, 3), dtype=torch.float32, device=ql.device)
+    calls = {}
+    for name, lib in libs.items():
+        fn = lib.repro_stratified_moments
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + \
+            [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run(fn=fn, name=name):
+            err = fn(*(x.data_ptr() for x in (*sm, ql, qh, out)), None, 0,
+                     Q, k, s, d, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: cuda error {err}")
+        calls[name, ""] = run
+    return calls
+
+
+def weighted_calls(torch, cs, libs, syn, ql, qh):
+    """{(variant, "R=<R>"): one launch of rows 3 and 4's entry} at R = 1
+    (W[0]) and R = 200."""
+    from repro_torch.kernels.stratified_estimate import (
+        weighted_scratch_floats)
+    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+    k, s, d = sm[0].shape
+    Q = ql.shape[0]
+    W = cs.boot_weights(torch, syn, ql.device)
+    calls = {}
+    for R, w in ((1, W[0].contiguous()), (int(W.shape[0]), W)):
+        n = weighted_scratch_floats(R, Q, k, s, d)
+        scratch = torch.empty(n, dtype=torch.float32, device=ql.device)
+        out = torch.empty((R, Q, k, 3), dtype=torch.float32,
+                          device=ql.device)
+        for name, lib in libs.items():
+            fn = lib.repro_bootstrap_moments
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + \
+                [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+
+            def run(fn=fn, name=name, w=w, out=out, scratch=scratch, n=n,
+                    R=R):
+                err = fn(*(x.data_ptr() for x in (*sm, w, ql, qh, out,
+                                                  scratch)), n, R, Q, k, s,
+                         d, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} R={R}: cuda error {err}")
+            calls[name, f"R={R}"] = run
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--target", choices=sorted(TARGETS),
+                    default="stratified")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -123,13 +250,13 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.data.synthetic import nyc_taxi
-    from repro_torch.kernels.stratified_estimate import pair_scratch_floats
     torch.backends.cuda.matmul.allow_tf32 = False
-    out_dir = ROOT / "build" / "wide_walk_split"
+    out_dir = ROOT / "build" / "wide_walk_split" / args.target
     out_dir.mkdir(parents=True, exist_ok=True)
+    variants = TARGETS[args.target][2]
     t0 = time.perf_counter()
-    jobs = {n: build(n, p, out_dir)
-            for n, p in {"full": [], **PATCHES}.items()}
+    jobs = {n: build(n, args.target, p, out_dir)
+            for n, p in {"full": [], **variants}.items()}
     stale = [n for n, job in jobs.items() if job is None]
     libs = {}
     for name, job in jobs.items():
@@ -139,11 +266,7 @@ def main(argv=None) -> int:
         log, _ = proc.communicate(timeout=900)
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(lib)).repro_stratified_moments
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_longlong] + \
-            [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
+        libs[name] = ctypes.CDLL(str(lib))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
     c, a = cs.wide_table(nyc_taxi, 1.0)
@@ -157,35 +280,38 @@ def main(argv=None) -> int:
     sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
     k, s, d = syn.sample_c.shape
     Q = ql.shape[0]
-    if pair_scratch_floats(Q, k, s, d, 3):
-        raise SystemExit("wide_walk_split: times the one pass (s <= 2048)")
-    out = torch.empty((Q, k, 3), dtype=torch.float32, device=dev)
-
-    def call(name):
-        def run():
-            err = libs[name](*(x.data_ptr() for x in (*sm, ql, qh, out)),
-                             None, 0, Q, k, s, d,
-                             torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{name}: cuda error {err}")
-        return run
+    if args.target == "weighted":
+        calls = weighted_calls(torch, cs, libs, syn, ql, qh)
+    else:
+        calls = stratified_calls(torch, libs, sm, ql, qh)
 
     card = cs.card_line()
     print(card, flush=True)
     if stale:
         print(json.dumps({"stale": stale}), flush=True)
-    order = ["full", *(n for n in PATCHES if n in libs), "full"]
+    order = ["full", *(n for n in variants if n in libs), "full"]
+    shapes = sorted({shape for _, shape in calls})
     rows = {}
     for name in order:
-        fn = call(name)
-        ev = cs.cuda_ms(torch, fn, reps=args.reps)
-        dv = cs.device_ms(torch, fn, reps=args.reps, one_op=True, tries=3)
-        row = rows.setdefault(name, {"ms": [], "device_ms": []})
-        row["ms"].append(ev)
-        row["device_ms"].append(dv)
+        for shape in shapes:
+            fn = calls[name, shape]
+            ev = cs.cuda_ms(torch, fn, reps=args.reps)
+            row = rows.setdefault((name, shape), {"ms": [], "device_ms": [],
+                                                  "by_kernel": []})
+            row["ms"].append(ev)
+            if args.target == "weighted":
+                kby = cs.device_by_name(torch, fn, reps=min(args.reps, 10),
+                                        tries=3)
+                row["by_kernel"].append({n: v["ms_per_record"]
+                                         for n, v in kby.items()})
+                row["device_ms"].append(cs.records_ms(kby))
+            else:
+                row["device_ms"].append(cs.device_ms(
+                    torch, fn, reps=args.reps, one_op=True, tries=3))
     lines = []
-    for name, row in rows.items():
-        line = {"variant": name, "ms": statistics.mean(row["ms"]),
+    for (name, shape), row in rows.items():
+        line = {"variant": name, "shape": shape,
+                "ms": statistics.mean(row["ms"]),
                 "device_ms": cs.mean_of(row["device_ms"]),
                 "readings": row, "Q": int(Q), "k": int(k), "s": int(s),
                 "d": int(d), "card": card, "build_s": build_s}
