@@ -36,9 +36,10 @@ with the baseline's and the join answer is served with either (the same
 bits), and row 6 (weighted_segment_reduce) must meet it within
 rtol=3e-5, atol=1e-3. Row 8 (sample_extremes) is bit-equal to its plain
 version at every shape, the baseline's too. A baseline with wide kernels
-(d > 16) must give rows 2 and 8's bits at every d > 16 and s (phase 29's
-cases, phase 30's shapes and its chunk path), where both are also timed
-in turns with it. Rows 1-9 of the kernels line
+(d > 16) must give rows 2, 3, 4, 8 and 9's bits at every d > 16 and s
+(phase 29's cases, phase 30's shapes and its chunk path), where each is
+also timed in turns with it (row 9 and its join answer at phase 30's join).
+Rows 1-9 of the kernels line
 then carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
 baseline_device_ms; rows 2 and 8 timed in turns with the baseline's at the
 serving shapes, row 9 baseline_row9_ms / baseline_row9_device_ms; null
@@ -431,8 +432,13 @@ Phases, each of which fails the run:
    a baseline, its bits) at s = 75 (R = 8, 9 and 33), 300 (R = 1) and
    2049 (R = 3 and 9) with NaN coordinates on valid slots, in three cases
    queries bounding 5-8 columns (cut words past CUT_MAX); route_multid with
-   ties and an inverted box, bit-equal; row 9 at D = d on mixed and NaN
-   inputs. At each d > 16 the bit identity: on a 16-column input (the
+   ties and an inverted box, bit-equal; row 9 at D = d (WIDE_JOIN_CASES:
+   NaN coordinates, non-finite values, covered cells, queries bounding 1
+   and 9-12 columns, past the wide walk's 8 cut columns, runs longer
+   than a 32-slot window, k * P off multiples of 4 and of the 64-cell
+   tile), with a --baseline that has wide kernels bit-equal to its, and
+   at the widest d the cut columns printed. At each d > 16 the bit
+   identity: on a 16-column input (the
    d <= 16 code) and on the same input with d - 16 more columns (the
    wide code), whose query bounds are -+3.4e38 and data finite, rows 1-4,
    8 and 9 give the same bits; row 7, its rows inside every box there,
@@ -452,7 +458,8 @@ Phases, each of which fails the run:
    checks, no reoptimize: 1-D only); one answer_join on join_workload's
    distributions with 24 fact columns at 7.7 M fact rows, each rectangle
    bounding 2-4 fact columns and the dimension pair (rows 1, 9 and 11;
-   row 9 against plain, the truth of 64 queries). Each window's launches
+   row 9 against plain, the truth of 64 queries, the cut columns of its
+   mixed pairs and of each (query, 64-cell tile)). Each window's launches
    are read right after it. Times: rows 1-4, 7 and 8 by events and on the
    device, their plain versions and bounds at d = 24, rows 2-4's
    torch.bmm yardstick (a prebuilt predicate, as in Table 1), row 9 and
@@ -460,8 +467,10 @@ Phases, each of which fails the run:
    rows 2 and 8 in turns with its (bit-equal first), rows 3 and 4 the
    same (weighted_turns), the mixed pairs each walk of rows 3 and 4 took,
    and the answer, the fused and the scan bootstrap answer with its rows
-   2, 3, 4 and 8 and with this checkout's, in turns (the same bits). The
-   chunk path: rows
+   2, 3, 4 and 8 and with this checkout's, in turns (the same bits); row
+   9 bit-equal to its at the join shape, then row 9 and answer_join with
+   its row 9 and with this checkout's, in turns (the same answer bits).
+   The chunk path: rows
    2 and 8 at k = 1, s = 38,500 (a uniform sample of the table: Table 1's
    US size), Q = 2048, against plain, in turns with the baseline's, beside
    torch.bmm and the bound. With --wide-only the script runs phases 1, 2,
@@ -3125,6 +3134,8 @@ def build_baseline(base: Path) -> dict:
     qe.repro_query_eval.restype = ctypes.c_int
     jm = libs["join_moments"]
     jm.scratch = hasattr(jm, "repro_join_moments_scratch")
+    # A baseline with wide kernels: row 9's bits at every D > 16 too.
+    jm.wide = (csrc / "wide_cols.cuh").exists()
     jm.repro_join_cell_moments.argtypes = (
         [ctypes.c_void_p] * (15 if jm.scratch else 14)
         + ([ctypes.c_longlong] if jm.scratch else []) + [ctypes.c_int] * 5
@@ -4616,10 +4627,15 @@ def join_bound(torch, args, jsyn) -> dict:
     operations / fp32 rate). Bytes: the live slots' coordinates, values
     and keys, the run offsets and boxes, the bounds, masks and cell
     aggregates read once, the eight planes, exact3 and touched written
-    once. Operations, as this run's data needs them: per (query, cell)
-    pair whose box the query meets, 2D compares and 3 flops a slot of the
-    cell and 10 a key group; 2 flops a (query, cell, column) of exact3 and
-    touched."""
+    once. Operations, as this run's data needs them: each cell's totals
+    once, 3 flops a slot and 10 a key group; per mixed (query, cell) pair
+    (join_cell_classes), a slot's test 2 compares in each column that cuts
+    the pair (the query does not hold the cell's box there, or a slot of
+    the run has NaN there) and 3 flops a slot, 10 a key group; covered
+    and empty pairs none; 2 flops a (query, cell,
+    column) of exact3 and touched."""
+    from repro_torch.kernels.join_moments import (MIXED, cell_nan_columns,
+                                                  join_cell_classes)
     slots, lo, hi, cover, sampled, agg, _ = args
     Q, D = lo.shape
     kp = jsyn.num_leaves * jsyn.num_partitions
@@ -4630,13 +4646,19 @@ def join_bound(torch, args, jsyn) -> dict:
     per_cell = torch.diff(slots.cell_start.long(), dim=1).reshape(-1)
     gid = slots.flat_gid[slots.flat_gid >= 0].unique()
     groups = torch.bincount(slots.g_cell[gid], minlength=kp + 1)[:kp]
-    work = (per_cell * (2 * D + 3) + groups * 10).to(torch.float64)
+    work = (per_cell * 3 + groups * 10).to(torch.float64)
+    nan_cols = cell_nan_columns(slots)
     box = slots.cell_box
-    ops = 0.0
+    ops = float(work.sum())
     for s in range(0, Q, 256):
-        meet = ~((hi[s:s + 256, None, :] < box[None, :, 0])
-                 | (lo[s:s + 256, None, :] > box[None, :, 1])).any(-1)
-        ops += float((meet.to(torch.float64) * work[None]).sum())
+        ql, qh = lo[s:s + 256], hi[s:s + 256]
+        mixed = (join_cell_classes(slots, ql, qh, nan_cols.any(-1))
+                 == MIXED).to(torch.float64)
+        cut = (~((ql[:, None] <= box[None, :, 0])
+                 & (box[None, :, 1] <= qh[:, None]))
+               | nan_cols[None]).sum(-1).to(torch.float64)
+        ops += float((mixed * (work[None] + 2.0 * cut
+                               * per_cell[None])).sum())
     ops += 2.0 * 4 * Q * kp
     t_bytes, t_ops = nbytes / PEAK_BYTES_S, ops / PEAK_F32_OPS_S
     return {"bytes": nbytes, "operations": ops,
@@ -5048,7 +5070,7 @@ def join_baseline_turns(torch, tag, eng, fq, dq, args, base) -> dict:
         try:
             require_same(f"{tag} join answer with the {who} row 9",
                          host_results(answer()), want, JOIN_KINDS)
-            kby = device_by_name(torch, row9[who])
+            kby = device_by_name(torch, row9[who], tries=PROFILE_TRIES)
             runs[who].append({
                 "row9_ms": cuda_ms(torch, row9[who], reps=10, warmup=2),
                 "row9_device_ms": records_ms(kby),
@@ -8063,15 +8085,23 @@ def wide_weights(rng, R, k, s):
     return W
 
 
+# Row 9's wide cases (wide_join_case modes): the columns a query bounds.
+WIDE_JOIN_SPANS = {"one": (1, 2), "many": (9, 13)}
+
+
 def wide_join_case(torch, dev, rng, Q, k, su, P, d_f, d_d, nan=False,
-                   extra=0):
+                   extra=0, mode="mixed"):
     """Row 9 at D = d_f + d_d columns on join_case's "mixed" distributions
     (``nan``: NaN coordinates on valid slots); query 0 holds every finite
     slot, the others bound 2-4 columns of (-0.5, 1.5)-wide random boxes
     and leave the rest (-10, 10), so that covered, empty and mixed cells
-    occur. With ``extra``, also the same inputs with that many more fact
-    columns of finite data after the first d_f, bounded -+WIDE_BIG.
-    Returns (args, widened args or None)."""
+    occur. ``mode``: "one" / "many", each query bounds 1 / 9-12 columns
+    (past the wide walk's 8 cut columns); "inf", +inf, -inf and NaN
+    values on three valid slots (unbounded cell boxes); "covered", query
+    1 unbounded and queries 2-4 three cells' boxes exactly. With
+    ``extra``, also the same inputs with that many more fact columns of
+    finite data after the first d_f, bounded -+WIDE_BIG. Returns (args,
+    widened args or None)."""
     from repro_torch.kernels.join_moments import join_slots
     u_c = rng.normal(size=(k, su, d_f)).astype(np.float32)
     u_d = rng.normal(size=(k, su, d_d)).astype(np.float32)
@@ -8081,9 +8111,15 @@ def wide_join_case(torch, dev, rng, Q, k, su, P, d_f, d_d, nan=False,
     if nan:
         u_c[u_valid & (rng.random((k, su)) < 0.2), d_f - 1] = np.nan
         u_d[u_valid & (rng.random((k, su)) < 0.1), -1] = np.nan
+    if mode == "inf":
+        on = np.argwhere(u_valid)
+        for v, (i, j) in zip((np.inf, -np.inf, np.nan),
+                             on[rng.choice(len(on), 3, replace=False)]):
+            u_a[i, j] = v
     u_part = (u_key % P).astype(np.int32)
     D, kp = d_f + d_d, k * P
-    q_lo, q_hi = wide_bounded(rng, Q, D, -10.0, 10.0, first=0, fixed=1)
+    q_lo, q_hi = wide_bounded(rng, Q, D, -10.0, 10.0, first=0, fixed=1,
+                              span=WIDE_JOIN_SPANS.get(mode, (2, 5)))
     q_lo = np.where(q_lo > -10.0, q_lo * 4.0 - 2.0, q_lo).astype(np.float32)
     q_hi = np.where(q_hi < 10.0, q_hi * 4.0 - 2.0, q_hi).astype(np.float32)
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
@@ -8091,7 +8127,14 @@ def wide_join_case(torch, dev, rng, Q, k, su, P, d_f, d_d, nan=False,
             T(rng.normal(size=(kp, 5)).astype(np.float32)),
             torch.tensor(1234.0, device=dev))
     tail = (T(u_a), T(u_key), T(u_part), T(u_valid), P)
-    args = (join_slots(T(u_c), T(u_d), *tail), T(q_lo), T(q_hi), *rest)
+    slots = join_slots(T(u_c), T(u_d), *tail)
+    if mode == "covered":
+        box = slots.cell_box.cpu().numpy()
+        q_lo[1], q_hi[1] = -np.inf, np.inf
+        finite = np.flatnonzero(np.isfinite(box).all((1, 2)))
+        for i, cell in zip(range(2, min(Q, 5)), rng.choice(finite, 3)):
+            q_lo[i], q_hi[i] = box[cell, 0], box[cell, 1]
+    args = (slots, T(q_lo), T(q_hi), *rest)
     if not extra:
         return args, None
     wq = widen_queries(q_lo, q_hi, extra, at=d_f)
@@ -8230,7 +8273,10 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
     and above it with R = 3 and 9, NaN coordinates on valid slots, in
     three cases queries that bound 5-8 columns; row 7 with ties, an
     inverted box and B off the row tile, bit-equal; row 9 at D = d (d - 1
-    fact columns) on mixed and NaN inputs. Then at each d > 16 the bit
+    fact columns) at WIDE_JOIN_CASES (NaN coordinates, non-finite values,
+    covered cells, queries bounding 1 and 9-12 columns, runs longer than a
+    32-slot window, k * P off multiples of 4 and of the 64-cell tile), with
+    a baseline that has wide kernels bit-equal to its. Then at each d > 16 the bit
     identity with the 16-column input (wide_identity). Returns the max
     absolute errors and the case counts."""
     from repro_torch.kernels.sample_extremes import sample_extremes_cuda
@@ -8244,7 +8290,8 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
                            "sample_extremes", "bootstrap_moments",
                            "route_multid", "join_cell_moments",
                            "identity", "baseline_bits",
-                           "weighted_baseline_bits"), 0)
+                           "weighted_baseline_bits", "join_baseline_bits"),
+                          0)
     classes = {}
     for d in WIDE_DS:
         rng = np.random.default_rng(29_000 + d)
@@ -8303,15 +8350,20 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
             route_vs_plain(torch, f"wide route_multid d={d} B={B} k={k}",
                            *(T(x) for x in route_case(rng, B, k, d)))
             cases["route_multid"] += 1
-        for Q, k, su, P, nan in ((65, 13, 40, 4, False),
-                                 (40, 9, 30, 3, True)):
+        jbase = base if base is not None and d > WIDE_BASE_D and base[
+            "join_moments"].wide else None
+        for Q, k, su, P, nan, mode in WIDE_JOIN_CASES:
             args, _ = wide_join_case(torch, dev, rng, Q, k, su, P, d - 1, 1,
-                                     nan)
-            tag = f"wide join D={d} Q={Q} k={k} su={su} P={P} nan={nan}"
-            e = join_vs_plain(torch, tag, args, 0.3)
+                                     nan, mode=mode)
+            tag = (f"wide join D={d} Q={Q} k={k} su={su} P={P} nan={nan} "
+                   f"{mode}")
+            e = join_vs_plain(torch, tag, args, 0.3, base=jbase)
             classes[tag] = join_classes(torch, args)
+            if d == max(WIDE_DS) and mode in ("mixed", "many"):
+                classes[f"{tag} cuts"] = join_cut_histogram(torch, args)
             errs["join_cell_moments"] = max(errs["join_cell_moments"], e)
             cases["join_cell_moments"] += 1
+            cases["join_baseline_bits"] += jbase is not None
         if d > WIDE_BASE_D:
             cases["identity"] += wide_identity(torch, dev, d)
         torch.cuda.empty_cache()
@@ -8319,6 +8371,19 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
            "classes": classes, "seconds": time.perf_counter() - t0}
     emit(phase="29 wide edge cases", **out)
     return out
+
+
+# Phase 29's row 9 cases, (Q, k, su, P, nan, mode) of wide_join_case: k * P
+# off multiples of 4 (27, 15) and of the 64-cell tile, more than one tile
+# (130 cells), NaN coordinates, non-finite values, covered cells, queries
+# bounding 1 and 9-12 columns, leaves of 3000 slots (runs of ~600).
+WIDE_JOIN_CASES = ((65, 13, 40, 4, False, "mixed"),
+                   (40, 9, 30, 3, True, "mixed"),
+                   (33, 26, 30, 5, False, "inf"),
+                   (40, 10, 30, 13, False, "covered"),
+                   (37, 40, 20, 4, False, "one"),
+                   (37, 13, 40, 4, False, "many"),
+                   (35, 3, 3000, 5, False, "mixed"))
 
 
 # Phase 30's table: nyc_taxi's five columns at paper size (7.7 M trips) and
@@ -8756,25 +8821,14 @@ def join_truth_scan(torch, c, a, keys, dkeys, dattr, q_lo, q_hi) -> dict:
     return {kind: t[kind] for kind in ("sum", "count", "avg")}
 
 
-def wide_join(torch, card, seed=0) -> dict:
-    """30, join: join_workload's distributions with WIDE_D fact columns at
-    the join slice's size (JOIN_N fact rows over JOIN_ND keys, P = 16,
-    p_u = 0.05, k = 1024, "kd"), each of its JOIN_Q rectangles bounding 2-4
-    fact columns (the rest at the data's [min, max]) and the dimension
-    pair; PassEngine(sum/count/avg, ci=0.95).answer_join: query_eval
-    twice, rows 9 and 11 once; row 9 against plain at that shape (its
-    first JOIN_CPU_Q queries, as the plain time); the truth
-    of 64 queries (join_truth_scan) inside [lower, upper], median SUM error
-    at most JOIN_ERR; times of the answer and of row 9 against its
-    bound."""
-    from repro_torch.api import PassEngine, ServingConfig
-    from repro_torch.core.types import QueryBatch
+def wide_join_data(seed=0):
+    """Phase 30's join: join_workload's distributions with WIDE_D fact
+    columns (JOIN_N fact rows over JOIN_ND keys), each of the JOIN_Q
+    rectangles bounding 2-4 fact columns (the rest at the data's [min,
+    max]) and the dimension pair, and the join synopsis built from them
+    (P = JOIN_P, p_u = JOIN_PU, k = JOIN_K, "kd"). Returns ((c, a, keys,
+    dkeys, dattr, q_lo, q_hi), jsyn, report)."""
     from repro_torch.joins import build_dim_table, build_join_synopsis
-    from repro_torch.joins.executor import join_slots
-    from repro_torch.kernels import native
-    from repro_torch.kernels.join_moments import join_cell_moments_cuda
-    t0 = time.perf_counter()
-    dev = torch.device("cuda")
     c, a, keys, dkeys, dattr, q_lo, q_hi = join_workload(
         JOIN_N, JOIN_ND, JOIN_Q, seed, WIDE_D)
     rng = np.random.default_rng(seed + 30)
@@ -8788,6 +8842,92 @@ def wide_join(torch, card, seed=0) -> dict:
     dim = build_dim_table(dkeys, dattr, num_partitions=JOIN_P)
     jsyn, report = build_join_synopsis(c, a, keys, dim, k=JOIN_K,
                                        p_u=JOIN_PU, seed=seed, method="kd")
+    return (c, a, keys, dkeys, dattr, q_lo, q_hi), jsyn, report
+
+
+def join_cut_histogram(torch, args, tile=None) -> dict:
+    """Row 9's cut columns on these inputs: for each mixed (query, cell)
+    pair the columns whose test can clear a
+    slot's bit (the query does not hold the cell's box there, or a slot
+    of the run has NaN there), and for each (query, tile of ``tile``
+    cells) with a mixed pair the columns where the query does not hold
+    the tile's box, which the wide walk tests (every column for a pair on
+    a cell with a NaN coordinate); each as {columns: count}. Also the
+    mixed pairs a block of JM_QT queries x ``tile`` cells holds
+    (quantiles, and the share of blocks past JM_WIDE_RESULTS). ``tile``:
+    the wide kernel's JM_WIDE_CT by default."""
+    from repro_torch.kernels.join_moments import (JM_QT, JM_WIDE_CT,
+                                                  JM_WIDE_RESULTS, MIXED,
+                                                  cell_nan_columns,
+                                                  join_cell_classes)
+    tile = tile or JM_WIDE_CT
+    slots, lo, hi = args[:3]
+    Q, D = lo.shape
+    kp = slots.cell_box.shape[0]
+    nan_cols = cell_nan_columns(slots)
+    flags = nan_cols.any(-1)
+    box = slots.cell_box
+    n_t = -(-kp // tile)
+    pad = n_t * tile - kp
+    tlo = torch.nn.functional.pad(box[:, 0], (0, 0, 0, pad),
+                                  value=float("inf"))
+    thi = torch.nn.functional.pad(box[:, 1], (0, 0, 0, pad),
+                                  value=float("-inf"))
+    tlo = tlo.reshape(n_t, tile, D).amin(1)
+    thi = thi.reshape(n_t, tile, D).amax(1)
+    pair, per_tile = {}, {}
+    blocks = []
+    for s in range(0, Q, JM_QT):
+        ql, qh = lo[s:s + JM_QT], hi[s:s + JM_QT]
+        mixed = join_cell_classes(slots, ql, qh, flags) == MIXED
+        cut = (~((ql[:, None] <= box[None, :, 0])
+                 & (box[None, :, 1] <= qh[:, None])) | nan_cols[None])
+        n = cut.sum(-1)[mixed]
+        for v, c in zip(*torch.unique(n, return_counts=True)):
+            pair[int(v)] = pair.get(int(v), 0) + int(c)
+        held = ((ql[:, None] <= tlo[None]) & (thi[None] <= qh[:, None]))
+        nt = (~held).sum(-1)                                  # (q, n_t)
+        mt = torch.nn.functional.pad(mixed, (0, pad)).reshape(
+            -1, n_t, tile)
+        live = mt.any(-1)
+        for v, c in zip(*torch.unique(nt[live], return_counts=True)):
+            per_tile[int(v)] = per_tile.get(int(v), 0) + int(c)
+        blocks.append(mt.sum((0, 2)))
+    blocks = torch.cat(blocks).to(torch.float64)
+    qs = torch.quantile(blocks, torch.tensor(
+        [0.5, 0.9, 0.99, 1.0], dtype=torch.float64, device=blocks.device))
+    return {"pair_cut_columns": dict(sorted(pair.items())),
+            "tile_cut_columns": dict(sorted(per_tile.items())),
+            "tile_cells": tile,
+            "block_mixed_pairs_p50_p90_p99_max": [float(x) for x in qs],
+            "blocks_past_results": float((blocks > JM_WIDE_RESULTS).to(
+                torch.float64).mean())}
+
+
+def wide_join(torch, card, seed=0, base=None) -> dict:
+    """30, join: join_workload's distributions with WIDE_D fact columns at
+    the join slice's size (JOIN_N fact rows over JOIN_ND keys, P = 16,
+    p_u = 0.05, k = 1024, "kd"), each of its JOIN_Q rectangles bounding 2-4
+    fact columns (the rest at the data's [min, max]) and the dimension
+    pair; PassEngine(sum/count/avg, ci=0.95).answer_join: query_eval
+    twice, rows 9 and 11 once; row 9 against plain at that shape (its
+    first JOIN_CPU_Q queries, as the plain time); the truth
+    of 64 queries (join_truth_scan) inside [lower, upper], median SUM error
+    at most JOIN_ERR; times of the answer and of row 9 against its
+    bound; the cut columns of its mixed pairs (join_cut_histogram). With a
+    baseline that has wide kernels, row 9 bit-equal to the baseline's at
+    the whole shape and, in turns with it, row 9 and the answer
+    (join_baseline_turns: the same answer bits)."""
+    from repro_torch.api import PassEngine, ServingConfig
+    from repro_torch.core.types import QueryBatch
+    from repro_torch.joins.executor import join_slots
+    from repro_torch.kernels import native
+    from repro_torch.kernels.join_moments import (PLANES,
+                                                  join_cell_moments_cuda)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    (c, a, keys, dkeys, dattr, q_lo, q_hi), jsyn, report = wide_join_data(
+        seed)
     build_s = time.perf_counter() - t0
     q = QueryBatch(torch.from_numpy(q_lo).to(dev),
                    torch.from_numpy(q_hi).to(dev))
@@ -8826,12 +8966,27 @@ def wide_join(torch, card, seed=0) -> dict:
                  fq, dq), reps=10),
              "join_cell_moments": cuda_ms(torch, row9, reps=10, warmup=2),
              "join_cell_moments_device": records_ms(kby),
+             "join_cell_moments_by_kernel": {
+                 n: v["ms_per_record"] for n, v in kby.items()},
              "join_cell_moments_plain": plain_time[
                  "join_cell_moments_plain"],
              "join_cell_moments_plain_queries": JOIN_CPU_Q}
+    baseline_bit_equal = None
+    if base is not None and base["join_moments"].wide:
+        got, old = row9(), baseline_join(torch, base, *args, JOIN_PU)
+        for f in PLANES + ("exact3", "touched"):
+            if not bits_equal(torch, getattr(got, f), getattr(old, f)):
+                raise AssertionError(f"wide join: row 9's {f} differs from "
+                                     "the baseline kernel's")
+        del got, old
+        baseline_bit_equal = True
+        times.update(join_baseline_turns(torch, "wide join", eng, fq, dq,
+                                         args, base))
     out = {"rows": JOIN_N, "fact_columns": WIDE_D, "build_s": build_s,
            "report": report, "launches": launches, "classes": classes,
+           "cut_columns": join_cut_histogram(torch, args),
            "max_abs_err": err, "quality": quality, "times_ms": times,
+           "baseline_bit_equal": baseline_bit_equal,
            "bound": join_bound(torch, args, jsyn),
            "seconds": time.perf_counter() - t0}
     emit(phase="30 wide join", card=card, **out)
@@ -8897,7 +9052,7 @@ def wide_path(torch, card, base=None) -> dict:
     step("answer times")
     del c, a, cs, as_
     torch.cuda.empty_cache()
-    join = wide_join(torch, card)
+    join = wide_join(torch, card, base=base)
     step("join")
     rows.update(join_cell_moments=join["launches"]["join_cell_moments"],
                 join_epilogue=join["launches"]["join_epilogue"])
@@ -8995,7 +9150,14 @@ def wide_rows(wide, edge) -> list:
         "plain_queries": jt["join_cell_moments_plain_queries"],
         "bound_ms": j["bound"]["bound_ms"], "bound_by": j["bound"]["bound_by"],
         "library_ms": None, "library_device_ms": None,
-        "cell_classes": j["classes"]}})
+        "cell_classes": j["classes"], "cut_columns": j["cut_columns"],
+        "device_ms_by_kernel": jt["join_cell_moments_by_kernel"],
+        "baseline_bit_equal": j["baseline_bit_equal"],
+        "baseline_bit_equal_cases": edge["cases"]["join_baseline_bits"],
+        **{key: (jt.get("in_turns") or {}).get(key) for key in (
+            "baseline_row9_ms", "baseline_row9_device_ms",
+            "current_row9_ms", "current_row9_device_ms",
+            "baseline_answer_join_ms", "current_answer_join_ms")}}})
     out.append({"name": "segment_reduce", "wide": {
         "launches": stream["segment_reduce"], "max_abs_err": 0.0}})
     out.append({"name": "threefry", "wide": {
@@ -9024,6 +9186,8 @@ def check_plan_constants() -> None:
     from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
     from repro_torch.kernels.join_epilogue import EPI_CHUNK, EPI_THREADS
     from repro_torch.kernels.join_moments import (JM_CT, JM_MAX_D, JM_QT,
+                                                  JM_WIDE_CT,
+                                                  JM_WIDE_RESULTS,
                                                   join_scratch_floats)
     from repro_torch.kernels.threefry import CDF_LEN
     from repro_torch.kernels.sample_extremes import EXTREMES_LT, EXTREMES_QT
@@ -9059,7 +9223,9 @@ def check_plan_constants() -> None:
                               wm.repro_weighted_pair_r()),
            "join_cell_moments tiles": (jmo.repro_join_moments_query_tile(),
                                        jmo.repro_join_moments_cell_tile(),
-                                       jmo.repro_join_moments_max_d()),
+                                       jmo.repro_join_moments_max_d(),
+                                       jmo.repro_join_moments_wide_cell_tile(),
+                                       jmo.repro_join_moments_wide_results()),
            "threefry table": native.library(
                "threefry").repro_threefry_cdf_len(),
            "join_epilogue launch": (
@@ -9077,7 +9243,8 @@ def check_plan_constants() -> None:
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
             "weighted slot chunk": WEIGHTED_CHUNK,
             "weighted walks": (_WSTAGE, WEIGHTED_PAIR_R),
-            "join_cell_moments tiles": (JM_QT, JM_CT, JM_MAX_D),
+            "join_cell_moments tiles": (JM_QT, JM_CT, JM_MAX_D, JM_WIDE_CT,
+                                        JM_WIDE_RESULTS),
             "threefry table": CDF_LEN,
             "join_epilogue launch": (EPI_THREADS, EPI_CHUNK)}
     if got != want:

@@ -8,7 +8,8 @@
 // no bit: a slot, a pair or a leaf gets the flags of the d <= 16 test.
 //
 // Cut columns (rows 2 and 8, pair_tiles.cuh; rows 3 and 4, a (query,
-// segment) pair's own, weighted_moments.cu). A (query, leaf) pair whose
+// segment) pair's own, weighted_moments.cu; row 9 keeps its own list of
+// JCUT columns, join_moments.cu). A (query, leaf) pair whose
 // query box holds the extent of the leaf's valid slots in column j, where
 // no valid slot has a NaN coordinate, passes column j for every valid
 // slot: lo_j <= min <= c_j <= max <= hi_j, with the slot test's own
@@ -37,39 +38,6 @@ constexpr int CUT_COLS = 1024; // columns up to which pairs keep their cuts
 constexpr uint64_t CUT_NONE = ~0ull;                 // no column yet
 constexpr uint64_t CUT_ALL = 0xfffefffefffefffeull;  // test every column
 static_assert(CUT_MAX == 4, "a cut word holds four 16-bit columns");
-
-// Bit b is set iff slot b of the n <= 32 consecutive slots whose
-// coordinates start at x (rows of d floats) lies inside [lo_j, hi_j] in
-// every column j, bounds inclusive (NaN is never inside). lo / hi are a
-// query's rows of d floats, or nullptr for the unbounded box (-inf, +inf),
-// which holds every slot without a NaN coordinate. A block's bounds sit in
-// registers; the loop stops once no slot is left inside. n <= 0: none.
-__device__ __forceinline__ uint32_t slots_inside_wide(
-    const float* __restrict__ x, int n, int d, const float* __restrict__ lo,
-    const float* __restrict__ hi) {
-  if (n <= 0) return 0u;
-  const float inf = __int_as_float(0x7f800000);
-  uint32_t m = n >= 32 ? 0xffffffffu : (1u << n) - 1u;
-  for (int j0 = 0; j0 < d && m != 0u; j0 += WIDE_COLS) {
-    const int nj = min(WIDE_COLS, d - j0);
-    float ql[WIDE_COLS], qh[WIDE_COLS];
-#pragma unroll
-    for (int j = 0; j < WIDE_COLS; ++j) {
-      const bool on = j < nj && lo != nullptr;
-      ql[j] = on ? lo[j0 + j] : -inf;
-      qh[j] = on ? hi[j0 + j] : inf;
-    }
-    for (int b = 0; b < n; ++b) {
-      const float* xb = x + (size_t)b * d + j0;
-      bool in = true;
-#pragma unroll
-      for (int j = 0; j < WIDE_COLS; ++j)
-        if (j < nj) in &= (ql[j] <= xb[j]) & (xb[j] <= qh[j]);
-      if (!in) m &= ~(1u << b);
-    }
-  }
-  return m;
-}
 
 // The cut word cw with column j appended: CUT_ALL once it already held
 // CUT_MAX columns (the pair then tests every column), and from then on.

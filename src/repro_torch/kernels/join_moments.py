@@ -14,7 +14,9 @@ the card.
 The kernel sorts every (query, cell) pair into three classes
 (:func:`join_cell_classes`, its rule in torch): empty pairs write +0.0,
 covered ones copy the cell's totals walked once with every slot inside,
-and only mixed ones walk; each gives the walk's bits.
+and only mixed ones walk; each gives the walk's bits. Above ``JM_MAX_D``
+columns a mixed pair's walk tests only the columns that can clear a slot's
+bit (:func:`cell_nan_columns` and the cell's box say which).
 
 A cell is a (fact leaf, dim partition) pair, id ``leaf * P + part``. Both
 versions take a :class:`JoinSlots` (built once per synopsis epoch by
@@ -248,22 +250,39 @@ def join_cell_moments_plain(slots: JoinSlots, q_lo, q_hi, cover, sampled,
     return JoinMoments(*planes.unbind(0), exact3=exact3, touched=touched)
 
 
-def cell_nan_flags(slots: JoinSlots) -> torch.Tensor:
-    """(k*P,) bool: a slot of the cell's run has a NaN coordinate. The
-    slot test rejects NaN and the cell's box leaves it out, so such a cell
-    is never covered (:func:`join_cell_classes`)."""
+def slot_cells(slots: JoinSlots) -> torch.Tensor:
+    """(k*su,) int64: the cell whose run holds each sorted slot, k*P past
+    a leaf's runs."""
     k, su, P = slots.num_leaves, slots.capacity, slots.num_partitions
     dev = slots.s_coord.device
     pos = torch.arange(su, dtype=torch.int32, device=dev).expand(k, su)
     # A slot's partition within its leaf's runs; P past the last run.
     part = torch.searchsorted(slots.cell_start[:, 1:].contiguous(),
                               pos.contiguous(), right=True).to(torch.int64)
-    cid = torch.where(part < P, torch.arange(k, device=dev)[:, None] * P
-                      + part, k * P).reshape(-1)
+    return torch.where(part < P, torch.arange(k, device=dev)[:, None] * P
+                       + part, k * P).reshape(-1)
+
+
+def cell_nan_flags(slots: JoinSlots) -> torch.Tensor:
+    """(k*P,) bool: a slot of the cell's run has a NaN coordinate. The
+    slot test rejects NaN and the cell's box leaves it out, so such a cell
+    is never covered (:func:`join_cell_classes`)."""
+    k, P = slots.num_leaves, slots.num_partitions
+    dev = slots.s_coord.device
     nan = torch.isnan(slots.s_coord).any(-1).reshape(-1).to(torch.int64)
     flags = torch.zeros(k * P + 1, dtype=torch.int64, device=dev)
-    flags.index_add_(0, cid, nan)
+    flags.index_add_(0, slot_cells(slots), nan)
     return flags[:k * P] > 0
+
+
+def cell_nan_columns(slots: JoinSlots) -> torch.Tensor:
+    """(k*P, D) bool: a slot of the cell's run has NaN in the column."""
+    k, P, D = slots.num_leaves, slots.num_partitions, slots.d
+    dev = slots.s_coord.device
+    nan = torch.isnan(slots.s_coord).reshape(-1, D).to(torch.int64)
+    cols = torch.zeros((k * P + 1, D), dtype=torch.int64, device=dev)
+    cols.index_add_(0, slot_cells(slots), nan)
+    return cols[:k * P] > 0
 
 
 # (query, cell) classes of row 9's kernel.
@@ -308,9 +327,12 @@ def _kernel():
 # Limits of the launch (csrc/join_moments.cu): tiles of JM_CT cells along
 # gridDim.x and JM_QT queries along gridDim.y (at most 65535 tiles), k * P
 # cells and sizes that fit a C int, any D: the tile kernel holds up to
-# JM_MAX_D predicate columns whole and takes more in blocks of JM_MAX_D
-# (the same shared memory and registers at every D).
+# JM_MAX_D predicate columns whole; above, the wide tile kernel takes tiles
+# of JM_WIDE_CT cells and JM_QT queries, whose mixed pairs' results go in
+# rounds of at most JM_WIDE_RESULTS pairs (the same shared memory and
+# registers at every D).
 JM_QT, JM_CT, JM_MAX_D = 32, 128, 16
+JM_WIDE_CT, JM_WIDE_RESULTS = 64, 1024
 
 
 def join_scratch_floats(kp: int) -> int:
@@ -389,5 +411,6 @@ def join_cell_moments_cuda(slots: JoinSlots, q_lo, q_hi, cover, sampled,
 __all__ = ["JoinSlots", "JoinMoments", "join_slots", "universe_group_ids",
            "join_cell_moments_plain", "join_cell_moments_cuda",
            "check_join_limits", "plain_chunk_rows", "join_scratch_floats",
-           "cell_nan_flags", "join_cell_classes", "EMPTY", "COVERED", "MIXED",
-           "JM_QT", "JM_CT", "JM_MAX_D", "PLANES"]
+           "cell_nan_flags", "cell_nan_columns", "slot_cells",
+           "join_cell_classes", "EMPTY", "COVERED", "MIXED", "JM_QT", "JM_CT",
+           "JM_MAX_D", "JM_WIDE_CT", "JM_WIDE_RESULTS", "PLANES"]

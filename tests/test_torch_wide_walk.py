@@ -441,6 +441,18 @@ def _assert_bits(got, want, msg):
         f"{msg}: {int((g != w).sum())} values differ in their bits")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The replays' many small torch ops on one thread. Under several test
+    workers torch's pool of a thread a core oversubscribes the machine and
+    every op waits on it: test_wide_walk_replay[17-2049] took ~1.8 s alone
+    and ~100 s in each of six processes at once on 8 cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 WIDTHS = (17, 24, 33, 64)
 SLOTS = (1, 31, 32, 33, 75, PAIR_CHUNK + 1)
 JAX_SLOTS = (33, PAIR_CHUNK + 1)

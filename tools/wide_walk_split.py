@@ -4,12 +4,14 @@ the card at chip_smoke.py phase 30's shape (the 24-column table at paper
 size: build_synopsis(k=1024, sample_rate=0.01, method="kd"), its 2048
 queries).
 
-    python3 tools/wide_walk_split.py [--target stratified|weighted]
-                                     [--reps N] [--out FILE]
+    python3 tools/wide_walk_split.py [--target stratified|weighted|join]
+                                     [--reps N] [--out FILE] [--csrc DIR]
 
-The variants patch a source in a copy of csrc/ and build it with the
-port's nvcc flags. Each patch names the text it replaces; a variant whose
-text is no longer found exactly once in the source (the code was edited
+The variants patch a source in a copy of csrc/ (this checkout's, or
+--csrc DIR's) and build it with the port's nvcc flags. Each patch names
+the text it replaces; a variant may list other patch sets for other
+versions of the source, and the first whose texts are each found exactly
+once applies. A variant none of whose sets applies (the code was edited
 since) is left out and reported as stale, so the tool times what still
 applies.
 
@@ -54,6 +56,33 @@ each weighted_*_kernel a launch):
                 not 512;
     one_group_units  a replicate-walk unit takes one group, not two
                 neighbouring ones (a row's 96 bytes go out alone).
+
+Target ``join``: row 9 (join_cell_moments) at phase 30's join shape
+(wide_join_data: D = 25, Q = 2048, k = 1024, P = 16, 7.7 M fact rows,
+p_u = 0.05), csrc/join_moments.cu patched and built; each variant also
+read by kernel (the cells kernel, the tile kernel, the exact kernel).
+The same variant names apply to the earlier column-block tile kernel
+(``join_tile_kernel<VW, -1>``) and to the wide tile kernel that replaced
+it (``join_tile_wide_kernel``), each through the patches that match its
+source (--csrc times another checkout's):
+
+    full        the kernels as they are;
+    no_walk     the mixed pairs are never walked (their results stale);
+    no_stores   no plane is stored (classes, walks);
+    no_walk_no_stores  the class pass and the set-up alone;
+    no_tests    (wide tile kernel) the walks stage but test no column;
+    no_stage    (wide tile kernel) the walks stage no row (they test
+                stale rows);
+    no_fold     (wide tile kernel) the walks test but fold no slot;
+    setup_only  (wide tile kernel) neither classes nor walks nor stores:
+                the tile's totals, flags, runs and the rounds' bookkeeping;
+    class_no_stage    (wide tile kernel) no walk or store, and the class
+                pass stages no box or bound (it compares stale ones);
+    class_no_compare  (wide tile kernel) no walk or store, and the class
+                pass compares no pair (every live pair mixed).
+
+Before the variants the join target prints the cut-column histograms of
+chip_smoke.join_cut_histogram at that shape.
 
 A taken-out part changes the results, so nothing here is checked against
 plain: the times only say what each part costs. Each variant is timed by
@@ -150,27 +179,73 @@ WEIGHTED = {
                         ("  const int G2 = 2 * p.gs;                           // segments a unit",
                          "  const int G2 = p.gs;                           // segments a unit")],
 }
+# Row 9: each variant a list of patch sets, the column-block tile
+# kernel's first (OLD_*), then the wide tile kernel's (NEW_*).
+OLD_NO_WALK = [("        walk_run_wide(run,", "        if (false) walk_run_wide(run,")]
+OLD_NO_STORES = [("          if (VW == 4)\n            __stcs(",
+                  "          if (false)\n            __stcs("),
+                 ("          else\n            __stcs(orow + st * plane + u, v[0]);",
+                  "          else if (false)\n            __stcs(orow + st * plane + u, v[0]);")]
+NEW_NO_WALK = [("    walk_cells(r, coord,", "    if (false) walk_cells(r, coord,")]
+NEW_NO_STORES = [("    store_rows<VW>(r, out,",
+                  "    if (false) store_rows<VW>(r, out,")]
+JOIN = {
+    "no_walk": [OLD_NO_WALK, NEW_NO_WALK],
+    "no_stores": [OLD_NO_STORES, NEW_NO_STORES],
+    "no_walk_no_stores": [OLD_NO_WALK + OLD_NO_STORES,
+                          NEW_NO_WALK + NEW_NO_STORES],
+    "no_tests": [[("      my = test_items(my,", "      if (false) my = test_items(my,")]],
+    "no_stage": [[("    for (int e = lane; e < head; e += 32) cp_async4(",
+                   "    for (int e = lane; false && e < head; e += 32) cp_async4("),
+                  ("      cp_async16(x0 + head + 4 * k, src + head + 4 * k);",
+                   "      if (false) cp_async16(x0 + head + 4 * k, src + head + 4 * k);"),
+                  ("    for (int e = head + 4 * chunks + lane; e < total; e += 32)",
+                   "    for (int e = head + 4 * chunks + lane; false && e < total; e += 32)")]],
+    "no_fold": [[("      fold_window(acc,", "      if (false) fold_window(acc,")]],
+    "setup_only": [NEW_NO_WALK + NEW_NO_STORES + [
+        ("  classify_wide(r, cell_box,", "  if (false) classify_wide(r, cell_box,")]],
+    "class_no_stage": [NEW_NO_WALK + NEW_NO_STORES + [
+        ("    for (int i = tid; i < nc * 2 * nj; i += NT) {",
+         "    for (int i = tid; false && i < nc * 2 * nj; i += NT) {"),
+        ("    for (int i = tid; i < 2 * nq * nj; i += NT) {",
+         "    for (int i = tid; false && i < 2 * nq * nj; i += NT) {")]],
+    "class_no_compare": [NEW_NO_WALK + NEW_NO_STORES + [
+        ("      if (!((walk >> i) & 1u)) continue;",
+         "      if (true) continue;")]],
+}
 # Per target: the file the patches edit, the source built, the variants.
 TARGETS = {"stratified": ("pair_tiles.cuh", "stratified_moments.cu",
                           STRATIFIED),
            "weighted": ("weighted_moments.cu", "weighted_moments.cu",
-                        WEIGHTED)}
+                        WEIGHTED),
+           "join": ("join_moments.cu", "join_moments.cu", JOIN)}
 
 
-def build(name: str, target: str, patches, out_dir: Path):
+def patched(text: str, patches):
+    """``text`` with ``patches`` applied (a list of (old, new) pairs, or a
+    list of such lists tried in order), or None when no set's texts are
+    each found exactly once."""
+    sets = patches if patches and isinstance(patches[0], list) else [patches]
+    for one in sets:
+        if all(text.count(old) == 1 for old, _ in one):
+            for old, new in one:
+                text = text.replace(old, new)
+            return text
+    return None
+
+
+def build(name: str, target: str, patches, out_dir: Path, csrc: Path):
     """Copy csrc, apply ``patches`` to the target's file, start nvcc on its
-    source; None when a patch's text is not found exactly once."""
+    source; None when no patch set applies (patched)."""
     from repro_torch.kernels import native
     edited, source, _ = TARGETS[target]
-    text = (native.CSRC / edited).read_text()
-    for old, new in patches:
-        if text.count(old) != 1:
-            return None
-        text = text.replace(old, new)
+    text = patched((csrc / edited).read_text(), patches)
+    if text is None:
+        return None
     src = out_dir / name
     if src.exists():
         shutil.rmtree(src)
-    shutil.copytree(native.CSRC, src)
+    shutil.copytree(csrc, src)
     (src / edited).write_text(text)
     lib = out_dir / f"{name}.so"
     proc = subprocess.Popen(
@@ -236,12 +311,52 @@ def weighted_calls(torch, cs, libs, syn, ql, qh):
     return calls
 
 
+def join_calls(torch, libs, args, p_u):
+    """{(variant, ""): one launch of row 9's entry} on row 9's arguments
+    (chip_smoke.join_inputs)."""
+    from repro_torch.kernels.join_moments import (PLANES, _scales,
+                                                  join_scratch_floats)
+    slots, q_lo, q_hi, cover, sampled, agg, total = args
+    k, su, P, D = (slots.num_leaves, slots.capacity, slots.num_partitions,
+                   slots.d)
+    Q, kp = q_lo.shape[0], k * P
+    dev = q_lo.device
+    planes = torch.empty((len(PLANES), Q, kp), dtype=torch.float32,
+                         device=dev)
+    exact3 = torch.empty((Q, 3), dtype=torch.float32, device=dev)
+    touched = torch.empty((Q,), dtype=torch.float32, device=dev)
+    scratch = torch.empty(join_scratch_floats(kp), dtype=torch.float32,
+                          device=dev)
+    ptrs = [x.data_ptr() for x in (
+        slots.s_coord, slots.s_a, slots.s_last, slots.cell_start,
+        slots.cell_box, q_lo, q_hi, cover, sampled, agg, total, planes,
+        exact3, touched, scratch)]
+    calls = {}
+    for name, lib in libs.items():
+        fn = lib.repro_join_cell_moments
+        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+
+        def run(fn=fn, name=name):
+            err = fn(*ptrs, scratch.numel(), Q, k, su, P, D, *_scales(p_u),
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: cuda error {err}")
+        calls[name, ""] = run
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--target", choices=sorted(TARGETS),
                     default="stratified")
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--csrc", type=Path, default=None,
+                    help="build this csrc directory (another checkout's) "
+                    "in place of this checkout's")
     args = ap.parse_args(argv)
     import numpy as np
     import torch
@@ -251,11 +366,13 @@ def main(argv=None) -> int:
     from repro_torch.core.synopsis import build_synopsis
     from repro_torch.data.synthetic import nyc_taxi
     torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import native
+    csrc = args.csrc.resolve() if args.csrc else native.CSRC
     out_dir = ROOT / "build" / "wide_walk_split" / args.target
     out_dir.mkdir(parents=True, exist_ok=True)
     variants = TARGETS[args.target][2]
     t0 = time.perf_counter()
-    jobs = {n: build(n, args.target, p, out_dir)
+    jobs = {n: build(n, args.target, p, out_dir, csrc)
             for n, p in {"full": [], **variants}.items()}
     stale = [n for n, job in jobs.items() if job is None]
     libs = {}
@@ -269,24 +386,39 @@ def main(argv=None) -> int:
         libs[name] = ctypes.CDLL(str(lib))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    c, a = cs.wide_table(nyc_taxi, 1.0)
-    q_lo, q_hi = cs.wide_queries(c, cs.WIDE_Q, cs.WIDE_SEED,
-                                 sort=lambda x: torch.sort(torch.from_numpy(
-                                     x).to(dev)).values.cpu().numpy())
-    syn, _ = build_synopsis(c, a, k=1024, sample_rate=0.01, method="kd")
-    del c, a
-    ql = torch.from_numpy(np.ascontiguousarray(q_lo)).to(dev)
-    qh = torch.from_numpy(np.ascontiguousarray(q_hi)).to(dev)
-    sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
-    k, s, d = syn.sample_c.shape
-    Q = ql.shape[0]
-    if args.target == "weighted":
-        calls = weighted_calls(torch, cs, libs, syn, ql, qh)
-    else:
-        calls = stratified_calls(torch, libs, sm, ql, qh)
-
     card = cs.card_line()
     print(card, flush=True)
+    if args.target == "join":
+        from repro_torch.joins.executor import join_slots
+        data, jsyn, _ = cs.wide_join_data()
+        q_lo = torch.from_numpy(data[5]).to(dev)
+        q_hi = torch.from_numpy(data[6]).to(dev)
+        del data
+        jargs = cs.join_inputs(torch, join_slots(jsyn), jsyn, q_lo, q_hi)
+        calls = join_calls(torch, libs, jargs, cs.JOIN_PU)
+        Q, (k, s, d) = q_lo.shape[0], jargs[0].s_coord.shape
+        print(json.dumps({"classes": cs.join_classes(torch, jargs),
+                          **cs.join_cut_histogram(torch, jargs),
+                          "cut_columns_128_cell_tiles": cs.join_cut_histogram(
+                              torch, jargs, tile=128)["tile_cut_columns"]}),
+              flush=True)
+    else:
+        c, a = cs.wide_table(nyc_taxi, 1.0)
+        q_lo, q_hi = cs.wide_queries(
+            c, cs.WIDE_Q, cs.WIDE_SEED, sort=lambda x: torch.sort(
+                torch.from_numpy(x).to(dev)).values.cpu().numpy())
+        syn, _ = build_synopsis(c, a, k=1024, sample_rate=0.01, method="kd")
+        del c, a
+        ql = torch.from_numpy(np.ascontiguousarray(q_lo)).to(dev)
+        qh = torch.from_numpy(np.ascontiguousarray(q_hi)).to(dev)
+        sm = (syn.sample_c, syn.sample_a, syn.sample_valid)
+        k, s, d = syn.sample_c.shape
+        Q = ql.shape[0]
+        if args.target == "weighted":
+            calls = weighted_calls(torch, cs, libs, syn, ql, qh)
+        else:
+            calls = stratified_calls(torch, libs, sm, ql, qh)
+
     if stale:
         print(json.dumps({"stale": stale}), flush=True)
     order = ["full", *(n for n in variants if n in libs), "full"]
@@ -299,7 +431,7 @@ def main(argv=None) -> int:
             row = rows.setdefault((name, shape), {"ms": [], "device_ms": [],
                                                   "by_kernel": []})
             row["ms"].append(ev)
-            if args.target == "weighted":
+            if args.target != "stratified":
                 kby = cs.device_by_name(torch, fn, reps=min(args.reps, 10),
                                         tries=3)
                 row["by_kernel"].append({n: v["ms_per_record"]
