@@ -39,7 +39,8 @@ version at every shape, the baseline's too. A baseline with wide kernels
 (d > 16) must give rows 2, 3, 4, 8 and 9's bits at every d > 16 and s
 (phase 29's cases, phase 30's shapes and its chunk path), where each is
 also timed in turns with it (row 9 and its join answer at phase 30's join).
-Rows 1-9 of the kernels line
+Rows 1 and 7 with such a baseline give its bits at every d > 16 and are
+timed in turns with it at phase 30. Rows 1-9 of the kernels line
 then carry the baseline's times (baseline_ms, and for rows 1, 2 and 5-8
 baseline_device_ms; rows 2 and 8 timed in turns with the baseline's at the
 serving shapes, row 9 baseline_row9_ms / baseline_row9_device_ms; null
@@ -109,7 +110,8 @@ Phases, each of which fails the run:
    boxes across leaf groups, k around multiples of the group count and
    of the group size, B off the row tile) bit-equal to plain, across two
    launches and to the baseline; rows with NaN and +-inf coordinates
-   bit-equal to the baseline (their differences from plain counted).
+   (d = 2, 3, 16 and 24, the last through the wide kernel) bit-equal to
+   the baseline (their differences from plain counted).
 8. 1-D streaming: StreamingIngestor(phase 4's synopsis, seed=11) ingests
    nyc_taxi(scale=0.1, seed=7) in arrival order, 4096-row batches
    (770,000 trips, 188 batches). segment_reduce launches once a batch,
@@ -427,12 +429,15 @@ Phases, each of which fails the run:
    NaN coordinates on valid slots, row 8's special values, in two cases
    queries bounding 5-8 columns (pairs past CUT_MAX cut columns), rows
    alone bit-equal to the batch's and, with a --baseline that has wide
-   kernels, bit-equal to its at every d > 16; rows 3 and 4
+   kernels, bit-equal to its at every d > 16 (rows 1 and 7 too); rows 3
+   and 4
    (weighted_chunk_check: fused = scan, rows alone, plain and, with such
    a baseline, its bits) at s = 75 (R = 8, 9 and 33), 300 (R = 1) and
    2049 (R = 3 and 9) with NaN coordinates on valid slots, in three cases
    queries bounding 5-8 columns (cut words past CUT_MAX); route_multid with
-   ties and an inverted box, bit-equal; row 9 at D = d (WIDE_JOIN_CASES:
+   ties and an inverted box, ties on both sides of every warp sub-range
+   and cluster rank of the wide plan, B and k off their tiles, bit-equal;
+   row 9 at D = d (WIDE_JOIN_CASES:
    NaN coordinates, non-finite values, covered cells, queries bounding 1
    and 9-12 columns, past the wide walk's 8 cut columns, runs longer
    than a 32-slot window, k * P off multiples of 4 and of the 64-cell
@@ -463,13 +468,18 @@ Phases, each of which fails the run:
    are read right after it. Times: rows 1-4, 7 and 8 by events and on the
    device, their plain versions and bounds at d = 24, rows 2-4's
    torch.bmm yardstick (a prebuilt predicate, as in Table 1), row 9 and
-   the answers; the pair classes; with a --baseline that has wide kernels,
-   rows 2 and 8 in turns with its (bit-equal first), rows 3 and 4 the
-   same (weighted_turns), the mixed pairs each walk of rows 3 and 4 took,
-   and the answer, the fused and the scan bootstrap answer with its rows
-   2, 3, 4 and 8 and with this checkout's, in turns (the same bits); row
-   9 bit-equal to its at the join shape, then row 9 and answer_join with
-   its row 9 and with this checkout's, in turns (the same answer bits).
+   the answers; the pair classes; row 1's cut columns a (query, leaf
+   tile); with a --baseline that has wide kernels, rows 1 and 7 in turns
+   with its (bit-equal first; row 7 at the stream's first batch), rows 2
+   and 8 the same, rows 3 and 4 the same (weighted_turns), the mixed
+   pairs each walk of rows 3 and 4 took, and the answer, the fused and
+   the scan bootstrap answer with its rows 1, 2, 3, 4 and 8 and with this
+   checkout's, in turns (the same bits); the stream again with its rows 1
+   and 7 and with this checkout's, in turns (every state field the same
+   bits, ingest ms a batch); row 9 bit-equal to its at the
+   join shape, then row 9 and answer_join with its row 9 and with this
+   checkout's, in turns (the same answer bits), and answer_join with its
+   row 1 (the same bits).
    The chunk path: rows
    2 and 8 at k = 1, s = 38,500 (a uniform sample of the table: Table 1's
    US size), Q = 2048, against plain, in turns with the baseline's, beside
@@ -1295,8 +1305,13 @@ def route_case(rng, B, k, d, case="grid"):
     faces), a copy of box 0 at the last leaf (ties), an inverted +-inf box;
     ``signed-zero`` adds +-0.0 faces and rows (box 0 = [-0.0, 1]^d and a
     quarter of the rows at +0.0); ``group-ties`` copies box 0 onto the
-    first leaf of every leaf group of route_plan(B, k)."""
-    from repro_torch.kernels.route import route_groups, route_plan
+    first leaf of every leaf group of the wrapper's plan
+    (route_launch_plan) and, above 16 columns, box k // 3 onto both sides
+    of every warp sub-range's edge (route_warp_ranges), with a quarter of
+    the rows inside it: their least distance in several sub-ranges and
+    cluster ranks."""
+    from repro_torch.kernels.route import (route_groups, route_launch_plan,
+                                           route_warp_ranges)
     lo = rng.integers(0, 8, (k, d)).astype(np.float32)
     hi = lo + rng.integers(0, 3, (k, d)).astype(np.float32)
     if k > 2:
@@ -1316,10 +1331,18 @@ def route_case(rng, B, k, d, case="grid"):
         if k > 2:
             lo[k // 2], hi[k // 2] = np.inf, -np.inf
     elif case == "group-ties":
-        _, g, lg = route_plan(B, k)
+        _, g, lg = route_launch_plan(B, k, d)
         for rg in route_groups(k, g, lg)[1:]:
             if len(rg):
                 lo[rg.start], hi[rg.start] = lo[0], hi[0]
+        if d > 16 and k > 3:
+            x = k // 3
+            for ranges in route_warp_ranges(k, g, lg):
+                for rg in ranges:
+                    for at in (rg.start - 1, rg.start):
+                        if 0 < at < k and at not in (x, k // 2):
+                            lo[at], hi[at] = lo[x], hi[x]
+            c[:B // 4] = lo[x] + 0.5 * (hi[x] - lo[x])
     return lo, hi, c
 
 
@@ -1331,9 +1354,10 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
     +-inf empty boxes and rows inside several touching boxes, then +-0.0
     faces and rows, equal boxes across leaf groups, k below, at and above
     multiples of the group count (8 at B = 4096) and of the group size,
-    and B off the row tile; then rows with NaN and +-inf coordinates,
-    where kernel and plain differ (counted) and the kernel must give the
-    baseline's bits."""
+    and B off the row tile; then rows with NaN and +-inf coordinates (d in
+    {2, 3, 16, 24}: 24 through the wide kernel), where kernel and plain
+    differ (counted) and the kernel must give the baseline's bits (at 24
+    a baseline with wide kernels)."""
     from repro_torch.kernels.route import (route_multid_cuda,
                                            route_multid_plain)
     seg_err = 0.0
@@ -1389,7 +1413,7 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
                        *(torch.from_numpy(x).to(dev)
                          for x in route_case(rng, B, k, d, case)), base)
     nonfinite = {}
-    for d in (2, 3, 16):
+    for d in (2, 3, 16, 24):
         rng = np.random.default_rng(97 + d)
         B, k = 4096, 1024
         lo, hi, c = route_case(rng, B, k, d)
@@ -1411,7 +1435,8 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
                 torch, dist[finite], dist_p[finite])):
             raise AssertionError(f"non-finite rows d={d}: route_multid "
                                  "differs from plain on the finite rows")
-        if base is not None:
+        held = base is not None and (d <= 16 or has_wide(base))
+        if held:
             leaf_b, dist_b = baseline_route(torch, base, *t)
             if not (torch.equal(leaf, leaf_b) and bits_equal(torch, dist,
                                                              dist_b)):
@@ -1422,7 +1447,7 @@ def edge_cases_streaming(torch, dev, base=None) -> dict:
             "leaf_differs_from_plain": int((leaf != leaf_p).sum()),
             "dist_differs_from_plain": int(
                 (dist.view(torch.int32) != dist_p.view(torch.int32)).sum()),
-            "baseline_bit_equal": None if base is None else True}
+            "baseline_bit_equal": True if held else None}
     emit(check="edge_streaming_kernels", segment_reduce_cases=cases,
          segment_reduce_signed_zero_cases=zero_cases,
          segment_reduce_baseline_zero_ties=None if base is None
@@ -1637,6 +1662,44 @@ def main_path(torch, tag, c, a, method, truth_fn, max_median_err,
 # Times and bounds
 # ---------------------------------------------------------------------------
 
+def qe_cut_columns(torch, leaf_lo, leaf_hi, q_lo, q_hi):
+    """Row 1's cut columns: for each (query, leaf tile of QE_LEAF_TILE
+    leaves) the columns where the query does not hold the tile's box, the
+    fminf / fmaxf of its leaves' boxes (a NaN drops out; a column of NaN
+    alone gives NaN, which no bound holds; a NaN bound holds nothing).
+    Returns (Q, tiles) int64 counts and the tiles' leaf counts (tiles,)."""
+    from repro_torch.kernels.query_eval import QE_LEAF_TILE
+    k, d = leaf_lo.shape
+    n_t = -(-k // QE_LEAF_TILE)
+    pad = n_t * QE_LEAF_TILE - k
+    inf = float("inf")
+
+    def tile_ext(x, fill, fold):
+        nan = torch.isnan(x)
+        x = torch.nn.functional.pad(torch.where(nan, fill, x),
+                                    (0, 0, 0, pad), value=fill)
+        nan = torch.nn.functional.pad(nan, (0, 0, 0, pad), value=True)
+        ext = fold(x.reshape(n_t, QE_LEAF_TILE, d), 1)
+        return torch.where(nan.reshape(n_t, QE_LEAF_TILE, d).all(1),
+                           float("nan"), ext)
+    tlo = tile_ext(leaf_lo, inf, torch.amin)
+    thi = tile_ext(leaf_hi, -inf, torch.amax)
+    cuts = []
+    for s in range(0, q_lo.shape[0], 256):
+        ql, qh = q_lo[s:s + 256, None], q_hi[s:s + 256, None]
+        cuts.append((~((ql <= tlo[None]) & (thi[None] <= qh))).sum(-1))
+    sizes = torch.full((n_t,), QE_LEAF_TILE, dtype=torch.int64)
+    sizes[-1] = k - (n_t - 1) * QE_LEAF_TILE
+    return torch.cat(cuts), sizes
+
+
+def qe_cut_histogram(torch, leaf_lo, leaf_hi, q_lo, q_hi) -> dict:
+    """{cut columns: (query, leaf tile) count} of qe_cut_columns."""
+    cut, _ = qe_cut_columns(torch, leaf_lo, leaf_hi, q_lo, q_hi)
+    v, n = torch.unique(cut, return_counts=True)
+    return {int(a): int(b) for a, b in zip(v, n)}
+
+
 def bounds(syn, q, rel, classes) -> dict:
     """Least time the card could take for each kernel's work on these
     inputs: max(bytes / HBM rate, operations / fp32 rate), each input read
@@ -1648,7 +1711,19 @@ def bounds(syn, q, rel, classes) -> dict:
     covered = int((rel == 2).sum())
     valid = int(syn.sample_valid.sum())
     qe_bytes = 4 * (2 * k * d + k * A + 2 * Q * d) + 4 * Q * k + 4 * Q * A
-    qe_ops = Q * k * (4 * d + 1) + covered * A
+    # Row 1 needs each leaf's non-empty bit (a compare a column), four
+    # compares a pair in each column where its query does not hold the
+    # leaf tile's box (qe_cut_columns; in every other column a non-empty
+    # leaf is covered and not apart), a code a pair and the covered
+    # leaves' adds. (A shim without leaf boxes: every column.)
+    if hasattr(syn, "leaf_lo"):
+        import torch
+        qcut, sizes = qe_cut_columns(torch, syn.leaf_lo, syn.leaf_hi, q.lo,
+                                     q.hi)
+        pair_cols = int((qcut.cpu() * sizes[None]).sum())
+    else:
+        pair_cols = Q * k * d
+    qe_ops = k * d + 4 * pair_cols + Q * k + covered * A
     # stratified_moments and sample_extremes need, from the same inputs,
     # each leaf's box (a min and a max a column of every valid slot), each
     # pair's class from the boxes (two compares a column for covered, two
@@ -3270,14 +3345,18 @@ def baseline_segment(torch, libs, v, ids, k):
 
 def baseline_route(torch, libs, lo, hi, c):
     """The baseline route_multid kernel's (leaf, dist); a clustered one
-    with the current wrapper's plan."""
-    from repro_torch.kernels.route import route_plan
+    with the plan its version's wrapper gave it: route_launch_plan where
+    it has a wide kernel of its own shape (repro_route_wide_warps), else
+    route_plan at every d."""
+    from repro_torch.kernels.route import route_launch_plan, route_plan
     lib = libs["route_multid"]
     k, d = lo.shape
     B = c.shape[0]
     leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
     dist = torch.empty((B,), dtype=torch.float32, device=c.device)
-    plan = route_plan(B, k) if lib.clustered else ()
+    plan = (() if not lib.clustered
+            else route_launch_plan(B, k, d)
+            if hasattr(lib, "repro_route_wide_warps") else route_plan(B, k))
     baseline_call("route_multid", lib.repro_route_multid, lo.data_ptr(),
                   hi.data_ptr(), c.data_ptr(), leaf.data_ptr(),
                   dist.data_ptr(), B, k, d, *plan)
@@ -8290,17 +8369,20 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
                            "sample_extremes", "bootstrap_moments",
                            "route_multid", "join_cell_moments",
                            "identity", "baseline_bits",
-                           "weighted_baseline_bits", "join_baseline_bits"),
-                          0)
+                           "weighted_baseline_bits", "join_baseline_bits",
+                           "route_eval_baseline_bits"), 0)
     classes = {}
     for d in WIDE_DS:
         rng = np.random.default_rng(29_000 + d)
+        rbase = base if d > WIDE_BASE_D and has_wide(base) else None
         for Q, k in ((9, 53), (37, 1030)):
             e, covered = qe_vs_plain(
                 torch, f"wide query_eval d={d} Q={Q} k={k}",
-                *(T(x) for x in wide_query_eval_case(rng, Q, k, d, 5)))
+                *(T(x) for x in wide_query_eval_case(rng, Q, k, d, 5)),
+                base=rbase)
             errs["query_eval"] = max(errs["query_eval"], e)
             cases["query_eval"] += 1
+            cases["route_eval_baseline_bits"] += rbase is not None
         for Q, k, s, many in ((130, 53, 75, False), (40, 17, 33, True),
                               (37, 3, 2500, False), (33, 3, 2049, True)):
             for row in (2, 8):
@@ -8346,10 +8428,14 @@ def edge_cases_wide(torch, dev, base=None) -> dict:
             errs["bootstrap_moments"] = max(errs["bootstrap_moments"], e)
             cases["bootstrap_moments"] += 1
             cases["weighted_baseline_bits"] += wbase is not None
-        for B, k in ((1000, 257), (4096, 1024)):
-            route_vs_plain(torch, f"wide route_multid d={d} B={B} k={k}",
-                           *(T(x) for x in route_case(rng, B, k, d)))
+        for B, k, case in ((1000, 257, "grid"), (4096, 1024, "grid"),
+                           (4096, 1024, "group-ties"),
+                           (129, 29, "group-ties")):
+            route_vs_plain(torch, f"wide route_multid d={d} B={B} k={k} "
+                           f"{case}", *(T(x) for x in route_case(
+                               rng, B, k, d, case)), rbase)
             cases["route_multid"] += 1
+            cases["route_eval_baseline_bits"] += rbase is not None
         jbase = base if base is not None and d > WIDE_BASE_D and base[
             "join_moments"].wide else None
         for Q, k, su, P, nan, mode in WIDE_JOIN_CASES:
@@ -8476,39 +8562,146 @@ def pair_turns(torch, tag, sm, base, times) -> None:
         times[f"{name}_baseline_device"] = mean_of(b_dev)
 
 
+def has_wide(base) -> bool:
+    """A baseline whose sources have wide (d > 16) kernels."""
+    return base is not None and base["stratified_moments"].wide
+
+
+class baseline_rows_1_7:
+    """Within the block the wrappers of rows 1 and 7 (query_eval,
+    route_multid) launch the baseline's kernels: its libraries go in as
+    the loaded ones (the same C entries; row 7 with the plan this
+    checkout's wrapper gives, which the baseline's kernel takes too)."""
+
+    def __init__(self, base):
+        self.base = base
+
+    def __enter__(self):
+        from repro_torch.kernels import query_eval as qe
+        from repro_torch.kernels import route as rt
+        qe._kernel(), rt._kernel()  # this checkout's, loaded before the swap
+        self.own = (qe._lib, rt._lib)
+        qe._lib, rt._lib = (self.base["query_eval"],
+                            self.base["route_multid"])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import query_eval as qe
+        from repro_torch.kernels import route as rt
+        qe._lib, rt._lib = self.own
+        return False
+
+
+def route_eval_turns(torch, tag, qe, route, base, times) -> None:
+    """Rows 1 and 7 in turns with a baseline's (kernel, baseline,
+    baseline, kernel), by events and on the device, after holding each to
+    the baseline's bits (row 1's rel and exact, NaN as NaN; row 7's leaf
+    and distance): <row>_in_turns, <row>_device_in_turns, <row>_baseline
+    and <row>_baseline_device into ``times``."""
+    from repro_torch.kernels.query_eval import query_eval_cuda
+    from repro_torch.kernels.route import route_multid_cuda
+    rel, exact = query_eval_cuda(*qe)
+    rel_b, exact_b = baseline_query_eval(torch, base, *qe)
+    leaf, dist = route_multid_cuda(*route)
+    leaf_b, dist_b = baseline_route(torch, base, *route)
+    torch.cuda.synchronize()
+    if not (torch.equal(rel, rel_b) and same_bits(torch, exact, exact_b)):
+        raise AssertionError(f"{tag}: query_eval differs from the baseline "
+                             "kernel")
+    if not (torch.equal(leaf, leaf_b) and bits_equal(torch, dist, dist_b)):
+        raise AssertionError(f"{tag}: route_multid differs from the "
+                             "baseline kernel")
+    for name, new, old in (
+            ("query_eval", lambda: query_eval_cuda(*qe),
+             lambda: baseline_query_eval(torch, base, *qe)),
+            ("route_multid", lambda: route_multid_cuda(*route),
+             lambda: baseline_route(torch, base, *route))):
+        ev, dev_ms, b_ev, b_dev = [], [], [], []
+        for run, evs, devs in ((new, ev, dev_ms), (old, b_ev, b_dev),
+                               (old, b_ev, b_dev), (new, ev, dev_ms)):
+            evs.append(cuda_ms(torch, run, reps=30))
+            devs.append(device_ms(torch, run, reps=30, one_op=True,
+                                  tries=PROFILE_TRIES))
+        times[f"{name}_in_turns"] = statistics.mean(ev)
+        times[f"{name}_device_in_turns"] = mean_of(dev_ms)
+        times[f"{name}_baseline"] = statistics.mean(b_ev)
+        times[f"{name}_baseline_device"] = mean_of(b_dev)
+        times[f"{name}_turns"] = {"device": dev_ms, "baseline_device": b_dev}
+
+
+def wide_stream_turns(torch, tag, run, s_run, base) -> dict:
+    """The wide stream again into fresh StreamingIngestors (phase 4's
+    seed) with this checkout's rows 1 and 7 and with the baseline's, in
+    turns (current, baseline, baseline, current): every state field the
+    bits of the phase's own stream, and each stream's ingest ms a batch
+    by host clock (ending in a synchronize). Returns the batches and the
+    mean ms a batch of each."""
+    from contextlib import nullcontext
+    from repro_torch.streaming import StreamingIngestor
+    from repro_torch.streaming.ingest import STATE_FIELDS
+    want = s_run["ing"].state
+    batches = s_run["batches"]
+    runs = {"current": [], "baseline": []}
+    for who in ("current", "baseline", "baseline", "current"):
+        with baseline_rows_1_7(base) if who == "baseline" else nullcontext():
+            ing = StreamingIngestor(run["syn"], seed=11)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for cb, ab in batches:
+                ing.ingest(cb, ab)
+            torch.cuda.synchronize()
+            runs[who].append((time.perf_counter() - t0) * 1e3 / len(batches))
+        for f in STATE_FIELDS:
+            u, v = getattr(ing.state, f), getattr(want, f)
+            ok = (bits_equal(torch, u, v) if u.is_floating_point()
+                  else torch.equal(u, v))
+            if not ok:
+                raise AssertionError(f"{tag}: the stream with the {who} rows "
+                                     f"1 and 7 differs in state.{f}")
+    out = {"batches": len(batches),
+           "ingest_ms_a_batch_current": statistics.mean(runs["current"]),
+           "ingest_ms_a_batch_baseline": statistics.mean(runs["baseline"]),
+           "runs": runs}
+    emit(check="wide24 stream in turns with the baseline's rows 1 and 7",
+         **out, states_bit_equal=True)
+    return out
+
+
 def wide_answer_turns(torch, calls, base) -> dict:
     """Each of ``calls`` ({name: (answer fn, reps, warmup)}) with this
-    checkout's rows 2, 3, 4 and 8 and with the baseline's, in turns
+    checkout's rows 1, 2, 3, 4 and 8 and with the baseline's, in turns
     (current, baseline, baseline, current), by events. The baseline's
     libraries go in as the wrappers' loaded ones (the same C entries; rows
     3 and 4 with the baseline's scratch size, its repro_weighted_scratch),
     and each answer with them must have the current answer's bits.
     Returns {<name>_current, <name>_baseline: mean ms}."""
+    from repro_torch.kernels import query_eval as qe
     from repro_torch.kernels import sample_extremes as se
     from repro_torch.kernels import stratified_estimate as st
     from repro_torch.serve.coalescer import host_results
-    st._kernel(), se._kernel()  # this checkout's, loaded before the swap
+    st._kernel(), se._kernel(), qe._kernel()  # loaded before the swap
     st.weighted_library()
     wb = base["weighted_moments"]
     libs = {"current": (st._lib, se._lib, st._wlib,
-                        st.weighted_scratch_floats),
+                        st.weighted_scratch_floats, qe._lib),
             "baseline": (base["stratified_moments"], base["sample_extremes"],
                          wb, lambda R, Q, k, s, d: int(
-                             wb.repro_weighted_scratch(R, Q, k, s, d)))}
+                             wb.repro_weighted_scratch(R, Q, k, s, d)),
+                         base["query_eval"])}
     want = {n: host_results(fn()) for n, (fn, _, _) in calls.items()}
     runs = {f"{n}_{who}": [] for n in calls for who in libs}
     try:
         for who in ("current", "baseline", "baseline", "current"):
-            (st._lib, se._lib, st._wlib,
-             st.weighted_scratch_floats) = libs[who]
+            (st._lib, se._lib, st._wlib, st.weighted_scratch_floats,
+             qe._lib) = libs[who]
             for n, (fn, reps, warmup) in calls.items():
-                require_same(f"wide24 {n} with the {who} rows 2-4 and 8",
+                require_same(f"wide24 {n} with the {who} rows 1-4 and 8",
                              host_results(fn()), want[n], tuple(want[n]))
                 runs[f"{n}_{who}"].append(cuda_ms(torch, fn, reps=reps,
                                                   warmup=warmup))
     finally:
-        (st._lib, se._lib, st._wlib,
-         st.weighted_scratch_floats) = libs["current"]
+        (st._lib, se._lib, st._wlib, st.weighted_scratch_floats,
+         qe._lib) = libs["current"]
     out = {key: statistics.mean(v) for key, v in runs.items()}
     emit(check="wide24 answers in turns with the baseline", **out, runs=runs,
          answers_bit_equal=True)
@@ -8519,9 +8712,10 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
     """Rows 1-4, 7 and 8 at the wide path's shapes (d = 24): rows 3 and 4
     against plain; CUDA-event and device ms of the kernel and of its plain
     version, and its bound (bounds, boot_bounds, stream_bounds); the pair
-    classes; rows 2-4's library yardstick (wide_bmm_times); with a
-    baseline that has wide kernels, rows 2 and 8 in turns with its
-    (pair_turns)."""
+    classes and row 1's cut columns (qe_cut_histogram); rows 2-4's
+    library yardstick (wide_bmm_times); with a baseline that has wide
+    kernels, rows 1 and 7 (route_eval_turns) and rows 2 and 8 (pair_turns)
+    in turns with its."""
     from repro_torch.kernels.bootstrap import (bootstrap_moments_cuda,
                                                bootstrap_moments_plain)
     from repro_torch.kernels.query_eval import (query_eval_cuda,
@@ -8605,7 +8799,8 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
                                          warmup=1)
         torch.cuda.empty_cache()
     times["bootstrap_moments_plain_queries"] = PLAIN_BOOT_Q
-    if base is not None and base["stratified_moments"].wide:
+    if has_wide(base):
+        route_eval_turns(torch, "wide24", qe, route, base, times)
         pair_turns(torch, "wide24", (*sm, q.lo, q.hi), base, times)
         # Rows 3 and 4 bit-equal to the baseline's, then in turns.
         turns = weighted_turns(torch, "wide24", sm, W, q.lo, q.hi, base)
@@ -8617,14 +8812,16 @@ def wide_kernel_times(torch, run, boot, s_run, card, base=None) -> dict:
     lib_err = wide_bmm_times(torch, syn, q, W, times)
     lib_s = time.perf_counter() - t_lib
     Q, dq = q.lo.shape
+    qe_cuts = qe_cut_histogram(torch, syn.leaf_lo, syn.leaf_hi, q.lo, q.hi)
     emit(phase="30 wide kernel times", times_ms=times, bounds=bnd,
          pair_classes=classes, max_abs_err=errs, walk_pairs=walk_pairs,
+         query_eval_cut_columns=qe_cuts,
          bmm_max_abs_err_vs_kernel=lib_err, bmm_s=lib_s,
          profile_windows_retried=PROFILE_RETRIES["windows"], Q=int(Q),
          k=int(syn.num_leaves), s=int(syn.sample_a.shape[1]), d=int(dq),
          R=N_BOOT, route_B=int(cb.shape[0]), card=card)
     return {"times": times, "bounds": bnd, "classes": classes, "errs": errs,
-            "walk_pairs": walk_pairs}
+            "walk_pairs": walk_pairs, "qe_cut_columns": qe_cuts}
 
 
 def bmm_yardstick(torch, tag, sm, q, rhs, ker, times, reps=30) -> float:
@@ -8917,7 +9114,8 @@ def wide_join(torch, card, seed=0, base=None) -> dict:
     bound; the cut columns of its mixed pairs (join_cut_histogram). With a
     baseline that has wide kernels, row 9 bit-equal to the baseline's at
     the whole shape and, in turns with it, row 9 and the answer
-    (join_baseline_turns: the same answer bits)."""
+    (join_baseline_turns: the same answer bits), and the answer with the
+    baseline's row 1 the same bits."""
     from repro_torch.api import PassEngine, ServingConfig
     from repro_torch.core.types import QueryBatch
     from repro_torch.joins.executor import join_slots
@@ -8982,6 +9180,13 @@ def wide_join(torch, card, seed=0, base=None) -> dict:
         baseline_bit_equal = True
         times.update(join_baseline_turns(torch, "wide join", eng, fq, dq,
                                          args, base))
+    if has_wide(base):
+        from repro_torch.serve.coalescer import host_results
+        want = host_results(eng.answer_join(fq, dq))
+        with baseline_rows_1_7(base):
+            require_same("wide join answer with the baseline's row 1",
+                         host_results(eng.answer_join(fq, dq)), want,
+                         JOIN_KINDS)
     out = {"rows": JOIN_N, "fact_columns": WIDE_D, "build_s": build_s,
            "report": report, "launches": launches, "classes": classes,
            "cut_columns": join_cut_histogram(torch, args),
@@ -9029,6 +9234,10 @@ def wide_path(torch, card, base=None) -> dict:
     step("stream")
     kt = wide_kernel_times(torch, run, boot, s_run, card, base)
     step("kernel times")
+    stream_turns = None
+    if has_wide(base):
+        stream_turns = wide_stream_turns(torch, "wide24", run, s_run, base)
+        step("stream with the baseline's rows 1 and 7")
     us = wide_us_times(torch, c, a, q, card, base)
     step("chunk path")
     rows = {"query_eval": run["launches"]["query_eval"],
@@ -9061,8 +9270,10 @@ def wide_path(torch, card, base=None) -> dict:
         raise AssertionError(f"wide path: {idle} never launched")
     out = {"run": run, "boot": boot, "stream": s_run, "kernels": kt,
            "us": us, "join": join, "times_ms": times, "steps_s": steps,
+           "stream_turns": stream_turns,
            "seconds": time.perf_counter() - t0}
     emit(phase="30 wide path", card=card, times_ms=times, steps_s=steps,
+         stream_turns=stream_turns,
          launches={"answer": run["launches"], "bootstrap_fused":
                    boot["launches"], "bootstrap_scan": boot["scan_launches"],
                    "stream": s_run["launches"],
@@ -9112,8 +9323,17 @@ def wide_rows(wide, edge) -> list:
             "library_device_ms": t.get(f"bmm_{name}_device")}})
     out[4]["wide"]["plain_queries"] = t["bootstrap_moments_plain_queries"]
     out[1]["wide"]["pair_classes"] = kt["classes"]
+    out[0]["wide"]["cut_columns"] = kt["qe_cut_columns"]
+    for r in (out[0], out[5]):
+        r["wide"]["baseline_bit_equal_cases"] = cases[
+            "route_eval_baseline_bits"]
+    st = wide["stream_turns"] or {}
+    out[5]["wide"]["stream_baseline_bit_equal_batches"] = st.get("batches")
+    out[5]["wide"]["stream_ingest_ms_a_batch"] = {
+        key: st.get(f"ingest_ms_a_batch_{key}")
+        for key in ("current", "baseline")}
     us = wide["us"]
-    for r in out[1:3]:
+    for r in (*out[0:3], out[5]):
         name = r["name"]
         r["wide"].update({
             key: t.get(f"{name}_{key}") for key in (
@@ -9182,8 +9402,9 @@ def check_plan_constants() -> None:
     row 10's Poisson table."""
     from repro_torch.kernels import native
     from repro_torch.kernels.query_eval import (QE_LEAF_TILE, QE_MAX_QUERIES,
-                                                QE_THREADS)
-    from repro_torch.kernels.route import ROUTE_MAX_GROUPS, ROUTE_THREADS
+                                                QE_THREADS, QE_WIDE_COLS)
+    from repro_torch.kernels.route import (ROUTE_MAX_GROUPS, ROUTE_THREADS,
+                                           ROUTE_WIDE_WARPS)
     from repro_torch.kernels.join_epilogue import EPI_CHUNK, EPI_THREADS
     from repro_torch.kernels.join_moments import (JM_CT, JM_MAX_D, JM_QT,
                                                   JM_WIDE_CT,
@@ -9210,10 +9431,12 @@ def check_plan_constants() -> None:
            "segment_reduce chunks": seg.repro_segment_reduce_max_chunks(),
            "route_multid threads": rt.repro_route_threads(),
            "route_multid groups": rt.repro_route_max_groups(),
+           "route_multid wide warps": rt.repro_route_wide_warps(),
            "query_eval threads": qe.repro_query_eval_threads(),
            "query_eval leaf tile": qe.repro_query_eval_leaf_tile(),
            "query_eval queries a block":
            qe.repro_query_eval_max_queries(),
+           "query_eval wide columns": qe.repro_query_eval_wide_cols(),
            "sample_extremes tiles": (se.repro_sample_extremes_query_tile(),
                                      se.repro_sample_extremes_leaf_tile()),
            "slot chunk": (sm.repro_stratified_moments_slot_chunk(),
@@ -9236,9 +9459,11 @@ def check_plan_constants() -> None:
             "segment_reduce chunks": SEG_MAX_CHUNKS,
             "route_multid threads": ROUTE_THREADS,
             "route_multid groups": ROUTE_MAX_GROUPS,
+            "route_multid wide warps": ROUTE_WIDE_WARPS,
             "query_eval threads": QE_THREADS,
             "query_eval leaf tile": QE_LEAF_TILE,
             "query_eval queries a block": QE_MAX_QUERIES,
+            "query_eval wide columns": QE_WIDE_COLS,
             "sample_extremes tiles": (EXTREMES_QT, EXTREMES_LT),
             "slot chunk": (PAIR_CHUNK, PAIR_CHUNK),
             "weighted slot chunk": WEIGHTED_CHUNK,

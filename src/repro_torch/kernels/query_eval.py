@@ -62,11 +62,13 @@ def _kernel():
 # each owning up to QE_MAX_QUERIES whole query rows (one warp lists each
 # row's covered leaves) and walking the leaves in tiles of QE_LEAF_TILE;
 # A up to 8 and any d < 2**31 (a C int): above 16 columns a wide
-# instantiation takes them in blocks of 16, its registers and shared
-# memory the same at every d.
+# instantiation stages them QE_WIDE_COLS at a time and compares a pair only
+# on the columns where its query does not hold the leaf tile's box, its
+# registers and shared memory the same at every d.
 QE_THREADS = 256
 QE_LEAF_TILE = 1024
 QE_MAX_QUERIES = 8
+QE_WIDE_COLS = 8
 
 
 def check_query_eval_limits(name, Q, k, d, A):
@@ -105,4 +107,5 @@ def query_eval_cuda(leaf_lo, leaf_hi, leaf_agg, q_lo, q_hi):
 
 __all__ = ["classify_leaves", "query_eval_plain", "query_eval_cuda",
            "REL_NONE", "REL_PARTIAL", "REL_COVER", "QE_THREADS",
-           "QE_LEAF_TILE", "QE_MAX_QUERIES", "check_query_eval_limits"]
+           "QE_LEAF_TILE", "QE_MAX_QUERIES", "QE_WIDE_COLS",
+           "check_query_eval_limits"]

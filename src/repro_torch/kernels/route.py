@@ -79,6 +79,50 @@ def route_plan(B: int, k: int) -> tuple[int, int, int]:
     return rt, g, -(-k // g)
 
 
+# The wide kernel (d > 16): blocks of ROUTE_WIDE_WARPS warps over a tile
+# of 32 rows a lane, each warp an ascending sub-range of the block's
+# leaves; ROUTE_WIDE_BLOCKS_SM blocks an SM fill the card.
+ROUTE_WIDE_WARPS = 4
+ROUTE_WIDE_BLOCKS_SM = 4
+
+
+@functools.lru_cache(maxsize=256)
+def route_wide_plan(B: int, k: int) -> tuple[int, int, int]:
+    """(rows a lane, leaf groups G, leaves a group) of the wide kernel's
+    launch: 2 rows a lane unless a block per multiprocessor at
+    G = ROUTE_MAX_GROUPS then needs 1, then the fewest groups that give
+    ROUTE_WIDE_BLOCKS_SM blocks per multiprocessor (or the most groups)."""
+    rt = 2
+    if -(-B // (32 * rt)) * ROUTE_MAX_GROUPS < ROUTE_SMS:
+        rt = 1
+    tiles = -(-B // (32 * rt))
+    g = 1
+    while (g < ROUTE_MAX_GROUPS
+           and tiles * g < ROUTE_WIDE_BLOCKS_SM * ROUTE_SMS):
+        g *= 2
+    return rt, g, -(-k // g)
+
+
+def route_launch_plan(B: int, k: int, d: int) -> tuple[int, int, int]:
+    """The plan the wrapper passes: route_plan up to 16 columns,
+    route_wide_plan above."""
+    return route_plan(B, k) if d <= 16 else route_wide_plan(B, k)
+
+
+def route_warp_ranges(k: int, groups: int, per_group: int,
+                      warps: int = ROUTE_WIDE_WARPS) -> list[list[range]]:
+    """The wide kernel's leaf sub-ranges, by group and warp, as it clips
+    them: group g's range (route_groups) split into ``warps`` ascending
+    pieces of ceil(per_group / warps) leaves, warp w the w-th, empty past
+    the range's end."""
+    lw = -(-per_group // warps)
+    out = []
+    for rg in route_groups(k, groups, per_group):
+        starts = [min(rg.stop, rg.start + w * lw) for w in range(warps)]
+        out.append([range(a, min(rg.stop, a + lw)) for a in starts])
+    return out
+
+
 def route_groups(k: int, groups: int, per_group: int) -> list[range]:
     """The leaf range of each group, as the kernel clips it to k: group g
     scans [g * per_group, (g + 1) * per_group), empty past k."""
@@ -122,7 +166,7 @@ def route_multid_cuda(leaf_lo, leaf_hi, c):
         raise ValueError(f"{name}: shapes {leaf_lo.shape} {leaf_hi.shape} "
                          f"{c.shape}")
     check_route_limits(name, B, k, d)
-    rt, g, lg = route_plan(B, k)
+    rt, g, lg = route_launch_plan(B, k, d)
     leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
     dist = c.new_empty((B,))
     native.launch(name, c.device, _kernel().repro_route_multid,
@@ -132,6 +176,7 @@ def route_multid_cuda(leaf_lo, leaf_hi, c):
 
 
 __all__ = ["dist_matrix", "route_multid_plain", "route_multid_cuda",
-           "route_plan", "route_groups", "check_route_limits",
-           "ROUTE_THREADS",
-           "ROUTE_MAX_GROUPS", "ROUTE_SMS"]
+           "route_plan", "route_wide_plan", "route_launch_plan",
+           "route_groups", "route_warp_ranges", "check_route_limits",
+           "ROUTE_THREADS", "ROUTE_MAX_GROUPS", "ROUTE_SMS",
+           "ROUTE_WIDE_WARPS", "ROUTE_WIDE_BLOCKS_SM"]

@@ -4,8 +4,9 @@ the card at chip_smoke.py phase 30's shape (the 24-column table at paper
 size: build_synopsis(k=1024, sample_rate=0.01, method="kd"), its 2048
 queries).
 
-    python3 tools/wide_walk_split.py [--target stratified|weighted|join]
-                                     [--reps N] [--out FILE] [--csrc DIR]
+    python3 tools/wide_walk_split.py
+        [--target stratified|weighted|join|query_eval|route]
+        [--reps N] [--out FILE] [--csrc DIR]
 
 The variants patch a source in a copy of csrc/ (this checkout's, or
 --csrc DIR's) and build it with the port's nvcc flags. Each patch names
@@ -83,6 +84,42 @@ source (--csrc times another checkout's):
 
 Before the variants the join target prints the cut-column histograms of
 chip_smoke.join_cut_histogram at that shape.
+
+Target ``query_eval``: row 1 at phase 30's answer shape (the 24-column
+synopsis's 1024 leaf boxes and aggregates, its 2048 queries),
+csrc/query_eval.cu patched and built; the variants apply to the
+column-block kernel (``query_eval_kernel<-1, VEC>`` before its redesign)
+and to the wide kernel that replaced it, each through the patches that
+match its source:
+
+    full         the kernel as it is;
+    no_box_loads the leaves' boxes never read from device memory (the
+                 column-block kernel: constant boxes; the wide kernel: the
+                 copies read 8 leaves' rows over and over, from L1);
+    no_classify  no (query, leaf) compare (the non-empty pass and, in the
+                 wide kernel, the tile box and cut masks stay);
+    no_stores    no rel row written;
+    no_walk      steps 3 and 4 (the covered lists and their walk) left out;
+    all_columns  (wide kernel) every pair compared on every column, not
+                 only its query's cut ones;
+    no_tile_box  (wide kernel) the tile's box never folded over the
+                 block (its partials and shuffles left out; stale cuts).
+
+Before the variants it prints the cut-column histogram of each (query,
+leaf tile), chip_smoke.qe_cut_histogram.
+
+Target ``route``: row 7 at the wide stream's first 4096-row batch (phase
+30's stream, wide_table(nyc_taxi, 0.1, seed=7)) against the same
+synopsis's 1024 leaf boxes, csrc/route_multid.cu patched and built, its
+launch plan the one the library's wrapper of its version uses:
+
+    full          the kernel as it is;
+    no_row_loads  the rows' coordinates never read from device memory
+                  (constants; the redesigned kernel: stale shared memory);
+    no_box_loads  the leaves' boxes never read (constants, or, in the
+                  redesigned kernel, stale staged tiles);
+    no_dist       each term the box's lower bound alone (no subtract, no
+                  max): the distance loop's arithmetic left out.
 
 A taken-out part changes the results, so nothing here is checked against
 plain: the times only say what each part costs. Each variant is timed by
@@ -213,12 +250,82 @@ JOIN = {
         ("      if (!((walk >> i) & 1u)) continue;",
          "      if (true) continue;")]],
 }
+# Row 1: each variant a list of patch sets, the column-block branch
+# of query_eval_kernel first (QE_OLD), then the wide kernel's (QE_NEW).
+QE_OLD_STORES = ("          const bool disjoint = !nonempty | ((dis >> at) & 1u);\n"
+                 "          code[u] = cover ? 2 : (disjoint ? 0 : 1);\n"
+                 "          bits |= (unsigned)cover << u;\n        }\n"
+                 "        int32_t* row = rel + (size_t)(q0 + qq) * k;\n"
+                 "        if (VEC) {\n          if (leaf0 < k)")
+QE_WALK = [("    if (warp < nq) {\n      unsigned m = s_mask[warp][lane];",
+            "    if (false) {\n      unsigned m = s_mask[warp][lane];"),
+           ("    if (walker) {\n      const int batches",
+            "    if (false) {\n      const int batches")]
+QE_NEW_COPY = ("        const size_t src = (size_t)(k0 + l) * d + j0 + 4 * c;")
+QE_NEW_MASK = ("          const unsigned cm =\n"
+               "              ((qq < 4 ? cut[0] : cut[1]) >> (WC * (qq & 3))) & 0xffu;")
+QE_NEW_STORE = ("          if (k0 + l < k) row[k0 + l] = cover ? 2 : "
+                "(disjoint ? 0 : 1);")
+QUERY_EVAL = {
+    "no_box_loads": [
+        [("              lo[j][u] = in ? leaf_lo[row + j] : 1.f;\n"
+          "              hi[j][u] = in ? leaf_hi[row + j] : -1.f;",
+          "              lo[j][u] = in ? 0.25f * (j - u) : 1.f;\n"
+          "              hi[j][u] = in ? 0.5f * (j + u) : -1.f;")],
+        [(QE_NEW_COPY, QE_NEW_COPY.replace("(k0 + l)", "(k0 + (l & 7))"))]],
+    "no_classify": [
+        [("        for (int qq = 0; qq < nq; ++qq) {\n#pragma unroll\n"
+          "          for (int u = 0; u < LPT; ++u) {\n"
+          "            bool cover = true, disjoint = false;",
+          "        for (int qq = 0; qq < 0; ++qq) {\n#pragma unroll\n"
+          "          for (int u = 0; u < LPT; ++u) {\n"
+          "            bool cover = true, disjoint = false;")],
+        [("          if (cm == 0u) continue;", "          if (true) continue;")]],
+    "no_stores": [[(QE_OLD_STORES,
+                    QE_OLD_STORES.replace("leaf0 < k)", "leaf0 < 0)"))],
+                  [(QE_NEW_STORE, QE_NEW_STORE.replace("k0 + l < k", "l < 0"))]],
+    "no_walk": [QE_WALK],
+    # (wide kernel) every column compared, not only the cut ones
+    "all_columns": [[(QE_NEW_MASK,
+                      "          const unsigned cm = (1u << nj) - 1u;")]],
+    # (wide kernel) the tile's box never folded (every column cut: the
+    # partials and their shuffles left out)
+    "no_tile_box": [[("        if ((lane & 1) == 0) s_tred[warp][(lane >> 1) & 15] = v[0];",
+                      "        if (lane < 0) s_tred[warp][(lane >> 1) & 15] = v[0];")]],
+}
+# Row 7: the column-block kernel's patches first, then the wide
+# kernel's that replaced it.
+RT_NEW_TERM = ("              const float t =\n"
+               "                  fmaxf(fmaxf(la[u] - x[r][j], x[r][j] - ha[u]), 0.f);")
+ROUTE = {
+    "no_row_loads": [
+        [("          x[r][j] = (row < B && j < nj) ? c[(size_t)row * d + j0 + j] : 0.f;",
+          "          x[r][j] = (row < B && j < nj) ? 0.125f * (j + r) : 0.f;")],
+        # the redesigned kernel: the rows read from (stale) shared memory
+        [("      const float* src = c + (size_t)min(row0 + r * 32 + lane, B - 1) * d;",
+          "      const float* src = s_lo + 4 * ((r * 32 + lane) % 8);")]],
+    "no_box_loads": [
+        [("              const float bl = lo[j], bh = hi[j];",
+          "              const float bl = 0.5f * (j + l), bh = bl + 1.f;")],
+        [("  if (vec) {\n    const int per = nj >> 2;",
+          "  if (lane < 0) {\n    const int per = nj >> 2;"),
+         ("    for (int i = lane; i < n * nj; i += 32) {\n"
+          "      const int l = i / nj, j = i - l * nj;",
+          "    for (int i = lane; false && i < n * nj; i += 32) {\n"
+          "      const int l = i / nj, j = i - l * nj;")]],
+    "no_dist": [
+        [("                const float t = fmaxf(fmaxf(bl - x[r][j], x[r][j] - bh), 0.f);",
+          "                const float t = bl;")],
+        [(RT_NEW_TERM, "              const float t = la[u];")]],
+}
 # Per target: the file the patches edit, the source built, the variants.
 TARGETS = {"stratified": ("pair_tiles.cuh", "stratified_moments.cu",
                           STRATIFIED),
            "weighted": ("weighted_moments.cu", "weighted_moments.cu",
                         WEIGHTED),
-           "join": ("join_moments.cu", "join_moments.cu", JOIN)}
+           "join": ("join_moments.cu", "join_moments.cu", JOIN),
+           "query_eval": ("query_eval.cu", "query_eval.cu", QUERY_EVAL),
+           "route": ("route_multid.cu", "route_multid.cu", ROUTE)}
 
 
 def patched(text: str, patches):
@@ -348,6 +455,57 @@ def join_calls(torch, libs, args, p_u):
     return calls
 
 
+def query_eval_calls(torch, libs, qe):
+    """{(variant, ""): one launch of row 1} on qe = (leaf_lo, leaf_hi,
+    leaf_agg, q_lo, q_hi)."""
+    k, d = qe[0].shape
+    Q, A = qe[3].shape[0], qe[2].shape[1]
+    rel = torch.empty((Q, k), dtype=torch.int32, device=qe[3].device)
+    exact = torch.empty((Q, A), dtype=torch.float32, device=qe[3].device)
+    calls = {}
+    for name, lib in libs.items():
+        fn = lib.repro_query_eval
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def run(fn=fn, name=name):
+            err = fn(*(x.data_ptr() for x in (*qe, rel, exact)), Q, k, d, A,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: cuda error {err}")
+        calls[name, ""] = run
+    return calls
+
+
+def route_calls(torch, libs, lo, hi, c):
+    """{(variant, ""): one launch of row 7} on boxes (k, d) and rows (B,
+    d), each library with the plan its version's wrapper gives it
+    (route_launch_plan)."""
+    from repro_torch.kernels.route import route_launch_plan, route_plan
+    k, d = lo.shape
+    B = c.shape[0]
+    leaf = torch.empty((B,), dtype=torch.int32, device=c.device)
+    dist = torch.empty((B,), dtype=torch.float32, device=c.device)
+    calls = {}
+    for name, lib in libs.items():
+        fn = lib.repro_route_multid
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        plan = (route_launch_plan(B, k, d)
+                if hasattr(lib, "repro_route_wide_warps")
+                else route_plan(B, k))
+
+        def run(fn=fn, name=name, plan=plan):
+            err = fn(*(x.data_ptr() for x in (lo, hi, c, leaf, dist)), B, k,
+                     d, *plan, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: cuda error {err}")
+        calls[name, ""] = run
+    return calls
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--target", choices=sorted(TARGETS),
@@ -416,6 +574,18 @@ def main(argv=None) -> int:
         Q = ql.shape[0]
         if args.target == "weighted":
             calls = weighted_calls(torch, cs, libs, syn, ql, qh)
+        elif args.target == "query_eval":
+            qe = (syn.leaf_lo, syn.leaf_hi, syn.leaf_agg, ql, qh)
+            print(json.dumps({"qe_cut_columns": cs.qe_cut_histogram(
+                torch, *qe[:2], ql, qh)}), flush=True)
+            calls = query_eval_calls(torch, libs, qe)
+        elif args.target == "route":
+            cs_, _ = cs.wide_table(nyc_taxi, 0.1, seed=7)
+            cb = torch.from_numpy(np.ascontiguousarray(
+                cs_[:cs.STREAM_BATCH], np.float32)).to(dev)
+            del cs_
+            calls = route_calls(torch, libs, syn.leaf_lo, syn.leaf_hi, cb)
+            Q = cb.shape[0]
         else:
             calls = stratified_calls(torch, libs, sm, ql, qh)
 
@@ -431,7 +601,7 @@ def main(argv=None) -> int:
             row = rows.setdefault((name, shape), {"ms": [], "device_ms": [],
                                                   "by_kernel": []})
             row["ms"].append(ev)
-            if args.target != "stratified":
+            if args.target not in ("stratified", "query_eval", "route"):
                 kby = cs.device_by_name(torch, fn, reps=min(args.reps, 10),
                                         tries=3)
                 row["by_kernel"].append({n: v["ms_per_record"]
